@@ -1,0 +1,161 @@
+"""The port's ``ContinuousBatcher`` against the JAX package's engine and solo
+runs, on a tiny f32 Llama on the CPU.
+
+Oracle: greedy, f32 — each concurrent stream's tokens equal a solo
+``Generator`` run and the JAX engine's stream, token for token. The port's
+model uses ``attention_impl="flash"``, so every paged decode step goes through
+``paged_decode_attention`` (its plain twin on CPU tensors); the JAX side reads
+its pool through the gather path (``"auto"``), as its Pallas kernel has no CPU
+mode. Mirrors ``tests/unit/test_continuous.py``'s paged-pool cases.
+"""
+
+import dataclasses
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unionml_tpu.models import GenerationConfig as JaxGenerationConfig
+from unionml_tpu.models import Generator as JaxGenerator
+from unionml_tpu.models import Llama as JaxLlama, LlamaConfig as JaxLlamaConfig
+from unionml_tpu.serving import ContinuousBatcher as JaxContinuousBatcher
+from unionml_tpu_torch.models import GenerationConfig, Generator, Llama, LlamaConfig, llama_params_from_jax
+from unionml_tpu_torch.ops import paged_attention as pa
+from unionml_tpu_torch.serving import ContinuousBatcher
+
+torch.set_num_threads(2)
+
+SHAPE = dict(vocab_size=97, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=128)
+PROMPTS = [[3, 14, 15, 92, 6], [27, 1], [8, 2, 8, 1, 8, 2, 8], [44, 9]]
+
+
+@pytest.fixture(scope="module")
+def models():
+    jax_cfg = JaxLlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **SHAPE)
+    module = JaxLlama(jax_cfg)
+    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, attention_impl="flash", **SHAPE)
+    state = llama_params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg)
+    flash, plain = Llama(cfg, device="cpu"), Llama(dataclasses.replace(cfg, attention_impl="auto"), device="cpu")
+    flash.load_state_dict(state)
+    plain.load_state_dict(state)
+    return module, params, flash, plain
+
+
+def _solo(model, cfg, prompts):
+    gen = Generator(model, cfg, device="cpu")
+    return [gen([p])[0].tolist() for p in prompts]
+
+
+def _concurrent(batcher, prompts, **submit_kw):
+    results = [None] * len(prompts)
+
+    def worker(i):
+        results[i] = [int(t) for chunk in batcher.submit(prompts[i], **submit_kw) for t in np.asarray(chunk).ravel()]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180)
+        assert not t.is_alive()
+    return results
+
+
+def test_paged_flash_streams_match_jax_engine_and_solo(models):
+    module, params, flash, plain = models
+    kw = dict(max_new_tokens=12, temperature=0.0, prompt_buckets=(16,))
+    jax_engine = JaxContinuousBatcher(
+        JaxGenerator(module, params, JaxGenerationConfig(**kw)), slots=4, decode_chunk=4, block_size=8
+    )
+    try:
+        jax_streams = _concurrent(jax_engine, PROMPTS)
+    finally:
+        jax_engine.close()
+    engine = ContinuousBatcher(Generator(flash, GenerationConfig(**kw), device="cpu"), slots=4, decode_chunk=4, block_size=8)
+    try:
+        streams = _concurrent(engine, PROMPTS)
+        stats = engine.stats()
+    finally:
+        engine.close()
+    assert streams == jax_streams
+    assert streams == _solo(plain, GenerationConfig(**kw), PROMPTS)
+    assert stats["decoded_rows"] > stats["decode_dispatches"]  # dispatches were shared
+    assert stats["kv_blocks"]["used"] == 0
+    assert pa.paged_decode_attention.launches == 0  # CPU tensors take the twin, never the kernel
+
+
+def test_dense_slots_under_contention_match_solo(models):
+    """More requests than slots on the dense (non-paged) engine: the overflow
+    waits for a free slot and still decodes exactly."""
+    _, _, flash, plain = models
+    cfg = GenerationConfig(max_new_tokens=8, temperature=0.0, prompt_buckets=(16,))
+    engine = ContinuousBatcher(Generator(flash, cfg, device="cpu"), slots=2, decode_chunk=3)
+    try:
+        assert _concurrent(engine, PROMPTS) == _solo(plain, cfg, PROMPTS)
+    finally:
+        engine.close()
+
+
+def test_undersized_pool_with_lazy_growth(models):
+    """Requests with small budgets get only the blocks they need, so a pool
+    far smaller than slots x worst-case admits a full house at once."""
+    _, _, flash, plain = models
+    cfg = GenerationConfig(max_new_tokens=12, temperature=0.0, prompt_buckets=(16,))
+    expected = _solo(plain, cfg, PROMPTS)
+    engine = ContinuousBatcher(
+        Generator(flash, cfg, device="cpu"), slots=4, decode_chunk=4, block_size=8, pool_blocks=10
+    )
+    try:
+        assert engine.pool_blocks < engine.slots * engine.max_blocks
+        assert 4 * engine._blocks_lifetime(PROMPTS[0], 4) <= engine.pool_blocks
+        assert _concurrent(engine, PROMPTS, max_new_tokens=4) == [e[:4] for e in expected]
+        stats = engine.stats()
+        assert stats["decoded_rows"] > stats["decode_dispatches"]
+        assert {k: stats["kv_blocks"][k] for k in ("total", "used", "block_size", "preemptions")} == {
+            "total": 10, "used": 0, "block_size": 8, "preemptions": 0,
+        }
+    finally:
+        engine.close()
+
+
+def test_preemption_resumes_token_exact(models):
+    """Pool = one worst-case request: two long-budget residents cannot both
+    finish, so the youngest is preempted, requeued as prompt + emitted tokens
+    and re-prefilled — and its stream is still exactly its solo run."""
+    _, _, flash, plain = models
+    cfg = GenerationConfig(max_new_tokens=16, temperature=0.0, prompt_buckets=(16,))
+    gen = Generator(flash, cfg, device="cpu")
+    min_pool = ContinuousBatcher(gen, slots=3, decode_chunk=2, block_size=8).max_blocks
+    engine = ContinuousBatcher(gen, slots=3, decode_chunk=2, block_size=8, pool_blocks=min_pool)
+    try:
+        assert _concurrent(engine, PROMPTS[:3]) == _solo(plain, cfg, PROMPTS[:3])
+        stats = engine.stats()["kv_blocks"]
+        assert stats["preemptions"] > 0 and stats["used"] == 0
+    finally:
+        engine.close()
+
+
+def test_oversized_prompt_fails_its_stream_only(models):
+    _, _, flash, plain = models
+    cfg = GenerationConfig(max_new_tokens=6, temperature=0.0, prompt_buckets=(16,))
+    engine = ContinuousBatcher(Generator(flash, cfg, device="cpu"), slots=2, decode_chunk=3, block_size=8)
+    try:
+        doomed = engine.submit(list(range(1, 40)))  # buckets to 64 > cache_len
+        ok = engine.submit(PROMPTS[0])
+        with pytest.raises(ValueError, match="blocks"):
+            list(doomed)
+        assert [int(t) for c in ok for t in c] == _solo(plain, cfg, PROMPTS[:1])[0]
+    finally:
+        engine.close()
+
+
+@pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "tenancy"])
+def test_unported_engine_options_raise(models, option):
+    _, _, flash, _ = models
+    gen = Generator(flash, GenerationConfig(prompt_buckets=(16,)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousBatcher(gen, **{option: 8 if option == "admit_chunk" else True})

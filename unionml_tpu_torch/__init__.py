@@ -1,0 +1,14 @@
+"""unionml-tpu's PyTorch/CUDA port for NVIDIA Hopper (H100).
+
+A package beside the JAX package ``unionml_tpu`` that mirrors its module names
+(``models/llama.py``, ``serving/continuous.py``, ...). It imports ``torch``
+and never JAX or anything of the JAX package. Its entry points (``Llama``,
+``Generator``, ``ContinuousBatcher``) run on the card unless the caller passes
+``device="cpu"``. Kernels live in ``csrc/`` and build at first use into
+``_build/``.
+"""
+
+from unionml_tpu_torch.models import GenerationConfig, Generator, Llama, LlamaConfig
+from unionml_tpu_torch.serving import ContinuousBatcher
+
+__all__ = ["ContinuousBatcher", "GenerationConfig", "Generator", "Llama", "LlamaConfig"]

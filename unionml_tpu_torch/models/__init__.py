@@ -1,0 +1,30 @@
+"""Model library: the Llama decoder, its layers, the weight bridge and generation."""
+
+from unionml_tpu_torch.models.convert import llama_params_from_jax, state_dict_from_jax
+from unionml_tpu_torch.models.generate import (
+    GenerationConfig,
+    Generator,
+    chunk_aligned,
+    filtered_logits,
+    init_cache,
+    init_paged_cache,
+    policy_probs,
+    sample_tokens,
+)
+from unionml_tpu_torch.models.llama import Llama, LlamaConfig, causal_lm_loss
+
+__all__ = [
+    "GenerationConfig",
+    "Generator",
+    "Llama",
+    "LlamaConfig",
+    "causal_lm_loss",
+    "chunk_aligned",
+    "filtered_logits",
+    "init_cache",
+    "init_paged_cache",
+    "llama_params_from_jax",
+    "policy_probs",
+    "sample_tokens",
+    "state_dict_from_jax",
+]

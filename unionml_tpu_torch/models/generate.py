@@ -1,0 +1,364 @@
+"""Autoregressive generation: bucketed prefill + a decode loop over a KV cache.
+
+Counterpart of ``unionml_tpu/models/generate.py``. The JAX engine jits one
+prefill per prompt bucket and one ``lax.scan`` decode; PyTorch runs eagerly,
+so prefill is one forward and decode a Python loop over ``steps``. The cache
+contract is the same: per-example contiguous rows (``init_cache``) or a paged
+heads-major pool (``init_paged_cache``), written in place where JAX donates.
+Randomness comes from explicit ``torch.Generator`` objects where JAX threads
+``jax.random`` keys; the two give different numbers from the same seed, so
+sampled decoding matches the JAX package in distribution
+(:func:`filtered_logits`/:func:`policy_probs`), greedy decoding token for token.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Any, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from unionml_tpu_torch._device import DeviceLike, module_device, resolve_device
+
+__all__ = [
+    "GenerationConfig",
+    "Generator",
+    "chunk_aligned",
+    "filtered_logits",
+    "init_cache",
+    "init_paged_cache",
+    "policy_probs",
+    "sample_tokens",
+]
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    """Decoding knobs. ``temperature == 0`` means greedy (argmax) decoding;
+    ``top_k``/``top_p``/``min_p`` filter the distribution before sampling.
+    ``prefill_chunk``, ``sp_prefill``, ``draft`` and ``constraints`` mirror the
+    JAX package's fields; the port does not serve them yet and its
+    :class:`Generator` raises when they are set."""
+
+    max_new_tokens: int = 128
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    eos_id: Optional[int] = None
+    pad_id: int = 0
+    prompt_buckets: Tuple[int, ...] = (64, 256, 1024)
+    prefill_chunk: Optional[int] = None
+    #: "int8" stores K/V rows symmetric-quantized per (position, head) with
+    #: f32 scales; None = the compute dtype
+    kv_cache_dtype: Optional[str] = None
+    sp_prefill: Optional[str] = None
+    draft: Optional[Any] = dataclasses.field(default=None, compare=False, repr=False)
+    constraints: Optional[Any] = dataclasses.field(default=None, compare=False, repr=False)
+    min_p: float = 0.0
+
+
+def chunk_aligned(length: int, chunk: int) -> int:
+    """Round ``length`` up to a multiple of ``chunk``."""
+    return -(-length // chunk) * chunk
+
+
+def _kv_dtype_check(kv_dtype: Optional[str]) -> None:
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"unsupported kv_cache_dtype {kv_dtype!r}; expected None or 'int8'")
+
+
+def init_cache(
+    config: Any, batch: int, cache_len: int, kv_dtype: Optional[str] = None, *, device: DeviceLike = None
+) -> Tuple[dict, ...]:
+    """Zeroed per-layer KV buffers ``[batch, cache_len, n_kv_heads, head_dim]``
+    in the compute dtype, or int8 values plus f32 ``[..., 1]`` scale planes."""
+    _kv_dtype_check(kv_dtype)
+    device = resolve_device(device)
+    head_dim = config.dim // config.n_heads
+    shape = (batch, cache_len, config.n_kv_heads, head_dim)
+    if kv_dtype == "int8":
+        scale_shape = shape[:-1] + (1,)
+        return tuple(
+            {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+            }
+            for _ in range(config.n_layers)
+        )
+    return tuple(
+        {
+            "k": torch.zeros(shape, dtype=config.dtype, device=device),
+            "v": torch.zeros(shape, dtype=config.dtype, device=device),
+        }
+        for _ in range(config.n_layers)
+    )
+
+
+def init_paged_cache(
+    config: Any,
+    slots: int,
+    n_blocks: int,
+    block_size: int,
+    max_blocks: int,
+    kv_dtype: Optional[str] = None,
+    *,
+    fill_block: int,
+    device: DeviceLike = None,
+) -> Tuple[dict, ...]:
+    """Per-layer PAGED KV pools, heads-major ``[H_kv, n_blocks, block_size,
+    D]``, plus a ``[slots, max_blocks]`` int32 block table initialized to
+    ``fill_block``. ``fill_block`` is required and must be a reserved scratch
+    block (``n_blocks = real + 1``, ``fill_block = real``): free and finished
+    slots keep writing one ride-along row per step through their table row.
+    Every layer holds the SAME table tensor — JAX keeps one copy per layer
+    only because donating an aliased buffer twice is an error there; here one
+    in-place table update serves all layers."""
+    _kv_dtype_check(kv_dtype)
+    device = resolve_device(device)
+    head_dim = config.dim // config.n_heads
+    shape = (config.n_kv_heads, n_blocks, block_size, head_dim)
+    table = torch.full((slots, max_blocks), fill_block, dtype=torch.int32, device=device)
+    if kv_dtype == "int8":
+        scale_shape = shape[:-1] + (1,)
+        return tuple(
+            {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+                "table": table,
+            }
+            for _ in range(config.n_layers)
+        )
+    return tuple(
+        {
+            "k": torch.zeros(shape, dtype=config.dtype, device=device),
+            "v": torch.zeros(shape, dtype=config.dtype, device=device),
+            "table": table,
+        }
+        for _ in range(config.n_layers)
+    )
+
+
+def filtered_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
+    """Apply temperature, ``min_p``, ``top_k`` and ``top_p`` to ``[..., V]``
+    logits (masked entries become -inf); softmax of the result is the policy's
+    sampling distribution."""
+    logits = logits / config.temperature
+    neg_inf = torch.tensor(-math.inf, dtype=logits.dtype, device=logits.device)
+    if config.min_p > 0.0:
+        # prob(x) >= min_p * prob(argmax)  <=>  logit(x) >= max_logit + log(min_p)
+        log_min_p = torch.log(torch.tensor(config.min_p, dtype=logits.dtype, device=logits.device))
+        cutoff = logits.amax(dim=-1, keepdim=True) + log_min_p
+        logits = torch.where(logits < cutoff, neg_inf, logits)
+    if config.top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[..., -config.top_k][..., None]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if config.top_p < 1.0:
+        sorted_desc = torch.flip(torch.sort(logits, dim=-1).values, dims=[-1])
+        probs = torch.softmax(sorted_desc, dim=-1)
+        exclusive_cum = torch.cumsum(probs, dim=-1) - probs
+        # keep the smallest prefix whose mass reaches top_p; its lowest logit
+        # becomes the cutoff on the unsorted axis
+        dropped = exclusive_cum >= config.top_p
+        min_kept = torch.where(dropped, -neg_inf, sorted_desc).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < min_kept, neg_inf, logits)
+    return logits
+
+
+def policy_probs(logits: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
+    """The decoding policy as a distribution over ``[..., V]``: a one-hot
+    argmax for greedy, else softmax of :func:`filtered_logits`."""
+    if config.temperature == 0.0:
+        return torch.nn.functional.one_hot(logits.argmax(dim=-1), logits.shape[-1]).float()
+    return torch.softmax(filtered_logits(logits.float(), config), dim=-1)
+
+
+def sample_tokens(
+    logits: torch.Tensor, generator: Optional[torch.Generator], config: GenerationConfig
+) -> torch.Tensor:
+    """Next tokens ``[B]`` int32 from ``logits [B, V]`` under the policy."""
+    if config.temperature == 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    probs = torch.softmax(filtered_logits(logits.float(), config), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+class Generator:
+    """Batch text generation over a cached decoder.
+
+    >>> gen = Generator(model, GenerationConfig(max_new_tokens=64))
+    >>> tokens = gen([[1, 5, 9], [3, 3]], seed=0)   # [2, 64] int32
+
+    ``model`` follows :class:`~unionml_tpu_torch.models.llama.Llama`'s cache
+    contract and must already live on ``device`` (``None`` = CUDA, which
+    raises on a machine without one). ``prefill_traces``/``decode_traces``
+    mirror the JAX engine's compile counters; eager PyTorch compiles nothing,
+    so they stay 0.
+    """
+
+    def __init__(
+        self,
+        model: Any,
+        config: GenerationConfig = GenerationConfig(),
+        *,
+        device: DeviceLike = None,
+        mesh: Optional[Any] = None,
+        partition_rules: Optional[Any] = None,
+        quantize: Optional[str] = None,
+    ):
+        unported = {
+            "mesh": mesh, "partition_rules": partition_rules, "quantize": quantize,
+            "config.draft": config.draft, "config.constraints": config.constraints,
+            "config.sp_prefill": config.sp_prefill, "config.prefill_chunk": config.prefill_chunk,
+        }
+        for name, value in unported.items():
+            if value is not None:
+                raise NotImplementedError(f"Generator {name} is not ported yet (ROADMAP.md, Queue A)")
+        _kv_dtype_check(config.kv_cache_dtype)
+        self.device = resolve_device(device)
+        placed = module_device(model)
+        if placed is not None and placed != self.device:
+            raise ValueError(f"the model lives on {placed}, not {self.device}; build it with device={str(self.device)!r}")
+        self.model = model
+        self.config = config
+        self.prefill_traces = 0
+        self.decode_traces = 0
+
+    # ------------------------------------------------------------------ steps
+
+    def _head(self, hidden: torch.Tensor) -> torch.Tensor:
+        kernel = self.model.lm_head.kernel
+        return (hidden @ kernel.to(hidden.dtype)).float()
+
+    @torch.no_grad()
+    def _prefill(self, tokens, lengths, cache, generator, row_valid):
+        """Prefill ``tokens [B, P]`` into ``cache`` (in place) and sample each
+        row's first token from its last real position. Returns ``(tok0 [B]
+        int32, cache, last-token hidden [B, dim] f32)``."""
+        batch, prompt_len = tokens.shape
+        positions = torch.arange(prompt_len, device=self.device)[None].expand(batch, prompt_len)
+        token_mask = (positions < lengths[:, None]) & row_valid[:, None]
+        hidden, cache = self.model(
+            tokens, positions=positions, return_hidden=True, cache=cache, token_mask=token_mask
+        )
+        last = hidden[torch.arange(batch, device=self.device), (lengths - 1).long()]
+        tok0 = sample_tokens(self._head(last), generator, self.config)
+        return tok0, cache, last.float()
+
+    @torch.no_grad()
+    def _decode(self, cache, tok, lengths, done, generator, *, steps: int):
+        """Roll ``steps`` decode steps from the carry. Returns the new tokens
+        ``[B, steps]``, each sampled token's log-probability ``[B, steps]`` f32
+        (done rows report 0.0) and the advanced carry. Done rows emit
+        ``pad_id`` and never advance their length."""
+        cfg = self.config
+        eos = cfg.eos_id
+        toks, lps = [], []
+        for _ in range(steps):
+            positions = lengths[:, None]  # each example's next free cache slot
+            hidden, cache = self.model(
+                tok[:, None], positions=positions, return_hidden=True, cache=cache,
+                token_mask=(~done)[:, None],
+            )
+            logits = self._head(hidden[:, 0])
+            nxt = sample_tokens(logits, generator, cfg)
+            lp = torch.log_softmax(logits, dim=-1).gather(1, nxt[:, None].long())[:, 0]
+            lps.append(lp.masked_fill(done, 0.0))
+            nxt = nxt.masked_fill(done, cfg.pad_id)
+            lengths = lengths + (~done).to(lengths.dtype)
+            if eos is not None:
+                done = done | (nxt == eos)
+            toks.append(nxt)
+            tok = nxt
+        return torch.stack(toks, dim=1), torch.stack(lps, dim=1), (cache, tok, lengths, done, generator)
+
+    # ------------------------------------------------------------------ helpers
+
+    def _bucket(self, max_prompt: int) -> int:
+        for b in sorted(self.config.prompt_buckets):
+            if b >= max_prompt:
+                return b
+        bucket = int(math.ceil(max_prompt / 64) * 64)
+        logger.info(f"prompt length {max_prompt} exceeds configured buckets; padding to {bucket}")
+        return bucket
+
+    def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0):
+        """Pad/bucket the prompts, allocate the cache, prefill, and return
+        ``(n, tok0, last, carry)``; the batch is padded to a power of two and
+        the padding rows start done."""
+        cfg = self.config
+        n = len(prompts)
+        lengths = np.array([max(len(p), 1) for p in prompts], np.int32)
+        bucket = self._bucket(int(lengths.max()))
+        batch = 1 << max(0, (n - 1).bit_length())
+        tokens = np.full((batch, bucket), cfg.pad_id, np.int32)
+        for i, p in enumerate(prompts):
+            tokens[i, : len(p)] = np.asarray(p, np.int32)
+        all_lengths = np.ones((batch,), np.int32)
+        all_lengths[:n] = lengths
+        cache_len = max(bucket, max(cfg.prompt_buckets, default=0)) + cfg.max_new_tokens + extra_cache
+        cache = init_cache(self.model.config, batch, cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        row_valid = torch.arange(batch, device=self.device) < n
+        lengths_t = torch.as_tensor(all_lengths, device=self.device)
+        tok0, cache, last = self._prefill(
+            torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid
+        )
+        eos = cfg.eos_id
+        done = (tok0 == eos) if eos is not None else torch.zeros_like(row_valid)
+        done = done | ~row_valid  # synthetic batch-padding rows emit pads, never advance
+        return n, tok0, last, (cache, tok0, lengths_t, done, generator)
+
+    @staticmethod
+    def _unported(prefix: Any, constraint: Any) -> None:
+        if prefix is not None or constraint is not None:
+            raise NotImplementedError("prefix caches and constraints are not ported yet (ROADMAP.md, Queue A)")
+
+    # ------------------------------------------------------------------ generate
+
+    def __call__(
+        self, prompts: Sequence[Sequence[int]], *, seed: int = 0, prefix: Any = None, constraint: Any = None
+    ) -> np.ndarray:
+        """Generate ``max_new_tokens`` per prompt; returns ``[len(prompts),
+        max_new]`` int32 (``pad_id`` after each example's ``eos_id``)."""
+        self._unported(prefix, constraint)
+        n, tok0, _, carry = self._start(prompts, seed)
+        steps = self.config.max_new_tokens - 1
+        first = tok0.cpu().numpy()[:, None]
+        if steps <= 0:
+            return first[:n]
+        rest, _, _ = self._decode(*carry, steps=steps)
+        return np.concatenate([first, rest.cpu().numpy()], axis=1)[:n]
+
+    def stream(
+        self, prompts: Sequence[Sequence[int]], *, seed: int = 0, chunk_size: int = 16,
+        prefix: Any = None, constraint: Any = None,
+    ) -> Iterator[np.ndarray]:
+        """Yield ``[len(prompts), <=chunk_size]`` arrays of newly decoded tokens
+        (the first yield is the prompt-sampled token); ends early once every
+        row has emitted ``eos_id``. Total tokens equal ``__call__``'s."""
+        self._unported(prefix, constraint)
+        cfg = self.config
+        if chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1")
+        # the last chunk may overshoot max_new_tokens; give its cache writes room
+        n_chunks = max(0, -(-(cfg.max_new_tokens - 1) // chunk_size))
+        extra = n_chunks * chunk_size - (cfg.max_new_tokens - 1)
+        n, tok0, _, carry = self._start(prompts, seed, extra_cache=extra)
+        yield tok0.cpu().numpy()[:n, None]
+        produced = 1
+        while produced < cfg.max_new_tokens:
+            if bool(carry[3].all()):
+                return  # every row finished with eos
+            toks, _, carry = self._decode(*carry, steps=chunk_size)
+            take = min(chunk_size, cfg.max_new_tokens - produced)
+            yield toks.cpu().numpy()[:n, :take]
+            produced += take

@@ -1,0 +1,749 @@
+"""Continuous (in-flight) batching for generation serving.
+
+Counterpart of the monolithic-admission subset of
+``unionml_tpu/serving/continuous.py``: dense slots or a paged KV pool with a
+scratch block, lazy block growth and recompute preemption.
+
+- The engine owns ``slots`` cache rows (dense ``[S, cache_len, ...]`` per
+  layer, or a shared pool of ``block_size`` blocks addressed through a block
+  table) plus the decode carry (``tok/lengths/done`` per slot).
+- **Join at prefill**: an arriving prompt prefills through the Generator at
+  batch 1 into a fresh ``[1, cache_len]`` row, which is pasted (dense) or
+  scattered through the slot's table (paged) between decode chunks.
+- **Shared decode**: a background engine thread runs the Generator's decode
+  for ``decode_chunk`` steps over ALL slots and routes each row's new tokens
+  to its request's queue.
+- **Leave at eos/budget**: finished and never-used slots ride along masked —
+  ``done`` rows emit pads, never advance, and (paged) point at the scratch
+  block, so their ride-along writes never touch a live page.
+
+With greedy decoding each stream's tokens equal a solo
+``Generator.__call__([prompt])`` run. Thread model: ``submit`` may be called
+from any thread; the engine thread is the only one touching device state.
+Where JAX donates the pool through its jitted admission and decode, the port
+updates the pool tensors in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from unionml_tpu_torch.models.generate import Generator, init_cache, init_paged_cache
+from unionml_tpu_torch.serving.metrics import LatencyWindow
+from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, expired
+
+__all__ = ["ContinuousBatcher"]
+
+logger = logging.getLogger(__name__)
+
+#: prompts allowed to wait for a slot before submit() sheds (the JAX
+#: package's ``defaults.SERVE_MAX_WAITING``)
+SERVE_MAX_WAITING = 256
+
+#: engine options of the JAX package that later slices of the port bring
+#: (chunked admission, radix cache, tenancy, SLOs, handoff, AOT, ...)
+_UNPORTED = (
+    "prefix", "admit_chunk", "prefill_budget", "max_admissions", "trace",
+    "prefix_cache", "slo", "role", "tenancy", "aot",
+)
+
+_SENTINEL = object()
+
+
+@dataclasses.dataclass
+class _Session:
+    """Host-side state of one request."""
+
+    slot: int
+    out: "queue.Queue[Any]"
+    max_new: int  # this request's token budget (<= config.max_new_tokens)
+    produced: int = 0  # tokens emitted so far (includes the prefill token)
+    finished: bool = False
+    #: every token emitted so far — a PREEMPTED request resumes by prefilling
+    #: (original prompt + echo), which reproduces its greedy continuation
+    echo: "List[int]" = dataclasses.field(default_factory=list)
+    #: ``produced`` at the start of the current residency
+    resident_base: int = 0
+    #: admission sequence number — preemption evicts the YOUNGEST resident
+    admit_seq: int = 0
+    #: absolute position of this residency's first decode write
+    row_start: int = 0
+    #: the ORIGINAL prompt from submit(); a resume prefills prompt + echo
+    prompt: "List[int]" = dataclasses.field(default_factory=list)
+    #: absolute ``time.monotonic()`` deadline while WAITING for a slot
+    deadline: Optional[float] = None
+    created_at: float = 0.0
+    last_emit: Optional[float] = None
+    #: block-table entries assigned (paged mode); lazy growth appends here
+    table_len: int = 0
+
+
+@dataclasses.dataclass(eq=False)
+class _Admission:
+    """One admission: a slot-holding prompt whose batch-1 prefill runs as a
+    single step (monolithic admission), then pastes into the pool."""
+
+    session: _Session
+    prompt: "List[int]"
+    slot: int
+    seed: int
+    budget: int  # this request's remaining generation budget
+    blocks_row: Optional[np.ndarray]  # paged-mode block table row (None = dense)
+    tok0: Any = None
+    row_len: Any = None
+    row_cache: Any = None
+
+
+class _TokenStream:
+    """The iterator :meth:`ContinuousBatcher.submit` returns. ``close()`` is
+    callable from any thread and cancels the session; dropping the last
+    reference cancels too."""
+
+    def __init__(self, batcher: "ContinuousBatcher", session: _Session):
+        self._batcher = batcher
+        self._session = session
+
+    def __iter__(self) -> "Iterator[np.ndarray]":
+        return self
+
+    def __next__(self) -> np.ndarray:
+        item = self._session.out.get()
+        if item is _SENTINEL:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._batcher._cancel(self._session)
+
+    def __del__(self):  # pragma: no cover - refcount backstop
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class ContinuousBatcher:
+    """Share decode dispatches across concurrent generation requests.
+
+    >>> batcher = ContinuousBatcher(generator, slots=4, block_size=16)
+    >>> for chunk in batcher.submit([1, 5, 9]):   # 1-D int32 arrays
+    ...     ...
+    >>> batcher.close()
+
+    The engine runs on its generator's device. ``slots`` bounds resident
+    concurrency; excess requests wait FIFO, and beyond ``max_waiting`` of them
+    submit() sheds with :class:`QueueFullError`. ``decode_chunk`` is the
+    number of decode steps per shared dispatch. ``block_size`` switches the
+    KV cache to PAGED mode: a pool of ``pool_blocks`` blocks plus one scratch
+    block, admissions allocated only the blocks their prompt and first chunk
+    need, residents growing at chunk boundaries and the youngest preempted
+    (and later resumed token-exactly) when the pool runs dry.
+    """
+
+    def __init__(
+        self,
+        generator: Generator,
+        *,
+        slots: int = 4,
+        decode_chunk: int = 8,
+        block_size: Optional[int] = None,
+        pool_blocks: Optional[int] = None,
+        max_waiting: Optional[int] = None,
+        **unported: Any,
+    ):
+        unknown = sorted(set(unported) - set(_UNPORTED))
+        if unknown:
+            raise TypeError(f"unexpected ContinuousBatcher arguments {unknown}")
+        for name, value in unported.items():
+            if value:  # None, False and 0 select what the port has (0 = monolithic admission)
+                raise NotImplementedError(f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A)")
+        if slots < 1:
+            raise ValueError("slots must be >= 1")
+        if decode_chunk < 1:
+            raise ValueError("decode_chunk must be >= 1")
+        if block_size is not None and block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        if max_waiting is not None and max_waiting < 1:
+            raise ValueError("max_waiting must be >= 1")
+        cfg = generator.config
+        self.gen = generator
+        self.device = generator.device
+        self.max_waiting = SERVE_MAX_WAITING if max_waiting is None else max_waiting
+        self.slots = slots
+        self.decode_chunk = decode_chunk
+        #: room for every bucketed prompt, the full budget and one chunk of
+        #: decode overshoot
+        self._overshoot = decode_chunk
+        widest = max(cfg.prompt_buckets, default=64)
+        self.cache_len = widest + cfg.max_new_tokens + decode_chunk
+        self.block_size = block_size
+        if block_size is not None:
+            self.max_blocks = -(-self.cache_len // block_size)
+            self.pool_blocks = pool_blocks if pool_blocks is not None else slots * self.max_blocks
+            if self.pool_blocks < self.max_blocks:
+                raise ValueError(
+                    f"pool_blocks ({self.pool_blocks}) must cover one worst-case request "
+                    f"({self.max_blocks} blocks of {block_size}) or admission could deadlock"
+                )
+            #: block index ``pool_blocks`` is the SCRATCH block: unused and
+            #: finished table entries point there
+            self._scratch_block = self.pool_blocks
+            mcfg = generator.model.config
+            head_dim = mcfg.dim // mcfg.n_heads
+            if cfg.kv_cache_dtype == "int8":
+                kv_itemsize, scale_bytes = 1, 8  # k_scale + v_scale, f32 each
+            else:
+                kv_itemsize, scale_bytes = torch.empty((), dtype=mcfg.dtype).element_size(), 0
+            self._block_bytes = int(
+                mcfg.n_layers * mcfg.n_kv_heads * block_size * (2 * head_dim * kv_itemsize + scale_bytes)
+            )
+            self._free_blocks: "List[int]" = list(range(self.pool_blocks))
+            self._slot_blocks: Dict[int, "List[int]"] = {}
+        elif pool_blocks is not None:
+            raise ValueError("pool_blocks requires block_size (paged mode)")
+        self._lock = threading.Condition()
+        self._pending: "List[tuple]" = []  # (prompt, session) awaiting a free slot
+        self._admissions: "List[_Admission]" = []
+        self._sessions: Dict[int, _Session] = {}
+        self._free = list(range(slots))
+        self._cancelled: "List[_Session]" = []
+        self._closed = False
+        self._carry: Optional[tuple] = None  # (cache, tok, lengths, done, generator)
+        self._seed = 0
+        self._thread: Optional[threading.Thread] = None
+        self._admit_counter = 0
+        #: dispatch/utilization counters for benchmarks and /metrics
+        self.decode_dispatches = 0
+        self.decoded_rows = 0
+        self.preemptions = 0
+        #: TTFT (submit -> first token) and TBT (gap between emissions)
+        self._ttft = LatencyWindow()
+        self._tbt = LatencyWindow()
+
+    # ------------------------------------------------------------------ device fns
+
+    @staticmethod
+    def _admit_impl(cache, row_cache, tok, lengths, done, slot, row_tok, row_len) -> None:
+        """Paste a prefilled ``[1, cache_len, ...]`` row into slot row ``slot``
+        and activate its carry entries, in place."""
+        for layer, row in zip(cache, row_cache):
+            for name in row:
+                layer[name][slot] = row[name][0].to(layer[name].dtype)
+        tok[slot] = row_tok[0]
+        lengths[slot] = row_len[0]
+        done[slot] = False
+
+    @staticmethod
+    def _paged_admit_impl(cache, row_cache, tok, lengths, done, slot, row_tok, row_len, blocks_row) -> None:
+        """Point slot ``slot``'s table row at ``blocks_row`` and scatter the
+        dense ``[1, cache_len]`` row into those blocks, in place.
+        ``blocks_row`` is scratch-padded past the allocation, so the row's
+        unused tail lands in the scratch block, never in another request's
+        pages; those colliding writes leave scratch holding arbitrary rows,
+        which nothing reads as live data."""
+        table = cache[0]["table"]  # one table tensor shared by every layer
+        block_size = cache[0]["k"].shape[2]  # pools are heads-major [H_kv, NB, bs, last]
+        blocks = torch.as_tensor(blocks_row, dtype=torch.int32, device=table.device)
+        pos = torch.arange(row_cache[0]["k"].shape[1], device=table.device)
+        blk, off = blocks[pos // block_size].long(), pos % block_size
+        table[slot] = blocks
+        for layer, row in zip(cache, row_cache):
+            for name in row:
+                layer[name][:, blk, off] = row[name][0].transpose(0, 1).to(layer[name].dtype)
+        tok[slot] = row_tok[0]
+        lengths[slot] = row_len[0]
+        done[slot] = False
+
+    def _init_carry(self) -> tuple:
+        cfg, mcfg = self.gen.config, self.gen.model.config
+        if self.block_size is not None:
+            # pool_blocks + 1: the extra block is scratch; tables start
+            # all-scratch so never-admitted slots' ride-along writes are harmless
+            cache = init_paged_cache(
+                mcfg, self.slots, self.pool_blocks + 1, self.block_size, self.max_blocks,
+                kv_dtype=cfg.kv_cache_dtype, fill_block=self._scratch_block, device=self.device,
+            )
+        else:
+            cache = init_cache(mcfg, self.slots, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        tok = torch.zeros((self.slots,), dtype=torch.int32, device=self.device)
+        lengths = torch.ones((self.slots,), dtype=torch.int32, device=self.device)
+        done = torch.ones((self.slots,), dtype=torch.bool, device=self.device)  # every slot starts free
+        generator = torch.Generator(device=self.device).manual_seed(self._seed)
+        return (cache, tok, lengths, done, generator)
+
+    def _prefill_row(self, prompt: Sequence[int], seed: int, budget: Optional[int] = None):
+        """Prefill one prompt at batch 1 into a fresh ``[1, cache_len]`` cache
+        with the Generator's own prefill. Returns ``(tok0, lengths, row_cache)``.
+        ``budget`` is THIS request's remaining token budget."""
+        gen, cfg = self.gen, self.gen.config
+        if budget is None:
+            budget = cfg.max_new_tokens
+        bucket = gen._bucket(max(len(prompt), 1))
+        if bucket + budget > self.cache_len:
+            # a PREEMPTED request resumes as prompt + emitted tokens, which can
+            # outgrow every bucket while still fitting the cache contiguously:
+            # prefill at the exact width instead of failing the stream
+            exact = max(len(prompt), 1)
+            if exact + budget > self.cache_len:
+                raise ValueError(
+                    f"prompt of length {len(prompt)} needs bucket {bucket} + {budget} new tokens "
+                    f"> cache_len {self.cache_len}"
+                )
+            bucket = exact
+        tokens = np.full((1, bucket), cfg.pad_id, np.int32)
+        tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
+        lengths = torch.tensor([max(len(prompt), 1)], dtype=torch.int32, device=self.device)
+        row_cache = init_cache(gen.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        row_valid = torch.ones((1,), dtype=torch.bool, device=self.device)
+        tok0, row_cache, _ = gen._prefill(
+            torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid
+        )
+        return tok0, lengths, row_cache
+
+    # ------------------------------------------------------------------ block allocator
+
+    def _blocks_for_tokens(self, tokens: int) -> int:
+        """Blocks (= block-table entries) covering positions ``[0, tokens)``.
+        The prefill scatter also writes the bucket's pad columns, but those
+        are hidden by the ``slot <= position`` mask until decode overwrites
+        them in order, so they may land in the scratch block."""
+        return -(-tokens // self.block_size)
+
+    def _blocks_initial(self, prompt: Sequence[int], budget: int) -> int:
+        """Blocks an ADMISSION needs: prompt + one chunk of lookahead, capped
+        at the request's remaining budget — the target the first growth pass
+        demands, so a fresh admission is never admit-then-instantly-preempted."""
+        plen = max(len(prompt), 1)
+        tokens = min(plen + self.decode_chunk + self._overshoot, plen + budget - 1 + self._overshoot)
+        return self._blocks_for_tokens(tokens)
+
+    def _blocks_lifetime(self, prompt: Sequence[int], budget: int) -> int:
+        """Worst-case blocks over a request's whole life."""
+        return self._blocks_for_tokens(max(len(prompt), 1) + budget + self._overshoot)
+
+    def _release_blocks_locked(self, slot: int) -> None:
+        """Return a slot's pool blocks to the allocator (caller holds the lock)."""
+        if self.block_size is not None:
+            self._free_blocks.extend(self._slot_blocks.pop(slot, []))
+
+    def _extend_tables(self, slot: int, start_idx: int, ids: "List[int]") -> None:
+        """Append freshly allocated block ids to a resident slot's table row
+        (engine thread only)."""
+        if not ids or self._carry is None:
+            return
+        table = self._carry[0][0]["table"]
+        table[slot, start_idx : start_idx + len(ids)] = torch.as_tensor(ids, dtype=torch.int32, device=table.device)
+
+    def _mask_slot_done(self, slot: int) -> None:
+        """Set the device-side done flag of a slot (engine thread only); in
+        paged mode also repoint its table row at the scratch block — its freed
+        blocks may be reallocated at once, and the done row keeps issuing a
+        ride-along K/V write per step."""
+        if self._carry is None:
+            return
+        self._carry[3][slot] = True
+        if self.block_size is not None:
+            self._carry[0][0]["table"][slot] = self._scratch_block
+
+    def _preempt_locked(self, slot: int) -> None:
+        """Evict a resident under pool exhaustion: free its slot/blocks, mask
+        its row, and requeue it at the FIFO head as (original prompt + every
+        token already emitted) — its greedy continuation is token-identical."""
+        session = self._sessions.pop(slot)
+        self.preemptions += 1
+        self._free.append(slot)
+        self._release_blocks_locked(slot)
+        self._mask_slot_done(slot)
+        session.slot = -1
+        if not session.finished:
+            self._pending.insert(0, (list(session.prompt) + list(session.echo), session))
+
+    def _ensure_capacity_locked(self) -> None:
+        """Lazy growth at every chunk boundary (engine thread, lock held): each
+        resident's table must cover the NEXT dispatch's writes; when the pool
+        cannot supply them the YOUNGEST resident is preempted and the check
+        retried. A lone resident always fits (pool >= max_blocks)."""
+        if self.block_size is None:
+            return
+        while True:
+            deficits = {}
+            for slot, session in self._sessions.items():
+                produced_res = session.produced - session.resident_base
+                tokens = min(
+                    session.row_start + max(produced_res - 1, 0) + self.decode_chunk + self._overshoot,
+                    session.row_start + (session.max_new - session.resident_base) - 1 + self._overshoot,
+                )
+                target = self._blocks_for_tokens(tokens)
+                if target > session.table_len:
+                    deficits[slot] = target - session.table_len
+            if sum(deficits.values()) <= len(self._free_blocks):
+                for slot, extra in deficits.items():
+                    session = self._sessions[slot]
+                    alloc = [self._free_blocks.pop(0) for _ in range(extra)]
+                    self._slot_blocks[slot].extend(alloc)
+                    self._extend_tables(slot, session.table_len, alloc)
+                    session.table_len += extra
+                return
+            self._preempt_locked(max(self._sessions, key=lambda s: self._sessions[s].admit_seq))
+
+    # ------------------------------------------------------------------ public API
+
+    def submit(
+        self, prompt: Sequence[int], *, max_new_tokens: Optional[int] = None, deadline: Optional[float] = None
+    ) -> Iterator[np.ndarray]:
+        """Enqueue a prompt; returns an iterator of 1-D int32 arrays of new
+        tokens (the first item is the prompt-sampled token). Safe from any
+        thread. ``max_new_tokens`` caps THIS request below the config budget.
+        ``deadline`` (absolute ``time.monotonic()``) sheds the request with
+        :class:`DeadlineExceeded` if it is still waiting past it; a full
+        waiting queue sheds at once with :class:`QueueFullError`."""
+        if len(prompt) == 0:
+            raise ValueError("prompt must be non-empty")
+        if expired(deadline):
+            raise DeadlineExceeded("deadline expired before the prompt was enqueued")
+        budget = self.gen.config.max_new_tokens
+        if max_new_tokens is not None:
+            if not (1 <= max_new_tokens <= budget):
+                raise ValueError(
+                    f"max_new_tokens must be in [1, {budget}] (the config budget the cache is sized for)"
+                )
+            budget = max_new_tokens
+        session = _Session(
+            slot=-1, out=queue.Queue(), max_new=budget, deadline=deadline, created_at=time.monotonic(),
+            # the original prompt is kept only where preemption can resume it
+            prompt=list(prompt) if self.block_size is not None else [],
+        )
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("ContinuousBatcher is closed")
+            waiting = sum(1 for _, s in self._pending if not s.finished)
+            if waiting >= self.max_waiting:
+                raise QueueFullError(
+                    f"continuous-batching waiting queue full ({self.max_waiting} prompts queued "
+                    f"ahead of {self.slots} slots)"
+                )
+            self._pending.append((list(prompt), session))
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._engine_loop, daemon=True)
+                self._thread.start()
+            self._lock.notify_all()
+        return _TokenStream(self, session)
+
+    def _cancel(self, session: _Session) -> None:
+        """Stop producing for a session whose consumer went away. Pending
+        sessions are dequeued here; RESIDENT slots are flagged and the engine
+        frees and masks them at the next chunk boundary."""
+        with self._lock:
+            if session.finished:
+                return
+            session.finished = True
+            if any(s is session for _, s in self._pending):
+                self._pending = [(p, s) for p, s in self._pending if s is not session]
+            elif session.slot >= 0 and self._sessions.get(session.slot) is session:
+                self._cancelled.append(session)
+            session.out.put(_SENTINEL)
+            self._lock.notify_all()
+
+    def _apply_cancellations_locked(self) -> None:
+        """Engine thread: free and done-mask slots whose consumers went away,
+        identity-checked against the resident session."""
+        cancelled, self._cancelled = self._cancelled, []
+        for session in cancelled:
+            if self._sessions.get(session.slot) is session:
+                self._sessions.pop(session.slot)
+                self._free.append(session.slot)
+                self._release_blocks_locked(session.slot)
+                self._mask_slot_done(session.slot)
+
+    def stats(self) -> Dict[str, Any]:
+        """Shared-dispatch counters, pool occupancy (paged mode) and the
+        TTFT/TBT latency percentiles."""
+        with self._lock:
+            snapshot: Dict[str, Any] = {
+                "decode_dispatches": self.decode_dispatches,
+                "decoded_rows": self.decoded_rows,
+            }
+            if self.block_size is not None:
+                used = self.pool_blocks - len(self._free_blocks)
+                snapshot["kv_blocks"] = {
+                    "total": self.pool_blocks,
+                    "used": used,
+                    "block_size": self.block_size,
+                    "preemptions": self.preemptions,
+                    "block_bytes": self._block_bytes,
+                    "used_bytes": used * self._block_bytes,
+                }
+        snapshot["ttft_ms"] = self._ttft.snapshot()
+        snapshot["tbt_ms"] = self._tbt.snapshot()
+        return snapshot
+
+    def close(self, wait: bool = True, timeout: float = 120.0) -> None:
+        """Stop admitting, drain resident streams to completion, stop the
+        engine. Never-admitted pending requests get a clean end-of-stream."""
+        with self._lock:
+            self._closed = True
+            self._lock.notify_all()
+        if wait and self._thread is not None:
+            self._thread.join(timeout=timeout)
+
+    # ------------------------------------------------------------------ engine
+
+    def _engine_loop(self) -> None:
+        try:
+            while True:
+                with self._lock:
+                    while not self._closed and not self._pending and not self._admissions and not self._sessions:
+                        self._lock.wait()
+                    self._apply_cancellations_locked()
+                    if self._closed:
+                        for _, session in self._pending:
+                            session.out.put(_SENTINEL)
+                        self._pending.clear()
+                        if not self._sessions and not self._admissions:
+                            break
+                self._admit_pending()
+                if self._sessions:
+                    self._decode_chunk()
+        except Exception as exc:  # engine death must not strand consumers
+            logger.exception("continuous-batching engine failed")
+            with self._lock:
+                self._closed = True
+                for _, session in self._pending:
+                    session.out.put(exc)
+                for adm in self._admissions:
+                    if not adm.session.finished:
+                        adm.session.out.put(exc)
+                for session in self._sessions.values():
+                    session.out.put(exc)
+                self._pending.clear()
+                self._admissions.clear()
+                self._sessions.clear()
+        finally:
+            with self._lock:
+                for _, session in self._pending:
+                    session.out.put(_SENTINEL)
+                for adm in self._admissions:
+                    adm.session.out.put(_SENTINEL)
+                for session in self._sessions.values():
+                    session.out.put(_SENTINEL)
+
+    def _admit_pending(self) -> None:
+        """Move waiting prompts into free slots, one monolithic admission at
+        a time. The lock is held only for queue/slot/block bookkeeping; the
+        prefill runs unlocked so submit()/close() callers never wait on it."""
+        while True:
+            self._start_admissions()
+            if not self._admissions:
+                return
+            for adm in list(self._admissions):
+                if not self._admission_alive(adm):
+                    continue
+                try:
+                    # the whole batch-1 prefill, unlocked
+                    adm.tok0, adm.row_len, adm.row_cache = self._prefill_row(adm.prompt, adm.seed, budget=adm.budget)
+                except ValueError as exc:
+                    # a bad prompt fails its own stream; the admission built
+                    # only a fresh [1, ...] row, so the engine carries on
+                    self._abort_admission(adm, exc)
+                    continue
+                except BaseException as exc:
+                    with self._lock:
+                        if adm in self._admissions:
+                            self._admissions.remove(adm)
+                        if not adm.session.finished:
+                            adm.session.finished = True
+                            adm.session.out.put(exc)
+                    raise
+                self._finalize_admission(adm)
+
+    def _start_admissions(self) -> None:
+        """Sweep dead/expired waiters, then move the head of the queue into a
+        free slot as an admission (lock held; no device work). Paged mode
+        allocates only the prompt + first dispatch; the head keeps its FIFO
+        position while the pool cannot supply its initial blocks."""
+        with self._lock:
+            live = []
+            for prompt_s, s in self._pending:
+                if s.finished:
+                    continue
+                if expired(s.deadline):
+                    s.finished = True
+                    s.out.put(DeadlineExceeded("deadline exceeded while waiting for a decode slot"))
+                    continue
+                live.append((prompt_s, s))
+            self._pending = live
+            if self._closed:
+                return
+            while self._pending and not self._admissions and self._free:
+                blocks_row = None
+                needed = 0
+                if self.block_size is not None:
+                    head_prompt, head_session = self._pending[0]
+                    head_budget = head_session.max_new - head_session.produced
+                    lifetime = self._blocks_lifetime(head_prompt, head_budget)
+                    if lifetime > self.max_blocks:
+                        # an oversized prompt can never fit a table row: fail
+                        # its stream now instead of wedging the FIFO head
+                        _, session = self._pending.pop(0)
+                        if not session.finished:
+                            session.finished = True
+                            session.out.put(ValueError(
+                                f"prompt needs {lifetime} KV blocks but a slot's table holds {self.max_blocks}"
+                            ))
+                        continue
+                    needed = self._blocks_initial(head_prompt, head_budget)
+                    if needed > len(self._free_blocks):
+                        return
+                prompt, session = self._pending.pop(0)
+                slot = self._free.pop(0)
+                session.slot = slot
+                session.admit_seq = self._admit_counter
+                self._admit_counter += 1
+                session.row_start = max(len(prompt), 1)
+                if self.block_size is not None:
+                    alloc = [self._free_blocks.pop(0) for _ in range(needed)]
+                    self._slot_blocks[slot] = alloc
+                    session.table_len = len(alloc)
+                    blocks_row = np.full((self.max_blocks,), self._scratch_block, np.int32)
+                    blocks_row[: len(alloc)] = alloc
+                self._seed += 1
+                self._admissions.append(_Admission(
+                    session=session, prompt=prompt, slot=slot, seed=self._seed,
+                    budget=session.max_new - session.produced, blocks_row=blocks_row,
+                ))
+
+    def _admission_alive(self, adm: _Admission) -> bool:
+        """Drop an admission whose consumer went away before its prefill ran:
+        the slot and blocks come back at once."""
+        with self._lock:
+            if adm.session.finished:
+                if adm in self._admissions:
+                    self._admissions.remove(adm)
+                self._free.append(adm.slot)
+                self._release_blocks_locked(adm.slot)
+                return False
+            return True
+
+    def _abort_admission(self, adm: _Admission, exc: BaseException) -> None:
+        """Fail one admission's stream without touching the engine."""
+        with self._lock:
+            if adm in self._admissions:
+                self._admissions.remove(adm)
+            self._free.append(adm.slot)
+            self._release_blocks_locked(adm.slot)
+            if not adm.session.finished:
+                adm.session.finished = True
+                adm.session.out.put(exc)
+
+    def _finalize_admission(self, adm: _Admission) -> None:
+        """Paste a completed admission's row into the pool and activate its
+        session. A failure in the paste is engine-fatal: the pool may be
+        half-written."""
+        cfg = self.gen.config
+        session, slot = adm.session, adm.slot
+        try:
+            if self._carry is None:
+                self._carry = self._init_carry()
+            first = adm.tok0.cpu().numpy()
+            hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
+            # produced carries across preemptions; this residency adds one token
+            start_done = hit_eos or session.produced + 1 >= session.max_new
+            cache, tok, lengths, done, _ = self._carry
+            with torch.no_grad():
+                if adm.blocks_row is not None:
+                    self._paged_admit_impl(
+                        cache, adm.row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row
+                    )
+                else:
+                    self._admit_impl(cache, adm.row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
+            adm.row_cache = None
+        except BaseException as exc:
+            with self._lock:
+                if adm in self._admissions:
+                    self._admissions.remove(adm)
+                if not session.finished:
+                    session.finished = True
+                    session.out.put(exc)
+            raise
+        with self._lock:
+            if adm in self._admissions:
+                self._admissions.remove(adm)
+            if session.finished:
+                # cancelled during the unlocked prefill: mask the just
+                # activated row back out and return the slot
+                self._free.append(slot)
+                self._release_blocks_locked(slot)
+                self._mask_slot_done(slot)
+                return
+            session.out.put(first)
+            now = time.monotonic()
+            if session.produced == 0:  # a resume is a later residency, not a first token
+                self._ttft.observe(now - session.created_at)
+            if session.last_emit is not None:
+                self._tbt.observe(now - session.last_emit)
+            session.last_emit = now
+            if self.block_size is not None:  # echo exists only for preemption resume
+                session.echo.append(int(first[0]))
+            session.resident_base = session.produced
+            session.produced += 1
+            self._sessions[slot] = session
+            if start_done:
+                # the decode only flags done on tokens IT samples; the
+                # prompt-sampled token's ending must be masked here
+                self._finish_locked(slot, device_done=False)
+
+    def _finish_locked(self, slot: int, *, device_done: bool) -> None:
+        session = self._sessions.pop(slot)
+        session.finished = True
+        self._free.append(slot)
+        self._release_blocks_locked(slot)
+        if not device_done or self.block_size is not None:
+            # paged mode masks unconditionally: the table repoint to scratch
+            # must happen even when the device already flagged done
+            self._mask_slot_done(slot)
+        session.out.put(_SENTINEL)  # last: the engine state is consistent once the consumer wakes
+
+    def _decode_chunk(self) -> None:
+        with self._lock:
+            self._ensure_capacity_locked()
+            if not self._sessions:
+                return  # growth preempted the last resident; re-admission next loop
+        cfg = self.gen.config
+        toks, _, carry = self.gen._decode(*self._carry, steps=self.decode_chunk)
+        self._carry = carry
+        toks_np = toks.cpu().numpy()  # [S, chunk]; also waits for the dispatch
+        done_np = carry[3].cpu().numpy()
+        with self._lock:
+            self.decode_dispatches += 1
+            self.decoded_rows += len(self._sessions)
+            now = time.monotonic()
+            for slot in list(self._sessions):
+                session = self._sessions[slot]
+                row = toks_np[slot]
+                take = min(self.decode_chunk, session.max_new - session.produced)
+                if cfg.eos_id is not None:
+                    hits = np.nonzero(row[:take] == cfg.eos_id)[0]
+                    if hits.size:
+                        take = min(take, int(hits[0]) + 1)  # emit the eos, stop after
+                if take > 0:
+                    session.out.put(row[:take].copy())
+                    if session.last_emit is not None:
+                        self._tbt.observe(now - session.last_emit)
+                    session.last_emit = now
+                    if self.block_size is not None:
+                        session.echo.extend(int(t) for t in row[:take])
+                    session.produced += take
+                device_done = bool(done_np[slot])
+                if session.produced >= session.max_new or device_done:
+                    self._finish_locked(slot, device_done=device_done)
