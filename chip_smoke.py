@@ -8,17 +8,26 @@ Run from the repository root on a machine with one CUDA card::
 Phases (no phase catches a failure; any fault exits non-zero):
 
 1. print the card's name and power limit; build every kernel from ``csrc/``;
-2. hold each kernel against its plain PyTorch twin at full-width shapes
-   (float32 and bfloat16) and time kernel, twin, the library yardstick and
-   the bytes/operations bound with CUDA events;
+2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
+   paged decode at the served shapes; the flash forward, dq and dk/dv
+   kernels at full width causal, non-causal, cross-length causal and custom
+   blocks; then time kernel, twin, the library yardstick and the
+   bytes/operations bound with CUDA events;
 3. serve a Llama-3-8B-width model (32 layers, bf16, random weights from a
    seed) through ``ContinuousBatcher``: 4 concurrent streams x 32 tokens,
-   counting kernel launches on the main path;
+   counting paged kernel launches on this path;
 4. token parity at float32 with 2 layers of the same width: the engine's
-   streams (kernel path) equal a solo ``Generator`` run on the gather path.
+   streams (kernel path) equal a solo ``Generator`` run on the gather path;
+5. LoRA fine-tune a Llama-3-8B-width model (32 layers, bf16 compute, f32
+   parameters, random weights from a seed) through ``fit`` for 6 steps of
+   one 2048-token sequence, counting flash kernel launches on this path, and
+   check finite losses, a frozen base and moved adapters;
+6. training parity at float32 with 2 layers of the same width: 3 steps of
+   ``fit`` on the kernel path and on the plain path agree.
 
-``--profile`` adds one more served run under ``torch.profiler`` and prints
-the device-time breakdown (kernel time by name, the device's idle share).
+``--profile`` adds one more served run and one more training step under
+``torch.profiler`` and prints each device-time breakdown (kernel time by
+name, the device's idle share).
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -38,6 +47,27 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / f32 non-tensor
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+#: flash kernels against their twins: both compute in f32; the dk/dv sums of
+#: 2048 x 4 terms at full width run in another order (f32), and bfloat16
+#: outputs round to 8 bits of mantissa
+FLASH_TOLERANCE = {"torch.float32": (1e-4, 1e-5), "torch.bfloat16": (2e-2, 2e-2)}
+#: (label, Lq, Lk, causal, blocks) at H=32, Hkv=8, D=128, B=1
+FLASH_CASES = (
+    ("full width causal L=2048", 2048, 2048, True, None),
+    ("non-causal L=512", 512, 512, False, None),
+    ("cross-length causal Lq=256 Lk=512", 256, 512, True, None),
+    ("blocks=(64,64) causal L=192", 192, 192, True, (64, 64)),
+)
+#: products of 2 * Lq * Lk * D multiply-adds (per head, visible pairs only) each kernel computes
+FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward_dq": 3, "flash_backward_dkv": 4}
+FLASH_REPLACES = {
+    "flash_forward": "unionml_tpu/ops/flash_attention.py:160",
+    "flash_backward_dq": "unionml_tpu/ops/flash_attention.py:318",
+    "flash_backward_dkv": "unionml_tpu/ops/flash_attention.py:343",
+}
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_REMAT = 6, 2048, False
+PARITY_STEPS, PARITY_SEQ = 3, 256
+LR = 1e-4  # lora_optimizer's default rate
 PROMPT_LENS = (5, 40, 120, 250)
 MAX_NEW = 32
 BLOCK = 16
@@ -170,16 +200,18 @@ def serve(batcher, prompts) -> tuple:
     return results, time.perf_counter() - t0
 
 
-def profile_serving(batcher, prompts) -> None:
-    """Serve ``prompts`` once more under ``torch.profiler`` and print where the
+def profile_run(label: str, fn) -> None:
+    """Run ``fn`` once more under ``torch.profiler`` and print where the
     device time goes: kernel time by name, and the device's busy share of the
     wall time (the rest is the host launching eager PyTorch ops)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, seconds = serve(batcher, prompts)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     by_name: dict = {}
     for event in prof.events():
         if str(event.device_type).endswith("CUDA") and event.device_time > 0:
@@ -188,10 +220,234 @@ def profile_serving(batcher, prompts) -> None:
     busy_ms = sum(total for total, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({"profile": {
-        "wall_ms": seconds * 1e3, "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / (seconds * 1e3),
+        "run": label, "wall_ms": seconds * 1e3, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / (seconds * 1e3),
         "top_kernels": [{"name": name[:120], "ms": total, "calls": count, "share_of_busy": total / busy_ms}
                         for name, (total, count) in top],
     }}), flush=True)
+
+
+def visible_pairs(q_len: int, k_len: int, causal: bool) -> int:
+    """(query, key) pairs the causal mask (diagonal shifted by Lk - Lq) leaves visible."""
+    if not causal:
+        return q_len * k_len
+    offset = k_len - q_len
+    return sum(min(k_len, max(0, i + offset + 1)) for i in range(q_len))
+
+
+def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
+    """Least time of one call: its inputs read and outputs written once
+    (q/k/v, plus dO, lse and delta for the backward; out and lse, dq, or dk
+    and dv), against its products over the visible pairs at the input
+    type's peak rate."""
+    batch, q_len, n_heads, head_dim = q.shape
+    k_len = k.shape[1]
+    item = q.element_size()
+    qkv = (q.numel() + 2 * k.numel()) * item
+    stats = 4 * batch * n_heads * q_len
+    moved = {
+        "flash_forward": qkv + q.numel() * item + stats,
+        "flash_backward_dq": qkv + 2 * q.numel() * item + 2 * stats,
+        "flash_backward_dkv": qkv + q.numel() * item + 2 * stats + 2 * k.numel() * item,
+    }[name]
+    ops = FLASH_PRODUCTS[name] * 2 * visible_pairs(q_len, k_len, causal) * head_dim * batch * n_heads
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[str(q.dtype)]
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def flash_kernel_phase() -> dict:
+    """Each flash kernel against its twin on the same inputs, then times at
+    the full-width training shape (bf16, causal)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from unionml_tpu_torch.ops.flash_attention import (
+        flash_backward_dkv, flash_backward_dkv_reference, flash_backward_dq, flash_backward_dq_reference,
+        flash_forward, flash_forward_reference,
+    )
+
+    def inputs(q_len, k_len, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        make = lambda length, heads: torch.randn(1, length, heads, 128, device="cuda", generator=g).to(dtype)  # noqa: E731
+        return make(q_len, 32), make(k_len, 8), make(k_len, 8), make(q_len, 32)
+
+    worst = {name: 0.0 for name in FLASH_PRODUCTS}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = FLASH_TOLERANCE[str(dtype)]
+        for seed, (label, q_len, k_len, causal, blocks) in enumerate(FLASH_CASES):
+            q, k, v, dout = inputs(q_len, k_len, dtype, seed)
+            out, lse = flash_forward(q, k, v, causal)
+            ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
+            # both backward kernels take the twin's lse and delta, so each is held alone
+            delta = torch.einsum("blhd,blhd->bhl", dout.float(), ref_out.float())
+            dq = flash_backward_dq(q, k, v, dout, ref_lse, delta, causal)
+            dk, dv = flash_backward_dkv(q, k, v, dout, ref_lse, delta, causal)
+            torch.cuda.synchronize()
+            ref_dq = flash_backward_dq_reference(q, k, v, dout, ref_lse, delta, causal)
+            ref_dk, ref_dv = flash_backward_dkv_reference(q, k, v, dout, ref_lse, delta, causal)
+            errors = []
+            for what, name, got, ref in (
+                ("out", "flash_forward", out, ref_out), ("lse", "flash_forward", lse, ref_lse),
+                ("dq", "flash_backward_dq", dq, ref_dq), ("dk", "flash_backward_dkv", dk, ref_dk),
+                ("dv", "flash_backward_dkv", dv, ref_dv),
+            ):
+                err = (got.float() - ref.float()).abs()
+                ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                worst[name] = max(worst[name], err.max().item())
+                errors.append(f"{what} {err.max().item():.3g}{'' if ok else ' FAIL'}")
+                require(ok, f"{name} disagrees with its plain twin ({what}, {dtype}, {label})")
+            print(f"flash kernels {dtype} {label}: max_abs_err {', '.join(errors)} "
+                  f"(tolerance atol={atol} rtol={rtol}) ok", flush=True)
+
+    q, k, v, dout = inputs(TRAIN_SEQ, TRAIN_SEQ, torch.bfloat16, 99)
+    out, lse = flash_forward(q, k, v, True)
+    delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
+    calls = {
+        "flash_forward": (lambda: flash_forward(q, k, v, True), lambda: flash_forward_reference(q, k, v, True)),
+        "flash_backward_dq": (lambda: flash_backward_dq(q, k, v, dout, lse, delta, True),
+                              lambda: flash_backward_dq_reference(q, k, v, dout, lse, delta, True)),
+        "flash_backward_dkv": (lambda: flash_backward_dkv(q, k, v, dout, lse, delta, True),
+                               lambda: flash_backward_dkv_reference(q, k, v, dout, lse, delta, True)),
+    }
+    # library yardstick (not part of the port): SDPA's flash backend on [B, H, L, D],
+    # K/V expanded to 32 heads beforehand; its backward is (forward + backward) - forward
+    qh = q.transpose(1, 2).contiguous().requires_grad_()
+    kh = k.repeat_interleave(4, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vh = v.repeat_interleave(4, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    doh = dout.transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa_both_ms = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), (qh, kh, vh), doh))
+    sdpa_bwd_ms = sdpa_both_ms - sdpa_fwd_ms
+    numbers = {}
+    for name, (kernel, plain) in calls.items():
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        bms, bound_by = flash_bound_ms(name, q, k, True)
+        library_ms = sdpa_fwd_ms if name == "flash_forward" else sdpa_bwd_ms
+        numbers[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
+                             library_ms=library_ms)
+        print(f"{name} bf16 B=1 L={TRAIN_SEQ} H=32 Hkv=8 D=128 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms ({'SDPA flash forward' if name == 'flash_forward' else 'SDPA flash backward, dq and dk/dv together'}), "
+              f"bound {bms:.4f} ms ({bound_by}, {FLASH_PRODUCTS[name]} products), {bms / ms:.1%} of bound", flush=True)
+    fused_ms, _ = flash_bound_ms("flash_backward_dq", q, k, True)
+    print(f"a fused backward needs 5 products (bound {fused_ms * 5 / 3:.4f} ms); the dq and dk/dv kernels compute "
+          f"7 between them ({numbers['flash_backward_dq']['ms'] + numbers['flash_backward_dkv']['ms']:.4f} ms "
+          f"against SDPA's {sdpa_bwd_ms:.4f} ms)", flush=True)
+    return numbers
+
+
+def lora_llama(cfg, seed):
+    from unionml_tpu_torch import Llama, TrainState
+    from unionml_tpu_torch.models import lora_optimizer
+
+    model = Llama(cfg, seed=seed)
+    return TrainState(model, lora_optimizer(model, LR))
+
+
+def training_phase(card: str, profile: bool) -> dict:
+    """LoRA fine-tune at Llama-3-8B width through ``fit``: returns the flash
+    kernels' launch counts on this run."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
+    from unionml_tpu_torch.models import chunked_causal_lm_loss
+    from unionml_tpu_torch.ops.flash_attention import flash_backward_dkv, flash_backward_dq, flash_forward
+
+    cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash", remat=TRAIN_REMAT)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = lora_llama(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"Llama-3-8B width LoRA rank 8, {cfg.n_layers} layers, bf16 compute, f32 parameters: built in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+    probe = state.model.layer_0.attn.q_proj.kernel.detach().clone()  # one base kernel
+    adapters_b = {n: p.detach().clone() for n, p in state.model.named_parameters() if n.endswith("lora_b")}
+    tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, size=(TRAIN_STEPS, TRAIN_SEQ)).astype(np.int64)
+    step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
+    config = TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1)
+
+    for counted in (flash_forward, flash_backward_dq, flash_backward_dkv):
+        counted.launches = 0
+    t0 = time.perf_counter()
+    result = fit(state, step, tokens, config)
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in (flash_forward, flash_backward_dq, flash_backward_dkv)}
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [h["loss"] for h in result.history]
+    per_step = cfg.n_layers * TRAIN_STEPS
+    expected = {"flash_forward": per_step * (2 if cfg.remat else 1), "flash_backward_dq": per_step,
+                "flash_backward_dkv": per_step}
+    frozen = torch.equal(state.model.layer_0.attn.q_proj.kernel, probe)
+    moved = [n for n, p in state.model.named_parameters() if n in adapters_b and not torch.equal(p, adapters_b[n])]
+    sps = result.samples_per_sec
+    # model FLOPs of one step: 4 * N * T for the frozen matmuls (forward and input
+    # gradient; no weight gradient) plus 7 attention products (2 forward + 5 backward)
+    matmul_params = sum(p.numel() for n, p in state.model.named_parameters()
+                        if n.endswith(".kernel"))
+    attention = 7 * 2 * visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True) * cfg.n_heads * (cfg.dim // cfg.n_heads) * cfg.n_layers
+    flops = 4 * matmul_params * TRAIN_SEQ + attention
+    print(f"trained {result.steps} steps of B=1 x S={TRAIN_SEQ} in {seconds:.1f} s (first step {result.compile_time_s:.2f} s): "
+          f"{sps:.4f} samples/s, {sps * TRAIN_SEQ:.1f} tokens/s, {1e3 / sps if sps else float('nan'):.1f} ms/step; "
+          f"{flops * sps / 1e12:.1f} TFLOP/s achieved = (4 x {matmul_params} frozen matmul params x {TRAIN_SEQ} tokens "
+          f"+ {attention} attention ops) per step; peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated); losses {losses}; flash launches {launches} (expected {expected}); "
+          f"card {card}", flush=True)
+    require(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(frozen, "a frozen base kernel changed")
+    require(len(moved) == len(adapters_b) > 0, f"{len(adapters_b) - len(moved)} lora_b adapters did not move")
+    require(launches == expected, f"flash launches {launches}, expected {expected}")
+    if profile:
+        batch = torch.from_numpy(tokens[:1]).cuda()
+        profile_run("one training step", lambda: step(state, batch))
+    return launches
+
+
+def training_parity_phase() -> None:
+    """3 steps of ``fit`` at float32 through the flash kernels and through the
+    plain path, from the same weights and data: the loss histories and the
+    trained adapters agree."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
+    from unionml_tpu_torch.models import chunked_causal_lm_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama3_8b(n_layers=2, lora_rank=8, attention_impl="flash", dtype=torch.float32,
+                                param_dtype=torch.float32)
+    tokens = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(PARITY_STEPS, PARITY_SEQ)).astype(np.int64)
+    step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
+    runs = {}
+    for impl in ("flash", "auto"):
+        state = lora_llama(dc.replace(cfg, attention_impl=impl), seed=2)
+        result = fit(state, step, tokens, TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1))
+        runs[impl] = ([h["loss"] for h in result.history],
+                      {n: p.detach().clone() for n, p in state.model.named_parameters() if "lora" in n})
+        del state
+        torch.cuda.empty_cache()
+    (kernel_losses, kernel_lora), (plain_losses, plain_lora) = runs["flash"], runs["auto"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    diffs = torch.cat([(kernel_lora[n] - plain_lora[n]).abs().flatten() for n in plain_lora])
+    # Adam's step is near lr * sign(g) where a gradient is tiny, so a near-zero
+    # gradient whose sign differs between the paths moves an entry by up to
+    # 2 * lr per step; the mean bounds how many entries may do so
+    max_tol, mean_tol = 2 * LR * PARITY_STEPS, 1e-3 * LR
+    print(f"float32 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
+          f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance 1e-5); adapters max abs diff "
+          f"{diffs.max().item():.3g} (tolerance {max_tol}), mean {diffs.mean().item():.3g} (tolerance {mean_tol})",
+          flush=True)
+    require(len(kernel_losses) == PARITY_STEPS and loss_err <= 1e-5, "loss histories differ")
+    require(diffs.max().item() <= max_tol and diffs.mean().item() <= mean_tol, "trained adapters differ")
 
 
 def main() -> int:
@@ -232,8 +488,9 @@ def main() -> int:
     pages_per_seq = -(-cache_len // BLOCK)
     pool_pages = slots * pages_per_seq + 1  # + the scratch page
 
-    # ---- phase 2: kernel against its plain twin, and times
+    # ---- phase 2: kernels against their plain twins, and times
     numbers = kernel_phase(pool_pages, pages_per_seq)
+    flash_numbers = flash_kernel_phase()
 
     rng = np.random.RandomState(0)
 
@@ -269,7 +526,7 @@ def main() -> int:
     require(launches == expected > 0, f"{launches} kernel launches on the main path, expected {expected}")
     if args.profile:
         profiled = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
-        profile_serving(profiled, prompts)
+        profile_run("serve 4 streams", lambda: serve(profiled, prompts))
         profiled.close()
         del profiled
     del model, gen, warm, batcher
@@ -293,14 +550,29 @@ def main() -> int:
           f"solo Generator (gather path): {'identical' if parity else 'DIFFERENT'}", flush=True)
     require(paged_decode_attention.launches > before and parity, f"{engine_streams} != {solo_streams}")
 
-    print(json.dumps({"kernels": [{
+    del flash_model, plain_model, engine, solo
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: LoRA fine-tune at full width, then f32 training parity
+    flash_launches = training_phase(card, args.profile)
+    torch.cuda.empty_cache()
+    training_parity_phase()
+
+    kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": "unionml_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "unionml_tpu/ops/paged_attention.py:84",
         "launches": launches,
         **numbers,
-    }]}), flush=True)
+    }]
+    for name, measured in flash_numbers.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], **measured,
+        })
+    require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -10,11 +10,24 @@
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator, Llama, LlamaConfig
-from unionml_tpu_torch.models import init_cache, init_paged_cache
+from unionml_tpu_torch import (
+    ContinuousBatcher,
+    GenerationConfig,
+    Generator,
+    Llama,
+    LlamaConfig,
+    TrainerConfig,
+    TrainState,
+    evaluate,
+    fit,
+    make_train_step,
+)
+from unionml_tpu_torch.data import PrefetchIterator
+from unionml_tpu_torch.models import causal_lm_loss, init_cache, init_paged_cache
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "unionml_tpu")
@@ -43,7 +56,8 @@ def _forbidden(module: str) -> bool:
 def test_scan_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "unionml_tpu_torch/ops/paged_attention.py",
-            "unionml_tpu_torch/serving/continuous.py"} <= names
+            "unionml_tpu_torch/ops/flash_attention.py", "unionml_tpu_torch/serving/continuous.py",
+            "unionml_tpu_torch/train/driver.py", "unionml_tpu_torch/data/pipeline.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -65,11 +79,17 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["Llama", "Generator", "ContinuousBatcher", "init_cache", "init_paged_cache"])
+@pytest.mark.parametrize(
+    "entry",
+    ["Llama", "Generator", "ContinuousBatcher", "init_cache", "init_paged_cache", "PrefetchIterator", "fit",
+     "evaluate"],
+)
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     cfg = LlamaConfig.tiny(dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=32, vocab_size=16,
                            dtype=torch.float32, param_dtype=torch.float32)
     cpu_model = Llama(cfg, device="cpu", seed=0)
+    state = TrainState(cpu_model, torch.optim.SGD(cpu_model.parameters(), lr=0.1))
+    tokens = np.zeros((4, 5), np.int32)
     _no_cuda(monkeypatch)
     calls = {
         "Llama": lambda: Llama(cfg),
@@ -77,6 +97,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
         "ContinuousBatcher": lambda: ContinuousBatcher(Generator(cpu_model, GenerationConfig())),
         "init_cache": lambda: init_cache(cfg, 1, 8),
         "init_paged_cache": lambda: init_paged_cache(cfg, 1, 3, 4, 2, fill_block=2),
+        "PrefetchIterator": lambda: PrefetchIterator(tokens, 2),
+        "fit": lambda: fit(state, make_train_step(causal_lm_loss), tokens, TrainerConfig(batch_size=2)),
+        "evaluate": lambda: evaluate(state, lambda s, b: {}, tokens),
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()

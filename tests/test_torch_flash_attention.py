@@ -1,0 +1,192 @@
+"""The port's flash attention (``unionml_tpu_torch.ops.flash_attention``)
+against the JAX package's, on the CPU.
+
+On CPU tensors the port's three calls take their plain twins; the JAX side
+runs its Pallas kernels in interpret mode (``_flash_forward(...,
+interpret=True)`` and ``jax.grad`` through ``flash_attention(...,
+interpret=True)``), as its own tests do. Inputs are f32, made with numpy from
+a seed. Tolerances: 2e-5 absolute on ``out`` and ``lse``, 1e-4 on the
+gradients (f32; the two sides sum over up to 256 keys and, for dk/dv, over
+the query heads of a KV group in different orders).
+
+The hand-written kernels run only on a CUDA card with sm_90: those tests
+are marked ``cuda`` and skip elsewhere; on the card they run without JAX
+(``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``),
+so JAX is imported only inside the CPU parity tests.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from unionml_tpu_torch.ops.attention import dot_product_attention, multihead_attention
+from unionml_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_backward_dkv,
+    flash_backward_dkv_reference,
+    flash_backward_dq,
+    flash_backward_dq_reference,
+    flash_forward,
+    flash_forward_reference,
+)
+
+torch.set_num_threads(2)
+
+OUT_ATOL, GRAD_ATOL = 2e-5, 1e-4
+
+#: (q_len, k_len, heads, kv_heads, causal, blocks) at B=1, D=128
+CASES = {
+    "causal-gqa": (256, 256, 4, 2, True, None),
+    "noncausal-gqa": (256, 256, 4, 2, False, None),
+    "cross-length-causal": (128, 256, 4, 2, True, None),
+    "blocks-64-L192": (192, 192, 4, 2, True, (64, 64)),
+}
+
+
+def _inputs(q_len, k_len, heads, kv_heads, seed=0, head_dim=128):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(1, q_len, heads, head_dim).astype(np.float32)
+    k = rng.randn(1, k_len, kv_heads, head_dim).astype(np.float32)
+    v = rng.randn(1, k_len, kv_heads, head_dim).astype(np.float32)
+    w = rng.randn(1, q_len, heads, head_dim).astype(np.float32)  # dLoss/dOut of loss = sum(out * w)
+    return q, k, v, w
+
+
+def _port_grads(q, k, v, w, **kw):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, **kw)
+    (out * torch.from_numpy(w)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+@pytest.fixture(scope="module")
+def jax_flash():
+    import jax
+    import jax.numpy as jnp
+
+    from unionml_tpu.ops.flash_attention import _flash_forward, flash_attention as jax_flash_attention
+
+    def forward(q, k, v, causal, blocks):
+        out, lse = _flash_forward(*map(jnp.asarray, (q, k, v)), causal, True, blocks)
+        return np.asarray(out), np.asarray(lse)
+
+    def grads(q, k, v, w, causal, blocks):
+        loss = lambda *a: (jax_flash_attention(*a, causal=causal, interpret=True, blocks=blocks) * w).sum()  # noqa: E731
+        return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+
+    return forward, grads
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_jax_interpret(jax_flash, case):
+    q_len, k_len, heads, kv_heads, causal, blocks = CASES[case]
+    q, k, v, _ = _inputs(q_len, k_len, heads, kv_heads)
+    ref_out, ref_lse = jax_flash[0](q, k, v, causal, blocks)
+    before = flash_forward.launches
+    out, lse = flash_forward(*map(torch.from_numpy, (q, k, v)), causal)
+    assert flash_forward.launches == before  # CPU tensors never launch the kernel
+    assert out.dtype == torch.float32 and lse.shape == (1, heads, q_len)
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(
+        flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal, blocks=blocks).numpy(), ref_out,
+        atol=OUT_ATOL, rtol=0,
+    )
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_match_jax_grad_through_interpret(jax_flash, case):
+    q_len, k_len, heads, kv_heads, causal, blocks = CASES[case]
+    q, k, v, w = _inputs(q_len, k_len, heads, kv_heads, seed=1)
+    ref = jax_flash[1](q, k, v, w, causal, blocks)
+    _, grads = _port_grads(q, k, v, w, causal=causal, blocks=blocks)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
+def test_misaligned_fully_masked_rows_follow_the_contract_not_the_pallas_kernel():
+    """``Lq=256, Lk=192, blocks=(128, 64)``: the causal offset ``Lk - Lq =
+    -64`` is not a multiple of ``block_q``, so query rows 0-63 see no key.
+    The contract (``dot_product_attention``, both packages) gives those rows
+    0 and the backward lse ``1e30``. The JAX Pallas forward does not: its
+    masked scores are ``finfo.min``, not ``-inf``, so ``exp(m - m) = 1`` and
+    such a row, sharing a computed 128-row tile with rows that see keys,
+    returns the mean of V and lse ``finfo.min + log(block_k)``. The port
+    holds to the contract."""
+    from unionml_tpu.ops.attention import dot_product_attention as jax_attention
+
+    q, k, v, w = _inputs(256, 192, 4, 2, seed=2)
+    ref = np.asarray(jax_attention(q, k, v, causal=True))
+    out, grads = _port_grads(q, k, v, w, causal=True, blocks=(128, 64))
+    np.testing.assert_allclose(out, ref, atol=OUT_ATOL, rtol=0)
+    assert not out[:, :64].any()
+    _, lse = flash_forward(*map(torch.from_numpy, (q, k, v)), True)
+    assert (lse[:, :, :64] == 1e30).all() and (lse[:, :, 64:] < 1e3).all()
+    dense = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (dot_product_attention(*dense, causal=True) * torch.from_numpy(w)).sum().backward()
+    for name, got, t in zip(("dq", "dk", "dv"), grads, dense):
+        np.testing.assert_allclose(got, t.grad.numpy(), atol=GRAD_ATOL, rtol=0, err_msg=name)
+    assert not grads[0][:, :64].any()  # a row that sees nothing has no query gradient
+
+
+@pytest.mark.parametrize(
+    "shapes,blocks,match",
+    [
+        (((1, 64, 3, 16), (1, 64, 2, 16)), None, "must be a multiple of KV heads"),
+        (((1, 192, 2, 16), (1, 192, 1, 16)), None, r"blocks \(128, 128\) do not tile lengths \(192, 192\)"),
+        (((1, 64, 2, 16), (1, 96, 1, 16)), (64, 64), r"blocks \(64, 64\) do not tile lengths \(64, 96\)"),
+    ],
+    ids=["kv-heads", "default-blocks", "custom-blocks"],
+)
+def test_shape_errors_match_jax_messages(shapes, blocks, match):
+    q, k = torch.zeros(shapes[0]), torch.zeros(shapes[1])
+    with pytest.raises(ValueError, match=match):
+        flash_attention(q, k, k, causal=True, blocks=blocks)
+
+
+def test_masked_and_auto_calls_stay_on_the_plain_path(monkeypatch):
+    """Only an unmasked ``impl="flash"`` call reaches ``flash_attention``
+    (``test_torch_layers.py`` checks that one); a masked call takes the
+    plain path as in the JAX package, whose kernels take no mask."""
+    from unionml_tpu_torch.ops import attention as attention_module
+
+    monkeypatch.setattr(attention_module, "flash_attention", lambda *a, **kw: pytest.fail("reached flash"))
+    q = torch.randn(1, 4, 2, 16)
+    mask = torch.ones(1, 1, 4, 4, dtype=torch.bool)
+    out = multihead_attention(q, q, q, mask=mask, impl="flash")
+    torch.testing.assert_close(out, dot_product_attention(q, q, q, mask=mask))
+    multihead_attention(q, q, q, causal=True, impl="auto")
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs a CUDA card with sm_90 (the kernels have no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["cross-length-causal", "blocks-64-L192", "ragged-L40-D64"])
+def test_kernels_match_twins_on_card(card, dtype, case):
+    q_len, k_len, heads, kv_heads, causal, _ = CASES.get(case, (40, 40, 4, 1, True, None))
+    head_dim = 64 if case.endswith("D64") else 128
+    dtype = getattr(torch, dtype)
+    q, k, v, w = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(q_len, k_len, heads, kv_heads, 3, head_dim))
+    counts = [fn.launches for fn in (flash_forward, flash_backward_dq, flash_backward_dkv)]
+    out, lse = flash_forward(q, k, v, causal)
+    ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
+    delta = torch.einsum("blhd,blhd->bhl", w.float(), ref_out.float())
+    dq = flash_backward_dq(q, k, v, w, ref_lse, delta, causal)
+    dk, dv = flash_backward_dkv(q, k, v, w, ref_lse, delta, causal)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (flash_forward, flash_backward_dq, flash_backward_dkv)] == [c + 1 for c in counts]
+    ref_dq = flash_backward_dq_reference(q, k, v, w, ref_lse, delta, causal)
+    ref_dk, ref_dv = flash_backward_dkv_reference(q, k, v, w, ref_lse, delta, causal)
+    # both compute in f32; bfloat16 outputs round to 8 mantissa bits
+    atol, rtol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+    for got, want in ((out, ref_out), (lse, ref_lse), (dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)

@@ -88,10 +88,23 @@ def test_dot_product_attention_matches_jax(name):
         assert torch.count_nonzero(port[1, 2]) == 0
 
 
-def test_flash_forward_without_mask_raises_not_quietly_plain():
-    q = torch.zeros(1, 2, HEADS, HEAD_DIM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        multihead_attention(q, q, q, causal=True, impl="flash")
+def test_flash_forward_without_mask_raises_not_quietly_plain(monkeypatch):
+    """An unmasked ``impl="flash"`` call never quietly takes the plain path:
+    it reaches ``flash_attention`` (whose CUDA tensors launch the kernels or
+    raise), with grouped-query K/V unexpanded."""
+    from unionml_tpu_torch.ops import attention as attention_module
+
+    seen = []
+
+    def spy(q, k, v, *, causal):
+        seen.append((tuple(k.shape), causal))
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(attention_module, "flash_attention", spy)
+    monkeypatch.setattr(attention_module, "dot_product_attention", lambda *a, **kw: pytest.fail("took the plain path"))
+    q, kv = torch.zeros(1, 2, HEADS, HEAD_DIM), torch.zeros(1, 2, KV_HEADS, HEAD_DIM)
+    multihead_attention(q, kv, kv, causal=True, impl="flash")
+    assert seen == [((1, 2, KV_HEADS, HEAD_DIM), True)]
 
 
 def test_lora_dense_matches_flax():
@@ -106,6 +119,41 @@ def test_lora_dense_matches_flax():
     dense = tl.LoRADense(DIM, 16, rank=4, dtype=torch.float32, device="cpu")
     dense.load_state_dict(state_dict_from_jax(tree, dense))
     _close(dense(torch.from_numpy(x)).detach(), ref, atol=1e-4)
+
+
+def test_lora_dense_gradients_match_flax():
+    """dW, dA, dB and dx of ``sum(y * w)`` equal flax's (1e-4 absolute: f32
+    sums over 32 inputs and 6 rows in different orders)."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 3, DIM).astype(np.float32)
+    w = rng.randn(2, 3, 16).astype(np.float32)
+    tree = {"kernel": rng.randn(DIM, 16).astype(np.float32), "lora_a": rng.randn(DIM, 4).astype(np.float32),
+            "lora_b": rng.randn(4, 16).astype(np.float32)}
+    module = jl.LoRADense(16, rank=4, dtype=jnp.float32)
+    ref_params, ref_x = jax.grad(
+        lambda p, xx: (module.apply({"params": p}, xx) * w).sum(), argnums=(0, 1)
+    )(tree, jnp.asarray(x))
+    dense = tl.LoRADense(DIM, 16, rank=4, dtype=torch.float32, device="cpu")
+    dense.load_state_dict(state_dict_from_jax(tree, dense))
+    tx = torch.from_numpy(x).requires_grad_()
+    (dense(tx) * torch.from_numpy(w)).sum().backward()
+    _close(tx.grad, ref_x, atol=1e-4)
+    for name in tree:
+        _close(getattr(dense, name).grad, ref_params[name], atol=1e-4)
+
+
+def test_iota_embed_gradient_equals_the_one_hot_backward():
+    """``F.embedding``'s scatter-add gives the table gradient of the JAX
+    module's one-hot-matmul backward, repeated tokens included."""
+    tokens = np.array([[1, 3, 3], [0, 7, 1]], np.int32)
+    table = np.random.RandomState(8).randn(8, DIM).astype(np.float32)
+    g = np.random.RandomState(9).randn(2, 3, DIM).astype(np.float32)
+    module = jl.IotaEmbed(8, DIM, dtype=jnp.float32)
+    ref = jax.grad(lambda p: (module.apply({"params": p}, jnp.asarray(tokens)) * g).sum())({"embedding": table})
+    embed = tl.IotaEmbed(8, DIM, dtype=torch.float32, device="cpu")
+    embed.load_state_dict(state_dict_from_jax({"embedding": table}, embed))
+    (embed(torch.from_numpy(tokens)) * torch.from_numpy(g)).sum().backward()
+    _close(embed.embedding.grad, ref["embedding"])
 
 
 # ---------------------------------------------------------------- Attention cache branches

@@ -1,4 +1,4 @@
-"""Weight bridge: flax parameter trees -> the port's modules.
+"""Weight bridge: flax parameter trees <-> the port's modules.
 
 The port's parameter names are the flax paths with ``/`` written as ``.``
 (``layer_0/attn/q_proj/kernel`` -> ``layer_0.attn.q_proj.kernel``) and its
@@ -6,6 +6,8 @@ kernels stay ``[in, out]``, so a leaf loads as it is. The bridge takes the tree
 as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``), so this package never imports JAX. It raises on any leaf left
 over and on any parameter left missing, and casts once to the dtype asked for.
+The way back, :func:`llama_params_to_numpy`, gives a module's parameters as
+the same nested dicts, so trained weights compare leaf for leaf.
 """
 
 from __future__ import annotations
@@ -63,3 +65,17 @@ def llama_params_from_jax(
     adapters where ``lora_rank > 0``). Load it with
     ``Llama(config, device=...).load_state_dict(...)``."""
     return state_dict_from_jax(tree, Llama(config, device="meta"), dtype)
+
+
+def llama_params_to_numpy(model: Llama) -> Dict[str, Any]:
+    """The way back of :func:`llama_params_from_jax`: a :class:`Llama`'s
+    parameters as nested dicts of f32 numpy arrays shaped like the flax tree
+    (``layer_0.attn.q_proj.kernel`` -> ``tree["layer_0"]["attn"]["q_proj"]["kernel"]``)."""
+    tree: Dict[str, Any] = {}
+    for name, param in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = param.detach().float().cpu().numpy()
+    return tree

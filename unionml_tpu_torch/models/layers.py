@@ -68,8 +68,11 @@ class RMSNorm(nn.Module):
 
 
 class IotaEmbed(nn.Module):
-    """Token embedding; the forward is a gather (the JAX module's one-hot
-    backward is a training concern and is not ported)."""
+    """Token embedding: a gather forward, and ``F.embedding``'s scatter-add
+    backward. The JAX module's one-hot-matmul backward exists so the SPMD
+    partitioner can shard the table's gradient; on one card the scatter-add
+    gives the same ``dW`` (the summed rows of the output gradient per
+    token), and a frozen table (LoRA) computes none."""
 
     def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, device: Any = None):
@@ -123,7 +126,9 @@ class Attention(nn.Module):
     """Multi-head (optionally grouped-query) attention with RoPE and impl dispatch.
 
     ``impl``: ``"auto"``/``"xla"`` (plain attention) or ``"flash"``. Under
-    ``"flash"`` a paged cache's single-token decode reads the pool through
+    ``"flash"`` the uncached forward (training) goes through
+    :func:`~unionml_tpu_torch.ops.flash_attention.flash_attention` and a
+    paged cache's single-token decode reads the pool through
     :func:`~unionml_tpu_torch.ops.paged_attention.paged_decode_attention`;
     every other case takes the plain path, exactly as in the JAX package.
     """

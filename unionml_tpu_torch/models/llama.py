@@ -9,11 +9,12 @@ checkpoint leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch.models.layers import IotaEmbed, RMSNorm, TransformerBlock, init_weights
@@ -31,6 +32,9 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     lora_rank: int = 0
     attention_impl: str = "auto"
+    #: recompute each block's activations in the backward instead of keeping
+    #: them (``nn.remat`` in the JAX package; ``torch.utils.checkpoint`` here)
+    remat: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -120,6 +124,8 @@ class Llama(nn.Module):
             if cache is not None:
                 x, layer_cache = block(x, positions, None, cache[i])
                 new_cache.append(layer_cache)
+            elif self.config.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, positions, use_reentrant=False)
             else:
                 x = block(x, positions)
         x = self.final_norm(x)
@@ -128,12 +134,84 @@ class Llama(nn.Module):
         return (x, tuple(new_cache)) if cache is not None else x
 
 
-def causal_lm_loss(model: nn.Module, batch: Any) -> torch.Tensor:
-    """Next-token cross-entropy (forward only). ``batch``: ``(tokens,
-    loss_mask)`` or a tokens tensor."""
+def lora_param_labels(model: nn.Module) -> Dict[str, str]:
+    """Parameter name -> ``"lora"`` for adapter parameters (a name containing
+    ``lora``), ``"frozen"`` for the base weights."""
+    return {name: "lora" if "lora" in name else "frozen" for name, _ in model.named_parameters()}
+
+
+def lora_optimizer(model: nn.Module, learning_rate: float = 1e-4, **adam_kwargs: Any) -> torch.optim.AdamW:
+    """AdamW on the LoRA adapters only; the base weights are frozen
+    (``requires_grad_(False)``: no gradient is computed for them, where the
+    JAX package computes and zeroes it with ``optax.set_to_zero``).
+
+    Defaults are optax.adamw's, written out: ``b1=0.9``, ``b2=0.999``,
+    ``eps=1e-8``, ``weight_decay=1e-4`` (torch's own decay default is 1e-2).
+    optax's names ``b1``/``b2`` are taken; other keywords go to
+    :class:`torch.optim.AdamW`. The update is optax's: decoupled decay on the
+    old parameter plus the bias-corrected Adam step, both times the rate."""
+    labels = lora_param_labels(model)
+    adapters = []
+    for name, param in model.named_parameters():
+        if labels[name] == "lora":
+            adapters.append(param)
+        else:
+            param.requires_grad_(False)
+    if not adapters:
+        raise ValueError("the model has no LoRA parameters; build it with lora_rank > 0")
+    betas = (adam_kwargs.pop("b1", 0.9), adam_kwargs.pop("b2", 0.999))
+    return torch.optim.AdamW(
+        adapters, lr=learning_rate, betas=betas, eps=adam_kwargs.pop("eps", 1e-8),
+        weight_decay=adam_kwargs.pop("weight_decay", 1e-4), **adam_kwargs,
+    )
+
+
+def _split_batch(batch: Any):
     tokens, mask = batch if isinstance(batch, (tuple, list)) and len(batch) == 2 else (batch, None)
     if isinstance(tokens, (tuple, list)):
         tokens = tokens[0]
+    return tokens, mask
+
+
+def chunked_causal_lm_loss(model: "Llama", batch: Any, *, chunk_size: int = 256) -> torch.Tensor:
+    """Next-token cross-entropy without the full ``[B, S, vocab]`` f32 logits.
+
+    The LM head and the softmax run over ``chunk_size``-token slices, each
+    under ``torch.utils.checkpoint`` (``jax.checkpoint`` in the JAX package),
+    so at most one chunk's logits exist at a time and the backward recomputes
+    them. The sequence is padded to a whole number of chunks (padding has
+    weight 0) and the sum is divided by the mask's sum. Equal to
+    :func:`causal_lm_loss` up to summation order. The head is cast to the
+    hidden states' dtype once, outside the chunks."""
+    tokens, mask = _split_batch(batch)
+    hidden = model(tokens, return_hidden=True)[:, :-1]  # [B, S, D]
+    targets = tokens[:, 1:].long()
+    valid = torch.ones(targets.shape, dtype=torch.float32, device=targets.device) if mask is None \
+        else mask[:, 1:].float()
+    head = model.lm_head.kernel.to(hidden.dtype)
+    pad = (-targets.shape[1]) % chunk_size
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        valid = F.pad(valid, (0, pad))
+
+    def chunk_loss(h: torch.Tensor, t: torch.Tensor, m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        logits = (h @ w).float()
+        losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), t.reshape(-1), reduction="none")
+        return (losses * m.reshape(-1)).sum()
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for lo in range(0, targets.shape[1], chunk_size):
+        hi = lo + chunk_size
+        total = total + checkpoint(chunk_loss, hidden[:, lo:hi], targets[:, lo:hi], valid[:, lo:hi], head,
+                                   use_reentrant=False)
+    return total / valid.sum().clamp_min(1.0)
+
+
+def causal_lm_loss(model: nn.Module, batch: Any) -> torch.Tensor:
+    """Next-token cross-entropy. ``batch``: ``(tokens,
+    loss_mask)`` or a tokens tensor."""
+    tokens, mask = _split_batch(batch)
     logits = model(tokens)[:, :-1].float()
     targets = tokens[:, 1:].long()
     losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), reduction="none")

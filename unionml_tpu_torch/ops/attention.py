@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from unionml_tpu_torch.ops.flash_attention import flash_attention
+
 
 def dot_product_attention(
     q: torch.Tensor,
@@ -69,16 +71,15 @@ def multihead_attention(
 ) -> torch.Tensor:
     """Dispatching attention entry point used by the model library.
 
-    ``impl``: ``"auto"``/``"xla"`` (the plain reference) or ``"flash"``. A
-    masked call always takes the reference, as in the JAX package. The flash
-    forward kernel has no Hopper counterpart yet, so an unmasked
-    ``impl="flash"`` call raises instead of quietly running the plain path.
+    ``impl``: ``"auto"``/``"xla"`` (the plain reference) or ``"flash"``, which
+    sends an unmasked call to :func:`flash_attention` (the Hopper kernels on
+    CUDA tensors, their twins on the CPU). A masked call always takes the
+    reference, as in the JAX package: the kernels take no arbitrary mask.
     """
-    if impl == "flash" and mask is None:
-        raise NotImplementedError(
-            "the flash attention forward kernel is not ported to CUDA yet "
-            "(ROADMAP.md, Queue B); use attention_impl=\"auto\""
-        )
     if impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "flash" and mask is None:
+        # grouped-query KV passes through unexpanded: the kernels map query
+        # head h to KV head h * n_kv // n_heads
+        return flash_attention(q, k, v, causal=causal)
     return dot_product_attention(q, k, v, causal=causal, mask=mask)

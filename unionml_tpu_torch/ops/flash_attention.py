@@ -1,0 +1,261 @@
+"""Flash attention: blocked online-softmax forward and recompute backward.
+
+Counterpart of ``unionml_tpu/ops/flash_attention.py``. There the forward and
+the two backward kernels are Pallas TPU kernels; here they are the
+hand-written Hopper kernels of ``csrc/flash_attention.cu``. The
+``[L, L]`` score matrix never reaches device memory in either direction: the
+forward saves the per-row logsumexp and the backward recomputes
+``P = exp(S - lse)`` tile by tile.
+
+:func:`flash_attention` is a :class:`torch.autograd.Function` whose forward
+and backward make the same three calls on every device:
+:func:`flash_forward`, :func:`flash_backward_dq` and
+:func:`flash_backward_dkv`. Each launches its kernel for CUDA tensors (or
+raises) and takes its plain twin (``*_reference``, dense tensors, f32) only
+for tensors on the CPU. ``delta = rowsum(dO * O)`` is one plain f32
+reduction outside the kernels, as in the JAX code.
+
+Shapes: ``q: [B, Lq, H, D]``, ``k/v: [B, Lk, Hkv, D]`` with ``H % Hkv == 0``.
+The API's ``blocks`` only decide which lengths are legal, as in the JAX
+package (``min(block, L)`` must tile ``L``); the kernels keep their own
+64-row tiles and mask ragged ones. A query row that sees no key (causal with
+``Lq > Lk``) gives 0 and lse ``1e30`` — the contract of
+:func:`~unionml_tpu_torch.ops.attention.dot_product_attention`. The Pallas
+forward breaks it when ``Lk - Lq`` is not a multiple of ``block_q``: its
+masked scores are ``finfo.min``, not ``-inf``, so such a row that shares a
+computed tile with rows that do see keys gets the mean of V.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+__all__ = [
+    "flash_attention",
+    "flash_backward_dkv",
+    "flash_backward_dkv_reference",
+    "flash_backward_dq",
+    "flash_backward_dq_reference",
+    "flash_forward",
+    "flash_forward_reference",
+]
+
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+MAX_HEAD_DIM = 128  # the kernels' register tiles hold up to 128 head-dim columns
+_BIG = 1e30  # lse of a row that sees no key: exp(S - BIG) == 0
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+Blocks = Optional[Tuple[int, int]]
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, blocks: Blocks) -> None:
+    """The JAX entry's checks, with its messages: KV heads divide the query
+    heads, and ``min(block, L)`` tiles each length."""
+    q_len, n_heads = q.shape[1], q.shape[2]
+    k_len, n_kv = k.shape[1], k.shape[2]
+    if n_heads % n_kv:
+        raise ValueError(f"query heads ({n_heads}) must be a multiple of KV heads ({n_kv})")
+    block_q = min((blocks or (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K))[0], q_len)
+    block_k = min((blocks or (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K))[1], k_len)
+    if q_len % block_q or k_len % block_k:
+        raise ValueError(f"blocks ({block_q}, {block_k}) do not tile lengths ({q_len}, {k_len})")
+
+
+# ---------------------------------------------------------------- plain twins
+
+
+def _visible(q_len: int, k_len: int, device: torch.device) -> torch.Tensor:
+    """``[Lq, Lk]``: query row i sees key j when ``i + (Lk - Lq) >= j``."""
+    q_idx = torch.arange(q_len, device=device)[:, None]
+    k_idx = torch.arange(k_len, device=device)[None, :]
+    return q_idx + (k_len - q_len) >= k_idx
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """``scale * q.k`` in f32 as ``[B, H, Lq, Lk]``, masked entries ``-inf``."""
+    group = q.shape[2] // k.shape[2]
+    keys = k.float().repeat_interleave(group, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), keys) * q.shape[-1] ** -0.5
+    if causal:
+        scores = scores.masked_fill(~_visible(q.shape[1], k.shape[1], q.device), float("-inf"))
+    return scores
+
+
+def flash_forward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's plain twin: ``(out in q's dtype, lse [B, H, Lq] f32)``."""
+    scores = _scores(q, k, causal)
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # a row that sees no key
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    values = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / torch.where(l == 0, torch.ones_like(l), l), values)
+    lse = torch.where(l == 0, torch.full_like(l, _BIG), m + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def _recompute(q, k, v, dout, lse, delta, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``P = exp(S - lse)`` and ``dS = P * (dO.V^T - delta)``, ``[B, H, Lq, Lk]`` f32."""
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    values = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), values)
+    return p, p * (dp - delta[..., None])
+
+
+def flash_backward_dq_reference(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
+    """The dq kernel's plain twin: ``scale * dS.K``, in q's dtype."""
+    _, ds = _recompute(q, k, v, dout, lse, delta, causal)
+    keys = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, keys) * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's plain twin: ``dv = P^T.dO`` and ``dk = scale *
+    dS^T.Q`` per query head, summed over each KV group in f32, then cast to
+    k's and v's dtype."""
+    p, ds = _recompute(q, k, v, dout, lse, delta, causal)
+    batch, k_len, n_kv, head_dim = k.shape
+    group = q.shape[2] // n_kv
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * head_dim**-0.5
+    dk = dk.reshape(batch, k_len, n_kv, group, head_dim).sum(dim=3)
+    dv = dv.reshape(batch, k_len, n_kv, group, head_dim).sum(dim=3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+
+_ARGTYPES = {
+    "flash_attention_forward": 5,
+    "flash_attention_backward_dq": 7,
+    "flash_attention_backward_dkv": 8,
+}
+
+
+def _kernel(name: str):
+    from unionml_tpu_torch._build import load_library
+
+    fn = getattr(load_library("flash_attention"), name)
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * _ARGTYPES[name] + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_kernel_inputs(q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    if q.dim() != 4 or any(t.dim() != 4 for t in tensors[:3]):
+        raise ValueError("expected q [B, Lq, H, D] and k/v/dO [B, L, heads, D]")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors[:3]):
+        raise TypeError(f"the kernels take float32 or bfloat16 q/k/v/dO of one dtype, got {q.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} exceeds the kernels' {MAX_HEAD_DIM}")
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
+
+
+def _launch(name: str, counter, q, k, *pointers_and_tensors, causal: bool) -> None:
+    """Launch ``name`` on q's current stream; raise on a refused launch."""
+    batch, q_len, n_heads, head_dim = q.shape
+    k_len, n_kv = k.shape[1], k.shape[2]
+    fn = _kernel(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in pointers_and_tensors), batch, n_heads, n_kv, q_len, k_len, head_dim,
+            int(causal), head_dim**-0.5, _DTYPE_CODES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    counter.launches += 1
+
+
+def _device_of(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on CUDA or CPU tensors, got {q.device}")
+    return q.device.type
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: the forward kernel for CUDA tensors, its twin on the CPU."""
+    if _device_of(q) == "cpu":
+        return flash_forward_reference(q, k, v, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_kernel_inputs(q, k, v, k)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32, device=q.device)
+    _launch("flash_attention_forward", flash_forward, q, k, q, k, v, out, lse, causal=causal)
+    return out, lse
+
+
+def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
+    """``dq``: the dq kernel for CUDA tensors, its twin on the CPU."""
+    if _device_of(q) == "cpu":
+        return flash_backward_dq_reference(q, k, v, dout, lse, delta, causal)
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    _check_kernel_inputs(q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("flash_attention_backward_dq", flash_backward_dq, q, k, q, k, v, dout, lse, delta, dq, causal=causal)
+    return dq
+
+
+def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` at KV-head resolution: the dk/dv kernel for CUDA tensors,
+    its twin on the CPU."""
+    if _device_of(q) == "cpu":
+        return flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal)
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    _check_kernel_inputs(q, k, v, dout, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(
+        "flash_attention_backward_dkv", flash_backward_dkv, q, k, q, k, v, dout, lse, delta, dk, dv, causal=causal
+    )
+    return dk, dv
+
+
+#: kernel launches since the count was last reset (CPU calls never count)
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, blocks: Blocks):
+        out, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.blocks = causal, blocks
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        _check_shapes(q, k, ctx.blocks)  # the backward follows the forward's blocks, as in JAX
+        # delta_i = rowsum(dO_i * O_i), the dS correction term; [B, H, Lq] like lse
+        delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
+        dq = flash_backward_dq(q, k, v, dout, lse, delta, ctx.causal)
+        dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False, blocks: Blocks = None
+) -> torch.Tensor:
+    """Flash attention entry point: ``out [B, Lq, H, D]`` in q's dtype, and a
+    backward through the dq and dk/dv kernels. ``k/v`` may carry fewer (KV)
+    heads than q. ``blocks=(block_q, block_k)`` overrides the tiles that
+    decide which lengths are legal (default 128 x 128)."""
+    _check_shapes(q, k, blocks)
+    return _FlashAttention.apply(q, k, v, causal, blocks)
