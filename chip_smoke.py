@@ -11,13 +11,20 @@ Phases (no phase catches a failure; any fault exits non-zero):
 2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
    paged decode at the served shapes; the flash forward, dq and dk/dv
    kernels at full width causal, non-causal, cross-length causal and custom
-   blocks; then time kernel, twin, the library yardstick and the
-   bytes/operations bound with CUDA events;
+   blocks; the int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5
+   and 130; then time kernel, twin, the library yardstick and the
+   bytes/operations bound with CUDA events (int8 also summed over one decode
+   step's 225 matmuls);
 3. serve a Llama-3-8B-width model (32 layers, bf16, random weights from a
    seed) through ``ContinuousBatcher``: 4 concurrent streams x 32 tokens,
-   counting paged kernel launches on this path;
+   counting paged kernel launches on this path; then serve the same weights
+   through ``Generator(quantize="int8")`` (the model held in int8, under
+   10 GiB), counting 225 int8 matmul launches per forward and the paged
+   kernel's;
 4. token parity at float32 with 2 layers of the same width: the engine's
    streams (kernel path) equal a solo ``Generator`` run on the gather path;
+   with int8 weights, the engine and a solo run on the card (int8 kernel)
+   equal the same weights' run on the CPU (the twins);
 5. LoRA fine-tune a Llama-3-8B-width model (32 layers, bf16 compute, f32
    parameters, random weights from a seed) through ``fit`` for 6 steps of
    one 2048-token sequence, counting flash kernel launches on this path, and
@@ -25,8 +32,8 @@ Phases (no phase catches a failure; any fault exits non-zero):
 6. training parity at float32 with 2 layers of the same width: 3 steps of
    ``fit`` on the kernel path and on the plain path agree.
 
-``--profile`` adds one more served run and one more training step under
-``torch.profiler`` and prints each device-time breakdown (kernel time by
+``--profile`` adds one more served run (bf16 and int8) and one more training
+step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
 name, the device's idle share).
 
 Prints one ``{"kernels": [...]}`` line and ends with
@@ -45,6 +52,7 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SPIN_CYCLES = 1_000_000  # about 0.5 ms of SM clock: longer than a wrapper's host work
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / f32 non-tensor
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 #: flash kernels against their twins: both compute in f32; the dk/dv sums of
@@ -65,10 +73,27 @@ FLASH_REPLACES = {
     "flash_backward_dq": "unionml_tpu/ops/flash_attention.py:318",
     "flash_backward_dkv": "unionml_tpu/ops/flash_attention.py:343",
 }
+#: (weights, K, F, matmuls of one decode step) of Llama-3-8B: 32 layers of
+#: q/o, k/v, wg/wi and wo, and the head; 225 in all
+INT8_WEIGHTS = (
+    ("q/o", 4096, 4096, 64),
+    ("k/v", 4096, 1024, 64),
+    ("wg/wi", 4096, 14336, 64),
+    ("wo", 14336, 4096, 32),
+    ("lm_head", 4096, 128256, 1),
+)
+INT8_PER_FORWARD = sum(n for *_, n in INT8_WEIGHTS)
+INT8_M = (4, 256, 5, 130)  # decode, admission prefill, and two ragged M
+INT8_TIMED_M = (4, 256)
+#: int8 kernel against its twin in f32: both sum exact products in f32, in
+#: another order, so |kernel - twin| <= 1e-5 * max|twin|; bf16 is TOLERANCE's
+INT8_F32_REL = 1e-5
+INT8_MODEL_LIMIT = 10 * 2**30  # bytes the int8 model may hold: the bf16 kernels must be gone
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_REMAT = 6, 2048, False
 PARITY_STEPS, PARITY_SEQ = 3, 256
 LR = 1e-4  # lora_optimizer's default rate
 PROMPT_LENS = (5, 40, 120, 250)
+INT8_PARITY_NEW = 8
 MAX_NEW = 32
 BLOCK = 16
 
@@ -85,10 +110,14 @@ def require(condition: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, runs: int = 50) -> float:
+def time_ms(fn, runs: int = 50, spin: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over ``runs`` launches, each after a
     64 MiB write that evicts the 50 MB L2 (in decode, the other layers'
-    weights pass through L2 between two reads of one layer's pool)."""
+    weights pass through L2 between two reads of one layer's pool). The card
+    then spins for about 0.5 ms before the start event, so the host's launch
+    work for ``fn`` overlaps the spin and the events time the device's work
+    alone; ``spin=False`` times a call with its host launch work, which
+    shows in a small kernel's time."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
@@ -98,6 +127,8 @@ def time_ms(fn, runs: int = 50) -> float:
     times = []
     for _ in range(runs):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -339,6 +370,157 @@ def flash_kernel_phase() -> dict:
     return numbers
 
 
+def int8_bound_ms(m: int, k_dim: int, f_dim: int, x_item: int, out_item: int) -> tuple:
+    """Least time of one int8 matmul: x, the int8 weight, its scales and the
+    output moved once, against 2 * M * K * F operations at the bf16
+    tensor-core rate."""
+    moved = m * k_dim * x_item + k_dim * f_dim + 4 * f_dim + m * f_dim * out_item
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, 2 * m * k_dim * f_dim / PEAK_OPS_PER_S["torch.bfloat16"]
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def int8_kernel_phase() -> dict:
+    """The int8 matmul against its twin at every Llama-3-8B weight shape, then
+    times at decode and admission M (bf16 in and out, the served types)."""
+    import torch
+
+    from unionml_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from unionml_tpu_torch.ops.quant import dequantize, quantize_array
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst, timed = 0.0, {}
+    for label, k_dim, f_dim, _ in INT8_WEIGHTS:
+        qt = quantize_array(torch.randn(k_dim, f_dim, device="cuda", generator=g) * k_dim ** -0.5)
+        errors = []
+        for m in INT8_M:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(m, k_dim, device="cuda", generator=g).to(dtype)
+                out = int8_matmul(x, qt.q, qt.scale)
+                torch.cuda.synchronize()
+                ref = int8_matmul_reference(x, qt.q, qt.scale)
+                err = (out.float() - ref.float()).abs()
+                if dtype == torch.float32:
+                    ok = err.max().item() <= INT8_F32_REL * ref.abs().max().item()
+                else:
+                    atol, rtol = TOLERANCE[str(dtype)]
+                    ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                worst = max(worst, err.max().item())
+                errors.append(f"M={m} {str(dtype)[6:]} {err.max().item():.3g}{'' if ok else ' FAIL'}")
+                require(ok and out.dtype == dtype, f"int8_matmul disagrees with its plain twin ([{k_dim}, {f_dim}], "
+                                                   f"M={m}, {dtype})")
+        print(f"int8_matmul [{k_dim}, {f_dim}] ({label}): max_abs_err {', '.join(errors)} (tolerance f32 "
+              f"{INT8_F32_REL} x max|twin|, bf16 atol={TOLERANCE['torch.bfloat16'][0]} "
+              f"rtol={TOLERANCE['torch.bfloat16'][1]}) ok", flush=True)
+        w_bf16 = dequantize(qt, torch.bfloat16)  # the library yardstick's weight, made once
+        for m in INT8_TIMED_M:
+            x = torch.randn(m, k_dim, device="cuda", generator=g).to(torch.bfloat16)
+            ms = time_ms(lambda: int8_matmul(x, qt.q, qt.scale))
+            plain_ms = time_ms(lambda: int8_matmul_reference(x, qt.q, qt.scale))
+            library_ms = time_ms(lambda: x @ w_bf16)
+            bms, bound_by = int8_bound_ms(m, k_dim, f_dim, 2, 2)
+            timed[(label, m)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
+            # what an eager caller pays per call on an idle device: the host's launch work included
+            launched = (f"; with the host's launch work: kernel {time_ms(lambda: int8_matmul(x, qt.q, qt.scale), spin=False):.4f}"
+                        f" ms, library {time_ms(lambda: x @ w_bf16, spin=False):.4f} ms") if m == INT8_TIMED_M[0] else ""
+            print(f"int8_matmul bf16 M={m} [{k_dim}, {f_dim}] ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library (cuBLAS bf16 x @ w on the weight dequantized beforehand) {library_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound{launched}", flush=True)
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+    for m in INT8_TIMED_M:
+        step = {key: sum(n * timed[(label, m)][key] for label, _, _, n in INT8_WEIGHTS)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"int8_matmul bf16 M={m}, the {INT8_PER_FORWARD} matmuls of one forward: kernel {step['ms']:.4f} ms, "
+              f"plain {step['plain_ms']:.4f} ms, library (bf16 weights) {step['library_ms']:.4f} ms, "
+              f"bound {step['bound_ms']:.4f} ms, {step['bound_ms'] / step['ms']:.1%} of bound", flush=True)
+    return dict(max_abs_err=worst, **timed[("wg/wi", 4)])
+
+
+def int8_serving_phase(cfg, gcfg, prompts, slots, decode_chunk, bf16: dict, card: str, profile: bool) -> int:
+    """Serve the full-width model's weights in int8 through the engine:
+    returns the int8 matmul launches of the run."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama
+    from unionml_tpu_torch.ops.int8_matmul import int8_matmul
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+    from unionml_tpu_torch.ops.quant import QuantizedKernel
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Llama(cfg, seed=0)
+    gen = Generator(model, gcfg, quantize="int8")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for t in [*model.parameters(), *model.buffers()])
+    slots_int8 = sum(isinstance(m, QuantizedKernel) for m in model.modules())
+    print(f"int8 model: built and quantized in place in {time.perf_counter() - t0:.1f} s; {slots_int8} int8 kernels; "
+          f"holds {held / 2**30:.2f} GiB (limit {INT8_MODEL_LIMIT / 2**30:.0f} GiB); "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    require(slots_int8 == INT8_PER_FORWARD and held < INT8_MODEL_LIMIT,
+            f"{slots_int8} int8 kernels, model holds {held} bytes")
+    warm = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    serve(warm, [prompts[0][:3]])  # set-up: first launches and allocator calls
+    warm.close()
+    batcher = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    int8_matmul.launches = paged_decode_attention.launches = 0
+    streams, seconds = serve(batcher, prompts)
+    launches, paged = int8_matmul.launches, paged_decode_attention.launches
+    stats = batcher.stats()
+    batcher.close()
+    peak = torch.cuda.max_memory_allocated()
+    require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
+    require(all(0 <= t < cfg.vocab_size for s in streams for t in s), "a token id outside the vocabulary")
+    # one forward per admission (no preemption: each prompt is prefilled once) and per decode step
+    require(stats["kv_blocks"]["preemptions"] == 0, "a stream was preempted")
+    forwards = len(prompts) + stats["decode_dispatches"] * decode_chunk
+    expected = INT8_PER_FORWARD * forwards
+    tok_s = len(prompts) * MAX_NEW / seconds
+    print(f"served int8 4 streams x {MAX_NEW} tokens: {tok_s:.1f} tok/s aggregate (bf16 in this call: "
+          f"{bf16['tok_s']:.1f}), TTFT p50 {stats['ttft_ms']['p50_ms']} ms max {stats['ttft_ms']['max_ms']} ms "
+          f"(bf16: p50 {bf16['ttft_p50']} ms), decode dispatch {stats['tbt_ms']['p50_ms']} ms (p50 gap between "
+          f"emissions, {decode_chunk} steps; bf16: {bf16['tbt_p50']} ms); int8 launches {launches} (expected "
+          f"{INT8_PER_FORWARD} x {forwards} forwards = {expected}), paged launches {paged}; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated, quantization included); card {card}", flush=True)
+    require(launches == expected > 0, f"{launches} int8 launches on the main path, expected {expected}")
+    require(paged > 0, "the int8 path did not reach the paged decode kernel")
+    if profile:
+        profiled = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+        profile_run("serve 4 streams, int8 weights", lambda: serve(profiled, prompts))
+        profiled.close()
+    return launches
+
+
+def int8_parity_phase(gcfg, prompts, slots, decode_chunk) -> None:
+    """float32, 2 layers at full width, int8 weights: the engine and a solo
+    ``Generator`` on the card (int8 kernel) give the tokens of the same
+    weights on the CPU (the kernels' twins)."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama, LlamaConfig
+    from unionml_tpu_torch.models import llama_from_jax, llama_params_to_numpy
+    from unionml_tpu_torch.ops.int8_matmul import int8_matmul
+
+    cfg32 = LlamaConfig.llama3_8b(n_layers=2, attention_impl="flash", dtype=torch.float32, param_dtype=torch.float32)
+    pcfg = dataclasses.replace(gcfg, max_new_tokens=INT8_PARITY_NEW)
+    pair = prompts[:2]
+    t0 = time.perf_counter()
+    card_gen = Generator(Llama(cfg32, seed=3), pcfg, quantize="int8")
+    before = int8_matmul.launches
+    engine = ContinuousBatcher(card_gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    engine_streams, _ = serve(engine, pair)
+    engine.close()
+    solo_streams = [card_gen([p])[0].tolist() for p in pair]
+    launched = int8_matmul.launches - before
+    cpu_model = llama_from_jax(llama_params_to_numpy(card_gen.model), cfg32, device="cpu")  # the same int8 bits
+    cpu_streams = Generator(cpu_model, pcfg, device="cpu")(pair).tolist()
+    parity = engine_streams == solo_streams == cpu_streams
+    print(f"float32 int8 token parity, 2 layers, {len(pair)} prompts x {INT8_PARITY_NEW} tokens: engine (int8 and "
+          f"paged kernels, {launched} int8 launches with the solo runs) and solo Generator on the card vs the CPU "
+          f"twins: {'identical' if parity else 'DIFFERENT'} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(launched > 0 and parity, f"{engine_streams} / {solo_streams} / {cpu_streams}")
+
+
 def lora_llama(cfg, seed):
     from unionml_tpu_torch import Llama, TrainState
     from unionml_tpu_torch.models import lora_optimizer
@@ -491,6 +673,7 @@ def main() -> int:
     # ---- phase 2: kernels against their plain twins, and times
     numbers = kernel_phase(pool_pages, pages_per_seq)
     flash_numbers = flash_kernel_phase()
+    int8_numbers = int8_kernel_phase()
 
     rng = np.random.RandomState(0)
 
@@ -524,12 +707,17 @@ def main() -> int:
           f"(expected {cfg.n_layers} layers x {stats['decode_dispatches'] * decode_chunk} steps = {expected}); "
           f"card {card}", flush=True)
     require(launches == expected > 0, f"{launches} kernel launches on the main path, expected {expected}")
+    bf16 = dict(tok_s=4 * MAX_NEW / seconds, ttft_p50=stats["ttft_ms"]["p50_ms"], tbt_p50=stats["tbt_ms"]["p50_ms"])
     if args.profile:
         profiled = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
         profile_run("serve 4 streams", lambda: serve(profiled, prompts))
         profiled.close()
         del profiled
     del model, gen, warm, batcher
+    torch.cuda.empty_cache()
+
+    # ---- phase 3b: the same weights served in int8
+    int8_launches = int8_serving_phase(cfg, gcfg, prompts, slots, decode_chunk, bf16, card, args.profile)
     torch.cuda.empty_cache()
 
     # ---- phase 4: token parity at float32, 2 layers of the same width
@@ -552,6 +740,8 @@ def main() -> int:
 
     del flash_model, plain_model, engine, solo
     torch.cuda.empty_cache()
+    int8_parity_phase(gcfg, prompts, slots, decode_chunk)
+    torch.cuda.empty_cache()
 
     # ---- phase 5: LoRA fine-tune at full width, then f32 training parity
     flash_launches = training_phase(card, args.profile)
@@ -571,6 +761,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], **measured,
         })
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda", "source": "unionml_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "unionml_tpu/ops/int8_matmul.py:102", "launches": int8_launches, **int8_numbers,
+    })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

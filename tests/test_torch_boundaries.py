@@ -27,7 +27,8 @@ from unionml_tpu_torch import (
     make_train_step,
 )
 from unionml_tpu_torch.data import PrefetchIterator
-from unionml_tpu_torch.models import causal_lm_loss, init_cache, init_paged_cache
+from unionml_tpu_torch.ops.quant import QuantizedKernel
+from unionml_tpu_torch.models import causal_lm_loss, init_cache, init_paged_cache, llama_from_jax, llama_params_to_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "unionml_tpu")
@@ -58,6 +59,8 @@ def test_scan_sees_every_port_module():
     assert {"chip_smoke.py", "unionml_tpu_torch/ops/paged_attention.py",
             "unionml_tpu_torch/ops/flash_attention.py", "unionml_tpu_torch/serving/continuous.py",
             "unionml_tpu_torch/train/driver.py", "unionml_tpu_torch/data/pipeline.py"} <= names
+    assert {"unionml_tpu_torch/ops/int8_matmul.py", "unionml_tpu_torch/ops/quant.py",
+            "unionml_tpu_torch/defaults.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -82,7 +85,7 @@ def _no_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "entry",
     ["Llama", "Generator", "ContinuousBatcher", "init_cache", "init_paged_cache", "PrefetchIterator", "fit",
-     "evaluate"],
+     "evaluate", "Generator-int8", "llama_from_jax"],
 )
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     cfg = LlamaConfig.tiny(dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=32, vocab_size=16,
@@ -94,6 +97,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     calls = {
         "Llama": lambda: Llama(cfg),
         "Generator": lambda: Generator(cpu_model, GenerationConfig()),
+        "Generator-int8": lambda: Generator(cpu_model, GenerationConfig(), quantize="int8"),
+        "llama_from_jax": lambda: llama_from_jax(llama_params_to_numpy(cpu_model), cfg),
         "ContinuousBatcher": lambda: ContinuousBatcher(Generator(cpu_model, GenerationConfig())),
         "init_cache": lambda: init_cache(cfg, 1, 8),
         "init_paged_cache": lambda: init_paged_cache(cfg, 1, 3, 4, 2, fill_block=2),
@@ -103,6 +108,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
+    assert not any(isinstance(m, QuantizedKernel) for m in cpu_model.modules())  # refused before quantizing
 
 
 def test_cpu_must_be_asked_for_and_then_works():

@@ -6,7 +6,10 @@ Oracle: greedy, f32 — each concurrent stream's tokens equal a solo
 model uses ``attention_impl="flash"``, so every paged decode step goes through
 ``paged_decode_attention`` (its plain twin on CPU tensors); the JAX side reads
 its pool through the gather path (``"auto"``), as its Pallas kernel has no CPU
-mode. Mirrors ``tests/unit/test_continuous.py``'s paged-pool cases.
+mode. Mirrors ``tests/unit/test_continuous.py``'s paged-pool cases. Over an
+int8 ``Generator`` the plain route matches the JAX engine's int8 streams, and
+the kernel route (int8 matmul and paged decode twins) matches a solo run on
+the same route.
 """
 
 import dataclasses
@@ -29,20 +32,33 @@ from unionml_tpu_torch.serving import ContinuousBatcher
 torch.set_num_threads(2)
 
 SHAPE = dict(vocab_size=97, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=128)
+#: wide enough that quantize="int8" (min_size 65536) takes q/o, the MLP and the head
+INT8_SHAPE = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=512)
 PROMPTS = [[3, 14, 15, 92, 6], [27, 1], [8, 2, 8, 1, 8, 2, 8], [44, 9]]
 
 
-@pytest.fixture(scope="module")
-def models():
-    jax_cfg = JaxLlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **SHAPE)
+def _models(shape):
+    jax_cfg = JaxLlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **shape)
     module = JaxLlama(jax_cfg)
     params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
-    cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, attention_impl="flash", **SHAPE)
+    cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, attention_impl="flash", **shape)
     state = llama_params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg)
     flash, plain = Llama(cfg, device="cpu"), Llama(dataclasses.replace(cfg, attention_impl="auto"), device="cpu")
     flash.load_state_dict(state)
     plain.load_state_dict(state)
     return module, params, flash, plain
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models(SHAPE)
+
+
+@pytest.fixture(scope="module")
+def int8_models():
+    """Float port models that the first ``Generator(quantize="int8")`` over
+    each quantizes in place."""
+    return _models(INT8_SHAPE)
 
 
 def _solo(model, cfg, prompts):
@@ -151,6 +167,39 @@ def test_oversized_prompt_fails_its_stream_only(models):
         assert [int(t) for c in ok for t in c] == _solo(plain, cfg, PROMPTS[:1])[0]
     finally:
         engine.close()
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16-layout-pages", "int8-pages"])
+def test_int8_generator_streams_match_jax_engine_and_solo(int8_models, kv):
+    module, params, flash, plain = int8_models
+    kw = dict(max_new_tokens=10, temperature=0.0, prompt_buckets=(16,), kv_cache_dtype=kv)
+    jax_engine = JaxContinuousBatcher(
+        JaxGenerator(module, params, JaxGenerationConfig(**kw), quantize="int8"), slots=4, decode_chunk=4, block_size=8
+    )
+    try:
+        jax_streams = _concurrent(jax_engine, PROMPTS)
+    finally:
+        jax_engine.close()
+    cfg = GenerationConfig(**kw)
+    for model in (plain, flash):
+        engine = ContinuousBatcher(Generator(model, cfg, device="cpu", quantize="int8"), slots=4, decode_chunk=4,
+                                   block_size=8)
+        try:
+            streams = _concurrent(engine, PROMPTS)
+        finally:
+            engine.close()
+        solo = _solo(model, cfg, PROMPTS)  # the model is int8 now
+        assert streams == solo
+        if model is plain:  # the JAX package's numerics
+            assert streams == jax_streams
+    assert pa.paged_decode_attention.launches == 0
+
+
+def test_chunked_admission_is_not_ported(models):
+    _, _, flash, _ = models
+    gen = Generator(flash, GenerationConfig(prompt_buckets=(16,), prefill_chunk=8), device="cpu")
+    with pytest.raises(NotImplementedError, match="prefill_chunk"):
+        ContinuousBatcher(gen)
 
 
 @pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "tenancy"])

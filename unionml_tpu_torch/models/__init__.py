@@ -1,6 +1,11 @@
 """Model library: the Llama decoder, its layers, the weight bridge and generation."""
 
-from unionml_tpu_torch.models.convert import llama_params_from_jax, llama_params_to_numpy, state_dict_from_jax
+from unionml_tpu_torch.models.convert import (
+    llama_from_jax,
+    llama_params_from_jax,
+    llama_params_to_numpy,
+    state_dict_from_jax,
+)
 from unionml_tpu_torch.models.generate import (
     GenerationConfig,
     Generator,
@@ -31,6 +36,7 @@ __all__ = [
     "filtered_logits",
     "init_cache",
     "init_paged_cache",
+    "llama_from_jax",
     "llama_params_from_jax",
     "llama_params_to_numpy",
     "lora_optimizer",

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch._device import DeviceLike, module_device, resolve_device
+from unionml_tpu_torch.defaults import serve_kv_cache_dtype, serve_quantize
+from unionml_tpu_torch.ops.quant import quantize_params
 
 __all__ = [
     "GenerationConfig",
@@ -41,8 +43,9 @@ logger = logging.getLogger(__name__)
 class GenerationConfig:
     """Decoding knobs. ``temperature == 0`` means greedy (argmax) decoding;
     ``top_k``/``top_p``/``min_p`` filter the distribution before sampling.
-    ``prefill_chunk``, ``sp_prefill``, ``draft`` and ``constraints`` mirror the
-    JAX package's fields; the port does not serve them yet and its
+    ``prefill_chunk`` prefills long prompts through the cache in chunks of
+    that many columns. ``sp_prefill``, ``draft`` and ``constraints`` mirror
+    the JAX package's fields; the port does not serve them yet and its
     :class:`Generator` raises when they are set."""
 
     max_new_tokens: int = 128
@@ -202,6 +205,17 @@ class Generator:
     raises on a machine without one). ``prefill_traces``/``decode_traces``
     mirror the JAX engine's compile counters; eager PyTorch compiles nothing,
     so they stay 0.
+
+    ``quantize="int8"`` quantizes the model's matmul kernels
+    (:func:`~unionml_tpu_torch.ops.quant.quantize_params`'s defaults) IN
+    PLACE: each float kernel is replaced by its int8 values and scales, so
+    one copy of the weights lives in device memory, and the model stays
+    quantized for every later user of it. The JAX package builds a new tree
+    instead. Under ``attention_impl="flash"`` the int8 matmuls run the int8
+    kernel; otherwise they dequantize and multiply, the JAX package's
+    numerics. As there, an unset ``quantize`` and ``config.kv_cache_dtype``
+    follow the serve CLI's ``UNIONML_TPU_QUANTIZE`` and
+    ``UNIONML_TPU_KV_CACHE_DTYPE``; explicit values win.
     """
 
     def __init__(
@@ -215,28 +229,39 @@ class Generator:
         quantize: Optional[str] = None,
     ):
         unported = {
-            "mesh": mesh, "partition_rules": partition_rules, "quantize": quantize,
-            "config.draft": config.draft, "config.constraints": config.constraints,
-            "config.sp_prefill": config.sp_prefill, "config.prefill_chunk": config.prefill_chunk,
+            "mesh": mesh, "partition_rules": partition_rules, "config.draft": config.draft,
+            "config.constraints": config.constraints, "config.sp_prefill": config.sp_prefill,
         }
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(f"Generator {name} is not ported yet (ROADMAP.md, Queue A)")
+        if quantize is None:
+            quantize = serve_quantize()
+        if config.kv_cache_dtype is None:
+            env_kv = serve_kv_cache_dtype()
+            if env_kv is not None:
+                config = dataclasses.replace(config, kv_cache_dtype=env_kv)
         _kv_dtype_check(config.kv_cache_dtype)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode {quantize!r}; expected None or 'int8'")
         self.device = resolve_device(device)
         placed = module_device(model)
         if placed is not None and placed != self.device:
             raise ValueError(f"the model lives on {placed}, not {self.device}; build it with device={str(self.device)!r}")
+        if quantize == "int8":
+            quantize_params(model)
         self.model = model
         self.config = config
+        self.quantize = quantize
         self.prefill_traces = 0
         self.decode_traces = 0
 
     # ------------------------------------------------------------------ steps
 
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
-        kernel = self.model.lm_head.kernel
-        return (hidden @ kernel.to(hidden.dtype)).float()
+        """f32 logits of compute-dtype hidden rows (an int8 head takes the
+        model's int8 route)."""
+        return self.model.lm_head(hidden).float()
 
     @torch.no_grad()
     def _prefill(self, tokens, lengths, cache, generator, row_valid):
@@ -252,6 +277,29 @@ class Generator:
         last = hidden[torch.arange(batch, device=self.device), (lengths - 1).long()]
         tok0 = sample_tokens(self._head(last), generator, self.config)
         return tok0, cache, last.float()
+
+    @torch.no_grad()
+    def _prefill_chunk(self, tokens, start: int, lengths, cache, row_valid):
+        """One chunk of a long-context prefill: columns ``[start, start + C)``
+        of the padded prompt flow through ``cache`` (in place; attention sees
+        every slot written before). Returns each row's last-real-token hidden
+        ``[B, dim]`` f32 where it falls in this chunk, a ``[B]`` flag saying
+        which rows it did, and the cache."""
+        batch, chunk = tokens.shape
+        positions = start + torch.arange(chunk, device=self.device)[None].expand(batch, chunk)
+        token_mask = (positions < lengths[:, None]) & row_valid[:, None]
+        hidden, cache = self.model(
+            tokens, positions=positions, return_hidden=True, cache=cache, token_mask=token_mask
+        )
+        sel = positions == (lengths - 1)[:, None]  # at most one true column per row
+        chunk_last = torch.einsum("blc,bl->bc", hidden.float(), sel.float())
+        return chunk_last, sel.any(dim=1), cache
+
+    @torch.no_grad()
+    def _first_token(self, last: torch.Tensor, generator) -> torch.Tensor:
+        """Sample the first generated token from the accumulated last-row
+        hiddens (the chunked prefill's epilogue)."""
+        return sample_tokens(self._head(last.to(self.model.config.dtype)), generator, self.config)
 
     @torch.no_grad()
     def _decode(self, cache, tok, lengths, done, generator, *, steps: int):
@@ -291,7 +339,8 @@ class Generator:
         return bucket
 
     def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0):
-        """Pad/bucket the prompts, allocate the cache, prefill, and return
+        """Pad/bucket the prompts, allocate the cache, prefill (in
+        ``prefill_chunk`` slices when set and the bucket is wider), and return
         ``(n, tok0, last, carry)``; the batch is padded to a power of two and
         the padding rows start done."""
         cfg = self.config
@@ -304,18 +353,38 @@ class Generator:
             tokens[i, : len(p)] = np.asarray(p, np.int32)
         all_lengths = np.ones((batch,), np.int32)
         all_lengths[:n] = lengths
+        chunk = cfg.prefill_chunk
+        if chunk:
+            bucket = chunk_aligned(bucket, chunk)  # bucket shape is moot once chunked
+            tokens = np.pad(tokens, ((0, 0), (0, bucket - tokens.shape[1])), constant_values=cfg.pad_id)
         cache_len = max(bucket, max(cfg.prompt_buckets, default=0)) + cfg.max_new_tokens + extra_cache
         cache = init_cache(self.model.config, batch, cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         row_valid = torch.arange(batch, device=self.device) < n
         lengths_t = torch.as_tensor(all_lengths, device=self.device)
-        tok0, cache, last = self._prefill(
-            torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid
-        )
+        if chunk and bucket > chunk:
+            last, cache = self._chunked_prefill_loop(tokens, lengths_t, cache, row_valid, chunk)
+            tok0 = self._first_token(last, generator)
+        else:
+            tok0, cache, last = self._prefill(
+                torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid
+            )
         eos = cfg.eos_id
         done = (tok0 == eos) if eos is not None else torch.zeros_like(row_valid)
         done = done | ~row_valid  # synthetic batch-padding rows emit pads, never advance
         return n, tok0, last, (cache, tok0, lengths_t, done, generator)
+
+    def _chunked_prefill_loop(self, tokens: np.ndarray, lengths, cache, row_valid, chunk: int):
+        """Run right-padded ``tokens`` through :meth:`_prefill_chunk` in
+        ``chunk``-column slices, keeping each row's last-real-token hidden
+        state."""
+        last = torch.zeros((tokens.shape[0], self.model.config.dim), dtype=torch.float32, device=self.device)
+        for c in range(0, tokens.shape[1], chunk):
+            chunk_last, has, cache = self._prefill_chunk(
+                torch.as_tensor(tokens[:, c : c + chunk], device=self.device), c, lengths, cache, row_valid
+            )
+            last = torch.where(has[:, None], chunk_last, last)
+        return last, cache
 
     @staticmethod
     def _unported(prefix: Any, constraint: Any) -> None:

@@ -167,6 +167,12 @@ class ContinuousBatcher:
         for name, value in unported.items():
             if value:  # None, False and 0 select what the port has (0 = monolithic admission)
                 raise NotImplementedError(f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A)")
+        if generator.config.prefill_chunk:
+            # the JAX engine chunks its admissions for such a Generator
+            raise NotImplementedError(
+                "ContinuousBatcher over a Generator with prefill_chunk (chunked admission) is not ported yet "
+                "(ROADMAP.md, Queue A)"
+            )
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if decode_chunk < 1:
