@@ -14,7 +14,9 @@ Phases (no phase catches a failure; any fault exits non-zero):
    blocks; the int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5
    and 130; then time kernel, twin, the library yardstick and the
    bytes/operations bound with CUDA events (int8 also summed over one decode
-   step's 225 matmuls);
+   step's 225 matmuls); each kernel's time includes its host launch work, and
+   a second, device-only time (``device_ms``) is taken behind a measured spin
+   of the card that outlasts the host's enqueue;
 3. serve a Llama-3-8B-width model (32 layers, bf16, random weights from a
    seed) through ``ContinuousBatcher``: 4 concurrent streams x 32 tokens,
    counting paged kernel launches on this path; then serve the same weights
@@ -23,8 +25,9 @@ Phases (no phase catches a failure; any fault exits non-zero):
    kernel's;
 4. token parity at float32 with 2 layers of the same width: the engine's
    streams (kernel path) equal a solo ``Generator`` run on the gather path;
-   with int8 weights, the engine and a solo run on the card (int8 kernel)
-   equal the same weights' run on the CPU (the twins);
+   with int8 weights, the engine, a solo run and a solo run with chunked
+   prefill on the card (int8 kernel) equal the same weights' run on the CPU
+   (the twins);
 5. LoRA fine-tune a Llama-3-8B-width model (32 layers, bf16 compute, f32
    parameters, random weights from a seed) through ``fit`` for 6 steps of
    one 2048-token sequence, counting flash kernel launches on this path, and
@@ -44,6 +47,7 @@ CUDA device is present or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -52,7 +56,7 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SPIN_CYCLES = 1_000_000  # about 0.5 ms of SM clock: longer than a wrapper's host work
+SPIN_CYCLES = 2_000_000  # the card's spin before a device-only time; its length is measured in the run
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / f32 non-tensor
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 #: flash kernels against their twins: both compute in f32; the dk/dv sums of
@@ -94,6 +98,7 @@ PARITY_STEPS, PARITY_SEQ = 3, 256
 LR = 1e-4  # lora_optimizer's default rate
 PROMPT_LENS = (5, 40, 120, 250)
 INT8_PARITY_NEW = 8
+INT8_PARITY_CHUNK = 64  # the 256-token bucket prefills in 4 chunks
 MAX_NEW = 32
 BLOCK = 16
 
@@ -110,14 +115,10 @@ def require(condition: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, runs: int = 50, spin: bool = True) -> float:
+def time_ms(fn, runs: int = 50) -> float:
     """Median CUDA-event time of ``fn`` over ``runs`` launches, each after a
     64 MiB write that evicts the 50 MB L2 (in decode, the other layers'
-    weights pass through L2 between two reads of one layer's pool). The card
-    then spins for about 0.5 ms before the start event, so the host's launch
-    work for ``fn`` overlaps the spin and the events time the device's work
-    alone; ``spin=False`` times a call with its host launch work, which
-    shows in a small kernel's time."""
+    weights pass through L2 between two reads of one layer's pool)."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
@@ -127,14 +128,60 @@ def time_ms(fn, runs: int = 50, spin: bool = True) -> float:
     times = []
     for _ in range(runs):
         flush.zero_()
-        if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@functools.lru_cache(maxsize=None)
+def spin_ms() -> float:
+    """Median length of the card's ``SPIN_CYCLES`` spin, timed with CUDA events."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(10):
+        start.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 50) -> tuple:
+    """``(ms, host_ms)``: as :func:`time_ms`, but the card spins for
+    :func:`spin_ms` before the start event, so the host enqueues ``fn``
+    while the card is busy and the events time the device's work alone.
+    ``host_ms`` is the median host time of enqueuing the start event, ``fn``
+    and the end event; a run whose enqueue outlasted the spin is dropped
+    (its time would include host work), and at least half must remain."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    spin = spin_ms()
+    times, hosts = [], []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        hosts.append(host)
+        if host < spin:
+            times.append(start.elapsed_time(end))
+    require(2 * len(times) >= runs, f"the host's enqueue outlasted the {spin:.3f} ms spin in "
+                                    f"{runs - len(times)} of {runs} runs (median {statistics.median(hosts):.3f} ms)")
+    return statistics.median(times), statistics.median(hosts)
 
 
 def paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed):
@@ -197,6 +244,7 @@ def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
     for label, batch, lengths, n_pages, pps in shapes:
         q, k, v, lens, table = paged_inputs(batch, lengths, n_pages, pps, torch.bfloat16, 7)
         ms = time_ms(lambda: paged_decode_attention(q, k, v, lens, table))
+        dev_ms, host_ms = device_ms(lambda: paged_decode_attention(q, k, v, lens, table))
         plain_ms = time_ms(lambda: paged_decode_attention_reference(q, k, v, lens, table))
         # library yardstick: SDPA over K/V gathered beforehand (not part of the port)
         kg = k[:, table.long()].reshape(8, batch, -1, 128).permute(1, 0, 2, 3).contiguous()
@@ -207,9 +255,11 @@ def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
         bms, bound_by = bound_ms(q, k, lens, pps)
         print(f"paged_decode_attention bf16 {label} lengths={lengths[:4]}{'...' if batch > 4 else ''}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA on gathered K/V) {library_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound", flush=True)
+              f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound; device only {dev_ms:.4f} ms (host "
+              f"enqueue {host_ms:.4f} ms, spin {spin_ms():.4f} ms)", flush=True)
         if served is None:
-            served = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
+            served = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
+                          device_ms=dev_ms)
     return dict(max_abs_err=worst, **served)
 
 
@@ -356,13 +406,15 @@ def flash_kernel_phase() -> dict:
     numbers = {}
     for name, (kernel, plain) in calls.items():
         ms, plain_ms = time_ms(kernel), time_ms(plain)
+        dev_ms, _ = device_ms(kernel)
         bms, bound_by = flash_bound_ms(name, q, k, True)
         library_ms = sdpa_fwd_ms if name == "flash_forward" else sdpa_bwd_ms
         numbers[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
-                             library_ms=library_ms)
+                             library_ms=library_ms, device_ms=dev_ms)
         print(f"{name} bf16 B=1 L={TRAIN_SEQ} H=32 Hkv=8 D=128 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms ({'SDPA flash forward' if name == 'flash_forward' else 'SDPA flash backward, dq and dk/dv together'}), "
-              f"bound {bms:.4f} ms ({bound_by}, {FLASH_PRODUCTS[name]} products), {bms / ms:.1%} of bound", flush=True)
+              f"bound {bms:.4f} ms ({bound_by}, {FLASH_PRODUCTS[name]} products), {bms / ms:.1%} of bound; "
+              f"device only {dev_ms:.4f} ms", flush=True)
     fused_ms, _ = flash_bound_ms("flash_backward_dq", q, k, True)
     print(f"a fused backward needs 5 products (bound {fused_ms * 5 / 3:.4f} ms); the dq and dk/dv kernels compute "
           f"7 between them ({numbers['flash_backward_dq']['ms'] + numbers['flash_backward_dkv']['ms']:.4f} ms "
@@ -417,23 +469,28 @@ def int8_kernel_phase() -> dict:
             ms = time_ms(lambda: int8_matmul(x, qt.q, qt.scale))
             plain_ms = time_ms(lambda: int8_matmul_reference(x, qt.q, qt.scale))
             library_ms = time_ms(lambda: x @ w_bf16)
+            dev_ms, host_ms = device_ms(lambda: int8_matmul(x, qt.q, qt.scale))
+            library_dev_ms, _ = device_ms(lambda: x @ w_bf16)
             bms, bound_by = int8_bound_ms(m, k_dim, f_dim, 2, 2)
-            timed[(label, m)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms)
-            # what an eager caller pays per call on an idle device: the host's launch work included
-            launched = (f"; with the host's launch work: kernel {time_ms(lambda: int8_matmul(x, qt.q, qt.scale), spin=False):.4f}"
-                        f" ms, library {time_ms(lambda: x @ w_bf16, spin=False):.4f} ms") if m == INT8_TIMED_M[0] else ""
+            timed[(label, m)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
+                                     device_ms=dev_ms, library_device_ms=library_dev_ms)
             print(f"int8_matmul bf16 M={m} [{k_dim}, {f_dim}] ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library (cuBLAS bf16 x @ w on the weight dequantized beforehand) {library_ms:.4f} ms, "
-                  f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound{launched}", flush=True)
+                  f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound; device only: kernel {dev_ms:.4f} ms "
+                  f"({bms / dev_ms:.1%} of bound; host enqueue {host_ms:.4f} ms, spin {spin_ms():.4f} ms), library "
+                  f"{library_dev_ms:.4f} ms", flush=True)
         del qt, w_bf16
         torch.cuda.empty_cache()
     for m in INT8_TIMED_M:
         step = {key: sum(n * timed[(label, m)][key] for label, _, _, n in INT8_WEIGHTS)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")}
         print(f"int8_matmul bf16 M={m}, the {INT8_PER_FORWARD} matmuls of one forward: kernel {step['ms']:.4f} ms, "
               f"plain {step['plain_ms']:.4f} ms, library (bf16 weights) {step['library_ms']:.4f} ms, "
-              f"bound {step['bound_ms']:.4f} ms, {step['bound_ms'] / step['ms']:.1%} of bound", flush=True)
-    return dict(max_abs_err=worst, **timed[("wg/wi", 4)])
+              f"bound {step['bound_ms']:.4f} ms, {step['bound_ms'] / step['ms']:.1%} of bound; device only: kernel "
+              f"{step['device_ms']:.4f} ms, library {step['library_device_ms']:.4f} ms", flush=True)
+    row = dict(timed[("wg/wi", 4)])
+    del row["library_device_ms"]
+    return dict(max_abs_err=worst, **row)
 
 
 def int8_serving_phase(cfg, gcfg, prompts, slots, decode_chunk, bf16: dict, card: str, profile: bool) -> int:
@@ -492,9 +549,11 @@ def int8_serving_phase(cfg, gcfg, prompts, slots, decode_chunk, bf16: dict, card
 
 
 def int8_parity_phase(gcfg, prompts, slots, decode_chunk) -> None:
-    """float32, 2 layers at full width, int8 weights: the engine and a solo
-    ``Generator`` on the card (int8 kernel) give the tokens of the same
-    weights on the CPU (the kernels' twins)."""
+    """float32, 2 layers at full width, int8 weights: the engine, a solo
+    ``Generator`` and a solo ``Generator`` with chunked prefill
+    (``prefill_chunk``, M = batch x chunk rows an int8 matmul) on the card
+    (int8 kernel) give the tokens of the same weights on the CPU (the
+    kernels' twins)."""
     import torch
 
     from unionml_tpu_torch import ContinuousBatcher, Generator, Llama, LlamaConfig
@@ -512,13 +571,19 @@ def int8_parity_phase(gcfg, prompts, slots, decode_chunk) -> None:
     engine.close()
     solo_streams = [card_gen([p])[0].tolist() for p in pair]
     launched = int8_matmul.launches - before
+    chunked_gen = Generator(card_gen.model, dataclasses.replace(pcfg, prefill_chunk=INT8_PARITY_CHUNK), quantize="int8")
+    before = int8_matmul.launches
+    chunked_streams = chunked_gen(pair).tolist()
+    chunk_launches = int8_matmul.launches - before
     cpu_model = llama_from_jax(llama_params_to_numpy(card_gen.model), cfg32, device="cpu")  # the same int8 bits
     cpu_streams = Generator(cpu_model, pcfg, device="cpu")(pair).tolist()
-    parity = engine_streams == solo_streams == cpu_streams
+    parity = engine_streams == solo_streams == chunked_streams == cpu_streams
     print(f"float32 int8 token parity, 2 layers, {len(pair)} prompts x {INT8_PARITY_NEW} tokens: engine (int8 and "
-          f"paged kernels, {launched} int8 launches with the solo runs) and solo Generator on the card vs the CPU "
-          f"twins: {'identical' if parity else 'DIFFERENT'} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    require(launched > 0 and parity, f"{engine_streams} / {solo_streams} / {cpu_streams}")
+          f"paged kernels, {launched} int8 launches with the solo runs), solo Generator and solo Generator with "
+          f"prefill_chunk={INT8_PARITY_CHUNK} ({chunk_launches} int8 launches) on the card vs the CPU twins: "
+          f"{'identical' if parity else 'DIFFERENT'} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(launched > 0 and chunk_launches > 0 and parity,
+            f"{engine_streams} / {solo_streams} / {chunked_streams} / {cpu_streams}")
 
 
 def lora_llama(cfg, seed):

@@ -94,11 +94,13 @@ def test_quantized_matmul_xla_matches_jax(lead):
 
 
 def test_quantized_matmul_pallas_routes_by_shape():
-    """Tileable weights go through the kernel's twin (x rounded to bf16);
-    untileable ones take the dequantize path, exactly ``impl="xla"``."""
+    """On CPU tensors every weight the kernel takes (K % 64, F % 16, a
+    [1, F] scale; wider than the JAX tiling) goes through the kernel's twin,
+    which rounds x to bf16; any other takes the dequantize path, exactly
+    ``impl="xla"``, as JAX does off a TPU."""
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.randn(3, 128).astype(np.float32))
-    for f, expect_twin in ((256, True), (200, False)):
+    for f, expect_twin in ((256, True), (48, True), (200, False)):
         _, q, scale = _inputs(1, 128, f, seed=4)
         qt = QuantizedTensor(torch.from_numpy(q), torch.from_numpy(scale))
         out = im.quantized_matmul(x, qt, impl="pallas")
@@ -106,6 +108,37 @@ def test_quantized_matmul_pallas_routes_by_shape():
         plain = im.quantized_matmul(x, qt, impl="xla")
         assert torch.equal(out, twin if expect_twin else plain)
         assert not torch.equal(twin, plain)  # the two routes do differ: bf16 x vs f32 x
+    per_row = quantize_array(torch.from_numpy(rng.randn(128, 256).astype(np.float32)), channel_axis=0)  # [K, 1] scale
+    assert torch.equal(im.quantized_matmul(x, per_row, impl="pallas"), im.quantized_matmul(x, per_row, impl="xla"))
+
+
+@pytest.mark.parametrize("k,f,channel_axis", [(128, 200, -1), (96, 256, -1), (128, 256, 0)],
+                         ids=["f-not-16", "k-not-64", "per-row-scale"])
+def test_quantized_matmul_pallas_never_dequantizes_off_the_cpu(k, f, channel_axis):
+    """Off the CPU the ``"pallas"`` route is the kernel or a raise: a weight
+    the kernel cannot take is refused by name, before any launch (shown on
+    the meta device, which needs no card)."""
+    qt = quantize_array(torch.randn(k, f), channel_axis=channel_axis).to("meta")
+    x = torch.empty(3, k, device="meta")
+    with pytest.raises(ValueError, match="the int8 kernel takes"):
+        im.quantized_matmul(x, qt, impl="pallas")
+    assert im.quantized_matmul(x, qt, impl="xla").shape == (3, f)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_gradient_flows_through_the_kernel_route(x_dtype):
+    """A frozen int8 base under LoRA passes dL/dx on the kernel route: the
+    wrapper's backward gives the twin's own autograd gradient."""
+    dtype = getattr(torch, x_dtype)
+    x, q, scale = _inputs(6, 128, 256, seed=5)
+    q, scale = torch.from_numpy(q), torch.from_numpy(scale)
+    dy = torch.from_numpy(np.random.RandomState(6).randn(6, 256).astype(np.float32))
+    x_port = torch.from_numpy(x).to(dtype).requires_grad_()
+    x_twin = x_port.detach().clone().requires_grad_()
+    (im.quantized_matmul(x_port, QuantizedTensor(q, scale), out_dtype=torch.float32, impl="pallas") * dy).sum().backward()
+    (im.int8_matmul_reference(x_twin, q, scale, out_dtype=torch.float32) * dy).sum().backward()
+    assert x_port.grad.dtype == dtype
+    assert torch.equal(x_port.grad, x_twin.grad)
 
 
 @pytest.mark.parametrize(
@@ -125,7 +158,7 @@ def test_plan_tiles_and_splits(m, expected):
     assert (14336 // (32 * vec)) * splits >= 2 * n_sms
 
 
-@pytest.mark.parametrize("bad", ["q-int16", "scale-column", "x-noncontiguous", "x-float16"])
+@pytest.mark.parametrize("bad", ["q-int16", "scale-column", "x-noncontiguous", "x-float16", "k-not-64", "f-not-16"])
 def test_kernel_inputs_are_checked(bad):
     """What the CUDA launch would refuse is refused in Python, before any
     pointer reaches the kernel (the checks are device-independent)."""
@@ -137,6 +170,10 @@ def test_kernel_inputs_are_checked(bad):
         scale = torch.ones(64, 1)
     elif bad == "x-noncontiguous":
         x = torch.cat([x, x], dim=1)[:, ::2]
+    elif bad == "k-not-64":
+        x, q = x[:, :32].contiguous(), q[:32].contiguous()
+    elif bad == "f-not-16":
+        q, scale = q[:, :120].contiguous(), scale[:, :120].contiguous()
     else:
         x = x.half()
     with pytest.raises((TypeError, ValueError)):
@@ -151,8 +188,7 @@ LLAMA3_8B_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (
 @pytest.mark.parametrize("m", [4, 256, 5, 130])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_twin_on_card(dtype, m):
-    if not torch.cuda.is_available() or torch.cuda.get_device_capability() < (9, 0):
-        pytest.skip("needs a CUDA card with sm_90 (the kernel has no CPU mode)")
+    _cuda_or_skip()
     dtype = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(m)
     for k, f in LLAMA3_8B_WEIGHTS:
@@ -169,3 +205,47 @@ def test_kernel_matches_twin_on_card(dtype, m):
             assert err.max().item() <= 1e-5 * ref.abs().max().item(), (k, f, err.max().item())
         else:  # both round the f32 sum to bf16
             assert bool((err <= 2e-2 + 2e-2 * ref.float().abs()).all()), (k, f, err.max().item())
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs a CUDA card with sm_90 (the kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,f", [(192, 48), (4096, 50272)], ids=["192x48", "4096x50272"])
+def test_pallas_route_takes_the_kernel_beyond_the_jax_tiling_on_card(k, f):
+    """Weights the JAX tiling refuses but the kernel takes (a GPT-2-sized
+    head padded to 16, a narrow width) launch the kernel on the card."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(k)
+    x = torch.randn(5, k, device="cuda", generator=g)
+    qt = quantize_array(torch.randn(k, f, device="cuda", generator=g) * 0.02)
+    before = im.int8_matmul.launches
+    out = im.quantized_matmul(x, qt, impl="pallas")
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before + 1
+    ref = im.int8_matmul_reference(x, qt.q, qt.scale)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_pallas_route_raises_on_a_weight_the_kernel_cannot_take_on_card():
+    _cuda_or_skip()
+    qt = quantize_array(torch.randn(128, 200, device="cuda"))
+    with pytest.raises(ValueError, match="the int8 kernel takes"):
+        im.quantized_matmul(torch.randn(3, 128, device="cuda"), qt, impl="pallas")
+
+
+@pytest.mark.cuda
+def test_gradient_on_card_matches_cpu():
+    _cuda_or_skip()
+    x, q, scale = _inputs(6, 256, 512, seed=7)
+    dy = np.random.RandomState(8).randn(6, 512).astype(np.float32)
+    grads = []
+    for device in ("cpu", "cuda"):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        qt = QuantizedTensor(torch.from_numpy(q).to(device), torch.from_numpy(scale).to(device))
+        (im.quantized_matmul(xt, qt, impl="pallas") * torch.from_numpy(dy).to(device)).sum().backward()
+        grads.append(xt.grad.cpu())
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-2 * grads[0].abs().max().item()  # bf16-rounded dx

@@ -14,6 +14,8 @@
   and back bit for bit.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,9 +129,15 @@ def _jax_logits_on_dequantized(module, params):
 def test_quantized_llama_logits_match_jax(jax_tree):
     module, params = jax_tree
     ref = _jax_logits_on_dequantized(module, params)
+    plain_model = tq.quantize_params(_port_model(params))
+    flash_model = tq.quantize_params(_port_model(params, attention_impl="flash"))
+    # each slot records its model's route, taken once from the kernel switch
+    for model, route in ((plain_model, "xla"), (flash_model, "pallas")):
+        slots = [m for m in model.modules() if isinstance(m, tq.QuantizedKernel)]
+        assert slots and {m.impl for m in slots} == {route}
     with torch.no_grad():
-        plain = tq.quantize_params(_port_model(params))(torch.from_numpy(TOKENS)).numpy()
-        flash = tq.quantize_params(_port_model(params, attention_impl="flash"))(torch.from_numpy(TOKENS)).numpy()
+        plain = plain_model(torch.from_numpy(TOKENS)).numpy()
+        flash = flash_model(torch.from_numpy(TOKENS)).numpy()
     np.testing.assert_allclose(plain, ref, atol=1e-5, rtol=0)
     # the kernel route rounds each int8 matmul's input to bf16 (8 bits of
     # mantissa): logits within 2e-2 of the plain route's, relative to their scale
@@ -165,6 +173,8 @@ def test_weight_bridge_round_trips_a_quantized_tree(jax_tree, leaf_form):
         loaded = model(torch.from_numpy(TOKENS))
         quantized = tq.quantize_params(_port_model(params))(torch.from_numpy(TOKENS))
     assert torch.equal(loaded, quantized)
+    flash = llama_from_jax(qtree, dataclasses.replace(cfg, attention_impl="flash"), device="cpu")
+    assert {m.impl for m in flash.modules() if isinstance(m, tq.QuantizedKernel)} == {"pallas"}
     np.testing.assert_allclose(loaded.numpy(), _jax_logits_on_dequantized(module, params), atol=1e-5, rtol=0)
 
 

@@ -100,30 +100,23 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float = 10
     return rotated.reshape(x.shape).to(x.dtype)
 
 
-def int8_route(impl: str) -> str:
-    """The ``quantized_matmul`` route of a model's kernel switch: its Hopper
-    kernel (``"pallas"``) under ``attention_impl="flash"``, the JAX
-    package's dequantize-then-matmul (``"xla"``) otherwise."""
-    return "pallas" if impl == "flash" else "xla"
-
-
 class LoRADense(nn.Module):
     """Dense layer with an optional low-rank adapter: ``y = xW + (xA)B * (alpha/r)``.
 
     ``kernel`` is a float parameter, or a
     :class:`~unionml_tpu_torch.ops.quant.QuantizedKernel` after in-place
-    int8 quantization; then ``xW`` is ``quantized_matmul(x, ...,
-    impl=int8_impl)`` in ``dtype`` (see :func:`int8_route`), and the
-    adapters and the bias stay as they are."""
+    int8 quantization; then ``xW`` is ``quantized_matmul`` in ``dtype`` on
+    the route the slot records, and the adapters and the bias stay as they
+    are."""
 
     #: parameters whose slot may hold an int8 kernel (ops/quant.set_quantized)
     quantizable = ("kernel",)
 
     def __init__(self, in_features: int, features: int, rank: int = 0, alpha: float = 16.0,
                  use_bias: bool = False, dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32, device: Any = None, int8_impl: str = "xla"):
+                 param_dtype: torch.dtype = torch.float32, device: Any = None):
         super().__init__()
-        self.rank, self.alpha, self.dtype, self.int8_impl = rank, alpha, dtype, int8_impl
+        self.rank, self.alpha, self.dtype = rank, alpha, dtype
         empty = lambda *shape: nn.Parameter(torch.empty(*shape, dtype=param_dtype, device=device))  # noqa: E731
         self.kernel = empty(in_features, features)
         if rank > 0:
@@ -133,7 +126,7 @@ class LoRADense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self.kernel, QuantizedKernel):
-            y = quantized_matmul(x, self.kernel.tensor, out_dtype=self.dtype, impl=self.int8_impl)
+            y = quantized_matmul(x, self.kernel.tensor, out_dtype=self.dtype, impl=self.kernel.impl)
         else:
             y = x @ self.kernel.to(self.dtype)
         if self.rank > 0:
@@ -152,8 +145,9 @@ class Attention(nn.Module):
     paged cache's single-token decode reads the pool through
     :func:`~unionml_tpu_torch.ops.paged_attention.paged_decode_attention`;
     every other case takes the plain path, exactly as in the JAX package.
-    The same switch routes int8 projections (:func:`int8_route`): under
-    ``"flash"`` they go through the int8 matmul kernel.
+    The same switch routes the model's int8 projections
+    (:func:`~unionml_tpu_torch.ops.quant.int8_route`): under ``"flash"``
+    they go through the int8 matmul kernel.
     """
 
     def __init__(self, features: int, n_heads: int, n_kv_heads: Optional[int] = None,
@@ -168,8 +162,7 @@ class Attention(nn.Module):
         self.n_kv = n_kv_heads or n_heads
         self.head_dim = head_dim or features // n_heads
         self.causal, self.rope, self.rope_theta, self.impl = causal, rope, rope_theta, impl
-        dense = lambda i, o: LoRADense(i, o, rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device,  # noqa: E731
-                                       int8_impl=int8_route(impl))
+        dense = lambda i, o: LoRADense(i, o, rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device)  # noqa: E731
         self.q_proj = dense(features, n_heads * self.head_dim)
         self.k_proj = dense(features, self.n_kv * self.head_dim)
         self.v_proj = dense(features, self.n_kv * self.head_dim)
@@ -276,14 +269,12 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Gated SwiGLU feed-forward block (the decoder's). ``impl`` is the
-    model's kernel switch; it routes int8 kernels only (:func:`int8_route`)."""
+    """Gated SwiGLU feed-forward block (the decoder's)."""
 
     def __init__(self, features: int, hidden_dim: int, lora_rank: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32, device: Any = None, impl: str = "auto"):
+                 param_dtype: torch.dtype = torch.float32, device: Any = None):
         super().__init__()
-        dense = lambda i, o: LoRADense(i, o, rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device,  # noqa: E731
-                                       int8_impl=int8_route(impl))
+        dense = lambda i, o: LoRADense(i, o, rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device)  # noqa: E731
         self.wg = dense(features, hidden_dim)
         self.wi = dense(features, hidden_dim)
         self.wo = dense(hidden_dim, features)
@@ -306,8 +297,7 @@ class TransformerBlock(nn.Module):
             impl=attention_impl, lora_rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device,
         )
         self.mlp_norm = RMSNorm(features, dtype=dtype, device=device)
-        self.mlp = MLP(features, hidden_dim, lora_rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device,
-                       impl=attention_impl)
+        self.mlp = MLP(features, hidden_dim, lora_rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(
         self,

@@ -17,7 +17,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
-from unionml_tpu_torch.models.layers import IotaEmbed, RMSNorm, TransformerBlock, init_weights, int8_route
+from unionml_tpu_torch.models.layers import IotaEmbed, RMSNorm, TransformerBlock, init_weights
 from unionml_tpu_torch.ops.int8_matmul import quantized_matmul
 from unionml_tpu_torch.ops.quant import QuantizedKernel
 
@@ -67,19 +67,18 @@ class LlamaConfig:
 
 class _LMHead(nn.Module):
     """Untied LM head: a bias-free dense ``[dim, vocab]`` kernel, float or
-    int8 (then through ``quantized_matmul`` on the model's int8 route)."""
+    int8 (then through ``quantized_matmul`` on the route its slot records)."""
 
     quantizable = ("kernel",)
 
-    def __init__(self, dim: int, vocab_size: int, dtype: torch.dtype, param_dtype: torch.dtype, device: Any,
-                 int8_impl: str = "xla"):
+    def __init__(self, dim: int, vocab_size: int, dtype: torch.dtype, param_dtype: torch.dtype, device: Any):
         super().__init__()
-        self.dtype, self.int8_impl = dtype, int8_impl
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(dim, vocab_size, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self.kernel, QuantizedKernel):
-            return quantized_matmul(x.to(self.dtype), self.kernel.tensor, out_dtype=self.dtype, impl=self.int8_impl)
+            return quantized_matmul(x.to(self.dtype), self.kernel.tensor, out_dtype=self.dtype, impl=self.kernel.impl)
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 
@@ -105,7 +104,7 @@ class Llama(nn.Module):
                 lora_rank=cfg.lora_rank, **common,
             ))
         self.final_norm = RMSNorm(cfg.dim, dtype=cfg.dtype, device=device)
-        self.lm_head = _LMHead(cfg.dim, cfg.vocab_size, int8_impl=int8_route(cfg.attention_impl), **common)
+        self.lm_head = _LMHead(cfg.dim, cfg.vocab_size, **common)
         if seed is not None:
             generator = torch.Generator(device=device).manual_seed(seed)
             init_weights(self, generator)

@@ -31,6 +31,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: thread, and 16-, 8- or 4-byte weight loads; the kernel's templates match
 _TILES = ((4, 16), (8, 8), (16, 4))
 _SPLIT_ROWS = 64  # a split-K share is a whole number of these K rows
+#: the kernel's own limits: whole 64-row K steps, and F in whole 16-byte
+#: weight loads (so a lane's columns are all in or all out)
+_KERNEL_K, _KERNEL_F = 64, 16
 
 
 def _pick_block(dim: int, candidates) -> Optional[int]:
@@ -38,10 +41,6 @@ def _pick_block(dim: int, candidates) -> Optional[int]:
         if dim % c == 0:
             return c
     return None
-
-
-def _tiles(k_dim: int, f_dim: int) -> bool:
-    return bool(_pick_block(k_dim, _K_CANDIDATES) and _pick_block(f_dim, _F_CANDIDATES))
 
 
 def int8_matmul_reference(
@@ -88,10 +87,12 @@ def _kernel():
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> None:
+    """What the kernel takes; anything else raises before a launch."""
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"expected x [M, K] and q [K, F], got {tuple(x.shape)} and {tuple(q.shape)}")
-    if tuple(scale.shape) != (1, q.shape[1]):
-        raise ValueError(f"expected per-output-channel scale [1, {q.shape[1]}], got {tuple(scale.shape)}")
+    if not _kernel_takes(q, scale):
+        raise ValueError(f"the int8 kernel takes a [K, F] weight with K % {_KERNEL_K} == 0 and F % {_KERNEL_F} == 0 "
+                         f"and a [1, F] scale, got {tuple(q.shape)} and {tuple(scale.shape)}")
     if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16 x and out_dtype, got {x.dtype} and {out_dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -105,41 +106,18 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: tor
         raise ValueError("q and scale must start on a 16-byte boundary (the kernel loads 16 bytes at a time)")
 
 
-def int8_matmul(
-    x: torch.Tensor,
-    q: torch.Tensor,
-    scale: torch.Tensor,
-    *,
-    out_dtype: Optional[torch.dtype] = None,
-    block_m: Optional[int] = None,
-    block_k: Optional[int] = None,
-    block_f: Optional[int] = None,
-) -> torch.Tensor:
-    """``[M, K] @ int8 [K, F] * f32 [1, F] -> [M, F]`` in ``out_dtype``
-    (default x's).
+def _kernel_takes(q: torch.Tensor, scale: torch.Tensor) -> bool:
+    k_dim, f_dim = q.shape[-2], q.shape[-1]
+    return q.dim() == 2 and k_dim % _KERNEL_K == 0 and f_dim % _KERNEL_F == 0 and tuple(scale.shape) == (1, f_dim)
 
-    K and F must admit the JAX package's block tiling (K by 512/256/128/64,
-    F by 512/256/128), and explicit ``block_k``/``block_f`` must divide them;
-    otherwise ``ValueError``, as there. The blocks only validate: the kernel
-    keeps its own tiles and masks the ragged edge of M and F. CUDA tensors
-    launch the Hopper kernel (x and ``out_dtype`` float32 or bfloat16) or
-    raise; CPU tensors take :func:`int8_matmul_reference`.
-    """
-    del block_m  # JAX pads M to its block; the kernel masks ragged rows
-    m, k_dim = x.shape
-    f_dim = q.shape[1]
-    out_dtype = out_dtype or x.dtype
-    block_k = block_k or _pick_block(k_dim, _K_CANDIDATES)
-    block_f = block_f or _pick_block(f_dim, _F_CANDIDATES)
-    if block_k is None or block_f is None:
-        raise ValueError(f"no block tiling for weight shape {(k_dim, f_dim)}")
-    if k_dim % block_k or f_dim % block_f:
-        raise ValueError(f"blocks ({block_k}, {block_f}) do not tile weight {(k_dim, f_dim)}")
-    if x.device.type == "cpu":
-        return int8_matmul_reference(x, q, scale, out_dtype=out_dtype)
+
+def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of ``csrc/int8_matmul.cu`` (or a raise), counted."""
+    _check(x, q, scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on CUDA or CPU tensors, got {x.device}")
-    _check(x, q, scale, out_dtype)
+    m, k_dim = x.shape
+    f_dim = q.shape[1]
     out = torch.empty((m, f_dim), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
@@ -159,6 +137,74 @@ def int8_matmul(
     return out
 
 
+def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, q, scale, out_dtype=out_dtype)
+    return _launch(x.contiguous(), q, scale, out_dtype)
+
+
+def _apply(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_forward`, through :class:`_Int8Matmul` only when ``x`` needs a
+    gradient (the autograd function costs host time on every decode call)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Int8Matmul.apply(x, q, scale, out_dtype)
+    return _forward(x, q, scale, out_dtype)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """The kernel (CUDA tensors) or its twin (CPU tensors) with a gradient
+    for ``x``, so LoRA adapters under a frozen int8 base train alike on both:
+    ``dx = bf16((dy * scale) @ q^T)`` in ``x``'s dtype, the twin's own
+    autograd result. The JAX kernel has no gradient; this backward is a
+    plain matmul against the int8 values converted to f32. ``q`` and
+    ``scale`` take none."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, out_dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        return _forward(x, q, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        dx = ((dy.float() * scale) @ q.float().t()).to(torch.bfloat16).to(ctx.x_dtype)
+        return dx, None, None, None
+
+
+def int8_matmul(
+    x: torch.Tensor,
+    q: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    block_m: Optional[int] = None,
+    block_k: Optional[int] = None,
+    block_f: Optional[int] = None,
+) -> torch.Tensor:
+    """``[M, K] @ int8 [K, F] * f32 [1, F] -> [M, F]`` in ``out_dtype``
+    (default x's), differentiable in ``x``.
+
+    K and F must admit the JAX package's block tiling (K by 512/256/128/64,
+    F by 512/256/128), and explicit ``block_k``/``block_f`` must divide them;
+    otherwise ``ValueError``, as there. The blocks only validate: the kernel
+    keeps its own tiles and masks the ragged edge of M and F. CUDA tensors
+    launch the Hopper kernel (x and ``out_dtype`` float32 or bfloat16) or
+    raise; CPU tensors take :func:`int8_matmul_reference`.
+    """
+    del block_m  # JAX pads M to its block; the kernel masks ragged rows
+    k_dim, f_dim = q.shape
+    block_k = block_k or _pick_block(k_dim, _K_CANDIDATES)
+    block_f = block_f or _pick_block(f_dim, _F_CANDIDATES)
+    if block_k is None or block_f is None:
+        raise ValueError(f"no block tiling for weight shape {(k_dim, f_dim)}")
+    if k_dim % block_k or f_dim % block_f:
+        raise ValueError(f"blocks ({block_k}, {block_f}) do not tile weight {(k_dim, f_dim)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_matmul runs on CUDA or CPU tensors, got {x.device}")
+    return _apply(x, q, scale, out_dtype or x.dtype)
+
+
 #: kernel launches since the count was last reset (CPU calls never count)
 int8_matmul.launches = 0
 
@@ -168,21 +214,23 @@ def quantized_matmul(x: torch.Tensor, qt: Any, *, out_dtype: Optional[torch.dtyp
     """Matmul against a :class:`~unionml_tpu_torch.ops.quant.QuantizedTensor`.
 
     ``impl="xla"`` dequantizes to ``out_dtype`` and multiplies: the JAX
-    package's numerics. ``impl="pallas"`` goes through :func:`int8_matmul`
-    when both weight dims tile and the scale is per output channel, and
-    takes the dequantize path otherwise; the choice is made from the shapes,
-    before any launch. ``x`` may carry leading dims; the weight is 2D.
+    package's numerics. ``impl="pallas"`` on CUDA tensors launches the int8
+    kernel for any 2D weight with a per-output-channel scale, K a multiple
+    of 64 and F of 16 (the kernel's own limits, wider than the JAX tiling),
+    and raises ``ValueError`` on any other weight: it never runs the
+    dequantize path on the card. ``x`` may carry leading dims.
 
-    Where the CPU differs from JAX: JAX's ``"pallas"`` off a TPU falls back
-    to the dequantize path; the port's runs the kernel's plain twin on the
-    CPU, which rounds ``x`` to bf16 as the kernel does.
+    Where the CPU differs from JAX: JAX's ``"pallas"`` off a TPU always
+    takes the dequantize path. The port's, on CPU tensors, runs the kernel's
+    plain twin for every weight the kernel takes (it rounds ``x`` to bf16 as
+    the kernel does), and dequantizes only for the others, as JAX does.
     """
     out_dtype = out_dtype or x.dtype
     k_dim, f_dim = qt.q.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k_dim)
-    if impl == "pallas" and _tiles(k_dim, f_dim) and tuple(qt.scale.shape) == (1, f_dim):
-        out = int8_matmul(x2.contiguous(), qt.q, qt.scale, out_dtype=out_dtype)
+    if impl == "pallas" and (x.device.type != "cpu" or _kernel_takes(qt.q, qt.scale)):
+        out = _apply(x2, qt.q, qt.scale, out_dtype)
     else:
         w = (qt.q.float() * qt.scale).to(out_dtype)
         out = x2.to(out_dtype) @ w

@@ -11,7 +11,8 @@ and scales are bit-identical to the JAX package's.
 function takes a pytree, and returns a new tree with :class:`QuantizedTensor`
 leaves. Given a module it quantizes IN PLACE instead: each selected float
 kernel is replaced by a :class:`QuantizedKernel` holding the int8 values and
-scales, so one copy of the weights lives in device memory. Either way a leaf
+scales, so one copy of the weights lives in device memory; the slot records
+the model's int8 route (:func:`int8_route`). Either way a leaf
 is selected by its flax path (``layer_0/attn/q_proj/kernel``, the port's
 dotted parameter name with ``/``), so one regex selects the same leaves in
 both packages.
@@ -93,12 +94,14 @@ def dequantize_tree(params: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
 
 class QuantizedKernel(nn.Module):
     """The slot of a dense kernel after in-place quantization: buffers ``q``
-    (int8, the kernel's shape) and ``scale`` (f32). Its state-dict names are
-    the kernel's plus ``.q``/``.scale``, the fields of the flax tree's
-    quantized leaf."""
+    (int8, the kernel's shape) and ``scale`` (f32), and ``impl``, the
+    :func:`~unionml_tpu_torch.ops.int8_matmul.quantized_matmul` route its
+    owner multiplies by. Its state-dict names are the kernel's plus
+    ``.q``/``.scale``, the fields of the flax tree's quantized leaf."""
 
-    def __init__(self, qt: QuantizedTensor):
+    def __init__(self, qt: QuantizedTensor, impl: str = "xla"):
         super().__init__()
+        self.impl = impl
         self.register_buffer("q", qt.q)
         self.register_buffer("scale", qt.scale)
 
@@ -111,17 +114,25 @@ class QuantizedKernel(nn.Module):
         return QuantizedTensor(self.q, self.scale)
 
 
+def int8_route(module: nn.Module) -> str:
+    """The int8 route of a model's kernel switch: the Hopper kernel
+    (``"pallas"``) when its ``config.attention_impl`` is ``"flash"``, the
+    JAX package's dequantize-then-matmul (``"xla"``) otherwise."""
+    return "pallas" if getattr(getattr(module, "config", None), "attention_impl", None) == "flash" else "xla"
+
+
 def set_quantized(module: nn.Module, name: str, qt: QuantizedTensor) -> None:
     """Replace the parameter ``name`` (dotted, relative to ``module``) by a
-    :class:`QuantizedKernel`. Its owner must list the leaf in its
-    ``quantizable`` attribute: only modules whose forward takes an int8
-    kernel (the dense layers and the LM head) accept one."""
+    :class:`QuantizedKernel` on ``module``'s :func:`int8_route`. Its owner
+    must list the leaf in its ``quantizable`` attribute: only modules whose
+    forward takes an int8 kernel (the dense layers and the LM head) accept
+    one."""
     owner_name, _, leaf = name.rpartition(".")
     owner = module.get_submodule(owner_name)
     if leaf not in getattr(owner, "quantizable", ()):
         raise ValueError(f"{name}: {type(owner).__name__} does not take an int8 {leaf!r} in the port")
     delattr(owner, leaf)
-    setattr(owner, leaf, QuantizedKernel(qt))
+    setattr(owner, leaf, QuantizedKernel(qt, int8_route(module)))
 
 
 #: default targets: large matmul kernels; embeddings stay unquantized (a
