@@ -11,10 +11,11 @@ Phases (no phase catches a failure; any fault exits non-zero):
 2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
    paged decode at the served shapes; the flash forward, dq and dk/dv
    kernels at full width causal, non-causal, cross-length causal and custom
-   blocks; the int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5
-   and 130; then time kernel, twin, the library yardstick and the
+   blocks; the int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
+   130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
+   kernel, twin, the library yardstick and the
    bytes/operations bound with CUDA events (int8 also summed over one decode
-   step's 225 matmuls); each kernel's time includes its host launch work, and
+   step's 225 matmuls, at M = 4, 64 and 256); each kernel's time includes its host launch work, and
    a second, device-only time (``device_ms``) is taken behind a measured spin
    of the card that outlasts the host's enqueue;
 3. serve a Llama-3-8B-width model (32 layers, bf16, random weights from a
@@ -87,8 +88,8 @@ INT8_WEIGHTS = (
     ("lm_head", 4096, 128256, 1),
 )
 INT8_PER_FORWARD = sum(n for *_, n in INT8_WEIGHTS)
-INT8_M = (4, 256, 5, 130)  # decode, admission prefill, and two ragged M
-INT8_TIMED_M = (4, 256)
+INT8_M = (4, 256, 5, 130, 1, 8, 9, 64)  # decode, admission prefill, ragged M and the edges of the N tiles
+INT8_TIMED_M = (4, 64, 256)  # decode, a chunked-prefill chunk, admission prefill
 #: int8 kernel against its twin in f32: both sum exact products in f32, in
 #: another order, so |kernel - twin| <= 1e-5 * max|twin|; bf16 is TOLERANCE's
 INT8_F32_REL = 1e-5
@@ -463,6 +464,10 @@ def int8_kernel_phase() -> dict:
         print(f"int8_matmul [{k_dim}, {f_dim}] ({label}): max_abs_err {', '.join(errors)} (tolerance f32 "
               f"{INT8_F32_REL} x max|twin|, bf16 atol={TOLERANCE['torch.bfloat16'][0]} "
               f"rtol={TOLERANCE['torch.bfloat16'][1]}) ok", flush=True)
+        x = torch.randn(4, k_dim, device="cuda", generator=g).to(torch.bfloat16)
+        once, again = (int8_matmul(x, qt.q, qt.scale, out_dtype=torch.float32) for _ in range(2))
+        require(torch.equal(once, again), f"int8_matmul [{k_dim}, {f_dim}] gave other bits on a second call")
+        print(f"int8_matmul [{k_dim}, {f_dim}] ({label}): M=4, f32 out, two calls bitwise equal", flush=True)
         w_bf16 = dequantize(qt, torch.bfloat16)  # the library yardstick's weight, made once
         for m in INT8_TIMED_M:
             x = torch.randn(m, k_dim, device="cuda", generator=g).to(torch.bfloat16)
@@ -473,23 +478,28 @@ def int8_kernel_phase() -> dict:
             library_dev_ms, _ = device_ms(lambda: x @ w_bf16)
             bms, bound_by = int8_bound_ms(m, k_dim, f_dim, 2, 2)
             timed[(label, m)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
-                                     device_ms=dev_ms, library_device_ms=library_dev_ms)
+                                     device_ms=dev_ms, library_device_ms=library_dev_ms, host_ms=host_ms)
             print(f"int8_matmul bf16 M={m} [{k_dim}, {f_dim}] ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library (cuBLAS bf16 x @ w on the weight dequantized beforehand) {library_ms:.4f} ms, "
                   f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound; device only: kernel {dev_ms:.4f} ms "
-                  f"({bms / dev_ms:.1%} of bound; host enqueue {host_ms:.4f} ms, spin {spin_ms():.4f} ms), library "
-                  f"{library_dev_ms:.4f} ms", flush=True)
+                  f"({bms / dev_ms:.1%} of bound), host enqueue a call {host_ms:.4f} ms (spin {spin_ms():.4f} ms), "
+                  f"library {library_dev_ms:.4f} ms", flush=True)
         del qt, w_bf16
         torch.cuda.empty_cache()
     for m in INT8_TIMED_M:
         step = {key: sum(n * timed[(label, m)][key] for label, _, _, n in INT8_WEIGHTS)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "library_device_ms", "host_ms")}
         print(f"int8_matmul bf16 M={m}, the {INT8_PER_FORWARD} matmuls of one forward: kernel {step['ms']:.4f} ms, "
               f"plain {step['plain_ms']:.4f} ms, library (bf16 weights) {step['library_ms']:.4f} ms, "
               f"bound {step['bound_ms']:.4f} ms, {step['bound_ms'] / step['ms']:.1%} of bound; device only: kernel "
-              f"{step['device_ms']:.4f} ms, library {step['library_device_ms']:.4f} ms", flush=True)
+              f"{step['device_ms']:.4f} ms, library {step['library_device_ms']:.4f} ms; host enqueue "
+              f"{step['host_ms']:.4f} ms", flush=True)
     row = dict(timed[("wg/wi", 4)])
     del row["library_device_ms"]
+    # the admission-prefill times of the same weight ride along under an "m256_" prefix
+    prefill = timed[("wg/wi", 256)]
+    row.update({f"m256_{key}": prefill[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                                         "library_device_ms")})
     return dict(max_abs_err=worst, **row)
 
 

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from unionml_tpu_torch.ops.quant import QuantizedTensor, quantize_array
+from unionml_tpu_torch.ops.quant import QuantizedKernel, QuantizedTensor, quantize_array
 
 # the package re-exports the function under the module's name
 im = importlib.import_module("unionml_tpu_torch.ops.int8_matmul")
@@ -125,6 +125,22 @@ def test_quantized_matmul_pallas_never_dequantizes_off_the_cpu(k, f, channel_axi
     assert im.quantized_matmul(x, qt, impl="xla").shape == (3, f)
 
 
+def test_quantized_kernel_is_checked_again_after_its_buffers_change():
+    """A model's int8 slot is validated at its first launch and keeps the
+    verdict only while its buffers stay as checked: a move (``.to``) or a
+    new ``q``/``scale`` clears it, and an unchecked slot gets every check."""
+    slot = QuantizedKernel(quantize_array(torch.randn(128, 256)), impl="pallas")
+    assert slot.kernel_checked is False
+    for change in (lambda: slot.to("cpu"), lambda: setattr(slot, "q", slot.q.clone()),
+                   lambda: setattr(slot, "scale", slot.scale.clone())):
+        slot.kernel_checked = True
+        change()
+        assert slot.kernel_checked is False
+    bad = QuantizedKernel(quantize_array(torch.randn(128, 200)), impl="pallas").to("meta")
+    with pytest.raises(ValueError, match="the int8 kernel takes"):
+        im.quantized_matmul(torch.empty(3, 128, device="meta"), bad, impl="pallas")
+
+
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 def test_gradient_flows_through_the_kernel_route(x_dtype):
     """A frozen int8 base under LoRA passes dL/dx on the kernel route: the
@@ -141,21 +157,36 @@ def test_gradient_flows_through_the_kernel_route(x_dtype):
     assert torch.equal(x_port.grad, x_twin.grad)
 
 
+#: (K, F) of every Llama-3-8B matmul: q/o, k/v, wg/wi, wo, lm_head
+LLAMA3_8B_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
+
+
+def _blocks(plan, m, f):
+    """The launch's grid: F tiles x N tiles x cluster ranks."""
+    return -(-f // plan.f_tile) * -(-m // plan.n_tile) * plan.splits
+
+
 @pytest.mark.parametrize(
-    "m,expected",
-    [(4, (4, 16)), (5, (8, 8)), (8, (8, 8)), (9, (16, 4)), (256, (16, 4))],
+    "m,n_tile",
+    [(1, 8), (4, 8), (5, 8), (8, 8), (9, 16), (17, 32), (64, 64), (65, 128), (256, 256), (300, 256)],
 )
-def test_plan_tiles_and_splits(m, expected):
+def test_plan_tiles_and_splits(m, n_tile):
     n_sms = 132
-    for k, f in ((4096, 14336), (4096, 1024), (14336, 4096), (4096, 128256), (64, 128)):
-        tile_m, vec, splits, k_per_split = im._plan(m, k, f, n_sms)
-        assert (tile_m, vec) == expected
-        assert k_per_split % 64 == 0 and splits * k_per_split >= k > (splits - 1) * k_per_split
-        # the f32 partial sums stay within an eighth of the weight's bytes
-        assert splits == 1 or 2 * splits * m * f * 4 <= k * f / 8
-    # decode on the MLP weight: split until the grid holds two blocks per SM
-    tile_m, vec, splits, _ = im._plan(4, 4096, 14336, n_sms)
-    assert (14336 // (32 * vec)) * splits >= 2 * n_sms
+    for k, f in (*LLAMA3_8B_WEIGHTS, (64, 128), (4096, 1040)):
+        plan = im._plan(m, k, f, n_sms)
+        # the N tile is the smallest of 8..256 that holds M (several tiles past 256)
+        assert plan.n_tile == n_tile and plan.f_tile == (128 if n_tile >= 128 else 64)
+        # the cluster split covers K in whole 64-row steps, every rank with at least one
+        assert 1 <= plan.splits <= 16 and plan.k_per_split % 64 == 0
+        assert plan.splits * plan.k_per_split >= k > (plan.splits - 1) * plan.k_per_split
+        # one launch and no scratch: a plan is tiles and a split, nothing to allocate
+        assert plan._fields == ("n_tile", "f_tile", "splits", "k_per_split")
+        # K is split only while the grid still fits the blocks the SMs hold at once
+        # (two a SM below N = 128, one at N >= 128, where a block fills the shared memory)
+        assert plan.splits == 1 or _blocks(plan, m, f) <= (1 if n_tile >= 128 else 2) * n_sms
+    if m <= 8:  # decode: every Llama-3-8B weight fills the card
+        for k, f in LLAMA3_8B_WEIGHTS:
+            assert _blocks(im._plan(m, k, f, n_sms), m, f) >= n_sms, (k, f)
 
 
 @pytest.mark.parametrize("bad", ["q-int16", "scale-column", "x-noncontiguous", "x-float16", "k-not-64", "f-not-16"])
@@ -178,10 +209,6 @@ def test_kernel_inputs_are_checked(bad):
         x = x.half()
     with pytest.raises((TypeError, ValueError)):
         im._check(x, q, scale, out_dtype)
-
-
-#: (K, F) of every Llama-3-8B matmul: q/o, k/v, wg/wi, wo, lm_head
-LLAMA3_8B_WEIGHTS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
 
 
 @pytest.mark.cuda
@@ -249,3 +276,66 @@ def test_gradient_on_card_matches_cpu():
         (im.quantized_matmul(xt, qt, impl="pallas") * torch.from_numpy(dy).to(device)).sum().backward()
         grads.append(xt.grad.cpu())
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-2 * grads[0].abs().max().item()  # bf16-rounded dx
+
+
+#: the M of the card-only checks: decode, the edges of each N tile, and ragged prefill past 256
+CARD_M = (1, 7, 8, 9, 17, 64, 255, 256, 257, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,f", [(64, 128), (4096, 1040), (14336, 4096)], ids=["64x128", "4096x1040", "14336x4096"])
+def test_kernel_matches_twin_at_every_tile_edge_on_card(k, f, dtype):
+    """Every N tile and its ragged edges, F not a multiple of 64, and the
+    longest K; f32 within 1e-5 x max|twin| (summation order only), bf16 as
+    the twin rounds."""
+    _cuda_or_skip()
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(k + f)
+    qt = quantize_array(torch.randn(k, f, device="cuda", generator=g) * k ** -0.5)
+    for m in CARD_M:
+        x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+        before = im.int8_matmul.launches
+        out = im.quantized_matmul(x, qt, impl="pallas")  # int8_matmul keeps the JAX tiling, which refuses F = 1040
+        torch.cuda.synchronize()
+        assert im.int8_matmul.launches == before + 1
+        ref = im.int8_matmul_reference(x, qt.q, qt.scale)
+        assert out.dtype == dtype and out.shape == (m, f)
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5 * ref.abs().max().item(), (m, err.max().item())
+        else:
+            assert bool((err <= 2e-2 + 2e-2 * ref.float().abs()).all()), (m, err.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 64, 256])
+def test_kernel_is_bitwise_deterministic_on_card(m):
+    """The cluster ranks add their partial tiles in a fixed order: the same
+    inputs give the same bits, split K included."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(m)
+    for k, f in LLAMA3_8B_WEIGHTS[:4]:
+        x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+        qt = quantize_array(torch.randn(k, f, device="cuda", generator=g) * 0.02)
+        first = im.int8_matmul(x, qt.q, qt.scale, out_dtype=torch.float32)
+        second = im.int8_matmul(x, qt.q, qt.scale, out_dtype=torch.float32)
+        assert torch.equal(first, second), (m, k, f, im._plan(m, k, f, torch.cuda.get_device_properties(0).multi_processor_count))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,f", [(64, 16), (192, 48), (128, 1040), (4096, 50272)],
+                         ids=["64x16", "192x48", "128x1040", "4096x50272"])
+def test_weights_of_the_earlier_kernel_still_launch_on_card(k, f):
+    """The kernel's limits did not narrow: K % 64 and F % 16, any M."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(f)
+    qt = quantize_array(torch.randn(k, f, device="cuda", generator=g) * 0.02)
+    for m in (1, 300):
+        x = torch.randn(m, k, device="cuda", generator=g)
+        before = im.int8_matmul.launches
+        out = im.quantized_matmul(x, qt, impl="pallas")
+        torch.cuda.synchronize()
+        assert im.int8_matmul.launches == before + 1
+        ref = im.int8_matmul_reference(x, qt.q, qt.scale)
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -1,7 +1,8 @@
 // Int8 weight-only matmul for Hopper (sm_90a):
 //   out[M, F] = (bf16(x)[M, K] @ q[K, F]) * scale[1, F]
-// with x float32 or bfloat16, q int8 in the flax [in, out] layout (F is the
-// contiguous axis), per-output-channel f32 scales, and out float32 or
+// with x bfloat16 (the wrapper rounds a float32 x to bfloat16 first, round
+// to nearest even), q int8 in the flax [in, out] layout (F is the contiguous
+// axis), per-output-channel f32 scales, f32 accumulation, and out float32 or
 // bfloat16.
 //
 // Replaces the TPU kernel unionml_tpu/ops/int8_matmul.py::_kernel (the
@@ -9,312 +10,603 @@
 // quantized_matmul(impl="pallas"). In the port every quantized matmul of the
 // int8 serving path comes here under attention_impl="flash".
 //
-// Bound. At decode (M <= 4) the bytes: a [4096, 14336] weight is 58.7 MB of
-// int8, 17.5 us at 3.35 TB/s, against 0.47 GFLOP. At admission prefill
-// (M = 256 on the same weight) the operations: 30 GFLOP, 30 us at the bf16
-// tensor-core rate of 989 TFLOP/s.
+// Bounds on an H100 SXM. Decode (M <= 8) is bound by bytes: a [4096, 14336]
+// weight is 58.7 MB of int8, 17.6 us at 3.35 TB/s. Admission prefill
+// (M = 256 on the same weight) is bound by operations: 30.1 GFLOP, 30.4 us at
+// the bf16 tensor-core rate of 989 TFLOP/s.
 //
-// Design (simple first). Each thread owns VEC neighbouring output columns
-// and reads its slice of a weight row with one VEC-byte load (16, 8 or 4
-// bytes; a warp reads 32 * VEC contiguous bytes). The int8 values become f32
-// exactly by a byte permute into the mantissa of 2^23. A block of 8 warps
-// covers 32 * VEC columns and a tile of TM rows of x (TM * VEC = 64 f32
-// accumulators a thread): TM = 4 at decode, for the widest loads, and 16 for
-// prefill, so each weight byte read from device memory serves 16 rows. The
-// block stages its x tile 256 K rows at a time in shared memory, rounded to
-// bf16 and held as f32; each warp takes 32 K rows of every staged chunk, and
-// the 8 warps then sum their accumulators in a fixed tree through shared
-// memory. Products float(bf16(x)) * float(q) are exact in f32, so the kernel
-// computes the TPU kernel's function up to summation order, with f32 FMAs on
-// the CUDA cores. At decode the column blocks alone leave most SMs idle, so
-// the wrapper splits K across blocks: each writes f32 partial sums to a
-// [splits, M, F] scratch, and a second kernel adds them in a fixed order,
-// applies the scale once and casts (deterministic, no atomics). With one
-// split the epilogue fuses. The ragged edges of M and F are masked; M is not
-// padded.
+// Design. The products run on the tensor cores with the operands swapped:
+// out^T[F, M] = q^T[F, K] . x^T[K, M], one wgmma.m64nNk16 (bf16 in, f32
+// accumulators in registers) per 16 K rows and 64 output channels. F fills
+// the instruction's 64-row side and the tokens are its N (8, 16, 32, 64, 128
+// or 256, the smallest that holds M; larger M takes several N tiles on
+// gridDim.y), so one design serves both regimes: at decode the tensor cores
+// take the multiply-adds off the CUDA cores, which are left with the int8 ->
+// bf16 conversion only, and at prefill every weight tile read from device
+// memory serves all 256 rows of x in one pass.
+//  - Copies. A ring of S stages in shared memory, each KT K tiles of 64 rows
+//    (KT = 2 at N <= 16, where a stage is otherwise too small to pay for its
+//    barriers): thread 0 asks the TMA unit for one 2D box of the int8 weight
+//    [KT x 64, F_tile] (in the F_tile-byte swizzle; columns past F read as 0)
+//    and one box of x per K tile [N, 64] (bf16, in the 128-byte swizzle
+//    wgmma reads; rows past M and K read as 0), completing on the stage's
+//    mbarrier. The tensor maps are encoded on the host at each launch. S - 1
+//    stages are in flight ahead of the one being converted. (16-byte cp.async
+//    copies from every thread kept too few bytes in flight per SM to stream a
+//    decode weight near the bytes bound.)
+//  - Conversion. Each thread turns 8 K rows x 4 channels of the int8 tile
+//    into four 16-byte rows of bf16, K-major in the 128-byte swizzle (so both
+//    operands are K-major and no transpose flag is used): a transpose in
+//    registers by byte selects, then per pair of values two masks into bf16
+//    magic numbers and one bf16x2 add, exact since |q| <= 127 fits bf16's 8
+//    significant bits. The lanes of a warp read their rows in an order that
+//    the weight's swizzle spreads over all 32 banks, and write whole
+//    128-byte rows. A fence.proxy.async and a barrier order the writes
+//    before the wgmma that reads them.
+//  - Overlap. One warpgroup (two at N >= 128, F_tile = 128) issues the
+//    wgmmas of step s asynchronously, then converts step s + 1 into a second
+//    buffer while they run (AB = 2), or, at N <= 16 where the products are
+//    small, into the same buffer once they are done (AB = 1: a smaller block,
+//    so more of them share an SM), with two barriers a step.
+//  - Filling the card at decode. M <= 8 leaves F / 64 blocks; K is split
+//    across the blocks of a thread-block cluster (up to 16, the non-portable
+//    size), aiming at two blocks per SM (one at N >= 128, where one block
+//    fills an SM's shared memory). The blocks of a cluster add their f32
+//    partial tiles through distributed shared memory, each block a slice of
+//    the output, summing the ranks in a fixed order: one launch, no scratch
+//    in device memory, no atomics, a bitwise-deterministic result.
+//  - Epilogue. The accumulators go through shared memory as an [N, F_tile]
+//    f32 tile (rows padded by 4 floats, free of bank conflicts), so the
+//    stores to out[M, F] run along F in 16- or 8-byte vectors; the scale of
+//    each channel is applied once to the sum, then the cast; rows past M and
+//    channels past F are masked.
 //
-// Left for later: tensor-core products (mma.sync/wgmma on bf16 tiles), which
-// the prefill regime needs to come near its operations bound; cp.async/TMA
-// double buffering of the weight tiles; a persistent schedule that needs no
-// split-K scratch.
+// Limits: K % 64 == 0, F % 16 == 0, 16-byte aligned x, q and scale, any M.
+//
+// Left for later: decode is bound by the per-stage work of each block
+// (barriers, the conversion) more than by the bytes; a producer warp with
+// setmaxnreg and converter warps on mbarriers instead of block barriers, A
+// from registers, and a persistent schedule over output tiles would cut it.
+// At prefill, TMA multicast of the x tile across a cluster along F (each of
+// the F / 128 blocks reads all of x through L2). fp8/int8 tensor-core
+// products for int8 activations.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 32;                 // K rows each warp takes from a staged chunk
-constexpr int kChunk = kWarps * kRowsPerWarp;    // K rows of x staged at a time
-constexpr int kAcc = 64;                         // TM * VEC accumulators a thread
-constexpr int kSmemFloats = (kWarps / 2) * 32 * kAcc;  // the reduction tree's first round; holds the x tile too
+constexpr int kStepK = 64;       // K rows of a K tile: one 128-byte row of bf16 in the swizzled tiles
+constexpr int kRowBytes = 128;   // a swizzled tile's row: 64 bf16
+constexpr int kMaxCluster = 16;  // the non-portable cluster size of an H100
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float x_to_float(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-__device__ __forceinline__ float x_to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// four int8 (one 32-bit word) -> exact f32: each byte b, offset to b + 128,
-// becomes the low mantissa bits of 2^23; subtracting 2^23 + 128 leaves b
-__device__ __forceinline__ void unpack4(uint32_t word, float* out) {
-  const uint32_t u = word ^ 0x80808080u;
-  out[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  out[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  out[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int VEC>
-__device__ __forceinline__ void load_weights(const int8_t* p, float* w);
-
-template <>
-__device__ __forceinline__ void load_weights<16>(const int8_t* p, float* w) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  unpack4(v.x, w);
-  unpack4(v.y, w + 4);
-  unpack4(v.z, w + 8);
-  unpack4(v.w, w + 12);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
-template <>
-__device__ __forceinline__ void load_weights<8>(const int8_t* p, float* w) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  unpack4(v.x, w);
-  unpack4(v.y, w + 4);
+// one arrival that also expects `bytes` more of asynchronous copies before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
 }
 
-template <>
-__device__ __forceinline__ void load_weights<4>(const int8_t* p, float* w) {
-  unpack4(__ldg(reinterpret_cast<const unsigned int*>(p)), w);
+// spins until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// KG consecutive staged x values of one row (a broadcast read: every lane
-// of the warp reads the same address)
-template <int KG>
-__device__ __forceinline__ void load_x(const float* p, float* xs);
-
-template <>
-__device__ __forceinline__ void load_x<1>(const float* p, float* xs) {
-  xs[0] = *p;
+// one box of a 2D tensor map global -> shared (swizzled, rows past the tensor zero-filled), completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
 }
 
-template <>
-__device__ __forceinline__ void load_x<4>(const float* p, float* xs) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  xs[0] = v.x;
-  xs[1] = v.y;
-  xs[2] = v.z;
-  xs[3] = v.w;
+// orders this thread's generic-proxy writes to shared memory before later async-proxy (wgmma) reads
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(p);
-  pair[0] = __floats2bfloat162_rn(a, b);
-  pair[1] = __floats2bfloat162_rn(c, d);
-}
-
-template <typename TX, typename TO, int TM, int VEC>
-__global__ void __launch_bounds__(kThreads) int8_matmul_kernel(
-    const TX* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ scale,
-    TO* __restrict__ out, float* __restrict__ partial, int m, int k, int f, int k_per_split) {
-  static_assert(TM * VEC == kAcc, "64 accumulators a thread");
-  static_assert(TM * kChunk <= kSmemFloats, "the x tile fits the shared buffer");
-  constexpr int KG = VEC >= 16 ? 1 : 4;  // K rows a step: 16-byte x reads where registers allow
-  __shared__ __align__(16) float smem[kSmemFloats];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * (32 * VEC) + lane * VEC;
-  const int row0 = blockIdx.y * TM;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(k, k_begin + k_per_split);
-  const bool active = col < f;  // f is a multiple of VEC: a lane's columns are all in or all out
-
-  float acc[TM][VEC];
+// keeps the compiler from moving accumulator reads or writes across the asynchronous wgmma region
+template <int R>
+__device__ __forceinline__ void fence_accumulators(float* d) {
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma matrix descriptor of a K-major tile in the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (stride byte offset), leading
+// byte offset unused (1), layout type 1 (SWIZZLE_128B); tiles start on
+// 1024-byte boundaries, and a 16-row K slice starts 32 bytes further
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// byte offset of the 16-byte chunk c (0..7) of row r in a 128-byte-swizzled tile
+__device__ __forceinline__ int sw128_offset(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
+
+// wgmma.m64nNk16.f32.bf16.bf16, A and B K-major from shared memory, D += A . B
+template <int N>
+struct Wgmma;
+
+#define REG4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : REG4(0)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : REG4(0), REG4(4)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : REG4(0), REG4(4), REG4(8), REG4(12)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REG4(0), REG4(4), REG4(8), REG4(12), REG4(16), REG4(20), REG4(24), REG4(28)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : REG4(0), REG4(4), REG4(8), REG4(12), REG4(16), REG4(20), REG4(24), REG4(28),
+        REG4(32), REG4(36), REG4(40), REG4(44), REG4(48), REG4(52), REG4(56), REG4(60)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : REG4(0), REG4(4), REG4(8), REG4(12), REG4(16), REG4(20), REG4(24), REG4(28),
+        REG4(32), REG4(36), REG4(40), REG4(44), REG4(48), REG4(52), REG4(56), REG4(60),
+        REG4(64), REG4(68), REG4(72), REG4(76), REG4(80), REG4(84), REG4(88), REG4(92),
+        REG4(96), REG4(100), REG4(104), REG4(108), REG4(112), REG4(116), REG4(120), REG4(124)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+
+#undef REG4
+
+// two int8 -> bf16x2, exactly and without float conversions: `v` holds byte b of each value in bits
+// 7:0 of its 16-bit lane (bits 15:8 are ignored). 0x4300 | (b & 0x7F) is the bf16 of 128 + (b & 127),
+// 0xC300 | (b & 0x80) that of -128 (b >= 0) or -256 (b < 0), and their sum, b, is exact in bf16.
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t v) {
+  const uint32_t high = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t offset = (v & 0x00800080u) | 0xC300C300u;
+  const __nv_bfloat162 sum =
+      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&high), *reinterpret_cast<const __nv_bfloat162*>(&offset));
+  return *reinterpret_cast<const uint32_t*>(&sum);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 pair;
+  pair.x = *reinterpret_cast<const uint32_t*>(&lo);
+  pair.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = pair;
+}
+
+// shared memory of one block: N tokens a tile, WGS consumer warpgroups (64 channels each), S stages of
+// KT 64-row K tiles each, AB converted weight buffers (2: the conversion of a stage overlaps the
+// products of the one before; 1: it waits for them, and the block fits more of itself on an SM)
+template <int N, int WGS, int S, int KT, int AB>
+struct Layout {
+  static constexpr int kThreads = 128 * WGS;
+  static constexpr int kFTile = 64 * WGS;              // output channels a block
+  static constexpr int kStep = KT * kStepK;            // K rows a stage
+  static constexpr int kA1 = kFTile * kRowBytes;       // one converted K tile, bf16 [F_tile, 64], swizzled
+  static constexpr int kX1 = N * kRowBytes;            // one x K tile, bf16 [N, 64], swizzled
+  static constexpr int kA = KT * kA1;                  // a stage's converted weight
+  static constexpr int kX = KT * kX1;                  // a stage's x
+  static constexpr int kQ = kStep * kFTile;            // a stage's weight, int8 [KT x 64, F_tile], swizzled
+  static constexpr int kCLd = kFTile + 4;              // row pitch (floats) of the epilogue's [N, F_tile] tile
+  static constexpr int kBytes = AB * kA + S * (kX + kQ);
+  static constexpr int kSmem = kBytes + 8 * S + 1024;  // + the stages' barriers, + slack to align the tiles
+  static_assert(S >= 2, "the loop keeps S - 1 stages in flight");
+  static_assert(N * kCLd * 4 <= kBytes, "the epilogue tile fits the pipeline's buffers");
+  static_assert(kSmem <= 232448, "an H100 block has 227 KB of shared memory");
+};
+
+// byte offset of 4-byte word w of row r in an int8 [64, FT] weight stage as the TMA unit writes it in
+// the FT-byte swizzle: 16-byte chunk c of row r lands at c ^ ((r >> 1) & 3) (FT = 64) or c ^ (r & 7) (FT = 128)
+template <int FT>
+__device__ __forceinline__ int q_offset(int r, int w) {
+  const int swizzle = FT == 64 ? ((r >> 1) & 3) : (r & 7);
+  return r * FT + (((w >> 2) ^ swizzle) << 4) + ((w & 3) << 2);
+}
+
+// int8 weight stage [64, F_tile] -> bf16 [F_tile, 64] (K-major, 128-byte swizzle): thread t converts K
+// rows 8 * (t % 8) .. + 7 of channels 4 * (t / 8) .. + 3 (2 * F_tile threads cover the tile once). The
+// 8 lanes of one channel group read their rows in the order i ^ (t % 8), so each load of a warp hits 32
+// distinct banks through the swizzle; selects and the byte selector put the rows back in order. Each
+// 8 lanes then write one 128-byte row of the converted tile.
+template <int FT>
+__device__ __forceinline__ void convert_tile(const uint8_t* __restrict__ qs, uint8_t* __restrict__ as, int tid) {
+  const int kc = tid & 7;
+  const int g = tid >> 3;
+  uint32_t w[8];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+  for (int i = 0; i < 8; ++i) w[i] = *reinterpret_cast<const uint32_t*>(qs + q_offset<FT>(8 * kc + (i ^ kc), g));
+#pragma unroll
+  for (int b = 2; b < 8; b <<= 1) {  // w[i] holds row i ^ kc: undo bits 1 and 2 of the xor here
+    const bool flip = (kc & b) != 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i & b) continue;
+      const uint32_t lo = w[i], hi = w[i | b];
+      w[i] = flip ? hi : lo;
+      w[i | b] = flip ? lo : hi;
+    }
+  }
+  // and bit 0 in the byte selector: byte j of rows 2p and 2p + 1 into the low bytes of a pair's lanes
+  const uint32_t select = (kc & 1) ? 0x0004u : 0x0400u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t sj = select + 0x0101u * j;
+    uint4 chunk;
+    chunk.x = int8x2_to_bf16x2(__byte_perm(w[0], w[1], sj));
+    chunk.y = int8x2_to_bf16x2(__byte_perm(w[2], w[3], sj));
+    chunk.z = int8x2_to_bf16x2(__byte_perm(w[4], w[5], sj));
+    chunk.w = int8x2_to_bf16x2(__byte_perm(w[6], w[7], sj));
+    *reinterpret_cast<uint4*>(as + sw128_offset(4 * g + j, kc)) = chunk;
+  }
+}
+
+// grid: x = F tiles x splits (the splits of one tile form a cluster), y = N tiles of M
+template <int N, int WGS, int S, int KT, int AB, typename TO>
+__global__ void __launch_bounds__(128 * WGS) int8_matmul_kernel(
+    const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap q_map, const float* __restrict__ scale,
+    TO* __restrict__ out, int m, int k, int f, int splits, int k_per_split) {
+  using L = Layout<N, WGS, S, KT, AB>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* a_buf = smem;                   // AB converted weight stages
+  uint8_t* x_buf = smem + AB * L::kA;      // S x stages
+  uint8_t* q_buf = x_buf + S * L::kX;      // S weight stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(q_buf + S * L::kQ);  // a stage's copies have landed
+
+  const int tid = threadIdx.x;
+  const int f0 = (blockIdx.x / splits) * L::kFTile;
+  const int n0 = blockIdx.y * N;
+  const int rows = min(N, m - n0);
+  const int cols = min(L::kFTile, f - f0);  // output channels of this tile (weight columns past F read as 0)
+  const int k_begin = (blockIdx.x % splits) * k_per_split;
+  // the last stage of the last rank may run past K: the TMA unit reads those rows of q and x as 0
+  const int steps = (max(0, min(k_per_split, k - k_begin)) + L::kStep - 1) / L::kStep;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < S; ++st) mbar_init(&full[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 brings step `step` into slot `slot`: one 2D box of the weight and one of x (rows past M and
+  // columns past F zero-filled by the TMA unit)
+  auto load_step = [&](int step, int slot) {
+    if (tid != 0) return;
+    const int k0 = k_begin + step * L::kStep;
+    mbar_arrive_expect_tx(&full[slot], L::kQ + L::kX);
+    tma_load_2d(q_buf + slot * L::kQ, &q_map, f0, k0, &full[slot]);
+#pragma unroll
+    for (int t = 0; t < KT; ++t) tma_load_2d(x_buf + slot * L::kX + t * L::kX1, &x_map, k0 + t * kStepK, n0, &full[slot]);
+  };
+  auto wait_step = [&](int step) { mbar_wait(&full[step % S], (step / S) & 1); };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_accumulators<N / 2>(acc);
+
+  // prologue: S - 1 steps in flight, then step 0 converted
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < steps) load_step(st, st);
+  }
+  if (steps > 0) {
+    wait_step(0);
+#pragma unroll
+    for (int t = 0; t < KT; ++t) convert_tile<L::kFTile>(q_buf + t * kStepK * L::kFTile, a_buf + t * L::kA1, tid);
+    fence_proxy_async();
+    __syncthreads();
   }
 
-  for (int c = k_begin; c < k_end; c += kChunk) {
-    // a multiple of 32 (k and k_per_split are multiples of 64), so each
-    // warp's 32 rows are all in or all out
-    const int rows = min(kChunk, k_end - c);
-    for (int i = threadIdx.x; i < TM * kChunk; i += kThreads) {
-      const int r = i / kChunk;
-      const int kk = i - r * kChunk;
-      float v = 0.f;
-      if (row0 + r < m && kk < rows) v = x_to_float(x[(int64_t)(row0 + r) * k + c + kk]);
-      smem[i] = v;
-    }
-    __syncthreads();
-    const int w0 = warp * kRowsPerWarp;
-    if (active && w0 < rows) {
-      const int8_t* qp = q + (int64_t)(c + w0) * f + col;
-#pragma unroll 4
-      for (int j = 0; j < kRowsPerWarp; j += KG) {
-        float w[KG][VEC];
+  const int wg = tid >> 7;
+  for (int s = 0; s < steps; ++s) {
+    // the products of step s run while step s + 1 is converted
+    const uint32_t a_addr = smem_addr(a_buf + (s % AB) * L::kA + wg * 64 * kRowBytes);
+    const uint32_t x_addr = smem_addr(x_buf + (s % S) * L::kX);
+    wgmma_fence();
 #pragma unroll
-        for (int g = 0; g < KG; ++g) load_weights<VEC>(qp + (int64_t)(j + g) * f, w[g]);
+    for (int t = 0; t < KT; ++t) {
 #pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          float xs[KG];
-          load_x<KG>(smem + r * kChunk + w0 + j, xs);
-#pragma unroll
-          for (int g = 0; g < KG; ++g) {
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xs[g], w[g][v], acc[r][v]);
-          }
-        }
+      for (int kk = 0; kk < kStepK / 16; ++kk) {
+        Wgmma<N>::run(acc, sw128_desc(a_addr + t * L::kA1 + 32 * kk), sw128_desc(x_addr + t * L::kX1 + 32 * kk));
       }
+    }
+    wgmma_commit();
+    wgmma_wait<AB - 1>();  // this warpgroup's products of step s - 1 (AB = 2) or s (AB = 1) are done
+    __syncthreads();  // every warpgroup's are: the slot of step s - 1 and the buffer step s + 1 converts into are free
+    if (s + S - 1 < steps) load_step(s + S - 1, (s + S - 1) % S);
+    if (s + 1 < steps) {
+      wait_step(s + 1);
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        convert_tile<L::kFTile>(q_buf + ((s + 1) % S) * L::kQ + t * kStepK * L::kFTile,
+                                a_buf + ((s + 1) % AB) * L::kA + t * L::kA1, tid);
+      }
+      fence_proxy_async();
     }
     __syncthreads();
   }
+  wgmma_wait<0>();
+  fence_accumulators<N / 2>(acc);
+  __syncthreads();  // the pipeline's buffers are free: the epilogue tile goes over them
 
-  // sum the warps' accumulators in a fixed tree (8 -> 4 -> 2 -> 1) through
-  // shared memory laid out [slot][accumulator][lane], free of bank conflicts
+  // accumulator (row F, column token) of thread t: rows 16 * warp + lane / 4 (+ 8) of its warpgroup's
+  // 64, columns 8 * j + 2 * (lane % 4) (+ 1); stored transposed, [token, channel]
+  float* c_tile = reinterpret_cast<float*>(smem);
+  {
+    const int lane = tid & 31;
+    const int fr = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int half = kWarps / 2; half >= 1; half /= 2) {
-    if (warp >= half && warp < 2 * half) {
-      float* dst = smem + (warp - half) * 32 * kAcc + lane;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) dst[(r * VEC + v) * 32] = acc[r][v];
-      }
+    for (int j = 0; j < N / 8; ++j) {
+      const int n = 8 * j + 2 * (lane & 3);
+      c_tile[n * L::kCLd + fr] = acc[4 * j];
+      c_tile[(n + 1) * L::kCLd + fr] = acc[4 * j + 1];
+      c_tile[n * L::kCLd + fr + 8] = acc[4 * j + 2];
+      c_tile[(n + 1) * L::kCLd + fr + 8] = acc[4 * j + 3];
     }
-    __syncthreads();
-    if (warp < half) {
-      const float* src = smem + warp * 32 * kAcc + lane;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] += src[(r * VEC + v) * 32];
-      }
-    }
-    __syncthreads();
   }
 
-  if (warp != 0 || !active) return;
-  if (partial != nullptr) {  // split K: f32 partial sums, scaled by the second kernel
-    float* p = partial + ((int64_t)blockIdx.z * m + row0) * f + col;
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      if (row0 + r >= m) break;
-#pragma unroll
-      for (int v = 0; v < VEC; v += 4) {
-        store4(p + (int64_t)r * f + v, acc[r][v], acc[r][v + 1], acc[r][v + 2], acc[r][v + 3]);
-      }
+  constexpr int kQuads = L::kFTile / 4;  // 4-channel vectors of a tile row
+  const int quads = rows * kQuads;
+  if (splits == 1) {
+    __syncthreads();
+    for (int i = tid; i < quads; i += L::kThreads) {
+      const int n = i / kQuads, c = (i % kQuads) * 4;
+      if (c >= cols) continue;
+      const float4 v = *reinterpret_cast<const float4*>(c_tile + n * L::kCLd + c);
+      const float4 sc = *reinterpret_cast<const float4*>(scale + f0 + c);
+      store4(out + static_cast<int64_t>(n0 + n) * f + f0 + c,
+             make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w));
     }
     return;
   }
-  float s[VEC];
-#pragma unroll
-  for (int v = 0; v < VEC; v += 4) {
-    const float4 sv = *reinterpret_cast<const float4*>(scale + col + v);
-    s[v] = sv.x;
-    s[v + 1] = sv.y;
-    s[v + 2] = sv.z;
-    s[v + 3] = sv.w;
-  }
-  TO* o = out + (int64_t)row0 * f + col;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    if (row0 + r >= m) break;
-#pragma unroll
-    for (int v = 0; v < VEC; v += 4) {
-      store4(o + (int64_t)r * f + v, acc[r][v] * s[v], acc[r][v + 1] * s[v + 1], acc[r][v + 2] * s[v + 2],
-             acc[r][v + 3] * s[v + 3]);
+  // split K: each block of the cluster sums one slice of the tile over every rank's partial tile
+  // (distributed shared memory, ranks in order), scales and writes it
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank's partial tile is written
+  const int per = (quads + splits - 1) / splits;
+  const int begin = static_cast<int>(cluster.block_rank()) * per;
+  const int end = min(quads, begin + per);
+  for (int i = begin + tid; i < end; i += L::kThreads) {
+    const int n = i / kQuads, c = (i % kQuads) * 4;
+    if (c >= cols) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < splits; ++r) {
+      const float4 p = *reinterpret_cast<const float4*>(cluster.map_shared_rank(c_tile, r) + n * L::kCLd + c);
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
     }
+    const float4 sc = *reinterpret_cast<const float4*>(scale + f0 + c);
+    store4(out + static_cast<int64_t>(n0 + n) * f + f0 + c,
+           make_float4(sum.x * sc.x, sum.y * sc.y, sum.z * sc.z, sum.w * sc.w));
   }
+  cluster.sync();  // no block leaves while a peer still reads its tile
 }
 
-// out = (sum over splits, in order, of partial[s]) * scale, four columns a thread
-template <typename TO>
-__global__ void split_sum_kernel(const float* __restrict__ partial, const float* __restrict__ scale,
-                                 TO* __restrict__ out, int m, int f, int splits) {
-  const int64_t total = (int64_t)m * f;
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= total) return;
-  const int col = (int)(i % f);
-  float4 sum = *reinterpret_cast<const float4*>(partial + i);
-  for (int s = 1; s < splits; ++s) {
-    const float4 p = *reinterpret_cast<const float4*>(partial + s * total + i);
-    sum.x += p.x;
-    sum.y += p.y;
-    sum.z += p.z;
-    sum.w += p.w;
-  }
-  const float4 sc = *reinterpret_cast<const float4*>(scale + col);
-  store4(out + i, sum.x * sc.x, sum.y * sc.y, sum.z * sc.z, sum.w * sc.w);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found once through the runtime (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
-template <typename TX, typename TO, int TM, int VEC>
-cudaError_t launch(const void* x, const void* q, const void* scale, void* out, float* partial, int m, int k,
-                   int f, int splits, int k_per_split, cudaStream_t stream) {
-  const dim3 grid((f + 32 * VEC - 1) / (32 * VEC), (m + TM - 1) / TM, splits);
-  int8_matmul_kernel<TX, TO, TM, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(scale),
-      static_cast<TO*>(out), splits > 1 ? partial : nullptr, m, k, f, k_per_split);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  constexpr int kSumThreads = 256;
-  const int64_t quads = (int64_t)m * f / 4;
-  split_sum_kernel<TO><<<(unsigned)((quads + kSumThreads - 1) / kSumThreads), kSumThreads, 0, stream>>>(
-      partial, static_cast<const float*>(scale), static_cast<TO*>(out), m, f, splits);
+// a row-major [rows, cols] tensor of `item`-byte elements at `base`, read in [box_rows, box_cols] boxes
+cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int cols, int rows, int item,
+                          int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * item};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t element_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, element_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int N, int WGS, int S, int KT, int AB, typename TO>
+cudaError_t launch(const void* x, const void* q, const void* scale, void* out, int m, int k, int f, int splits,
+                   int k_per_split, cudaStream_t stream) {
+  using L = Layout<N, WGS, S, KT, AB>;
+  if (k_per_split % L::kStep) return cudaErrorInvalidValue;
+  auto kernel = int8_matmul_kernel<N, WGS, S, KT, AB, TO>;
+  static bool configured[kMaxDevices] = {};  // the attributes are set once a device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    configured[device] = true;
+  }
+  // x as a [M, K] bf16 tensor read in [N, 64] boxes in the 128-byte swizzle the wgmma descriptors name,
+  // q as a [K, F] int8 tensor read in [64, F_tile] boxes in the F_tile-byte swizzle convert_tile reads
+  CUtensorMap x_map, q_map;
+  cudaError_t bad = tensor_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, k, m, 2, kStepK, N,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (bad == cudaSuccess) {
+    bad = tensor_map_2d(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, f, k, 1, L::kFTile, L::kStep,
+                        L::kFTile == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (bad != cudaSuccess) return bad;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>((f + L::kFTile - 1) / L::kFTile * splits),
+                        static_cast<unsigned>((m + N - 1) / N), 1);
+  config.blockDim = dim3(L::kThreads, 1, 1);
+  config.dynamicSmemBytes = L::kSmem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, x_map, q_map, static_cast<const float*>(scale),
+                           static_cast<TO*>(out), m, k, f, splits, k_per_split);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename TX, typename TO>
-cudaError_t by_tile(int tile_m, const void* x, const void* q, const void* scale, void* out, float* partial, int m,
-                    int k, int f, int splits, int k_per_split, cudaStream_t stream) {
-  switch (tile_m) {  // TM * VEC = 64; the wrapper's _TILES lists the same pairs
-    case 4:
-      return launch<TX, TO, 4, 16>(x, q, scale, out, partial, m, k, f, splits, k_per_split, stream);
+// (N tile, warpgroups, stages, K tiles a stage, converted buffers); the wrapper's _TILES lists the same F_tile = 64 x
+// warpgroups and K tiles a stage for each N tile
+template <typename TO>
+cudaError_t by_tile(int n_tile, const void* x, const void* q, const void* scale, void* out, int m, int k, int f,
+                    int splits, int k_per_split, cudaStream_t stream) {
+  switch (n_tile) {
     case 8:
-      return launch<TX, TO, 8, 8>(x, q, scale, out, partial, m, k, f, splits, k_per_split, stream);
+      return launch<8, 1, 4, 2, 1, TO>(x, q, scale, out, m, k, f, splits, k_per_split, stream);
     case 16:
-      return launch<TX, TO, 16, 4>(x, q, scale, out, partial, m, k, f, splits, k_per_split, stream);
+      return launch<16, 1, 4, 2, 1, TO>(x, q, scale, out, m, k, f, splits, k_per_split, stream);
+    case 32:
+      return launch<32, 1, 5, 1, 2, TO>(x, q, scale, out, m, k, f, splits, k_per_split, stream);
+    case 64:
+      return launch<64, 1, 4, 1, 2, TO>(x, q, scale, out, m, k, f, splits, k_per_split, stream);
+    case 128:
+      return launch<128, 2, 4, 1, 2, TO>(x, q, scale, out, m, k, f, splits, k_per_split, stream);
+    case 256:
+      return launch<256, 2, 4, 1, 2, TO>(x, q, scale, out, m, k, f, splits, k_per_split, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename TX>
-cudaError_t by_out(int out_dtype, int tile_m, const void* x, const void* q, const void* scale, void* out,
-                   float* partial, int m, int k, int f, int splits, int k_per_split, cudaStream_t stream) {
-  if (out_dtype == 0) return by_tile<TX, float>(tile_m, x, q, scale, out, partial, m, k, f, splits, k_per_split, stream);
-  if (out_dtype == 1) {
-    return by_tile<TX, __nv_bfloat16>(tile_m, x, q, scale, out, partial, m, k, f, splits, k_per_split, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// x_dtype/out_dtype: 0 = float32, 1 = bfloat16. tile_m is 4, 8 or 16;
-// k_per_split a multiple of 64; partial holds splits * m * f floats when
-// splits > 1. Returns the cudaError_t of the launches (0 = success); the
-// caller validated shapes, types, contiguity and alignment.
-extern "C" int int8_matmul(const void* x, const void* q, const void* scale, void* out, void* partial, int m, int k,
-                           int f, int tile_m, int splits, int k_per_split, int x_dtype, int out_dtype,
-                           void* stream) {
+// x bfloat16 [m, k]; out_dtype: 0 = float32, 1 = bfloat16. n_tile is 8, 16, 32, 64, 128 or 256;
+// splits (1..16) blocks of a cluster share each tile's K, k_per_split (a multiple of 64) rows each.
+// Returns the cudaError_t of the launch (0 = success); the caller validated shapes, types,
+// contiguity and alignment.
+extern "C" int int8_matmul(const void* x, const void* q, const void* scale, void* out, int m, int k, int f,
+                           int n_tile, int splits, int k_per_split, int out_dtype, void* stream) {
   if (m == 0) return 0;
-  if (m < 0 || k % 64 || f % 16 || splits < 1 || k_per_split % 64 || (splits > 1 && partial == nullptr)) {
+  if (m < 0 || k <= 0 || k % kStepK || f <= 0 || f % 16 || splits < 1 || splits > kMaxCluster ||
+      k_per_split <= 0 || k_per_split % kStepK || static_cast<int64_t>(splits) * k_per_split < k) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  float* part = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (x_dtype == 0) {
-    err = by_out<float>(out_dtype, tile_m, x, q, scale, out, part, m, k, f, splits, k_per_split, s);
-  } else if (x_dtype == 1) {
-    err = by_out<__nv_bfloat16>(out_dtype, tile_m, x, q, scale, out, part, m, k, f, splits, k_per_split, s);
+  if (out_dtype == 0) {
+    err = by_tile<float>(n_tile, x, q, scale, out, m, k, f, splits, k_per_split, s);
+  } else if (out_dtype == 1) {
+    err = by_tile<__nv_bfloat16>(n_tile, x, q, scale, out, m, k, f, splits, k_per_split, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -126,7 +126,7 @@ class LoRADense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self.kernel, QuantizedKernel):
-            y = quantized_matmul(x, self.kernel.tensor, out_dtype=self.dtype, impl=self.kernel.impl)
+            y = quantized_matmul(x, self.kernel, out_dtype=self.dtype, impl=self.kernel.impl)
         else:
             y = x @ self.kernel.to(self.dtype)
         if self.rank > 0:

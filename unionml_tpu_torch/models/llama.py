@@ -78,7 +78,7 @@ class _LMHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self.kernel, QuantizedKernel):
-            return quantized_matmul(x.to(self.dtype), self.kernel.tensor, out_dtype=self.dtype, impl=self.kernel.impl)
+            return quantized_matmul(x.to(self.dtype), self.kernel, out_dtype=self.dtype, impl=self.kernel.impl)
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
 
 

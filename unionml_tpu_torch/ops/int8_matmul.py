@@ -3,9 +3,10 @@
 Counterpart of ``unionml_tpu/ops/int8_matmul.py``. There the Pallas kernel
 streams int8 tiles into VMEM, converts them to bf16 for the MXU, accumulates
 in f32 and applies the per-channel scale once at the end. Here the same
-function is the hand-written Hopper kernel ``csrc/int8_matmul.cu``: int8 is
-the only weight traffic, which eager PyTorch cannot give otherwise (a
-dequantize before the matmul writes and reads the weight again in bf16).
+function is the hand-written Hopper kernel ``csrc/int8_matmul.cu``: int8
+tiles converted to bf16 in shared memory for the tensor cores (wgmma), so
+int8 is the only weight traffic, which eager PyTorch cannot give otherwise
+(a dequantize before the matmul writes and reads the weight again in bf16).
 
 :func:`int8_matmul` launches that kernel for CUDA tensors (or raises) and
 takes its plain twin, :func:`int8_matmul_reference`, only for tensors on the
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -27,13 +28,27 @@ __all__ = ["int8_matmul", "int8_matmul_reference", "quantized_matmul"]
 _F_CANDIDATES = (512, 256, 128)
 _K_CANDIDATES = (512, 256, 128, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: (rows of x per block, weight columns per thread): 64 f32 accumulators a
-#: thread, and 16-, 8- or 4-byte weight loads; the kernel's templates match
-_TILES = ((4, 16), (8, 8), (16, 4))
-_SPLIT_ROWS = 64  # a split-K share is a whole number of these K rows
-#: the kernel's own limits: whole 64-row K steps, and F in whole 16-byte
-#: weight loads (so a lane's columns are all in or all out)
+#: N tile (tokens a tile, the wgmma's N; the smallest that holds M, larger M
+#: takes several tiles) -> (output channels a block, 64-row K tiles a
+#: pipeline stage); the kernel's templates match
+_TILES = {8: (64, 2), 16: (64, 2), 32: (64, 1), 64: (64, 1), 128: (128, 1), 256: (128, 1)}
+_STEP_K = 64  # K rows of a K tile; a cluster rank's share is a whole number of stages
+_MAX_CLUSTER = 16  # the H100's non-portable thread-block cluster size
+#: the kernel's own limits: whole 64-row K tiles, and weight rows of whole
+#: 16-byte units (the TMA unit's row stride)
 _KERNEL_K, _KERNEL_F = 64, 16
+
+
+class _Plan(NamedTuple):
+    """One launch: ``n_tile`` tokens by ``f_tile`` output channels a block,
+    and ``splits`` blocks of a thread-block cluster sharing each tile's K,
+    ``k_per_split`` rows each. The splits meet in distributed shared memory:
+    no plan needs a scratch buffer or a second kernel."""
+
+    n_tile: int
+    f_tile: int
+    splits: int
+    k_per_split: int
 
 
 def _pick_block(dim: int, candidates) -> Optional[int]:
@@ -54,21 +69,24 @@ def int8_matmul_reference(
     return (acc * scale.float()).to(out_dtype)
 
 
-def _plan(m: int, k_dim: int, f_dim: int, n_sms: int) -> Tuple[int, int, int, int]:
-    """``(tile_m, cols_per_thread, splits, k_per_split)`` for one launch.
+@functools.lru_cache(maxsize=4096)
+def _plan(m: int, k_dim: int, f_dim: int, n_sms: int) -> _Plan:
+    """The tiles and the cluster split of K for one launch.
 
-    K is split across blocks until the grid holds two blocks per SM (decode
-    has M <= 4, so the column blocks alone leave most SMs idle), but never so
-    far that the f32 partial sums (``splits * M * F`` written and read again)
-    exceed an eighth of the weight's bytes."""
-    tile_m, vec = next(((t, v) for t, v in _TILES if m <= t), _TILES[-1])
-    blocks = -(-f_dim // (32 * vec)) * -(-m // tile_m)
-    units = k_dim // _SPLIT_ROWS
-    want = -(-2 * n_sms // blocks)
-    cap = max(1, k_dim // (64 * m))
-    splits = max(1, min(want, cap, units))
-    per = -(-units // splits)
-    return tile_m, vec, -(-units // per), per * _SPLIT_ROWS
+    N is the smallest tile of :data:`_TILES` that holds M; at N >= 128 a
+    block takes 128 output channels with two warpgroups (one block fills an
+    SM's shared memory), below it 64 with one (an SM holds several). K is
+    split over up to 16 blocks of a cluster while the grid still fits the
+    blocks the SMs hold at once (decode has M <= 8, so the F tiles alone
+    leave most SMs idle)."""
+    n_tile = next((n for n in _TILES if m <= n), max(_TILES))
+    f_tile, k_tiles = _TILES[n_tile]
+    per_sm = 1 if n_tile >= 128 else 2
+    tiles = -(-f_dim // f_tile) * -(-m // n_tile)
+    units = -(-k_dim // (k_tiles * _STEP_K))  # pipeline stages over K
+    want = max(1, per_sm * n_sms // tiles)
+    per = max(-(-units // want), -(-units // _MAX_CLUSTER), 1)
+    return _Plan(n_tile, f_tile, -(-units // per), per * k_tiles * _STEP_K)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,34 +94,51 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel():
     from unionml_tpu_torch._build import load_library
 
     fn = load_library("int8_matmul").int8_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _check_weight(q: torch.Tensor, scale: torch.Tensor) -> None:
+    """The weight the kernel takes; anything else raises before a launch."""
+    if not _kernel_takes(q, scale):
+        raise ValueError(f"the int8 kernel takes a [K, F] weight with K % {_KERNEL_K} == 0 and F % {_KERNEL_F} == 0 "
+                         f"and a [1, F] scale, got {tuple(q.shape)} and {tuple(scale.shape)}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"expected int8 q and float32 scale, got {q.dtype} and {scale.dtype}")
+    if scale.device != q.device:
+        raise ValueError(f"scale is on {scale.device}, q on {q.device}")
+    if not q.is_contiguous() or not scale.is_contiguous():
+        raise ValueError("q and scale must be contiguous")
+    if q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("q and scale must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
+
+
+def _check_x(x: torch.Tensor, k_dim: int, device: torch.device, out_dtype: torch.dtype) -> None:
+    """The input and output the kernel takes against a checked [K, F] weight on ``device``."""
+    if x.dim() != 2 or x.shape[1] != k_dim:
+        raise ValueError(f"expected x [M, {k_dim}], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 x and out_dtype, got {x.dtype} and {out_dtype}")
+    if x.device != device:
+        raise ValueError(f"x is on {x.device}, the weight on {device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> None:
     """What the kernel takes; anything else raises before a launch."""
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"expected x [M, K] and q [K, F], got {tuple(x.shape)} and {tuple(q.shape)}")
-    if not _kernel_takes(q, scale):
-        raise ValueError(f"the int8 kernel takes a [K, F] weight with K % {_KERNEL_K} == 0 and F % {_KERNEL_F} == 0 "
-                         f"and a [1, F] scale, got {tuple(q.shape)} and {tuple(scale.shape)}")
-    if x.dtype not in _DTYPE_CODES or out_dtype not in _DTYPE_CODES:
-        raise TypeError(f"the kernel takes float32 or bfloat16 x and out_dtype, got {x.dtype} and {out_dtype}")
-    if q.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError(f"expected int8 q and float32 scale, got {q.dtype} and {scale.dtype}")
-    for name, t in (("x", x), ("q", q), ("scale", scale)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.data_ptr() % 16 or scale.data_ptr() % 16:
-        raise ValueError("q and scale must start on a 16-byte boundary (the kernel loads 16 bytes at a time)")
+    _check_weight(q, scale)
+    _check_x(x, q.shape[0], q.device, out_dtype)
 
 
 def _kernel_takes(q: torch.Tensor, scale: torch.Tensor) -> bool:
@@ -111,9 +146,16 @@ def _kernel_takes(q: torch.Tensor, scale: torch.Tensor) -> bool:
     return q.dim() == 2 and k_dim % _KERNEL_K == 0 and f_dim % _KERNEL_F == 0 and tuple(scale.shape) == (1, f_dim)
 
 
-def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-    """One launch of ``csrc/int8_matmul.cu`` (or a raise), counted."""
-    _check(x, q, scale, out_dtype)
+def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype,
+            weight_checked: bool = False) -> torch.Tensor:
+    """One launch of ``csrc/int8_matmul.cu`` (or a raise), counted. With
+    ``weight_checked`` only ``x`` and ``out_dtype`` are checked: the caller
+    validated ``q`` and ``scale`` once (:func:`quantized_matmul` on a
+    :class:`~unionml_tpu_torch.ops.quant.QuantizedKernel`)."""
+    if weight_checked:
+        _check_x(x, q.shape[0], q.device, out_dtype)
+    else:
+        _check(x, q, scale, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on CUDA or CPU tensors, got {x.device}")
     m, k_dim = x.shape
@@ -121,34 +163,37 @@ def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: to
     out = torch.empty((m, f_dim), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    tile_m, _, splits, k_per_split = _plan(m, k_dim, f_dim, _sm_count(x.device.index))
-    partial = torch.empty((splits, m, f_dim), dtype=torch.float32, device=x.device) if splits > 1 else None
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            m, k_dim, f_dim, tile_m, splits, k_per_split, _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], stream,
-        )
+    if x.dtype != torch.bfloat16:
+        x = x.to(torch.bfloat16)  # round to nearest even, as the twin rounds
+    index = x.device.index
+    plan = _plan(m, k_dim, f_dim, _sm_count(index))
+    args = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k_dim, f_dim,
+            plan.n_tile, plan.splits, plan.k_per_split, _DTYPE_CODES[out_dtype])
+    if index == torch.cuda.current_device():
+        err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
     int8_matmul.launches += 1
     return out
 
 
-def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+def _forward(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype,
+             weight_checked: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q, scale, out_dtype=out_dtype)
-    return _launch(x.contiguous(), q, scale, out_dtype)
+    return _launch(x.contiguous(), q, scale, out_dtype, weight_checked)
 
 
-def _apply(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+def _apply(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype,
+           weight_checked: bool = False) -> torch.Tensor:
     """:func:`_forward`, through :class:`_Int8Matmul` only when ``x`` needs a
     gradient (the autograd function costs host time on every decode call)."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Int8Matmul.apply(x, q, scale, out_dtype)
-    return _forward(x, q, scale, out_dtype)
+        return _Int8Matmul.apply(x, q, scale, out_dtype, weight_checked)
+    return _forward(x, q, scale, out_dtype, weight_checked)
 
 
 class _Int8Matmul(torch.autograd.Function):
@@ -160,16 +205,16 @@ class _Int8Matmul(torch.autograd.Function):
     ``scale`` take none."""
 
     @staticmethod
-    def forward(ctx, x, q, scale, out_dtype):
+    def forward(ctx, x, q, scale, out_dtype, weight_checked):
         ctx.save_for_backward(q, scale)
         ctx.x_dtype = x.dtype
-        return _forward(x, q, scale, out_dtype)
+        return _forward(x, q, scale, out_dtype, weight_checked)
 
     @staticmethod
     def backward(ctx, dy):
         q, scale = ctx.saved_tensors
         dx = ((dy.float() * scale) @ q.float().t()).to(torch.bfloat16).to(ctx.x_dtype)
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 def int8_matmul(
@@ -211,14 +256,18 @@ int8_matmul.launches = 0
 
 def quantized_matmul(x: torch.Tensor, qt: Any, *, out_dtype: Optional[torch.dtype] = None,
                      impl: str = "xla") -> torch.Tensor:
-    """Matmul against a :class:`~unionml_tpu_torch.ops.quant.QuantizedTensor`.
+    """Matmul against a :class:`~unionml_tpu_torch.ops.quant.QuantizedTensor`
+    or a model's :class:`~unionml_tpu_torch.ops.quant.QuantizedKernel` slot.
 
     ``impl="xla"`` dequantizes to ``out_dtype`` and multiplies: the JAX
     package's numerics. ``impl="pallas"`` on CUDA tensors launches the int8
     kernel for any 2D weight with a per-output-channel scale, K a multiple
     of 64 and F of 16 (the kernel's own limits, wider than the JAX tiling),
     and raises ``ValueError`` on any other weight: it never runs the
-    dequantize path on the card. ``x`` may carry leading dims.
+    dequantize path on the card. A ``QuantizedKernel``'s weight is checked
+    the first time it reaches the kernel and again only after its buffers
+    change (``kernel_checked``); other weights are checked on every call.
+    ``x`` may carry leading dims.
 
     Where the CPU differs from JAX: JAX's ``"pallas"`` off a TPU always
     takes the dequantize path. The port's, on CPU tensors, runs the kernel's
@@ -226,12 +275,17 @@ def quantized_matmul(x: torch.Tensor, qt: Any, *, out_dtype: Optional[torch.dtyp
     the kernel does), and dequantizes only for the others, as JAX does.
     """
     out_dtype = out_dtype or x.dtype
-    k_dim, f_dim = qt.q.shape
+    q, scale = qt.q, qt.scale
+    k_dim, f_dim = q.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k_dim)
-    if impl == "pallas" and (x.device.type != "cpu" or _kernel_takes(qt.q, qt.scale)):
-        out = _apply(x2, qt.q, qt.scale, out_dtype)
+    if impl == "pallas" and (x.device.type != "cpu" or _kernel_takes(q, scale)):
+        checked = getattr(qt, "kernel_checked", None)
+        if checked is False and x.device.type == "cuda":  # a QuantizedKernel's first launch since it changed
+            _check_weight(q, scale)
+            qt.kernel_checked = checked = True
+        out = _apply(x2, q, scale, out_dtype, bool(checked))
     else:
-        w = (qt.q.float() * qt.scale).to(out_dtype)
+        w = (q.float() * scale).to(out_dtype)
         out = x2.to(out_dtype) @ w
     return out.reshape(*lead, f_dim)

@@ -96,22 +96,31 @@ class QuantizedKernel(nn.Module):
     """The slot of a dense kernel after in-place quantization: buffers ``q``
     (int8, the kernel's shape) and ``scale`` (f32), and ``impl``, the
     :func:`~unionml_tpu_torch.ops.int8_matmul.quantized_matmul` route its
-    owner multiplies by. Its state-dict names are the kernel's plus
-    ``.q``/``.scale``, the fields of the flax tree's quantized leaf."""
+    owner multiplies by, passing the slot itself as the weight. Its
+    state-dict names are the kernel's plus ``.q``/``.scale``, the fields of
+    the flax tree's quantized leaf."""
 
     def __init__(self, qt: QuantizedTensor, impl: str = "xla"):
         super().__init__()
         self.impl = impl
         self.register_buffer("q", qt.q)
         self.register_buffer("scale", qt.scale)
+        #: whether the int8 kernel's wrapper has validated ``q`` and ``scale``;
+        #: set at their first launch, cleared whenever the buffers change
+        self.kernel_checked = False
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name in ("q", "scale"):
+            self.__dict__["kernel_checked"] = False
+        super().__setattr__(name, value)
+
+    def _apply(self, fn, *args, **kwargs):  # .to(), .cuda(), .half(): new buffers
+        self.kernel_checked = False
+        return super()._apply(fn, *args, **kwargs)
 
     @property
     def shape(self) -> torch.Size:
         return self.q.shape
-
-    @property
-    def tensor(self) -> QuantizedTensor:
-        return QuantizedTensor(self.q, self.scale)
 
 
 def int8_route(module: nn.Module) -> str:
