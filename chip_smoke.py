@@ -9,12 +9,15 @@ Phases (no phase catches a failure; any fault exits non-zero):
 
 1. print the card's name and power limit; build every kernel from ``csrc/``;
 2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
-   paged decode at the served shapes; the flash forward, dq and dk/dv
-   kernels at full width causal, non-causal, cross-length causal and custom
-   blocks; the int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
+   paged decode at the served shapes; the flash forward at full width
+   causal, non-causal, cross-length causal and custom blocks, with the
+   exact-f32 dq and dk/dv kernels in float32 and the fused bf16 backward
+   (also at D=64, ragged; bitwise equal on a second call) in bfloat16; the
+   int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
    130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
    kernel, twin, the library yardstick and the
-   bytes/operations bound with CUDA events (int8 also summed over one decode
+   bytes/operations bound with CUDA events (the fused backward at full width,
+   the f32 dq and dk/dv kernels at the f32 parity shape) (int8 also summed over one decode
    step's 225 matmuls, at M = 4, 64 and 256); each kernel's time includes its host launch work, and
    a second, device-only time (``device_ms``) is taken behind a measured spin
    of the card that outlasts the host's enqueue;
@@ -31,10 +34,13 @@ Phases (no phase catches a failure; any fault exits non-zero):
    (the twins);
 5. LoRA fine-tune a Llama-3-8B-width model (32 layers, bf16 compute, f32
    parameters, random weights from a seed) through ``fit`` for 6 steps of
-   one 2048-token sequence, counting flash kernel launches on this path, and
-   check finite losses, a frozen base and moved adapters;
-6. training parity at float32 with 2 layers of the same width: 3 steps of
-   ``fit`` on the kernel path and on the plain path agree.
+   one 2048-token sequence, counting flash kernel launches on this path (the
+   forward and the fused backward; no f32 backward kernel), and check finite
+   losses, a frozen base and moved adapters;
+6. training parity with 2 layers of the same width: 3 steps of ``fit`` on
+   the kernel path and on the plain path agree, at float32 (through the
+   exact-f32 dq and dk/dv kernels, whose launches the kernels line reports)
+   and at bf16 compute (through the fused backward).
 
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
@@ -60,9 +66,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SPIN_CYCLES = 2_000_000  # the card's spin before a device-only time; its length is measured in the run
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / f32 non-tensor
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
-#: flash kernels against their twins: both compute in f32; the dk/dv sums of
-#: 2048 x 4 terms at full width run in another order (f32), and bfloat16
-#: outputs round to 8 bits of mantissa
+#: flash kernels against their twins: in float32 both compute in f32, and the
+#: dk/dv sums of 2048 x 4 terms at full width run in another order; in
+#: bfloat16 both round P and dS to bf16 before their products (a last-bit
+#: difference in exp can flip one rounding), sum in f32 in other orders, and
+#: the outputs round to 8 bits of mantissa
 FLASH_TOLERANCE = {"torch.float32": (1e-4, 1e-5), "torch.bfloat16": (2e-2, 2e-2)}
 #: (label, Lq, Lk, causal, blocks) at H=32, Hkv=8, D=128, B=1
 FLASH_CASES = (
@@ -71,13 +79,21 @@ FLASH_CASES = (
     ("cross-length causal Lq=256 Lk=512", 256, 512, True, None),
     ("blocks=(64,64) causal L=192", 192, 192, True, (64, 64)),
 )
+#: (label, Lq, Lk, causal, D) held in bfloat16 only, beside FLASH_CASES: a ragged D=64 case for the fused backward
+FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64),)
 #: products of 2 * Lq * Lk * D multiply-adds (per head, visible pairs only) each kernel computes
-FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward_dq": 3, "flash_backward_dkv": 4}
+FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_backward_dq": 3, "flash_backward_dkv": 4}
 FLASH_REPLACES = {
     "flash_forward": "unionml_tpu/ops/flash_attention.py:160",
+    "flash_backward": "unionml_tpu/ops/flash_attention.py:318 and :343",
     "flash_backward_dq": "unionml_tpu/ops/flash_attention.py:318",
     "flash_backward_dkv": "unionml_tpu/ops/flash_attention.py:343",
 }
+FLASH_SOURCES = {"flash_backward": "unionml_tpu_torch/csrc/flash_backward.cu"}  # the rest: csrc/flash_attention.cu
+#: bf16 training parity: relative loss difference between the kernel and plain paths. Both run in bf16
+#: (8 significant bits) but round at other places (the plain path rounds its scores to bf16; the kernels
+#: keep them in f32), so the losses may differ by about one bf16 epsilon, 2**-7 = 7.8e-3
+BF16_PARITY_LOSS_REL = 1e-2
 #: (weights, K, F, matmuls of one decode step) of Llama-3-8B: 32 layers of
 #: q/o, k/v, wg/wi and wo, and the head; 225 in all
 INT8_WEIGHTS = (
@@ -319,8 +335,8 @@ def visible_pairs(q_len: int, k_len: int, causal: bool) -> int:
 
 def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
     """Least time of one call: its inputs read and outputs written once
-    (q/k/v, plus dO, lse and delta for the backward; out and lse, dq, or dk
-    and dv), against its products over the visible pairs at the input
+    (q/k/v, plus dO, lse and delta for the backward; out and lse, dq, dk and
+    dv, or both), against its products over the visible pairs at the input
     type's peak rate."""
     batch, q_len, n_heads, head_dim = q.shape
     k_len = k.shape[1]
@@ -329,6 +345,7 @@ def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
     stats = 4 * batch * n_heads * q_len
     moved = {
         "flash_forward": qkv + q.numel() * item + stats,
+        "flash_backward": qkv + 2 * q.numel() * item + 2 * stats + 2 * k.numel() * item,
         "flash_backward_dq": qkv + 2 * q.numel() * item + 2 * stats,
         "flash_backward_dkv": qkv + q.numel() * item + 2 * stats + 2 * k.numel() * item,
     }[name]
@@ -337,89 +354,131 @@ def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def flash_kernel_phase() -> dict:
-    """Each flash kernel against its twin on the same inputs, then times at
-    the full-width training shape (bf16, causal)."""
+def sdpa_times(q, k, v, dout, causal: bool, backend) -> dict:
+    """The library yardstick (not part of the port): SDPA on [B, H, L, D],
+    K/V expanded to the query heads beforehand. Its backward is timed as
+    (forward + backward) - forward, with the host's launch work and device-only."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
+
+    group = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).contiguous().requires_grad_()
+    kh = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vh = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    doh = dout.transpose(1, 2).contiguous()
+
+    def forward():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    def both():
+        torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), (qh, kh, vh), doh)
+
+    with sdpa_kernel(backend):
+        fwd_ms, both_ms = time_ms(forward), time_ms(both)
+        fwd_dev, _ = device_ms(forward)
+        both_dev, _ = device_ms(both)
+    return dict(fwd_ms=fwd_ms, fwd_device_ms=fwd_dev, bwd_ms=both_ms - fwd_ms, bwd_device_ms=both_dev - fwd_dev)
+
+
+def flash_kernel_phase() -> dict:
+    """Each flash kernel against its twin on the same inputs: float32 through
+    the forward and the exact-f32 dq and dk/dv kernels, bfloat16 through the
+    forward and the fused backward (two calls bitwise equal). Then times:
+    the forward and the fused backward at the full-width training shape
+    (bf16, causal), the f32 dq and dk/dv kernels at the f32 parity shape."""
+    import torch
+    from torch.nn.attention import SDPBackend
 
     from unionml_tpu_torch.ops.flash_attention import (
-        flash_backward_dkv, flash_backward_dkv_reference, flash_backward_dq, flash_backward_dq_reference,
-        flash_forward, flash_forward_reference,
+        flash_backward, flash_backward_dkv, flash_backward_dkv_reference, flash_backward_dq,
+        flash_backward_dq_reference, flash_backward_reference, flash_forward, flash_forward_reference,
     )
 
-    def inputs(q_len, k_len, dtype, seed):
+    def inputs(q_len, k_len, dtype, seed, head_dim=128):
         g = torch.Generator(device="cuda").manual_seed(seed)
-        make = lambda length, heads: torch.randn(1, length, heads, 128, device="cuda", generator=g).to(dtype)  # noqa: E731
+        def make(length, heads):
+            return torch.randn(1, length, heads, head_dim, device="cuda", generator=g).to(dtype)
+
         return make(q_len, 32), make(k_len, 8), make(k_len, 8), make(q_len, 32)
 
     worst = {name: 0.0 for name in FLASH_PRODUCTS}
+    cases = [(label, q_len, k_len, causal, 128) for label, q_len, k_len, causal, _ in FLASH_CASES]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = FLASH_TOLERANCE[str(dtype)]
-        for seed, (label, q_len, k_len, causal, blocks) in enumerate(FLASH_CASES):
-            q, k, v, dout = inputs(q_len, k_len, dtype, seed)
+        fused = dtype == torch.bfloat16
+        extra = list(FUSED_EXTRA_CASES) if fused else []
+        for seed, (label, q_len, k_len, causal, head_dim) in enumerate(cases + extra):
+            q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim)
             out, lse = flash_forward(q, k, v, causal)
             ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
-            # both backward kernels take the twin's lse and delta, so each is held alone
+            # the backward takes the twin's lse and delta, so that it is held alone
             delta = torch.einsum("blhd,blhd->bhl", dout.float(), ref_out.float())
-            dq = flash_backward_dq(q, k, v, dout, ref_lse, delta, causal)
-            dk, dv = flash_backward_dkv(q, k, v, dout, ref_lse, delta, causal)
+            if fused:
+                dq, dk, dv = flash_backward(q, k, v, dout, ref_lse, delta, causal)
+                again = flash_backward(q, k, v, dout, ref_lse, delta, causal)
+                names = ("flash_backward",) * 3
+            else:
+                dq = flash_backward_dq(q, k, v, dout, ref_lse, delta, causal)
+                dk, dv = flash_backward_dkv(q, k, v, dout, ref_lse, delta, causal)
+                names = ("flash_backward_dq", "flash_backward_dkv", "flash_backward_dkv")
             torch.cuda.synchronize()
-            ref_dq = flash_backward_dq_reference(q, k, v, dout, ref_lse, delta, causal)
-            ref_dk, ref_dv = flash_backward_dkv_reference(q, k, v, dout, ref_lse, delta, causal)
+            ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, dout, ref_lse, delta, causal)
             errors = []
             for what, name, got, ref in (
                 ("out", "flash_forward", out, ref_out), ("lse", "flash_forward", lse, ref_lse),
-                ("dq", "flash_backward_dq", dq, ref_dq), ("dk", "flash_backward_dkv", dk, ref_dk),
-                ("dv", "flash_backward_dkv", dv, ref_dv),
+                ("dq", names[0], dq, ref_dq), ("dk", names[1], dk, ref_dk), ("dv", names[2], dv, ref_dv),
             ):
                 err = (got.float() - ref.float()).abs()
-                ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                ok = bool((err <= atol + rtol * ref.float().abs()).all()) and got.dtype == ref.dtype
                 worst[name] = max(worst[name], err.max().item())
                 errors.append(f"{what} {err.max().item():.3g}{'' if ok else ' FAIL'}")
                 require(ok, f"{name} disagrees with its plain twin ({what}, {dtype}, {label})")
-            print(f"flash kernels {dtype} {label}: max_abs_err {', '.join(errors)} "
+            if fused:
+                same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+                errors.append(f"fused backward bitwise equal on a second call: {same}")
+                require(same, f"flash_backward gave other bits on a second call ({label})")
+            print(f"flash kernels {dtype} {label} D={head_dim}: max_abs_err {', '.join(errors)} "
                   f"(tolerance atol={atol} rtol={rtol}) ok", flush=True)
+
+    numbers = {}
+
+    def timed(name, kernel, plain, q, k, causal, library_ms, library_device_ms, library_label):
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        dev_ms, _ = device_ms(kernel)
+        bms, bound_by = flash_bound_ms(name, q, k, causal)
+        numbers[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
+                             library_ms=library_ms, device_ms=dev_ms, library_device_ms=library_device_ms)
+        print(f"{name} {str(q.dtype)[6:]} B=1 Lq={q.shape[1]} H=32 Hkv=8 D=128 causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms ({library_label}), bound {bms:.4f} ms "
+              f"({bound_by}, {FLASH_PRODUCTS[name]} products), {bms / ms:.1%} of bound; device only: kernel "
+              f"{dev_ms:.4f} ms ({bms / dev_ms:.1%} of bound), library {library_device_ms:.4f} ms", flush=True)
 
     q, k, v, dout = inputs(TRAIN_SEQ, TRAIN_SEQ, torch.bfloat16, 99)
     out, lse = flash_forward(q, k, v, True)
     delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
-    calls = {
-        "flash_forward": (lambda: flash_forward(q, k, v, True), lambda: flash_forward_reference(q, k, v, True)),
-        "flash_backward_dq": (lambda: flash_backward_dq(q, k, v, dout, lse, delta, True),
-                              lambda: flash_backward_dq_reference(q, k, v, dout, lse, delta, True)),
-        "flash_backward_dkv": (lambda: flash_backward_dkv(q, k, v, dout, lse, delta, True),
-                               lambda: flash_backward_dkv_reference(q, k, v, dout, lse, delta, True)),
-    }
-    # library yardstick (not part of the port): SDPA's flash backend on [B, H, L, D],
-    # K/V expanded to 32 heads beforehand; its backward is (forward + backward) - forward
-    qh = q.transpose(1, 2).contiguous().requires_grad_()
-    kh = k.repeat_interleave(4, dim=2).transpose(1, 2).contiguous().requires_grad_()
-    vh = v.repeat_interleave(4, dim=2).transpose(1, 2).contiguous().requires_grad_()
-    doh = dout.transpose(1, 2).contiguous()
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
-        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        sdpa_both_ms = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), (qh, kh, vh), doh))
-    sdpa_bwd_ms = sdpa_both_ms - sdpa_fwd_ms
-    numbers = {}
-    for name, (kernel, plain) in calls.items():
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        dev_ms, _ = device_ms(kernel)
-        bms, bound_by = flash_bound_ms(name, q, k, True)
-        library_ms = sdpa_fwd_ms if name == "flash_forward" else sdpa_bwd_ms
-        numbers[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
-                             library_ms=library_ms, device_ms=dev_ms)
-        print(f"{name} bf16 B=1 L={TRAIN_SEQ} H=32 Hkv=8 D=128 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms ({'SDPA flash forward' if name == 'flash_forward' else 'SDPA flash backward, dq and dk/dv together'}), "
-              f"bound {bms:.4f} ms ({bound_by}, {FLASH_PRODUCTS[name]} products), {bms / ms:.1%} of bound; "
-              f"device only {dev_ms:.4f} ms", flush=True)
-    fused_ms, _ = flash_bound_ms("flash_backward_dq", q, k, True)
-    print(f"a fused backward needs 5 products (bound {fused_ms * 5 / 3:.4f} ms); the dq and dk/dv kernels compute "
-          f"7 between them ({numbers['flash_backward_dq']['ms'] + numbers['flash_backward_dkv']['ms']:.4f} ms "
-          f"against SDPA's {sdpa_bwd_ms:.4f} ms)", flush=True)
+    sdpa = sdpa_times(q, k, v, dout, True, SDPBackend.FLASH_ATTENTION)
+    timed("flash_forward", lambda: flash_forward(q, k, v, True), lambda: flash_forward_reference(q, k, v, True),
+          q, k, True, sdpa["fwd_ms"], sdpa["fwd_device_ms"], "SDPA flash forward")
+    timed("flash_backward", lambda: flash_backward(q, k, v, dout, lse, delta, True),
+          lambda: flash_backward_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
+          sdpa["bwd_device_ms"], "SDPA flash backward: dq, dk and dv together")
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+
+    # the f32 route's kernels at the f32 training-parity shape, where the main paths launch them
+    q, k, v, dout = inputs(PARITY_SEQ, PARITY_SEQ, torch.float32, 98)
+    out, lse = flash_forward(q, k, v, True)
+    delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
+    sdpa = sdpa_times(q, k, v, dout, True, SDPBackend.EFFICIENT_ATTENTION)
+    label = "SDPA memory-efficient backward in f32: dq, dk and dv together"
+    timed("flash_backward_dq", lambda: flash_backward_dq(q, k, v, dout, lse, delta, True),
+          lambda: flash_backward_dq_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
+          sdpa["bwd_device_ms"], label)
+    timed("flash_backward_dkv", lambda: flash_backward_dkv(q, k, v, dout, lse, delta, True),
+          lambda: flash_backward_dkv_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
+          sdpa["bwd_device_ms"], label)
     return numbers
 
 
@@ -614,7 +673,9 @@ def training_phase(card: str, profile: bool) -> dict:
 
     from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
     from unionml_tpu_torch.models import chunked_causal_lm_loss
-    from unionml_tpu_torch.ops.flash_attention import flash_backward_dkv, flash_backward_dq, flash_forward
+    from unionml_tpu_torch.ops.flash_attention import (
+        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward,
+    )
 
     cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash", remat=TRAIN_REMAT)
     torch.cuda.reset_peak_memory_stats()
@@ -629,18 +690,20 @@ def training_phase(card: str, profile: bool) -> dict:
     step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
     config = TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1)
 
-    for counted in (flash_forward, flash_backward_dq, flash_backward_dkv):
-        counted.launches = 0
+    counted = (flash_forward, flash_backward, flash_backward_dq, flash_backward_dkv)
+    for fn in counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     result = fit(state, step, tokens, config)
     seconds = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in (flash_forward, flash_backward_dq, flash_backward_dkv)}
+    launches = {fn.__name__: fn.launches for fn in counted}
     peak = torch.cuda.max_memory_allocated()
 
     losses = [h["loss"] for h in result.history]
     per_step = cfg.n_layers * TRAIN_STEPS
-    expected = {"flash_forward": per_step * (2 if cfg.remat else 1), "flash_backward_dq": per_step,
-                "flash_backward_dkv": per_step}
+    # bf16 compute: the fused backward, never the exact-f32 dq and dk/dv kernels
+    expected = {"flash_forward": per_step * (2 if cfg.remat else 1), "flash_backward": per_step,
+                "flash_backward_dq": 0, "flash_backward_dkv": 0}
     frozen = torch.equal(state.model.layer_0.attn.q_proj.kernel, probe)
     moved = [n for n, p in state.model.named_parameters() if n in adapters_b and not torch.equal(p, adapters_b[n])]
     sps = result.samples_per_sec
@@ -666,45 +729,90 @@ def training_phase(card: str, profile: bool) -> dict:
     return launches
 
 
-def training_parity_phase() -> None:
-    """3 steps of ``fit`` at float32 through the flash kernels and through the
-    plain path, from the same weights and data: the loss histories and the
-    trained adapters agree."""
+def parity_runs(cfg, seed: int) -> dict:
+    """3 steps of ``fit`` through the flash kernels and through the plain
+    path, from the same weights and data: ``{impl: (losses, adapters,
+    launches)}``, launches of the flash wrappers on the kernel path."""
     import dataclasses as dc
 
     import numpy as np
     import torch
 
-    from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
+    from unionml_tpu_torch import TrainerConfig, fit, make_train_step
     from unionml_tpu_torch.models import chunked_causal_lm_loss
+    from unionml_tpu_torch.ops.flash_attention import (
+        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward,
+    )
+
+    tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(PARITY_STEPS, PARITY_SEQ)).astype(np.int64)
+    step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
+    counted = (flash_forward, flash_backward, flash_backward_dq, flash_backward_dkv)
+    runs = {}
+    for impl in ("flash", "auto"):
+        state = lora_llama(dc.replace(cfg, attention_impl=impl), seed=seed - 1)
+        for fn in counted:
+            fn.launches = 0
+        result = fit(state, step, tokens, TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1))
+        runs[impl] = ([h["loss"] for h in result.history],
+                      {n: p.detach().clone() for n, p in state.model.named_parameters() if "lora" in n},
+                      {fn.__name__: fn.launches for fn in counted})
+        del state
+        torch.cuda.empty_cache()
+    return runs
+
+
+def training_parity_phase() -> dict:
+    """3 steps of ``fit`` at float32 through the flash kernels (the exact-f32
+    dq and dk/dv kernels) and through the plain path, from the same weights
+    and data: the loss histories and the trained adapters agree. Returns the
+    kernel path's flash launches."""
+    import torch
+
+    from unionml_tpu_torch import LlamaConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = LlamaConfig.llama3_8b(n_layers=2, lora_rank=8, attention_impl="flash", dtype=torch.float32,
                                 param_dtype=torch.float32)
-    tokens = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(PARITY_STEPS, PARITY_SEQ)).astype(np.int64)
-    step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
-    runs = {}
-    for impl in ("flash", "auto"):
-        state = lora_llama(dc.replace(cfg, attention_impl=impl), seed=2)
-        result = fit(state, step, tokens, TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1))
-        runs[impl] = ([h["loss"] for h in result.history],
-                      {n: p.detach().clone() for n, p in state.model.named_parameters() if "lora" in n})
-        del state
-        torch.cuda.empty_cache()
-    (kernel_losses, kernel_lora), (plain_losses, plain_lora) = runs["flash"], runs["auto"]
+    runs = parity_runs(cfg, seed=3)
+    (kernel_losses, kernel_lora, launches), (plain_losses, plain_lora, _) = runs["flash"], runs["auto"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
     diffs = torch.cat([(kernel_lora[n] - plain_lora[n]).abs().flatten() for n in plain_lora])
     # Adam's step is near lr * sign(g) where a gradient is tiny, so a near-zero
     # gradient whose sign differs between the paths moves an entry by up to
     # 2 * lr per step; the mean bounds how many entries may do so
     max_tol, mean_tol = 2 * LR * PARITY_STEPS, 1e-3 * LR
+    per_run = cfg.n_layers * PARITY_STEPS
+    expected = {"flash_forward": per_run, "flash_backward": 0, "flash_backward_dq": per_run,
+                "flash_backward_dkv": per_run}
     print(f"float32 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
           f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance 1e-5); adapters max abs diff "
-          f"{diffs.max().item():.3g} (tolerance {max_tol}), mean {diffs.mean().item():.3g} (tolerance {mean_tol})",
-          flush=True)
+          f"{diffs.max().item():.3g} (tolerance {max_tol}), mean {diffs.mean().item():.3g} (tolerance {mean_tol}); "
+          f"flash launches {launches} (expected {expected})", flush=True)
     require(len(kernel_losses) == PARITY_STEPS and loss_err <= 1e-5, "loss histories differ")
     require(diffs.max().item() <= max_tol and diffs.mean().item() <= mean_tol, "trained adapters differ")
+    require(launches == expected, f"flash launches {launches}, expected {expected}")
+    return launches
+
+
+def bf16_training_parity_phase() -> None:
+    """3 steps of ``fit`` at bf16 compute (f32 parameters, the training
+    phase's types) through the flash kernels (the fused backward) and
+    through the plain path: the loss histories agree within
+    ``BF16_PARITY_LOSS_REL``."""
+    from unionml_tpu_torch import LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(n_layers=2, lora_rank=8, attention_impl="flash")
+    runs = parity_runs(cfg, seed=5)
+    (kernel_losses, _, launches), (plain_losses, _, _) = runs["flash"], runs["auto"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    per_run = cfg.n_layers * PARITY_STEPS
+    expected = {"flash_forward": per_run, "flash_backward": per_run, "flash_backward_dq": 0, "flash_backward_dkv": 0}
+    print(f"bf16 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
+          f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance {BF16_PARITY_LOSS_REL}); flash launches "
+          f"{launches} (expected {expected})", flush=True)
+    require(len(kernel_losses) == PARITY_STEPS and loss_err <= BF16_PARITY_LOSS_REL, "bf16 loss histories differ")
+    require(launches == expected, f"flash launches {launches}, expected {expected}")
 
 
 def main() -> int:
@@ -821,7 +929,10 @@ def main() -> int:
     # ---- phase 5: LoRA fine-tune at full width, then f32 training parity
     flash_launches = training_phase(card, args.profile)
     torch.cuda.empty_cache()
-    training_parity_phase()
+    bf16_training_parity_phase()
+    f32_launches = training_parity_phase()
+    # the exact-f32 dq and dk/dv kernels run on the f32 path only
+    flash_launches.update({name: f32_launches[name] for name in ("flash_backward_dq", "flash_backward_dkv")})
 
     kernels = [{
         "name": "paged_decode_attention",
@@ -833,7 +944,8 @@ def main() -> int:
     }]
     for name, measured in flash_numbers.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": "unionml_tpu_torch/csrc/flash_attention.cu",
+            "name": name, "route": "cuda",
+            "source": FLASH_SOURCES.get(name, "unionml_tpu_torch/csrc/flash_attention.cu"),
             "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], **measured,
         })
     kernels.append({

@@ -7,7 +7,8 @@ interpret=True)`` and ``jax.grad`` through ``flash_attention(...,
 interpret=True)``), as its own tests do. Inputs are f32, made with numpy from
 a seed. Tolerances: 2e-5 absolute on ``out`` and ``lse``, 1e-4 on the
 gradients (f32; the two sides sum over up to 256 keys and, for dk/dv, over
-the query heads of a KV group in different orders).
+the query heads of a KV group in different orders). In bf16 the gradients
+agree within ``BF16_GRAD_TOL`` (below).
 
 The hand-written kernels run only on a CUDA card with sm_90: those tests
 are marked ``cuda`` and skip elsewhere; on the card they run without JAX
@@ -22,10 +23,12 @@ import torch
 from unionml_tpu_torch.ops.attention import dot_product_attention, multihead_attention
 from unionml_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_backward,
     flash_backward_dkv,
     flash_backward_dkv_reference,
     flash_backward_dq,
     flash_backward_dq_reference,
+    flash_backward_reference,
     flash_forward,
     flash_forward_reference,
 )
@@ -33,6 +36,12 @@ from unionml_tpu_torch.ops.flash_attention import (
 torch.set_num_threads(2)
 
 OUT_ATOL, GRAD_ATOL = 2e-5, 1e-4
+#: (atol, rtol) of bf16 gradients against the JAX package's: each is a bf16
+#: value (8 significant bits), and the two sides round at other places before
+#: it (the JAX forward rounds P to bf16 before P.V, which moves out and so
+#: delta; sums run in other orders), so they may be two units in the last
+#: place apart: 2**-6 of the larger of the magnitude and 1
+BF16_GRAD_TOL = (2.0**-6, 2.0**-6)
 
 #: (q_len, k_len, heads, kv_heads, causal, blocks) at B=1, D=128
 CASES = {
@@ -105,6 +114,79 @@ def test_gradients_match_jax_grad_through_interpret(jax_flash, case):
         np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=0, err_msg=name)
 
 
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bf16 (to nearest even), as f32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_gradients_match_jax_grad_through_interpret(case):
+    """bf16 inputs through both packages: the port's backward twins round P
+    and dS to bf16 before their second products, as the JAX kernels do."""
+    import jax
+    import jax.numpy as jnp
+
+    from unionml_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q_len, k_len, heads, kv_heads, causal, blocks = CASES[case]
+    q, k, v, w = (_bf16(a) for a in _inputs(q_len, k_len, heads, kv_heads, seed=1))
+    w_jax = jnp.asarray(w)
+
+    def loss(*a):
+        out = jax_flash_attention(*a, causal=causal, interpret=True, blocks=blocks)
+        return (out.astype(jnp.float32) * w_jax).sum()
+
+    operands = [jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)]
+    ref = [np.asarray(g.astype(jnp.float32)) for g in jax.grad(loss, argnums=(0, 1, 2))(*operands)]
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in (q, k, v))
+    (flash_attention(tq, tk, tv, causal=causal, blocks=blocks).float() * torch.from_numpy(w)).sum().backward()
+    atol, rtol = BF16_GRAD_TOL
+    for name, t, want in zip(("dq", "dk", "dv"), (tq, tk, tv), ref):
+        assert t.grad.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(t.grad.float().numpy(), want, atol=atol, rtol=rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_fused_backward_twin_is_the_dq_and_dkv_twins(case, dtype):
+    """``flash_backward`` on CPU tensors is ``flash_backward_reference``, which
+    equals the dq and dk/dv twins bit for bit; no kernel launch is counted."""
+    q_len, k_len, heads, kv_heads, causal, _ = CASES[case]
+    dtype = getattr(torch, dtype)
+    q, k, v, w = (torch.from_numpy(a).to(dtype) for a in _inputs(q_len, k_len, heads, kv_heads, seed=4))
+    out, lse = flash_forward_reference(q, k, v, causal)
+    delta = torch.einsum("blhd,blhd->bhl", w.float(), out.float())
+    counts = [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)]
+    fused = flash_backward(q, k, v, w, lse, delta, causal)
+    assert [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)] == counts
+    pair = (flash_backward_dq_reference(q, k, v, w, lse, delta, causal),
+            *flash_backward_dkv_reference(q, k, v, w, lse, delta, causal))
+    reference = flash_backward_reference(q, k, v, w, lse, delta, causal)
+    for name, got, ref, want in zip(("dq", "dk", "dv"), fused, reference, pair):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        assert torch.equal(got, want) and torch.equal(ref, want), name
+
+
+def test_backward_twins_round_p_and_ds_to_the_operand_dtype():
+    """In bf16 the twins round P and dS to bf16 before the second products,
+    as the JAX kernels do (``ds.astype(k.dtype)``, ``p.astype(do.dtype)``):
+    dq equals ``scale * bf16(dS) . K`` computed by hand, and differs from the
+    product of the unrounded dS."""
+    q, k, v, w = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(64, 64, 2, 1, seed=5, head_dim=16))
+    out, lse = flash_forward_reference(q, k, v, True)
+    delta = torch.einsum("blhd,blhd->bhl", w.float(), out.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().expand(-1, -1, 2, -1)) * 16**-0.5
+    scores = scores.masked_fill(~torch.ones(64, 64, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(scores - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", w.float(), v.float().expand(-1, -1, 2, -1)) - delta[..., None])
+    keys = k.float().expand(-1, -1, 2, -1)
+    rounded = (torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), keys) * 16**-0.5).bfloat16()
+    unrounded = (torch.einsum("bhqk,bkhd->bqhd", ds, keys) * 16**-0.5).bfloat16()
+    dq = flash_backward_dq_reference(q, k, v, w, lse, delta, True)
+    torch.testing.assert_close(dq.float(), rounded.float(), atol=2**-8, rtol=2**-8)
+    assert not torch.equal(rounded, unrounded)  # the rounding is visible at this size
+
+
 def test_misaligned_fully_masked_rows_follow_the_contract_not_the_pallas_kernel():
     """``Lq=256, Lk=192, blocks=(128, 64)``: the causal offset ``Lk - Lq =
     -64`` is not a multiple of ``block_q``, so query rows 0-63 see no key.
@@ -168,25 +250,75 @@ def card():
         pytest.skip("needs a CUDA card with sm_90 (the kernels have no CPU mode)")
 
 
+def _card_inputs(case: str, dtype: torch.dtype, seed: int = 3):
+    q_len, k_len, heads, kv_heads, causal, _ = CASES.get(case, (40, 40, 4, 1, True, None))
+    head_dim = 64 if case.endswith("D64") else 128
+    arrays = _inputs(q_len, k_len, heads, kv_heads, seed, head_dim)
+    q, k, v, w = (torch.from_numpy(a).cuda().to(dtype) for a in arrays)
+    return q, k, v, w, causal
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["cross-length-causal", "blocks-64-L192", "ragged-L40-D64"])
 def test_kernels_match_twins_on_card(card, dtype, case):
-    q_len, k_len, heads, kv_heads, causal, _ = CASES.get(case, (40, 40, 4, 1, True, None))
-    head_dim = 64 if case.endswith("D64") else 128
+    """The forward and the backward against their twins: float32 through the
+    exact-f32 dq and dk/dv kernels, bfloat16 through the fused kernel."""
     dtype = getattr(torch, dtype)
-    q, k, v, w = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(q_len, k_len, heads, kv_heads, 3, head_dim))
-    counts = [fn.launches for fn in (flash_forward, flash_backward_dq, flash_backward_dkv)]
+    q, k, v, w, causal = _card_inputs(case, dtype)
+    counted = (flash_forward, flash_backward, flash_backward_dq, flash_backward_dkv)
+    counts = [fn.launches for fn in counted]
     out, lse = flash_forward(q, k, v, causal)
     ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
     delta = torch.einsum("blhd,blhd->bhl", w.float(), ref_out.float())
-    dq = flash_backward_dq(q, k, v, w, ref_lse, delta, causal)
-    dk, dv = flash_backward_dkv(q, k, v, w, ref_lse, delta, causal)
+    dq, dk, dv = flash_backward(q, k, v, w, ref_lse, delta, causal)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in (flash_forward, flash_backward_dq, flash_backward_dkv)] == [c + 1 for c in counts]
-    ref_dq = flash_backward_dq_reference(q, k, v, w, ref_lse, delta, causal)
-    ref_dk, ref_dv = flash_backward_dkv_reference(q, k, v, w, ref_lse, delta, causal)
-    # both compute in f32; bfloat16 outputs round to 8 mantissa bits
+    fused = dtype == torch.bfloat16
+    assert [fn.launches - c for fn, c in zip(counted, counts)] == [1, int(fused), int(not fused), int(not fused)]
+    ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, w, ref_lse, delta, causal)
+    # f32: both compute in f32, in other orders; bf16: outputs round to 8 mantissa bits
     atol, rtol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
     for got, want in ((out, ref_out), (lse, ref_lse), (dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == want.dtype
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*CASES, "ragged-L40-D64"])
+def test_fused_backward_matches_twin_and_is_deterministic_on_card(card, case):
+    """The fused bf16 kernel against ``flash_backward_reference`` (the twin's
+    lse and delta), and two calls bitwise equal (dq's adds are ordered)."""
+    q, k, v, w, causal = _card_inputs(case, torch.bfloat16, seed=6)
+    out, lse = flash_forward_reference(q, k, v, causal)
+    delta = torch.einsum("blhd,blhd->bhl", w.float(), out.float())
+    got = flash_backward(q, k, v, w, lse, delta, causal)
+    again = flash_backward(q, k, v, w, lse, delta, causal)
+    torch.cuda.synchronize()
+    reference = flash_backward_reference(q, k, v, w, lse, delta, causal)
+    for name, a, b, want in zip(("dq", "dk", "dv"), got, again, reference):
+        assert a.dtype == torch.bfloat16 and a.shape == want.shape, name
+        torch.testing.assert_close(a.float(), want.float(), atol=2e-2, rtol=2e-2, msg=name)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_fused_backward_raises_on_head_dims_it_cannot_take(card):
+    """bf16 with ``D % 16 != 0`` (or ``D > 128``) raises before any launch;
+    it never falls back to a twin or to the f32 kernels."""
+    before = [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)]
+    for head_dim in (40, 136):
+        q = torch.randn(1, 64, 2, head_dim, device="cuda").bfloat16()
+        lse = torch.zeros(1, 2, 64, device="cuda")
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_backward(q, q, q, q, lse, lse, True)
+    assert [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)] == before
+
+
+@pytest.mark.cuda
+def test_f32_kernels_refuse_bf16_on_card(card):
+    """The exact-f32 dq and dk/dv kernels take float32 only: bf16 is the fused kernel's."""
+    q = torch.randn(1, 64, 2, 64, device="cuda").bfloat16()
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    for fn in (flash_backward_dq, flash_backward_dkv):
+        with pytest.raises(TypeError, match="float32"):
+            fn(q, q, q, q, lse, lse, True)

@@ -7,6 +7,9 @@
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel (pallas_call at :343)
 // reached under attention_impl="flash" for every unmasked attention call
 // (unionml_tpu/ops/attention.py:82-87): the training forward and backward.
+// The forward takes float32 and bfloat16; the dq and dk/dv kernels take
+// float32 only, as the exact-f32 route of the backward (bfloat16 goes to the
+// fused tensor-core kernel of flash_backward.cu).
 //
 // Layout as in the JAX package: q [B, Lq, H, D], k/v [B, Lk, Hkv, D], all
 // contiguous; lse and delta [B, H, Lq] f32. Query head h reads KV head
@@ -516,9 +519,10 @@ bool shapes_ok(int batch, int n_heads, int n_kv, int q_len, int k_len, int head_
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry returns the cudaError_t of its
-// launch (0 = success); the caller checks it. Tensors are contiguous and
-// their shapes validated by the caller.
+// dtype: 0 = float32, 1 = bfloat16 (the forward only; the dq and dk/dv entries
+// take 0). Each entry returns the cudaError_t of its launch (0 = success); the
+// caller checks it. Tensors are contiguous and their shapes validated by the
+// caller.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* out, void* lse,
                                        int batch, int n_heads, int n_kv, int q_len, int k_len, int head_dim,
                                        int causal, float scale, int dtype, void* stream) {
@@ -542,9 +546,6 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k, const v
   if (dtype == 0)
     return (int)launch_dq<float>(q, k, v, dout, lse, delta, dq, batch, n_heads, n_kv, q_len, k_len, head_dim,
                                  causal, scale, s);
-  if (dtype == 1)
-    return (int)launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, batch, n_heads, n_kv, q_len, k_len,
-                                         head_dim, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -557,8 +558,5 @@ extern "C" int flash_attention_backward_dkv(const void* q, const void* k, const 
   if (dtype == 0)
     return (int)launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, batch, n_heads, n_kv, q_len, k_len,
                                   head_dim, causal, scale, s);
-  if (dtype == 1)
-    return (int)launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, batch, n_heads, n_kv, q_len,
-                                          k_len, head_dim, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

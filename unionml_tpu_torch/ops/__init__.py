@@ -3,10 +3,12 @@
 from unionml_tpu_torch.ops.attention import dot_product_attention, multihead_attention
 from unionml_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_backward,
     flash_backward_dkv,
     flash_backward_dkv_reference,
     flash_backward_dq,
     flash_backward_dq_reference,
+    flash_backward_reference,
     flash_forward,
     flash_forward_reference,
 )
@@ -28,10 +30,12 @@ __all__ = [
     "dequantize_tree",
     "dot_product_attention",
     "flash_attention",
+    "flash_backward",
     "flash_backward_dkv",
     "flash_backward_dkv_reference",
     "flash_backward_dq",
     "flash_backward_dq_reference",
+    "flash_backward_reference",
     "flash_forward",
     "flash_forward_reference",
     "int8_matmul",

@@ -2,18 +2,23 @@
 
 Counterpart of ``unionml_tpu/ops/flash_attention.py``. There the forward and
 the two backward kernels are Pallas TPU kernels; here they are the
-hand-written Hopper kernels of ``csrc/flash_attention.cu``. The
+hand-written Hopper kernels of ``csrc/flash_attention.cu`` (the forward, and
+the exact-f32 dq and dk/dv kernels) and ``csrc/flash_backward.cu`` (the fused
+bf16 backward: dq, dk and dv in one launch on the tensor cores). The
 ``[L, L]`` score matrix never reaches device memory in either direction: the
 forward saves the per-row logsumexp and the backward recomputes
 ``P = exp(S - lse)`` tile by tile.
 
 :func:`flash_attention` is a :class:`torch.autograd.Function` whose forward
-and backward make the same three calls on every device:
-:func:`flash_forward`, :func:`flash_backward_dq` and
-:func:`flash_backward_dkv`. Each launches its kernel for CUDA tensors (or
+and backward make the same two calls on every device: :func:`flash_forward`
+and :func:`flash_backward`. Each launches a kernel for CUDA tensors (or
 raises) and takes its plain twin (``*_reference``, dense tensors, f32) only
-for tensors on the CPU. ``delta = rowsum(dO * O)`` is one plain f32
-reduction outside the kernels, as in the JAX code.
+for tensors on the CPU. :func:`flash_backward` routes bf16 to the fused
+kernel and f32 to :func:`flash_backward_dq` and :func:`flash_backward_dkv`.
+``delta = rowsum(dO * O)`` is one plain f32 reduction outside the kernels,
+as in the JAX code. The backward twins round ``P`` and ``dS`` to the
+operands' dtype before their second products, as the JAX kernels do (a no-op
+in f32).
 
 Shapes: ``q: [B, Lq, H, D]``, ``k/v: [B, Lk, Hkv, D]`` with ``H % Hkv == 0``.
 The API's ``blocks`` only decide which lengths are legal, as in the JAX
@@ -36,6 +41,8 @@ from torch.autograd.function import once_differentiable
 
 __all__ = [
     "flash_attention",
+    "flash_backward",
+    "flash_backward_reference",
     "flash_backward_dkv",
     "flash_backward_dkv_reference",
     "flash_backward_dq",
@@ -47,6 +54,7 @@ __all__ = [
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 MAX_HEAD_DIM = 128  # the kernels' register tiles hold up to 128 head-dim columns
+_FUSED_QUERY_TILE = 64  # query rows of a tile of the fused backward (its dq counters are per tile)
 _BIG = 1e30  # lse of a row that sees no key: exp(S - BIG) == 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,25 +110,22 @@ def flash_forward_reference(
 
 
 def _recompute(q, k, v, dout, lse, delta, causal) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``P = exp(S - lse)`` and ``dS = P * (dO.V^T - delta)``, ``[B, H, Lq, Lk]`` f32."""
+    """``P = exp(S - lse)`` and ``dS = P * (dO.V^T - delta)``, ``[B, H, Lq, Lk]``
+    f32, each rounded to the operands' dtype (q's) as the JAX kernels round
+    them before their second products, then widened back to f32."""
     p = torch.exp(_scores(q, k, causal) - lse[..., None])
     values = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), values)
-    return p, p * (dp - delta[..., None])
+    ds = p * (dp - delta[..., None])
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
 
 
-def flash_backward_dq_reference(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
-    """The dq kernel's plain twin: ``scale * dS.K``, in q's dtype."""
-    _, ds = _recompute(q, k, v, dout, lse, delta, causal)
+def _dq_from(ds, q, k) -> torch.Tensor:
     keys = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, keys) * q.shape[-1] ** -0.5).to(q.dtype)
 
 
-def flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel's plain twin: ``dv = P^T.dO`` and ``dk = scale *
-    dS^T.Q`` per query head, summed over each KV group in f32, then cast to
-    k's and v's dtype."""
-    p, ds = _recompute(q, k, v, dout, lse, delta, causal)
+def _dkv_from(p, ds, q, k, v, dout) -> Tuple[torch.Tensor, torch.Tensor]:
     batch, k_len, n_kv, head_dim = k.shape
     group = q.shape[2] // n_kv
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
@@ -130,22 +135,49 @@ def flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal: bool) -> Tup
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_backward_dq_reference(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
+    """The dq kernel's plain twin: ``scale * dS.K``, in q's dtype."""
+    _, ds = _recompute(q, k, v, dout, lse, delta, causal)
+    return _dq_from(ds, q, k)
+
+
+def flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's plain twin: ``dv = P^T.dO`` and ``dk = scale *
+    dS^T.Q`` per query head, summed over each KV group in f32, then cast to
+    k's and v's dtype."""
+    p, ds = _recompute(q, k, v, dout, lse, delta, causal)
+    return _dkv_from(p, ds, q, k, v, dout)
+
+
+def flash_backward_reference(
+    q, k, v, dout, lse, delta, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused backward's plain twin: ``(dq, dk, dv)``, the dq and dk/dv
+    twins together (``P`` and ``dS`` recomputed once)."""
+    p, ds = _recompute(q, k, v, dout, lse, delta, causal)
+    return (_dq_from(ds, q, k), *_dkv_from(p, ds, q, k, v, dout))
+
+
 # ---------------------------------------------------------------- kernels
 
-_ARGTYPES = {
-    "flash_attention_forward": 5,
-    "flash_attention_backward_dq": 7,
-    "flash_attention_backward_dkv": 8,
+#: (library, pointer arguments, trailing dtype code) of each C entry
+_ENTRIES = {
+    "flash_attention_forward": ("flash_attention", 5, True),
+    "flash_attention_backward_dq": ("flash_attention", 7, True),
+    "flash_attention_backward_dkv": ("flash_attention", 8, True),
+    "flash_attention_backward_fused": ("flash_backward", 11, False),
 }
 
 
 def _kernel(name: str):
     from unionml_tpu_torch._build import load_library
 
-    fn = getattr(load_library("flash_attention"), name)
+    library, pointers, dtype_code = _ENTRIES[name]
+    fn = getattr(load_library(library), name)
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * _ARGTYPES[name] + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 + [ctypes.c_float]
+            + [ctypes.c_int] * dtype_code + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
@@ -168,11 +200,12 @@ def _launch(name: str, counter, q, k, *pointers_and_tensors, causal: bool) -> No
     batch, q_len, n_heads, head_dim = q.shape
     k_len, n_kv = k.shape[1], k.shape[2]
     fn = _kernel(name)
+    dtype_code = (_DTYPE_CODES[q.dtype],) if _ENTRIES[name][2] else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in pointers_and_tensors), batch, n_heads, n_kv, q_len, k_len, head_dim,
-            int(causal), head_dim**-0.5, _DTYPE_CODES[q.dtype], stream,
+            int(causal), head_dim**-0.5, *dtype_code, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -197,26 +230,33 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     return out, lse
 
 
+def _check_f32(q: torch.Tensor, name: str) -> None:
+    if q.dtype != torch.float32:
+        raise TypeError(f"the {name} kernel takes float32 (bfloat16 goes through flash_backward), got {q.dtype}")
+
+
 def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
-    """``dq``: the dq kernel for CUDA tensors, its twin on the CPU."""
+    """``dq``: the exact-f32 dq kernel for CUDA tensors, its twin on the CPU."""
     if _device_of(q) == "cpu":
         return flash_backward_dq_reference(q, k, v, dout, lse, delta, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     _check_kernel_inputs(q, k, v, dout, lse, delta)
+    _check_f32(q, "dq")
     dq = torch.empty_like(q)
     _launch("flash_attention_backward_dq", flash_backward_dq, q, k, q, k, v, dout, lse, delta, dq, causal=causal)
     return dq
 
 
 def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dk, dv)`` at KV-head resolution: the dk/dv kernel for CUDA tensors,
-    its twin on the CPU."""
+    """``(dk, dv)`` at KV-head resolution: the exact-f32 dk/dv kernel for
+    CUDA tensors, its twin on the CPU."""
     if _device_of(q) == "cpu":
         return flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     _check_kernel_inputs(q, k, v, dout, lse, delta)
+    _check_f32(q, "dk/dv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(
         "flash_attention_backward_dkv", flash_backward_dkv, q, k, q, k, v, dout, lse, delta, dk, dv, causal=causal
@@ -224,8 +264,43 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.T
     return dk, dv
 
 
+def flash_backward(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``, dk and dv at KV-head resolution. CPU tensors take the
+    twin; CUDA float32 the exact-f32 dq and dk/dv kernels; CUDA bfloat16 the
+    fused kernel (``D % 16 == 0``, ``D <= 128``), which writes dk and dv per
+    query head in f32 for one plain f32 group sum here, then the cast."""
+    if _device_of(q) == "cpu":
+        return flash_backward_reference(q, k, v, dout, lse, delta, causal)
+    if q.dtype == torch.float32:
+        return (flash_backward_dq(q, k, v, dout, lse, delta, causal),
+                *flash_backward_dkv(q, k, v, dout, lse, delta, causal))
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    _check_kernel_inputs(q, k, v, dout, lse, delta)
+    batch, q_len, n_heads, head_dim = q.shape
+    k_len, n_kv = k.shape[1], k.shape[2]
+    if head_dim % 16:
+        raise ValueError(f"the fused backward takes head_dim % 16 == 0, got {head_dim}")
+    n_q = -(-q_len // _FUSED_QUERY_TILE)
+    dq_sum = torch.empty(batch, n_heads, q_len, head_dim, dtype=torch.float32, device=q.device)
+    dq_count = torch.zeros(batch * n_heads * n_q * 2, dtype=torch.int32, device=q.device)
+    # query tiles that see no key (causal, Lq > Lk) are never written
+    dq = torch.zeros_like(q) if causal and q_len > k_len else torch.empty_like(q)
+    dk_heads = torch.empty(batch, k_len, n_heads, head_dim, dtype=torch.float32, device=q.device)
+    dv_heads = torch.empty_like(dk_heads)
+    _launch(
+        "flash_attention_backward_fused", flash_backward, q, k, q, k, v, dout, lse, delta, dq_sum, dq_count, dq,
+        dk_heads, dv_heads, causal=causal,
+    )
+    group = n_heads // n_kv
+    dk = dk_heads.view(batch, k_len, n_kv, group, head_dim).sum(dim=3).to(k.dtype)
+    dv = dv_heads.view(batch, k_len, n_kv, group, head_dim).sum(dim=3).to(v.dtype)
+    return dq, dk, dv
+
+
 #: kernel launches since the count was last reset (CPU calls never count)
 flash_forward.launches = 0
+flash_backward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 
@@ -245,8 +320,7 @@ class _FlashAttention(torch.autograd.Function):
         _check_shapes(q, k, ctx.blocks)  # the backward follows the forward's blocks, as in JAX
         # delta_i = rowsum(dO_i * O_i), the dS correction term; [B, H, Lq] like lse
         delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
-        dq = flash_backward_dq(q, k, v, dout, lse, delta, ctx.causal)
-        dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, ctx.causal)
+        dq, dk, dv = flash_backward(q, k, v, dout, lse, delta, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -254,7 +328,7 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False, blocks: Blocks = None
 ) -> torch.Tensor:
     """Flash attention entry point: ``out [B, Lq, H, D]`` in q's dtype, and a
-    backward through the dq and dk/dv kernels. ``k/v`` may carry fewer (KV)
+    backward through :func:`flash_backward`. ``k/v`` may carry fewer (KV)
     heads than q. ``blocks=(block_q, block_k)`` overrides the tiles that
     decide which lengths are legal (default 128 x 128)."""
     _check_shapes(q, k, blocks)
