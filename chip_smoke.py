@@ -9,15 +9,17 @@ Phases (no phase catches a failure; any fault exits non-zero):
 
 1. print the card's name and power limit; build every kernel from ``csrc/``;
 2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
-   paged decode at the served shapes; the flash forward at full width
-   causal, non-causal, cross-length causal and custom blocks, with the
-   exact-f32 dq and dk/dv kernels in float32 and the fused bf16 backward
-   (also at D=64, ragged; bitwise equal on a second call) in bfloat16; the
+   paged decode at the served shapes; the flash kernels at full width
+   causal, non-causal, cross-length causal and custom blocks: in float32 the
+   exact-f32 forward, dq and dk/dv kernels, in bfloat16 the tensor-core
+   forward and the fused backward (also at D=64, ragged; each bitwise equal
+   on a second call); the
    int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
    130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
    kernel, twin, the library yardstick and the
-   bytes/operations bound with CUDA events (the fused backward at full width,
-   the f32 dq and dk/dv kernels at the f32 parity shape) (int8 also summed over one decode
+   bytes/operations bound with CUDA events (the bf16 forward and the fused
+   backward at full width, the f32 forward, dq and dk/dv kernels at the f32
+   parity shape) (int8 also summed over one decode
    step's 225 matmuls, at M = 4, 64 and 256); each kernel's time includes its host launch work, and
    a second, device-only time (``device_ms``) is taken behind a measured spin
    of the card that outlasts the host's enqueue;
@@ -35,12 +37,13 @@ Phases (no phase catches a failure; any fault exits non-zero):
 5. LoRA fine-tune a Llama-3-8B-width model (32 layers, bf16 compute, f32
    parameters, random weights from a seed) through ``fit`` for 6 steps of
    one 2048-token sequence, counting flash kernel launches on this path (the
-   forward and the fused backward; no f32 backward kernel), and check finite
+   bf16 forward and the fused backward; no f32 kernel), and check finite
    losses, a frozen base and moved adapters;
 6. training parity with 2 layers of the same width: 3 steps of ``fit`` on
    the kernel path and on the plain path agree, at float32 (through the
-   exact-f32 dq and dk/dv kernels, whose launches the kernels line reports)
-   and at bf16 compute (through the fused backward).
+   exact-f32 forward, dq and dk/dv kernels, whose launches the kernels line
+   reports) and at bf16 compute (through the bf16 forward and the fused
+   backward).
 
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
@@ -68,9 +71,9 @@ PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf1
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 #: flash kernels against their twins: in float32 both compute in f32, and the
 #: dk/dv sums of 2048 x 4 terms at full width run in another order; in
-#: bfloat16 both round P and dS to bf16 before their products (a last-bit
-#: difference in exp can flip one rounding), sum in f32 in other orders, and
-#: the outputs round to 8 bits of mantissa
+#: bfloat16 both round P (forward and backward) and dS to bf16 before their
+#: products (a last-bit difference in exp can flip one rounding), sum in f32
+#: in other orders, and the outputs round to 8 bits of mantissa
 FLASH_TOLERANCE = {"torch.float32": (1e-4, 1e-5), "torch.bfloat16": (2e-2, 2e-2)}
 #: (label, Lq, Lk, causal, blocks) at H=32, Hkv=8, D=128, B=1
 FLASH_CASES = (
@@ -79,17 +82,20 @@ FLASH_CASES = (
     ("cross-length causal Lq=256 Lk=512", 256, 512, True, None),
     ("blocks=(64,64) causal L=192", 192, 192, True, (64, 64)),
 )
-#: (label, Lq, Lk, causal, D) held in bfloat16 only, beside FLASH_CASES: a ragged D=64 case for the fused backward
+#: (label, Lq, Lk, causal, D) held in bfloat16 only, beside FLASH_CASES: a ragged D=64 case for the bf16 kernels
 FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64),)
 #: products of 2 * Lq * Lk * D multiply-adds (per head, visible pairs only) each kernel computes
-FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_backward_dq": 3, "flash_backward_dkv": 4}
+FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_forward_f32": 2, "flash_backward_dq": 3,
+                  "flash_backward_dkv": 4}
 FLASH_REPLACES = {
     "flash_forward": "unionml_tpu/ops/flash_attention.py:160",
+    "flash_forward_f32": "unionml_tpu/ops/flash_attention.py:160",
     "flash_backward": "unionml_tpu/ops/flash_attention.py:318 and :343",
     "flash_backward_dq": "unionml_tpu/ops/flash_attention.py:318",
     "flash_backward_dkv": "unionml_tpu/ops/flash_attention.py:343",
 }
-FLASH_SOURCES = {"flash_backward": "unionml_tpu_torch/csrc/flash_backward.cu"}  # the rest: csrc/flash_attention.cu
+FLASH_SOURCES = {"flash_forward": "unionml_tpu_torch/csrc/flash_forward.cu",
+                 "flash_backward": "unionml_tpu_torch/csrc/flash_backward.cu"}  # the rest: csrc/flash_attention.cu
 #: bf16 training parity: relative loss difference between the kernel and plain paths. Both run in bf16
 #: (8 significant bits) but round at other places (the plain path rounds its scores to bf16; the kernels
 #: keep them in f32), so the losses may differ by about one bf16 epsilon, 2**-7 = 7.8e-3
@@ -300,8 +306,9 @@ def serve(batcher, prompts) -> tuple:
 
 def profile_run(label: str, fn) -> None:
     """Run ``fn`` once more under ``torch.profiler`` and print where the
-    device time goes: kernel time by name, and the device's busy share of the
-    wall time (the rest is the host launching eager PyTorch ops)."""
+    device time goes: kernel time by name (the 12 largest, and every kernel
+    of the port's), and the device's busy share of the wall time (the rest is
+    the host launching eager PyTorch ops)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -316,12 +323,18 @@ def profile_run(label: str, fn) -> None:
             total, count = by_name.get(event.name, (0.0, 0))
             by_name[event.name] = (total + event.device_time / 1e3, count + 1)  # us -> ms
     busy_ms = sum(total for total, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+
+    def rows(items):
+        return [{"name": name[:120], "ms": total, "calls": count, "share_of_busy": total / busy_ms}
+                for name, (total, count) in items]
+
     print(json.dumps({"profile": {
         "run": label, "wall_ms": seconds * 1e3, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / (seconds * 1e3),
-        "top_kernels": [{"name": name[:120], "ms": total, "calls": count, "share_of_busy": total / busy_ms}
-                        for name, (total, count) in top],
+        "top_kernels": rows(ranked[:12]),
+        # the port's own kernels (each in an anonymous namespace of csrc/), wherever they rank
+        "port_kernels": rows(kv for kv in ranked if kv[0].removeprefix("void ").startswith("(anonymous namespace)::")),
     }}), flush=True)
 
 
@@ -345,6 +358,7 @@ def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
     stats = 4 * batch * n_heads * q_len
     moved = {
         "flash_forward": qkv + q.numel() * item + stats,
+        "flash_forward_f32": qkv + q.numel() * item + stats,
         "flash_backward": qkv + 2 * q.numel() * item + 2 * stats + 2 * k.numel() * item,
         "flash_backward_dq": qkv + 2 * q.numel() * item + 2 * stats,
         "flash_backward_dkv": qkv + q.numel() * item + 2 * stats + 2 * k.numel() * item,
@@ -384,16 +398,18 @@ def sdpa_times(q, k, v, dout, causal: bool, backend) -> dict:
 
 def flash_kernel_phase() -> dict:
     """Each flash kernel against its twin on the same inputs: float32 through
-    the forward and the exact-f32 dq and dk/dv kernels, bfloat16 through the
-    forward and the fused backward (two calls bitwise equal). Then times:
-    the forward and the fused backward at the full-width training shape
-    (bf16, causal), the f32 dq and dk/dv kernels at the f32 parity shape."""
+    the exact-f32 forward, dq and dk/dv kernels, bfloat16 through the
+    tensor-core forward and the fused backward (each two calls bitwise
+    equal). Then times: the bf16 forward and the fused backward at the
+    full-width training shape (causal), the f32 forward, dq and dk/dv kernels
+    at the f32 parity shape."""
     import torch
     from torch.nn.attention import SDPBackend
 
     from unionml_tpu_torch.ops.flash_attention import (
         flash_backward, flash_backward_dkv, flash_backward_dkv_reference, flash_backward_dq,
-        flash_backward_dq_reference, flash_backward_reference, flash_forward, flash_forward_reference,
+        flash_backward_dq_reference, flash_backward_reference, flash_forward, flash_forward_f32,
+        flash_forward_reference,
     )
 
     def inputs(q_len, k_len, dtype, seed, head_dim=128):
@@ -409,9 +425,11 @@ def flash_kernel_phase() -> dict:
         atol, rtol = FLASH_TOLERANCE[str(dtype)]
         fused = dtype == torch.bfloat16
         extra = list(FUSED_EXTRA_CASES) if fused else []
+        forward = "flash_forward" if fused else "flash_forward_f32"
         for seed, (label, q_len, k_len, causal, head_dim) in enumerate(cases + extra):
             q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim)
             out, lse = flash_forward(q, k, v, causal)
+            out_again, lse_again = flash_forward(q, k, v, causal)
             ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
             # the backward takes the twin's lse and delta, so that it is held alone
             delta = torch.einsum("blhd,blhd->bhl", dout.float(), ref_out.float())
@@ -427,7 +445,7 @@ def flash_kernel_phase() -> dict:
             ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, dout, ref_lse, delta, causal)
             errors = []
             for what, name, got, ref in (
-                ("out", "flash_forward", out, ref_out), ("lse", "flash_forward", lse, ref_lse),
+                ("out", forward, out, ref_out), ("lse", forward, lse, ref_lse),
                 ("dq", names[0], dq, ref_dq), ("dk", names[1], dk, ref_dk), ("dv", names[2], dv, ref_dv),
             ):
                 err = (got.float() - ref.float()).abs()
@@ -435,6 +453,9 @@ def flash_kernel_phase() -> dict:
                 worst[name] = max(worst[name], err.max().item())
                 errors.append(f"{what} {err.max().item():.3g}{'' if ok else ' FAIL'}")
                 require(ok, f"{name} disagrees with its plain twin ({what}, {dtype}, {label})")
+            same = torch.equal(out, out_again) and torch.equal(lse, lse_again)
+            errors.append(f"forward bitwise equal on a second call: {same}")
+            require(same, f"{forward} gave other bits on a second call ({label})")
             if fused:
                 same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
                 errors.append(f"fused backward bitwise equal on a second call: {same}")
@@ -472,6 +493,9 @@ def flash_kernel_phase() -> dict:
     out, lse = flash_forward(q, k, v, True)
     delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
     sdpa = sdpa_times(q, k, v, dout, True, SDPBackend.EFFICIENT_ATTENTION)
+    timed("flash_forward_f32", lambda: flash_forward_f32(q, k, v, True),
+          lambda: flash_forward_reference(q, k, v, True), q, k, True, sdpa["fwd_ms"], sdpa["fwd_device_ms"],
+          "SDPA memory-efficient forward in f32")
     label = "SDPA memory-efficient backward in f32: dq, dk and dv together"
     timed("flash_backward_dq", lambda: flash_backward_dq(q, k, v, dout, lse, delta, True),
           lambda: flash_backward_dq_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
@@ -674,7 +698,7 @@ def training_phase(card: str, profile: bool) -> dict:
     from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
     from unionml_tpu_torch.models import chunked_causal_lm_loss
     from unionml_tpu_torch.ops.flash_attention import (
-        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward,
+        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward, flash_forward_f32,
     )
 
     cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash", remat=TRAIN_REMAT)
@@ -690,7 +714,7 @@ def training_phase(card: str, profile: bool) -> dict:
     step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
     config = TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1)
 
-    counted = (flash_forward, flash_backward, flash_backward_dq, flash_backward_dkv)
+    counted = (flash_forward, flash_backward, flash_forward_f32, flash_backward_dq, flash_backward_dkv)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -701,9 +725,9 @@ def training_phase(card: str, profile: bool) -> dict:
 
     losses = [h["loss"] for h in result.history]
     per_step = cfg.n_layers * TRAIN_STEPS
-    # bf16 compute: the fused backward, never the exact-f32 dq and dk/dv kernels
+    # bf16 compute: the bf16 forward and the fused backward, never the exact-f32 kernels
     expected = {"flash_forward": per_step * (2 if cfg.remat else 1), "flash_backward": per_step,
-                "flash_backward_dq": 0, "flash_backward_dkv": 0}
+                "flash_forward_f32": 0, "flash_backward_dq": 0, "flash_backward_dkv": 0}
     frozen = torch.equal(state.model.layer_0.attn.q_proj.kernel, probe)
     moved = [n for n, p in state.model.named_parameters() if n in adapters_b and not torch.equal(p, adapters_b[n])]
     sps = result.samples_per_sec
@@ -741,12 +765,12 @@ def parity_runs(cfg, seed: int) -> dict:
     from unionml_tpu_torch import TrainerConfig, fit, make_train_step
     from unionml_tpu_torch.models import chunked_causal_lm_loss
     from unionml_tpu_torch.ops.flash_attention import (
-        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward,
+        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward, flash_forward_f32,
     )
 
     tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(PARITY_STEPS, PARITY_SEQ)).astype(np.int64)
     step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
-    counted = (flash_forward, flash_backward, flash_backward_dq, flash_backward_dkv)
+    counted = (flash_forward, flash_backward, flash_forward_f32, flash_backward_dq, flash_backward_dkv)
     runs = {}
     for impl in ("flash", "auto"):
         state = lora_llama(dc.replace(cfg, attention_impl=impl), seed=seed - 1)
@@ -763,7 +787,7 @@ def parity_runs(cfg, seed: int) -> dict:
 
 def training_parity_phase() -> dict:
     """3 steps of ``fit`` at float32 through the flash kernels (the exact-f32
-    dq and dk/dv kernels) and through the plain path, from the same weights
+    forward, dq and dk/dv kernels) and through the plain path, from the same weights
     and data: the loss histories and the trained adapters agree. Returns the
     kernel path's flash launches."""
     import torch
@@ -783,7 +807,7 @@ def training_parity_phase() -> dict:
     # 2 * lr per step; the mean bounds how many entries may do so
     max_tol, mean_tol = 2 * LR * PARITY_STEPS, 1e-3 * LR
     per_run = cfg.n_layers * PARITY_STEPS
-    expected = {"flash_forward": per_run, "flash_backward": 0, "flash_backward_dq": per_run,
+    expected = {"flash_forward": 0, "flash_backward": 0, "flash_forward_f32": per_run, "flash_backward_dq": per_run,
                 "flash_backward_dkv": per_run}
     print(f"float32 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
           f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance 1e-5); adapters max abs diff "
@@ -797,7 +821,8 @@ def training_parity_phase() -> dict:
 
 def bf16_training_parity_phase() -> None:
     """3 steps of ``fit`` at bf16 compute (f32 parameters, the training
-    phase's types) through the flash kernels (the fused backward) and
+    phase's types) through the flash kernels (the bf16 forward and the fused
+    backward) and
     through the plain path: the loss histories agree within
     ``BF16_PARITY_LOSS_REL``."""
     from unionml_tpu_torch import LlamaConfig
@@ -807,7 +832,8 @@ def bf16_training_parity_phase() -> None:
     (kernel_losses, _, launches), (plain_losses, _, _) = runs["flash"], runs["auto"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
     per_run = cfg.n_layers * PARITY_STEPS
-    expected = {"flash_forward": per_run, "flash_backward": per_run, "flash_backward_dq": 0, "flash_backward_dkv": 0}
+    expected = {"flash_forward": per_run, "flash_backward": per_run, "flash_forward_f32": 0, "flash_backward_dq": 0,
+                "flash_backward_dkv": 0}
     print(f"bf16 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
           f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance {BF16_PARITY_LOSS_REL}); flash launches "
           f"{launches} (expected {expected})", flush=True)
@@ -931,8 +957,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_training_parity_phase()
     f32_launches = training_parity_phase()
-    # the exact-f32 dq and dk/dv kernels run on the f32 path only
-    flash_launches.update({name: f32_launches[name] for name in ("flash_backward_dq", "flash_backward_dkv")})
+    # the exact-f32 forward, dq and dk/dv kernels run on the f32 path only
+    flash_launches.update({name: f32_launches[name]
+                           for name in ("flash_forward_f32", "flash_backward_dq", "flash_backward_dkv")})
 
     kernels = [{
         "name": "paged_decode_attention",

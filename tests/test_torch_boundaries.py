@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch/CUDA port.
 
-- No module of ``unionml_tpu_torch`` and not ``chip_smoke.py`` imports JAX,
-  flax, optax or the JAX package (an AST scan; names are matched exactly,
+- No module of ``unionml_tpu_torch``, not ``chip_smoke.py`` and no script
+  under ``scripts/`` imports JAX, flax, optax or the JAX package (an AST scan; names are matched exactly,
   since ``unionml_tpu_torch`` itself starts with ``unionml_tpu``).
 - The entry points run on the card unless the caller asks for the CPU: with
   no CUDA device, ``device=None`` raises and names ``device="cpu"``.
@@ -32,7 +32,10 @@ from unionml_tpu_torch.models import causal_lm_loss, init_cache, init_paged_cach
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "unionml_tpu")
-PORT_FILES = sorted((ROOT / "unionml_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (
+    sorted((ROOT / "unionml_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "scripts").glob("*.py"))
+)
 
 
 def _imported_modules(path: Path):
@@ -60,7 +63,7 @@ def test_scan_sees_every_port_module():
             "unionml_tpu_torch/ops/flash_attention.py", "unionml_tpu_torch/serving/continuous.py",
             "unionml_tpu_torch/train/driver.py", "unionml_tpu_torch/data/pipeline.py"} <= names
     assert {"unionml_tpu_torch/ops/int8_matmul.py", "unionml_tpu_torch/ops/quant.py",
-            "unionml_tpu_torch/defaults.py"} <= names
+            "unionml_tpu_torch/defaults.py", "scripts/flash_forward_ab.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -13,6 +13,7 @@ the same route.
 """
 
 import dataclasses
+import logging
 import threading
 
 import jax
@@ -208,3 +209,64 @@ def test_unported_engine_options_raise(models, option):
     gen = Generator(flash, GenerationConfig(prompt_buckets=(16,)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatcher(gen, **{option: 8 if option == "admit_chunk" else True})
+
+
+ADMISSION_ENV = ("UNIONML_TPU_ADMIT_CHUNK", "UNIONML_TPU_PREFILL_BUDGET", "UNIONML_TPU_MAX_ADMISSIONS",
+                 "UNIONML_TPU_PREFIX_CACHE")
+#: (env, engine kwargs, None when the port serves it, else what its NotImplementedError names)
+ENV_CASES = {
+    "zeros": ({"UNIONML_TPU_ADMIT_CHUNK": "0", "UNIONML_TPU_PREFILL_BUDGET": "0", "UNIONML_TPU_MAX_ADMISSIONS": "1",
+               "UNIONML_TPU_PREFIX_CACHE": "0"}, {}, None),
+    "garbage": ({"UNIONML_TPU_ADMIT_CHUNK": "abc", "UNIONML_TPU_MAX_ADMISSIONS": "-3"}, {}, None),
+    "kwarg-wins": ({"UNIONML_TPU_ADMIT_CHUNK": "256", "UNIONML_TPU_MAX_ADMISSIONS": "4"},
+                   {"admit_chunk": 0, "max_admissions": 1}, None),
+    "prefix-cache-dense": ({"UNIONML_TPU_PREFIX_CACHE": "1"}, {}, None),
+    "admit-chunk": ({"UNIONML_TPU_ADMIT_CHUNK": "256"}, {}, "UNIONML_TPU_ADMIT_CHUNK=256"),
+    "prefill-budget": ({"UNIONML_TPU_PREFILL_BUDGET": "512"}, {}, "UNIONML_TPU_PREFILL_BUDGET=512"),
+    "max-admissions": ({"UNIONML_TPU_MAX_ADMISSIONS": "2"}, {}, "UNIONML_TPU_MAX_ADMISSIONS=2"),
+    "prefix-cache-paged": ({"UNIONML_TPU_PREFIX_CACHE": "1"}, {"block_size": 8}, "UNIONML_TPU_PREFIX_CACHE"),
+}
+
+
+@pytest.mark.parametrize("case", list(ENV_CASES))
+def test_serve_env_knobs_resolve_as_in_jax(models, monkeypatch, caplog, case):
+    """The serve CLI's four admission exports reach an engine built without
+    the kwargs, as in the JAX package: where the JAX engine resolves them to
+    monolithic admission without a radix cache, the port's resolves the same
+    values (and warns where it warns: garbage values, the prefix cache on a
+    dense engine); where the JAX engine would chunk its admissions or cache
+    prefixes, the port raises NotImplementedError naming the variable rather
+    than serving another schedule. Explicit kwargs win over the env."""
+    env, kwargs, refused = ENV_CASES[case]
+    for name in ADMISSION_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    module, params, flash, _ = models
+    kw = dict(max_new_tokens=4, temperature=0.0, prompt_buckets=(16,))
+    jax_logger = logging.getLogger("unionml_tpu")  # it does not propagate to the root logger
+    monkeypatch.setattr(jax_logger, "handlers", [*jax_logger.handlers, caplog.handler])
+    with caplog.at_level("WARNING"):
+        jax_engine = JaxContinuousBatcher(
+            JaxGenerator(module, params, JaxGenerationConfig(**kw)), slots=2, decode_chunk=4, **kwargs
+        )
+    try:
+        resolved = (jax_engine.admit_chunk, jax_engine.prefill_budget, jax_engine.max_admissions,
+                    jax_engine._radix is not None)
+    finally:
+        jax_engine.close()
+    jax_warnings = caplog.text
+    caplog.clear()
+    gen = Generator(flash, GenerationConfig(**kw), device="cpu")
+    if refused:
+        assert resolved != (None, None, 1, False)  # the JAX engine takes a path the port does not have
+        with pytest.raises(NotImplementedError, match=refused):
+            ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
+        return
+    with caplog.at_level("WARNING"):
+        engine = ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
+    engine.close()
+    assert (engine.admit_chunk, engine.prefill_budget, engine.max_admissions, False) == resolved
+    assert resolved == (None, None, 1, False)
+    for name in env:
+        assert (name in caplog.text) == (name in jax_warnings), name

@@ -7,8 +7,9 @@ interpret=True)`` and ``jax.grad`` through ``flash_attention(...,
 interpret=True)``), as its own tests do. Inputs are f32, made with numpy from
 a seed. Tolerances: 2e-5 absolute on ``out`` and ``lse``, 1e-4 on the
 gradients (f32; the two sides sum over up to 256 keys and, for dk/dv, over
-the query heads of a KV group in different orders). In bf16 the gradients
-agree within ``BF16_GRAD_TOL`` (below).
+the query heads of a KV group in different orders). In bf16 the forward
+agrees within ``BF16_FORWARD_TOL`` and the gradients within
+``BF16_GRAD_TOL`` (below).
 
 The hand-written kernels run only on a CUDA card with sm_90: those tests
 are marked ``cuda`` and skip elsewhere; on the card they run without JAX
@@ -30,6 +31,7 @@ from unionml_tpu_torch.ops.flash_attention import (
     flash_backward_dq_reference,
     flash_backward_reference,
     flash_forward,
+    flash_forward_f32,
     flash_forward_reference,
 )
 
@@ -42,6 +44,13 @@ OUT_ATOL, GRAD_ATOL = 2e-5, 1e-4
 #: delta; sums run in other orders), so they may be two units in the last
 #: place apart: 2**-6 of the larger of the magnitude and 1
 BF16_GRAD_TOL = (2.0**-6, 2.0**-6)
+#: (atol, rtol) of the bf16 forward against the JAX package's: both round P to
+#: bf16 before P.V and divide by the f32 row sum after it, so out differs only
+#: where a last-bit difference in exp (or in a sum over keys taken in another
+#: order) flips a rounding of P or of the bf16 output: within two units in the
+#: last place, 2**-6 of the larger of the magnitude and 1, as BF16_GRAD_TOL
+#: reasons; lse is f32 on both sides and lies far inside it
+BF16_FORWARD_TOL = (2.0**-6, 2.0**-6)
 
 #: (q_len, k_len, heads, kv_heads, causal, blocks) at B=1, D=128
 CASES = {
@@ -91,16 +100,51 @@ def test_forward_matches_jax_interpret(jax_flash, case):
     q_len, k_len, heads, kv_heads, causal, blocks = CASES[case]
     q, k, v, _ = _inputs(q_len, k_len, heads, kv_heads)
     ref_out, ref_lse = jax_flash[0](q, k, v, causal, blocks)
-    before = flash_forward.launches
+    before = flash_forward.launches, flash_forward_f32.launches
     out, lse = flash_forward(*map(torch.from_numpy, (q, k, v)), causal)
-    assert flash_forward.launches == before  # CPU tensors never launch the kernel
+    exact = flash_forward_f32(*map(torch.from_numpy, (q, k, v)), causal)
+    assert (flash_forward.launches, flash_forward_f32.launches) == before  # CPU tensors never launch a kernel
     assert out.dtype == torch.float32 and lse.shape == (1, heads, q_len)
+    assert torch.equal(exact[0], out) and torch.equal(exact[1], lse)
     np.testing.assert_allclose(out.numpy(), ref_out, atol=OUT_ATOL, rtol=0)
     np.testing.assert_allclose(lse.numpy(), ref_lse, atol=OUT_ATOL, rtol=0)
     np.testing.assert_allclose(
         flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal, blocks=blocks).numpy(), ref_out,
         atol=OUT_ATOL, rtol=0,
     )
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_forward_matches_jax_interpret(jax_flash, case):
+    """bf16 inputs through both packages' forwards: the port's twin rounds P
+    to bf16 before P.V, as the JAX kernel does (``p.astype(v.dtype)``)."""
+    import jax.numpy as jnp
+
+    q_len, k_len, heads, kv_heads, causal, blocks = CASES[case]
+    q, k, v, _ = (_bf16(a) for a in _inputs(q_len, k_len, heads, kv_heads, seed=7))
+    ref_out, ref_lse = jax_flash[0](*(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)), causal, blocks)
+    out, lse = flash_forward(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), causal)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32 and lse.shape == (1, heads, q_len)
+    atol, rtol = BF16_FORWARD_TOL
+    np.testing.assert_allclose(out.float().numpy(), ref_out.astype(np.float32), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=atol, rtol=rtol)
+
+
+def test_forward_twin_rounds_p_to_the_operand_dtype():
+    """In bf16 the forward twin multiplies V by the unnormalised P rounded to
+    bf16 and divides by the f32 row sum after the product: out equals that
+    computed by hand, and differs from the product of the unrounded P."""
+    q, k, v, _ = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(64, 64, 2, 1, seed=8, head_dim=16))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().expand(-1, -1, 2, -1)) * 16**-0.5
+    scores = scores.masked_fill(~torch.ones(64, 64, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).permute(0, 2, 1, 3)
+    values = v.float().expand(-1, -1, 2, -1)
+    rounded = (torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), values) / l).bfloat16()
+    unrounded = (torch.einsum("bhqk,bkhd->bqhd", p, values) / l).bfloat16()
+    out, _ = flash_forward_reference(q, k, v, True)
+    torch.testing.assert_close(out.float(), rounded.float(), atol=2**-8, rtol=2**-8)
+    assert not torch.equal(rounded, unrounded)  # the rounding is visible at this size
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -263,18 +307,19 @@ def _card_inputs(case: str, dtype: torch.dtype, seed: int = 3):
 @pytest.mark.parametrize("case", ["cross-length-causal", "blocks-64-L192", "ragged-L40-D64"])
 def test_kernels_match_twins_on_card(card, dtype, case):
     """The forward and the backward against their twins: float32 through the
-    exact-f32 dq and dk/dv kernels, bfloat16 through the fused kernel."""
+    exact-f32 forward, dq and dk/dv kernels, bfloat16 through the tensor-core
+    forward and the fused backward."""
     dtype = getattr(torch, dtype)
     q, k, v, w, causal = _card_inputs(case, dtype)
-    counted = (flash_forward, flash_backward, flash_backward_dq, flash_backward_dkv)
+    counted = (flash_forward, flash_forward_f32, flash_backward, flash_backward_dq, flash_backward_dkv)
     counts = [fn.launches for fn in counted]
     out, lse = flash_forward(q, k, v, causal)
     ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
     delta = torch.einsum("blhd,blhd->bhl", w.float(), ref_out.float())
     dq, dk, dv = flash_backward(q, k, v, w, ref_lse, delta, causal)
     torch.cuda.synchronize()
-    fused = dtype == torch.bfloat16
-    assert [fn.launches - c for fn, c in zip(counted, counts)] == [1, int(fused), int(not fused), int(not fused)]
+    bf16 = dtype == torch.bfloat16
+    assert [fn.launches - c for fn, c in zip(counted, counts)] == [bf16, not bf16, bf16, not bf16, not bf16]
     ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, w, ref_lse, delta, causal)
     # f32: both compute in f32, in other orders; bf16: outputs round to 8 mantissa bits
     atol, rtol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
@@ -322,3 +367,52 @@ def test_f32_kernels_refuse_bf16_on_card(card):
     for fn in (flash_backward_dq, flash_backward_dkv):
         with pytest.raises(TypeError, match="float32"):
             fn(q, q, q, q, lse, lse, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*CASES, "ragged-L40-D64"])
+def test_bf16_forward_matches_twin_and_is_deterministic_on_card(card, case):
+    """The tensor-core bf16 forward against ``flash_forward_reference``, and
+    two calls bitwise equal; the exact-f32 forward is not launched."""
+    q, k, v, _, causal = _card_inputs(case, torch.bfloat16, seed=9)
+    counts = flash_forward.launches, flash_forward_f32.launches
+    out, lse = flash_forward(q, k, v, causal)
+    again = flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches - counts[0], flash_forward_f32.launches - counts[1]) == (2, 0)
+    ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32 and lse.shape == ref_lse.shape
+    # both round P to bf16 (a last-bit difference in exp can flip one rounding) and the output to 8 bits
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+def test_bf16_forward_rows_that_see_no_key_on_card(card):
+    """``Lq=256, Lk=192``, causal: query rows 0-63 see no key and give 0 and
+    lse ``1e30``; the rest match the twin."""
+    q, k, v, _ = (torch.from_numpy(a).cuda().bfloat16() for a in _inputs(256, 192, 4, 2, seed=2))
+    out, lse = flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_forward_reference(q, k, v, True)
+    assert not out[:, :64].any() and (lse[:, :, :64] == 1e30).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_raises_on_inputs_it_cannot_take(card):
+    """bf16 with ``D % 16 != 0`` or ``D > 128``, and float32 sent to the bf16
+    entry, raise before any launch; nothing falls back to a twin."""
+    from unionml_tpu_torch.ops.flash_attention import _forward_bf16
+
+    before = flash_forward.launches, flash_forward_f32.launches
+    for head_dim in (40, 136):
+        q = torch.randn(1, 64, 2, head_dim, device="cuda").bfloat16()
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_forward(q, q, q, True)
+    q = torch.randn(1, 64, 2, 64, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        _forward_bf16(q, q, q, True)
+    assert (flash_forward.launches, flash_forward_f32.launches) == before

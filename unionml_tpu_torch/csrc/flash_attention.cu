@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a): the blocked online-softmax forward and
-// the two recompute-backward kernels (dq, and dk/dv).
+// Flash attention for Hopper (sm_90a), float32: the blocked online-softmax
+// forward and the two recompute-backward kernels (dq, and dk/dv).
 //
 // Replaces the TPU kernels of unionml_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel     <- _flash_fwd_kernel     (pallas_call at :160)
@@ -7,9 +7,9 @@
 //   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel (pallas_call at :343)
 // reached under attention_impl="flash" for every unmasked attention call
 // (unionml_tpu/ops/attention.py:82-87): the training forward and backward.
-// The forward takes float32 and bfloat16; the dq and dk/dv kernels take
-// float32 only, as the exact-f32 route of the backward (bfloat16 goes to the
-// fused tensor-core kernel of flash_backward.cu).
+// The three take float32 only: they are the exact-f32 route; bfloat16 runs
+// on the tensor cores (the forward of flash_forward.cu, the fused backward
+// of flash_backward.cu).
 //
 // Layout as in the JAX package: q [B, Lq, H, D], k/v [B, Lk, Hkv, D], all
 // contiguous; lse and delta [B, H, Lq] f32. Query head h reads KV head
@@ -35,7 +35,7 @@
 //
 // Design (simple first): one 256-thread block per (64-row tile, b * h) (per
 // (64-key tile, b * hkv) for dk/dv), a 16 x 16 thread grid. Tiles are staged
-// in shared memory as f32 (bf16 inputs are widened on load; row stride D + 1
+// in shared memory as f32 (row stride D + 1
 // keeps the column reads of the score loop free of bank conflicts). Each
 // thread owns a 4 x 4 block of the 64 x 64 score tile and a 4 x 8 block of
 // the 64 x 128 output tile, accumulated in registers with f32 FMAs on the
@@ -43,11 +43,8 @@
 // row with warp shuffles. Ragged tiles (a length that is not a multiple of
 // 64) are zero-filled on load and masked.
 //
-// Left for later: tensor-core products (wgmma, or wmma for bf16), TMA or
-// cp.async double-buffered loads, bf16 staging to fit two blocks per SM,
-// and a persistent grid.
+// Speed is the bf16 kernels' concern; here f32 FMAs keep the results exact.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -64,9 +61,7 @@ constexpr int kSStride = kTile + 1;      // row stride of a score tile in shared
 constexpr float kBig = 1e30f;            // lse of a row that sees no key
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Stage rows [row0, row0 + kTile) of one head of a [*, len, heads, D] tensor
 // (base points at position 0 of that head, consecutive positions are `row`
@@ -519,8 +514,8 @@ bool shapes_ok(int batch, int n_heads, int n_kv, int q_len, int k_len, int head_
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (the forward only; the dq and dk/dv entries
-// take 0). Each entry returns the cudaError_t of its launch (0 = success); the
+// dtype: 0 = float32, the only type the entries take (the kernels are
+// templates over the element type). Each entry returns the cudaError_t of its launch (0 = success); the
 // caller checks it. Tensors are contiguous and their shapes validated by the
 // caller.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -531,9 +526,6 @@ extern "C" int flash_attention_forward(const void* q, const void* k, const void*
   if (dtype == 0)
     return (int)launch_fwd<float>(q, k, v, out, lse, batch, n_heads, n_kv, q_len, k_len, head_dim, causal,
                                   scale, s);
-  if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(q, k, v, out, lse, batch, n_heads, n_kv, q_len, k_len, head_dim,
-                                          causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

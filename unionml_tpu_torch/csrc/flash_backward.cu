@@ -114,11 +114,6 @@ __device__ __forceinline__ void store_release(int* p, int v) {
   asm volatile("fence.acq_rel.gpu;\nst.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // keeps the register A operands of in-flight wgmmas alive (and in place) until they are waited for
 __device__ __forceinline__ void fence_fragments(uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -373,23 +368,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_backward_kernel(
       *reinterpret_cast<float2*>(dv + row + d) = make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
     }
   }
-}
-
-// a contiguous bf16 [batch, len, heads, head_dim] tensor read in [64 columns, 1 head, rows, 1] boxes in the
-// 128-byte swizzle (rows past len and columns past head_dim read as 0)
-cudaError_t head_map(CUtensorMap* map, const void* base, int batch, int len, int heads, int head_dim, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row = static_cast<cuuint64_t>(head_dim) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * len};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t element_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                            element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

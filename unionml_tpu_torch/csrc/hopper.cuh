@@ -1,7 +1,8 @@
 // PTX helpers shared by the port's Hopper (sm_90a) kernels: shared-memory
 // addresses, mbarriers, TMA tensor copies, the wgmma fences, 128-byte-swizzle
 // matrix descriptors and the wgmma instructions (bf16 in, f32 accumulators),
-// and the host-side lookup of libcuda's cuTensorMapEncodeTiled.
+// the packing of two f32 into a bf16x2 register, the host-side lookup of
+// libcuda's cuTensorMapEncodeTiled and the flash kernels' 4D head maps.
 //
 // Layout conventions. A tile that the TMA unit writes in the 128-byte swizzle
 // is rows of 128 bytes (64 bf16) whose 16-byte chunk c of row r sits at
@@ -12,6 +13,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,6 +101,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 __device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr, uint32_t mn_block_bytes) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((mn_block_bytes >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// two f32 rounded to bf16 (to nearest even) in one register, lo in the low half: a wgmma A fragment's pair
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // byte offset of the 16-byte chunk c (0..7) of row r in a 128-byte-swizzled tile
@@ -250,6 +258,24 @@ EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(p);
   }();
   return fn;
+}
+
+// a contiguous bf16 [batch, len, heads, head_dim] tensor read in [64 columns, 1 head, rows, 1] boxes in the
+// 128-byte swizzle (rows past len and columns past head_dim read as 0)
+inline cudaError_t head_map(CUtensorMap* map, const void* base, int batch, int len, int heads, int head_dim,
+                            int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = static_cast<cuuint64_t>(head_dim) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * len};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t element_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,10 +1,12 @@
 """Serve-time knobs read from the environment.
 
-The subset of ``unionml_tpu/defaults.py`` that the port's ``Generator``
-reads: the serve CLI exports ``UNIONML_TPU_QUANTIZE`` and
-``UNIONML_TPU_KV_CACHE_DTYPE`` before the app module imports, and every
-``Generator`` the app builds resolves an unset ``quantize=`` and
-``config.kv_cache_dtype`` from them. A copy, not an import: the port never
+The subset of ``unionml_tpu/defaults.py`` that the port's ``Generator`` and
+``ContinuousBatcher`` read. The serve CLI exports these before the app module
+imports: every ``Generator`` the app builds resolves an unset ``quantize=``
+and ``config.kv_cache_dtype`` from ``UNIONML_TPU_QUANTIZE`` and
+``UNIONML_TPU_KV_CACHE_DTYPE``, and every engine resolves an unset
+``admit_chunk``, ``prefill_budget``, ``max_admissions`` and ``prefix_cache``
+from the four admission knobs below. A copy, not an import: the port never
 imports the JAX package.
 """
 
@@ -26,6 +28,39 @@ SERVE_QUANTIZE_ENV_VAR = "UNIONML_TPU_QUANTIZE"
 #: and paged pools both); "none"/unset = the compute dtype. Same
 #: warn-and-fall-back contract.
 SERVE_KV_CACHE_DTYPE_ENV_VAR = "UNIONML_TPU_KV_CACHE_DTYPE"
+
+#: admission prefill slice width in tokens; 0 = unset (fall back to
+#: ``GenerationConfig.prefill_chunk``, else monolithic admission).
+SERVE_ADMIT_CHUNK_ENV_VAR = "UNIONML_TPU_ADMIT_CHUNK"
+
+#: prefill tokens the engine may run per iteration between decode dispatches;
+#: 0 = unset (one admission chunk per iteration).
+SERVE_PREFILL_BUDGET_ENV_VAR = "UNIONML_TPU_PREFILL_BUDGET"
+
+#: concurrent partially-prefilled admissions; 0 = unset (one at a time).
+SERVE_MAX_ADMISSIONS_ENV_VAR = "UNIONML_TPU_MAX_ADMISSIONS"
+
+#: 1 = enable the radix prefix cache on paged continuous engines; 0/unset = off.
+SERVE_PREFIX_CACHE_ENV_VAR = "UNIONML_TPU_PREFIX_CACHE"
+
+
+def env_int(name: str, default: int, *, minimum: Optional[int] = None) -> int:
+    """Parse an integer env var, tolerating garbage: unset/empty -> ``default``,
+    a non-integer value warns and falls back to ``default`` instead of raising
+    at whatever moment the knob happens to be read. ``minimum`` clamps the
+    parsed value (with a warning)."""
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        value = int(raw.strip())
+    except ValueError:
+        logger.warning(f"ignoring non-integer {name}={raw!r}; falling back to {default}")
+        return default
+    if minimum is not None and value < minimum:
+        logger.warning(f"clamping {name}={value} to the minimum {minimum}")
+        return minimum
+    return value
 
 
 def env_choice(name: str, choices: Tuple[str, ...], what: str) -> Optional[str]:
@@ -59,3 +94,25 @@ def serve_kv_cache_dtype() -> Optional[str]:
     """The serve-time KV-cache storage dtype ("int8" or None = compute
     dtype), read at ``Generator`` construction."""
     return env_choice(SERVE_KV_CACHE_DTYPE_ENV_VAR, ("int8",), "kv_cache_dtype")
+
+
+def serve_admit_chunk() -> int:
+    """Serve-time admission prefill chunk width; 0 = unset. Read at engine
+    construction, after the CLI's export."""
+    return env_int(SERVE_ADMIT_CHUNK_ENV_VAR, 0, minimum=0)
+
+
+def serve_prefill_budget() -> int:
+    """Serve-time per-iteration prefill-token budget; 0 = unset (one chunk)."""
+    return env_int(SERVE_PREFILL_BUDGET_ENV_VAR, 0, minimum=0)
+
+
+def serve_max_admissions() -> int:
+    """Serve-time cap on concurrent partially-prefilled admissions; 0 = unset."""
+    return env_int(SERVE_MAX_ADMISSIONS_ENV_VAR, 0, minimum=0)
+
+
+def serve_prefix_cache() -> bool:
+    """Whether the serve-time radix prefix cache is on
+    (``UNIONML_TPU_PREFIX_CACHE=1``), read at engine construction."""
+    return env_int(SERVE_PREFIX_CACHE_ENV_VAR, 0, minimum=0) > 0

@@ -10,6 +10,7 @@ from unionml_tpu_torch.ops.flash_attention import (
     flash_backward_dq_reference,
     flash_backward_reference,
     flash_forward,
+    flash_forward_f32,
     flash_forward_reference,
 )
 from unionml_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference, quantized_matmul
@@ -37,6 +38,7 @@ __all__ = [
     "flash_backward_dq_reference",
     "flash_backward_reference",
     "flash_forward",
+    "flash_forward_f32",
     "flash_forward_reference",
     "int8_matmul",
     "int8_matmul_reference",

@@ -1,31 +1,35 @@
 """Flash attention: blocked online-softmax forward and recompute backward.
 
 Counterpart of ``unionml_tpu/ops/flash_attention.py``. There the forward and
-the two backward kernels are Pallas TPU kernels; here they are the
-hand-written Hopper kernels of ``csrc/flash_attention.cu`` (the forward, and
-the exact-f32 dq and dk/dv kernels) and ``csrc/flash_backward.cu`` (the fused
-bf16 backward: dq, dk and dv in one launch on the tensor cores). The
-``[L, L]`` score matrix never reaches device memory in either direction: the
-forward saves the per-row logsumexp and the backward recomputes
-``P = exp(S - lse)`` tile by tile.
+the two backward kernels are Pallas TPU kernels; here they are hand-written
+Hopper kernels, routed by dtype. bf16 runs on the tensor cores:
+``csrc/flash_forward.cu`` (the forward) and ``csrc/flash_backward.cu`` (the
+fused backward: dq, dk and dv in one launch). float32 runs on the exact-f32
+kernels of ``csrc/flash_attention.cu`` (the forward, and the dq and dk/dv
+kernels). The ``[L, L]`` score matrix never reaches device memory in either
+direction: the forward saves the per-row logsumexp and the backward
+recomputes ``P = exp(S - lse)`` tile by tile.
 
 :func:`flash_attention` is a :class:`torch.autograd.Function` whose forward
 and backward make the same two calls on every device: :func:`flash_forward`
 and :func:`flash_backward`. Each launches a kernel for CUDA tensors (or
 raises) and takes its plain twin (``*_reference``, dense tensors, f32) only
-for tensors on the CPU. :func:`flash_backward` routes bf16 to the fused
-kernel and f32 to :func:`flash_backward_dq` and :func:`flash_backward_dkv`.
-``delta = rowsum(dO * O)`` is one plain f32 reduction outside the kernels,
-as in the JAX code. The backward twins round ``P`` and ``dS`` to the
-operands' dtype before their second products, as the JAX kernels do (a no-op
-in f32).
+for tensors on the CPU. :func:`flash_forward` routes float32 to
+:func:`flash_forward_f32`; :func:`flash_backward` routes float32 to
+:func:`flash_backward_dq` and :func:`flash_backward_dkv`. ``delta =
+rowsum(dO * O)`` is one plain f32 reduction outside the kernels, as in the JAX
+code. The twins round to the operands' dtype where the JAX kernels do (a
+no-op in f32): the forward's unnormalised ``P`` before ``P.V`` (``l`` sums
+the f32 ``P``, and the product is divided by ``l`` at the end), the
+backward's ``P`` and ``dS`` before their second products.
 
 Shapes: ``q: [B, Lq, H, D]``, ``k/v: [B, Lk, Hkv, D]`` with ``H % Hkv == 0``.
 The API's ``blocks`` only decide which lengths are legal, as in the JAX
-package (``min(block, L)`` must tile ``L``); the kernels keep their own
-64-row tiles and mask ragged ones. A query row that sees no key (causal with
-``Lq > Lk``) gives 0 and lse ``1e30`` — the contract of
-:func:`~unionml_tpu_torch.ops.attention.dot_product_attention`. The Pallas
+package (``min(block, L)`` must tile ``L``); the kernels keep their own tiles
+and mask ragged ones. The bf16 kernels take ``D % 16 == 0`` and ``D <= 128``
+and 16-byte aligned tensors, and raise on anything else. A query row that
+sees no key (causal with ``Lq > Lk``) gives 0 and lse ``1e30`` — the contract
+of :func:`~unionml_tpu_torch.ops.attention.dot_product_attention`. The Pallas
 forward breaks it when ``Lk - Lq`` is not a multiple of ``block_q``: its
 masked scores are ``finfo.min``, not ``-inf``, so such a row that shares a
 computed tile with rows that do see keys gets the mean of V.
@@ -48,12 +52,14 @@ __all__ = [
     "flash_backward_dq",
     "flash_backward_dq_reference",
     "flash_forward",
+    "flash_forward_f32",
     "flash_forward_reference",
 ]
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 MAX_HEAD_DIM = 128  # the kernels' register tiles hold up to 128 head-dim columns
+_BF16_ALIGN = 16  # bytes: the bf16 kernels' TMA copies need aligned tensors
 _FUSED_QUERY_TILE = 64  # query rows of a tile of the fused backward (its dq counters are per tile)
 _BIG = 1e30  # lse of a row that sees no key: exp(S - BIG) == 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,14 +103,18 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
 def flash_forward_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's plain twin: ``(out in q's dtype, lse [B, H, Lq] f32)``."""
+    """The forward kernels' plain twin: ``(out in q's dtype, lse [B, H, Lq]
+    f32)``. As the JAX kernel does, ``l`` sums the f32 ``P``, the product
+    takes ``P`` rounded to v's dtype, and the output is divided by ``l`` after
+    the product."""
     scores = _scores(q, k, causal)
     m = scores.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # a row that sees no key
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
     values = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / torch.where(l == 0, torch.ones_like(l), l), values)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), values)
+    out = pv / torch.where(l == 0, torch.ones_like(l), l).permute(0, 2, 1, 3)
     lse = torch.where(l == 0, torch.full_like(l, _BIG), m + torch.log(l))[..., 0]
     return out.to(q.dtype), lse
 
@@ -163,6 +173,7 @@ def flash_backward_reference(
 #: (library, pointer arguments, trailing dtype code) of each C entry
 _ENTRIES = {
     "flash_attention_forward": ("flash_attention", 5, True),
+    "flash_attention_forward_bf16": ("flash_forward", 5, False),
     "flash_attention_backward_dq": ("flash_attention", 7, True),
     "flash_attention_backward_dkv": ("flash_attention", 8, True),
     "flash_attention_backward_fused": ("flash_backward", 11, False),
@@ -218,21 +229,58 @@ def _device_of(q: torch.Tensor) -> str:
     return q.device.type
 
 
+def _check_f32(q: torch.Tensor, name: str) -> None:
+    if q.dtype != torch.float32:
+        raise TypeError(f"the {name} kernel takes float32 (bfloat16 has its own kernels), got {q.dtype}")
+
+
+def _check_bf16(name: str, q: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels' limits: bfloat16, ``D % 16 == 0`` (and
+    ``D <= 128``, checked with the shapes) and 16-byte aligned tensors."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the {name} kernel takes bfloat16 (float32 has its own kernels), got {q.dtype}")
+    if q.shape[-1] % 16:
+        raise ValueError(f"the {name} kernel takes head_dim % 16 == 0, got {q.shape[-1]}")
+    if any(t.data_ptr() % _BF16_ALIGN for t in (q, *tensors)):
+        raise ValueError(f"the {name} kernel takes {_BF16_ALIGN}-byte aligned tensors")
+
+
+def _forward_bf16(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 tensor-core forward on CUDA tensors, counted on :func:`flash_forward`."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_kernel_inputs(q, k, v, k)
+    _check_bf16("forward", q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32, device=q.device)
+    _launch("flash_attention_forward_bf16", flash_forward, q, k, q, k, v, out, lse, causal=causal)
+    return out, lse
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)``: the forward kernel for CUDA tensors, its twin on the CPU."""
+    """``(out, lse)``: on CUDA tensors the bf16 tensor-core kernel (float32
+    goes to :func:`flash_forward_f32`), on the CPU the twin."""
+    if _device_of(q) == "cpu":
+        return flash_forward_reference(q, k, v, causal)
+    if q.dtype == torch.float32:
+        return flash_forward_f32(q, k, v, causal)
+    return _forward_bf16(q, k, v, causal)
+
+
+def flash_forward_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: the exact-f32 forward kernel for CUDA tensors, its twin on the CPU."""
     if _device_of(q) == "cpu":
         return flash_forward_reference(q, k, v, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_kernel_inputs(q, k, v, k)
+    _check_f32(q, "f32 forward")
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32, device=q.device)
-    _launch("flash_attention_forward", flash_forward, q, k, q, k, v, out, lse, causal=causal)
+    _launch("flash_attention_forward", flash_forward_f32, q, k, q, k, v, out, lse, causal=causal)
     return out, lse
-
-
-def _check_f32(q: torch.Tensor, name: str) -> None:
-    if q.dtype != torch.float32:
-        raise TypeError(f"the {name} kernel takes float32 (bfloat16 goes through flash_backward), got {q.dtype}")
 
 
 def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
@@ -277,10 +325,9 @@ def flash_backward(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tenso
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     _check_kernel_inputs(q, k, v, dout, lse, delta)
+    _check_bf16("fused backward", q, k, v, dout)
     batch, q_len, n_heads, head_dim = q.shape
     k_len, n_kv = k.shape[1], k.shape[2]
-    if head_dim % 16:
-        raise ValueError(f"the fused backward takes head_dim % 16 == 0, got {head_dim}")
     n_q = -(-q_len // _FUSED_QUERY_TILE)
     dq_sum = torch.empty(batch, n_heads, q_len, head_dim, dtype=torch.float32, device=q.device)
     dq_count = torch.zeros(batch * n_heads * n_q * 2, dtype=torch.int32, device=q.device)
@@ -300,6 +347,7 @@ def flash_backward(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tenso
 
 #: kernel launches since the count was last reset (CPU calls never count)
 flash_forward.launches = 0
+flash_forward_f32.launches = 0
 flash_backward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0

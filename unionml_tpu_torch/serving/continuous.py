@@ -36,6 +36,12 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from unionml_tpu_torch.defaults import (
+    serve_admit_chunk,
+    serve_max_admissions,
+    serve_prefill_budget,
+    serve_prefix_cache,
+)
 from unionml_tpu_torch.models.generate import Generator, init_cache, init_paged_cache
 from unionml_tpu_torch.serving.metrics import LatencyWindow
 from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, expired
@@ -49,11 +55,9 @@ logger = logging.getLogger(__name__)
 SERVE_MAX_WAITING = 256
 
 #: engine options of the JAX package that later slices of the port bring
-#: (chunked admission, radix cache, tenancy, SLOs, handoff, AOT, ...)
-_UNPORTED = (
-    "prefix", "admit_chunk", "prefill_budget", "max_admissions", "trace",
-    "prefix_cache", "slo", "role", "tenancy", "aot",
-)
+#: (shared prefixes, tracing, tenancy, SLOs, handoff, AOT, ...); chunked
+#: admission and the radix cache are resolved as in JAX and refused below
+_UNPORTED = ("prefix", "trace", "slo", "role", "tenancy", "aot")
 
 _SENTINEL = object()
 
@@ -148,6 +152,10 @@ class ContinuousBatcher:
     block, admissions allocated only the blocks their prompt and first chunk
     need, residents growing at chunk boundaries and the youngest preempted
     (and later resumed token-exactly) when the pool runs dry.
+    ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
+    ``prefix_cache`` resolve as in the JAX engine (the kwarg, else the serve
+    CLI's env export); the port admits monolithically without a radix cache
+    and raises ``NotImplementedError`` for a value that selects either.
     """
 
     def __init__(
@@ -159,20 +167,19 @@ class ContinuousBatcher:
         block_size: Optional[int] = None,
         pool_blocks: Optional[int] = None,
         max_waiting: Optional[int] = None,
+        admit_chunk: Optional[int] = None,
+        prefill_budget: Optional[int] = None,
+        max_admissions: Optional[int] = None,
+        prefix_cache: Optional[bool] = None,
         **unported: Any,
     ):
         unknown = sorted(set(unported) - set(_UNPORTED))
         if unknown:
             raise TypeError(f"unexpected ContinuousBatcher arguments {unknown}")
         for name, value in unported.items():
-            if value:  # None, False and 0 select what the port has (0 = monolithic admission)
+            if value:  # None and False select what the port has
                 raise NotImplementedError(f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A)")
-        if generator.config.prefill_chunk:
-            # the JAX engine chunks its admissions for such a Generator
-            raise NotImplementedError(
-                "ContinuousBatcher over a Generator with prefill_chunk (chunked admission) is not ported yet "
-                "(ROADMAP.md, Queue A)"
-            )
+        self._resolve_admission(generator, admit_chunk, prefill_budget, max_admissions, prefix_cache, block_size)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if decode_chunk < 1:
@@ -235,6 +242,51 @@ class ContinuousBatcher:
         #: TTFT (submit -> first token) and TBT (gap between emissions)
         self._ttft = LatencyWindow()
         self._tbt = LatencyWindow()
+
+    def _resolve_admission(self, generator, admit_chunk, prefill_budget, max_admissions, prefix_cache,
+                           block_size) -> None:
+        """Resolve the admission options as the JAX engine does: each
+        constructor kwarg, else the serve CLI's env export, else (for the
+        chunk) the Generator's ``prefill_chunk``. The port admits
+        monolithically, without a radix cache: a value that selects chunked
+        admission or the cache raises, naming where it came from."""
+
+        def resolve(name, value, read, env_var):
+            if value is not None:
+                return value, f"{name}={value}"
+            value = read()
+            return value, f"{env_var}={value}"
+
+        chunk, chunk_from = resolve("admit_chunk", admit_chunk, serve_admit_chunk, "UNIONML_TPU_ADMIT_CHUNK")
+        if admit_chunk is None and not chunk and generator.config.prefill_chunk:
+            chunk, chunk_from = generator.config.prefill_chunk, f"prefill_chunk={generator.config.prefill_chunk}"
+        budget, budget_from = resolve("prefill_budget", prefill_budget, serve_prefill_budget,
+                                      "UNIONML_TPU_PREFILL_BUDGET")
+        cap, cap_from = resolve("max_admissions", max_admissions, serve_max_admissions, "UNIONML_TPU_MAX_ADMISSIONS")
+        self.admit_chunk: Optional[int] = int(chunk) or None
+        self.prefill_budget: Optional[int] = int(budget) or self.admit_chunk or None
+        self.max_admissions = max(int(cap), 1) if cap else 1
+        for selects, source in ((self.admit_chunk, chunk_from), (int(budget), budget_from),
+                                (self.max_admissions > 1, cap_from)):
+            if selects:
+                raise NotImplementedError(
+                    f"ContinuousBatcher: {source} selects chunked admission, which is not ported yet "
+                    "(ROADMAP.md, Queue A)"
+                )
+        if prefix_cache:
+            raise NotImplementedError("ContinuousBatcher prefix_cache= is not ported yet (ROADMAP.md, Queue A)")
+        if prefix_cache is None and serve_prefix_cache():
+            if block_size is None:
+                # as in JAX: a fleet-wide export must not crash dense engines
+                logger.warning(
+                    "UNIONML_TPU_PREFIX_CACHE is set but this engine is not paged (block_size=None); prefix "
+                    "caching disabled"
+                )
+            else:
+                raise NotImplementedError(
+                    "ContinuousBatcher: UNIONML_TPU_PREFIX_CACHE selects the radix prefix cache, which is not "
+                    "ported yet (ROADMAP.md, Queue A)"
+                )
 
     # ------------------------------------------------------------------ device fns
 
