@@ -9,7 +9,9 @@ Phases (no phase catches a failure; any fault exits non-zero):
 
 1. print the card's name and power limit; build every kernel from ``csrc/``;
 2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
-   paged decode at the served shapes; the flash kernels at full width
+   paged decode at the served shapes and at the length limits (0, 1, page
+   edges, ragged, the full table, past it) for D = 16, 32, 64 and 128, two
+   calls bitwise equal; the flash kernels at full width
    causal, non-causal, cross-length causal and custom blocks: in float32 the
    exact-f32 forward, dq and dk/dv kernels, in bfloat16 the tensor-core
    forward and the fused backward (also at D=64, ragged; each bitwise equal
@@ -17,12 +19,13 @@ Phases (no phase catches a failure; any fault exits non-zero):
    int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
    130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
    kernel, twin, the library yardstick and the
-   bytes/operations bound with CUDA events (the bf16 forward and the fused
+   bytes/operations bound with CUDA events (paged decode at the served
+   shape, B=8 ctx=2048 and B=1 ctx=8192; the bf16 forward and the fused
    backward at full width, the f32 forward, dq and dk/dv kernels at the f32
    parity shape) (int8 also summed over one decode
    step's 225 matmuls, at M = 4, 64 and 256); each kernel's time includes its host launch work, and
    a second, device-only time (``device_ms``) is taken behind a measured spin
-   of the card that outlasts the host's enqueue;
+   of the card, sized to four times the host's enqueue of the timed call;
 3. serve a Llama-3-8B-width model (32 layers, bf16, random weights from a
    seed) through ``ContinuousBatcher``: 4 concurrent streams x 32 tokens,
    counting paged kernel launches on this path; then serve the same weights
@@ -59,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -66,7 +70,7 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-SPIN_CYCLES = 2_000_000  # the card's spin before a device-only time; its length is measured in the run
+SPIN_CYCLES = 2_000_000  # the unit of the card's spin before a device-only time; its length is measured in the run
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / f32 non-tensor
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 #: flash kernels against their twins: in float32 both compute in f32, and the
@@ -160,15 +164,15 @@ def time_ms(fn, runs: int = 50) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def spin_ms() -> float:
-    """Median length of the card's ``SPIN_CYCLES`` spin, timed with CUDA events."""
+def spin_ms(cycles: int = SPIN_CYCLES) -> float:
+    """Median length of the card's spin of ``cycles`` cycles, timed with CUDA events."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(10):
         start.record()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(cycles)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -176,23 +180,35 @@ def spin_ms() -> float:
 
 
 def device_ms(fn, runs: int = 50) -> tuple:
-    """``(ms, host_ms)``: as :func:`time_ms`, but the card spins for
-    :func:`spin_ms` before the start event, so the host enqueues ``fn``
-    while the card is busy and the events time the device's work alone.
-    ``host_ms`` is the median host time of enqueuing the start event, ``fn``
-    and the end event; a run whose enqueue outlasted the spin is dropped
-    (its time would include host work), and at least half must remain."""
+    """``(ms, host_ms)``: as :func:`time_ms`, but the card spins before the
+    start event, so the host enqueues ``fn`` while the card is busy and the
+    events time the device's work alone. The spin is a whole number of
+    ``SPIN_CYCLES`` spins, at least four times the median host enqueue of
+    ``fn`` on five probe runs (an autograd backward takes over a
+    millisecond to enqueue), and its length is measured. ``host_ms`` is the
+    median host time of enqueuing the start event, ``fn`` and the end event;
+    a run whose enqueue outlasted the spin is dropped (its time would
+    include host work), and at least half must remain."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
-    spin = spin_ms()
+    probes = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        probes.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+    cycles = SPIN_CYCLES * max(1, math.ceil(4 * statistics.median(probes) / spin_ms()))
+    spin = spin_ms(cycles)
     times, hosts = [], []
     for _ in range(runs):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(cycles)
         t0 = time.perf_counter()
         start.record()
         fn()
@@ -207,15 +223,15 @@ def device_ms(fn, runs: int = 50) -> tuple:
     return statistics.median(times), statistics.median(hosts)
 
 
-def paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed):
+def paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128):
     """Random q and pools, and a table whose rows own disjoint real pages
     (the last pool page is the engine's scratch page)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(batch, 32, 128, device="cuda", generator=g).to(dtype)
-    k = torch.randn(8, n_pages, BLOCK, 128, device="cuda", generator=g).to(dtype)
-    v = torch.randn(8, n_pages, BLOCK, 128, device="cuda", generator=g).to(dtype)
+    q = torch.randn(batch, 32, head_dim, device="cuda", generator=g).to(dtype)
+    k = torch.randn(8, n_pages, BLOCK, head_dim, device="cuda", generator=g).to(dtype)
+    v = torch.randn(8, n_pages, BLOCK, head_dim, device="cuda", generator=g).to(dtype)
     perm = torch.randperm(n_pages - 1, device="cuda", generator=g)
     table = perm[: batch * pages_per_seq].reshape(batch, pages_per_seq).to(torch.int32).contiguous()
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda"), table
@@ -226,8 +242,8 @@ def bound_ms(q, k_pages, lengths, pages_per_seq) -> tuple:
     table entries in use moved once, against 4 * H * D operations per visible
     position (q.k and p.v) at the peak rate of the input type."""
     n_kv, _, page, head_dim = k_pages.shape
-    visible = int(lengths.sum())
-    pages_used = int(((lengths + page - 1) // page).sum())
+    visible = int(lengths.clamp(0, pages_per_seq * page).sum())
+    pages_used = int(((lengths.clamp(0, pages_per_seq * page) + page - 1) // page).sum())
     item = k_pages.element_size()
     moved = 2 * visible * n_kv * head_dim * item + 2 * q.numel() * item + 4 * (lengths.numel() + pages_used)
     ops = 4 * visible * q.shape[1] * head_dim
@@ -235,55 +251,99 @@ def bound_ms(q, k_pages, lengths, pages_per_seq) -> tuple:
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
+def paged_shapes(pool_pages: int, pages_per_seq: int) -> tuple:
+    """(label, batch, lengths, pool pages, table width) of the timed shapes:
+    the served one (decode lengths at the end of the 32-token streams) and
+    two long-context ones (the second leaves only 8 (row, KV head) pairs,
+    so the split carries all the parallelism)."""
+    return (
+        ("served", 4, [n + MAX_NEW for n in PROMPT_LENS], pool_pages, pages_per_seq),
+        ("B=8 ctx=2048", 8, [2048] * 8, 8 * 128 + 1, 128),
+        ("B=1 ctx=8192", 1, [8192], 512 + 1, 512),
+    )
+
+
+def sdpa_on_gathered(q, k, v, lens, table):
+    """The library yardstick: SDPA over K/V gathered beforehand (not part of
+    the port), as a closure over the gathered tensors."""
     import torch
     import torch.nn.functional as F
+
+    n_kv, _, _, head_dim = k.shape
+    batch = q.shape[0]
+    kg = k[:, table.long()].reshape(n_kv, batch, -1, head_dim).permute(1, 0, 2, 3).contiguous()
+    vg = v[:, table.long()].reshape(n_kv, batch, -1, head_dim).permute(1, 0, 2, 3).contiguous()
+    mask = (torch.arange(kg.shape[2], device="cuda")[None] < lens[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    return lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
+
+
+def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
+    """The paged kernel against its twin: the served geometry at D=128, the
+    length limits (0, 1, page edges, ragged, the full table, past it) at
+    every head size the package uses, and two calls bitwise equal; then
+    times at the three :func:`paged_shapes` (bf16)."""
+    import torch
 
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
 
     table_end = pages_per_seq * BLOCK
+    limits = (0, 1, BLOCK, 2 * BLOCK + 5, table_end, table_end + 40, 3, 2 * BLOCK)
+    cases = [(128, (1, 17, 64, 300)), (128, (table_end, 48, 16, 255))]
+    cases += [(d, limits) for d in (16, 32, 64, 128)]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOLERANCE[str(dtype)]
-        for seed, lengths in enumerate(((1, 17, 64, 300), (table_end, 48, 16, 255))):
-            q, k, v, lens, table = paged_inputs(4, lengths, pool_pages, pages_per_seq, dtype, seed)
+        for seed, (head_dim, lengths) in enumerate(cases):
+            batch = len(lengths)
+            q, k, v, lens, table = paged_inputs(batch, lengths, pool_pages * 2, pages_per_seq, dtype, seed, head_dim)
             out = paged_decode_attention(q, k, v, lens, table)
+            again = paged_decode_attention(q, k, v, lens, table)
             torch.cuda.synchronize()
             ref = paged_decode_attention_reference(q, k, v, lens, table)
             err = (out.float() - ref.float()).abs()
-            ok = bool((err <= atol + rtol * ref.float().abs()).all())
-            print(f"paged_decode_attention {dtype} B=4 lengths={lengths}: max_abs_err={err.max().item()} "
-                  f"(tolerance atol={atol} rtol={rtol}) {'ok' if ok else 'FAIL'}", flush=True)
-            require(ok, "paged_decode_attention disagrees with its plain twin")
+            ok = bool((err <= atol + rtol * ref.float().abs()).all()) and not bool(out.isnan().any())
+            zeros = all(int(torch.count_nonzero(out[i])) == 0 for i, n in enumerate(lengths) if n == 0)
+            same = torch.equal(out, again)
+            print(f"paged_decode_attention {dtype} B={batch} D={head_dim} lengths={lengths}: max_abs_err="
+                  f"{err.max().item()} (tolerance atol={atol} rtol={rtol}) {'ok' if ok else 'FAIL'}; rows of "
+                  f"length 0 exact zeros: {zeros}; two calls bitwise equal: {same}", flush=True)
+            require(ok and zeros, "paged_decode_attention disagrees with its plain twin")
+            require(same, "paged_decode_attention gave other bits on a second call")
             if dtype == torch.bfloat16:
                 worst = max(worst, err.max().item())
 
-    served = None
-    # the served shape (decode lengths at the end of the 32-token streams) and a long-context one
-    shapes = (
-        ("served", 4, [n + MAX_NEW for n in PROMPT_LENS], pool_pages, pages_per_seq),
-        ("B=8 ctx=2048", 8, [2048] * 8, 8 * 128 + 1, 128),
-    )
-    for label, batch, lengths, n_pages, pps in shapes:
+    # the device-only timer's floor: a one-element kernel under the same spin, flush and events
+    one = torch.empty(1, device="cuda")
+    floor_ms, _ = device_ms(lambda: one.zero_())
+    print(f"device-only timer floor (a one-element x.zero_()): {floor_ms:.4f} ms", flush=True)
+    numbers = {}
+    for label, batch, lengths, n_pages, pps in paged_shapes(pool_pages, pages_per_seq):
         q, k, v, lens, table = paged_inputs(batch, lengths, n_pages, pps, torch.bfloat16, 7)
+        once = paged_decode_attention(q, k, v, lens, table)
+        require(torch.equal(once, paged_decode_attention(q, k, v, lens, table)),
+                f"paged_decode_attention gave other bits on a second call ({label})")
         ms = time_ms(lambda: paged_decode_attention(q, k, v, lens, table))
         dev_ms, host_ms = device_ms(lambda: paged_decode_attention(q, k, v, lens, table))
         plain_ms = time_ms(lambda: paged_decode_attention_reference(q, k, v, lens, table))
-        # library yardstick: SDPA over K/V gathered beforehand (not part of the port)
-        kg = k[:, table.long()].reshape(8, batch, -1, 128).permute(1, 0, 2, 3).contiguous()
-        vg = v[:, table.long()].reshape(8, batch, -1, 128).permute(1, 0, 2, 3).contiguous()
-        mask = (torch.arange(kg.shape[2], device="cuda")[None] < lens[:, None])[:, None, None]
-        q4 = q[:, :, None]
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True))
+        library = sdpa_on_gathered(q, k, v, lens, table)
+        library_ms = time_ms(library)
+        library_dev_ms, _ = device_ms(library)
         bms, bound_by = bound_ms(q, k, lens, pps)
         print(f"paged_decode_attention bf16 {label} lengths={lengths[:4]}{'...' if batch > 4 else ''}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA on gathered K/V) {library_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound; device only {dev_ms:.4f} ms (host "
-              f"enqueue {host_ms:.4f} ms, spin {spin_ms():.4f} ms)", flush=True)
-        if served is None:
-            served = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
-                          device_ms=dev_ms)
-    return dict(max_abs_err=worst, **served)
+              f"bound {bms:.6f} ms ({bound_by}), {bms / ms:.1%} of bound; device only: kernel {dev_ms:.4f} ms "
+              f"({bms / dev_ms:.1%} of bound), library {library_dev_ms:.4f} ms; host enqueue a call "
+              f"{host_ms:.4f} ms", flush=True)
+        numbers[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
+                              device_ms=dev_ms, library_device_ms=library_dev_ms, host_ms=host_ms)
+        del q, k, v, lens, table, library
+        torch.cuda.empty_cache()
+    # the served shape's numbers head the row; the long-context ones ride along under a prefix
+    row = dict(max_abs_err=worst, **numbers["served"], timer_floor_ms=floor_ms)
+    for label, prefix in (("B=8 ctx=2048", "b8_ctx2048_"), ("B=1 ctx=8192", "b1_ctx8192_")):
+        row.update({prefix + key: value for key, value in numbers[label].items()})
+    return row
 
 
 def serve(batcher, prompts) -> tuple:
@@ -565,7 +625,7 @@ def int8_kernel_phase() -> dict:
             print(f"int8_matmul bf16 M={m} [{k_dim}, {f_dim}] ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library (cuBLAS bf16 x @ w on the weight dequantized beforehand) {library_ms:.4f} ms, "
                   f"bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound; device only: kernel {dev_ms:.4f} ms "
-                  f"({bms / dev_ms:.1%} of bound), host enqueue a call {host_ms:.4f} ms (spin {spin_ms():.4f} ms), "
+                  f"({bms / dev_ms:.1%} of bound), host enqueue a call {host_ms:.4f} ms, "
                   f"library {library_dev_ms:.4f} ms", flush=True)
         del qt, w_bf16
         torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 // PTX helpers shared by the port's Hopper (sm_90a) kernels: shared-memory
-// addresses, mbarriers, TMA tensor copies, the wgmma fences, 128-byte-swizzle
-// matrix descriptors and the wgmma instructions (bf16 in, f32 accumulators),
+// addresses, mbarriers, 1D bulk copies and TMA tensor copies, the wgmma
+// fences, 128-byte-swizzle matrix descriptors and the wgmma instructions
+// (bf16 in, f32 accumulators), mma.sync m16n8k16 and ldmatrix,
 // the packing of two f32 into a bf16x2 register, the host-side lookup of
 // libcuda's cuTensorMapEncodeTiled and the flash kernels' 4D head maps.
 //
@@ -45,6 +46,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// one plain arrival (no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared by the bulk-copy unit (no tensor map), completing on `bar`; both
+// addresses 16-byte aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 // one box of a 2D tensor map global -> shared (swizzled, rows past the tensor zero-filled), completing on `bar`
@@ -107,6 +122,24 @@ __device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr, uint32_t mn_blo
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// mma.sync.m16n8k16 (bf16 in, f32 accumulators in registers), D += A . B: A row-major 16 x 16 in four
+// bf16x2 registers, B column-major 16 x 8 in two, D 16 x 8 in four (the PTX ISA's fragment layouts)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 b16 matrices from shared memory, transposed: lanes 8j..8j+7 give the row addresses of matrix j,
+// and register j of lane l holds its elements (row 2 (l % 4), column l / 4) and (row 2 (l % 4) + 1, same)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
 }
 
 // byte offset of the 16-byte chunk c (0..7) of row r in a 128-byte-swizzled tile

@@ -2,26 +2,51 @@
 
 Counterpart of ``unionml_tpu/ops/paged_attention.py``. There the decode read
 goes through the Pallas kernel that ships with JAX; here it goes through the
-hand-written Hopper kernel ``csrc/paged_decode_attention.cu``, which walks
-each row's pages with an online softmax and never materializes ``pool[table]``.
+hand-written Hopper kernel ``csrc/paged_decode_attention.cu``, which splits
+each row's pages across the blocks of a thread-block cluster, keeps an online
+softmax per split, combines the splits inside the same launch and never
+materializes ``pool[table]``.
 
 :func:`paged_decode_attention` launches that kernel for CUDA tensors (or
 raises) and takes the plain twin, :func:`paged_decode_attention_reference`,
 only for tensors on the CPU. The twin is the gather path of
 :meth:`unionml_tpu_torch.models.layers.Attention._paged_cached_attention`.
+:func:`paged_decode_attention_split_reference` spells out the kernel's
+split-and-combine algorithm in plain torch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from unionml_tpu_torch.ops.attention import dot_product_attention
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_reference"]
+__all__ = ["paged_decode_attention", "paged_decode_attention_reference", "paged_decode_attention_split_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HEAD_DIM = 256  # a key row is split over at most 32 lanes of 8 values
+_MAX_HEAD_TILE = 8  # heads of a GQA group one block takes (a larger group takes several tiles)
+_MAX_CLUSTER = 16  # the H100's non-portable thread-block cluster size
+_MAX_STAGES = 8
+#: blocks an SM holds at once (8 reading warps and one copying warp each); a cluster's blocks share one
+#: GPC, so a grid of clusters reaches fewer SMs than the card has (124 of 132 on an H100): plan for 15/16
+_BLOCKS_PER_SM = 2
+_RING_BYTES = 64 << 10  # a block's ring of K and V pages in flight, in shared memory
+_MAX_PAGE_BYTES = 64 << 10  # one page of one KV head: a stage (K and V) must fit shared memory
+
+
+class _Plan(NamedTuple):
+    """One launch: ``splits`` blocks of a cluster per (row, KV head, head
+    tile), ``pages_per_split`` table entries each, ``stages`` pages of K and
+    V in flight a block."""
+
+    splits: int
+    pages_per_split: int
+    stages: int
 
 
 def paged_decode_attention_reference(
@@ -48,17 +73,91 @@ def paged_decode_attention_reference(
     return dot_product_attention(q[:, None], keys, values, mask=visible)[:, 0]
 
 
+def paged_decode_attention_split_reference(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    splits: int,
+) -> torch.Tensor:
+    """The kernel's algorithm in plain torch, in f32: the table cut into
+    ``splits`` runs of ``ceil(pages / splits)`` entries, a partial
+    ``(acc, m, l)`` per run over the positions it sees, and the partials
+    combined in split order. A run that sees no key (past the row's length,
+    or past the table) keeps ``m = -inf``, ``l = 0`` and adds nothing; a row
+    of length 0 gives zeros. q is pre-scaled in its own dtype, as the kernel
+    does. Lengths and table entries are clamped as the kernel clamps them."""
+    batch, n_heads, head_dim = q.shape
+    n_kv, n_pages, page_size, _ = k_pages.shape
+    group = n_heads // n_kv
+    pages = page_indices.shape[1]
+    per = max(1, -(-pages // splits))
+    table = page_indices.long().clamp(0, n_pages - 1)
+    lens = lengths.long().clamp(0, pages * page_size)
+    qs = (q * head_dim ** -0.5).to(q.dtype).float().reshape(batch, n_kv, group, head_dim)
+
+    def logical(pool: torch.Tensor) -> torch.Tensor:  # [B, H_kv, pages * page_size, D] in f32
+        return pool[:, table].reshape(n_kv, batch, pages * page_size, head_dim).permute(1, 0, 2, 3).float()
+
+    keys, values = logical(k_pages), logical(v_pages)
+    scores = torch.einsum("bkgd,bksd->bkgs", qs, keys)
+    slot = torch.arange(pages * page_size, device=q.device)
+    mx = torch.full((batch, n_kv, group), -torch.inf, device=q.device)
+    partials = []
+    for s in range(splits):
+        seen = (slot >= s * per * page_size) & (slot < (s + 1) * per * page_size) & (slot < lens[:, None])
+        masked = scores.masked_fill(~seen[:, None, None, :], -torch.inf)
+        m = masked.amax(-1)  # -inf where the split sees no key
+        p = torch.exp(masked - torch.where(torch.isfinite(m), m, torch.zeros_like(m))[..., None])
+        partials.append((torch.einsum("bkgs,bksd->bkgd", p, values), m, p.sum(-1)))
+        mx = torch.maximum(mx, m)
+    acc = torch.zeros_like(qs)
+    total = torch.zeros_like(mx)
+    for part_acc, m, l in partials:  # in split order
+        c = torch.where(m == -torch.inf, torch.zeros_like(m), torch.exp(m - mx))
+        acc = acc + part_acc * c[..., None]
+        total = total + l * c
+    out = torch.where(total[..., None] > 0, acc / torch.where(total > 0, total, 1.0)[..., None], 0.0)
+    return out.reshape(batch, n_heads, head_dim).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(batch: int, n_kv_heads: int, group: int, pages_per_seq: int, page_bytes: int, n_sms: int) -> _Plan:
+    """The split of one launch, from shapes alone (never from ``lengths``).
+
+    Each (row, KV head, tile of up to 8 heads of the group) gets ``splits``
+    blocks of one thread-block cluster (at most 16), aiming at
+    :data:`_BLOCKS_PER_SM` blocks an SM; the table is cut into runs of
+    ``pages_per_split`` entries, and ``splits`` is trimmed so that no split
+    is empty at full length. ``stages`` pages of K and V are in flight a
+    block (the ring holds at most :data:`_RING_BYTES`)."""
+    tiles = -(-group // _MAX_HEAD_TILE)
+    want = _BLOCKS_PER_SM * n_sms * 15 // 16 // (batch * n_kv_heads * tiles)  # one wave at most
+    splits = max(1, min(_MAX_CLUSTER, pages_per_seq, want))
+    per = max(1, -(-pages_per_seq // splits))
+    splits = max(1, -(-pages_per_seq // per))
+    stages = max(1, min(_MAX_STAGES, per, _RING_BYTES // (2 * page_bytes)))
+    return _Plan(splits, per, stages)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel():
     from unionml_tpu_torch._build import load_library
 
     fn = load_library("paged_decode_attention").paged_decode_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
 
 
 def _check(q, k_pages, v_pages, lengths, page_indices) -> None:
+    """What the kernel takes; anything else raises before a launch."""
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"expected q [B, H, D] and pools [H_kv, P, page, D], got {tuple(q.shape)}, {tuple(k_pages.shape)}")
     batch, n_heads, head_dim = q.shape
@@ -67,17 +166,25 @@ def _check(q, k_pages, v_pages, lengths, page_indices) -> None:
         raise ValueError(
             f"pool shapes {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}"
         )
+    if head_dim % 8 or not 0 < head_dim <= _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim % 8 == 0 and head_dim <= {_MAX_HEAD_DIM}, got {head_dim}")
     if lengths.shape != (batch,) or page_indices.dim() != 2 or page_indices.shape[0] != batch:
         raise ValueError(f"expected lengths [B] and page_indices [B, pages], got {tuple(lengths.shape)}, {tuple(page_indices.shape)}")
     if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"the kernel takes float32 or bfloat16 q and pools of q's dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise TypeError("lengths and page_indices must be int32")
+    page_bytes = k_pages.shape[2] * head_dim * k_pages.element_size()
+    if k_pages.shape[1] == 0 or page_bytes > _MAX_PAGE_BYTES:
+        raise ValueError(f"the kernel takes a non-empty pool of pages of at most {_MAX_PAGE_BYTES} bytes, "
+                         f"got {tuple(k_pages.shape)} in {k_pages.dtype}")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages), ("lengths", lengths), ("page_indices", page_indices)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the pools must start on a 16-byte boundary (the kernel bulk-copies whole pages)")
 
 
 def paged_decode_attention(
@@ -94,29 +201,35 @@ def paged_decode_attention(
     just written), ``page_indices: [B, pages_per_sequence] int32``. Returns
     ``[B, H, D]`` in q's dtype. Grouped-query attention is native.
 
-    CUDA tensors launch the Hopper kernel (float32 or bfloat16) or raise; CPU
-    tensors take :func:`paged_decode_attention_reference`. As in the JAX
-    wrapper, ``q`` is pre-scaled by ``head_dim ** -0.5`` in its own dtype and
-    the kernel computes raw ``q . k``; in bfloat16 that rounds differently from
-    the reference, which scales the scores.
+    CUDA tensors launch the Hopper kernel (float32 or bfloat16, ``D % 8 ==
+    0``, ``D <= 256``; one launch a call, which neither reads ``lengths`` or
+    ``page_indices`` on the host nor synchronises) or raise; CPU tensors take
+    :func:`paged_decode_attention_reference`. As in the JAX wrapper, ``q`` is
+    pre-scaled by ``head_dim ** -0.5`` in its own dtype (the kernel does it
+    as it loads q) and the kernel computes raw ``q . k``; in bfloat16 that
+    rounds differently from the reference, which scales the scores.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pages, v_pages, lengths, page_indices)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on CUDA or CPU tensors, got {q.device}")
+    q = q.contiguous()
     _check(q, k_pages, v_pages, lengths, page_indices)
     batch, n_heads, head_dim = q.shape
     n_kv, n_pages, page_size, _ = k_pages.shape
-    q_scaled = (q * head_dim ** -0.5).to(q.dtype).contiguous()
-    out = torch.empty_like(q_scaled)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q_scaled.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-            page_indices.data_ptr(), out.data_ptr(), batch, n_heads, n_kv, head_dim, n_pages,
-            page_size, page_indices.shape[1], _DTYPE_CODES[q.dtype], stream,
-        )
+    pages_per_seq = page_indices.shape[1]
+    out = torch.empty_like(q)
+    index = q.device.index
+    plan = _plan(batch, n_kv, n_heads // n_kv, pages_per_seq, page_size * head_dim * q.element_size(),
+                 _sm_count(index))
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(),
+            out.data_ptr(), batch, n_heads, n_kv, head_dim, n_pages, page_size, pages_per_seq, plan.splits,
+            plan.pages_per_split, plan.stages, _DTYPE_CODES[q.dtype], head_dim ** -0.5)
+    if index == torch.cuda.current_device():
+        err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
     paged_decode_attention.launches += 1
