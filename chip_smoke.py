@@ -13,16 +13,17 @@ Phases (no phase catches a failure; any fault exits non-zero):
    edges, ragged, the full table, past it) for D = 16, 32, 64 and 128, two
    calls bitwise equal; the flash kernels at full width
    causal, non-causal, cross-length causal and custom blocks: in float32 the
-   exact-f32 forward, dq and dk/dv kernels, in bfloat16 the tensor-core
-   forward and the fused backward (also at D=64, ragged; each bitwise equal
-   on a second call); the
+   f32 forward and the fused f32 backward (3xTF32), in bfloat16 the
+   tensor-core forward and the fused backward (also at D=64, ragged); each
+   bitwise equal on a second call; the
    int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
    130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
    kernel, twin, the library yardstick and the
    bytes/operations bound with CUDA events (paged decode at the served
    shape, B=8 ctx=2048 and B=1 ctx=8192; the bf16 forward and the fused
-   backward at full width, the f32 forward, dq and dk/dv kernels at the f32
-   parity shape) (int8 also summed over one decode
+   backward at full width, the f32 forward and the fused f32 backward at the
+   f32 parity shape S=256 and at S=2048, each beside SDPA's memory-efficient
+   kernels in f32) (int8 also summed over one decode
    step's 225 matmuls, at M = 4, 64 and 256); each kernel's time includes its host launch work, and
    a second, device-only time (``device_ms``) is taken behind a measured spin
    of the card, sized to four times the host's enqueue of the timed call;
@@ -44,7 +45,7 @@ Phases (no phase catches a failure; any fault exits non-zero):
    losses, a frozen base and moved adapters;
 6. training parity with 2 layers of the same width: 3 steps of ``fit`` on
    the kernel path and on the plain path agree, at float32 (through the
-   exact-f32 forward, dq and dk/dv kernels, whose launches the kernels line
+   f32 forward and the fused f32 backward, whose launches the kernels line
    reports) and at bf16 compute (through the bf16 forward and the fused
    backward).
 
@@ -72,8 +73,12 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SPIN_CYCLES = 2_000_000  # the unit of the card's spin before a device-only time; its length is measured in the run
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense bf16 tensor / f32 non-tensor
+#: the least time of f32 flash work: an f32-accurate product in three TF32 tensor-core passes (3xTF32) at
+#: NVIDIA's H100 SXM dense TF32 rate, 494.7 TFLOP/s, beats the 67 TFLOP/s of f32 FMAs on the CUDA cores
+F32_FLASH_OPS_PER_S = 494.7e12 / 3
 TOLERANCE = {"torch.float32": (1e-5, 0.0), "torch.bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
-#: flash kernels against their twins: in float32 both compute in f32, and the
+#: flash kernels against their twins: in float32 both compute in f32 (the
+#: backward's products in 3xTF32, about 2**-22 of each product off), and the
 #: dk/dv sums of 2048 x 4 terms at full width run in another order; in
 #: bfloat16 both round P (forward and backward) and dS to bf16 before their
 #: products (a last-bit difference in exp can flip one rounding), sum in f32
@@ -89,17 +94,19 @@ FLASH_CASES = (
 #: (label, Lq, Lk, causal, D) held in bfloat16 only, beside FLASH_CASES: a ragged D=64 case for the bf16 kernels
 FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64),)
 #: products of 2 * Lq * Lk * D multiply-adds (per head, visible pairs only) each kernel computes
-FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_forward_f32": 2, "flash_backward_dq": 3,
-                  "flash_backward_dkv": 4}
+FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_forward_f32": 2, "flash_backward_f32": 5}
 FLASH_REPLACES = {
     "flash_forward": "unionml_tpu/ops/flash_attention.py:160",
     "flash_forward_f32": "unionml_tpu/ops/flash_attention.py:160",
     "flash_backward": "unionml_tpu/ops/flash_attention.py:318 and :343",
-    "flash_backward_dq": "unionml_tpu/ops/flash_attention.py:318",
-    "flash_backward_dkv": "unionml_tpu/ops/flash_attention.py:343",
+    "flash_backward_f32": "unionml_tpu/ops/flash_attention.py:318 and :343",
 }
-FLASH_SOURCES = {"flash_forward": "unionml_tpu_torch/csrc/flash_forward.cu",
-                 "flash_backward": "unionml_tpu_torch/csrc/flash_backward.cu"}  # the rest: csrc/flash_attention.cu
+FLASH_SOURCES = {
+    "flash_forward": "unionml_tpu_torch/csrc/flash_forward.cu",
+    "flash_backward": "unionml_tpu_torch/csrc/flash_backward.cu",
+    "flash_forward_f32": "unionml_tpu_torch/csrc/flash_attention.cu",
+    "flash_backward_f32": "unionml_tpu_torch/csrc/flash_backward_f32.cu",
+}
 #: bf16 training parity: relative loss difference between the kernel and plain paths. Both run in bf16
 #: (8 significant bits) but round at other places (the plain path rounds its scores to bf16; the kernels
 #: keep them in f32), so the losses may differ by about one bf16 epsilon, 2**-7 = 7.8e-3
@@ -408,9 +415,9 @@ def visible_pairs(q_len: int, k_len: int, causal: bool) -> int:
 
 def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
     """Least time of one call: its inputs read and outputs written once
-    (q/k/v, plus dO, lse and delta for the backward; out and lse, dq, dk and
-    dv, or both), against its products over the visible pairs at the input
-    type's peak rate."""
+    (q/k/v, plus dO, lse and delta for the backward; out and lse, or dq, dk
+    and dv), against its products over the visible pairs at the input type's
+    peak rate (f32: ``F32_FLASH_OPS_PER_S``)."""
     batch, q_len, n_heads, head_dim = q.shape
     k_len = k.shape[1]
     item = q.element_size()
@@ -420,11 +427,11 @@ def flash_bound_ms(name: str, q, k, causal: bool) -> tuple:
         "flash_forward": qkv + q.numel() * item + stats,
         "flash_forward_f32": qkv + q.numel() * item + stats,
         "flash_backward": qkv + 2 * q.numel() * item + 2 * stats + 2 * k.numel() * item,
-        "flash_backward_dq": qkv + 2 * q.numel() * item + 2 * stats,
-        "flash_backward_dkv": qkv + q.numel() * item + 2 * stats + 2 * k.numel() * item,
+        "flash_backward_f32": qkv + 2 * q.numel() * item + 2 * stats + 2 * k.numel() * item,
     }[name]
     ops = FLASH_PRODUCTS[name] * 2 * visible_pairs(q_len, k_len, causal) * head_dim * batch * n_heads
-    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[str(q.dtype)]
+    rate = F32_FLASH_OPS_PER_S if str(q.dtype) == "torch.float32" else PEAK_OPS_PER_S[str(q.dtype)]
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / rate
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
 
 
@@ -458,17 +465,17 @@ def sdpa_times(q, k, v, dout, causal: bool, backend) -> dict:
 
 def flash_kernel_phase() -> dict:
     """Each flash kernel against its twin on the same inputs: float32 through
-    the exact-f32 forward, dq and dk/dv kernels, bfloat16 through the
+    the f32 forward and the fused f32 backward, bfloat16 through the
     tensor-core forward and the fused backward (each two calls bitwise
     equal). Then times: the bf16 forward and the fused backward at the
-    full-width training shape (causal), the f32 forward, dq and dk/dv kernels
-    at the f32 parity shape."""
+    full-width training shape (causal), the f32 forward and backward at the
+    f32 parity shape (S=256) and at the training shape (S=2048, numbers under
+    an ``s2048_`` prefix)."""
     import torch
     from torch.nn.attention import SDPBackend
 
     from unionml_tpu_torch.ops.flash_attention import (
-        flash_backward, flash_backward_dkv, flash_backward_dkv_reference, flash_backward_dq,
-        flash_backward_dq_reference, flash_backward_reference, flash_forward, flash_forward_f32,
+        flash_backward, flash_backward_f32, flash_backward_reference, flash_forward, flash_forward_f32,
         flash_forward_reference,
     )
 
@@ -483,9 +490,9 @@ def flash_kernel_phase() -> dict:
     cases = [(label, q_len, k_len, causal, 128) for label, q_len, k_len, causal, _ in FLASH_CASES]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = FLASH_TOLERANCE[str(dtype)]
-        fused = dtype == torch.bfloat16
-        extra = list(FUSED_EXTRA_CASES) if fused else []
-        forward = "flash_forward" if fused else "flash_forward_f32"
+        bf16 = dtype == torch.bfloat16
+        extra = list(FUSED_EXTRA_CASES) if bf16 else []
+        forward, backward = ("flash_forward", "flash_backward") if bf16 else ("flash_forward_f32", "flash_backward_f32")
         for seed, (label, q_len, k_len, causal, head_dim) in enumerate(cases + extra):
             q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim)
             out, lse = flash_forward(q, k, v, causal)
@@ -493,20 +500,14 @@ def flash_kernel_phase() -> dict:
             ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
             # the backward takes the twin's lse and delta, so that it is held alone
             delta = torch.einsum("blhd,blhd->bhl", dout.float(), ref_out.float())
-            if fused:
-                dq, dk, dv = flash_backward(q, k, v, dout, ref_lse, delta, causal)
-                again = flash_backward(q, k, v, dout, ref_lse, delta, causal)
-                names = ("flash_backward",) * 3
-            else:
-                dq = flash_backward_dq(q, k, v, dout, ref_lse, delta, causal)
-                dk, dv = flash_backward_dkv(q, k, v, dout, ref_lse, delta, causal)
-                names = ("flash_backward_dq", "flash_backward_dkv", "flash_backward_dkv")
+            dq, dk, dv = flash_backward(q, k, v, dout, ref_lse, delta, causal)
+            again = flash_backward(q, k, v, dout, ref_lse, delta, causal)
             torch.cuda.synchronize()
             ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, dout, ref_lse, delta, causal)
             errors = []
             for what, name, got, ref in (
                 ("out", forward, out, ref_out), ("lse", forward, lse, ref_lse),
-                ("dq", names[0], dq, ref_dq), ("dk", names[1], dk, ref_dk), ("dv", names[2], dv, ref_dv),
+                ("dq", backward, dq, ref_dq), ("dk", backward, dk, ref_dk), ("dv", backward, dv, ref_dv),
             ):
                 err = (got.float() - ref.float()).abs()
                 ok = bool((err <= atol + rtol * ref.float().abs()).all()) and got.dtype == ref.dtype
@@ -516,53 +517,57 @@ def flash_kernel_phase() -> dict:
             same = torch.equal(out, out_again) and torch.equal(lse, lse_again)
             errors.append(f"forward bitwise equal on a second call: {same}")
             require(same, f"{forward} gave other bits on a second call ({label})")
-            if fused:
-                same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
-                errors.append(f"fused backward bitwise equal on a second call: {same}")
-                require(same, f"flash_backward gave other bits on a second call ({label})")
+            same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+            errors.append(f"backward bitwise equal on a second call: {same}")
+            require(same, f"{backward} gave other bits on a second call ({label})")
             print(f"flash kernels {dtype} {label} D={head_dim}: max_abs_err {', '.join(errors)} "
                   f"(tolerance atol={atol} rtol={rtol}) ok", flush=True)
-
-    numbers = {}
 
     def timed(name, kernel, plain, q, k, causal, library_ms, library_device_ms, library_label):
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         dev_ms, _ = device_ms(kernel)
         bms, bound_by = flash_bound_ms(name, q, k, causal)
-        numbers[name] = dict(max_abs_err=worst[name], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
-                             library_ms=library_ms, device_ms=dev_ms, library_device_ms=library_device_ms)
         print(f"{name} {str(q.dtype)[6:]} B=1 Lq={q.shape[1]} H=32 Hkv=8 D=128 causal: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms ({library_label}), bound {bms:.4f} ms "
               f"({bound_by}, {FLASH_PRODUCTS[name]} products), {bms / ms:.1%} of bound; device only: kernel "
               f"{dev_ms:.4f} ms ({bms / dev_ms:.1%} of bound), library {library_device_ms:.4f} ms", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
+                    device_ms=dev_ms, library_device_ms=library_device_ms)
 
+    numbers = {}
     q, k, v, dout = inputs(TRAIN_SEQ, TRAIN_SEQ, torch.bfloat16, 99)
     out, lse = flash_forward(q, k, v, True)
     delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
     sdpa = sdpa_times(q, k, v, dout, True, SDPBackend.FLASH_ATTENTION)
-    timed("flash_forward", lambda: flash_forward(q, k, v, True), lambda: flash_forward_reference(q, k, v, True),
-          q, k, True, sdpa["fwd_ms"], sdpa["fwd_device_ms"], "SDPA flash forward")
-    timed("flash_backward", lambda: flash_backward(q, k, v, dout, lse, delta, True),
-          lambda: flash_backward_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
-          sdpa["bwd_device_ms"], "SDPA flash backward: dq, dk and dv together")
+    numbers["flash_forward"] = timed(
+        "flash_forward", lambda: flash_forward(q, k, v, True), lambda: flash_forward_reference(q, k, v, True), q, k,
+        True, sdpa["fwd_ms"], sdpa["fwd_device_ms"], "SDPA flash forward")
+    numbers["flash_backward"] = timed(
+        "flash_backward", lambda: flash_backward(q, k, v, dout, lse, delta, True),
+        lambda: flash_backward_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
+        sdpa["bwd_device_ms"], "SDPA flash backward: dq, dk and dv together")
     del q, k, v, dout, out, lse, delta
     torch.cuda.empty_cache()
 
-    # the f32 route's kernels at the f32 training-parity shape, where the main paths launch them
-    q, k, v, dout = inputs(PARITY_SEQ, PARITY_SEQ, torch.float32, 98)
-    out, lse = flash_forward(q, k, v, True)
-    delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
-    sdpa = sdpa_times(q, k, v, dout, True, SDPBackend.EFFICIENT_ATTENTION)
-    timed("flash_forward_f32", lambda: flash_forward_f32(q, k, v, True),
-          lambda: flash_forward_reference(q, k, v, True), q, k, True, sdpa["fwd_ms"], sdpa["fwd_device_ms"],
-          "SDPA memory-efficient forward in f32")
-    label = "SDPA memory-efficient backward in f32: dq, dk and dv together"
-    timed("flash_backward_dq", lambda: flash_backward_dq(q, k, v, dout, lse, delta, True),
-          lambda: flash_backward_dq_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
-          sdpa["bwd_device_ms"], label)
-    timed("flash_backward_dkv", lambda: flash_backward_dkv(q, k, v, dout, lse, delta, True),
-          lambda: flash_backward_dkv_reference(q, k, v, dout, lse, delta, True), q, k, True, sdpa["bwd_ms"],
-          sdpa["bwd_device_ms"], label)
+    # the f32 route at the f32 training-parity shape, where the main paths launch it, and at the training shape
+    for seq, prefix in ((PARITY_SEQ, ""), (TRAIN_SEQ, f"s{TRAIN_SEQ}_")):
+        q, k, v, dout = inputs(seq, seq, torch.float32, 98)
+        out, lse = flash_forward(q, k, v, True)
+        delta = torch.einsum("blhd,blhd->bhl", dout.float(), out.float())
+        sdpa = sdpa_times(q, k, v, dout, True, SDPBackend.EFFICIENT_ATTENTION)
+        forward = timed("flash_forward_f32", lambda: flash_forward_f32(q, k, v, True),
+                        lambda: flash_forward_reference(q, k, v, True), q, k, True, sdpa["fwd_ms"],
+                        sdpa["fwd_device_ms"], "SDPA memory-efficient forward in f32")
+        backward = timed("flash_backward_f32", lambda: flash_backward_f32(q, k, v, dout, lse, delta, True),
+                         lambda: flash_backward_reference(q, k, v, dout, lse, delta, True), q, k, True,
+                         sdpa["bwd_ms"], sdpa["bwd_device_ms"],
+                         "SDPA memory-efficient backward in f32: dq, dk and dv together")
+        for name, measured in (("flash_forward_f32", forward), ("flash_backward_f32", backward)):
+            numbers.setdefault(name, {}).update({prefix + key: value for key, value in measured.items()})
+        del q, k, v, dout, out, lse, delta
+        torch.cuda.empty_cache()
+    for name, measured in numbers.items():
+        measured["max_abs_err"] = worst[name]
     return numbers
 
 
@@ -638,7 +643,6 @@ def int8_kernel_phase() -> dict:
               f"{step['device_ms']:.4f} ms, library {step['library_device_ms']:.4f} ms; host enqueue "
               f"{step['host_ms']:.4f} ms", flush=True)
     row = dict(timed[("wg/wi", 4)])
-    del row["library_device_ms"]
     # the admission-prefill times of the same weight ride along under an "m256_" prefix
     prefill = timed[("wg/wi", 256)]
     row.update({f"m256_{key}": prefill[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
@@ -758,7 +762,7 @@ def training_phase(card: str, profile: bool) -> dict:
     from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
     from unionml_tpu_torch.models import chunked_causal_lm_loss
     from unionml_tpu_torch.ops.flash_attention import (
-        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward, flash_forward_f32,
+        flash_backward, flash_backward_f32, flash_forward, flash_forward_f32,
     )
 
     cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash", remat=TRAIN_REMAT)
@@ -774,7 +778,7 @@ def training_phase(card: str, profile: bool) -> dict:
     step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
     config = TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1)
 
-    counted = (flash_forward, flash_backward, flash_forward_f32, flash_backward_dq, flash_backward_dkv)
+    counted = (flash_forward, flash_backward, flash_forward_f32, flash_backward_f32)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -785,9 +789,9 @@ def training_phase(card: str, profile: bool) -> dict:
 
     losses = [h["loss"] for h in result.history]
     per_step = cfg.n_layers * TRAIN_STEPS
-    # bf16 compute: the bf16 forward and the fused backward, never the exact-f32 kernels
+    # bf16 compute: the bf16 forward and the fused backward, never the f32 kernels
     expected = {"flash_forward": per_step * (2 if cfg.remat else 1), "flash_backward": per_step,
-                "flash_forward_f32": 0, "flash_backward_dq": 0, "flash_backward_dkv": 0}
+                "flash_forward_f32": 0, "flash_backward_f32": 0}
     frozen = torch.equal(state.model.layer_0.attn.q_proj.kernel, probe)
     moved = [n for n, p in state.model.named_parameters() if n in adapters_b and not torch.equal(p, adapters_b[n])]
     sps = result.samples_per_sec
@@ -825,12 +829,12 @@ def parity_runs(cfg, seed: int) -> dict:
     from unionml_tpu_torch import TrainerConfig, fit, make_train_step
     from unionml_tpu_torch.models import chunked_causal_lm_loss
     from unionml_tpu_torch.ops.flash_attention import (
-        flash_backward, flash_backward_dkv, flash_backward_dq, flash_forward, flash_forward_f32,
+        flash_backward, flash_backward_f32, flash_forward, flash_forward_f32,
     )
 
     tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(PARITY_STEPS, PARITY_SEQ)).astype(np.int64)
     step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
-    counted = (flash_forward, flash_backward, flash_forward_f32, flash_backward_dq, flash_backward_dkv)
+    counted = (flash_forward, flash_backward, flash_forward_f32, flash_backward_f32)
     runs = {}
     for impl in ("flash", "auto"):
         state = lora_llama(dc.replace(cfg, attention_impl=impl), seed=seed - 1)
@@ -846,8 +850,8 @@ def parity_runs(cfg, seed: int) -> dict:
 
 
 def training_parity_phase() -> dict:
-    """3 steps of ``fit`` at float32 through the flash kernels (the exact-f32
-    forward, dq and dk/dv kernels) and through the plain path, from the same weights
+    """3 steps of ``fit`` at float32 through the flash kernels (the f32
+    forward and the fused f32 backward) and through the plain path, from the same weights
     and data: the loss histories and the trained adapters agree. Returns the
     kernel path's flash launches."""
     import torch
@@ -867,8 +871,7 @@ def training_parity_phase() -> dict:
     # 2 * lr per step; the mean bounds how many entries may do so
     max_tol, mean_tol = 2 * LR * PARITY_STEPS, 1e-3 * LR
     per_run = cfg.n_layers * PARITY_STEPS
-    expected = {"flash_forward": 0, "flash_backward": 0, "flash_forward_f32": per_run, "flash_backward_dq": per_run,
-                "flash_backward_dkv": per_run}
+    expected = {"flash_forward": 0, "flash_backward": 0, "flash_forward_f32": per_run, "flash_backward_f32": per_run}
     print(f"float32 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
           f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance 1e-5); adapters max abs diff "
           f"{diffs.max().item():.3g} (tolerance {max_tol}), mean {diffs.mean().item():.3g} (tolerance {mean_tol}); "
@@ -892,8 +895,7 @@ def bf16_training_parity_phase() -> None:
     (kernel_losses, _, launches), (plain_losses, _, _) = runs["flash"], runs["auto"]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
     per_run = cfg.n_layers * PARITY_STEPS
-    expected = {"flash_forward": per_run, "flash_backward": per_run, "flash_forward_f32": 0, "flash_backward_dq": 0,
-                "flash_backward_dkv": 0}
+    expected = {"flash_forward": per_run, "flash_backward": per_run, "flash_forward_f32": 0, "flash_backward_f32": 0}
     print(f"bf16 training parity, 2 layers, S={PARITY_SEQ}, {PARITY_STEPS} steps: losses kernel {kernel_losses} "
           f"plain {plain_losses} (max rel err {loss_err:.3g}, tolerance {BF16_PARITY_LOSS_REL}); flash launches "
           f"{launches} (expected {expected})", flush=True)
@@ -1017,9 +1019,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_training_parity_phase()
     f32_launches = training_parity_phase()
-    # the exact-f32 forward, dq and dk/dv kernels run on the f32 path only
-    flash_launches.update({name: f32_launches[name]
-                           for name in ("flash_forward_f32", "flash_backward_dq", "flash_backward_dkv")})
+    # the f32 forward and backward run on the f32 path only
+    flash_launches.update({name: f32_launches[name] for name in ("flash_forward_f32", "flash_backward_f32")})
 
     kernels = [{
         "name": "paged_decode_attention",
@@ -1032,7 +1033,7 @@ def main() -> int:
     for name, measured in flash_numbers.items():
         kernels.append({
             "name": name, "route": "cuda",
-            "source": FLASH_SOURCES.get(name, "unionml_tpu_torch/csrc/flash_attention.cu"),
+            "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], **measured,
         })
     kernels.append({

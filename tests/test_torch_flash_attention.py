@@ -25,15 +25,15 @@ from unionml_tpu_torch.ops.attention import dot_product_attention, multihead_att
 from unionml_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_backward,
-    flash_backward_dkv,
     flash_backward_dkv_reference,
-    flash_backward_dq,
     flash_backward_dq_reference,
+    flash_backward_f32,
     flash_backward_reference,
     flash_forward,
     flash_forward_f32,
     flash_forward_reference,
 )
+from unionml_tpu_torch.ops.flash_attention import _visible
 
 torch.set_num_threads(2)
 
@@ -193,22 +193,109 @@ def test_bf16_gradients_match_jax_grad_through_interpret(case):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_fused_backward_twin_is_the_dq_and_dkv_twins(case, dtype):
-    """``flash_backward`` on CPU tensors is ``flash_backward_reference``, which
-    equals the dq and dk/dv twins bit for bit; no kernel launch is counted."""
+    """``flash_backward`` and ``flash_backward_f32`` on CPU tensors are
+    ``flash_backward_reference``, which equals the dq and dk/dv twins bit for
+    bit; no kernel launch is counted."""
     q_len, k_len, heads, kv_heads, causal, _ = CASES[case]
     dtype = getattr(torch, dtype)
     q, k, v, w = (torch.from_numpy(a).to(dtype) for a in _inputs(q_len, k_len, heads, kv_heads, seed=4))
     out, lse = flash_forward_reference(q, k, v, causal)
     delta = torch.einsum("blhd,blhd->bhl", w.float(), out.float())
-    counts = [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)]
+    counts = [fn.launches for fn in (flash_backward, flash_backward_f32)]
     fused = flash_backward(q, k, v, w, lse, delta, causal)
-    assert [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)] == counts
+    exact = flash_backward_f32(q, k, v, w, lse, delta, causal)
+    assert [fn.launches for fn in (flash_backward, flash_backward_f32)] == counts
     pair = (flash_backward_dq_reference(q, k, v, w, lse, delta, causal),
             *flash_backward_dkv_reference(q, k, v, w, lse, delta, causal))
     reference = flash_backward_reference(q, k, v, w, lse, delta, causal)
-    for name, got, ref, want in zip(("dq", "dk", "dv"), fused, reference, pair):
+    for name, got, f32, ref, want in zip(("dq", "dk", "dv"), fused, exact, reference, pair):
         assert got.dtype == dtype and got.shape == want.shape, name
-        assert torch.equal(got, want) and torch.equal(ref, want), name
+        assert torch.equal(got, want) and torch.equal(f32, want) and torch.equal(ref, want), name
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does (to nearest, ties
+    away from zero), on the int32 view: the magnitude's bits plus half a unit
+    of TF32's last place, the 13 bits below it cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _three_pass(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 backward kernel's products: ``a_hi b_hi + a_hi b_lo + a_lo
+    b_hi`` with ``x_hi = tf32(x)`` and ``x_lo = tf32(x - x_hi)``."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(equation, a_hi, b_hi) + torch.einsum(equation, a_hi, b_lo)
+            + torch.einsum(equation, a_lo, b_hi))
+
+
+def _one_pass(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(equation, _tf32(a), _tf32(b))
+
+
+def _emulated_backward(product, q, k, v, dout, lse, delta, causal):
+    """``flash_backward_reference``'s arithmetic in f32 with its five products
+    taken by ``product``: ``(dq, dk, dv)``, dk and dv summed over each KV group."""
+    batch, k_len, n_kv, head_dim = k.shape
+    group, scale = q.shape[2] // n_kv, head_dim**-0.5
+    keys, values = k.repeat_interleave(group, dim=2), v.repeat_interleave(group, dim=2)
+    p = torch.exp(product("bqhd,bkhd->bhqk", q, keys) * scale - lse[..., None])
+    if causal:
+        p = p.masked_fill(~_visible(q.shape[1], k_len, q.device), 0.0)
+    ds = p * (product("bqhd,bkhd->bhqk", dout, values) - delta[..., None])
+    dq = product("bhqk,bkhd->bqhd", ds, keys) * scale
+    dk = (product("bhqk,bqhd->bkhd", ds, q) * scale).reshape(batch, k_len, n_kv, group, head_dim).sum(dim=3)
+    dv = product("bhqk,bqhd->bkhd", p, dout).reshape(batch, k_len, n_kv, group, head_dim).sum(dim=3)
+    return dq, dk, dv
+
+
+#: the f32 backward's shapes on the card beside CASES: the f32 training parity's (S=256, H=32, Hkv=8, D=128)
+TF32_CASES = {**CASES, "parity-S256-H32": (256, 256, 32, 8, True, None)}
+
+
+@pytest.fixture(scope="module")
+def emulated_backwards():
+    """Per case: the twin's ``(dq, dk, dv)`` and the emulated three-pass and
+    one-pass ones, computed once for the module."""
+    results = {}
+
+    def get(case):
+        if case not in results:
+            q_len, k_len, heads, kv_heads, causal, _ = TF32_CASES[case]
+            q, k, v, w = map(torch.from_numpy, _inputs(q_len, k_len, heads, kv_heads, seed=10))
+            out, lse = flash_forward_reference(q, k, v, causal)
+            delta = torch.einsum("blhd,blhd->bhl", w, out)
+            operands = (q, k, v, w, lse, delta, causal)
+            results[case] = (flash_backward_reference(*operands), _emulated_backward(_three_pass, *operands),
+                             _emulated_backward(_one_pass, *operands))
+        return results[case]
+
+    return get
+
+
+def _outside_card_tolerance(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far ``got`` lies past the card tests' f32 tolerance (atol 1e-4,
+    rtol 1e-5) of ``want`` at its worst element: <= 0 is inside."""
+    return ((got - want).abs() - (1e-4 + 1e-5 * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_three_tf32_passes_stay_within_the_f32_tolerance(emulated_backwards, case):
+    """The f32 backward kernel takes each product in three TF32 passes
+    (3xTF32). Emulated here with ``cvt.rna``'s rounding, its dq, dk and dv
+    stay within the card tests' f32 tolerance of the twin's."""
+    reference, three, _ = emulated_backwards(case)
+    for name, got, want in zip(("dq", "dk", "dv"), three, reference):
+        assert _outside_card_tolerance(got, want) <= 0, name
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_one_tf32_pass_falls_outside_the_f32_tolerance(emulated_backwards, case):
+    """The negative control: one TF32 pass a product (11 significant bits)
+    puts dq, dk or dv outside that tolerance, so the test above can tell the
+    two apart."""
+    reference, _, one = emulated_backwards(case)
+    assert max(_outside_card_tolerance(got, want) for got, want in zip(one, reference)) > 0
 
 
 def test_backward_twins_round_p_and_ds_to_the_operand_dtype():
@@ -307,11 +394,11 @@ def _card_inputs(case: str, dtype: torch.dtype, seed: int = 3):
 @pytest.mark.parametrize("case", ["cross-length-causal", "blocks-64-L192", "ragged-L40-D64"])
 def test_kernels_match_twins_on_card(card, dtype, case):
     """The forward and the backward against their twins: float32 through the
-    exact-f32 forward, dq and dk/dv kernels, bfloat16 through the tensor-core
-    forward and the fused backward."""
+    f32 forward and the fused f32 backward (3xTF32), bfloat16 through the
+    tensor-core forward and the fused bf16 backward."""
     dtype = getattr(torch, dtype)
     q, k, v, w, causal = _card_inputs(case, dtype)
-    counted = (flash_forward, flash_forward_f32, flash_backward, flash_backward_dq, flash_backward_dkv)
+    counted = (flash_forward, flash_forward_f32, flash_backward, flash_backward_f32)
     counts = [fn.launches for fn in counted]
     out, lse = flash_forward(q, k, v, causal)
     ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
@@ -319,9 +406,9 @@ def test_kernels_match_twins_on_card(card, dtype, case):
     dq, dk, dv = flash_backward(q, k, v, w, ref_lse, delta, causal)
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
-    assert [fn.launches - c for fn, c in zip(counted, counts)] == [bf16, not bf16, bf16, not bf16, not bf16]
+    assert [fn.launches - c for fn, c in zip(counted, counts)] == [bf16, not bf16, bf16, not bf16]
     ref_dq, ref_dk, ref_dv = flash_backward_reference(q, k, v, w, ref_lse, delta, causal)
-    # f32: both compute in f32, in other orders; bf16: outputs round to 8 mantissa bits
+    # f32: f32 sums in other orders (3xTF32 products: about 2**-22 of each); bf16: outputs round to 8 bits
     atol, rtol = (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
     for got, want in ((out, ref_out), (lse, ref_lse), (dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == want.dtype
@@ -346,27 +433,100 @@ def test_fused_backward_matches_twin_and_is_deterministic_on_card(card, case):
         assert torch.equal(a, b), name
 
 
+def _one_f32_backward(q, k, v, w, lse, delta, causal):
+    """``flash_backward`` once more under the profiler and the sync debugger:
+    ``(dq, dk, dv)`` and the names of the device kernels the call ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host synchronisation in the call would raise
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = flash_backward(q, k, v, w, lse, delta, causal)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA") and e.device_time > 0]
+    return got, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*CASES, "ragged-L40-D64"])
+def test_f32_backward_matches_twin_and_is_deterministic_on_card(card, case):
+    """The fused f32 kernel against ``flash_backward_reference`` at the f32
+    tolerance; a second call gives the same bits (dq's adds are ordered),
+    runs exactly one launch of the kernel (beside the allocations' fills and
+    the group sums) and never synchronises the host."""
+    q, k, v, w, causal = _card_inputs(case, torch.float32, seed=6)
+    out, lse = flash_forward_reference(q, k, v, causal)
+    delta = torch.einsum("blhd,blhd->bhl", w, out)
+    counts = flash_backward.launches, flash_backward_f32.launches
+    got = flash_backward(q, k, v, w, lse, delta, causal)
+    again, names = _one_f32_backward(q, k, v, w, lse, delta, causal)
+    assert (flash_backward.launches - counts[0], flash_backward_f32.launches - counts[1]) == (0, 2)
+    assert sum("flash_backward_f32_kernel" in name for name in names) == 1, names
+    reference = flash_backward_reference(q, k, v, w, lse, delta, causal)
+    for name, a, b, want in zip(("dq", "dk", "dv"), got, again, reference):
+        assert a.dtype == torch.float32 and a.shape == want.shape, name
+        torch.testing.assert_close(a, want, atol=1e-4, rtol=1e-5, msg=name)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,misaligned", [(7, False), (36, False), (100, False), (128, True), (20, True)])
+def test_f32_backward_takes_any_head_dim_and_alignment_on_card(card, head_dim, misaligned):
+    """Head dims that are not multiples of 8 (or of 4: plain loads in place of
+    the 16-byte copies), tensors that start off a 16-byte boundary, and
+    ``Lq=256, Lk=192`` causal, where query rows 0-63 see no key (their dq is
+    0): all at the twin's f32 tolerance."""
+    arrays = _inputs(256, 192, 4, 2, seed=12, head_dim=head_dim)
+
+    def on_card(a):
+        if not misaligned:
+            return torch.from_numpy(a).cuda()
+        flat = torch.empty(a.size + 1, device="cuda")[1:]  # 4 bytes past the allocation's start
+        return flat.copy_(torch.from_numpy(a).cuda().flatten()).view(a.shape)
+
+    q, k, v, w = map(on_card, arrays)
+    assert not misaligned or q.data_ptr() % 16
+    out, lse = flash_forward_reference(q, k, v, True)
+    delta = torch.einsum("blhd,blhd->bhl", w, out)
+    before = flash_backward_f32.launches
+    got = flash_backward(q, k, v, w, lse, delta, True)
+    torch.cuda.synchronize()
+    assert flash_backward_f32.launches == before + 1
+    for name, a, want in zip(("dq", "dk", "dv"), got, flash_backward_reference(q, k, v, w, lse, delta, True)):
+        torch.testing.assert_close(a, want, atol=1e-4, rtol=1e-5, msg=name)
+    assert not got[0][:, :64].any()
+
+
 @pytest.mark.cuda
 def test_fused_backward_raises_on_head_dims_it_cannot_take(card):
     """bf16 with ``D % 16 != 0`` (or ``D > 128``) raises before any launch;
-    it never falls back to a twin or to the f32 kernels."""
-    before = [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)]
+    it never falls back to a twin or to the f32 kernel."""
+    before = [fn.launches for fn in (flash_backward, flash_backward_f32)]
     for head_dim in (40, 136):
         q = torch.randn(1, 64, 2, head_dim, device="cuda").bfloat16()
         lse = torch.zeros(1, 2, 64, device="cuda")
         with pytest.raises(ValueError, match="head_dim"):
             flash_backward(q, q, q, q, lse, lse, True)
-    assert [fn.launches for fn in (flash_backward, flash_backward_dq, flash_backward_dkv)] == before
+    assert [fn.launches for fn in (flash_backward, flash_backward_f32)] == before
 
 
 @pytest.mark.cuda
 def test_f32_kernels_refuse_bf16_on_card(card):
-    """The exact-f32 dq and dk/dv kernels take float32 only: bf16 is the fused kernel's."""
+    """The fused f32 backward takes float32 only (bf16 is the fused bf16
+    kernel's): bf16 raises ``TypeError`` before any launch, as does a head
+    dim past 128 ``ValueError``."""
+    before = flash_backward.launches, flash_backward_f32.launches
     q = torch.randn(1, 64, 2, 64, device="cuda").bfloat16()
     lse = torch.zeros(1, 2, 64, device="cuda")
-    for fn in (flash_backward_dq, flash_backward_dkv):
-        with pytest.raises(TypeError, match="float32"):
-            fn(q, q, q, q, lse, lse, True)
+    with pytest.raises(TypeError, match="float32"):
+        flash_backward_f32(q, q, q, q, lse, lse, True)
+    q = torch.randn(1, 64, 2, 136, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_backward_f32(q, q, q, q, lse, lse, True)
+    assert (flash_backward.launches, flash_backward_f32.launches) == before
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 // PTX helpers shared by the port's Hopper (sm_90a) kernels: shared-memory
 // addresses, mbarriers, 1D bulk copies and TMA tensor copies, the wgmma
 // fences, 128-byte-swizzle matrix descriptors and the wgmma instructions
-// (bf16 in, f32 accumulators), mma.sync m16n8k16 and ldmatrix,
+// (bf16 in, f32 accumulators), mma.sync m16n8k16 and ldmatrix, mma.sync
+// m16n8k8 in TF32 with the 3xTF32 split, cp.async copies,
 // the packing of two f32 into a bf16x2 register, the host-side lookup of
 // libcuda's cuTensorMapEncodeTiled and the flash kernels' 4D head maps.
 //
@@ -132,6 +133,62 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, in a .b32 register with the low 13 bits
+// clear: what cvt.rna.tf32.f32 computes, on the bits (half a TF32 unit added to the magnitude, the rest cleared).
+// sm_90 has no single instruction for that cvt (it compiles to a compare, a select and integer operations); this
+// is two. Finite values and infinities round as the cvt does (past the largest TF32 value to infinity)
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+// x as a TF32 pair for 3xTF32 products: hi = tf32_rna(x), lo = tf32_rna(x - hi) (x - hi is exact in f32);
+// hi + lo is x to within about 2**-22 of |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// mma.sync.m16n8k8 (tf32 in, f32 accumulators in registers), D += A . B: A row-major 16 x 8 in four registers
+// (a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) with g = lane / 4, t = lane % 4), B
+// column-major 8 x 8 in two (b0 (row t, col g), b1 (t + 4, g)), D 16 x 8 in four (rows g and g + 8, columns
+// 2t and 2t + 1), as mma_16816's accumulators
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A . B to near-f32 accuracy in three TF32 passes (3xTF32): a_lo b_hi + a_hi b_lo + a_hi b_hi, operands split
+// by split_tf32 (the a_lo b_lo term, about 2**-22 of the product, is dropped)
+__device__ __forceinline__ void mma_1688_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                                uint32_t b0_hi, uint32_t b1_hi, uint32_t b0_lo, uint32_t b1_lo) {
+  mma_1688_tf32(d, a_lo, b0_hi, b1_hi);
+  mma_1688_tf32(d, a_hi, b0_lo, b1_lo);
+  mma_1688_tf32(d, a_hi, b0_hi, b1_hi);
+}
+
+// 16 bytes global -> shared without the registers (cp.async, L2 only); src_bytes < 16 zero-fills the rest, 0 reads
+// nothing. Both addresses 16-byte aligned. Completes at cp_async_wait of the group it was committed in
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared as cp_async_16 (4-byte aligned addresses; src_bytes 0 writes 0)
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// waits until at most N of this thread's committed cp.async groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8 x 8 b16 matrices from shared memory, transposed: lanes 8j..8j+7 give the row addresses of matrix j,

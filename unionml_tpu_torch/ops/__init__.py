@@ -4,10 +4,9 @@ from unionml_tpu_torch.ops.attention import dot_product_attention, multihead_att
 from unionml_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_backward,
-    flash_backward_dkv,
     flash_backward_dkv_reference,
-    flash_backward_dq,
     flash_backward_dq_reference,
+    flash_backward_f32,
     flash_backward_reference,
     flash_forward,
     flash_forward_f32,
@@ -32,10 +31,9 @@ __all__ = [
     "dot_product_attention",
     "flash_attention",
     "flash_backward",
-    "flash_backward_dkv",
     "flash_backward_dkv_reference",
-    "flash_backward_dq",
     "flash_backward_dq_reference",
+    "flash_backward_f32",
     "flash_backward_reference",
     "flash_forward",
     "flash_forward_f32",

@@ -4,11 +4,12 @@ Counterpart of ``unionml_tpu/ops/flash_attention.py``. There the forward and
 the two backward kernels are Pallas TPU kernels; here they are hand-written
 Hopper kernels, routed by dtype. bf16 runs on the tensor cores:
 ``csrc/flash_forward.cu`` (the forward) and ``csrc/flash_backward.cu`` (the
-fused backward: dq, dk and dv in one launch). float32 runs on the exact-f32
-kernels of ``csrc/flash_attention.cu`` (the forward, and the dq and dk/dv
-kernels). The ``[L, L]`` score matrix never reaches device memory in either
-direction: the forward saves the per-row logsumexp and the backward
-recomputes ``P = exp(S - lse)`` tile by tile.
+fused backward: dq, dk and dv in one launch). float32 runs the f32 forward
+of ``csrc/flash_attention.cu`` (CUDA cores) and the fused f32 backward of
+``csrc/flash_backward_f32.cu`` (tensor cores, each product in three TF32
+passes to near-f32 accuracy). The ``[L, L]`` score matrix never reaches
+device memory in either direction: the forward saves the per-row logsumexp
+and the backward recomputes ``P = exp(S - lse)`` tile by tile.
 
 :func:`flash_attention` is a :class:`torch.autograd.Function` whose forward
 and backward make the same two calls on every device: :func:`flash_forward`
@@ -16,19 +17,22 @@ and :func:`flash_backward`. Each launches a kernel for CUDA tensors (or
 raises) and takes its plain twin (``*_reference``, dense tensors, f32) only
 for tensors on the CPU. :func:`flash_forward` routes float32 to
 :func:`flash_forward_f32`; :func:`flash_backward` routes float32 to
-:func:`flash_backward_dq` and :func:`flash_backward_dkv`. ``delta =
-rowsum(dO * O)`` is one plain f32 reduction outside the kernels, as in the JAX
-code. The twins round to the operands' dtype where the JAX kernels do (a
-no-op in f32): the forward's unnormalised ``P`` before ``P.V`` (``l`` sums
-the f32 ``P``, and the product is divided by ``l`` at the end), the
-backward's ``P`` and ``dS`` before their second products.
+:func:`flash_backward_f32`. ``delta = rowsum(dO * O)`` is one plain f32
+reduction outside the kernels, as in the JAX code. The twins round to the
+operands' dtype where the JAX kernels do (a no-op in f32): the forward's
+unnormalised ``P`` before ``P.V`` (``l`` sums the f32 ``P``, and the product
+is divided by ``l`` at the end), the backward's ``P`` and ``dS`` before their
+second products. ``flash_backward_dq_reference`` and
+``flash_backward_dkv_reference`` are the twins of the JAX package's two
+backward kernels, which the fused kernels replace.
 
 Shapes: ``q: [B, Lq, H, D]``, ``k/v: [B, Lk, Hkv, D]`` with ``H % Hkv == 0``.
 The API's ``blocks`` only decide which lengths are legal, as in the JAX
 package (``min(block, L)`` must tile ``L``); the kernels keep their own tiles
 and mask ragged ones. The bf16 kernels take ``D % 16 == 0`` and ``D <= 128``
-and 16-byte aligned tensors, and raise on anything else. A query row that
-sees no key (causal with ``Lq > Lk``) gives 0 and lse ``1e30`` — the contract
+and 16-byte aligned tensors, and raise on anything else; the f32 kernels take
+any ``D <= 128``. A query row that sees no key (causal with ``Lq > Lk``)
+gives 0 and lse ``1e30`` — the contract
 of :func:`~unionml_tpu_torch.ops.attention.dot_product_attention`. The Pallas
 forward breaks it when ``Lk - Lq`` is not a multiple of ``block_q``: its
 masked scores are ``finfo.min``, not ``-inf``, so such a row that shares a
@@ -46,11 +50,10 @@ from torch.autograd.function import once_differentiable
 __all__ = [
     "flash_attention",
     "flash_backward",
-    "flash_backward_reference",
-    "flash_backward_dkv",
     "flash_backward_dkv_reference",
-    "flash_backward_dq",
     "flash_backward_dq_reference",
+    "flash_backward_f32",
+    "flash_backward_reference",
     "flash_forward",
     "flash_forward_f32",
     "flash_forward_reference",
@@ -60,7 +63,7 @@ DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 MAX_HEAD_DIM = 128  # the kernels' register tiles hold up to 128 head-dim columns
 _BF16_ALIGN = 16  # bytes: the bf16 kernels' TMA copies need aligned tensors
-_FUSED_QUERY_TILE = 64  # query rows of a tile of the fused backward (its dq counters are per tile)
+_FUSED_QUERY_TILE = 64  # query rows of a tile of the fused backwards (their dq counters are per tile)
 _BIG = 1e30  # lse of a row that sees no key: exp(S - BIG) == 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -174,9 +177,8 @@ def flash_backward_reference(
 _ENTRIES = {
     "flash_attention_forward": ("flash_attention", 5, True),
     "flash_attention_forward_bf16": ("flash_forward", 5, False),
-    "flash_attention_backward_dq": ("flash_attention", 7, True),
-    "flash_attention_backward_dkv": ("flash_attention", 8, True),
     "flash_attention_backward_fused": ("flash_backward", 11, False),
+    "flash_attention_backward_f32": ("flash_backward_f32", 10, False),
 }
 
 
@@ -283,74 +285,73 @@ def flash_forward_f32(
     return out, lse
 
 
-def flash_backward_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
-    """``dq``: the exact-f32 dq kernel for CUDA tensors, its twin on the CPU."""
+def _group_sum(heads: torch.Tensor, n_kv: int, dtype: torch.dtype) -> torch.Tensor:
+    """``[B, L, H, D]`` f32 at query-head resolution summed over each KV group
+    (one plain f32 reduction), then cast to ``dtype``."""
+    batch, length, n_heads, head_dim = heads.shape
+    return heads.view(batch, length, n_kv, n_heads // n_kv, head_dim).sum(dim=3).to(dtype)
+
+
+def _fused_outputs(q: torch.Tensor, k: torch.Tensor, causal: bool, counters_per_tile: int):
+    """The fused kernels' outputs and scratch: the dq counters (zeroed,
+    ``counters_per_tile`` a query tile of a head), dq (zeroed where query
+    tiles that see no key are never written) and dk, dv at query-head
+    resolution in f32."""
+    batch, q_len, n_heads, head_dim = q.shape
+    k_len = k.shape[1]
+    n_q = -(-q_len // _FUSED_QUERY_TILE)
+    dq_count = torch.zeros(batch * n_heads * n_q * counters_per_tile, dtype=torch.int32, device=q.device)
+    dq = torch.zeros_like(q) if causal and q_len > k_len else torch.empty_like(q)
+    dk_heads = torch.empty(batch, k_len, n_heads, head_dim, dtype=torch.float32, device=q.device)
+    return dq_count, dq, dk_heads, torch.empty_like(dk_heads)
+
+
+def flash_backward_f32(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``, dk and dv at KV-head resolution: the fused f32
+    kernel (3xTF32 tensor-core products, one launch) for CUDA tensors, which
+    writes dk and dv per query head for one plain f32 group sum here; the
+    twin on the CPU."""
     if _device_of(q) == "cpu":
-        return flash_backward_dq_reference(q, k, v, dout, lse, delta, causal)
+        return flash_backward_reference(q, k, v, dout, lse, delta, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     _check_kernel_inputs(q, k, v, dout, lse, delta)
-    _check_f32(q, "dq")
-    dq = torch.empty_like(q)
-    _launch("flash_attention_backward_dq", flash_backward_dq, q, k, q, k, v, dout, lse, delta, dq, causal=causal)
-    return dq
-
-
-def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dk, dv)`` at KV-head resolution: the exact-f32 dk/dv kernel for
-    CUDA tensors, its twin on the CPU."""
-    if _device_of(q) == "cpu":
-        return flash_backward_dkv_reference(q, k, v, dout, lse, delta, causal)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    _check_kernel_inputs(q, k, v, dout, lse, delta)
-    _check_f32(q, "dk/dv")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check_f32(q, "f32 backward")
+    dq_count, dq, dk_heads, dv_heads = _fused_outputs(q, k, causal, counters_per_tile=1)
     _launch(
-        "flash_attention_backward_dkv", flash_backward_dkv, q, k, q, k, v, dout, lse, delta, dk, dv, causal=causal
+        "flash_attention_backward_f32", flash_backward_f32, q, k, q, k, v, dout, lse, delta, dq_count, dq,
+        dk_heads, dv_heads, causal=causal,
     )
-    return dk, dv
+    return dq, _group_sum(dk_heads, k.shape[2], k.dtype), _group_sum(dv_heads, k.shape[2], v.dtype)
 
 
 def flash_backward(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``, dk and dv at KV-head resolution. CPU tensors take the
-    twin; CUDA float32 the exact-f32 dq and dk/dv kernels; CUDA bfloat16 the
-    fused kernel (``D % 16 == 0``, ``D <= 128``), which writes dk and dv per
+    twin; CUDA float32 :func:`flash_backward_f32`; CUDA bfloat16 the fused
+    bf16 kernel (``D % 16 == 0``, ``D <= 128``), which writes dk and dv per
     query head in f32 for one plain f32 group sum here, then the cast."""
     if _device_of(q) == "cpu":
         return flash_backward_reference(q, k, v, dout, lse, delta, causal)
     if q.dtype == torch.float32:
-        return (flash_backward_dq(q, k, v, dout, lse, delta, causal),
-                *flash_backward_dkv(q, k, v, dout, lse, delta, causal))
+        return flash_backward_f32(q, k, v, dout, lse, delta, causal)
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     _check_kernel_inputs(q, k, v, dout, lse, delta)
     _check_bf16("fused backward", q, k, v, dout)
-    batch, q_len, n_heads, head_dim = q.shape
-    k_len, n_kv = k.shape[1], k.shape[2]
-    n_q = -(-q_len // _FUSED_QUERY_TILE)
-    dq_sum = torch.empty(batch, n_heads, q_len, head_dim, dtype=torch.float32, device=q.device)
-    dq_count = torch.zeros(batch * n_heads * n_q * 2, dtype=torch.int32, device=q.device)
-    # query tiles that see no key (causal, Lq > Lk) are never written
-    dq = torch.zeros_like(q) if causal and q_len > k_len else torch.empty_like(q)
-    dk_heads = torch.empty(batch, k_len, n_heads, head_dim, dtype=torch.float32, device=q.device)
-    dv_heads = torch.empty_like(dk_heads)
+    dq_count, dq, dk_heads, dv_heads = _fused_outputs(q, k, causal, counters_per_tile=2)  # one a warpgroup
+    dq_sum = torch.empty(q.shape[0], q.shape[2], q.shape[1], q.shape[3], dtype=torch.float32, device=q.device)
     _launch(
         "flash_attention_backward_fused", flash_backward, q, k, q, k, v, dout, lse, delta, dq_sum, dq_count, dq,
         dk_heads, dv_heads, causal=causal,
     )
-    group = n_heads // n_kv
-    dk = dk_heads.view(batch, k_len, n_kv, group, head_dim).sum(dim=3).to(k.dtype)
-    dv = dv_heads.view(batch, k_len, n_kv, group, head_dim).sum(dim=3).to(v.dtype)
-    return dq, dk, dv
+    return dq, _group_sum(dk_heads, k.shape[2], k.dtype), _group_sum(dv_heads, k.shape[2], v.dtype)
 
 
 #: kernel launches since the count was last reset (CPU calls never count)
 flash_forward.launches = 0
 flash_forward_f32.launches = 0
 flash_backward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+flash_backward_f32.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
