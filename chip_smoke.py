@@ -13,9 +13,10 @@ Phases (no phase catches a failure; any fault exits non-zero):
    edges, ragged, the full table, past it) for D = 16, 32, 64 and 128, two
    calls bitwise equal; the flash kernels at full width
    causal, non-causal, cross-length causal and custom blocks: in float32 the
-   f32 forward and the fused f32 backward (3xTF32), in bfloat16 the
-   tensor-core forward and the fused backward (also at D=64, ragged); each
-   bitwise equal on a second call; the
+   f32 forward and the fused f32 backward (3xTF32; also at D=50 and with
+   tensors off a 16-byte boundary), in bfloat16 the tensor-core forward and
+   the fused backward (also at D=64, ragged); each bitwise equal on a second
+   call; the
    int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
    130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
    kernel, twin, the library yardstick and the
@@ -91,8 +92,12 @@ FLASH_CASES = (
     ("cross-length causal Lq=256 Lk=512", 256, 512, True, None),
     ("blocks=(64,64) causal L=192", 192, 192, True, (64, 64)),
 )
-#: (label, Lq, Lk, causal, D) held in bfloat16 only, beside FLASH_CASES: a ragged D=64 case for the bf16 kernels
-FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64),)
+#: (label, Lq, Lk, causal, D, misaligned) held beside FLASH_CASES: in bfloat16 a ragged D=64 case for the bf16
+#: kernels; in float32 a head dim that is not a multiple of 4 (4-byte copies) and tensors that start 4 bytes past
+#: a 16-byte boundary
+FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64, False),)
+F32_EXTRA_CASES = (("ragged D=50 causal L=1000", 1000, 1000, True, 50, False),
+                   ("misaligned causal L=1000", 1000, 1000, True, 128, True))
 #: products of 2 * Lq * Lk * D multiply-adds (per head, visible pairs only) each kernel computes
 FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_forward_f32": 2, "flash_backward_f32": 5}
 FLASH_REPLACES = {
@@ -104,7 +109,7 @@ FLASH_REPLACES = {
 FLASH_SOURCES = {
     "flash_forward": "unionml_tpu_torch/csrc/flash_forward.cu",
     "flash_backward": "unionml_tpu_torch/csrc/flash_backward.cu",
-    "flash_forward_f32": "unionml_tpu_torch/csrc/flash_attention.cu",
+    "flash_forward_f32": "unionml_tpu_torch/csrc/flash_forward_f32.cu",
     "flash_backward_f32": "unionml_tpu_torch/csrc/flash_backward_f32.cu",
 }
 #: bf16 training parity: relative loss difference between the kernel and plain paths. Both run in bf16
@@ -479,22 +484,27 @@ def flash_kernel_phase() -> dict:
         flash_forward_reference,
     )
 
-    def inputs(q_len, k_len, dtype, seed, head_dim=128):
+    def inputs(q_len, k_len, dtype, seed, head_dim=128, misaligned=False):
         g = torch.Generator(device="cuda").manual_seed(seed)
         def make(length, heads):
-            return torch.randn(1, length, heads, head_dim, device="cuda", generator=g).to(dtype)
+            x = torch.randn(1, length, heads, head_dim, device="cuda", generator=g).to(dtype)
+            if not misaligned:
+                return x
+            flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:]  # 4 bytes past the allocation
+            return flat.copy_(x.flatten()).view(x.shape)
 
         return make(q_len, 32), make(k_len, 8), make(k_len, 8), make(q_len, 32)
 
     worst = {name: 0.0 for name in FLASH_PRODUCTS}
-    cases = [(label, q_len, k_len, causal, 128) for label, q_len, k_len, causal, _ in FLASH_CASES]
+    cases = [(label, q_len, k_len, causal, 128, False) for label, q_len, k_len, causal, _ in FLASH_CASES]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = FLASH_TOLERANCE[str(dtype)]
         bf16 = dtype == torch.bfloat16
-        extra = list(FUSED_EXTRA_CASES) if bf16 else []
+        extra = list(FUSED_EXTRA_CASES if bf16 else F32_EXTRA_CASES)
         forward, backward = ("flash_forward", "flash_backward") if bf16 else ("flash_forward_f32", "flash_backward_f32")
-        for seed, (label, q_len, k_len, causal, head_dim) in enumerate(cases + extra):
-            q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim)
+        for seed, (label, q_len, k_len, causal, head_dim, misaligned) in enumerate(cases + extra):
+            q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim, misaligned)
+            require(not misaligned or q.data_ptr() % 16, f"{label}: the tensors are 16-byte aligned")
             out, lse = flash_forward(q, k, v, causal)
             out_again, lse_again = flash_forward(q, k, v, causal)
             ref_out, ref_lse = flash_forward_reference(q, k, v, causal)

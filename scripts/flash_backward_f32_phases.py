@@ -169,7 +169,7 @@ def main() -> int:
     fa = importlib.import_module("unionml_tpu_torch.ops.flash_attention")  # the package re-exports the function
     card = chip_smoke.card_line()
     print(card, flush=True)
-    _build.build_all(["flash_backward_f32", "flash_attention"])
+    _build.build_all(["flash_backward_f32", "flash_forward_f32"])
     out_dir = _build.BUILD_DIR / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = (_build.CSRC / "flash_backward_f32.cu").read_text()

@@ -298,6 +298,58 @@ def test_one_tf32_pass_falls_outside_the_f32_tolerance(emulated_backwards, case)
     assert max(_outside_card_tolerance(got, want) for got, want in zip(one, reference)) > 0
 
 
+def _emulated_forward(product, q, k, v, causal):
+    """``flash_forward_reference``'s arithmetic in f32 with its two products
+    taken by ``product``: ``(out, lse)``."""
+    group, scale = q.shape[2] // k.shape[2], q.shape[-1] ** -0.5
+    keys, values = k.repeat_interleave(group, dim=2), v.repeat_interleave(group, dim=2)
+    scores = product("bqhd,bkhd->bhqk", q, keys) * scale
+    if causal:
+        scores = scores.masked_fill(~_visible(q.shape[1], k.shape[1], q.device), float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = product("bhqk,bkhd->bqhd", p, values) / torch.where(l == 0, torch.ones_like(l), l).permute(0, 2, 1, 3)
+    lse = torch.where(l == 0, torch.full_like(l, 1e30), m + torch.log(l))[..., 0]
+    return out, lse
+
+
+@pytest.fixture(scope="module")
+def emulated_forwards():
+    """Per case: the twin's ``(out, lse)`` and the emulated three-pass and
+    one-pass ones, computed once for the module."""
+    results = {}
+
+    def get(case):
+        if case not in results:
+            q_len, k_len, heads, kv_heads, causal, _ = TF32_CASES[case]
+            q, k, v, _ = map(torch.from_numpy, _inputs(q_len, k_len, heads, kv_heads, seed=10))
+            results[case] = (flash_forward_reference(q, k, v, causal), _emulated_forward(_three_pass, q, k, v, causal),
+                             _emulated_forward(_one_pass, q, k, v, causal))
+        return results[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_three_tf32_passes_keep_the_forward_within_the_f32_tolerance(emulated_forwards, case):
+    """The f32 forward kernel takes S = Q.K^T and P.V in three TF32 passes
+    each (3xTF32). Emulated here with ``cvt.rna``'s rounding, its out and lse
+    stay within the card tests' f32 tolerance of the twin's."""
+    reference, three, _ = emulated_forwards(case)
+    for name, got, want in zip(("out", "lse"), three, reference):
+        assert _outside_card_tolerance(got, want) <= 0, name
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_one_tf32_pass_puts_the_forward_outside_the_f32_tolerance(emulated_forwards, case):
+    """The negative control: one TF32 pass a product puts out or lse outside
+    that tolerance, so the test above can tell the two apart."""
+    reference, _, one = emulated_forwards(case)
+    assert max(_outside_card_tolerance(got, want) for got, want in zip(one, reference)) > 0
+
+
 def test_backward_twins_round_p_and_ds_to_the_operand_dtype():
     """In bf16 the twins round P and dS to bf16 before the second products,
     as the JAX kernels do (``ds.astype(k.dtype)``, ``p.astype(do.dtype)``):
@@ -381,9 +433,16 @@ def card():
         pytest.skip("needs a CUDA card with sm_90 (the kernels have no CPU mode)")
 
 
+#: card-only cases beside CASES: (q_len, k_len, heads, kv_heads, causal, blocks) and the head dim. The f32
+#: forward takes 128-row blocks where their grid fills the card (wide-L1000-D100), else 64-row blocks
+CARD_CASES = {
+    "ragged-L40-D64": ((40, 40, 4, 1, True, None), 64),
+    "wide-L1000-D100": ((1000, 1000, 32, 8, True, None), 100),
+}
+
+
 def _card_inputs(case: str, dtype: torch.dtype, seed: int = 3):
-    q_len, k_len, heads, kv_heads, causal, _ = CASES.get(case, (40, 40, 4, 1, True, None))
-    head_dim = 64 if case.endswith("D64") else 128
+    (q_len, k_len, heads, kv_heads, causal, _), head_dim = CARD_CASES.get(case, (CASES.get(case), 128))
     arrays = _inputs(q_len, k_len, heads, kv_heads, seed, head_dim)
     q, k, v, w = (torch.from_numpy(a).cuda().to(dtype) for a in arrays)
     return q, k, v, w, causal
@@ -433,16 +492,16 @@ def test_fused_backward_matches_twin_and_is_deterministic_on_card(card, case):
         assert torch.equal(a, b), name
 
 
-def _one_f32_backward(q, k, v, w, lse, delta, causal):
-    """``flash_backward`` once more under the profiler and the sync debugger:
-    ``(dq, dk, dv)`` and the names of the device kernels the call ran."""
+def _one_call(fn, *args):
+    """``fn(*args)`` once more under the profiler and the sync debugger: its
+    result and the names of the device kernels the call ran."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # a host synchronisation in the call would raise
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            got = flash_backward(q, k, v, w, lse, delta, causal)
+            got = fn(*args)
             torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -462,7 +521,7 @@ def test_f32_backward_matches_twin_and_is_deterministic_on_card(card, case):
     delta = torch.einsum("blhd,blhd->bhl", w, out)
     counts = flash_backward.launches, flash_backward_f32.launches
     got = flash_backward(q, k, v, w, lse, delta, causal)
-    again, names = _one_f32_backward(q, k, v, w, lse, delta, causal)
+    again, names = _one_call(flash_backward, q, k, v, w, lse, delta, causal)
     assert (flash_backward.launches - counts[0], flash_backward_f32.launches - counts[1]) == (0, 2)
     assert sum("flash_backward_f32_kernel" in name for name in names) == 1, names
     reference = flash_backward_reference(q, k, v, w, lse, delta, causal)
@@ -470,6 +529,12 @@ def test_f32_backward_matches_twin_and_is_deterministic_on_card(card, case):
         assert a.dtype == torch.float32 and a.shape == want.shape, name
         torch.testing.assert_close(a, want, atol=1e-4, rtol=1e-5, msg=name)
         assert torch.equal(a, b), name
+
+
+def _misaligned_on_card(a: np.ndarray) -> torch.Tensor:
+    """``a`` on the card, starting 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(a.size + 1, device="cuda")[1:]
+    return flat.copy_(torch.from_numpy(a).cuda().flatten()).view(a.shape)
 
 
 @pytest.mark.cuda
@@ -480,14 +545,7 @@ def test_f32_backward_takes_any_head_dim_and_alignment_on_card(card, head_dim, m
     ``Lq=256, Lk=192`` causal, where query rows 0-63 see no key (their dq is
     0): all at the twin's f32 tolerance."""
     arrays = _inputs(256, 192, 4, 2, seed=12, head_dim=head_dim)
-
-    def on_card(a):
-        if not misaligned:
-            return torch.from_numpy(a).cuda()
-        flat = torch.empty(a.size + 1, device="cuda")[1:]  # 4 bytes past the allocation's start
-        return flat.copy_(torch.from_numpy(a).cuda().flatten()).view(a.shape)
-
-    q, k, v, w = map(on_card, arrays)
+    q, k, v, w = (_misaligned_on_card(a) if misaligned else torch.from_numpy(a).cuda() for a in arrays)
     assert not misaligned or q.data_ptr() % 16
     out, lse = flash_forward_reference(q, k, v, True)
     delta = torch.einsum("blhd,blhd->bhl", w, out)
@@ -498,6 +556,47 @@ def test_f32_backward_takes_any_head_dim_and_alignment_on_card(card, head_dim, m
     for name, a, want in zip(("dq", "dk", "dv"), got, flash_backward_reference(q, k, v, w, lse, delta, True)):
         torch.testing.assert_close(a, want, atol=1e-4, rtol=1e-5, msg=name)
     assert not got[0][:, :64].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*CASES, *CARD_CASES])
+def test_f32_forward_matches_twin_and_is_deterministic_on_card(card, case):
+    """The f32 forward (3xTF32 tensor-core products) against
+    ``flash_forward_reference`` at the f32 tolerance; a second call gives the
+    same bits, runs exactly one launch of the kernel and never synchronises
+    the host; only ``flash_forward_f32`` counts the launches."""
+    q, k, v, _, causal = _card_inputs(case, torch.float32, seed=13)
+    counts = flash_forward.launches, flash_forward_f32.launches
+    out, lse = flash_forward(q, k, v, causal)
+    (again, again_lse), names = _one_call(flash_forward_f32, q, k, v, causal)
+    assert (flash_forward.launches - counts[0], flash_forward_f32.launches - counts[1]) == (0, 2)
+    assert sum("flash_forward_f32_kernel" in name for name in names) == 1, names
+    ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == ref_lse.shape
+    torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("head_dim", [7, 20, 36, 64, 100, 128])
+def test_f32_forward_takes_any_head_dim_and_alignment_on_card(card, head_dim, misaligned):
+    """Head dims that are not multiples of 16 (or of 4: 4-byte copies in
+    place of the 16-byte ones), tensors that start off a 16-byte boundary,
+    and ``Lq=256, Lk=192`` causal, where query rows 0-63 see no key (they
+    give 0 and lse ``1e30``): all at the twin's f32 tolerance."""
+    arrays = _inputs(256, 192, 4, 2, seed=14, head_dim=head_dim)[:3]
+    q, k, v = (_misaligned_on_card(a) if misaligned else torch.from_numpy(a).cuda() for a in arrays)
+    assert not misaligned or q.data_ptr() % 16
+    before = flash_forward_f32.launches
+    out, lse = flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert flash_forward_f32.launches == before + 1
+    ref_out, ref_lse = flash_forward_reference(q, k, v, True)
+    torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    assert not out[:, :64].any() and (lse[:, :, :64] == 1e30).all()
 
 
 @pytest.mark.cuda
@@ -515,25 +614,30 @@ def test_fused_backward_raises_on_head_dims_it_cannot_take(card):
 
 @pytest.mark.cuda
 def test_f32_kernels_refuse_bf16_on_card(card):
-    """The fused f32 backward takes float32 only (bf16 is the fused bf16
-    kernel's): bf16 raises ``TypeError`` before any launch, as does a head
-    dim past 128 ``ValueError``."""
-    before = flash_backward.launches, flash_backward_f32.launches
+    """The f32 forward and the fused f32 backward take float32 only (bf16 is
+    the bf16 kernels'): bf16 raises ``TypeError`` before any launch, as does a
+    head dim past 128 ``ValueError``."""
+    counted = (flash_forward, flash_forward_f32, flash_backward, flash_backward_f32)
+    before = [fn.launches for fn in counted]
     q = torch.randn(1, 64, 2, 64, device="cuda").bfloat16()
     lse = torch.zeros(1, 2, 64, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        flash_forward_f32(q, q, q, True)
     with pytest.raises(TypeError, match="float32"):
         flash_backward_f32(q, q, q, q, lse, lse, True)
     q = torch.randn(1, 64, 2, 136, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
+        flash_forward_f32(q, q, q, True)
+    with pytest.raises(ValueError, match="head_dim"):
         flash_backward_f32(q, q, q, q, lse, lse, True)
-    assert (flash_backward.launches, flash_backward_f32.launches) == before
+    assert [fn.launches for fn in counted] == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [*CASES, "ragged-L40-D64"])
 def test_bf16_forward_matches_twin_and_is_deterministic_on_card(card, case):
     """The tensor-core bf16 forward against ``flash_forward_reference``, and
-    two calls bitwise equal; the exact-f32 forward is not launched."""
+    two calls bitwise equal; the f32 forward is not launched."""
     q, k, v, _, causal = _card_inputs(case, torch.bfloat16, seed=9)
     counts = flash_forward.launches, flash_forward_f32.launches
     out, lse = flash_forward(q, k, v, causal)

@@ -5,8 +5,7 @@
 //   _flash_bwd_dq_kernel  (pallas_call at :318)
 //   _flash_bwd_dkv_kernel (pallas_call at :343)
 // and computes what _bwd_recompute (:193-215) and the two kernel bodies
-// compute, for bf16 inputs. (float32 inputs stay on csrc/flash_attention.cu's
-// exact-f32 dq and dk/dv kernels.)
+// compute, for bf16 inputs. (float32 inputs run csrc/flash_backward_f32.cu.)
 //
 // Layout as in the JAX package: q and dO [B, Lq, H, D], k and v [B, Lk, Hkv,
 // D], all bf16 and contiguous; lse and delta [B, H, Lq] f32. Query head h
@@ -23,8 +22,6 @@
 // dS K. At B=1, L=2048, H=32, Hkv=8, D=128, causal that is 0.0869 ms at the
 // bf16 tensor-core rate of 989 TFLOP/s; its 68 MB of inputs and outputs take
 // 0.020 ms at 3.35 TB/s.
-// csrc/flash_attention.cu's two kernels compute 7 (S and dP twice) on the
-// CUDA cores.
 //
 // Design (FlashAttention-3's backward in outline):
 //  - Grid. One block per (key tile of 128 rows, batch, query head); blockIdx

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel of unionml_tpu/ops/flash_attention.py
 //   _flash_fwd_kernel (pallas_call at :160)
 // for bf16 inputs and computes what it computes (:60-125). (float32 inputs
-// stay on csrc/flash_attention.cu's exact-f32 forward.)
+// run csrc/flash_forward_f32.cu.)
 //
 // Layout as in the JAX package: q [B, Lq, H, D], k and v [B, Lk, Hkv, D],
 // all bf16 and contiguous; out [B, Lq, H, D] bf16, lse [B, H, Lq] f32. Query

@@ -5,9 +5,9 @@ the two backward kernels are Pallas TPU kernels; here they are hand-written
 Hopper kernels, routed by dtype. bf16 runs on the tensor cores:
 ``csrc/flash_forward.cu`` (the forward) and ``csrc/flash_backward.cu`` (the
 fused backward: dq, dk and dv in one launch). float32 runs the f32 forward
-of ``csrc/flash_attention.cu`` (CUDA cores) and the fused f32 backward of
-``csrc/flash_backward_f32.cu`` (tensor cores, each product in three TF32
-passes to near-f32 accuracy). The ``[L, L]`` score matrix never reaches
+of ``csrc/flash_forward_f32.cu`` and the fused f32 backward of
+``csrc/flash_backward_f32.cu``, both on the tensor cores with each product in
+three TF32 passes to near-f32 accuracy. The ``[L, L]`` score matrix never reaches
 device memory in either direction: the forward saves the per-row logsumexp
 and the backward recomputes ``P = exp(S - lse)`` tile by tile.
 
@@ -175,7 +175,7 @@ def flash_backward_reference(
 
 #: (library, pointer arguments, trailing dtype code) of each C entry
 _ENTRIES = {
-    "flash_attention_forward": ("flash_attention", 5, True),
+    "flash_attention_forward": ("flash_forward_f32", 5, True),
     "flash_attention_forward_bf16": ("flash_forward", 5, False),
     "flash_attention_backward_fused": ("flash_backward", 11, False),
     "flash_attention_backward_f32": ("flash_backward_f32", 10, False),
@@ -273,7 +273,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
 def flash_forward_f32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)``: the exact-f32 forward kernel for CUDA tensors, its twin on the CPU."""
+    """``(out, lse)``: the f32 forward kernel (3xTF32 tensor-core products, one
+    launch) for CUDA tensors, its twin on the CPU."""
     if _device_of(q) == "cpu":
         return flash_forward_reference(q, k, v, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
