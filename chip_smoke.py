@@ -34,6 +34,12 @@ Phases (no phase catches a failure; any fault exits non-zero):
    through ``Generator(quantize="int8")`` (the model held in int8, under
    10 GiB), counting 225 int8 matmul launches per forward and the paged
    kernel's;
+   3c. structured decoding at the same width (bf16, 32 layers, seed 0): four
+   grammars compiled over a synthetic 128,256-token vocabulary, an engine
+   warmed with ``warmup()``; grammar 0 (FREE) streams equal an unconstrained
+   engine's, grammar 1-4 streams with ``logprobs=True`` emit only tokens
+   their DFA allows, and a 2-layer f32 constrained engine on the card equals
+   the port on the CPU (tokens, logprobs within 1e-4);
 4. token parity at float32 with 2 layers of the same width: the engine's
    streams (kernel path) equal a solo ``Generator`` run on the gather path;
    with int8 weights, the engine, a solo run and a solo run with chunked
@@ -140,6 +146,13 @@ INT8_PARITY_NEW = 8
 INT8_PARITY_CHUNK = 64  # the 256-token bucket prefills in 4 chunks
 MAX_NEW = 32
 BLOCK = 16
+#: phase 3c: a synthetic vocabulary of the model's width from this seed. Id 0
+#: is EOS (empty text, as in the text-generation template), ids 1-95 are the
+#: printable ASCII characters, the rest 1-8 characters of this alphabet
+STRUCTURED_SEED, STRUCTURED_EOS = 0, 0
+STRUCTURED_ALPHABET = "abcdefghijklmnopqrstuvwxyz ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,!?:;'\"{}-_"
+STRUCTURED_NEW = 16  # tokens a stream of the f32 card-against-CPU parity
+STRUCTURED_LP_ATOL = 1e-4  # f32 logprobs, card against CPU: sums in other orders
 
 
 def card_line() -> str:
@@ -358,12 +371,19 @@ def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
     return row
 
 
-def serve(batcher, prompts) -> tuple:
-    """Submit every prompt from its own thread; return (streams, seconds)."""
+def serve(batcher, prompts, grammars=None, logprobs=None) -> tuple:
+    """Submit every prompt from its own thread, with its grammar id when
+    ``grammars`` is given, and with ``logprobs=True`` when a ``logprobs``
+    list is given (each stream's logprobs land there); return (streams,
+    seconds)."""
     results = [None] * len(prompts)
 
     def worker(i):
-        results[i] = [int(t) for chunk in batcher.submit(prompts[i]) for t in chunk]
+        kw = {} if grammars is None else {"constraint": grammars[i]}
+        stream = batcher.submit(prompts[i], logprobs=logprobs is not None, **kw)
+        results[i] = [int(t) for chunk in stream for t in chunk]
+        if logprobs is not None:
+            logprobs[i] = stream.logprobs
 
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
     t0 = time.perf_counter()
@@ -753,6 +773,174 @@ def int8_parity_phase(gcfg, prompts, slots, decode_chunk) -> None:
             f"{engine_streams} / {solo_streams} / {chunked_streams} / {cpu_streams}")
 
 
+def synthetic_vocab(size: int, seed: int) -> list:
+    """Token id -> text, made with numpy from ``seed`` (see ``STRUCTURED_SEED``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    texts = [""] + [chr(c) for c in range(32, 127)]
+    lengths = rng.randint(1, 9, size=size - len(texts))
+    letters = np.array(list(STRUCTURED_ALPHABET))[rng.randint(0, len(STRUCTURED_ALPHABET), size=int(lengths.sum()))]
+    ends = np.cumsum(lengths)
+    texts += ["".join(letters[end - n:end]) for n, end in zip(lengths, ends)]
+    return texts
+
+
+def structured_grammars(vocab) -> tuple:
+    """The template's two grammars, an enum and a two-field JSON object over
+    ``vocab``: ``(ConstraintSet, {name: compile seconds})``."""
+    from unionml_tpu_torch.models import ConstraintSet, compile_regex, json_object, literal_choice
+
+    compilers = {
+        "word [a-z]+": lambda: compile_regex(r"[a-z]+", vocab, STRUCTURED_EOS),
+        "sentence [a-z][a-z ]*[.!]": lambda: compile_regex(r"[a-z][a-z ]*[.!]", vocab, STRUCTURED_EOS),
+        "literal_choice yes/no/maybe": lambda: literal_choice(["yes", "no", "maybe"], vocab, STRUCTURED_EOS),
+        "json_object name/age": lambda: json_object({"name": "string", "age": "integer"}, vocab, STRUCTURED_EOS),
+    }
+    grammars, seconds = [], {}
+    for name, build in compilers.items():
+        t0 = time.perf_counter()
+        grammars.append(build())
+        seconds[name] = time.perf_counter() - t0
+    return ConstraintSet(grammars), seconds
+
+
+def dfa_walk(cs, grammar: int, tokens) -> tuple:
+    """Walk ``tokens`` through the set's DFA on the host: ``(every token up to
+    the first EOS allowed in its state, ended with EOS)``. A grammar allows
+    EOS only in an accepting state, so an allowed EOS ends a sentence of it."""
+    state = int(cs.starts[grammar])
+    for i, t in enumerate(tokens):
+        if not cs.allowed[state, t]:
+            return False, False
+        if t == STRUCTURED_EOS:
+            return i == len(tokens) - 1, True  # the stream ends at its EOS
+        state = int(cs.trans[state, t])
+    return True, False
+
+
+def structured_phase(cfg, gcfg, prompts, slots, decode_chunk, card: str, profile: bool) -> None:
+    """Grammar-constrained serving at full width (phase 3c): grammar 0 equals
+    an unconstrained engine, grammars 1-4 emit only allowed tokens with
+    finite logprobs, then the f32 parity of :func:`structured_parity`."""
+    import math
+
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t0 = time.perf_counter()
+    vocab = synthetic_vocab(cfg.vocab_size, STRUCTURED_SEED)
+    made_s = time.perf_counter() - t0
+    cs, compile_s = structured_grammars(vocab)
+    print(f"structured: vocabulary of {len(vocab)} tokens made in {made_s:.2f} s; grammars compiled in "
+          f"{sum(compile_s.values()):.2f} s on the host ({', '.join(f'{k} {v:.2f} s' for k, v in compile_s.items())}); "
+          f"union table [{cs.trans.shape[0]}, {cs.trans.shape[1]}] int32 + bool; card {card}", flush=True)
+    require(cs.vocab_size == cfg.vocab_size and cs.n_grammars == 5, "the grammar set does not fit the model")
+    model = Llama(cfg, seed=0)
+    ucfg = dataclasses.replace(gcfg, eos_id=STRUCTURED_EOS)
+    plain = ContinuousBatcher(Generator(model, ucfg), slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    plain.warmup()
+    reference, plain_s = serve(plain, prompts)
+    plain.close()
+
+    gen = Generator(model, dataclasses.replace(ucfg, constraints=cs))
+    engine = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    stats = engine.stats()
+    require(stats["decode_dispatches"] == stats["decoded_rows"] == 0 and stats["ttft_ms"] == {"window": 0},
+            f"warmup left counters behind: {stats}")
+    _, first_s = serve(engine, prompts[:1], grammars=[1])
+    first_ttft = engine.stats()["ttft_ms"]["max_ms"]
+    paged_decode_attention.launches = 0
+    free, free_s = serve(engine, prompts, grammars=[0] * len(prompts))
+    free_launches = paged_decode_attention.launches
+    require(free == reference, f"grammar 0 streams differ from the unconstrained engine's: {free} / {reference}")
+    grammars = list(range(1, cs.n_grammars))
+    lps = [None] * len(prompts)
+    paged_decode_attention.launches = 0
+    streams, cons_s = serve(engine, prompts, grammars=grammars, logprobs=lps)
+    cons_launches = paged_decode_attention.launches
+    stats = engine.stats()
+    if profile:
+        profile_run("serve 4 streams, grammars 1-4 (bf16)", lambda: serve(engine, prompts, grammars=grammars))
+    engine.close()
+    require(free_launches > 0 and cons_launches > 0, "the structured path did not reach the paged decode kernel")
+    ends = []
+    for grammar, tokens, lp in zip(grammars, streams, lps):
+        ok, eos = dfa_walk(cs, grammar, tokens)
+        require(ok, f"grammar {grammar}: a token its DFA disallows, or tokens after EOS, in {tokens}")
+        require(len(lp) >= len(tokens) and all(math.isfinite(v) and v <= 0 for v in lp),
+                f"grammar {grammar}: logprobs {lp} for {len(tokens)} tokens")
+        ends.append(f"{len(tokens)} tokens{', EOS in an accepting state' if eos else ''}")
+    print(f"structured streams, grammars 1-4 (logprobs=True): {'; '.join(ends)}; texts "
+          f"{[''.join(vocab[t] for t in tokens) for tokens in streams]}", flush=True)
+
+    # one decode step's mask and state advance at the served batch, on the card
+    with torch.no_grad():
+        logits = torch.randn(slots, cfg.vocab_size, device=gen.device)
+        state = torch.as_tensor(cs.start_states(grammars), device=gen.device)
+        nxt = torch.zeros(slots, dtype=torch.int32, device=gen.device)
+        def step():
+            return gen._constrain(logits, state), gen._cs_trans[state.long(), nxt.long()]
+
+        mask_ms = time_ms(step)
+        mask_dev_ms, mask_host_ms = device_ms(step)
+        lp_ms = time_ms(lambda: torch.log_softmax(logits, dim=-1).gather(1, nxt[:, None].long()))
+    n_tokens = sum(map(len, reference))
+    print(f"structured serving, 4 streams at Llama-3-8B width (bf16): unconstrained engine {n_tokens / plain_s:.1f} "
+          f"tok/s; constrained engine under grammar 0 {n_tokens / free_s:.1f} tok/s (the same tokens); grammars 1-4 "
+          f"{sum(map(len, streams)) / cons_s:.1f} tok/s ({sum(map(len, streams))} tokens, TTFT p50 "
+          f"{stats['ttft_ms']['p50_ms']} ms, decode dispatch {stats['tbt_ms']['p50_ms']} ms p50); warmup() "
+          f"{warm_s:.2f} s, then the first stream's TTFT {first_ttft} ms ({first_s:.2f} s for the stream); mask + "
+          f"state step {mask_ms:.4f} ms with launch work ({mask_dev_ms:.4f} ms device only, {mask_host_ms:.4f} ms "
+          f"host enqueue), logprob {lp_ms:.4f} ms with launch work, a decode step ([{slots}, {cfg.vocab_size}] f32); "
+          f"paged launches {free_launches} and {cons_launches}; card {card}", flush=True)
+    del model, gen, engine, plain
+    torch.cuda.empty_cache()
+    structured_parity(cs, gcfg, prompts, slots, decode_chunk, grammars)
+
+
+def structured_parity(cs, gcfg, prompts, slots, decode_chunk, grammars) -> None:
+    """float32, 2 layers at full width: the constrained engine on the card
+    (paged kernel) serves the tokens and logprobs of the same weights on the
+    CPU (the kernel's twin)."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama, LlamaConfig
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = LlamaConfig.llama3_8b(n_layers=2, attention_impl="flash", dtype=torch.float32, param_dtype=torch.float32)
+    pcfg = dataclasses.replace(gcfg, max_new_tokens=STRUCTURED_NEW, eos_id=STRUCTURED_EOS, constraints=cs)
+    t0 = time.perf_counter()
+    card_model = Llama(cfg32, seed=4)
+    cpu_model = Llama(cfg32, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    runs = []
+    before = paged_decode_attention.launches
+    for model, device in ((card_model, None), (cpu_model, "cpu")):
+        engine = ContinuousBatcher(Generator(model, pcfg, device=device), slots=slots, decode_chunk=decode_chunk,
+                                   block_size=BLOCK)
+        lps = [None] * len(prompts)
+        streams, _ = serve(engine, prompts, grammars=grammars, logprobs=lps)
+        engine.close()
+        runs.append((streams, lps))
+    launched = paged_decode_attention.launches - before
+    (card_streams, card_lps), (cpu_streams, cpu_lps) = runs
+    same = card_streams == cpu_streams and all(len(x) == len(y) for x, y in zip(card_lps, cpu_lps))
+    err = max(abs(a - b) for x, y in zip(card_lps, cpu_lps) for a, b in zip(x, y))
+    print(f"float32 structured parity, 2 layers, grammars 1-4 x up to {STRUCTURED_NEW} tokens: engine on the card "
+          f"({launched} paged launches) vs the CPU: tokens {'identical' if same else 'DIFFERENT'}, logprobs max abs "
+          f"err {err:.3g} (tolerance {STRUCTURED_LP_ATOL}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(launched > 0 and same and err <= STRUCTURED_LP_ATOL, f"{card_streams} / {cpu_streams}")
+    require(all(dfa_walk(cs, g, tokens)[0] for g, tokens in zip(grammars, card_streams)), "a disallowed token")
+
+
 def lora_llama(cfg, seed):
     from unionml_tpu_torch import Llama, TrainState
     from unionml_tpu_torch.models import lora_optimizer
@@ -999,6 +1187,10 @@ def main() -> int:
 
     # ---- phase 3b: the same weights served in int8
     int8_launches = int8_serving_phase(cfg, gcfg, prompts, slots, decode_chunk, bf16, card, args.profile)
+    torch.cuda.empty_cache()
+
+    # ---- phase 3c: structured decoding and logprobs, the same width and weights
+    structured_phase(cfg, gcfg, prompts, slots, decode_chunk, card, args.profile)
     torch.cuda.empty_cache()
 
     # ---- phase 4: token parity at float32, 2 layers of the same width

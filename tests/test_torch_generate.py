@@ -123,7 +123,7 @@ def test_policy_distribution_matches_jax(name):
 
 @pytest.mark.parametrize(
     "option",
-    ["mesh", "draft", "constraints", "sp_prefill"],
+    ["mesh", "draft", "sp_prefill"],
 )
 def test_unported_options_raise(pair, option):
     _, _, model = pair

@@ -1,4 +1,5 @@
-"""Model library: the Llama decoder, its layers, the weight bridge and generation."""
+"""Model library: the Llama decoder, its layers, the weight bridge, generation
+and structured (grammar-constrained) decoding."""
 
 from unionml_tpu_torch.models.convert import (
     llama_from_jax,
@@ -24,18 +25,32 @@ from unionml_tpu_torch.models.llama import (
     lora_optimizer,
     lora_param_labels,
 )
+from unionml_tpu_torch.models.structured import (
+    ConstraintSet,
+    TokenConstraint,
+    compile_regex,
+    json_object,
+    literal_choice,
+    stop_sequences,
+    vocab_from_tokenizer,
+)
 
 __all__ = [
+    "ConstraintSet",
     "GenerationConfig",
     "Generator",
     "Llama",
     "LlamaConfig",
+    "TokenConstraint",
     "causal_lm_loss",
     "chunk_aligned",
     "chunked_causal_lm_loss",
+    "compile_regex",
     "filtered_logits",
     "init_cache",
     "init_paged_cache",
+    "json_object",
+    "literal_choice",
     "llama_from_jax",
     "llama_params_from_jax",
     "llama_params_to_numpy",
@@ -44,4 +59,6 @@ __all__ = [
     "policy_probs",
     "sample_tokens",
     "state_dict_from_jax",
+    "stop_sequences",
+    "vocab_from_tokenizer",
 ]

@@ -44,9 +44,11 @@ class GenerationConfig:
     """Decoding knobs. ``temperature == 0`` means greedy (argmax) decoding;
     ``top_k``/``top_p``/``min_p`` filter the distribution before sampling.
     ``prefill_chunk`` prefills long prompts through the cache in chunks of
-    that many columns. ``sp_prefill``, ``draft`` and ``constraints`` mirror
-    the JAX package's fields; the port does not serve them yet and its
-    :class:`Generator` raises when they are set."""
+    that many columns. ``constraints`` (a
+    :class:`~unionml_tpu_torch.models.structured.ConstraintSet`) lets each
+    call pick a grammar per row (``constraint=``). ``sp_prefill`` and
+    ``draft`` mirror the JAX package's fields; the port does not serve them
+    yet and its :class:`Generator` raises when they are set."""
 
     max_new_tokens: int = 128
     temperature: float = 1.0
@@ -230,7 +232,7 @@ class Generator:
     ):
         unported = {
             "mesh": mesh, "partition_rules": partition_rules, "config.draft": config.draft,
-            "config.constraints": config.constraints, "config.sp_prefill": config.sp_prefill,
+            "config.sp_prefill": config.sp_prefill,
         }
         for name, value in unported.items():
             if value is not None:
@@ -255,6 +257,11 @@ class Generator:
         self.quantize = quantize
         self.prefill_traces = 0
         self.decode_traces = 0
+        self._cs = config.constraints
+        if self._cs is not None:
+            # one device copy of the tables per set and device, shared by
+            # every engine built over it
+            self._cs_trans, self._cs_allowed = self._cs.device_tables(self.device)
 
     # ------------------------------------------------------------------ steps
 
@@ -263,11 +270,19 @@ class Generator:
         model's int8 route)."""
         return self.model.lm_head(hidden).float()
 
+    def _constrain(self, logits: torch.Tensor, state: Optional[torch.Tensor]) -> torch.Tensor:
+        """Mask f32 ``[B, V]`` logits by each row's DFA state ``[B]`` (None =
+        unconstrained): tokens the grammar disallows there become -inf."""
+        if state is None:
+            return logits
+        return logits.masked_fill(~self._cs_allowed[state.long()], -math.inf)
+
     @torch.no_grad()
-    def _prefill(self, tokens, lengths, cache, generator, row_valid):
+    def _prefill(self, tokens, lengths, cache, generator, row_valid, state=None):
         """Prefill ``tokens [B, P]`` into ``cache`` (in place) and sample each
-        row's first token from its last real position. Returns ``(tok0 [B]
-        int32, cache, last-token hidden [B, dim] f32)``."""
+        row's first token from its last real position, masked by its DFA
+        ``state`` when given. Returns ``(tok0 [B] int32, cache, last-token
+        hidden [B, dim] f32)``."""
         batch, prompt_len = tokens.shape
         positions = torch.arange(prompt_len, device=self.device)[None].expand(batch, prompt_len)
         token_mask = (positions < lengths[:, None]) & row_valid[:, None]
@@ -275,7 +290,7 @@ class Generator:
             tokens, positions=positions, return_hidden=True, cache=cache, token_mask=token_mask
         )
         last = hidden[torch.arange(batch, device=self.device), (lengths - 1).long()]
-        tok0 = sample_tokens(self._head(last), generator, self.config)
+        tok0 = sample_tokens(self._constrain(self._head(last), state), generator, self.config)
         return tok0, cache, last.float()
 
     @torch.no_grad()
@@ -296,19 +311,24 @@ class Generator:
         return chunk_last, sel.any(dim=1), cache
 
     @torch.no_grad()
-    def _first_token(self, last: torch.Tensor, generator) -> torch.Tensor:
+    def _first_token(self, last: torch.Tensor, generator, state=None) -> torch.Tensor:
         """Sample the first generated token from the accumulated last-row
-        hiddens (the chunked prefill's epilogue)."""
-        return sample_tokens(self._head(last.to(self.model.config.dtype)), generator, self.config)
+        hiddens (the chunked prefill's epilogue), masked by ``state``."""
+        logits = self._head(last.to(self.model.config.dtype))
+        return sample_tokens(self._constrain(logits, state), generator, self.config)
 
     @torch.no_grad()
-    def _decode(self, cache, tok, lengths, done, generator, *, steps: int):
+    def _decode(self, cache, tok, lengths, done, generator, *cstate, steps: int):
         """Roll ``steps`` decode steps from the carry. Returns the new tokens
         ``[B, steps]``, each sampled token's log-probability ``[B, steps]`` f32
-        (done rows report 0.0) and the advanced carry. Done rows emit
-        ``pad_id`` and never advance their length."""
+        (under the constrained distribution, before the sampling filters;
+        done rows report 0.0) and the advanced carry. Done rows emit
+        ``pad_id`` and never advance their length. With constraints the carry
+        ends in each row's DFA state ``[B]`` int32 (``cstate``), which a done
+        row holds."""
         cfg = self.config
         eos = cfg.eos_id
+        state = cstate[0] if cstate else None
         toks, lps = [], []
         for _ in range(steps):
             positions = lengths[:, None]  # each example's next free cache slot
@@ -316,17 +336,20 @@ class Generator:
                 tok[:, None], positions=positions, return_hidden=True, cache=cache,
                 token_mask=(~done)[:, None],
             )
-            logits = self._head(hidden[:, 0])
+            logits = self._constrain(self._head(hidden[:, 0]), state)
             nxt = sample_tokens(logits, generator, cfg)
             lp = torch.log_softmax(logits, dim=-1).gather(1, nxt[:, None].long())[:, 0]
             lps.append(lp.masked_fill(done, 0.0))
+            if state is not None:
+                state = torch.where(done, state, self._cs_trans[state.long(), nxt.long()])
             nxt = nxt.masked_fill(done, cfg.pad_id)
             lengths = lengths + (~done).to(lengths.dtype)
             if eos is not None:
                 done = done | (nxt == eos)
             toks.append(nxt)
             tok = nxt
-        return torch.stack(toks, dim=1), torch.stack(lps, dim=1), (cache, tok, lengths, done, generator)
+        carry = (cache, tok, lengths, done, generator) + (() if state is None else (state,))
+        return torch.stack(toks, dim=1), torch.stack(lps, dim=1), carry
 
     # ------------------------------------------------------------------ helpers
 
@@ -338,12 +361,17 @@ class Generator:
         logger.info(f"prompt length {max_prompt} exceeds configured buckets; padding to {bucket}")
         return bucket
 
-    def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0):
+    def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0, constraint: Any = None):
         """Pad/bucket the prompts, allocate the cache, prefill (in
         ``prefill_chunk`` slices when set and the bucket is wider), and return
         ``(n, tok0, last, carry)``; the batch is padded to a power of two and
-        the padding rows start done."""
+        the padding rows start done. ``constraint`` (an int, or one int per
+        prompt) selects each row's grammar from ``config.constraints``; rows
+        start at its DFA start state, and the carry gains the per-row state,
+        advanced past the first token, as its tail."""
         cfg = self.config
+        if constraint is not None and self._cs is None:
+            raise ValueError("constraint= requires GenerationConfig.constraints to be set")
         n = len(prompts)
         lengths = np.array([max(len(p), 1) for p in prompts], np.int32)
         bucket = self._bucket(int(lengths.max()))
@@ -362,17 +390,39 @@ class Generator:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         row_valid = torch.arange(batch, device=self.device) < n
         lengths_t = torch.as_tensor(all_lengths, device=self.device)
+        state = None
+        if self._cs is not None:
+            starts = self._cs.start_states(self._grammar_ids(constraint, n, batch))
+            state = torch.as_tensor(starts, device=self.device)
         if chunk and bucket > chunk:
             last, cache = self._chunked_prefill_loop(tokens, lengths_t, cache, row_valid, chunk)
-            tok0 = self._first_token(last, generator)
+            tok0 = self._first_token(last, generator, state)
         else:
             tok0, cache, last = self._prefill(
-                torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid
+                torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid, state
             )
         eos = cfg.eos_id
         done = (tok0 == eos) if eos is not None else torch.zeros_like(row_valid)
         done = done | ~row_valid  # synthetic batch-padding rows emit pads, never advance
-        return n, tok0, last, (cache, tok0, lengths_t, done, generator)
+        carry = (cache, tok0, lengths_t, done, generator)
+        if state is not None:
+            carry += (self._cs_trans[state.long(), tok0.long()],)
+        return n, tok0, last, carry
+
+    @staticmethod
+    def _grammar_ids(constraint: Any, n: int, batch: int) -> np.ndarray:
+        """Normalize a ``constraint=`` argument (an int, or one int per
+        prompt) to per-row grammar ids; synthetic padding rows ride FREE (id 0)."""
+        gids = np.zeros((batch,), np.int64)
+        if constraint is not None:
+            con = np.asarray(constraint)
+            if con.ndim == 0:
+                gids[:n] = int(con)
+            elif con.shape[0] == n:
+                gids[:n] = con
+            else:
+                raise ValueError(f"constraint has {con.shape[0]} entries for {n} prompts")
+        return gids
 
     def _chunked_prefill_loop(self, tokens: np.ndarray, lengths, cache, row_valid, chunk: int):
         """Run right-padded ``tokens`` through :meth:`_prefill_chunk` in
@@ -387,9 +437,9 @@ class Generator:
         return last, cache
 
     @staticmethod
-    def _unported(prefix: Any, constraint: Any) -> None:
-        if prefix is not None or constraint is not None:
-            raise NotImplementedError("prefix caches and constraints are not ported yet (ROADMAP.md, Queue A)")
+    def _unported(prefix: Any) -> None:
+        if prefix is not None:
+            raise NotImplementedError("prefix caches are not ported yet (ROADMAP.md, Queue A)")
 
     # ------------------------------------------------------------------ generate
 
@@ -397,9 +447,12 @@ class Generator:
         self, prompts: Sequence[Sequence[int]], *, seed: int = 0, prefix: Any = None, constraint: Any = None
     ) -> np.ndarray:
         """Generate ``max_new_tokens`` per prompt; returns ``[len(prompts),
-        max_new]`` int32 (``pad_id`` after each example's ``eos_id``)."""
-        self._unported(prefix, constraint)
-        n, tok0, _, carry = self._start(prompts, seed)
+        max_new]`` int32 (``pad_id`` after each example's ``eos_id``).
+        ``constraint`` (an int, or one int per prompt, indexing
+        ``config.constraints``; 0 = the FREE grammar) masks each row's
+        decoding by its grammar's token DFA."""
+        self._unported(prefix)
+        n, tok0, _, carry = self._start(prompts, seed, constraint=constraint)
         steps = self.config.max_new_tokens - 1
         first = tok0.cpu().numpy()[:, None]
         if steps <= 0:
@@ -413,15 +466,16 @@ class Generator:
     ) -> Iterator[np.ndarray]:
         """Yield ``[len(prompts), <=chunk_size]`` arrays of newly decoded tokens
         (the first yield is the prompt-sampled token); ends early once every
-        row has emitted ``eos_id``. Total tokens equal ``__call__``'s."""
-        self._unported(prefix, constraint)
+        row has emitted ``eos_id``. Total tokens equal ``__call__``'s, under
+        the same ``constraint``."""
+        self._unported(prefix)
         cfg = self.config
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         # the last chunk may overshoot max_new_tokens; give its cache writes room
         n_chunks = max(0, -(-(cfg.max_new_tokens - 1) // chunk_size))
         extra = n_chunks * chunk_size - (cfg.max_new_tokens - 1)
-        n, tok0, _, carry = self._start(prompts, seed, extra_cache=extra)
+        n, tok0, _, carry = self._start(prompts, seed, extra_cache=extra, constraint=constraint)
         yield tok0.cpu().numpy()[:n, None]
         produced = 1
         while produced < cfg.max_new_tokens:

@@ -17,8 +17,14 @@ scratch block, lazy block growth and recompute preemption.
   ``done`` rows emit pads, never advance, and (paged) point at the scratch
   block, so their ride-along writes never touch a live page.
 
+- **Grammars and logprobs**: ``submit(constraint=g)`` runs a request under
+  grammar ``g`` of the generator's ``ConstraintSet`` (the DFA state rides as
+  the carry's tail; a preemption resume replays it over the echo on the
+  host), and ``submit(logprobs=True)`` records each emitted token's
+  log-probability on the stream.
+
 With greedy decoding each stream's tokens equal a solo
-``Generator.__call__([prompt])`` run. Thread model: ``submit`` may be called
+``Generator.__call__([prompt], constraint=g)`` run. Thread model: ``submit`` may be called
 from any thread; the engine thread is the only one touching device state.
 Where JAX donates the pool through its jitted admission and decode, the port
 updates the pool tensors in place.
@@ -88,6 +94,12 @@ class _Session:
     last_emit: Optional[float] = None
     #: block-table entries assigned (paged mode); lazy growth appends here
     table_len: int = 0
+    #: grammar id in the generator's ConstraintSet (0 = FREE)
+    grammar: int = 0
+    #: submit(logprobs=True): each emitted token's log-probability lands in
+    #: ``lp`` before the token is enqueued
+    want_logprobs: bool = False
+    lp: "List[float]" = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass(eq=False)
@@ -104,6 +116,11 @@ class _Admission:
     tok0: Any = None
     row_len: Any = None
     row_cache: Any = None
+    #: the request's DFA state at this admission (None = unconstrained
+    #: generator): the grammar's start, walked through the echo on a resume
+    dfa_state: Optional[int] = None
+    #: last-token hidden row ``[1, dim]`` f32, for the first token's logprob
+    last: Any = None
 
 
 class _TokenStream:
@@ -128,6 +145,14 @@ class _TokenStream:
 
     def close(self) -> None:
         self._batcher._cancel(self._session)
+
+    @property
+    def logprobs(self) -> "List[float]":
+        """Log-probabilities of the tokens emitted so far (``submit(...,
+        logprobs=True)`` streams only). The engine appends each chunk's
+        logprobs BEFORE enqueueing its tokens, so after consuming k tokens at
+        least k entries are here."""
+        return list(self._session.lp)
 
     def __del__(self):  # pragma: no cover - refcount backstop
         try:
@@ -337,12 +362,18 @@ class ContinuousBatcher:
         lengths = torch.ones((self.slots,), dtype=torch.int32, device=self.device)
         done = torch.ones((self.slots,), dtype=torch.bool, device=self.device)  # every slot starts free
         generator = torch.Generator(device=self.device).manual_seed(self._seed)
-        return (cache, tok, lengths, done, generator)
+        # constrained generators carry each slot's DFA state as the tail; free
+        # slots ride the FREE grammar's state 0
+        tail = (torch.zeros((self.slots,), dtype=torch.int32, device=self.device),) if self.gen._cs is not None else ()
+        return (cache, tok, lengths, done, generator, *tail)
 
-    def _prefill_row(self, prompt: Sequence[int], seed: int, budget: Optional[int] = None):
+    def _prefill_row(self, prompt: Sequence[int], seed: int, budget: Optional[int] = None,
+                     dfa_state: Optional[int] = None):
         """Prefill one prompt at batch 1 into a fresh ``[1, cache_len]`` cache
-        with the Generator's own prefill. Returns ``(tok0, lengths, row_cache)``.
-        ``budget`` is THIS request's remaining token budget."""
+        with the Generator's own prefill, the first token masked by
+        ``dfa_state`` when given. Returns ``(tok0, lengths, row_cache, last)``
+        (``last``: the last-token hidden row, f32). ``budget`` is THIS
+        request's remaining token budget."""
         gen, cfg = self.gen, self.gen.config
         if budget is None:
             budget = cfg.max_new_tokens
@@ -364,10 +395,23 @@ class ContinuousBatcher:
         row_cache = init_cache(gen.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         row_valid = torch.ones((1,), dtype=torch.bool, device=self.device)
-        tok0, row_cache, _ = gen._prefill(
-            torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid
+        state = None if dfa_state is None else torch.tensor([dfa_state], dtype=torch.int32, device=self.device)
+        tok0, row_cache, last = gen._prefill(
+            torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid, state
         )
-        return tok0, lengths, row_cache
+        return tok0, lengths, row_cache, last
+
+    def _first_logprob(self, adm: _Admission) -> float:
+        """The prompt-sampled token's log-probability: head, mask and
+        log-softmax over the admission's last hidden row — the constrained
+        distribution the token was sampled from, as the decode steps'
+        logprobs are."""
+        gen = self.gen
+        state = None if adm.dfa_state is None else torch.tensor([adm.dfa_state], dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            logits = gen._constrain(gen._head(adm.last.to(gen.model.config.dtype)), state)
+            lp = torch.log_softmax(logits, dim=-1).gather(1, adm.tok0[:, None].long())
+        return float(lp[0, 0])
 
     # ------------------------------------------------------------------ block allocator
 
@@ -458,11 +502,15 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------ public API
 
     def submit(
-        self, prompt: Sequence[int], *, max_new_tokens: Optional[int] = None, deadline: Optional[float] = None
+        self, prompt: Sequence[int], *, max_new_tokens: Optional[int] = None, constraint: Optional[int] = None,
+        deadline: Optional[float] = None, logprobs: bool = False,
     ) -> Iterator[np.ndarray]:
         """Enqueue a prompt; returns an iterator of 1-D int32 arrays of new
         tokens (the first item is the prompt-sampled token). Safe from any
         thread. ``max_new_tokens`` caps THIS request below the config budget.
+        ``constraint`` selects THIS request's grammar from the generator's
+        ``config.constraints`` (0 = FREE); ``logprobs=True`` records each
+        emitted token's log-probability on the stream's ``logprobs``.
         ``deadline`` (absolute ``time.monotonic()``) sheds the request with
         :class:`DeadlineExceeded` if it is still waiting past it; a full
         waiting queue sheds at once with :class:`QueueFullError`."""
@@ -477,8 +525,15 @@ class ContinuousBatcher:
                     f"max_new_tokens must be in [1, {budget}] (the config budget the cache is sized for)"
                 )
             budget = max_new_tokens
+        grammar = 0
+        if constraint is not None:
+            if self.gen._cs is None:
+                raise ValueError("constraint= requires GenerationConfig.constraints on the Generator")
+            self.gen._cs.start_states([constraint])  # range check
+            grammar = int(constraint)
         session = _Session(
             slot=-1, out=queue.Queue(), max_new=budget, deadline=deadline, created_at=time.monotonic(),
+            grammar=grammar, want_logprobs=bool(logprobs),
             # the original prompt is kept only where preemption can resume it
             prompt=list(prompt) if self.block_size is not None else [],
         )
@@ -546,6 +601,43 @@ class ContinuousBatcher:
         snapshot["tbt_ms"] = self._tbt.snapshot()
         return snapshot
 
+    def warmup(self) -> None:
+        """Pay the cold start before traffic arrives: a bucket-FILLING request
+        runs through each prompt bucket (budget 1: admission only — each
+        bucket is its own prefill shape and allocation), then short requests
+        run the two decode dispatches (the first on the freshly made carry,
+        the second on the steady-state one). Their first launches build and
+        load the hand-written kernels the engine's path runs (``nvcc`` at
+        first use, the port's counterpart of the JAX engine's XLA compile).
+        Counters and the TTFT/TBT windows are reset afterwards, so
+        :meth:`stats` reflects real traffic only."""
+        cfg = self.gen.config
+        for bucket in sorted(cfg.prompt_buckets):
+            # length == bucket: shorter prompts map to the smallest fitting
+            # bucket, which would leave the larger shapes cold
+            for _ in self.submit([cfg.pad_id + 1] * bucket, max_new_tokens=1):
+                pass
+        if cfg.max_new_tokens >= 2:
+            # an eos-emitting model can finish a junk prompt at admission
+            # without decoding: vary the prompt a few times
+            vocab = int(getattr(self.gen.model.config, "vocab_size", 2))
+            for salt in range(6):
+                if self.decode_dispatches >= 2:
+                    break
+                tok = 1 + (cfg.pad_id + salt) % max(vocab - 1, 1)
+                for _ in self.submit([tok], max_new_tokens=2):
+                    pass
+            if self.decode_dispatches < 2:
+                logger.warning(
+                    "warmup never reached the steady-state decode dispatch (eos at admission for every probe "
+                    "prompt); the first streams may pay a cold start"
+                )
+        with self._lock:
+            self.decode_dispatches = 0
+            self.decoded_rows = 0
+            self._ttft.clear()  # warmup probes must not skew the percentiles
+            self._tbt.clear()
+
     def close(self, wait: bool = True, timeout: float = 120.0) -> None:
         """Stop admitting, drain resident streams to completion, stop the
         engine. Never-admitted pending requests get a clean end-of-stream."""
@@ -607,9 +699,12 @@ class ContinuousBatcher:
             for adm in list(self._admissions):
                 if not self._admission_alive(adm):
                     continue
+                self._set_dfa_state(adm)
                 try:
                     # the whole batch-1 prefill, unlocked
-                    adm.tok0, adm.row_len, adm.row_cache = self._prefill_row(adm.prompt, adm.seed, budget=adm.budget)
+                    adm.tok0, adm.row_len, adm.row_cache, adm.last = self._prefill_row(
+                        adm.prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state
+                    )
                 except ValueError as exc:
                     # a bad prompt fails its own stream; the admission built
                     # only a fresh [1, ...] row, so the engine carries on
@@ -681,6 +776,19 @@ class ContinuousBatcher:
                     budget=session.max_new - session.produced, blocks_row=blocks_row,
                 ))
 
+    def _set_dfa_state(self, adm: _Admission) -> None:
+        """The admission's DFA state, a pure function of (grammar, emitted
+        tokens): a fresh admission starts at the grammar's start state, a
+        preemption resume walks the echo on the host, so the resumed row
+        masks exactly where the evicted one stopped."""
+        cs = self.gen._cs
+        if cs is None:
+            return
+        state = int(cs.starts[adm.session.grammar])
+        for t in adm.session.echo:
+            state = int(cs.trans[state, t])
+        adm.dfa_state = state
+
     def _admission_alive(self, adm: _Admission) -> bool:
         """Drop an admission whose consumer went away before its prefill ran:
         the slot and blocks come back at once."""
@@ -710,6 +818,7 @@ class ContinuousBatcher:
         half-written."""
         cfg = self.gen.config
         session, slot = adm.session, adm.slot
+        lp0 = self._first_logprob(adm) if session.want_logprobs else None
         try:
             if self._carry is None:
                 self._carry = self._init_carry()
@@ -717,7 +826,7 @@ class ContinuousBatcher:
             hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
             # produced carries across preemptions; this residency adds one token
             start_done = hit_eos or session.produced + 1 >= session.max_new
-            cache, tok, lengths, done, _ = self._carry
+            cache, tok, lengths, done, _, *cstate = self._carry
             with torch.no_grad():
                 if adm.blocks_row is not None:
                     self._paged_admit_impl(
@@ -725,7 +834,12 @@ class ContinuousBatcher:
                     )
                 else:
                     self._admit_impl(cache, adm.row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
-            adm.row_cache = None
+                if cstate:
+                    # advance past the (constrained) prompt-sampled token on the
+                    # device: an indexed copy, no host round trip
+                    trans = self.gen._cs_trans
+                    cstate[0][slot : slot + 1].copy_(trans[adm.dfa_state][adm.tok0.long()])
+            adm.row_cache = adm.last = None
         except BaseException as exc:
             with self._lock:
                 if adm in self._admissions:
@@ -744,6 +858,8 @@ class ContinuousBatcher:
                 self._release_blocks_locked(slot)
                 self._mask_slot_done(slot)
                 return
+            if lp0 is not None:
+                session.lp.append(lp0)  # before the token: k tokens => >= k logprobs
             session.out.put(first)
             now = time.monotonic()
             if session.produced == 0:  # a resume is a later residency, not a first token
@@ -778,9 +894,10 @@ class ContinuousBatcher:
             if not self._sessions:
                 return  # growth preempted the last resident; re-admission next loop
         cfg = self.gen.config
-        toks, _, carry = self.gen._decode(*self._carry, steps=self.decode_chunk)
+        toks, lps, carry = self.gen._decode(*self._carry, steps=self.decode_chunk)
         self._carry = carry
         toks_np = toks.cpu().numpy()  # [S, chunk]; also waits for the dispatch
+        lps_np = lps.cpu().numpy()  # [S, chunk] f32: each sampled token's logprob
         done_np = carry[3].cpu().numpy()
         with self._lock:
             self.decode_dispatches += 1
@@ -795,6 +912,10 @@ class ContinuousBatcher:
                     if hits.size:
                         take = min(take, int(hits[0]) + 1)  # emit the eos, stop after
                 if take > 0:
+                    if session.want_logprobs:
+                        # BEFORE the tokens enqueue: a consumer holding k
+                        # tokens must always find >= k logprobs on the stream
+                        session.lp.extend(float(v) for v in lps_np[slot][:take])
                     session.out.put(row[:take].copy())
                     if session.last_emit is not None:
                         self._tbt.observe(now - session.last_emit)
