@@ -55,6 +55,20 @@ Phases (no phase catches a failure; any fault exits non-zero):
    f32 forward and the fused f32 backward, whose launches the kernels line
    reports) and at bf16 compute (through the bf16 forward and the fused
    backward).
+7. the app protocol (``Dataset``/``Model``, with no pandas): (a) at
+   Llama-3-8B width (LoRA rank 8, f32 parameters, bf16 compute)
+   ``model.train`` runs 3 steps of ``fit`` through the bf16 flash forward and
+   fused backward (32 launches of each a step), ``model.predict`` twice over
+   4 prompts through a ``Generator`` (equal outputs), and the stream
+   predictor over 4 concurrent prompts through a ``ContinuousBatcher`` (the
+   paged decode kernel); (b) the same app at the text-generation template's
+   width in float32: the losses through the f32 flash kernels equal the
+   plain path's, the stream predictor's tokens equal ``model.predict``'s,
+   ``save`` then ``load`` predicts the same on the card (tensors on the
+   card) and, loaded with ``hyperparameters={"device": "cpu"}``, the same
+   greedy tokens on the CPU; (c) the native records parser builds (``g++``)
+   and parses a records payload. The kernels line gives each kernel's
+   launches on this path as ``app_launches``.
 
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
@@ -64,8 +78,6 @@ Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present or the package is missing.
 """
-
-from __future__ import annotations
 
 import dataclasses
 import functools
@@ -1101,6 +1113,248 @@ def bf16_training_parity_phase() -> None:
     require(launches == expected, f"flash launches {launches}, expected {expected}")
 
 
+#: phase 7, the app protocol: (a) at Llama-3-8B width, APP_ROWS sequences of APP_SEQ tokens (one step each),
+#: four prompts of APP_PROMPT tokens, APP_NEW new tokens; (b) at the text-generation template's width
+APP_ROWS, APP_SEQ, APP_PROMPT, APP_NEW = 3, 2048, 64, 16
+TINY_ROWS, TINY_SEQ, TINY_BATCH, TINY_VOCAB, TINY_PROMPT, TINY_NEW = 16, 32, 4, 64, 16, 24
+TINY_LR = 3e-3  # the template's rate
+APP_LOSS_REL = 1e-5  # f32 losses through the flash kernels against the plain path (training parity's tolerance)
+
+
+def protocol_app(cfg, batch_size: int, new_tokens: int, prompt_len: int):
+    """A pandas-free app over the port's ``Dataset``/``Model``: a reader of
+    seeded token rows, ``init`` building the Llama of ``cfg`` (the
+    hyperparameters may set ``attention_impl``, ``device`` and ``seed``;
+    LoRA adapters train under ``lora_optimizer``, otherwise every parameter
+    under AdamW), a step trainer over ``chunked_causal_lm_loss``, a
+    ``Generator`` predictor and a stream predictor over one shared
+    ``ContinuousBatcher`` a state (``model.generation_batcher``)."""
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch import (
+        ContinuousBatcher, Dataset, GenerationConfig, Generator, Llama, Model, TrainerConfig, TrainState,
+        make_train_step,
+    )
+    from unionml_tpu_torch.models import chunked_causal_lm_loss, lora_optimizer
+
+    dataset = Dataset(name="tokens")
+    model = Model(name="app_protocol", dataset=dataset)
+    engines: dict = {}
+
+    @dataset.reader
+    def reader(n: int, seq: int, seed: int = 1) -> np.ndarray:
+        return np.random.RandomState(seed).randint(1, cfg.vocab_size, size=(n, seq)).astype(np.int64)
+
+    @model.init
+    def init(hyperparameters: dict) -> TrainState:
+        config = dataclasses.replace(cfg, attention_impl=hyperparameters.get("attention_impl", cfg.attention_impl))
+        module = Llama(config, device=hyperparameters.get("device"), seed=hyperparameters.get("seed", 0))
+        if config.lora_rank:
+            return TrainState(module, lora_optimizer(module, LR))
+        return TrainState(module, torch.optim.AdamW(module.parameters(), lr=TINY_LR, weight_decay=1e-4))
+
+    step = make_train_step(chunked_causal_lm_loss)
+
+    @model.trainer(config=TrainerConfig(epochs=1, batch_size=batch_size, shuffle=True, log_every_steps=1))
+    def trainer(state: TrainState, batch) -> tuple:
+        return step(state, batch)
+
+    def engines_for(state: TrainState) -> tuple:
+        entry = engines.get(id(state))
+        if entry is None or entry[0] is not state:
+            for _, _, stale in engines.values():
+                stale.close()
+            engines.clear()
+            gen = Generator(
+                state.model,
+                GenerationConfig(max_new_tokens=new_tokens, temperature=0.0, prompt_buckets=(prompt_len,)),
+                device=next(state.model.parameters()).device,
+            )
+            batcher = ContinuousBatcher(gen, slots=4, decode_chunk=8, block_size=BLOCK)
+            entry = engines[id(state)] = (state, gen, batcher)
+            model.generation_batcher = batcher
+        return entry[1], entry[2]
+
+    @model.predictor
+    def predictor(state: TrainState, features: np.ndarray) -> np.ndarray:
+        return engines_for(state)[0](features.tolist())
+
+    @model.stream_predictor
+    def stream_predictor(state: TrainState, features: np.ndarray):
+        """One prompt through the shared engine; yields its token chunks."""
+        yield from engines_for(state)[1].submit(features[0].tolist())
+
+    def close() -> None:
+        for _, _, batcher in engines.values():
+            batcher.close()
+        engines.clear()
+
+    model.close_engines = close
+    return model
+
+
+def stream_all(model, prompts) -> tuple:
+    """Each prompt through the app's stream predictor from its own thread:
+    (token rows, seconds)."""
+    state = model.artifact.model_object
+    rows = [None] * len(prompts)
+
+    def worker(i):
+        rows[i] = [int(t) for chunk in model._stream_predictor(state, prompts[i:i + 1]) for t in chunk]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise TimeoutError("a stream did not finish within 600 s")
+    return rows, time.perf_counter() - t0
+
+
+def app_counted():
+    from unionml_tpu_torch.ops.flash_attention import (
+        flash_backward, flash_backward_f32, flash_forward, flash_forward_f32,
+    )
+    from unionml_tpu_torch.ops.int8_matmul import int8_matmul
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    return (flash_forward, flash_backward, flash_forward_f32, flash_backward_f32, int8_matmul, paged_decode_attention)
+
+
+def app_protocol_phase(card: str) -> dict:
+    """Phase 7, the app protocol: (a) ``Model.train``/``predict`` and the
+    stream predictor at Llama-3-8B width, (b) the same app at the template's
+    width in float32 (kernel against plain losses, stream against predict,
+    save and load on the card and on the CPU), (c) the native records
+    parser. Returns the kernels' launches on this path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch import LlamaConfig
+
+    counted = app_counted()
+    totals = {fn.__name__: 0 for fn in counted}
+
+    # ---- (a) full width: LoRA rank 8, f32 parameters, bf16 compute
+    cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash")
+    model = protocol_app(cfg, batch_size=1, new_tokens=APP_NEW, prompt_len=APP_PROMPT)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, _ = model.train(hyperparameters={"seed": 0}, n=APP_ROWS, seq=APP_SEQ)
+    train_s = time.perf_counter() - t0
+    fit = model.last_fit_result
+    losses = [h["loss"] for h in fit.history]
+    train_launches = {fn.__name__: fn.launches for fn in counted}
+    per_run = cfg.n_layers * APP_ROWS
+    expected = {"flash_forward": per_run, "flash_backward": per_run, "flash_forward_f32": 0,
+                "flash_backward_f32": 0, "int8_matmul": 0, "paged_decode_attention": 0}
+    prompts = np.random.RandomState(2).randint(1, cfg.vocab_size, size=(4, APP_PROMPT))
+    model.predict(features=prompts[:1])  # set-up: the Generator's first calls
+    t0 = time.perf_counter()
+    first = model.predict(features=prompts)
+    predict_s = time.perf_counter() - t0
+    second = model.predict(features=prompts)
+    model.close_engines()  # a fresh engine for the timed streams
+    paged_before = counted[-1].launches
+    streams, stream_s = stream_all(model, prompts)
+    stats = model.generation_batcher.stats()
+    paged = counted[-1].launches - paged_before
+    launches = {fn.__name__: fn.launches for fn in counted}
+    model.close_engines()
+    print(f"app protocol (a), Llama-3-8B width LoRA rank 8 ({cfg.n_layers} layers, f32 parameters, bf16 compute): "
+          f"model.train {fit.steps} steps of B=1 x S={APP_SEQ} in {train_s:.1f} s (init and data included; "
+          f"first step {fit.compile_time_s:.2f} s), losses {losses}; model.predict 4 prompts x {APP_PROMPT} "
+          f"tokens -> {APP_NEW} new: {4 * APP_NEW / predict_s:.1f} tok/s, repeated call equal: "
+          f"{np.array_equal(first, second)}; stream predictor 4 concurrent prompts: "
+          f"{sum(map(len, streams)) / stream_s:.1f} tok/s ({stats['decode_dispatches']} decode dispatches); "
+          f"launches in train {train_launches} (expected {expected}), whole app {launches}; card {card}",
+          flush=True)
+    require(fit.steps == APP_ROWS and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(train_launches == expected, f"train launches {train_launches}, expected {expected}")
+    require(np.array_equal(first, second) and first.shape == (4, APP_NEW), "repeated model.predict differs")
+    require(all(len(s) == APP_NEW and all(0 <= t < cfg.vocab_size for t in s) for s in streams), "stream tokens")
+    require(paged == cfg.n_layers * stats["decode_dispatches"] * 8 > 0, f"{paged} paged launches")
+    require(launches["int8_matmul"] == 0, f"the app does not quantize, yet int8_matmul launched: {launches}")
+    for name, n in launches.items():
+        totals[name] += n
+    del model, state
+    torch.cuda.empty_cache()
+
+    # ---- (b) the template's width, float32, flash against plain; save and load
+    tiny = LlamaConfig.tiny(vocab_size=TINY_VOCAB, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=128,
+                            max_seq_len=TINY_SEQ + TINY_NEW, dtype=torch.float32, param_dtype=torch.float32,
+                            attention_impl="flash")
+    model = protocol_app(tiny, batch_size=TINY_BATCH, new_tokens=TINY_NEW, prompt_len=TINY_PROMPT)
+    for fn in counted:
+        fn.launches = 0
+    model.train(hyperparameters={"attention_impl": "auto"}, n=TINY_ROWS, seq=TINY_SEQ)
+    plain_losses = [h["loss"] for h in model.last_fit_result.history]
+    for fn in counted:
+        totals[fn.__name__] += fn.launches
+        fn.launches = 0
+    model.train(hyperparameters={"attention_impl": "flash"}, n=TINY_ROWS, seq=TINY_SEQ)
+    kernel_losses = [h["loss"] for h in model.last_fit_result.history]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    prompts = np.random.RandomState(3).randint(1, TINY_VOCAB, size=(4, TINY_PROMPT))
+    predicted = model.predict(features=prompts)
+    streams, _ = stream_all(model, prompts)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    model.close_engines()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model_object.pt"
+        model.save(path)
+        trained = model.artifact.model_object
+        model.artifact = None
+        model.load(path)
+        reloaded = model.artifact.model_object
+        on_card = all(p.device.type == "cuda" for p in reloaded.model.parameters())
+        card_again = model.predict(features=prompts)
+        model.close_engines()
+        model.load(path, hyperparameters={"device": "cpu"})
+        on_cpu = all(p.device.type == "cpu" for p in model.artifact.model_object.model.parameters())
+        cpu_predicted = model.predict(features=prompts)
+    steps = len(kernel_losses)
+    per_run = tiny.n_layers * steps
+    print(f"app protocol (b), template width (dim 64, 2 layers, f32), {steps} steps of B={TINY_BATCH} x "
+          f"S={TINY_SEQ}: losses kernel {kernel_losses} plain {plain_losses} (max rel err {loss_err:.3g}, "
+          f"tolerance {APP_LOSS_REL}); stream text equals predict: {streams == predicted.tolist()}; save -> load on "
+          f"the card: tensors on the card {on_card}, predictions identical {np.array_equal(card_again, predicted)}; "
+          f"loaded with device=cpu: on the CPU {on_cpu}, greedy tokens equal {np.array_equal(cpu_predicted, predicted)}; "
+          f"launches {launches} (f32 kernels expected {per_run} each)", flush=True)
+    require(steps == TINY_ROWS // TINY_BATCH and loss_err <= APP_LOSS_REL, "app loss histories differ")
+    require(launches["flash_forward_f32"] == per_run and launches["flash_backward_f32"] == per_run,
+            f"f32 flash launches {launches}")
+    require(launches["paged_decode_attention"] > 0, "no paged launch in (b)")
+    require(streams == predicted.tolist(), f"stream {streams} != predict {predicted.tolist()}")
+    require(on_card and np.array_equal(card_again, predicted), "the reloaded state on the card differs")
+    require(on_cpu and np.array_equal(cpu_predicted, predicted), "the state loaded on the CPU predicts otherwise")
+    require(trained is not reloaded, "load returned the trained object")
+    for fn in counted:  # the reloaded state's predictions included
+        totals[fn.__name__] += fn.launches
+    require(totals["int8_matmul"] == 0, f"the app does not quantize, yet int8_matmul launched: {totals}")
+    model.close_engines()
+    del model, trained, reloaded
+    torch.cuda.empty_cache()
+
+    # ---- (c) the native records parser builds and parses
+    from unionml_tpu_torch.native import parse_records
+
+    records = [{"x": float(i), "y": -0.5 * i, "flag": bool(i % 2)} for i in range(4)]
+    parsed = parse_records(json.dumps(records).encode())
+    require(parsed is not None, "the native records parser did not build or refused a records payload")
+    matrix, columns, _ = parsed
+    require(columns == ["x", "y", "flag"] and np.array_equal(
+        matrix, np.array([[r["x"], r["y"], float(r["flag"])] for r in records])), f"parsed {parsed}")
+    print(f"app protocol (c), native records parser: {matrix.shape} float64 matrix, columns {columns}", flush=True)
+    return totals
+
+
 def main() -> int:
     import argparse
 
@@ -1223,6 +1477,12 @@ def main() -> int:
     f32_launches = training_parity_phase()
     # the f32 forward and backward run on the f32 path only
     flash_launches.update({name: f32_launches[name] for name in ("flash_forward_f32", "flash_backward_f32")})
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the app protocol (Dataset/Model) through the same kernels
+    app_launches = app_protocol_phase(card)
+    require(all(n > 0 for name, n in app_launches.items() if name != "int8_matmul") and
+            app_launches["int8_matmul"] == 0, f"app path launches {app_launches}")
 
     kernels = [{
         "name": "paged_decode_attention",
@@ -1230,17 +1490,21 @@ def main() -> int:
         "source": "unionml_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "unionml_tpu/ops/paged_attention.py:84",
         "launches": launches,
+        "app_launches": app_launches["paged_decode_attention"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": FLASH_SOURCES[name],
-            "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], **measured,
+            "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], "app_launches": app_launches[name],
+            **measured,
         })
     kernels.append({
         "name": "int8_matmul", "route": "cuda", "source": "unionml_tpu_torch/csrc/int8_matmul.cu",
-        "replaces": "unionml_tpu/ops/int8_matmul.py:102", "launches": int8_launches, **int8_numbers,
+        "replaces": "unionml_tpu/ops/int8_matmul.py:102", "launches": int8_launches,
+        "app_launches": app_launches["int8_matmul"],
+        **int8_numbers,
     })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -64,6 +64,11 @@ def test_scan_sees_every_port_module():
             "unionml_tpu_torch/train/driver.py", "unionml_tpu_torch/data/pipeline.py"} <= names
     assert {"unionml_tpu_torch/ops/int8_matmul.py", "unionml_tpu_torch/ops/quant.py",
             "unionml_tpu_torch/defaults.py", "scripts/flash_forward_ab.py"} <= names
+    assert {"unionml_tpu_torch/model.py", "unionml_tpu_torch/dataset.py", "unionml_tpu_torch/stage.py",
+            "unionml_tpu_torch/artifact.py", "unionml_tpu_torch/type_guards.py", "unionml_tpu_torch/_logging.py",
+            "unionml_tpu_torch/utils/__init__.py", "unionml_tpu_torch/native/__init__.py",
+            "unionml_tpu_torch/templates/text-generation/app.py",
+            "unionml_tpu_torch/templates/text-generation/tests/test_app.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -270,3 +270,55 @@ def test_serve_env_knobs_resolve_as_in_jax(models, monkeypatch, caplog, case):
     assert resolved == (None, None, 1, False)
     for name in env:
         assert (name in caplog.text) == (name in jax_warnings), name
+
+
+REPLICA_ENV = ("UNIONML_TPU_DP_REPLICAS", "UNIONML_TPU_REPLICA_ROLES")
+#: (env, engine kwargs, how many replicas the JAX engine's constructor would
+#: build); the port refuses a fleet, and refuses roles= whatever it names
+REPLICA_CASES = {
+    "dp-2": ({"UNIONML_TPU_DP_REPLICAS": "2"}, {}, 2),
+    "dp-garbage": ({"UNIONML_TPU_DP_REPLICAS": "abc"}, {}, 1),
+    "dp-1": ({"UNIONML_TPU_DP_REPLICAS": "1"}, {}, 1),
+    "roles": ({"UNIONML_TPU_REPLICA_ROLES": "prefill=1,decode=3"}, {}, 4),
+    "roles-garbage": ({"UNIONML_TPU_REPLICA_ROLES": "prefill=x"}, {}, 1),
+    "roles-one": ({"UNIONML_TPU_REPLICA_ROLES": "mixed=1"}, {}, 1),
+    "roles-kwarg": ({}, {"roles": {"prefill": 1, "decode": 1}}, 2),
+    "roles-kwarg-one": ({}, {"roles": {"prefill": 1}}, 1),
+    "unset": ({}, {}, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(REPLICA_CASES))
+def test_replica_exports_resolve_as_in_jax_and_refuse_a_fleet(models, monkeypatch, caplog, case):
+    """The serve CLI's ``--dp-replicas`` and ``--replica-roles`` exports read
+    as the JAX package reads them (values, and a warning where it warns on
+    garbage); where the JAX engine's constructor would build more than one
+    replica, the port's raises NotImplementedError rather than build one
+    engine."""
+    from unionml_tpu import defaults as jax_defaults
+    from unionml_tpu_torch import defaults
+
+    env, kwargs, replicas = REPLICA_CASES[case]
+    for name in REPLICA_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    jax_logger = logging.getLogger("unionml_tpu")  # it does not propagate to the root logger
+    monkeypatch.setattr(jax_logger, "handlers", [*jax_logger.handlers, caplog.handler])
+    with caplog.at_level("WARNING"):
+        jax_read = (jax_defaults.serve_dp_replicas(), jax_defaults.serve_replica_roles())
+    jax_warnings = caplog.text
+    caplog.clear()
+    with caplog.at_level("WARNING"):
+        read = (defaults.serve_dp_replicas(), defaults.serve_replica_roles())
+    assert read == jax_read
+    for name in env:
+        assert (name in caplog.text) == (name in jax_warnings), name
+    roles = kwargs.get("roles") or read[1]
+    assert max(read[0], sum(roles.values()), 1) == replicas
+    gen = Generator(models[2], GenerationConfig(max_new_tokens=4, prompt_buckets=(16,)), device="cpu")
+    if replicas > 1 or "roles" in kwargs:
+        with pytest.raises(NotImplementedError, match="Queue A: parallelism and the replica layer"):
+            ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
+        return
+    ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs).close()

@@ -71,7 +71,7 @@ def test_bad_inputs_raise():
         PrefetchIterator([np.zeros(3), np.zeros(4)], 2, device="cpu")
     with pytest.raises(ValueError, match="positive"):
         PrefetchIterator(np.zeros(3), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(NotImplementedError, match="Queue A: parallelism and the replica layer"):
         PrefetchIterator(np.zeros(3), 1, device="cpu", shard_by_process=True)
 
 

@@ -254,6 +254,6 @@ def test_multi_device_options_raise_pointing_at_the_roadmap(option):
     model = Llama(dataclasses.replace(LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)),
                   device="cpu", seed=0)
     state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A: parallelism and the replica layer"):
         fit(state, make_train_step(causal_lm_loss), _windows(512, n=8), TrainerConfig(batch_size=4, **option),
             device="cpu")

@@ -12,7 +12,7 @@ Counterpart of ``unionml_tpu/data/pipeline.py``. Batches are
    keeps the order and overlaps the host gather and the copy with the step.
 
 Multi-process sharding (``shard_by_process``) is not ported: this slice runs
-on one card (``ROADMAP.md``, Queue A 9).
+on one card (``ROADMAP.md``, Queue A: parallelism and the replica layer).
 """
 
 from __future__ import annotations
@@ -96,7 +96,8 @@ class PrefetchIterator:
     ):
         if shard_by_process:
             raise NotImplementedError(
-                "shard_by_process is not ported: this slice runs on one card (ROADMAP.md, Queue A 9)"
+                "shard_by_process is not ported: the port runs on one card (ROADMAP.md, Queue A: parallelism "
+                "and the replica layer)"
             )
         self.device = resolve_device(device)
         if isinstance(data, (list, tuple)):

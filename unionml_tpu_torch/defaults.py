@@ -1,22 +1,62 @@
-"""Serve-time knobs read from the environment.
+"""Default execution settings and serve-time knobs read from the environment.
 
-The subset of ``unionml_tpu/defaults.py`` that the port's ``Generator`` and
-``ContinuousBatcher`` read. The serve CLI exports these before the app module
-imports: every ``Generator`` the app builds resolves an unset ``quantize=``
-and ``config.kv_cache_dtype`` from ``UNIONML_TPU_QUANTIZE`` and
-``UNIONML_TPU_KV_CACHE_DTYPE``, and every engine resolves an unset
-``admit_chunk``, ``prefill_budget``, ``max_admissions`` and ``prefix_cache``
-from the four admission knobs below. A copy, not an import: the port never
-imports the JAX package.
+The subset of ``unionml_tpu/defaults.py`` that the port reads:
+
+- ``Resources``, ``DEFAULT_RESOURCES`` and ``MODEL_PATH_ENV_VAR`` for the app
+  protocol (``stage.py``, ``model.py``);
+- the serve CLI's exports, read when an object is built, after the CLI has
+  set them: every ``Generator`` resolves an unset ``quantize=`` and
+  ``config.kv_cache_dtype`` from ``UNIONML_TPU_QUANTIZE`` and
+  ``UNIONML_TPU_KV_CACHE_DTYPE``; every engine resolves an unset
+  ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
+  ``prefix_cache`` from the four admission knobs, and reads the replica
+  exports ``UNIONML_TPU_DP_REPLICAS`` and ``UNIONML_TPU_REPLICA_ROLES``.
+
+A copy, not an import: the port never imports the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class Resources:
+    """Resource request attached to a :class:`unionml_tpu_torch.stage.Stage`.
+
+    The JAX package's fields, kept for the stage interface: ``accelerator``
+    names an accelerator topology and ``chips`` how many; ``None`` means
+    host-only execution, the default for data-plumbing stages. Nothing in
+    the port schedules on them yet (the remote backend is ROADMAP.md, Queue A).
+    """
+
+    cpu: str = "1"
+    mem: str = "1Gi"
+    accelerator: Optional[str] = None
+    chips: int = 0
+
+
+DEFAULT_RESOURCES = Resources()
+
+#: Environment variable used by ``load_from_env`` (and the serve CLI), the
+#: name the JAX package and UnionML use.
+MODEL_PATH_ENV_VAR = "UNIONML_MODEL_PATH"
+
+#: the serve CLI's ``--dp-replicas`` export: a count above 1 asks for that
+#: many engine replicas
+SERVE_DP_REPLICAS_ENV_VAR = "UNIONML_TPU_DP_REPLICAS"
+
+#: the serve CLI's ``--replica-roles`` export, e.g. ``prefill=1,decode=3``
+#: (roles: prefill / decode / mixed; the counts sum to the fleet size)
+SERVE_REPLICA_ROLES_ENV_VAR = "UNIONML_TPU_REPLICA_ROLES"
+
+#: roles a replica may carry; "mixed" prefills and decodes in one engine
+REPLICA_ROLES = ("prefill", "decode", "mixed")
 
 #: "int8" = weight-only int8 for serving Generators (ops/quant.py:
 #: per-channel symmetric); "none"/unset = full precision. Garbage values warn
@@ -116,3 +156,52 @@ def serve_prefix_cache() -> bool:
     """Whether the serve-time radix prefix cache is on
     (``UNIONML_TPU_PREFIX_CACHE=1``), read at engine construction."""
     return env_int(SERVE_PREFIX_CACHE_ENV_VAR, 0, minimum=0) > 0
+
+
+def serve_dp_replicas() -> int:
+    """The serve-time data-parallel replica override; 0 = unset. Read at
+    engine construction; garbage (``UNIONML_TPU_DP_REPLICAS=abc``) warns and
+    falls back to 0."""
+    return env_int(SERVE_DP_REPLICAS_ENV_VAR, 0, minimum=0)
+
+
+def parse_replica_roles(raw: str) -> Dict[str, int]:
+    """Parse a ``prefill=1,decode=3`` role spec into ``{role: count}``.
+    Raises ``ValueError`` naming the offending entry; the env reader below
+    degrades instead."""
+    out: Dict[str, int] = {}
+    for entry in raw.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        role, sep, count = entry.partition("=")
+        role = role.strip().lower()
+        if not sep or role not in REPLICA_ROLES:
+            raise ValueError(
+                f"bad replica-role entry {entry!r}; expected role=count with role in "
+                f"{REPLICA_ROLES} (e.g. 'prefill=1,decode=3')"
+            )
+        try:
+            n = int(count.strip())
+        except ValueError:
+            raise ValueError(f"bad replica-role count in {entry!r}; expected an integer")
+        if n < 0:
+            raise ValueError(f"replica-role count must be >= 0 in {entry!r}")
+        out[role] = out.get(role, 0) + n
+    return {role: n for role, n in out.items() if n > 0}
+
+
+def serve_replica_roles() -> Dict[str, int]:
+    """The serve-time ``--replica-roles`` export parsed to ``{role: count}``;
+    ``{}`` = unset. Garbage warns and falls back to ``{}``."""
+    raw = os.environ.get(SERVE_REPLICA_ROLES_ENV_VAR)
+    if raw is None or not raw.strip():
+        return {}
+    try:
+        return parse_replica_roles(raw)
+    except ValueError as exc:
+        logger.warning(
+            f"ignoring {SERVE_REPLICA_ROLES_ENV_VAR}={raw!r} ({exc}); "
+            "falling back to a symmetric (all-mixed) fleet"
+        )
+        return {}

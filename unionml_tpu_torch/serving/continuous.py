@@ -44,9 +44,11 @@ import torch
 
 from unionml_tpu_torch.defaults import (
     serve_admit_chunk,
+    serve_dp_replicas,
     serve_max_admissions,
     serve_prefill_budget,
     serve_prefix_cache,
+    serve_replica_roles,
 )
 from unionml_tpu_torch.models.generate import Generator, init_cache, init_paged_cache
 from unionml_tpu_torch.serving.metrics import LatencyWindow
@@ -180,7 +182,10 @@ class ContinuousBatcher:
     ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
     ``prefix_cache`` resolve as in the JAX engine (the kwarg, else the serve
     CLI's env export); the port admits monolithically without a radix cache
-    and raises ``NotImplementedError`` for a value that selects either.
+    and raises ``NotImplementedError`` for a value that selects either. It
+    raises the same where the serve CLI's ``UNIONML_TPU_DP_REPLICAS`` or
+    ``UNIONML_TPU_REPLICA_ROLES`` asks for more than one replica, where the
+    JAX engine would build a fleet, and for any ``roles=``.
     """
 
     def __init__(
@@ -198,6 +203,11 @@ class ContinuousBatcher:
         prefix_cache: Optional[bool] = None,
         **unported: Any,
     ):
+        if "roles" in unported:
+            raise NotImplementedError(
+                "ContinuousBatcher roles= is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer)"
+            )
+        self._refuse_replicas()
         unknown = sorted(set(unported) - set(_UNPORTED))
         if unknown:
             raise TypeError(f"unexpected ContinuousBatcher arguments {unknown}")
@@ -267,6 +277,23 @@ class ContinuousBatcher:
         #: TTFT (submit -> first token) and TBT (gap between emissions)
         self._ttft = LatencyWindow()
         self._tbt = LatencyWindow()
+
+    @staticmethod
+    def _refuse_replicas() -> None:
+        """Where the JAX engine's constructor returns a fleet of replicas (the
+        serve CLI's ``UNIONML_TPU_DP_REPLICAS`` above 1, or a
+        ``UNIONML_TPU_REPLICA_ROLES`` spec of more than one replica), the port
+        raises rather than build one engine."""
+        env_roles = serve_replica_roles()
+        role_total, source = sum(env_roles.values()), f"UNIONML_TPU_REPLICA_ROLES={env_roles}"
+        dp = serve_dp_replicas()
+        if dp > 1:
+            role_total, source = dp, f"UNIONML_TPU_DP_REPLICAS={dp}"
+        if role_total > 1:
+            raise NotImplementedError(
+                f"ContinuousBatcher: {source} selects {role_total} engine replicas, which are not ported yet "
+                "(ROADMAP.md, Queue A: parallelism and the replica layer)"
+            )
 
     def _resolve_admission(self, generator, admit_chunk, prefill_budget, max_admissions, prefix_cache,
                            block_size) -> None:

@@ -22,14 +22,14 @@ What differs from the JAX driver:
   :func:`~unionml_tpu_torch.models.llama_params_from_jax` instead).
 - One card: ``mesh``, ``partition_rules``, ``logical_axis_rules`` and
   ``shard_batch_by_process`` raise ``NotImplementedError`` unless left at
-  their defaults (``ROADMAP.md``, Queue A 9); ``fsdp_min_weight_size`` is
+  their defaults (``ROADMAP.md``, Queue A: parallelism and the replica
+  layer); ``fsdp_min_weight_size`` is
   read only with a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import time
 from pathlib import Path
@@ -40,9 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, module_device, resolve_device
+from unionml_tpu_torch._logging import logger
 from unionml_tpu_torch.data.pipeline import PrefetchIterator, flatten, unflatten
-
-logger = logging.getLogger("unionml_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -119,7 +118,8 @@ def _refuse_parallel(**options: Any) -> None:
     for name, value in options.items():
         if value not in (None, False):
             raise NotImplementedError(
-                f"{name} is not ported: this slice trains on one card (ROADMAP.md, Queue A 9)"
+                f"{name} is not ported: the port trains on one card (ROADMAP.md, Queue A: parallelism and the "
+                "replica layer)"
             )
 
 
