@@ -863,8 +863,8 @@ def structured_phase(cfg, gcfg, prompts, slots, decode_chunk, card: str, profile
     engine.warmup()
     warm_s = time.perf_counter() - t0
     stats = engine.stats()
-    require(stats["decode_dispatches"] == stats["decoded_rows"] == 0 and stats["ttft_ms"] == {"window": 0},
-            f"warmup left counters behind: {stats}")
+    require(stats["decode_dispatches"] == 0 and stats["rows_per_dispatch"] is None
+            and stats["ttft_ms"] == {"window": 0}, f"warmup left counters behind: {stats}")
     _, first_s = serve(engine, prompts[:1], grammars=[1])
     first_ttft = engine.stats()["ttft_ms"]["max_ms"]
     paged_decode_attention.launches = 0
@@ -1355,6 +1355,303 @@ def app_protocol_phase(card: str) -> dict:
     return totals
 
 
+#: phase 8, the serving half: the bf16 serving model behind ``Model.serve()`` over a loopback socket
+HTTP_TIMEOUT_S = 600  # one request's socket timeout
+HTTP_DEADLINE_MS = 1  # the deadline header that must shed with 503
+
+
+def serving_app_model(module, gcfg, slots: int, decode_chunk: int):
+    """A pandas-free ``Dataset``/``Model`` app around a built ``Llama``: token-id
+    features (no tokenizer), ``model.artifact`` set directly. The predictor runs
+    its batch through the shared engine's ``Generator`` on the paged pool
+    (``ContinuousBatcher(slots, decode_chunk, block_size=16)``); the stream
+    predictor yields one prompt's token chunks from the same engine. Both are
+    registered through ``generation_batcher``/``generation_warmup``, as the
+    text-generation template does; ``model.warmed`` is set once the warm-up
+    finished."""
+    from typing import List
+
+    from unionml_tpu_torch import ContinuousBatcher, Dataset, Generator, Llama, Model
+    from unionml_tpu_torch.artifact import ModelArtifact
+    from unionml_tpu_torch.serving import current_deadline
+
+    dataset = Dataset(name="http_tokens")
+    model = Model(name="http_serving", dataset=dataset)
+
+    @dataset.reader
+    def reader(n: int = 4) -> List[List[int]]:
+        return [[1 + i] for i in range(n)]
+
+    @dataset.feature_loader
+    def feature_loader(raw) -> List[List[int]]:
+        return [[int(t) for t in row] for row in raw]
+
+    @model.init
+    def init(hyperparameters: dict) -> Llama:
+        return module
+
+    engines: dict = {}
+
+    def engine() -> "ContinuousBatcher":
+        if "batcher" not in engines:
+            gen = Generator(module, gcfg, device=next(module.parameters()).device)
+            engines["batcher"] = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+            model.generation_batcher = engines["batcher"]
+        return engines["batcher"]
+
+    @model.predictor
+    def predictor(llama: Llama, features: List[List[int]]) -> List[List[int]]:
+        streams = [engine().submit(prompt) for prompt in features]  # all resident at once
+        return [[int(t) for chunk in stream for t in chunk] for stream in streams]
+
+    @model.stream_predictor
+    def stream_predictor(llama: Llama, features: List[List[int]]):
+        for chunk in engine().submit(features[0], deadline=current_deadline()):
+            yield [int(t) for t in chunk]
+
+    def warmup() -> None:
+        engine().warmup()
+        model.warmed = True
+
+    model.warmed = False
+    model.generation_warmup = warmup
+    model.artifact = ModelArtifact(module)
+    return model
+
+
+def http_request(port: int, method: str, path: str, body=None, headers=None, *, first_chunk: list = None):
+    """One request over a fresh loopback connection: (status, headers, body
+    bytes). ``first_chunk``, when given, receives the seconds from sending to
+    the first body bytes (a stream's time to first token on the wire)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json", **(headers or {})})
+        response = conn.getresponse()
+        first = response.read1() if first_chunk is not None else b""
+        if first_chunk is not None:
+            first_chunk.append(time.perf_counter() - t0)
+        return response.status, dict(response.getheaders()), first + response.read()
+    finally:
+        conn.close()
+
+
+def concurrent(fns) -> tuple:
+    """Run each zero-argument callable on its own thread: (results, seconds)."""
+    results = [None] * len(fns)
+    errors = []
+
+    def worker(i):
+        try:
+            results[i] = fns[i]()
+        except BaseException as exc:  # re-raised on the main thread below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(fns))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+        if t.is_alive():
+            raise TimeoutError(f"a request did not finish within {HTTP_TIMEOUT_S} s")
+    if errors:
+        raise errors[0]
+    return results, time.perf_counter() - t0
+
+
+def parse_prometheus(text: str) -> int:
+    """Samples in a Prometheus text exposition; raises on a malformed line."""
+    import re
+
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"'
+                        r'(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*\})? -?([0-9.e+-]+|NaN|[+-]Inf)$')
+    count = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        require(sample.match(line) is not None, f"malformed Prometheus line {line!r}")
+        float(line.rsplit(" ", 1)[1])
+        count += 1
+    return count
+
+
+def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16: dict, profile: bool) -> dict:
+    """Phase 8, the serving half: ``Model.serve()`` on the bf16 serving model,
+    ``HTTPServer.serve`` on an ephemeral loopback port, driven by
+    ``http.client`` from threads through ``/predict``, ``/predict-stream``,
+    ``/v1/completions``, ``/metrics``, ``/healthz`` and ``/debug/requests``;
+    then the SIGTERM-path drain. Returns each kernel's launches across the
+    HTTP requests."""
+    import asyncio
+
+    import torch
+
+    from unionml_tpu_torch import Llama
+
+    counted = app_counted()
+    t0 = time.perf_counter()
+    module = Llama(cfg, seed=0)  # phase 3's weights
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = serving_app_model(module, gcfg, slots, decode_chunk)
+    app = model.serve()
+    app.configure_observability(trace=True)
+    t0 = time.perf_counter()
+    app.startup()
+    startup_s = time.perf_counter() - t0
+    batcher = model.generation_batcher
+    require(batcher is not None and model.warmed, "the engine was not built and warmed before the first request")
+    require(batcher.decode_dispatches == 0, "warmup left its dispatches in the counters")
+
+    # the same engine, direct: each prompt from its own thread (the reference tokens)
+    ttft_direct = []
+
+    def direct(prompt):
+        start = time.perf_counter()
+        stream = batcher.submit(prompt)
+        out = [int(t) for t in next(stream)]
+        ttft_direct.append(time.perf_counter() - start)
+        return out + [int(t) for chunk in stream for t in chunk]
+
+    before = batcher.decode_dispatches
+    reference, direct_s = concurrent([functools.partial(direct, p) for p in prompts])
+    direct_dispatches = batcher.decode_dispatches - before
+    require(all(len(r) == MAX_NEW for r in reference), f"direct stream lengths {[len(r) for r in reference]}")
+
+    # ---- the server on an ephemeral loopback port, its loop on its own thread
+    loop = asyncio.new_event_loop()
+    server_thread = threading.Thread(
+        target=loop.run_until_complete, args=(app.server.serve("127.0.0.1", 0),), daemon=True
+    )
+    server_thread.start()
+    for _ in range(500):
+        if app.server._server is not None and app.server._server.sockets:
+            break
+        time.sleep(0.01)
+    port = app.server._server.sockets[0].getsockname()[1]
+
+    for fn in counted:
+        fn.launches = 0
+    dispatches_before = batcher.decode_dispatches
+
+    # POST /predict with the 4 prompts (one batch through the engine)
+    status, _, body = http_request(port, "POST", "/predict", {"features": prompts})
+    require(status == 200, f"/predict answered {status}: {body[:300]!r}")
+    predicted = json.loads(body)
+    require([len(r) for r in predicted] == [MAX_NEW] * len(prompts) and predicted == reference,
+            "/predict tokens differ from the engine's direct tokens")
+
+    # 4 concurrent single-prompt ND-JSON streams
+    ttft_http: list = []
+
+    def stream_one(prompt):
+        status, headers, body = http_request(port, "POST", "/predict-stream", {"features": [prompt]},
+                                             first_chunk=ttft_http)
+        require(status == 200 and headers.get("Content-Type") == "application/x-ndjson", f"stream {status}")
+        return [t for line in body.decode().splitlines() if line for t in json.loads(line)]
+
+    before = batcher.decode_dispatches
+    streamed, http_s = concurrent([functools.partial(stream_one, p) for p in prompts])
+    stream_dispatches = batcher.decode_dispatches - before
+    require(streamed == reference, "an ND-JSON stream differs from the engine's direct tokens")
+
+    # /v1/completions, stream=true, logprobs=1, on a token-id prompt
+    status, headers, body = http_request(
+        port, "POST", "/v1/completions",
+        {"prompt": prompts[0], "max_tokens": MAX_NEW, "stream": True, "logprobs": 1},
+    )
+    require(status == 200 and headers.get("Content-Type", "").startswith("text/event-stream"), f"/v1 {status}")
+    events = [line[len("data: "):] for line in body.decode().split("\n\n") if line.startswith("data: ")]
+    require(events and events[-1] == "[DONE]", "the SSE stream does not end with [DONE]")
+    payloads = [json.loads(e) for e in events[:-1]]
+    sse_tokens, sse_logprobs = [], []
+    for payload in payloads:
+        block = payload["choices"][0].get("logprobs")
+        if block:
+            sse_tokens += [int(t) for t in block["tokens"]]
+            sse_logprobs += block["token_logprobs"]
+    usage = payloads[-1].get("usage", {})
+    require(sse_tokens == streamed[0], "the SSE tokens differ from the ND-JSON stream's")
+    require(len(sse_logprobs) == MAX_NEW and all(math.isfinite(v) and v <= 0 for v in sse_logprobs),
+            "SSE logprobs not finite")
+    require(usage == {"prompt_tokens": len(prompts[0]), "completion_tokens": MAX_NEW,
+                      "total_tokens": len(prompts[0]) + MAX_NEW}, f"usage {usage}")
+
+    # the deadline header sheds with 503
+    status, headers, _ = http_request(port, "POST", "/predict-stream", {"features": [prompts[1]]},
+                                      headers={"X-Request-Deadline-Ms": str(HTTP_DEADLINE_MS)})
+    require(status == 503, f"a {HTTP_DEADLINE_MS} ms deadline answered {status}")
+
+    for _ in range(6000):  # the shed request's session, if it was admitted, ends within a dispatch
+        if batcher.occupancy() == (0, 0):
+            break
+        time.sleep(0.01)
+    dispatches = batcher.decode_dispatches - dispatches_before
+    http_launches = {fn.__name__: fn.launches for fn in counted}
+
+    # /metrics (json and prometheus), /healthz, /debug/requests
+    status, _, body = http_request(port, "GET", "/metrics")
+    metrics = json.loads(body)
+    generation = metrics["generation"]
+    require(status == 200 and generation["slots"] == slots and generation["decode_dispatches"] > 0
+            and generation["speculative"] is False and generation["kv_blocks"]["used"] == 0,
+            f"/metrics generation {generation}")
+    route = next(v for k, v in metrics["routes"].items() if k.endswith("/predict-stream"))
+    status, headers, body = http_request(port, "GET", "/metrics?format=prometheus")
+    samples = parse_prometheus(body.decode())
+    require(status == 200 and samples > 0, "the Prometheus exposition is empty")
+    status, _, body = http_request(port, "GET", "/healthz")
+    require(status == 200 and json.loads(body)["ready"] is True, f"/healthz {status}")
+    status, _, body = http_request(port, "GET", "/debug/requests")
+    timelines = json.loads(body)["completed"]
+    engine_events = {e["event"] for t in timelines for e in t["events"] if e["event"].startswith("engine.")}
+    require(status == 200 and {"engine.submit", "engine.first_token", "engine.finish"} <= engine_events,
+            f"/debug/requests engine events {sorted(engine_events)}")
+
+    if profile:
+        profile_run("HTTP /predict-stream 4 streams",
+                    lambda: concurrent([functools.partial(stream_one, p) for p in prompts]))
+
+    # ---- drain: the SIGTERM path (shutdown), which closes the engine
+    asyncio.run_coroutine_threadsafe(app.server.shutdown(drain_timeout_s=60), loop).result(timeout=120)
+    server_thread.join(timeout=60)
+    leftover = asyncio.all_tasks(loop)  # the micro-batcher's collector waits on its queue forever
+    for task in leftover:
+        task.cancel()
+    loop.run_until_complete(asyncio.gather(*leftover, return_exceptions=True))
+    loop.close()
+    if batcher._thread is not None:
+        batcher._thread.join(timeout=60)
+    require(not server_thread.is_alive() and batcher._closed and not (batcher._thread and batcher._thread.is_alive()),
+            "the server did not drain and close the engine")
+
+    expected = cfg.n_layers * dispatches * decode_chunk
+    ttft_http_p50, ttft_direct_p50 = statistics.median(ttft_http), statistics.median(ttft_direct)
+    print(f"HTTP serving (Model.serve, loopback socket), Llama-3-8B width bf16 ({cfg.n_layers} layers, built in "
+          f"{build_s:.1f} s, startup with warmup {startup_s:.1f} s): 4 concurrent /predict-stream streams x "
+          f"{MAX_NEW} tokens {len(prompts) * MAX_NEW / http_s:.1f} tok/s aggregate in {stream_dispatches} decode "
+          f"dispatches (the same engine direct {len(prompts) * MAX_NEW / direct_s:.1f} tok/s in {direct_dispatches}; "
+          f"phase 3 {bf16['tok_s']:.1f} tok/s); time to first chunk "
+          f"p50 over HTTP {ttft_http_p50 * 1e3:.1f} ms against {ttft_direct_p50 * 1e3:.1f} ms direct (HTTP adds "
+          f"{(ttft_http_p50 - ttft_direct_p50) * 1e3:.1f} ms a request); /metrics TTFT p50 "
+          f"{generation['ttft_ms'].get('p50_ms')} ms, /predict-stream route p50 {route.get('p50_ms')} ms; "
+          f"/predict, 4 streams, /v1/completions (SSE, logprobs, usage {usage}) and the 503 shed took "
+          f"{dispatches} decode dispatches and {http_launches['paged_decode_attention']} paged launches "
+          f"(expected {cfg.n_layers} layers x {dispatches} x {decode_chunk} = {expected}); {samples} Prometheus "
+          f"samples; {len(timelines)} traced requests; card {card}", flush=True)
+    require(http_launches["paged_decode_attention"] == expected > 0,
+            f"{http_launches['paged_decode_attention']} paged launches over HTTP, expected {expected}")
+    others = {name: n for name, n in http_launches.items() if name != "paged_decode_attention"}
+    require(not any(others.values()), f"kernels off the HTTP path launched: {others}")
+    del model, app, batcher, module
+    torch.cuda.empty_cache()
+    return http_launches
+
+
 def main() -> int:
     import argparse
 
@@ -1484,6 +1781,9 @@ def main() -> int:
     require(all(n > 0 for name, n in app_launches.items() if name != "int8_matmul") and
             app_launches["int8_matmul"] == 0, f"app path launches {app_launches}")
 
+    # ---- phase 8: the serving half (Model.serve, HTTP over a loopback socket) on phase 3's weights
+    http_launches = http_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16, args.profile)
+
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1491,6 +1791,7 @@ def main() -> int:
         "replaces": "unionml_tpu/ops/paged_attention.py:84",
         "launches": launches,
         "app_launches": app_launches["paged_decode_attention"],
+        "http_launches": http_launches["paged_decode_attention"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -1498,12 +1799,14 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], "app_launches": app_launches[name],
+            "http_launches": http_launches[name],
             **measured,
         })
     kernels.append({
         "name": "int8_matmul", "route": "cuda", "source": "unionml_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "unionml_tpu/ops/int8_matmul.py:102", "launches": int8_launches,
         "app_launches": app_launches["int8_matmul"],
+        "http_launches": http_launches["int8_matmul"],
         **int8_numbers,
     })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")

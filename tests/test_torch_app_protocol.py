@@ -717,9 +717,9 @@ def test_step_mode_trains_on_the_device_init_chose(monkeypatch, evaluate_steps):
 def test_unported_parts_raise_naming_the_roadmap(call):
     model = make_sklearn_model(PACKAGES["torch"])
     calls = {
-        "serve": (lambda: model.serve(), "Queue A item 2"),
-        "predictor-jit": (lambda: model.predictor(lambda est, features: [],
-                                                  config=SimpleNamespace(jit=True)), "Queue A item 2"),
+        "serve": (lambda: model.serve(remote=True), "Queue A item 8"),
+        "predictor-jit": (lambda: model.predictor(model._predictor, config=SimpleNamespace(jit=True, mesh="data")),
+                          "parallelism and the replica layer"),
         "remote": (lambda: model.remote(backend_store="store"), "Queue A item 8"),
         "remote_train": (lambda: model.remote_train(hyperparameters={}), "Queue A item 8"),
     }

@@ -6,10 +6,14 @@ shared ``ContinuousBatcher`` to the predicted text, and constrains
 ``@word``/``@sentence`` prompts to their grammars. With the JAX template's
 ``init({})`` weights carried across by ``llama_params_from_jax``, its
 ``predictor`` gives the JAX template's ``predictor`` text token for token
-(f32, greedy), plain and constrained prompts alike.
+(f32, greedy), plain and constrained prompts alike. ``model.serve()`` passes
+the serve half of the JAX template test (``tests/unit/test_templates.py``,
+without its speculative lines).
 """
 
+import asyncio
 import importlib.util
+import json
 import re
 import sys
 from pathlib import Path
@@ -143,3 +147,63 @@ def carried():
 def test_carried_weights_give_the_jax_templates_text(carried, prompts):
     jax_app, jax_state, torch_app, state = carried
     assert torch_app.predictor(state, prompts) == jax_app.predictor(jax_state, prompts)
+
+
+def test_serve_half_of_the_jax_template_test(app):
+    """``tests/unit/test_templates.py``'s generation-over-HTTP lines on the
+    torch template: ``/predict``, a batch stream and two concurrent
+    single-prompt streams reassemble to the predicted text, ``/metrics``
+    reports the shared engine, and an ``@word`` prompt is constrained on both
+    routes alike."""
+    module, _, _ = app
+    prompts = ["the quick brown ", "a stitch "]
+    outputs = module.model.predict(features=prompts)
+    served = module.model.serve()
+    status, texts, _ = asyncio.run(served.dispatch("POST", "/predict", json.dumps({"features": prompts}).encode()))
+    assert status == 200 and texts == outputs
+
+    async def consume():
+        status, payload, content_type = await served.dispatch(
+            "POST", "/predict-stream", json.dumps({"features": prompts}).encode()
+        )
+        assert status == 200 and content_type == "application/x-ndjson"
+        return [chunk async for chunk in payload]
+
+    chunks = asyncio.run(consume())
+    assert len(chunks) > 1  # actually incremental, not one blob
+    pieces = [json.loads(c.decode()) for c in chunks]
+    for i, prompt in enumerate(prompts):
+        assert prompt + "".join(p[i] for p in pieces) == outputs[i]
+
+    async def consume_one(prompt):
+        status, payload, _ = await served.dispatch(
+            "POST", "/predict-stream", json.dumps({"features": [prompt]}).encode()
+        )
+        assert status == 200
+        return "".join([json.loads(c.decode())[0] async for c in payload])
+
+    async def concurrent():
+        return await asyncio.gather(*(consume_one(p) for p in prompts))
+
+    streamed = asyncio.run(concurrent())
+    assert [p + s for p, s in zip(prompts, streamed)] == outputs
+    entry = module._continuous.get(id(module.model.artifact.model_object))
+    assert entry is not None and entry[0] is module.model.artifact.model_object
+    batcher = entry[1]
+    assert batcher.decode_dispatches > 0
+
+    status, metrics_payload, _ = asyncio.run(served.dispatch("GET", "/metrics"))
+    assert status == 200
+    generation = metrics_payload["generation"]
+    assert generation["slots"] == 4 and generation["decode_dispatches"] > 0
+    assert generation["speculative"] is False
+    kv = generation["kv_blocks"]
+    assert kv["block_size"] == 16 and kv["used"] == 0
+
+    g_prompt = "@word the quick brown "
+    g_out = module.model.predict(features=[g_prompt, "plain "])
+    cont = g_out[0][len("the quick brown "):]
+    assert cont and re.fullmatch(r"[a-z]+", cont), g_out[0]
+    assert g_out[1] == module.model.predict(features=["plain "])[0]
+    streamed_word = asyncio.run(consume_one(g_prompt))
+    assert "the quick brown " + streamed_word == g_out[0]

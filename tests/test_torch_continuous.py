@@ -100,7 +100,7 @@ def test_paged_flash_streams_match_jax_engine_and_solo(models):
         engine.close()
     assert streams == jax_streams
     assert streams == _solo(plain, GenerationConfig(**kw), PROMPTS)
-    assert stats["decoded_rows"] > stats["decode_dispatches"]  # dispatches were shared
+    assert stats["rows_per_dispatch"] > 1  # dispatches were shared
     assert stats["kv_blocks"]["used"] == 0
     assert pa.paged_decode_attention.launches == 0  # CPU tensors take the twin, never the kernel
 
@@ -131,7 +131,7 @@ def test_undersized_pool_with_lazy_growth(models):
         assert 4 * engine._blocks_lifetime(PROMPTS[0], 4) <= engine.pool_blocks
         assert _concurrent(engine, PROMPTS, max_new_tokens=4) == [e[:4] for e in expected]
         stats = engine.stats()
-        assert stats["decoded_rows"] > stats["decode_dispatches"]
+        assert stats["rows_per_dispatch"] > 1
         assert {k: stats["kv_blocks"][k] for k in ("total", "used", "block_size", "preemptions")} == {
             "total": 10, "used": 0, "block_size": 8, "preemptions": 0,
         }
@@ -203,7 +203,7 @@ def test_chunked_admission_is_not_ported(models):
         ContinuousBatcher(gen)
 
 
-@pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "tenancy"])
+@pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "prefix", "role", "aot"])
 def test_unported_engine_options_raise(models, option):
     _, _, flash, _ = models
     gen = Generator(flash, GenerationConfig(prompt_buckets=(16,)), device="cpu")

@@ -414,7 +414,7 @@ def test_warmup_resets_counters_and_keeps_streams(tiny):
     try:
         engine.warmup()
         stats = engine.stats()
-        assert (stats["decode_dispatches"], stats["decoded_rows"]) == (0, 0)
+        assert (stats["decode_dispatches"], stats["rows_per_dispatch"]) == (0, None)
         assert stats["ttft_ms"] == stats["tbt_ms"] == {"window": 0}
         assert stats["kv_blocks"]["used"] == 0
         streams = _serve(engine, PROMPTS, GIDS)

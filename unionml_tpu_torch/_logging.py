@@ -3,9 +3,9 @@
 - ``UNIONML_TPU_LOGLEVEL`` is validated: a garbage value warns and falls back
   to INFO instead of raising at import time.
 - ``UNIONML_TPU_LOG_FORMAT=json`` (or :func:`set_log_format`) switches every
-  line to one JSON object. The JAX package adds the active request id there;
-  the port's request context comes with the serving half of the app surface
-  (ROADMAP.md, Queue A), so its lines carry none yet.
+  line to one JSON object carrying the active request id from
+  :mod:`unionml_tpu_torch.observability.trace`, so access-log lines correlate
+  with ``/debug/requests`` timelines by ``request_id``.
 
 One difference: the logger propagates, so records also reach the root
 logger's handlers (pytest's ``caplog`` among them); the JAX package's does
@@ -22,7 +22,8 @@ _TEXT_FORMAT = "[unionml-tpu-torch] %(asctime)s %(levelname)s %(message)s"
 
 
 class JsonFormatter(logging.Formatter):
-    """One JSON object per line: timestamp, level, logger and message."""
+    """One JSON object per line: timestamp, level, logger, message and — when
+    a request is being handled — its ``request_id``."""
 
     def format(self, record: logging.LogRecord) -> str:
         out = {
@@ -33,6 +34,15 @@ class JsonFormatter(logging.Formatter):
         }
         if record.exc_info:
             out["exc_info"] = self.formatException(record.exc_info)
+        try:
+            # lazy: keeps bare-logger users free of the serving stack
+            from unionml_tpu_torch.observability.trace import current_request_id
+
+            request_id = current_request_id()
+            if request_id is not None:
+                out["request_id"] = request_id
+        except Exception:  # pragma: no cover - never fail a log line
+            pass
         return json.dumps(out, default=str)
 
 

@@ -10,7 +10,11 @@ The subset of ``unionml_tpu/defaults.py`` that the port reads:
   ``UNIONML_TPU_KV_CACHE_DTYPE``; every engine resolves an unset
   ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
   ``prefix_cache`` from the four admission knobs, and reads the replica
-  exports ``UNIONML_TPU_DP_REPLICAS`` and ``UNIONML_TPU_REPLICA_ROLES``.
+  exports ``UNIONML_TPU_DP_REPLICAS`` and ``UNIONML_TPU_REPLICA_ROLES``;
+- the serving app's overload limits (``SERVE_MAX_INFLIGHT`` and its
+  siblings) and the serve readers it and the engine call at construction:
+  tracing, the flight recorder, the profile directory, the log format,
+  tenancy, traffic capture and the six ``UNIONML_TPU_SLO_*`` targets.
 
 A copy, not an import: the port never imports the JAX package.
 """
@@ -46,6 +50,33 @@ DEFAULT_RESOURCES = Resources()
 #: Environment variable used by ``load_from_env`` (and the serve CLI), the
 #: name the JAX package and UnionML use.
 MODEL_PATH_ENV_VAR = "UNIONML_MODEL_PATH"
+
+#: concurrent requests executing handlers before the HTTP layer sheds with 429.
+SERVE_MAX_INFLIGHT = 256
+
+#: micro-batcher admission queue bound (requests waiting to join a dispatch);
+#: a full queue sheds with 429 instead of growing without bound.
+SERVE_QUEUE_MAXSIZE = 1024
+
+#: continuous-batching engine waiting-queue bound (prompts waiting for a free
+#: decode slot) — ahead of the fixed slot pool itself.
+SERVE_MAX_WAITING = 256
+
+#: server-default per-request deadline (ms); a request still queued past it is
+#: shed with 503, one mid-handler is cancelled. ``X-Request-Deadline-Ms`` lets
+#: a client tighten (or, up to the max below, extend) it per request.
+SERVE_DEFAULT_DEADLINE_MS = 30_000.0
+
+#: ceiling on client-requested deadlines (ms): a client cannot pin server
+#: resources longer than this no matter what header it sends.
+SERVE_MAX_DEADLINE_MS = 300_000.0
+
+#: seconds a SIGTERM-initiated drain waits for in-flight requests and streams
+#: to finish before the process exits anyway.
+SERVE_DRAIN_TIMEOUT_S = 30.0
+
+#: ``Retry-After`` seconds attached to 429/503 shed responses.
+SERVE_RETRY_AFTER_S = 1
 
 #: the serve CLI's ``--dp-replicas`` export: a count above 1 asks for that
 #: many engine replicas
@@ -84,6 +115,76 @@ SERVE_MAX_ADMISSIONS_ENV_VAR = "UNIONML_TPU_MAX_ADMISSIONS"
 SERVE_PREFIX_CACHE_ENV_VAR = "UNIONML_TPU_PREFIX_CACHE"
 
 
+#: the AOT program store and the persistent compile cache (path-or-flag
+#: exports); the port has neither, so the serving app refuses a value that
+#: turns either on
+SERVE_COMPILE_CACHE_ENV_VAR = "UNIONML_TPU_COMPILE_CACHE"
+SERVE_AOT_PRELOAD_ENV_VAR = "UNIONML_TPU_AOT_PRELOAD"
+
+#: prefill-threshold export of the replica layer (read by the serving app's
+#: ``configure_replicas``; the engine refuses a fleet)
+SERVE_PREFILL_THRESHOLD_ENV_VAR = "UNIONML_TPU_PREFILL_THRESHOLD"
+
+#: path to a tenants.json (per-tenant weights, req/s + generated-tokens/s
+#: bucket rates, default priority tier, api-key -> tenant mapping). A missing
+#: or malformed file warns and degrades to --default-tenant-rate only.
+SERVE_TENANT_CONFIG_ENV_VAR = "UNIONML_TPU_TENANT_CONFIG"
+
+#: requests/s bucket rate for identified tenants NOT named in the config file
+#: (anonymous traffic is never bucket-limited); 0/unset = unlimited.
+SERVE_DEFAULT_TENANT_RATE_ENV_VAR = "UNIONML_TPU_DEFAULT_TENANT_RATE"
+
+#: 1 = record a per-request timeline (spans at every lifecycle stage) into the
+#: flight recorder; 0 = off (request ids still flow — tracing is the only part
+#: with a cost, and it allocates nothing while off).
+SERVE_TRACE_ENV_VAR = "UNIONML_TPU_TRACE"
+
+#: completed request timelines the flight recorder retains (ring buffer).
+SERVE_FLIGHT_RECORDER_ENV_VAR = "UNIONML_TPU_FLIGHT_RECORDER_SIZE"
+SERVE_FLIGHT_RECORDER_SIZE = 256
+
+#: log line format: "text" (classic prefix) or "json" (one JSON object a line).
+SERVE_LOG_FORMAT_ENV_VAR = "UNIONML_TPU_LOG_FORMAT"
+
+#: directory ``POST /debug/profile`` writes torch.profiler traces into; unset
+#: disables the endpoint (it answers 400 with a pointer to the flag).
+SERVE_PROFILE_DIR_ENV_VAR = "UNIONML_TPU_PROFILE_DIR"
+
+#: ceiling on one on-demand profile capture (ms): a runaway duration request
+#: must not leave the profiler running for hours.
+SERVE_PROFILE_MAX_MS = 60_000.0
+
+#: directory live traffic is captured into as replayable traces
+#: (workloads/traces.py TraceRecorder); unset = capture off.
+SERVE_RECORD_TRAFFIC_ENV_VAR = "UNIONML_TPU_RECORD_TRAFFIC"
+
+#: record SHA-256 digests + lengths instead of prompt token ids; 0/unset =
+#: literal ids.
+SERVE_RECORD_TRAFFIC_HASH_ENV_VAR = "UNIONML_TPU_RECORD_TRAFFIC_HASH"
+
+#: TTFT p95 target in ms over the burn-rate windows (0 = disarmed).
+SERVE_SLO_TTFT_P95_MS_ENV_VAR = "UNIONML_TPU_SLO_TTFT_P95_MS"
+
+#: TBT p99 target in ms (0 = disarmed).
+SERVE_SLO_TBT_P99_MS_ENV_VAR = "UNIONML_TPU_SLO_TBT_P99_MS"
+
+#: tolerated shed fraction of arrivals, e.g. 0.01 (0 = disarmed).
+SERVE_SLO_SHED_RATIO_ENV_VAR = "UNIONML_TPU_SLO_SHED_RATIO"
+
+#: fast burn-rate window (seconds): the paging window.
+SERVE_SLO_FAST_WINDOW_S_ENV_VAR = "UNIONML_TPU_SLO_FAST_WINDOW_S"
+SERVE_SLO_FAST_WINDOW_S = 60.0
+
+#: slow burn-rate window (seconds): the trend confirmation — breach requires
+#: BOTH windows over target; one alone is warn.
+SERVE_SLO_SLOW_WINDOW_S_ENV_VAR = "UNIONML_TPU_SLO_SLOW_WINDOW_S"
+SERVE_SLO_SLOW_WINDOW_S = 600.0
+
+#: samples (or arrivals, for the shed ratio) a window needs before it can
+#: breach: an idle engine is healthy, not failing.
+SERVE_SLO_MIN_SAMPLES_ENV_VAR = "UNIONML_TPU_SLO_MIN_SAMPLES"
+SERVE_SLO_MIN_SAMPLES = 3
+
 def env_int(name: str, default: int, *, minimum: Optional[int] = None) -> int:
     """Parse an integer env var, tolerating garbage: unset/empty -> ``default``,
     a non-integer value warns and falls back to ``default`` instead of raising
@@ -102,6 +203,23 @@ def env_int(name: str, default: int, *, minimum: Optional[int] = None) -> int:
         return minimum
     return value
 
+
+
+def env_float(name: str, default: float, *, minimum: Optional[float] = None) -> float:
+    """:func:`env_int` for float-valued knobs (same warn-and-fall-back
+    contract; a garbage value must never crash the reader)."""
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        value = float(raw.strip())
+    except ValueError:
+        logger.warning(f"ignoring non-numeric {name}={raw!r}; falling back to {default}")
+        return default
+    if minimum is not None and value < minimum:
+        logger.warning(f"clamping {name}={value} to the minimum {minimum}")
+        return minimum
+    return value
 
 def env_choice(name: str, choices: Tuple[str, ...], what: str) -> Optional[str]:
     """Parse a choice-valued env var: unset/empty/"none"/"off"/"0" mean None
@@ -205,3 +323,112 @@ def serve_replica_roles() -> Dict[str, int]:
             "falling back to a symmetric (all-mixed) fleet"
         )
         return {}
+
+
+#: env values that mean "on, default location" / "off" for path-or-flag knobs
+_TRUTHY_FLAGS = ("1", "true", "yes", "on")
+_FALSY_FLAGS = ("", "0", "false", "no", "off")
+
+
+def _env_path_flag(name: str, default_dir: str) -> Optional[str]:
+    """Parse a path-or-flag env var: off-flags (and unset) mean None, truthy
+    flags mean ``default_dir``, anything else is the path itself."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return None
+    value = raw.strip()
+    if value.lower() in _FALSY_FLAGS:
+        return None
+    if value.lower() in _TRUTHY_FLAGS:
+        return default_dir
+    return value
+
+
+def serve_compile_cache() -> Optional[str]:
+    """The compile-cache directory export (``UNIONML_TPU_COMPILE_CACHE``);
+    None = off."""
+    return _env_path_flag(SERVE_COMPILE_CACHE_ENV_VAR, "~/.cache/unionml_tpu/xla")
+
+
+def serve_aot_preload() -> Optional[str]:
+    """The AOT program store export (``UNIONML_TPU_AOT_PRELOAD``); None = off."""
+    return _env_path_flag(SERVE_AOT_PRELOAD_ENV_VAR, "~/.cache/unionml_tpu/aot")
+
+
+def serve_tenant_config() -> Optional[str]:
+    """Path to the serve-time tenants.json (``UNIONML_TPU_TENANT_CONFIG``);
+    None = unset. Existence/validity is the registry's concern — it warns and
+    degrades on a bad file."""
+    raw = os.environ.get(SERVE_TENANT_CONFIG_ENV_VAR)
+    if raw is None or not raw.strip():
+        return None
+    return raw.strip()
+
+
+def serve_default_tenant_rate() -> float:
+    """Requests/s bucket rate for identified-but-unconfigured tenants; 0 =
+    unlimited (and, with no config file either, tenancy entirely off)."""
+    return env_float(SERVE_DEFAULT_TENANT_RATE_ENV_VAR, 0.0, minimum=0.0)
+
+
+def serve_trace() -> bool:
+    """Whether serve-time request tracing is on (``UNIONML_TPU_TRACE=1``);
+    read at app construction."""
+    return env_int(SERVE_TRACE_ENV_VAR, 0, minimum=0) > 0
+
+
+def serve_flight_recorder_size() -> int:
+    """Completed request timelines the flight recorder retains; garbage or
+    sub-1 values degrade to the default (the recorder requires >= 1)."""
+    return env_int(SERVE_FLIGHT_RECORDER_ENV_VAR, SERVE_FLIGHT_RECORDER_SIZE, minimum=1)
+
+
+def serve_profile_dir() -> Optional[str]:
+    """Directory for on-demand ``POST /debug/profile`` captures; None = the
+    endpoint is disabled."""
+    raw = os.environ.get(SERVE_PROFILE_DIR_ENV_VAR)
+    return raw.strip() or None if raw is not None else None
+
+
+def serve_record_traffic() -> Optional[str]:
+    """Directory live traffic is captured into as replayable traces; None =
+    capture off. An unusable directory degrades at TraceRecorder
+    construction (warn, capture off), never at read time."""
+    raw = os.environ.get(SERVE_RECORD_TRAFFIC_ENV_VAR)
+    return raw.strip() or None if raw is not None else None
+
+
+def serve_record_traffic_hash() -> bool:
+    """Whether captured traces carry prompt digests instead of token ids."""
+    return env_int(SERVE_RECORD_TRAFFIC_HASH_ENV_VAR, 0, minimum=0) > 0
+
+
+def serve_slo_ttft_p95_ms() -> float:
+    """Serve-time TTFT p95 SLO target in ms; 0.0 = disarmed. Read at engine
+    construction; garbage warns and falls back."""
+    return env_float(SERVE_SLO_TTFT_P95_MS_ENV_VAR, 0.0, minimum=0.0)
+
+
+def serve_slo_tbt_p99_ms() -> float:
+    """Serve-time TBT p99 SLO target in ms; 0.0 = disarmed."""
+    return env_float(SERVE_SLO_TBT_P99_MS_ENV_VAR, 0.0, minimum=0.0)
+
+
+def serve_slo_shed_ratio() -> float:
+    """Serve-time shed-ratio SLO target (fraction of arrivals); 0.0 = disarmed."""
+    return env_float(SERVE_SLO_SHED_RATIO_ENV_VAR, 0.0, minimum=0.0)
+
+
+def serve_slo_fast_window_s() -> float:
+    """Fast burn-rate window in seconds (the paging window)."""
+    return env_float(SERVE_SLO_FAST_WINDOW_S_ENV_VAR, SERVE_SLO_FAST_WINDOW_S, minimum=1.0)
+
+
+def serve_slo_slow_window_s() -> float:
+    """Slow burn-rate window in seconds (the trend-confirmation window)."""
+    return env_float(SERVE_SLO_SLOW_WINDOW_S_ENV_VAR, SERVE_SLO_SLOW_WINDOW_S, minimum=1.0)
+
+
+def serve_slo_min_samples() -> int:
+    """Samples a window needs before it can breach (idle engines stay healthy)."""
+    return env_int(SERVE_SLO_MIN_SAMPLES_ENV_VAR, SERVE_SLO_MIN_SAMPLES, minimum=1)

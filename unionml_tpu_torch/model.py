@@ -17,9 +17,13 @@ Two trainer modes, as in the JAX package:
   device of the state ``init`` builds: an app whose ``init`` asked for the
   CPU trains there, every other on the card.
 
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: :meth:`Model.serve` and ``predictor(config=...)`` with ``jit`` (Queue A
-item 2, the serving half), and ``remote*`` (Queue A item 8).
+Serving: :meth:`Model.serve` returns the port's
+:class:`~unionml_tpu_torch.serving.ServingApp`, and
+``predictor(config=ServingConfig(jit=True))`` routes predictor calls through
+a :class:`~unionml_tpu_torch.serving.compile.CompiledPredictor` (bucketed
+padding under ``torch.inference_mode()``). Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP item: ``serve(remote=True)``
+and ``remote*`` (Queue A item 8: the remote backend).
 """
 
 from __future__ import annotations
@@ -46,7 +50,6 @@ from unionml_tpu_torch.utils import resolved_signature as signature
 
 __all__ = ["BaseHyperparameters", "Model", "ModelArtifact"]
 
-_UNPORTED_SERVING = "is not ported yet (ROADMAP.md, Queue A item 2: the app surface, serving half)"
 _UNPORTED_REMOTE = "the remote backend is not ported yet (ROADMAP.md, Queue A item 8: the rest)"
 
 
@@ -102,6 +105,7 @@ class Model:
         self._evaluator_mode: str = "eager"
         self._evaluator_config: Optional[Any] = None
         self._predictor_config: Optional[Any] = None
+        self._compiled_predictor: Optional[Any] = None
         self.last_fit_result: Optional[Any] = None
 
         # stage caches + per-stage exec kwargs
@@ -256,16 +260,20 @@ class Model:
         return fn
 
     def predictor(self, fn: Optional[Callable] = None, *, config: Optional[Any] = None, **stage_kwargs: Any):
-        """Register the prediction function (reference model.py:230-252). A
-        ``config`` with ``jit`` set asks for the JAX package's compiled,
-        bucketed predictor, which is not ported yet."""
+        """Register the prediction function (reference model.py:230-252).
+        ``config`` (a :class:`unionml_tpu_torch.serving.ServingConfig`) with
+        ``jit`` set opts into bucketed serving through a
+        :class:`~unionml_tpu_torch.serving.compile.CompiledPredictor`."""
         if fn is None:
             return partial(self.predictor, config=config, **stage_kwargs)
-        if config is not None and getattr(config, "jit", False):
-            raise NotImplementedError(f"predictor(config=...) with jit {_UNPORTED_SERVING}")
         type_guards.guard_predictor(fn, self.model_type, self._dataset.feature_type)
         self._predictor = fn
         self._predictor_config = config
+        self._compiled_predictor = None
+        if config is not None and getattr(config, "jit", False):
+            from unionml_tpu_torch.serving.compile import CompiledPredictor
+
+            self._compiled_predictor = CompiledPredictor(fn, config)
         self._predict_stage_kwargs = {"resources": DEFAULT_RESOURCES, **stage_kwargs}
         self._predict_stage = None
         self._predict_from_features_stage = None
@@ -285,9 +293,19 @@ class Model:
         return fn
 
     def _call_predictor(self, model_object: Any, features: Any) -> Any:
-        """Call the user predictor eagerly (reference model.py:498-499
-        semantics); the serving half routes its calls through here."""
+        """Route a predictor call through the bucketed path when configured,
+        else call the user fn eagerly (reference model.py:498-499 semantics)."""
+        if self._compiled_predictor is not None:
+            return self._compiled_predictor(model_object, features)
         return self._predictor(model_object, features)
+
+    def _predictor_warmup(self, batch_size: Optional[int] = None) -> None:
+        """Run the predictor over every configured bucket — called once by
+        :meth:`unionml_tpu_torch.serving.app.ServingApp.startup` after the
+        artifact loads (``batch_size`` is accepted for per-bucket callers)."""
+        if self._compiled_predictor is None or self.artifact is None:
+            return
+        self._compiled_predictor.warmup(self.artifact.model_object, batch_size)
 
     def saver(self, fn: Callable) -> Callable:
         """Register a custom model-object serializer (reference model.py:273-276)."""
@@ -596,9 +614,21 @@ class Model:
         model_version: str = "latest",
         batcher: Optional[Any] = None,
     ):
-        """Bind this model to an HTTP serving app (reference model.py:610-623):
-        not ported yet."""
-        raise NotImplementedError(f"Model.serve {_UNPORTED_SERVING}")
+        """Bind this model to an HTTP serving app (reference model.py:610-623).
+
+        Returns a :class:`unionml_tpu_torch.serving.ServingApp` exposing
+        ``POST /predict``, ``POST /predict-stream``, the ``/v1/*``
+        completions surface, ``GET /health``, ``/healthz``, ``/metrics`` and
+        the debug routes, with dynamic micro-batching. ``remote=True`` raises
+        ``NotImplementedError``: the remote backend is not ported.
+        """
+        if remote:
+            raise NotImplementedError(f"Model.serve(remote=True): {_UNPORTED_REMOTE}")
+        from unionml_tpu_torch.serving import serving_app
+
+        return serving_app(
+            self, app, remote=remote, app_version=app_version, model_version=model_version, batcher=batcher
+        )
 
     # ------------------------------------------------------------------ remote backend
 

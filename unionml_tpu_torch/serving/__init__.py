@@ -1,7 +1,47 @@
-"""Serving: the continuous-batching engine and its overload and latency primitives."""
+"""Serving: the HTTP app, dynamic micro-batching, the bucketed predictor, the
+continuous-batching engine and their overload, tenancy and latency primitives.
 
+The port's counterpart of ``unionml_tpu/serving``: ``serving_app`` registers
+``POST /predict``, ``POST /predict-stream``, the OpenAI-compatible ``/v1/*``
+routes, ``GET /health``, ``/healthz``, ``/metrics`` and the debug routes on a
+small stdlib-asyncio HTTP server, with a micro-batching queue between the
+socket and the device. The replica layer, the multi-host cluster, the radix
+prefix cache and the AOT program store are not ported yet (ROADMAP.md,
+Queue A).
+"""
+
+from unionml_tpu_torch.serving.app import ServingApp, serving_app
+from unionml_tpu_torch.serving.batcher import MicroBatcher, ServingConfig
+from unionml_tpu_torch.serving.compile import CompiledPredictor
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher
-from unionml_tpu_torch.serving.metrics import LatencyWindow
-from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, expired
+from unionml_tpu_torch.serving.http import HTTPServer
+from unionml_tpu_torch.serving.metrics import LatencyWindow, ServingMetrics
+from unionml_tpu_torch.serving.overload import (
+    DeadlineExceeded,
+    QueueFullError,
+    TenantThrottled,
+    current_deadline,
+    expired,
+)
+from unionml_tpu_torch.serving.tenancy import TenantRegistry, TenantSpec, current_priority, current_tenant
 
-__all__ = ["ContinuousBatcher", "DeadlineExceeded", "LatencyWindow", "QueueFullError", "expired"]
+__all__ = [
+    "CompiledPredictor",
+    "ContinuousBatcher",
+    "DeadlineExceeded",
+    "HTTPServer",
+    "LatencyWindow",
+    "MicroBatcher",
+    "QueueFullError",
+    "ServingApp",
+    "ServingConfig",
+    "ServingMetrics",
+    "TenantRegistry",
+    "TenantSpec",
+    "TenantThrottled",
+    "current_deadline",
+    "current_priority",
+    "current_tenant",
+    "expired",
+    "serving_app",
+]

@@ -22,6 +22,15 @@ scratch block, lazy block growth and recompute preemption.
   the carry's tail; a preemption resume replays it over the echo on the
   host), and ``submit(logprobs=True)`` records each emitted token's
   log-probability on the stream.
+- **Serving surface**: ``trace=`` records lifecycle events on the request
+  trace each submit captures from its context (observability/trace.py);
+  ``slo=`` keeps windowed telemetry and an SLO tracker (read from the
+  ``UNIONML_TPU_SLO_*`` exports by default) behind ``health()`` and
+  ``stats()``; ``tenancy=`` and ``submit(tenant=, priority=)`` shed a tenant
+  over its rate with ``TenantThrottled``, admit waiting prompts deficit
+  round robin across tenants within strict priority tiers, and let a
+  high-priority admission on a full paged engine preempt the
+  lowest-priority resident (serving/tenancy.py).
 
 With greedy decoding each stream's tokens equal a solo
 ``Generator.__call__([prompt], constraint=g)`` run. Thread model: ``submit`` may be called
@@ -43,6 +52,7 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch.defaults import (
+    SERVE_MAX_WAITING,
     serve_admit_chunk,
     serve_dp_replicas,
     serve_max_admissions,
@@ -51,23 +61,46 @@ from unionml_tpu_torch.defaults import (
     serve_replica_roles,
 )
 from unionml_tpu_torch.models.generate import Generator, init_cache, init_paged_cache
+from unionml_tpu_torch.observability.slo import SLOConfig, SLOTracker, TenantSLORegistry
+from unionml_tpu_torch.observability.timeseries import EngineTimeseries
+from unionml_tpu_torch.observability.trace import current_trace
 from unionml_tpu_torch.serving.metrics import LatencyWindow
-from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, expired
+from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, TenantThrottled, expired
+from unionml_tpu_torch.serving.tenancy import (
+    PRIORITY_HIGH,
+    PRIORITY_NORMAL,
+    active_registry,
+    current_priority,
+    current_tenant,
+    parse_priority,
+    priority_name,
+)
 
 __all__ = ["ContinuousBatcher"]
 
 logger = logging.getLogger(__name__)
 
-#: prompts allowed to wait for a slot before submit() sheds (the JAX
-#: package's ``defaults.SERVE_MAX_WAITING``)
-SERVE_MAX_WAITING = 256
-
 #: engine options of the JAX package that later slices of the port bring
-#: (shared prefixes, tracing, tenancy, SLOs, handoff, AOT, ...); chunked
+#: (static shared prefixes, disaggregated roles, the AOT store); chunked
 #: admission and the radix cache are resolved as in JAX and refused below
-_UNPORTED = ("prefix", "trace", "slo", "role", "tenancy", "aot")
+_UNPORTED = ("prefix", "role", "aot")
 
 _SENTINEL = object()
+
+
+def _tev(session: "_Session", name: str, **attrs: Any) -> None:
+    """Record an event on a session's request trace, if it carries one (one
+    ``is not None`` test when tracing is off)."""
+    trace = session.trace
+    if trace is not None:
+        trace.event(name, **attrs)
+
+
+def _refund_admission(registry: "Optional[Any]", tenant: "Optional[str]") -> None:
+    """Credit back a :meth:`TenantRegistry.try_admit` charge on a submit path
+    that failed after admission; no-op when tenancy is off."""
+    if registry is not None:
+        registry.refund(tenant)
 
 
 @dataclasses.dataclass
@@ -102,6 +135,12 @@ class _Session:
     #: ``lp`` before the token is enqueued
     want_logprobs: bool = False
     lp: "List[float]" = dataclasses.field(default_factory=list)
+    #: the submitting request's RequestTrace (None when tracing is off)
+    trace: Any = None
+    #: multi-tenant QoS: the request's tenant id (None = anonymous) and
+    #: priority tier; all-default values keep admission plain FIFO
+    tenant: Optional[str] = None
+    priority: int = PRIORITY_NORMAL
 
 
 @dataclasses.dataclass(eq=False)
@@ -179,6 +218,11 @@ class ContinuousBatcher:
     block, admissions allocated only the blocks their prompt and first chunk
     need, residents growing at chunk boundaries and the youngest preempted
     (and later resumed token-exactly) when the pool runs dry.
+    ``trace``, ``slo`` and ``tenancy`` are the JAX engine's: ``trace=False``
+    opts the engine out of request timelines; ``slo`` is an ``SLOConfig``,
+    ``None``/``True`` (read the ``UNIONML_TPU_SLO_*`` exports) or ``False``
+    (no windowed telemetry); ``tenancy`` pins a ``TenantRegistry`` (else the
+    process-wide one the serving app installs is read at each submit).
     ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
     ``prefix_cache`` resolve as in the JAX engine (the kwarg, else the serve
     CLI's env export); the port admits monolithically without a radix cache
@@ -200,7 +244,10 @@ class ContinuousBatcher:
         admit_chunk: Optional[int] = None,
         prefill_budget: Optional[int] = None,
         max_admissions: Optional[int] = None,
+        trace: Optional[bool] = None,
         prefix_cache: Optional[bool] = None,
+        slo: Optional[Any] = None,
+        tenancy: Optional[Any] = None,
         **unported: Any,
     ):
         if "roles" in unported:
@@ -227,6 +274,10 @@ class ContinuousBatcher:
         self.gen = generator
         self.device = generator.device
         self.max_waiting = SERVE_MAX_WAITING if max_waiting is None else max_waiting
+        #: request-timeline annotation: lifecycle events land on the trace each
+        #: submit() captured from its context; the HTTP layer's tracing switch
+        #: decides whether a trace EXISTS, False opts this engine out
+        self.trace_requests = True if trace is None else bool(trace)
         self.slots = slots
         self.decode_chunk = decode_chunk
         #: room for every bucketed prompt, the full budget and one chunk of
@@ -255,6 +306,7 @@ class ContinuousBatcher:
             self._block_bytes = int(
                 mcfg.n_layers * mcfg.n_kv_heads * block_size * (2 * head_dim * kv_itemsize + scale_bytes)
             )
+            self._kv_dtype_label = cfg.kv_cache_dtype or str(mcfg.dtype).replace("torch.", "")
             self._free_blocks: "List[int]" = list(range(self.pool_blocks))
             self._slot_blocks: Dict[int, "List[int]"] = {}
         elif pool_blocks is not None:
@@ -274,9 +326,54 @@ class ContinuousBatcher:
         self.decode_dispatches = 0
         self.decoded_rows = 0
         self.preemptions = 0
+        #: admissions that ran as one prefill (every admission: chunked
+        #: admission is not ported, so ``stats()["prefill"]["chunks"]`` stays 0)
+        self.prefill_monolithic = 0
         #: TTFT (submit -> first token) and TBT (gap between emissions)
         self._ttft = LatencyWindow()
         self._tbt = LatencyWindow()
+        #: windowed telemetry and the SLO tracker: an SLOConfig uses it,
+        #: None/True reads the UNIONML_TPU_SLO_* exports, False disables both
+        if slo is False:
+            self.timeseries: Optional[EngineTimeseries] = None
+            self.slo: Optional[SLOTracker] = None
+        else:
+            if slo is None or slo is True:
+                slo_config = SLOConfig.from_env()
+            elif isinstance(slo, SLOConfig):
+                slo_config = slo
+            else:
+                raise TypeError(
+                    f"slo must be an SLOConfig, True/None (read the UNIONML_TPU_SLO_* "
+                    f"exports) or False (disable), got {type(slo).__name__}"
+                )
+            self.slo = SLOTracker(slo_config)
+            # the ring covers the slow burn-rate window; TTFT/TBT percentiles
+            # ride the engine's own timestamped reservoirs
+            self.timeseries = EngineTimeseries(horizon_s=slo_config.slow_window_s, ttft=self._ttft, tbt=self._tbt)
+        #: per-tenant SLO state, only for tenants whose spec arms targets
+        self._tenant_slo: Optional[TenantSLORegistry] = (
+            TenantSLORegistry(self._tenant_slo_config) if self.timeseries is not None else None
+        )
+        #: cached health evaluation (observability/health.engine_health)
+        self._health_lock = threading.Lock()
+        self._health_cache: "Optional[tuple]" = None
+        self._health_ttl = 0.5
+        #: token-weighted load normalizer: one widest bucket of queued prefill
+        #: counts as one unit of scheduling load (the DRR quantum too)
+        self._load_norm = float(self.admit_chunk or widest)
+        #: overload counters: waiting-queue-full sheds and deadline sheds
+        self.shed_queue_full = 0
+        self.shed_deadline = 0
+        #: multi-tenant QoS: the pinned registry (None = the process-wide one)
+        self._tenancy = tenancy
+        self.shed_tenant_limit = 0
+        self.priority_preemptions = 0
+        #: deficit-round-robin state over WAITING tenants, pruned every pass
+        self._drr_deficit: "Dict[str, float]" = {}
+        self._drr_last: Optional[str] = None
+        #: submissions per grammar id (constrained engines): /metrics telemetry
+        self._grammar_counts: Dict[int, int] = {}
 
     @staticmethod
     def _refuse_replicas() -> None:
@@ -404,18 +501,7 @@ class ContinuousBatcher:
         gen, cfg = self.gen, self.gen.config
         if budget is None:
             budget = cfg.max_new_tokens
-        bucket = gen._bucket(max(len(prompt), 1))
-        if bucket + budget > self.cache_len:
-            # a PREEMPTED request resumes as prompt + emitted tokens, which can
-            # outgrow every bucket while still fitting the cache contiguously:
-            # prefill at the exact width instead of failing the stream
-            exact = max(len(prompt), 1)
-            if exact + budget > self.cache_len:
-                raise ValueError(
-                    f"prompt of length {len(prompt)} needs bucket {bucket} + {budget} new tokens "
-                    f"> cache_len {self.cache_len}"
-                )
-            bucket = exact
+        bucket = self._prefill_width(prompt, budget)
         tokens = np.full((1, bucket), cfg.pad_id, np.int32)
         tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
         lengths = torch.tensor([max(len(prompt), 1)], dtype=torch.int32, device=self.device)
@@ -427,6 +513,21 @@ class ContinuousBatcher:
             torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid, state
         )
         return tok0, lengths, row_cache, last
+
+    def _prefill_width(self, prompt: Sequence[int], budget: int) -> int:
+        """The prefill's padded width: the prompt's bucket, or its exact
+        length where a PREEMPTED request resumed as prompt + emitted tokens
+        outgrows every bucket while still fitting the cache contiguously."""
+        bucket = self.gen._bucket(max(len(prompt), 1))
+        if bucket + budget > self.cache_len:
+            exact = max(len(prompt), 1)
+            if exact + budget > self.cache_len:
+                raise ValueError(
+                    f"prompt of length {len(prompt)} needs bucket {bucket} + {budget} new tokens "
+                    f"> cache_len {self.cache_len}"
+                )
+            bucket = exact
+        return bucket
 
     def _first_logprob(self, adm: _Admission) -> float:
         """The prompt-sampled token's log-probability: head, mask and
@@ -485,12 +586,15 @@ class ContinuousBatcher:
         if self.block_size is not None:
             self._carry[0][0]["table"][slot] = self._scratch_block
 
-    def _preempt_locked(self, slot: int) -> None:
-        """Evict a resident under pool exhaustion: free its slot/blocks, mask
-        its row, and requeue it at the FIFO head as (original prompt + every
-        token already emitted) — its greedy continuation is token-identical."""
+    def _preempt_locked(self, slot: int, reason: str = "capacity") -> None:
+        """Evict a resident under pool exhaustion (or for a higher-priority
+        admission, ``reason="priority"``): free its slot/blocks, mask its row,
+        and requeue it at the FIFO head as (original prompt + every token
+        already emitted) — its greedy continuation is token-identical."""
         session = self._sessions.pop(slot)
         self.preemptions += 1
+        _tev(session, "engine.preempt", produced=session.produced,
+             **({"reason": reason} if reason != "capacity" else {}))
         self._free.append(slot)
         self._release_blocks_locked(slot)
         self._mask_slot_done(slot)
@@ -524,13 +628,43 @@ class ContinuousBatcher:
                     self._extend_tables(slot, session.table_len, alloc)
                     session.table_len += extra
                 return
-            self._preempt_locked(max(self._sessions, key=lambda s: self._sessions[s].admit_seq))
+            # lowest-priority first, youngest within a tier (with priorities
+            # unset: the youngest resident)
+            self._preempt_locked(
+                max(self._sessions, key=lambda s: (self._sessions[s].priority, self._sessions[s].admit_seq))
+            )
 
     # ------------------------------------------------------------------ public API
 
+    def _registry(self) -> Optional[Any]:
+        """The tenancy registry in effect: the engine's pinned one, else the
+        process-wide active registry (installed by the serving app); None =
+        tenancy off. Resolved per call, so a registry installed after the
+        engine was built still applies."""
+        return self._tenancy if self._tenancy is not None else active_registry()
+
+    def _tenant_slo_config(self, tenant: str) -> "Optional[SLOConfig]":
+        """A tenant's per-tenant SLO targets (None = none armed)."""
+        registry = self._registry()
+        if registry is None:
+            return None
+        return registry.spec(tenant).slo_config()
+
+    def _tenant_shed(self, tenant: Optional[str]) -> None:
+        """Feed a shed into the tenant's SLO timeseries."""
+        if self._tenant_slo is not None and tenant is not None:
+            self._tenant_slo.shed(tenant)
+
+    def tenant_slo(self) -> "Dict[str, Any]":
+        """Per-tenant SLO verdicts (``{}`` with none tracked)."""
+        if self._tenant_slo is None:
+            return {}
+        return self._tenant_slo.evaluate()
+
     def submit(
         self, prompt: Sequence[int], *, max_new_tokens: Optional[int] = None, constraint: Optional[int] = None,
-        deadline: Optional[float] = None, logprobs: bool = False,
+        deadline: Optional[float] = None, tenant: Optional[str] = None, priority: Optional[Any] = None,
+        logprobs: bool = False,
     ) -> Iterator[np.ndarray]:
         """Enqueue a prompt; returns an iterator of 1-D int32 arrays of new
         tokens (the first item is the prompt-sampled token). Safe from any
@@ -540,10 +674,27 @@ class ContinuousBatcher:
         emitted token's log-probability on the stream's ``logprobs``.
         ``deadline`` (absolute ``time.monotonic()``) sheds the request with
         :class:`DeadlineExceeded` if it is still waiting past it; a full
-        waiting queue sheds at once with :class:`QueueFullError`."""
+        waiting queue sheds at once with :class:`QueueFullError`.
+
+        ``tenant``/``priority`` default to the request contextvars the HTTP
+        layer binds: a tenant with an empty token bucket is shed with
+        :class:`TenantThrottled` (HTTP 429 whose ``Retry-After`` is the
+        bucket's refill time), waiting prompts are admitted deficit round
+        robin across tenants within strict priority tiers, and a
+        high-priority admission on a full paged engine preempts the
+        lowest-priority resident (which resumes token-identically)."""
         if len(prompt) == 0:
             raise ValueError("prompt must be non-empty")
+        req_trace = current_trace() if self.trace_requests else None
         if expired(deadline):
+            # under the lock: the engine thread bumps the same counter
+            with self._lock:
+                self.shed_deadline += 1
+                if self.timeseries is not None:
+                    self.timeseries.sheds.add()
+            self._tenant_shed(tenant if tenant is not None else current_tenant())
+            if req_trace is not None:
+                req_trace.event("engine.shed_deadline", phase="submit")
             raise DeadlineExceeded("deadline expired before the prompt was enqueued")
         budget = self.gen.config.max_new_tokens
         if max_new_tokens is not None:
@@ -558,27 +709,83 @@ class ContinuousBatcher:
                 raise ValueError("constraint= requires GenerationConfig.constraints on the Generator")
             self.gen._cs.start_states([constraint])  # range check
             grammar = int(constraint)
+        # explicit kwargs win, else the contextvars the HTTP layer bound;
+        # priority falls back to the tenant's default tier, then normal
+        registry = self._registry()
+        if tenant is None:
+            tenant = current_tenant()
+        if priority is None:
+            priority = current_priority()
+        if isinstance(priority, str):
+            priority = parse_priority(priority)
+        if priority is None:
+            priority = (
+                registry.default_priority(tenant) if registry is not None and tenant is not None else PRIORITY_NORMAL
+            )
+        if not (PRIORITY_HIGH <= priority <= 2):
+            raise ValueError(f"priority must be in [0, 2] (high/normal/batch), got {priority!r}")
         session = _Session(
             slot=-1, out=queue.Queue(), max_new=budget, deadline=deadline, created_at=time.monotonic(),
-            grammar=grammar, want_logprobs=bool(logprobs),
+            grammar=grammar, want_logprobs=bool(logprobs), trace=req_trace, tenant=tenant, priority=priority,
             # the original prompt is kept only where preemption can resume it
             prompt=list(prompt) if self.block_size is not None else [],
         )
         with self._lock:
             if self._closed:
                 raise RuntimeError("ContinuousBatcher is closed")
+            # admission control counts LIVE waiters only
             waiting = sum(1 for _, s in self._pending if not s.finished)
             if waiting >= self.max_waiting:
+                self.shed_queue_full += 1
+                if self.timeseries is not None:
+                    self.timeseries.sheds.add()
+                self._tenant_shed(tenant)
+                if req_trace is not None:
+                    req_trace.event("engine.shed_queue_full", waiting=waiting)
                 raise QueueFullError(
                     f"continuous-batching waiting queue full ({self.max_waiting} prompts queued "
                     f"ahead of {self.slots} slots)"
                 )
-            self._pending.append((list(prompt), session))
-            if self._thread is None:
-                self._thread = threading.Thread(target=self._engine_loop, daemon=True)
-                self._thread.start()
-            self._lock.notify_all()
-        return _TokenStream(self, session)
+            if registry is not None:
+                # AFTER the capacity check, so a full-queue shed never charges
+                # the bucket; a failed try_admit leaves the buckets untouched
+                retry_after = registry.try_admit(tenant)
+                if retry_after is not None:
+                    self.shed_tenant_limit += 1
+                    if self.timeseries is not None:
+                        self.timeseries.sheds.add()
+                    self._tenant_shed(tenant)
+                    if req_trace is not None:
+                        req_trace.event(
+                            "engine.shed_tenant_limit", tenant=tenant, retry_after_s=round(retry_after, 3),
+                        )
+                    raise TenantThrottled(
+                        f"tenant {tenant!r} is over its rate limit",
+                        retry_after_s=round(retry_after, 3), tenant=tenant,
+                    )
+            try:
+                if self.gen._cs is not None:
+                    self._grammar_counts[grammar] = self._grammar_counts.get(grammar, 0) + 1
+                self._pending.append((list(prompt), session))
+                if self._thread is None:
+                    self._thread = threading.Thread(target=self._engine_loop, daemon=True)
+                    self._thread.start()
+                self._lock.notify_all()
+            except BaseException:
+                # the tenant paid for a request that will never be served
+                _refund_admission(registry, tenant)
+                raise
+        try:
+            if req_trace is not None:
+                req_trace.event(
+                    "engine.submit", prompt_tokens=len(prompt), queued_behind=waiting,
+                    **({"tenant": tenant, "priority": priority_name(priority)}
+                       if tenant is not None or priority != PRIORITY_NORMAL else {}),
+                )
+            return _TokenStream(self, session)
+        except BaseException:
+            _refund_admission(registry, tenant)
+            raise
 
     def _cancel(self, session: _Session) -> None:
         """Stop producing for a session whose consumer went away. Pending
@@ -592,6 +799,7 @@ class ContinuousBatcher:
                 self._pending = [(p, s) for p, s in self._pending if s is not session]
             elif session.slot >= 0 and self._sessions.get(session.slot) is session:
                 self._cancelled.append(session)
+            _tev(session, "engine.cancel", produced=session.produced)
             session.out.put(_SENTINEL)
             self._lock.notify_all()
 
@@ -606,26 +814,141 @@ class ContinuousBatcher:
                 self._release_blocks_locked(session.slot)
                 self._mask_slot_done(session.slot)
 
-    def stats(self) -> Dict[str, Any]:
-        """Shared-dispatch counters, pool occupancy (paged mode) and the
-        TTFT/TBT latency percentiles."""
+    def configure_slo(self, config: "SLOConfig") -> None:
+        """Swap this engine's SLO targets at runtime. The tracker restarts at
+        all-ok; the next ``health()`` evaluates fresh against the new targets."""
+        if not isinstance(config, SLOConfig):
+            raise TypeError(f"config must be an SLOConfig, got {type(config).__name__}")
+        if self.timeseries is None:
+            raise ValueError(
+                "this engine was built with slo=False (windowed telemetry disabled); "
+                "SLO targets need the timeseries feed"
+            )
+        with self._health_lock:
+            self.slo = SLOTracker(config)
+            self._health_cache = None
+
+    def rates(self, window_s: Optional[float] = None) -> Dict[str, Any]:
+        """Windowed rates (tok/s, admissions/s, sheds/s, time-decayed TTFT/TBT
+        percentiles) plus the live prefill backlog; defaults to the SLO fast
+        window. ``{}`` when the engine was built with ``slo=False``."""
+        if self.timeseries is None:
+            return {}
+        if window_s is None:
+            window_s = self.slo.config.fast_window_s if self.slo is not None else 60.0
+        out = self.timeseries.rates(window_s)
+        out["prefill_backlog_tokens"] = self.queued_prefill_tokens()
+        return out
+
+    def health(self, *, max_age_s: Optional[float] = None) -> Dict[str, Any]:
+        """This engine's health (observability/health.py): SLO state x
+        saturation as one score, cached for ``max_age_s`` (default 0.5 s);
+        ``max_age_s=0`` forces a fresh evaluation."""
+        from unionml_tpu_torch.observability.health import engine_health
+
+        ttl = self._health_ttl if max_age_s is None else max_age_s
+        now = time.monotonic()
+        with self._health_lock:
+            cached = self._health_cache
+        if cached is not None and now - cached[0] < ttl:
+            return cached[1]
+        fresh = engine_health(self)
+        with self._health_lock:
+            self._health_cache = (now, fresh)
+        return fresh
+
+    def occupancy(self) -> "tuple[int, int]":
+        """``(resident, live waiting)``; in-flight admissions count as waiting."""
         with self._lock:
+            waiting = sum(1 for _, s in self._pending if not s.finished)
+            waiting += sum(1 for a in self._admissions if not a.session.finished)
+            return len(self._sessions), waiting
+
+    def queued_prefill_tokens(self) -> int:
+        """Prompt tokens standing between arrivals and their first token: live
+        waiting prompts plus in-flight admissions' prompts."""
+        with self._lock:
+            return self._backlog_locked()
+
+    def _backlog_locked(self) -> int:
+        backlog = sum(len(p) for p, s in self._pending if not s.finished)
+        for adm in self._admissions:
+            if not adm.session.finished:
+                # monolithic admissions owe their whole prompt until they finish
+                backlog += max(len(adm.prompt), 1)
+        return backlog
+
+    def load(self) -> float:
+        """Scheduling load: live residents + live waiters plus the prefill
+        backlog in tokens normalized by the widest prompt bucket."""
+        resident, waiting = self.occupancy()
+        return resident + waiting + self.queued_prefill_tokens() / self._load_norm
+
+    def stats(self) -> Dict[str, Any]:
+        """Utilization snapshot for ``/metrics``, with the JAX engine's keys:
+        resident/waiting streams, sheds, shared-dispatch counters, the prefill
+        block, pool occupancy (paged mode), the TTFT/TBT percentiles, windowed
+        rates and (armed) the SLO verdict. The lock is held only for the
+        counter reads; percentile sorts and SLO evaluation run after it."""
+        with self._lock:
+            backlog = self._backlog_locked()
             snapshot: Dict[str, Any] = {
+                "slots": self.slots,
+                "resident": len(self._sessions),
+                "waiting": len(self._pending),
+                "admitting": len(self._admissions),
+                "max_waiting": self.max_waiting,
+                "shed_queue_full": self.shed_queue_full,
+                "shed_deadline": self.shed_deadline,
+                "draining": self._closed,
                 "decode_dispatches": self.decode_dispatches,
-                "decoded_rows": self.decoded_rows,
+                "rows_per_dispatch": round(
+                    self.decoded_rows / self.decode_dispatches, 3
+                ) if self.decode_dispatches else None,
+                # speculative decoding is not ported (ROADMAP.md, Queue A)
+                "speculative": False,
+                "prefill": {
+                    "mode": "chunked" if self.admit_chunk else "monolithic",
+                    "admit_chunk": self.admit_chunk or 0,
+                    "budget": self.prefill_budget or 0,
+                    "max_admissions": self.max_admissions,
+                    "chunks": 0,
+                    "chunk_tokens": 0,
+                    "monolithic_admissions": self.prefill_monolithic,
+                    "backlog_tokens": backlog,
+                },
             }
             if self.block_size is not None:
                 used = self.pool_blocks - len(self._free_blocks)
                 snapshot["kv_blocks"] = {
                     "total": self.pool_blocks,
                     "used": used,
+                    # static shared prefixes are not ported: no shared pages
+                    "shared_prefix": 0,
                     "block_size": self.block_size,
                     "preemptions": self.preemptions,
                     "block_bytes": self._block_bytes,
                     "used_bytes": used * self._block_bytes,
+                    "kv_dtype": self._kv_dtype_label,
                 }
+            if self._registry() is not None or self.shed_tenant_limit or self.priority_preemptions:
+                # absent entirely when QoS is off
+                snapshot["tenancy"] = {
+                    "shed_tenant_limit": self.shed_tenant_limit,
+                    "priority_preemptions": self.priority_preemptions,
+                }
+            if self.gen._cs is not None:
+                snapshot["grammar_submissions"] = dict(sorted(self._grammar_counts.items()))
+        # window work, OUTSIDE the engine lock
         snapshot["ttft_ms"] = self._ttft.snapshot()
         snapshot["tbt_ms"] = self._tbt.snapshot()
+        if self.timeseries is not None:
+            fast_s = self.slo.config.fast_window_s if self.slo is not None else 60.0
+            snapshot["rates"] = {**self.timeseries.rates(fast_s), "prefill_backlog_tokens": backlog}
+        if self.slo is not None and self.slo.armed:
+            snapshot["slo"] = self.slo.evaluate(self.timeseries)
+        if self._tenant_slo is not None and len(self._tenant_slo):
+            snapshot["tenant_slo"] = self._tenant_slo.evaluate()
         return snapshot
 
     def warmup(self) -> None:
@@ -636,8 +959,9 @@ class ContinuousBatcher:
         the second on the steady-state one). Their first launches build and
         load the hand-written kernels the engine's path runs (``nvcc`` at
         first use, the port's counterpart of the JAX engine's XLA compile).
-        Counters and the TTFT/TBT windows are reset afterwards, so
-        :meth:`stats` reflects real traffic only."""
+        Counters, the TTFT/TBT windows, the windowed rates and the SLO
+        tracker are reset afterwards, so :meth:`stats` reflects real traffic
+        only."""
         cfg = self.gen.config
         for bucket in sorted(cfg.prompt_buckets):
             # length == bucket: shorter prompts map to the smallest fitting
@@ -662,8 +986,18 @@ class ContinuousBatcher:
         with self._lock:
             self.decode_dispatches = 0
             self.decoded_rows = 0
+            self.prefill_monolithic = 0
             self._ttft.clear()  # warmup probes must not skew the percentiles
             self._tbt.clear()
+            if self.timeseries is not None:
+                self.timeseries.clear()  # probe tokens are not traffic rates
+            if self.slo is not None:
+                self.slo.reset()  # a slow first-launch probe is not a breach
+            if self._tenant_slo is not None:
+                self._tenant_slo.clear()
+            self._grammar_counts.clear()  # warmup probes all ride FREE (id 0)
+        with self._health_lock:
+            self._health_cache = None
 
     def close(self, wait: bool = True, timeout: float = 120.0) -> None:
         """Stop admitting, drain resident streams to completion, stop the
@@ -694,6 +1028,11 @@ class ContinuousBatcher:
                     self._decode_chunk()
         except Exception as exc:  # engine death must not strand consumers
             logger.exception("continuous-batching engine failed")
+            # postmortem: the timelines that explain the failure reach the log
+            # before the consumers see the error (no-op without a recorder)
+            from unionml_tpu_torch.observability.recorder import dump_active
+
+            dump_active(f"continuous engine failed: {type(exc).__name__}")
             with self._lock:
                 self._closed = True
                 for _, session in self._pending:
@@ -745,6 +1084,10 @@ class ContinuousBatcher:
                             adm.session.finished = True
                             adm.session.out.put(exc)
                     raise
+                with self._lock:
+                    self.prefill_monolithic += 1
+                _tev(adm.session, "engine.prefill", tokens=self._prefill_width(adm.prompt, adm.budget),
+                     mode="monolithic")
                 self._finalize_admission(adm)
 
     def _start_admissions(self) -> None:
@@ -759,13 +1102,25 @@ class ContinuousBatcher:
                     continue
                 if expired(s.deadline):
                     s.finished = True
+                    self.shed_deadline += 1
+                    if self.timeseries is not None:
+                        self.timeseries.sheds.add()
+                    self._tenant_shed(s.tenant)
+                    _tev(s, "engine.shed_deadline", phase="waiting")
                     s.out.put(DeadlineExceeded("deadline exceeded while waiting for a decode slot"))
                     continue
                 live.append((prompt_s, s))
             self._pending = live
             if self._closed:
                 return
-            while self._pending and not self._admissions and self._free:
+            while self._pending and not self._admissions:
+                self._select_pending_locked()
+                if not self._free:
+                    if self._preempt_for_priority_locked():
+                        # the victim requeued at the head; re-select so the
+                        # high-priority prompt rotates back in front of it
+                        continue
+                    break
                 blocks_row = None
                 needed = 0
                 if self.block_size is not None:
@@ -798,10 +1153,122 @@ class ContinuousBatcher:
                     blocks_row = np.full((self.max_blocks,), self._scratch_block, np.int32)
                     blocks_row[: len(alloc)] = alloc
                 self._seed += 1
+                _tev(
+                    session, "engine.admission_start", slot=slot,
+                    queue_wait_ms=round((time.monotonic() - session.created_at) * 1e3, 3),
+                )
                 self._admissions.append(_Admission(
                     session=session, prompt=prompt, slot=slot, seed=self._seed,
                     budget=session.max_new - session.produced, blocks_row=blocks_row,
                 ))
+
+    def _select_pending_locked(self) -> None:
+        """Rotate the QoS-chosen waiting session to the head of ``_pending``
+        (caller holds the lock), as the JAX engine does. FIFO fast path: with
+        every live waiter at default tenant/priority nothing moves and the
+        deficit map stays empty. With QoS traffic: strict priority tiers
+        (high > normal > batch), and within the winning tier deficit round
+        robin across tenants — each tenant's deficit accrues ``quantum x
+        weight`` per round (quantum = the load normalizer, one widest bucket)
+        and selection pays the head prompt's token cost. Zero-weight tenants
+        are best-effort: they round only when no weighted tenant waits in the
+        tier."""
+        live = [(idx, s) for idx, (_, s) in enumerate(self._pending) if not s.finished]
+        if not live or all(s.tenant is None and s.priority == PRIORITY_NORMAL for _, s in live):
+            if self._drr_deficit:
+                self._drr_deficit.clear()  # QoS traffic drained: drop tenant state
+            return
+        best_tier = min(s.priority for _, s in live)
+        queues: "Dict[str, List[int]]" = {}
+        for idx, s in live:
+            if s.priority == best_tier:
+                queues.setdefault(s.tenant or "", []).append(idx)
+        for tenant in list(self._drr_deficit):
+            if tenant not in queues:
+                # deficits exist only for WAITING tenants (bounded by max_waiting)
+                del self._drr_deficit[tenant]
+        registry = self._registry()
+        weights = {tenant: (registry.weight(tenant) if registry is not None else 1.0) for tenant in queues}
+        candidates = [t for t in queues if weights[t] > 0] or list(queues)
+
+        def head_cost(tenant: str) -> float:
+            return float(max(len(self._pending[queues[tenant][0]][0]), 1))
+
+        chosen: Optional[str] = None
+        if len(candidates) == 1:
+            chosen = candidates[0]
+        elif self._drr_last in candidates and self._drr_deficit.get(self._drr_last, 0.0) >= head_cost(self._drr_last):
+            # keep serving the pointer tenant while its banked deficit covers
+            # the next head: throughput proportional to weight
+            chosen = self._drr_last
+            self._drr_deficit[chosen] -= head_cost(chosen)
+        else:
+            start = 0
+            if self._drr_last in candidates:
+                start = (candidates.index(self._drr_last) + 1) % len(candidates)
+            order = candidates[start:] + candidates[:start]
+            quantum = self._load_norm
+            for _ in range(64):  # each full round accrues quantum x weight -> terminates
+                for tenant in order:
+                    deficit = self._drr_deficit.get(tenant, 0.0) + quantum * max(weights[tenant], 0.0)
+                    if deficit >= head_cost(tenant):
+                        self._drr_deficit[tenant] = deficit - head_cost(tenant)
+                        chosen = tenant
+                        break
+                    self._drr_deficit[tenant] = deficit  # banked for the next round
+                if chosen is not None:
+                    break
+                if all(weights[t] <= 0 for t in order):
+                    break  # nothing accrues: degrade to plain round-robin
+            if chosen is None:
+                chosen = order[0]
+        self._drr_last = chosen
+        head = queues[chosen][0]
+        if head != 0:
+            self._pending.insert(0, self._pending.pop(head))
+
+    def _preempt_for_priority_locked(self) -> bool:
+        """With no free slot and a HIGH-priority prompt heading the queue,
+        preempt exactly one lowest-priority resident (ties: youngest) through
+        the paged preempt/resume path: the victim requeues at the head and
+        later resumes token-identically. Paged mode only — dense sessions do
+        not keep the prompt a resume needs. Returns True when a slot was
+        freed (caller re-selects)."""
+        if self.block_size is None or not self._pending:
+            return False
+        head = self._pending[0][1]
+        if head.finished or head.priority != PRIORITY_HIGH:
+            return False
+        victims = [slot for slot, s in self._sessions.items() if s.priority > head.priority]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda slot: (self._sessions[slot].priority, self._sessions[slot].admit_seq))
+        self.priority_preemptions += 1
+        self._preempt_locked(victim, reason="priority")
+        return True
+
+    def tenant_census(self) -> "Dict[str, Dict[str, int]]":
+        """Live per-tenant stream counts (resident + waiting, in-flight
+        admissions included), scanned on demand; anonymous traffic is
+        omitted."""
+        census: "Dict[str, Dict[str, int]]" = {}
+
+        def bump(tenant: Optional[str], kind: str) -> None:
+            if tenant is None:
+                return
+            entry = census.setdefault(tenant, {"resident": 0, "waiting": 0})
+            entry[kind] += 1
+
+        with self._lock:
+            for session in self._sessions.values():
+                bump(session.tenant, "resident")
+            for _, session in self._pending:
+                if not session.finished:
+                    bump(session.tenant, "waiting")
+            for adm in self._admissions:
+                if not adm.session.finished:
+                    bump(adm.session.tenant, "waiting")
+        return census
 
     def _set_dfa_state(self, adm: _Admission) -> None:
         """The admission's DFA state, a pure function of (grammar, emitted
@@ -817,9 +1284,18 @@ class ContinuousBatcher:
         adm.dfa_state = state
 
     def _admission_alive(self, adm: _Admission) -> bool:
-        """Drop an admission whose consumer went away before its prefill ran:
-        the slot and blocks come back at once."""
+        """Drop an admission whose consumer went away, or whose deadline passed,
+        before its prefill ran: the slot and blocks come back at once."""
         with self._lock:
+            session = adm.session
+            if not session.finished and expired(session.deadline):
+                session.finished = True
+                self.shed_deadline += 1
+                if self.timeseries is not None:
+                    self.timeseries.sheds.add()
+                self._tenant_shed(session.tenant)
+                _tev(session, "engine.shed_deadline", phase="prefill")
+                session.out.put(DeadlineExceeded("deadline exceeded mid-prefill; admission abandoned"))
             if adm.session.finished:
                 if adm in self._admissions:
                     self._admissions.remove(adm)
@@ -891,9 +1367,28 @@ class ContinuousBatcher:
             now = time.monotonic()
             if session.produced == 0:  # a resume is a later residency, not a first token
                 self._ttft.observe(now - session.created_at)
+                if self.slo is not None:
+                    self.slo.note_ttft(session.trace, (now - session.created_at) * 1e3)
+                if self._tenant_slo is not None and session.tenant is not None:
+                    self._tenant_slo.note_ttft(session.tenant, session.trace, now - session.created_at)
+                _tev(session, "engine.first_token", ttft_ms=round((now - session.created_at) * 1e3, 3))
+            _tev(session, "engine.emit", tokens=1, produced=session.produced + 1)
             if session.last_emit is not None:
                 self._tbt.observe(now - session.last_emit)
+                if self.slo is not None:
+                    self.slo.note_tbt(session.trace, (now - session.last_emit) * 1e3)
+                if self._tenant_slo is not None and session.tenant is not None:
+                    self._tenant_slo.note_tbt(session.tenant, session.trace, now - session.last_emit)
             session.last_emit = now
+            if self.timeseries is not None:
+                self.timeseries.admissions.add()
+                self.timeseries.tokens.add()
+            if self._tenant_slo is not None and session.tenant is not None:
+                self._tenant_slo.admitted(session.tenant)
+                self._tenant_slo.tokens(session.tenant, 1)
+            registry = self._registry()
+            if registry is not None:
+                registry.charge_tokens(session.tenant, 1)
             if self.block_size is not None:  # echo exists only for preemption resume
                 session.echo.append(int(first[0]))
             session.resident_base = session.produced
@@ -907,6 +1402,7 @@ class ContinuousBatcher:
     def _finish_locked(self, slot: int, *, device_done: bool) -> None:
         session = self._sessions.pop(slot)
         session.finished = True
+        _tev(session, "engine.finish", produced=session.produced)
         self._free.append(slot)
         self._release_blocks_locked(slot)
         if not device_done or self.block_size is not None:
@@ -926,6 +1422,7 @@ class ContinuousBatcher:
         toks_np = toks.cpu().numpy()  # [S, chunk]; also waits for the dispatch
         lps_np = lps.cpu().numpy()  # [S, chunk] f32: each sampled token's logprob
         done_np = carry[3].cpu().numpy()
+        registry = self._registry()
         with self._lock:
             self.decode_dispatches += 1
             self.decoded_rows += len(self._sessions)
@@ -944,12 +1441,24 @@ class ContinuousBatcher:
                         # tokens must always find >= k logprobs on the stream
                         session.lp.extend(float(v) for v in lps_np[slot][:take])
                     session.out.put(row[:take].copy())
+                    if registry is not None:
+                        # post-charge the tenant's generated-tokens bucket
+                        registry.charge_tokens(session.tenant, take)
                     if session.last_emit is not None:
                         self._tbt.observe(now - session.last_emit)
+                        if self.slo is not None:
+                            self.slo.note_tbt(session.trace, (now - session.last_emit) * 1e3)
+                        if self._tenant_slo is not None and session.tenant is not None:
+                            self._tenant_slo.note_tbt(session.tenant, session.trace, now - session.last_emit)
                     session.last_emit = now
                     if self.block_size is not None:
                         session.echo.extend(int(t) for t in row[:take])
                     session.produced += take
+                    if self.timeseries is not None:
+                        self.timeseries.tokens.add(take)
+                    if self._tenant_slo is not None and session.tenant is not None:
+                        self._tenant_slo.tokens(session.tenant, take)
+                    _tev(session, "engine.emit", tokens=take, produced=session.produced)
                 device_done = bool(done_np[slot])
                 if session.produced >= session.max_new or device_done:
                     self._finish_locked(slot, device_done=device_done)
