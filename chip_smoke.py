@@ -9,16 +9,22 @@ Phases (no phase catches a failure; any fault exits non-zero):
 
 1. print the card's name and power limit; build every kernel from ``csrc/``;
 2. hold each kernel against its plain PyTorch twin (float32 and bfloat16):
-   paged decode at the served shapes and at the length limits (0, 1, page
-   edges, ragged, the full table, past it) for D = 16, 32, 64 and 128, two
-   calls bitwise equal; the flash kernels at full width
+   paged decode at the served shapes (D = 128, and D = 64 for the
+   speculative draft) and at the length limits (0, 1, page edges, ragged,
+   the full table, past it) for D = 16, 32, 64 and 128, two calls bitwise
+   equal; its int8-page mode (int8 pages, f32 scales per position and head)
+   in float32 and bfloat16 q at D = 64 and 128 over the same lengths, two
+   calls bitwise equal, timed beside its twin (the int8 gather route), SDPA
+   on the gathered dequantized K/V and its bytes bound at the three paged
+   shapes; the flash kernels at full width
    causal, non-causal, cross-length causal and custom blocks: in float32 the
    f32 forward and the fused f32 backward (3xTF32; also at D=50 and with
    tensors off a 16-byte boundary), in bfloat16 the tensor-core forward and
    the fused backward (also at D=64, ragged); each bitwise equal on a second
    call; the
    int8 matmul at every Llama-3-8B weight shape at M = 4, 256, 5,
-   130, 1, 8, 9 and 64, and bitwise equal on a second call; then time
+   130, 1, 8, 9, 64 and 20 (the speculative verify of 4 slots x (gamma +
+   1); 5 is one row's), and bitwise equal on a second call; then time
    kernel, twin, the library yardstick and the
    bytes/operations bound with CUDA events (paged decode at the served
    shape, B=8 ctx=2048 and B=1 ctx=8192; the bf16 forward and the fused
@@ -69,6 +75,22 @@ Phases (no phase catches a failure; any fault exits non-zero):
    greedy tokens on the CPU; (c) the native records parser builds (``g++``)
    and parses a records payload. The kernels line gives each kernel's
    launches on this path as ``app_launches``.
+8. the serving half: phase 3's weights behind ``Model.serve()`` on a loopback
+   port (``http_launches``);
+9. speculative decoding and beam search: (a) phase 3's bf16 target with a
+   draft at the shapes of Llama-3.2-1B (dim 2048, 16 layers, untied head,
+   random weights from seed 2), ``gamma=4``, 4 streams x 32 tokens through
+   the engine: tok/s, TTFT, TBT, rounds and acceptance, the paged launches
+   required to be 16 x (gamma + 1) x rounds (``spec_launches``), then the
+   target as its own draft; (b) float32, 2 layers (phase 4's weights): the
+   speculative engine, paged and dense, equals the solo plain ``Generator``
+   with a 2-layer and a 1-layer 1B-shaped draft and with the target itself
+   (which accepts every proposal), ``beam_search`` at width 1 equals greedy
+   and at width 4 equals the CPU, and with int8 target and draft the
+   streams equal the plain int8 ``Generator``'s, counting int8 launches at
+   M = 20; (c) phase 3's weights served over int8 pages (the gather route),
+   then the int8-page kernel against its twin on that engine's live pools
+   of every layer, timed on one.
 
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
@@ -79,8 +101,11 @@ Prints one ``{"kernels": [...]}`` line and ends with
 CUDA device is present or the package is missing.
 """
 
+import collections
+import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import statistics
@@ -144,7 +169,9 @@ INT8_WEIGHTS = (
     ("lm_head", 4096, 128256, 1),
 )
 INT8_PER_FORWARD = sum(n for *_, n in INT8_WEIGHTS)
-INT8_M = (4, 256, 5, 130, 1, 8, 9, 64)  # decode, admission prefill, ragged M and the edges of the N tiles
+#: decode, admission prefill, ragged M and the edges of the N tiles; 20 is the speculative verify of 4 slots x
+#: (gamma + 1), 5 one row's verify
+INT8_M = (4, 256, 5, 130, 1, 8, 9, 64, 20)
 INT8_TIMED_M = (4, 64, 256)  # decode, a chunked-prefill chunk, admission prefill
 #: int8 kernel against its twin in f32: both sum exact products in f32, in
 #: another order, so |kernel - twin| <= 1e-5 * max|twin|; bf16 is TOLERANCE's
@@ -165,6 +192,18 @@ STRUCTURED_SEED, STRUCTURED_EOS = 0, 0
 STRUCTURED_ALPHABET = "abcdefghijklmnopqrstuvwxyz ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,!?:;'\"{}-_"
 STRUCTURED_NEW = 16  # tokens a stream of the f32 card-against-CPU parity
 STRUCTURED_LP_ATOL = 1e-4  # f32 logprobs, card against CPU: sums in other orders
+#: phase 9: the draft for Llama-3-8B at the shapes of Llama-3.2-1B's published config (its LM head untied: the
+#: port's Llama has no tied head), random weights from seed 2; gamma draft tokens a round
+DRAFT_1B = dict(vocab_size=128256, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8, hidden_dim=8192,
+                rope_theta=500000.0)
+DRAFT_SEED, GAMMA = 2, 4
+BEAM_NEW, BEAM_BUCKET = 8, 64  # the card-against-CPU beam search: 2 prompts, 8 new tokens, a 64-token bucket
+#: int8 speculative parity: the int8 kernel rounds its input to bf16 (2**-9 relative), so an f32 difference of one
+#: ulp between the verify (M = 20, the gather path) and plain decode (M = 1, dense attention) can move a rounding
+#: and the logits by ~1e-3 (their std is ~1 at this width); streams must be equal until the first divergence, and a
+#: divergence must be a near-tie: the two tokens the top two of a third path's logits (the plain Generator's
+#: prefill of the common prefix), this far apart at most
+INT8_TIE_GAP = 0.01
 
 
 def card_line() -> str:
@@ -274,15 +313,17 @@ def paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=1
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda"), table
 
 
-def bound_ms(q, k_pages, lengths, pages_per_seq) -> tuple:
-    """Least time for one call: every visible K/V row, q, the output and the
-    table entries in use moved once, against 4 * H * D operations per visible
-    position (q.k and p.v) at the peak rate of the input type."""
+def bound_ms(q, k_pages, lengths, pages_per_seq, scale_item: int = 0) -> tuple:
+    """Least time for one call: every visible K/V row (and, for int8 pages,
+    its ``scale_item``-byte scale), q, the output and the table entries in
+    use moved once, against 4 * H * D operations per visible position (q.k
+    and p.v) at the peak rate of q's type."""
     n_kv, _, page, head_dim = k_pages.shape
     visible = int(lengths.clamp(0, pages_per_seq * page).sum())
     pages_used = int(((lengths.clamp(0, pages_per_seq * page) + page - 1) // page).sum())
     item = k_pages.element_size()
-    moved = 2 * visible * n_kv * head_dim * item + 2 * q.numel() * item + 4 * (lengths.numel() + pages_used)
+    moved = (2 * visible * n_kv * (head_dim * item + scale_item) + 2 * q.numel() * q.element_size()
+             + 4 * (lengths.numel() + pages_used))
     ops = 4 * visible * q.shape[1] * head_dim
     by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[str(q.dtype)]
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops else "operations")
@@ -315,72 +356,137 @@ def sdpa_on_gathered(q, k, v, lens, table):
     return lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
 
 
-def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
-    """The paged kernel against its twin: the served geometry at D=128, the
-    length limits (0, 1, page edges, ragged, the full table, past it) at
-    every head size the package uses, and two calls bitwise equal; then
-    times at the three :func:`paged_shapes` (bf16)."""
+def float_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128):
+    """:func:`paged_inputs` and the wrapper's keyword arguments for float pages (none)."""
+    return (*paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim), {})
+
+
+def int8_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128):
+    """:func:`paged_inputs` with the pools stored as the engine stores int8
+    pages (int8 values, f32 scales per position and KV head), the scales as
+    the wrapper's keyword arguments."""
+    import torch
+
+    from unionml_tpu_torch.models.layers import quantize_kv_rows
+
+    q, k, v, lens, table = paged_inputs(batch, lengths, n_pages, pages_per_seq, torch.float32, seed, head_dim)
+    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    return q.to(dtype), kq, vq, lens, table, dict(k_scales=ks, v_scales=vs)
+
+
+def hold_paged(label: str, cases, make, pool_pages: int, pages_per_seq: int) -> float:
+    """The paged wrapper against its twin over ``cases`` ((head_dim,
+    lengths) pairs) in float32 and bfloat16 q, on the pages ``make`` gives:
+    within :data:`TOLERANCE`, rows of length 0 exact zeros, two calls
+    bitwise equal. Returns the largest bf16 error."""
     import torch
 
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
 
-    table_end = pages_per_seq * BLOCK
-    limits = (0, 1, BLOCK, 2 * BLOCK + 5, table_end, table_end + 40, 3, 2 * BLOCK)
-    cases = [(128, (1, 17, 64, 300)), (128, (table_end, 48, 16, 255))]
-    cases += [(d, limits) for d in (16, 32, 64, 128)]
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOLERANCE[str(dtype)]
         for seed, (head_dim, lengths) in enumerate(cases):
-            batch = len(lengths)
-            q, k, v, lens, table = paged_inputs(batch, lengths, pool_pages * 2, pages_per_seq, dtype, seed, head_dim)
-            out = paged_decode_attention(q, k, v, lens, table)
-            again = paged_decode_attention(q, k, v, lens, table)
+            q, k, v, lens, table, kw = make(len(lengths), lengths, pool_pages * 2, pages_per_seq, dtype, seed,
+                                            head_dim)
+            out = paged_decode_attention(q, k, v, lens, table, **kw)
+            again = paged_decode_attention(q, k, v, lens, table, **kw)
             torch.cuda.synchronize()
-            ref = paged_decode_attention_reference(q, k, v, lens, table)
+            ref = paged_decode_attention_reference(q, k, v, lens, table, **kw)
             err = (out.float() - ref.float()).abs()
             ok = bool((err <= atol + rtol * ref.float().abs()).all()) and not bool(out.isnan().any())
             zeros = all(int(torch.count_nonzero(out[i])) == 0 for i, n in enumerate(lengths) if n == 0)
             same = torch.equal(out, again)
-            print(f"paged_decode_attention {dtype} B={batch} D={head_dim} lengths={lengths}: max_abs_err="
+            print(f"{label} {dtype} q, B={len(lengths)} D={head_dim} lengths={lengths}: max_abs_err="
                   f"{err.max().item()} (tolerance atol={atol} rtol={rtol}) {'ok' if ok else 'FAIL'}; rows of "
                   f"length 0 exact zeros: {zeros}; two calls bitwise equal: {same}", flush=True)
-            require(ok and zeros, "paged_decode_attention disagrees with its plain twin")
-            require(same, "paged_decode_attention gave other bits on a second call")
+            require(ok and zeros, f"{label} disagrees with its plain twin")
+            require(same, f"{label} gave other bits on a second call")
             if dtype == torch.bfloat16:
                 worst = max(worst, err.max().item())
+    return worst
 
+
+def paged_times(q, k, v, lens, table, pages_per_seq, **scales) -> dict:
+    """The paged kernel of either mode, its twin, SDPA on K/V gathered (and
+    dequantized) beforehand (the library yardstick) and the bound, on the
+    same inputs; two calls bitwise equal."""
+    import torch
+
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
+
+    def call():
+        return paged_decode_attention(q, k, v, lens, table, **scales)
+
+    require(torch.equal(call(), call()), "the paged kernel gave other bits on a second call")
+    ms = time_ms(call)
+    dev_ms, host_ms = device_ms(call)
+    plain_ms = time_ms(lambda: paged_decode_attention_reference(q, k, v, lens, table, **scales))
+    bms, bound_by = bound_ms(q, k, lens, pages_per_seq, scale_item=4 if scales else 0)
+    if scales:
+        k, v = (k.float() * scales["k_scales"]).to(q.dtype), (v.float() * scales["v_scales"]).to(q.dtype)
+    library = sdpa_on_gathered(q, k, v, lens, table)
+    library_ms = time_ms(library)
+    library_dev_ms, _ = device_ms(library)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms,
+                library_device_ms=library_dev_ms, host_ms=host_ms)
+
+
+def time_paged(label: str, make, pool_pages: int, pages_per_seq: int) -> dict:
+    """:func:`paged_times` at the three :func:`paged_shapes` (bf16 q): the
+    served shape's numbers, then the long-context ones under a prefix."""
+    import torch
+
+    numbers = {}
+    for shape, batch, lengths, n_pages, pps in paged_shapes(pool_pages, pages_per_seq):
+        q, k, v, lens, table, kw = make(batch, lengths, n_pages, pps, torch.bfloat16, 7)
+        n = numbers[shape] = paged_times(q, k, v, lens, table, pps, **kw)
+        print(f"{label} bf16 q, {shape} lengths={lengths[:4]}{'...' if batch > 4 else ''}: kernel {n['ms']:.4f} ms, "
+              f"plain {n['plain_ms']:.4f} ms, library (SDPA on gathered K/V) {n['library_ms']:.4f} ms, bound "
+              f"{n['bound_ms']:.6f} ms ({n['bound_by']}), {n['bound_ms'] / n['ms']:.1%} of bound; device only: "
+              f"kernel {n['device_ms']:.4f} ms ({n['bound_ms'] / n['device_ms']:.1%} of bound), library "
+              f"{n['library_device_ms']:.4f} ms; host enqueue a call {n['host_ms']:.4f} ms", flush=True)
+        del q, k, v, lens, table, kw
+        torch.cuda.empty_cache()
+    row = dict(numbers["served"])
+    for shape, prefix in (("B=8 ctx=2048", "b8_ctx2048_"), ("B=1 ctx=8192", "b1_ctx8192_")):
+        row.update({prefix + key: value for key, value in numbers[shape].items()})
+    return row
+
+
+def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
+    """The paged kernel against its twin: the served geometry at D=128 (the
+    target's head) and D=64 (the speculative draft's), the length limits
+    (0, 1, page edges, ragged, the full table, past it) at every head size
+    the package uses; then times at the three :func:`paged_shapes` (bf16)."""
+    import torch
+
+    table_end = pages_per_seq * BLOCK
+    limits = (0, 1, BLOCK, 2 * BLOCK + 5, table_end, table_end + 40, 3, 2 * BLOCK)
+    cases = [(128, (1, 17, 64, 300)), (128, (table_end, 48, 16, 255)), (64, (1, 17, 64, 300))]
+    cases += [(d, limits) for d in (16, 32, 64, 128)]
+    worst = hold_paged("paged_decode_attention", cases, float_pages, pool_pages, pages_per_seq)
     # the device-only timer's floor: a one-element kernel under the same spin, flush and events
     one = torch.empty(1, device="cuda")
     floor_ms, _ = device_ms(lambda: one.zero_())
     print(f"device-only timer floor (a one-element x.zero_()): {floor_ms:.4f} ms", flush=True)
-    numbers = {}
-    for label, batch, lengths, n_pages, pps in paged_shapes(pool_pages, pages_per_seq):
-        q, k, v, lens, table = paged_inputs(batch, lengths, n_pages, pps, torch.bfloat16, 7)
-        once = paged_decode_attention(q, k, v, lens, table)
-        require(torch.equal(once, paged_decode_attention(q, k, v, lens, table)),
-                f"paged_decode_attention gave other bits on a second call ({label})")
-        ms = time_ms(lambda: paged_decode_attention(q, k, v, lens, table))
-        dev_ms, host_ms = device_ms(lambda: paged_decode_attention(q, k, v, lens, table))
-        plain_ms = time_ms(lambda: paged_decode_attention_reference(q, k, v, lens, table))
-        library = sdpa_on_gathered(q, k, v, lens, table)
-        library_ms = time_ms(library)
-        library_dev_ms, _ = device_ms(library)
-        bms, bound_by = bound_ms(q, k, lens, pps)
-        print(f"paged_decode_attention bf16 {label} lengths={lengths[:4]}{'...' if batch > 4 else ''}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA on gathered K/V) {library_ms:.4f} ms, "
-              f"bound {bms:.6f} ms ({bound_by}), {bms / ms:.1%} of bound; device only: kernel {dev_ms:.4f} ms "
-              f"({bms / dev_ms:.1%} of bound), library {library_dev_ms:.4f} ms; host enqueue a call "
-              f"{host_ms:.4f} ms", flush=True)
-        numbers[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms,
-                              device_ms=dev_ms, library_device_ms=library_dev_ms, host_ms=host_ms)
-        del q, k, v, lens, table, library
-        torch.cuda.empty_cache()
-    # the served shape's numbers head the row; the long-context ones ride along under a prefix
-    row = dict(max_abs_err=worst, **numbers["served"], timer_floor_ms=floor_ms)
-    for label, prefix in (("B=8 ctx=2048", "b8_ctx2048_"), ("B=1 ctx=8192", "b1_ctx8192_")):
-        row.update({prefix + key: value for key, value in numbers[label].items()})
-    return row
+    row = time_paged("paged_decode_attention", float_pages, pool_pages, pages_per_seq)
+    return dict(max_abs_err=worst, **row, timer_floor_ms=floor_ms)
+
+
+def int8_page_phase(pool_pages: int, pages_per_seq: int) -> dict:
+    """The int8-page mode against its twin at D = 64 and 128 over the float
+    mode's length cases, then times at the three :func:`paged_shapes`."""
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    table_end = pages_per_seq * BLOCK
+    limits = (0, 1, BLOCK, 2 * BLOCK + 5, table_end, table_end + 40, 3, 2 * BLOCK)
+    cases = [(d, lengths) for d in (64, 128) for lengths in ((1, 17, 64, 300), limits)]
+    paged_decode_attention.int8_launches = 0
+    worst = hold_paged("paged_decode_attention int8 pages", cases, int8_pages, pool_pages, pages_per_seq)
+    checked = paged_decode_attention.int8_launches
+    row = time_paged("paged_decode_attention int8 pages", int8_pages, pool_pages, pages_per_seq)
+    return dict(max_abs_err=worst, phase2_launches=checked, **row)
 
 
 def serve(batcher, prompts, grammars=None, logprobs=None) -> tuple:
@@ -1652,6 +1758,263 @@ def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf1
     return http_launches
 
 
+#: phase 9: speculative decoding and beam search, and the int8-page mode on a live pool
+
+
+def first_divergence(a, b) -> int:
+    """The first position where two token lists differ (their common length if none)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+@contextlib.contextmanager
+def int8_rows():
+    """Count the int8 kernel's launches by M (the rows of x) inside the block."""
+    int8_module = importlib.import_module("unionml_tpu_torch.ops.int8_matmul")
+    counts = collections.Counter()
+    launch = int8_module._launch
+
+    def counted(x, *args, **kwargs):
+        out = launch(x, *args, **kwargs)
+        counts[int(x.shape[0])] += 1
+        return out
+
+    int8_module._launch = counted
+    try:
+        yield counts
+    finally:
+        int8_module._launch = launch
+
+
+def draft_config(dtype, **overrides):
+    import torch
+
+    from unionml_tpu_torch import LlamaConfig
+
+    return LlamaConfig(**{**DRAFT_1B, **overrides}, attention_impl="flash", dtype=dtype,
+                       param_dtype=dtype if dtype == torch.bfloat16 else torch.float32)
+
+
+def spec_serving_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int, bf16: dict,
+                       bf16_streams) -> dict:
+    """Phase 9a: speculative serving at full width. The bf16 target (phase
+    3's weights) with the 1B-shaped draft, then with itself as its own draft
+    (the same tensors), each through ``ContinuousBatcher(slots, decode_chunk,
+    block_size=16)`` over phase 3's prompts. Every draft step and the
+    completeness feed (gamma + 1 single-token forwards a round) launch the
+    paged kernel in each draft layer; the verify and the admissions take the
+    gather path. Returns the 1B-shaped run's numbers."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, DraftSpec, Generator, Llama
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t0 = time.perf_counter()
+    draft = Llama(draft_config(torch.bfloat16), seed=DRAFT_SEED)
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in draft.parameters())
+    print(f"phase 9a: the 1B-shaped draft (dim {DRAFT_1B['dim']}, {DRAFT_1B['n_layers']} layers, untied head, bf16, "
+          f"seed {DRAFT_SEED}) built in {time.perf_counter() - t0:.1f} s, {held / 2**30:.2f} GiB; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    result = {}
+    for label, draft_module in (("1B-shaped draft", draft), ("target as its own draft", target)):
+        gen = Generator(target, dataclasses.replace(gcfg, draft=DraftSpec(module=draft_module, gamma=GAMMA)))
+        spec = gen._speculative()
+        warm = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+        serve(warm, [prompts[0][:3]])  # set-up: first launches and allocator calls
+        warm.close()
+        batcher = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+        spec.rounds = spec.accepted_tokens = spec.proposed_tokens = 0
+        for counted in app_counted():
+            counted.launches = 0
+        streams, seconds = serve(batcher, prompts)
+        launches = paged_decode_attention.launches
+        others = {c.__name__: c.launches for c in app_counted() if c is not paged_decode_attention}
+        stats = batcher.stats()
+        batcher.close()
+        require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
+        require(all(0 <= t < target.config.vocab_size for s in streams for t in s), "a token id outside the vocabulary")
+        layers = draft_module.config.n_layers
+        expected = layers * (GAMMA + 1) * spec.rounds
+        diverge = [first_divergence(a, b) for a, b in zip(streams, bf16_streams)]
+        tok_s = len(prompts) * MAX_NEW / seconds
+        print(f"phase 9a, {label}, gamma {GAMMA}: {tok_s:.1f} tok/s aggregate (phase 3 in this call: "
+              f"{bf16['tok_s']:.1f}), TTFT p50 {stats['ttft_ms']['p50_ms']} ms, TBT p50 {stats['tbt_ms']['p50_ms']} ms "
+              f"(a dispatch of >= {decode_chunk} tokens a row), {stats['decode_dispatches']} dispatches, "
+              f"{spec.rounds} rounds, acceptance_rate {stats.get('acceptance_rate')} (the engine's: accepts summed "
+              f"over rows / (rounds x gamma)), accepted {spec.accepted_tokens} of {spec.proposed_tokens} proposals "
+              f"({spec.accepted_tokens / max(spec.proposed_tokens, 1):.3f}); streams against phase 3's bf16 streams: "
+              f"first divergence at {diverge} of {MAX_NEW}; paged launches {launches} (expected {layers} draft layers "
+              f"x (gamma + 1) x {spec.rounds} rounds = {expected}), other kernels {others}; card {card}", flush=True)
+        require(launches == expected > 0, f"{launches} paged launches on the speculative path, expected {expected}")
+        require(stats["speculative"] is True and all(n == 0 for n in others.values()),
+                f"speculative stats {stats['speculative']}, other kernels {others}")
+        if draft_module is draft:
+            result = dict(spec_launches=launches, tok_s=tok_s, rounds=spec.rounds,
+                          acceptance=spec.accepted_tokens / max(spec.proposed_tokens, 1))
+    del draft, gen, spec
+    torch.cuda.empty_cache()
+    return result
+
+
+def spec_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> int:
+    """Phase 9b: float32, 2 layers at Llama-3-8B width (phase 4's weights).
+    The speculative engine, paged and dense, equals a solo plain Generator
+    with three drafts (the 1B-shaped draft cut to 2 layers, the target
+    itself, a 1-layer draft); the target as its own draft accepts every
+    proposal; ``beam_search`` at width 1 equals greedy and at width 4 equals
+    the same weights' search on the CPU; under ``quantize="int8"`` for target
+    and draft the speculative streams equal the plain int8 Generator's.
+    Returns the int8 kernel's launches on the int8 speculative run."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, DraftSpec, Generator, Llama, LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = LlamaConfig.llama3_8b(n_layers=2, attention_impl="flash", dtype=torch.float32, param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    target = Llama(cfg32, seed=1)
+    plain = Llama(dataclasses.replace(cfg32, attention_impl="auto"))
+    plain.load_state_dict(target.state_dict())
+    solo = Generator(plain, gcfg)
+    expected = [solo([p])[0].tolist() for p in prompts]
+    drafts = {
+        "1B-shaped draft, 2 layers": Llama(draft_config(torch.float32, n_layers=2), seed=DRAFT_SEED),
+        "the target itself": target,
+        "1B-shaped draft, 1 layer": Llama(draft_config(torch.float32, n_layers=1), seed=DRAFT_SEED + 1),
+    }
+    for name, draft in drafts.items():
+        gen = Generator(target, dataclasses.replace(gcfg, draft=DraftSpec(module=draft, gamma=GAMMA)))
+        spec = gen._speculative()
+        same = {}
+        for block in (BLOCK, None):
+            engine = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=block)
+            streams, _ = serve(engine, prompts)
+            engine.close()
+            same["paged" if block else "dense"] = streams == expected
+        acceptance = spec.accepted_tokens / max(spec.proposed_tokens, 1)
+        print(f"phase 9b, float32 speculative parity, {name}: engine streams equal the solo plain Generator's: "
+              f"{same}; {spec.rounds} rounds, accepted {spec.accepted_tokens} of {spec.proposed_tokens} proposals "
+              f"({acceptance:.3f})", flush=True)
+        require(all(same.values()), f"{name}: speculative streams differ from the plain run's")
+        if draft is target:
+            require(spec.accepted_tokens == spec.proposed_tokens > 0, "the target as its own draft rejected a proposal")
+    bcfg = dataclasses.replace(gcfg, max_new_tokens=BEAM_NEW, prompt_buckets=(BEAM_BUCKET,))
+    pair = prompts[:2]
+    beam_gen = Generator(target, bcfg)
+    width_one = beam_gen.beam_search(pair, num_beams=1)
+    greedy = beam_gen(pair)
+    card_beams = beam_gen.beam_search(pair, num_beams=4)
+    cpu_model = Llama(cfg32, device="cpu")
+    cpu_model.load_state_dict(target.state_dict())
+    cpu_beams = Generator(cpu_model, bcfg, device="cpu").beam_search(pair, num_beams=4)
+    print(f"phase 9b, beam search ({len(pair)} prompts x {BEAM_NEW} tokens): width 1 equals greedy: "
+          f"{bool((width_one == greedy).all())}; width 4 on the card equals the CPU: "
+          f"{bool((card_beams == cpu_beams).all())} ({card_beams.tolist()})", flush=True)
+    require((width_one == greedy).all() and (card_beams == cpu_beams).all(), "beam search parity failed")
+    del drafts, target, plain, solo, gen, spec, beam_gen, cpu_model
+    torch.cuda.empty_cache()
+
+    # int8 weights for target and draft (fresh models: quantize="int8" works in place)
+    target8 = Llama(cfg32, seed=1)
+    draft8 = Llama(draft_config(torch.float32, n_layers=2), seed=DRAFT_SEED)
+    plain8 = Generator(target8, gcfg, quantize="int8")
+    expected8 = [plain8([p])[0].tolist() for p in prompts]
+    gen8 = Generator(target8, dataclasses.replace(gcfg, draft=DraftSpec(module=draft8, gamma=GAMMA, quantize="int8")),
+                     quantize="int8")
+    spec8 = gen8._speculative()
+    engine = ContinuousBatcher(gen8, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    int8_mm = importlib.import_module("unionml_tpu_torch.ops.int8_matmul").int8_matmul
+    int8_mm.launches = 0
+    with int8_rows() as rows:
+        streams8, _ = serve(engine, prompts)
+    engine.close()
+    launches = int8_mm.launches
+    verify_rows = slots * (GAMMA + 1)
+    ties = []
+    for prompt, got, want in zip(prompts, streams8, expected8):
+        at = first_divergence(got, want)
+        if at == len(want):
+            continue
+        with torch.no_grad():  # the plain int8 Generator's prefill of the common prefix: its next-token logits
+            _, _, last, _ = plain8._start([prompt + want[:at]], 0)
+            logits = plain8._head(last.to(cfg32.dtype))[0]
+        top2 = logits.topk(2).indices.tolist()
+        ties.append(dict(position=at, tokens=(want[at], got[at]), gap=abs(float(logits[want[at]] - logits[got[at]])),
+                         top2=sorted({want[at], got[at]}) == sorted(top2), logit_std=float(logits.std())))
+    print(f"phase 9b, float32 int8 speculative parity (target and draft int8): engine streams equal the plain int8 "
+          f"Generator's: {streams8 == expected8}; divergences (each must be a near-tie: the two tokens the top two of "
+          f"the plain prefill's logits, at most {INT8_TIE_GAP} apart): {ties}; {spec8.rounds} rounds; int8 "
+          f"launches {launches}, by M {dict(sorted(rows.items()))} (M = {verify_rows}: the verify of {slots} slots x "
+          f"(gamma + 1)) ({time.perf_counter() - t0:.1f} s for phase 9b)", flush=True)
+    require(all(t["top2"] and t["gap"] <= INT8_TIE_GAP for t in ties), f"{streams8} / {expected8}")
+    require(rows[verify_rows] > 0 and launches == sum(rows.values()), f"int8 launches by M {dict(rows)}")
+    del target8, draft8, plain8, gen8, spec8, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_pool_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int) -> dict:
+    """Phase 9c: the bf16 target served over int8 pages (``kv_cache_dtype
+    ="int8"``, the gather route, as in JAX), then the int8-page kernel and its
+    twin on that engine's live pools: every layer's int8 K/V pages and
+    scales with the block table and lengths of the dispatch that had the most
+    resident rows, a random bf16 q."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
+
+    gen = Generator(target, dataclasses.replace(gcfg, kv_cache_dtype="int8"))
+    engine = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    seen = {"live": 0}
+    decode = gen._decode
+
+    def capture(*carry, steps):
+        live = int((~carry[3]).sum())
+        if live > seen["live"]:
+            seen.update(live=live, lengths=torch.where(carry[3], 0, carry[2]), table=carry[0][0]["table"].clone())
+        return decode(*carry, steps=steps)
+
+    gen._decode = capture
+    paged_decode_attention.launches = 0
+    streams, seconds = serve(engine, prompts)
+    gather_launches = paged_decode_attention.launches
+    engine.close()
+    require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
+    require(gather_launches == 0 and seen["live"] > 0, f"{gather_launches} paged launches over int8 pages")
+    pools, lens, table = engine._carry[0], seen["lengths"], seen["table"]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    mcfg = target.config
+    q = torch.randn(slots, mcfg.n_heads, mcfg.dim // mcfg.n_heads, device="cuda", generator=g).to(torch.bfloat16)
+    atol, rtol = TOLERANCE[str(q.dtype)]
+    paged_decode_attention.int8_launches = 0
+    worst = 0.0
+    for i, layer in enumerate(pools):
+        args = (q, layer["k"], layer["v"], lens, table)
+        out = paged_decode_attention(*args, k_scales=layer["k_scale"], v_scales=layer["v_scale"])
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_reference(*args, k_scales=layer["k_scale"], v_scales=layer["v_scale"])
+        err = (out.float() - ref.float()).abs()
+        require(bool((err <= atol + rtol * ref.float().abs()).all()) and not bool(out.isnan().any()),
+                f"layer {i}: the int8-page kernel disagrees with its twin on the live pool")
+        worst = max(worst, err.max().item())
+    launches = paged_decode_attention.int8_launches
+    layer = pools[0]
+    times = paged_times(q, layer["k"], layer["v"], lens, table, table.shape[1], k_scales=layer["k_scale"],
+                        v_scales=layer["v_scale"])
+    print(f"phase 9c: served 4 streams x {MAX_NEW} over int8 pages (gather route, {gather_launches} paged launches) "
+          f"at {len(prompts) * MAX_NEW / seconds:.1f} tok/s; the int8-page kernel on the live pools of all "
+          f"{len(pools)} layers ({launches} launches; {seen['live']} resident rows, lengths {lens.tolist()}): "
+          f"max_abs_err {worst} (tolerance atol={atol} rtol={rtol}); layer 0: kernel {times['ms']:.4f} ms "
+          f"({times['device_ms']:.4f} device only), twin (int8 gather route) {times['plain_ms']:.4f} ms, library "
+          f"{times['library_ms']:.4f} ms ({times['library_device_ms']:.4f}), bound {times['bound_ms']:.6f} ms "
+          f"({times['bound_by']}); card {card}", flush=True)
+    del gen, engine, pools
+    torch.cuda.empty_cache()
+    return dict(launches=launches, live_max_abs_err=worst, **{f"live_{k}": v for k, v in times.items()})
+
+
 def main() -> int:
     import argparse
 
@@ -1694,6 +2057,7 @@ def main() -> int:
     numbers = kernel_phase(pool_pages, pages_per_seq)
     flash_numbers = flash_kernel_phase()
     int8_numbers = int8_kernel_phase()
+    int8_page_numbers = int8_page_phase(pool_pages, pages_per_seq)
 
     rng = np.random.RandomState(0)
 
@@ -1728,6 +2092,7 @@ def main() -> int:
           f"card {card}", flush=True)
     require(launches == expected > 0, f"{launches} kernel launches on the main path, expected {expected}")
     bf16 = dict(tok_s=4 * MAX_NEW / seconds, ttft_p50=stats["ttft_ms"]["p50_ms"], tbt_p50=stats["tbt_ms"]["p50_ms"])
+    bf16_streams = streams
     if args.profile:
         profiled = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
         profile_run("serve 4 streams", lambda: serve(profiled, prompts))
@@ -1783,6 +2148,19 @@ def main() -> int:
 
     # ---- phase 8: the serving half (Model.serve, HTTP over a loopback socket) on phase 3's weights
     http_launches = http_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16, args.profile)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: speculative decoding and beam search; the int8-page mode on a live pool
+    t0 = time.perf_counter()
+    target = Llama(cfg, seed=0)  # phase 3's weights
+    torch.cuda.synchronize()
+    print(f"phase 9: the bf16 target (phase 3's weights) rebuilt in {time.perf_counter() - t0:.1f} s", flush=True)
+    spec = spec_serving_phase(card, target, gcfg, prompts, slots, decode_chunk, bf16, bf16_streams)
+    pool = int8_pool_phase(card, target, gcfg, prompts, slots, decode_chunk)
+    del target
+    torch.cuda.empty_cache()
+    spec_int8_launches = spec_parity_phase(gcfg, prompts, slots, decode_chunk)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{
         "name": "paged_decode_attention",
@@ -1792,6 +2170,7 @@ def main() -> int:
         "launches": launches,
         "app_launches": app_launches["paged_decode_attention"],
         "http_launches": http_launches["paged_decode_attention"],
+        "spec_launches": spec["spec_launches"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -1807,7 +2186,17 @@ def main() -> int:
         "replaces": "unionml_tpu/ops/int8_matmul.py:102", "launches": int8_launches,
         "app_launches": app_launches["int8_matmul"],
         "http_launches": http_launches["int8_matmul"],
+        "spec_launches": spec_int8_launches,
         **int8_numbers,
+    })
+    kernels.append({
+        "name": "paged_decode_attention_int8", "route": "cuda",
+        "source": "unionml_tpu_torch/csrc/paged_decode_attention_int8.cu",
+        "replaces": "unionml_tpu/ops/paged_attention.py:75-84",
+        # the engine serves int8 pages through the gather path, as the JAX package does: the mode's launches are
+        # phase 9c's calls on the live int8 pools of that run
+        **pool,
+        **int8_page_numbers,
     })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,7 +8,8 @@ shared ``ContinuousBatcher`` to the predicted text, and constrains
 ``predictor`` gives the JAX template's ``predictor`` text token for token
 (f32, greedy), plain and constrained prompts alike. ``model.serve()`` passes
 the serve half of the JAX template test (``tests/unit/test_templates.py``,
-without its speculative lines).
+without its speculative lines); the half-depth speculative generator's text
+equals ``model.predict``'s.
 """
 
 import asyncio
@@ -112,10 +113,17 @@ def test_multi_prompt_stream_reassembles_to_predict(app):
     assert [module._split_grammar(p)[1] + piece for p, piece in zip(PROMPTS, pieces)] == outputs
 
 
-def test_speculative_generator_is_not_ported(app):
-    module, _, _ = app
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        module.speculative_generator(module.model.artifact.model_object)
+@pytest.mark.parametrize("gamma", [2, 4])
+def test_speculative_generator_equals_predict(app, gamma):
+    """The half-depth draft through the Generator façade is greedy-exact:
+    its text equals ``model.predict``'s, plain and grammar prompts alike
+    (the draft proposes under the same grammar set and eos)."""
+    module, _, outputs = app
+    spec = module.speculative_generator(module.model.artifact.model_object, gamma=gamma)
+    gids, texts = zip(*(module._split_grammar(p) for p in PROMPTS))
+    rows = spec(module._encode_prompts(list(texts)), constraint=list(gids))
+    assert [t + module.decode(row) for t, row in zip(texts, rows)] == outputs
+    assert spec._speculative().rounds > 0
 
 
 def test_the_templates_own_test_file_passes(monkeypatch):

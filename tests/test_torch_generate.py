@@ -123,7 +123,7 @@ def test_policy_distribution_matches_jax(name):
 
 @pytest.mark.parametrize(
     "option",
-    ["mesh", "draft", "sp_prefill"],
+    ["mesh", "sp_prefill"],
 )
 def test_unported_options_raise(pair, option):
     _, _, model = pair
@@ -131,7 +131,7 @@ def test_unported_options_raise(pair, option):
     if option == "mesh":
         kw[option] = object()
     else:
-        cfg = dataclasses.replace(cfg, **{option: "ring" if option == "sp_prefill" else object()})
+        cfg = dataclasses.replace(cfg, sp_prefill="ring")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Generator(model, cfg, device="cpu", **kw)
 

@@ -9,9 +9,13 @@ kernel itself runs only on a CUDA card with sm_90: its tests are marked
 ``cuda`` and skip elsewhere. On the CPU the kernel's split-and-combine
 algorithm is checked through its plain spelling,
 ``paged_decode_attention_split_reference`` (f32, 1e-5 absolute against the
-same gather path), with the launch plan and the input checks. On the card it runs without JAX installed
+same gather path), with the launch plan and the input checks. The int8-page
+mode (``k_scales``/``v_scales``) is held the same way: its twin against the
+JAX package's int8 gather path over a pool its ``quantize_kv_rows`` made, the
+scale checks in Python, and its own kernel against the twin on the card. On
+the card it runs without JAX installed
 (``python -m pytest --noconftest -m cuda tests/test_torch_paged_attention.py``),
-so this file imports JAX only where the CPU parity test needs it.
+so this file imports JAX only where the CPU parity tests need it.
 """
 
 import numpy as np
@@ -258,3 +262,150 @@ def test_kernel_raises_rather_than_falls_back_on_card(head_dim):
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_decode_attention(q, k, v, lens, table)
     assert pa.paged_decode_attention.launches == before
+
+
+# ------------------------------------------------------------------ the int8-page mode
+
+
+def _jax_quantize(x):
+    import jax.numpy as jnp
+
+    from unionml_tpu.models.layers import quantize_kv_rows as jax_quantize_kv_rows
+
+    return tuple(np.asarray(a) for a in jax_quantize_kv_rows(jnp.asarray(x)))
+
+
+def _port_quantize(x):
+    from unionml_tpu_torch.models.layers import quantize_kv_rows
+
+    return tuple(a.numpy() for a in quantize_kv_rows(torch.from_numpy(x)))
+
+
+def _int8_inputs(lengths, seed=0, head_dim=HEAD_DIM, quantize=_port_quantize, **kw):
+    """The float inputs with K/V quantized per (position, head) (int8 values,
+    f32 scales ``[..., 1]``) by ``quantize``: the port's ``quantize_kv_rows``
+    (the card tests, which run without JAX) or the JAX package's."""
+    q, k, v, lens, table = _inputs(lengths, seed=seed, head_dim=head_dim, **kw)
+    (kq, ks), (vq, vs) = quantize(k), quantize(v)
+    return q, kq, vq, ks, vs, lens, table
+
+
+def _jax_int8_gather_path(q, kq, vq, ks, vs, lengths, table):
+    """The JAX package's int8 gather path: the int8 pool times its scales in
+    f32, rounded to q's dtype, then the float gather path."""
+    import jax.numpy as jnp
+
+    k = (jnp.asarray(kq).astype(jnp.float32) * jnp.asarray(ks)).astype(q.dtype)
+    v = (jnp.asarray(vq).astype(jnp.float32) * jnp.asarray(vs)).astype(q.dtype)
+    return _jax_gather_path(q, np.asarray(k), np.asarray(v), lengths, table)
+
+
+@pytest.mark.parametrize(
+    "lengths",
+    [(1, 16, 32, 21), (64, 7, 48, 1), (0, 33, 17, 100)],
+    ids=["one-and-page-boundaries", "table-end-and-ragged", "empty-row-and-past-table"],
+)
+def test_int8_pages_cpu_wrapper_matches_jax_int8_gather_path(lengths):
+    """int8 pages with per-(position, head) scales through the wrapper on
+    the CPU (its twin) agree with the JAX package's int8 gather path at f32
+    within 1e-5, launch nothing, and give exact zeros for an empty row."""
+    q, kq, vq, ks, vs, lens, table = _int8_inputs(lengths, seed=9, quantize=_jax_quantize)
+    before = (pa.paged_decode_attention.launches, pa.paged_decode_attention.int8_launches)
+    t = dict(zip(("q", "k", "v", "ks", "vs", "lens", "table"), map(torch.from_numpy, (q, kq, vq, ks, vs, lens, table))))
+    out = pa.paged_decode_attention(t["q"], t["k"], t["v"], t["lens"], t["table"], k_scales=t["ks"], v_scales=t["vs"])
+    assert (pa.paged_decode_attention.launches, pa.paged_decode_attention.int8_launches) == before
+    assert kq.dtype == np.int8 and ks.shape == kq.shape[:-1] + (1,)
+    assert out.shape == (len(lengths), HEADS, HEAD_DIM) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), _jax_int8_gather_path(q, kq, vq, ks, vs, lens, table), atol=1e-5, rtol=0)
+    for row, length in enumerate(lengths):
+        if length == 0:
+            assert torch.count_nonzero(out[row]) == 0
+
+
+def test_int8_pages_twin_matches_the_port_gather_path():
+    """The twin computes what the port's int8 gather path computes in the
+    model (``Attention._paged_cached_attention`` over an int8 pool): bf16 q
+    over a pool quantized by the port's ``quantize_kv_rows``, bitwise."""
+    from unionml_tpu_torch.models.layers import quantize_kv_rows
+
+    q, k, v, lens, table = map(torch.from_numpy, _inputs((5, 64, 0, 30), seed=2))
+    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    qb = q.bfloat16()
+    out = pa.paged_decode_attention_reference(qb, kq, vq, lens, table, k_scales=ks, v_scales=vs)
+    same = pa.paged_decode_attention_reference(qb, (kq.float() * ks).bfloat16(), (vq.float() * vs).bfloat16(), lens,
+                                               table)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, same)
+
+
+@pytest.mark.parametrize("only", ["k_scales", "v_scales"])
+def test_int8_pages_need_both_scales(only):
+    q, kq, vq, ks, vs, lens, table = map(torch.from_numpy, _int8_inputs((3, 5)))
+    kw = {only: ks if only == "k_scales" else vs}
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_decode_attention(q, kq, vq, lens, table, **kw)
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_decode_attention_reference(q, kq, vq, lens, table, **kw)
+
+
+@pytest.mark.parametrize("bad", ["float-pages", "f16-scales", "scale-shape", "lengths-int64", "head-dim"])
+def test_int8_kernel_inputs_are_checked(bad):
+    """What the int8-page launch would refuse is refused in Python first."""
+    q, kq, vq, ks, vs, lens, table = map(torch.from_numpy, _int8_inputs((3, 5), head_dim=12 if bad == "head-dim" else
+                                                                         HEAD_DIM))
+    if bad == "float-pages":
+        kq, vq = kq.float(), vq.float()
+    elif bad == "f16-scales":
+        ks, vs = ks.half(), vs.half()
+    elif bad == "scale-shape":
+        ks = ks[..., 0]
+    elif bad == "lengths-int64":
+        lens = lens.long()
+    with pytest.raises((TypeError, ValueError)):
+        pa._check_int8(q, kq, vq, ks, vs, lens, table)
+
+
+def _int8_on_card(arrays, dtype):
+    q, kq, vq, ks, vs, lens, table = (torch.from_numpy(a).cuda() for a in arrays)
+    return q.to(dtype), kq, vq, ks, vs, lens, table
+
+
+def _assert_int8_matches_twin(q, kq, vq, ks, vs, lens, table):
+    before = (pa.paged_decode_attention.launches, pa.paged_decode_attention.int8_launches)
+    out = pa.paged_decode_attention(q, kq, vq, lens, table, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert (pa.paged_decode_attention.launches, pa.paged_decode_attention.int8_launches) == (before[0], before[1] + 1)
+    ref = pa.paged_decode_attention_reference(q, kq, vq, lens, table, k_scales=ks, v_scales=vs)
+    # the bf16 mode's tolerances: both round the dequantized K/V to q's dtype alike; the kernel keeps the scores in f32
+    atol, rtol = (1e-5, 0.0) if q.dtype == torch.float32 else (2e-2, 2e-2)
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for row, length in enumerate(lens.tolist()):
+        if length == 0:
+            assert torch.count_nonzero(out[row]) == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_matches_twin_on_card(dtype, head_dim):
+    """Every length case side by side, at the draft's (64) and the target's
+    (128) head size and at the kernel's edges."""
+    _card()
+    n = len(LENGTH_CASES)
+    for shift in (0, 3):
+        lengths = tuple(LENGTH_CASES[(i + shift) % n] for i in range(n))
+        _assert_int8_matches_twin(*_int8_on_card(_int8_inputs(lengths, seed=shift, head_dim=head_dim),
+                                                 getattr(torch, dtype)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_long_table_is_deterministic_on_card(dtype):
+    """A 256-page table split over a cluster, twice: the same bits."""
+    _card()
+    arrays = _int8_on_card(_int8_inputs((4096, 2500, 17, 0), seed=4, head_dim=128, pages_per_seq=256),
+                           getattr(torch, dtype))
+    once = _assert_int8_matches_twin(*arrays)
+    q, kq, vq, ks, vs, lens, table = arrays
+    assert torch.equal(once, pa.paged_decode_attention(q, kq, vq, lens, table, k_scales=ks, v_scales=vs))

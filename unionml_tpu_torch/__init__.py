@@ -16,7 +16,7 @@ neither pandas, scikit-learn nor joblib.
 from unionml_tpu_torch.artifact import ModelArtifact
 from unionml_tpu_torch.dataset import Dataset
 from unionml_tpu_torch.model import BaseHyperparameters, Model
-from unionml_tpu_torch.models import GenerationConfig, Generator, Llama, LlamaConfig
+from unionml_tpu_torch.models import DraftSpec, GenerationConfig, Generator, Llama, LlamaConfig
 from unionml_tpu_torch.serving import ContinuousBatcher
 from unionml_tpu_torch.stage import ExecutionGraph, Stage, stage
 from unionml_tpu_torch.train import FitResult, TrainerConfig, TrainState, evaluate, fit, make_train_step
@@ -25,6 +25,7 @@ __all__ = [
     "BaseHyperparameters",
     "ContinuousBatcher",
     "Dataset",
+    "DraftSpec",
     "ExecutionGraph",
     "FitResult",
     "GenerationConfig",

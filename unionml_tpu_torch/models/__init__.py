@@ -8,6 +8,7 @@ from unionml_tpu_torch.models.convert import (
     state_dict_from_jax,
 )
 from unionml_tpu_torch.models.generate import (
+    DraftSpec,
     GenerationConfig,
     Generator,
     chunk_aligned,
@@ -25,6 +26,7 @@ from unionml_tpu_torch.models.llama import (
     lora_optimizer,
     lora_param_labels,
 )
+from unionml_tpu_torch.models.speculative import SpeculativeGenerator
 from unionml_tpu_torch.models.structured import (
     ConstraintSet,
     TokenConstraint,
@@ -37,6 +39,7 @@ from unionml_tpu_torch.models.structured import (
 
 __all__ = [
     "ConstraintSet",
+    "DraftSpec",
     "GenerationConfig",
     "Generator",
     "Llama",
@@ -57,6 +60,7 @@ __all__ = [
     "lora_optimizer",
     "lora_param_labels",
     "policy_probs",
+    "SpeculativeGenerator",
     "sample_tokens",
     "state_dict_from_jax",
     "stop_sequences",

@@ -26,6 +26,7 @@ from unionml_tpu_torch.defaults import serve_kv_cache_dtype, serve_quantize
 from unionml_tpu_torch.ops.quant import quantize_params
 
 __all__ = [
+    "DraftSpec",
     "GenerationConfig",
     "Generator",
     "chunk_aligned",
@@ -40,15 +41,46 @@ logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
+class DraftSpec:
+    """A draft model for speculative decoding, attachable to
+    :attr:`GenerationConfig.draft`: the :class:`Generator` façade then routes
+    ``__call__``/``stream`` through a
+    :class:`~unionml_tpu_torch.models.speculative.SpeculativeGenerator` (same
+    output law: greedy token-exact, sampled distribution-exact).
+
+    ``module`` is the draft model itself (an ``nn.Module`` carrying its
+    weights, on the target's device). ``params`` keeps the JAX package's
+    field order and must stay ``None``: a port model carries its own
+    weights. ``quantize`` ("int8") stores the draft quantized IN PLACE; None
+    follows ``UNIONML_TPU_QUANTIZE`` as the target's own kwarg does.
+    ``partition_rules`` is refused, as :class:`Generator`'s ``mesh`` is."""
+
+    module: Any
+    params: Any = None
+    gamma: int = 4
+    partition_rules: Optional[Any] = None
+    quantize: Optional[str] = None
+
+    def __post_init__(self):
+        if self.params is not None:
+            raise ValueError("DraftSpec.params must be None in the port: the draft module carries its own weights")
+        if self.partition_rules is not None:
+            raise NotImplementedError(
+                "DraftSpec partition_rules is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer)"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     """Decoding knobs. ``temperature == 0`` means greedy (argmax) decoding;
     ``top_k``/``top_p``/``min_p`` filter the distribution before sampling.
     ``prefill_chunk`` prefills long prompts through the cache in chunks of
     that many columns. ``constraints`` (a
     :class:`~unionml_tpu_torch.models.structured.ConstraintSet`) lets each
-    call pick a grammar per row (``constraint=``). ``sp_prefill`` and
-    ``draft`` mirror the JAX package's fields; the port does not serve them
-    yet and its :class:`Generator` raises when they are set."""
+    call pick a grammar per row (``constraint=``). ``draft`` (a
+    :class:`DraftSpec`) decodes speculatively. ``sp_prefill`` mirrors the JAX
+    package's field; the port does not serve it yet and its
+    :class:`Generator` raises when it is set."""
 
     max_new_tokens: int = 128
     temperature: float = 1.0
@@ -196,6 +228,20 @@ def sample_tokens(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def _top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of each row and their indices, ties to the
+    lower index as ``jax.lax.top_k`` breaks them (``torch.topk`` promises no
+    order among equal values): a stable descending sort."""
+    ordered, index = torch.sort(values, dim=-1, descending=True, stable=True)
+    return ordered[..., :k], index[..., :k]
+
+
+def _reorder(cache: Tuple[dict, ...], rows: torch.Tensor) -> Tuple[dict, ...]:
+    """Per-layer cache rows gathered to ``rows`` into fresh tensors (the
+    model writes its cache in place, so a view would alias a parent's row)."""
+    return tuple({name: t.index_select(0, rows) for name, t in layer.items()} for layer in cache)
+
+
 class Generator:
     """Batch text generation over a cached decoder.
 
@@ -230,10 +276,7 @@ class Generator:
         partition_rules: Optional[Any] = None,
         quantize: Optional[str] = None,
     ):
-        unported = {
-            "mesh": mesh, "partition_rules": partition_rules, "config.draft": config.draft,
-            "config.sp_prefill": config.sp_prefill,
-        }
+        unported = {"mesh": mesh, "partition_rules": partition_rules, "config.sp_prefill": config.sp_prefill}
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(f"Generator {name} is not ported yet (ROADMAP.md, Queue A)")
@@ -257,6 +300,7 @@ class Generator:
         self.quantize = quantize
         self.prefill_traces = 0
         self.decode_traces = 0
+        self._spec_engine = None
         self._cs = config.constraints
         if self._cs is not None:
             # one device copy of the tables per set and device, shared by
@@ -439,7 +483,17 @@ class Generator:
     @staticmethod
     def _unported(prefix: Any) -> None:
         if prefix is not None:
-            raise NotImplementedError("prefix caches are not ported yet (ROADMAP.md, Queue A)")
+            raise NotImplementedError("prefix caches are not ported yet (ROADMAP.md, Queue A: prefix caches)")
+
+    def _speculative(self):
+        """The speculative engine behind ``config.draft``, built on first use:
+        THIS generator (its model already quantized and placed) is the verify
+        target."""
+        if self._spec_engine is None:
+            from unionml_tpu_torch.models.speculative import SpeculativeGenerator
+
+            self._spec_engine = SpeculativeGenerator.from_target(self, self.config.draft)
+        return self._spec_engine
 
     # ------------------------------------------------------------------ generate
 
@@ -452,6 +506,8 @@ class Generator:
         ``config.constraints``; 0 = the FREE grammar) masks each row's
         decoding by its grammar's token DFA."""
         self._unported(prefix)
+        if self.config.draft is not None:
+            return self._speculative()(prompts, seed=seed, constraint=constraint)
         n, tok0, _, carry = self._start(prompts, seed, constraint=constraint)
         steps = self.config.max_new_tokens - 1
         first = tok0.cpu().numpy()[:, None]
@@ -460,6 +516,106 @@ class Generator:
         rest, _, _ = self._decode(*carry, steps=steps)
         return np.concatenate([first, rest.cpu().numpy()], axis=1)[:n]
 
+    def beam_search(
+        self, prompts: Sequence[Sequence[int]], *, num_beams: int = 4, length_penalty: float = 0.0,
+        constraint: Any = None,
+    ) -> np.ndarray:
+        """Deterministic beam search: the highest-sum-log-prob continuation of
+        ``max_new_tokens`` per prompt (``[n_prompts, max_new]`` int32).
+
+        Beams are batch rows: each unique prompt is prefilled once, its cache
+        rows tiled to ``num_beams``; each step scores every beam, keeps the
+        top ``num_beams`` of the ``num_beams * vocab`` candidates per prompt
+        and gathers the cache rows to the surviving parents. A beam that
+        emits ``eos_id`` is finished: it competes with its score frozen,
+        padding from there on. ``length_penalty`` > 0 divides final scores by
+        ``((5 + len) / 6) ** length_penalty`` (GNMT). ``constraint`` runs the
+        search inside the grammar: candidate scores are the log-probs of the
+        masked, renormalized policy, and DFA states follow their parents."""
+        if num_beams < 1:
+            raise ValueError("num_beams must be >= 1")
+        cfg = self.config
+        n = len(prompts)
+        out, scores = self._beam(prompts, num_beams, constraint)
+        if cfg.eos_id is not None and length_penalty > 0.0:
+            is_eos = out == cfg.eos_id
+            lens = np.where(is_eos.any(axis=2), is_eos.argmax(axis=2) + 1, out.shape[2])
+            scores = scores / (((5.0 + lens) / 6.0) ** length_penalty)
+        best = scores.argmax(axis=1)
+        return out[np.arange(n), best]
+
+    @torch.no_grad()
+    def _beam(self, prompts: Sequence[Sequence[int]], num_beams: int, constraint: Any = None):
+        """The search itself: every beam's tokens ``[n, num_beams, max_new]``
+        and its sum of log-probs ``[n, num_beams]``."""
+        cfg = self.config
+        eos, pad = cfg.eos_id, cfg.pad_id
+        # prefill each unique prompt once (the batch padded to a power of two
+        # of groups, padding groups start done), then tile every cache row to
+        # its beams as fresh tensors
+        n, _, last, carry = self._start(prompts, 0, constraint=constraint)
+        groups = last.shape[0]
+        batch = groups * num_beams
+        tile = torch.arange(batch, device=self.device) // num_beams
+        cache = _reorder(carry[0], tile)
+        last, lengths = last[tile], carry[2][tile]
+        done = tile >= n
+        st = None
+        if self._cs is not None:
+            # the search seeds from the prefill distribution, so every beam
+            # starts at its grammar's start state
+            gids = self._grammar_ids(constraint, n, groups)
+            st = torch.as_tensor(self._cs.start_states(gids), device=self.device)[tile]
+
+        def logprobs(hidden, state):
+            # the constrained policy's distribution: mask, then renormalize
+            return torch.log_softmax(self._constrain(self._head(hidden), state), dim=-1)
+
+        lp0 = logprobs(last.to(self.model.config.dtype), st).reshape(groups, num_beams, -1)
+        vocab = lp0.shape[-1]
+        k0 = min(num_beams, vocab)
+        # with num_beams > vocab the surplus beams start at -inf and join as the tree widens
+        seed_scores, seed_tokens = _top_k(lp0[:, 0], k0)
+        scores = torch.nn.functional.pad(seed_scores, (0, num_beams - k0), value=-math.inf)
+        first = torch.nn.functional.pad(seed_tokens, (0, num_beams - k0), value=pad).reshape(batch)
+        tok = torch.where(done, pad, first).to(torch.int32)
+        beam_done = done | (tok == eos) if eos is not None else done
+        out = torch.full((batch, cfg.max_new_tokens), pad, dtype=torch.int32, device=self.device)
+        out[:, 0] = tok
+        if st is not None:
+            st = torch.where(done, st, self._cs_trans[st.long(), tok.long()])
+        group_base = (torch.arange(groups, device=self.device) * num_beams)[:, None]
+        for col in range(1, cfg.max_new_tokens):
+            # feed each beam's pending token at its filled length
+            hidden, cache = self.model(
+                tok[:, None], positions=lengths[:, None], return_hidden=True, cache=cache,
+                token_mask=(~beam_done)[:, None],
+            )
+            lengths = lengths + (~beam_done).to(lengths.dtype)
+            lp = logprobs(hidden[:, 0], st).reshape(groups, num_beams, vocab)
+            flat_done = beam_done.reshape(groups, num_beams)
+            # a finished beam contributes one candidate, its pad continuation at its frozen score
+            cand = scores[:, :, None] + lp.masked_fill(flat_done[:, :, None], -math.inf)
+            pad_cand = scores.masked_fill(~flat_done, -math.inf)
+            top_scores, top_idx = _top_k(torch.cat([cand.reshape(groups, -1), pad_cand], dim=1), num_beams)
+            is_pad = top_idx >= num_beams * vocab
+            parent = torch.where(is_pad, top_idx - num_beams * vocab, top_idx // vocab)
+            token = torch.where(is_pad, pad, top_idx % vocab)
+            flat_parent = (group_base + parent).reshape(batch)
+            cache = _reorder(cache, flat_parent)
+            out, lengths = out[flat_parent], lengths[flat_parent]
+            prev_done = beam_done[flat_parent]
+            tok = token.reshape(batch).to(torch.int32)
+            beam_done = prev_done | (tok == eos) if eos is not None else prev_done
+            out[:, col] = torch.where(prev_done, pad, tok)
+            if st is not None:
+                # states follow their parents, then advance on the chosen token
+                stp = st[flat_parent]
+                st = torch.where(prev_done, stp, self._cs_trans[stp.long(), tok.long()])
+            scores = top_scores
+        out_np = out.cpu().numpy().reshape(groups, num_beams, -1)[:n]
+        return out_np, scores.cpu().numpy().reshape(groups, num_beams)[:n]
+
     def stream(
         self, prompts: Sequence[Sequence[int]], *, seed: int = 0, chunk_size: int = 16,
         prefix: Any = None, constraint: Any = None,
@@ -467,11 +623,16 @@ class Generator:
         """Yield ``[len(prompts), <=chunk_size]`` arrays of newly decoded tokens
         (the first yield is the prompt-sampled token); ends early once every
         row has emitted ``eos_id``. Total tokens equal ``__call__``'s, under
-        the same ``constraint``."""
+        the same ``constraint``. With ``config.draft`` set, yields follow
+        :meth:`SpeculativeGenerator.stream`'s ragged shape (a list of per-row
+        1-D arrays): rows advance by whole rounds."""
         self._unported(prefix)
         cfg = self.config
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
+        if cfg.draft is not None:
+            yield from self._speculative().stream(prompts, seed=seed, chunk_size=chunk_size, constraint=constraint)
+            return
         # the last chunk may overshoot max_new_tokens; give its cache writes room
         n_chunks = max(0, -(-(cfg.max_new_tokens - 1) // chunk_size))
         extra = n_chunks * chunk_size - (cfg.max_new_tokens - 1)

@@ -13,13 +13,19 @@ only for tensors on the CPU. The twin is the gather path of
 :meth:`unionml_tpu_torch.models.layers.Attention._paged_cached_attention`.
 :func:`paged_decode_attention_split_reference` spells out the kernel's
 split-and-combine algorithm in plain torch, for the tests.
+
+The int8-page mode (``k_scales``/``v_scales``) goes through its own kernel,
+``csrc/paged_decode_attention_int8.cu``, which reads the int8 rows and one
+f32 scale per position and head (the JAX library kernel broadcasts its scales
+to the full head width). As in the JAX package, the engine serves int8 pages
+through the gather path; the mode is held and timed against it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,19 +61,29 @@ def paged_decode_attention_reference(
     v_pages: torch.Tensor,
     lengths: torch.Tensor,
     page_indices: torch.Tensor,
+    *,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain twin: gather ``pool[:, table]`` back to the logical
     ``[B, pages_per_seq * page_size, H_kv, D]`` layout and attend under the
-    ``slot < length`` mask through :func:`dot_product_attention`."""
+    ``slot < length`` mask through :func:`dot_product_attention`. int8 pages
+    are dequantized in f32 (``int8 * scale``) and rounded to q's dtype first,
+    as the JAX package's int8 gather path does."""
+    _check_scales(k_scales, v_scales)
     n_pages = k_pages.shape[1]
     table = page_indices.long().clamp(0, n_pages - 1)  # JAX's gather clamps; be explicit
 
     def logical(pool: torch.Tensor) -> torch.Tensor:
-        rows = pool[:, table]  # [H_kv, B, MB, bs, D]
+        rows = pool[:, table]  # [H_kv, B, MB, bs, last]
         rows = rows.reshape(rows.shape[0], rows.shape[1], -1, rows.shape[-1])
-        return rows.permute(1, 2, 0, 3)  # [B, MB * bs, H_kv, D]
+        return rows.permute(1, 2, 0, 3)  # [B, MB * bs, H_kv, last]
 
-    keys, values = logical(k_pages).to(q.dtype), logical(v_pages).to(q.dtype)
+    if k_scales is not None:
+        keys = (logical(k_pages).float() * logical(k_scales)).to(q.dtype)
+        values = (logical(v_pages).float() * logical(v_scales)).to(q.dtype)
+    else:
+        keys, values = logical(k_pages).to(q.dtype), logical(v_pages).to(q.dtype)
     slot = torch.arange(keys.shape[1], device=q.device)
     visible = (slot[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]  # [B, 1, 1, S]
     return dot_product_attention(q[:, None], keys, values, mask=visible)[:, 0]
@@ -156,8 +172,39 @@ def _kernel():
     return fn
 
 
-def _check(q, k_pages, v_pages, lengths, page_indices) -> None:
-    """What the kernel takes; anything else raises before a launch."""
+@functools.lru_cache(maxsize=None)
+def _int8_kernel():
+    from unionml_tpu_torch._build import load_library
+
+    fn = load_library("paged_decode_attention_int8").paged_decode_attention_int8
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_scales(k_scales: Optional[torch.Tensor], v_scales: Optional[torch.Tensor]) -> None:
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+
+
+def _check_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices) -> None:
+    """What the int8-page kernel takes; anything else raises before a launch."""
+    _check_layout(q, k_pages, v_pages, lengths, page_indices,
+                  dict(k_pages=k_pages, v_pages=v_pages, k_scales=k_scales, v_scales=v_scales, lengths=lengths,
+                       page_indices=page_indices))
+    scale_shape = k_pages.shape[:-1] + (1,)
+    if k_scales.shape != scale_shape or v_scales.shape != scale_shape:
+        raise ValueError(f"expected scales {tuple(scale_shape)}, got {tuple(k_scales.shape)}/{tuple(v_scales.shape)}")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise TypeError(f"the int8-page kernel takes float32 or bfloat16 q and int8 pools, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
+        raise TypeError(f"the scales must be float32, got {k_scales.dtype}/{v_scales.dtype}")
+    if k_pages.data_ptr() % 8 or v_pages.data_ptr() % 8:
+        raise ValueError("the int8 pools must start on an 8-byte boundary (a lane reads 8 values at once)")
+
+
+def _check_layout(q, k_pages, v_pages, lengths, page_indices, tensors) -> None:
+    """The shapes, index types, devices and contiguity both kernels take."""
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"expected q [B, H, D] and pools [H_kv, P, page, D], got {tuple(q.shape)}, {tuple(k_pages.shape)}")
     batch, n_heads, head_dim = q.shape
@@ -170,19 +217,26 @@ def _check(q, k_pages, v_pages, lengths, page_indices) -> None:
         raise ValueError(f"the kernel takes head_dim % 8 == 0 and head_dim <= {_MAX_HEAD_DIM}, got {head_dim}")
     if lengths.shape != (batch,) or page_indices.dim() != 2 or page_indices.shape[0] != batch:
         raise ValueError(f"expected lengths [B] and page_indices [B, pages], got {tuple(lengths.shape)}, {tuple(page_indices.shape)}")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"the kernel takes float32 or bfloat16 q and pools of q's dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise TypeError("lengths and page_indices must be int32")
-    page_bytes = k_pages.shape[2] * head_dim * k_pages.element_size()
-    if k_pages.shape[1] == 0 or page_bytes > _MAX_PAGE_BYTES:
-        raise ValueError(f"the kernel takes a non-empty pool of pages of at most {_MAX_PAGE_BYTES} bytes, "
-                         f"got {tuple(k_pages.shape)} in {k_pages.dtype}")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages), ("lengths", lengths), ("page_indices", page_indices)):
+    if k_pages.shape[1] == 0:
+        raise ValueError("the kernel takes a non-empty pool")
+    for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check(q, k_pages, v_pages, lengths, page_indices) -> None:
+    """What the kernel takes; anything else raises before a launch."""
+    _check_layout(q, k_pages, v_pages, lengths, page_indices,
+                  dict(k_pages=k_pages, v_pages=v_pages, lengths=lengths, page_indices=page_indices))
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q and pools of q's dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    page_bytes = k_pages.shape[2] * q.shape[2] * k_pages.element_size()
+    if page_bytes > _MAX_PAGE_BYTES:
+        raise ValueError(f"the kernel takes pages of at most {_MAX_PAGE_BYTES} bytes, got {tuple(k_pages.shape)} in {k_pages.dtype}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("the pools must start on a 16-byte boundary (the kernel bulk-copies whole pages)")
 
@@ -193,6 +247,9 @@ def paged_decode_attention(
     v_pages: torch.Tensor,
     lengths: torch.Tensor,
     page_indices: torch.Tensor,
+    *,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step of attention over paged K/V.
 
@@ -208,12 +265,22 @@ def paged_decode_attention(
     pre-scaled by ``head_dim ** -0.5`` in its own dtype (the kernel does it
     as it loads q) and the kernel computes raw ``q . k``; in bfloat16 that
     rounds differently from the reference, which scales the scores.
+
+    ``k_scales``/``v_scales`` (both or neither; f32 ``[H_kv, n_pages,
+    page_size, 1]``, the port's ``quantize_kv_rows`` convention ``dequant =
+    int8 * scale``) select the int8-page mode over int8 pools: its own
+    kernel, which dequantizes each value in f32 and rounds it to q's dtype
+    as the twin does, counted in ``paged_decode_attention.int8_launches``.
     """
+    _check_scales(k_scales, v_scales)
     if q.device.type == "cpu":
-        return paged_decode_attention_reference(q, k_pages, v_pages, lengths, page_indices)
+        return paged_decode_attention_reference(q, k_pages, v_pages, lengths, page_indices,
+                                                k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on CUDA or CPU tensors, got {q.device}")
     q = q.contiguous()
+    if k_scales is not None:
+        return _paged_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices)
     _check(q, k_pages, v_pages, lengths, page_indices)
     batch, n_heads, head_dim = q.shape
     n_kv, n_pages, page_size, _ = k_pages.shape
@@ -236,5 +303,28 @@ def paged_decode_attention(
     return out
 
 
-#: kernel launches since the count was last reset (CPU calls never count)
+def _paged_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices) -> torch.Tensor:
+    """Launch the int8-page kernel (one launch a call, split as the float
+    kernel is planned)."""
+    _check_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices)
+    batch, n_heads, head_dim = q.shape
+    n_kv, n_pages, page_size, _ = k_pages.shape
+    pages_per_seq = page_indices.shape[1]
+    out = torch.empty_like(q)
+    index = q.device.index
+    plan = _plan(batch, n_kv, n_heads // n_kv, pages_per_seq, page_size * head_dim, _sm_count(index))
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
+            lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), batch, n_heads, n_kv, head_dim, n_pages,
+            page_size, pages_per_seq, plan.splits, plan.pages_per_split, _DTYPE_CODES[q.dtype], head_dim ** -0.5)
+    with torch.cuda.device(index):
+        err = _int8_kernel()(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention int8-page kernel launch failed: cudaError {err}")
+    paged_decode_attention.int8_launches += 1
+    return out
+
+
+#: kernel launches since the count was last reset (CPU calls never count):
+#: float pages, then int8 pages
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

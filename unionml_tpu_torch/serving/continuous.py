@@ -17,6 +17,11 @@ scratch block, lazy block growth and recompute preemption.
   ``done`` rows emit pads, never advance, and (paged) point at the scratch
   block, so their ride-along writes never touch a live page.
 
+- **Speculative mode**: over a Generator whose ``config.draft`` is set, a
+  dispatch rolls draft-and-verify rounds until every resident row has gained
+  ``decode_chunk`` tokens; the draft's cache (dense rows, or a pool of the
+  same block count sharing the target's block table) is prefilled beside
+  the target's at admission.
 - **Grammars and logprobs**: ``submit(constraint=g)`` runs a request under
   grammar ``g`` of the generator's ``ConstraintSet`` (the DFA state rides as
   the carry's tail; a preemption resume replays it over the echo on the
@@ -61,6 +66,7 @@ from unionml_tpu_torch.defaults import (
     serve_replica_roles,
 )
 from unionml_tpu_torch.models.generate import Generator, init_cache, init_paged_cache
+from unionml_tpu_torch.models.speculative import seeded_streams
 from unionml_tpu_torch.observability.slo import SLOConfig, SLOTracker, TenantSLORegistry
 from unionml_tpu_torch.observability.timeseries import EngineTimeseries
 from unionml_tpu_torch.observability.trace import current_trace
@@ -81,9 +87,10 @@ __all__ = ["ContinuousBatcher"]
 logger = logging.getLogger(__name__)
 
 #: engine options of the JAX package that later slices of the port bring
-#: (static shared prefixes, disaggregated roles, the AOT store); chunked
-#: admission and the radix cache are resolved as in JAX and refused below
-_UNPORTED = ("prefix", "role", "aot")
+#: (static shared prefixes, disaggregated roles, the AOT store), each with the
+#: title of its ROADMAP.md Queue A item; chunked admission and the radix cache
+#: are resolved as in JAX and refused below
+_UNPORTED = {"prefix": "prefix caches", "role": "parallelism and the replica layer", "aot": "the rest"}
 
 _SENTINEL = object()
 
@@ -157,6 +164,7 @@ class _Admission:
     tok0: Any = None
     row_len: Any = None
     row_cache: Any = None
+    d_row_cache: Any = None  # the draft model's row (speculative mode)
     #: the request's DFA state at this admission (None = unconstrained
     #: generator): the grammar's start, walked through the echo on a resume
     dfa_state: Optional[int] = None
@@ -260,7 +268,9 @@ class ContinuousBatcher:
             raise TypeError(f"unexpected ContinuousBatcher arguments {unknown}")
         for name, value in unported.items():
             if value:  # None and False select what the port has
-                raise NotImplementedError(f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A)")
+                raise NotImplementedError(
+                    f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A: {_UNPORTED[name]})"
+                )
         self._resolve_admission(generator, admit_chunk, prefill_budget, max_admissions, prefix_cache, block_size)
         if slots < 1:
             raise ValueError("slots must be >= 1")
@@ -280,11 +290,18 @@ class ContinuousBatcher:
         self.trace_requests = True if trace is None else bool(trace)
         self.slots = slots
         self.decode_chunk = decode_chunk
-        #: room for every bucketed prompt, the full budget and one chunk of
-        #: decode overshoot
-        self._overshoot = decode_chunk
+        #: speculative mode: with ``config.draft`` set, resident rows advance
+        #: by draft-and-verify ROUNDS (the SpeculativeGenerator's loop with
+        #: per-row floors and budgets), so concurrent streams share the draft
+        #: and verify dispatches and each greedy stream still equals its solo
+        #: target-only run
+        self._spec = generator._speculative() if cfg.draft is not None else None
+        #: room for every bucketed prompt, the full budget and the overshoot:
+        #: one chunk of decode, or one round's gamma + 1 verify writes in
+        #: speculative mode (which never runs the plain decode)
+        self._overshoot = self._spec.gamma + 1 if self._spec is not None else decode_chunk
         widest = max(cfg.prompt_buckets, default=64)
-        self.cache_len = widest + cfg.max_new_tokens + decode_chunk
+        self.cache_len = widest + cfg.max_new_tokens + self._overshoot
         self.block_size = block_size
         if block_size is not None:
             self.max_blocks = -(-self.cache_len // block_size)
@@ -374,6 +391,9 @@ class ContinuousBatcher:
         self._drr_last: Optional[str] = None
         #: submissions per grammar id (constrained engines): /metrics telemetry
         self._grammar_counts: Dict[int, int] = {}
+        #: the speculative carry's (rounds, accepted, proposed) when last
+        #: folded into the acceptance telemetry, so each dispatch adds its delta
+        self._spec_seen = (0, 0, 0)
 
     @staticmethod
     def _refuse_replicas() -> None:
@@ -420,10 +440,12 @@ class ContinuousBatcher:
             if selects:
                 raise NotImplementedError(
                     f"ContinuousBatcher: {source} selects chunked admission, which is not ported yet "
-                    "(ROADMAP.md, Queue A)"
+                    "(ROADMAP.md, Queue A: chunked admission)"
                 )
         if prefix_cache:
-            raise NotImplementedError("ContinuousBatcher prefix_cache= is not ported yet (ROADMAP.md, Queue A)")
+            raise NotImplementedError(
+                "ContinuousBatcher prefix_cache= is not ported yet (ROADMAP.md, Queue A: prefix caches)"
+            )
         if prefix_cache is None and serve_prefix_cache():
             if block_size is None:
                 # as in JAX: a fleet-wide export must not crash dense engines
@@ -434,7 +456,7 @@ class ContinuousBatcher:
             else:
                 raise NotImplementedError(
                     "ContinuousBatcher: UNIONML_TPU_PREFIX_CACHE selects the radix prefix cache, which is not "
-                    "ported yet (ROADMAP.md, Queue A)"
+                    "ported yet (ROADMAP.md, Queue A: prefix caches)"
                 )
 
     # ------------------------------------------------------------------ device fns
@@ -471,34 +493,57 @@ class ContinuousBatcher:
         lengths[slot] = row_len[0]
         done[slot] = False
 
-    def _init_carry(self) -> tuple:
-        cfg, mcfg = self.gen.config, self.gen.model.config
+    def _init_pool(self, model_config: Any) -> tuple:
+        """A zeroed KV cache of the engine's geometry for one model: the
+        dense ``[slots, cache_len]`` rows or the paged pool (``pool_blocks +
+        1`` blocks: the extra one is scratch; the table starts all-scratch so
+        never-admitted slots' ride-along writes are harmless)."""
+        kv_dtype = self.gen.config.kv_cache_dtype
         if self.block_size is not None:
-            # pool_blocks + 1: the extra block is scratch; tables start
-            # all-scratch so never-admitted slots' ride-along writes are harmless
-            cache = init_paged_cache(
-                mcfg, self.slots, self.pool_blocks + 1, self.block_size, self.max_blocks,
-                kv_dtype=cfg.kv_cache_dtype, fill_block=self._scratch_block, device=self.device,
+            return init_paged_cache(
+                model_config, self.slots, self.pool_blocks + 1, self.block_size, self.max_blocks,
+                kv_dtype=kv_dtype, fill_block=self._scratch_block, device=self.device,
             )
-        else:
-            cache = init_cache(mcfg, self.slots, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        return init_cache(model_config, self.slots, self.cache_len, kv_dtype=kv_dtype, device=self.device)
+
+    def _init_carry(self) -> tuple:
+        cfg = self.gen.config
+        cache = self._init_pool(self.gen.model.config)
         tok = torch.zeros((self.slots,), dtype=torch.int32, device=self.device)
         lengths = torch.ones((self.slots,), dtype=torch.int32, device=self.device)
         done = torch.ones((self.slots,), dtype=torch.bool, device=self.device)  # every slot starts free
-        generator = torch.Generator(device=self.device).manual_seed(self._seed)
         # constrained generators carry each slot's DFA state as the tail; free
         # slots ride the FREE grammar's state 0
         tail = (torch.zeros((self.slots,), dtype=torch.int32, device=self.device),) if self.gen._cs is not None else ()
-        return (cache, tok, lengths, done, generator, *tail)
+        if self._spec is None:
+            generator = torch.Generator(device=self.device).manual_seed(self._seed)
+            return (cache, tok, lengths, done, generator, *tail)
+        d_cache = self._init_pool(self._spec._draft.model.config)
+        if self.block_size is not None:
+            # the draft's pool has the same BLOCK COUNT (other shapes), so one
+            # host allocation addresses both; its layers hold the target's
+            # table tensor, so one in-place table update serves both pools
+            table = cache[0]["table"]
+            d_cache = tuple({**layer, "table": table} for layer in d_cache)
+        out_buf = torch.full((self.slots, cfg.max_new_tokens + self._spec.gamma + 1), cfg.pad_id,
+                             dtype=torch.int32, device=self.device)
+        produced = torch.zeros((self.slots,), dtype=torch.int32, device=self.device)
+        accepted = torch.zeros((2,), dtype=torch.int64, device=self.device)
+        # the speculative loop's state layout (models/speculative.py); the DFA
+        # state stays the tail, as in the plain carry
+        return (cache, d_cache, tok, lengths, done, produced, out_buf, 0, accepted,
+                seeded_streams(self._seed, self.device), *tail)
 
     def _prefill_row(self, prompt: Sequence[int], seed: int, budget: Optional[int] = None,
-                     dfa_state: Optional[int] = None):
+                     dfa_state: Optional[int] = None, gen: Optional[Generator] = None):
         """Prefill one prompt at batch 1 into a fresh ``[1, cache_len]`` cache
         with the Generator's own prefill, the first token masked by
         ``dfa_state`` when given. Returns ``(tok0, lengths, row_cache, last)``
         (``last``: the last-token hidden row, f32). ``budget`` is THIS
-        request's remaining token budget."""
-        gen, cfg = self.gen, self.gen.config
+        request's remaining token budget; ``gen`` overrides the model
+        (speculative mode prefills the draft's row too)."""
+        gen = gen or self.gen
+        cfg = gen.config
         if budget is None:
             budget = cfg.max_new_tokens
         bucket = self._prefill_width(prompt, budget)
@@ -582,8 +627,8 @@ class ContinuousBatcher:
         ride-along K/V write per step."""
         if self._carry is None:
             return
-        self._carry[3][slot] = True
-        if self.block_size is not None:
+        self._carry[3 if self._spec is None else 4][slot] = True
+        if self.block_size is not None:  # the table tensor both pools share
             self._carry[0][0]["table"][slot] = self._scratch_block
 
     def _preempt_locked(self, slot: int, reason: str = "capacity") -> None:
@@ -685,6 +730,11 @@ class ContinuousBatcher:
         lowest-priority resident (which resumes token-identically)."""
         if len(prompt) == 0:
             raise ValueError("prompt must be non-empty")
+        if logprobs and self._spec is not None:
+            raise ValueError(
+                "logprobs does not compose with speculative decoding (config.draft) yet: "
+                "accepted draft tokens carry no per-token policy logprob"
+            )
         req_trace = current_trace() if self.trace_requests else None
         if expired(deadline):
             # under the lock: the engine thread bumps the same counter
@@ -905,8 +955,7 @@ class ContinuousBatcher:
                 "rows_per_dispatch": round(
                     self.decoded_rows / self.decode_dispatches, 3
                 ) if self.decode_dispatches else None,
-                # speculative decoding is not ported (ROADMAP.md, Queue A)
-                "speculative": False,
+                "speculative": self._spec is not None,
                 "prefill": {
                     "mode": "chunked" if self.admit_chunk else "monolithic",
                     "admit_chunk": self.admit_chunk or 0,
@@ -937,6 +986,10 @@ class ContinuousBatcher:
                     "shed_tenant_limit": self.shed_tenant_limit,
                     "priority_preemptions": self.priority_preemptions,
                 }
+            if self._spec is not None and self._spec.rounds:
+                snapshot["acceptance_rate"] = round(
+                    self._spec.accepted_tokens / (self._spec.rounds * self._spec.gamma), 3
+                )
             if self.gen._cs is not None:
                 snapshot["grammar_submissions"] = dict(sorted(self._grammar_counts.items()))
         # window work, OUTSIDE the engine lock
@@ -996,6 +1049,8 @@ class ContinuousBatcher:
             if self._tenant_slo is not None:
                 self._tenant_slo.clear()
             self._grammar_counts.clear()  # warmup probes all ride FREE (id 0)
+            if self._spec is not None:
+                self._spec.rounds = self._spec.accepted_tokens = self._spec.proposed_tokens = 0
         with self._health_lock:
             self._health_cache = None
 
@@ -1071,6 +1126,13 @@ class ContinuousBatcher:
                     adm.tok0, adm.row_len, adm.row_cache, adm.last = self._prefill_row(
                         adm.prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state
                     )
+                    if self._spec is not None:
+                        # the draft's row: the same prompt through the draft
+                        # (its prompt-sampled token is discarded: emission #1
+                        # is the target's)
+                        adm.d_row_cache = self._prefill_row(
+                            adm.prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state, gen=self._spec._draft
+                        )[2]
                 except ValueError as exc:
                     # a bad prompt fails its own stream; the admission built
                     # only a fresh [1, ...] row, so the engine carries on
@@ -1329,20 +1391,32 @@ class ContinuousBatcher:
             hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
             # produced carries across preemptions; this residency adds one token
             start_done = hit_eos or session.produced + 1 >= session.max_new
-            cache, tok, lengths, done, _, *cstate = self._carry
+            spec = self._spec is not None
+            caches = self._carry[:2] if spec else self._carry[:1]
+            rows = (adm.row_cache, adm.d_row_cache) if spec else (adm.row_cache,)
+            tok, lengths, done = self._carry[len(caches): len(caches) + 3]
             with torch.no_grad():
-                if adm.blocks_row is not None:
-                    self._paged_admit_impl(
-                        cache, adm.row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row
-                    )
-                else:
-                    self._admit_impl(cache, adm.row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
-                if cstate:
+                for cache, row_cache in zip(caches, rows):
+                    if adm.blocks_row is not None:
+                        self._paged_admit_impl(
+                            cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row
+                        )
+                    else:
+                        self._admit_impl(cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
+                if spec:
+                    # the speculative activation: the slot's out_buf row reset
+                    # (pad, then tok0), produced at 1 and the start-done flag
+                    produced, out_buf = self._carry[5], self._carry[6]
+                    out_buf[slot] = self.gen.config.pad_id
+                    out_buf[slot, 0] = adm.tok0[0]
+                    produced[slot] = 1
+                    done[slot] = start_done
+                if cstate := self._carry[10 if spec else 5:]:  # the DFA state tail
                     # advance past the (constrained) prompt-sampled token on the
                     # device: an indexed copy, no host round trip
                     trans = self.gen._cs_trans
                     cstate[0][slot : slot + 1].copy_(trans[adm.dfa_state][adm.tok0.long()])
-            adm.row_cache = adm.last = None
+            adm.row_cache = adm.d_row_cache = adm.last = None
         except BaseException as exc:
             with self._lock:
                 if adm in self._admissions:
@@ -1395,9 +1469,10 @@ class ContinuousBatcher:
             session.produced += 1
             self._sessions[slot] = session
             if start_done:
-                # the decode only flags done on tokens IT samples; the
-                # prompt-sampled token's ending must be masked here
-                self._finish_locked(slot, device_done=False)
+                # the plain decode only flags done on tokens IT samples, so the
+                # prompt-sampled token's ending is masked here (speculative
+                # mode flagged it on the device already)
+                self._finish_locked(slot, device_done=self._spec is not None)
 
     def _finish_locked(self, slot: int, *, device_done: bool) -> None:
         session = self._sessions.pop(slot)
@@ -1416,6 +1491,8 @@ class ContinuousBatcher:
             self._ensure_capacity_locked()
             if not self._sessions:
                 return  # growth preempted the last resident; re-admission next loop
+        if self._spec is not None:
+            return self._spec_chunk()
         cfg = self.gen.config
         toks, lps, carry = self.gen._decode(*self._carry, steps=self.decode_chunk)
         self._carry = carry
@@ -1462,3 +1539,55 @@ class ContinuousBatcher:
                 device_done = bool(done_np[slot])
                 if session.produced >= session.max_new or device_done:
                     self._finish_locked(slot, device_done=device_done)
+
+    def _spec_chunk(self) -> None:
+        """Speculative shared dispatch: rounds (gamma draft steps, one verify
+        forward, accept/reject) until every resident row has gained
+        ``decode_chunk`` tokens or finished; concurrent streams share both
+        the draft and the verify forwards."""
+        spec = self._spec
+        with self._lock:
+            budget_np = np.zeros((self.slots,), np.int32)
+            for slot, session in self._sessions.items():
+                # the device counters are per RESIDENCY: a resumed session's
+                # out_buf restarted at its re-admission
+                budget_np[slot] = session.max_new - session.resident_base
+        budget = torch.as_tensor(budget_np, device=self.device)
+        floor = torch.minimum(self._carry[5] + self.decode_chunk, budget)
+        state = spec._loop(self._carry, floor, budget)
+        self._carry = state
+        out_np = state[6].cpu().numpy()  # also waits for the dispatch
+        prod_np = state[5].cpu().numpy()
+        done_np = state[4].cpu().numpy()
+        registry = self._registry()
+        with self._lock:
+            # fold the ride-along counters into the acceptance telemetry under
+            # the lock, so stats() never sees rounds without their accepts
+            self._spec_seen = spec._count(state[7], state[8], self._spec_seen)
+            self.decode_dispatches += 1
+            self.decoded_rows += len(self._sessions)
+            now = time.monotonic()
+            for slot in list(self._sessions):
+                session = self._sessions[slot]
+                new = out_np[slot, session.produced - session.resident_base: prod_np[slot]]
+                if new.size:
+                    session.out.put(new.copy())
+                    if registry is not None:
+                        registry.charge_tokens(session.tenant, int(new.size))
+                    if session.last_emit is not None:
+                        self._tbt.observe(now - session.last_emit)
+                        if self.slo is not None:
+                            self.slo.note_tbt(session.trace, (now - session.last_emit) * 1e3)
+                        if self._tenant_slo is not None and session.tenant is not None:
+                            self._tenant_slo.note_tbt(session.tenant, session.trace, now - session.last_emit)
+                    session.last_emit = now
+                    if self.block_size is not None:
+                        session.echo.extend(int(t) for t in new)
+                    session.produced = session.resident_base + int(prod_np[slot])
+                    if self.timeseries is not None:
+                        self.timeseries.tokens.add(int(new.size))
+                    if self._tenant_slo is not None and session.tenant is not None:
+                        self._tenant_slo.tokens(session.tenant, int(new.size))
+                    _tev(session, "engine.emit", tokens=int(new.size), produced=session.produced)
+                if bool(done_np[slot]):
+                    self._finish_locked(slot, device_done=True)

@@ -14,7 +14,8 @@ engine arguments are the JAX template's. What differs is torch's:
   ``TrainState``, with optax.adamw's defaults written out;
 - ``init`` builds the module on the ``device`` hyperparameter: unset means
   the card, and the CPU is asked for with ``{"device": "cpu"}``;
-- ``speculative_generator`` is not ported yet.
+- ``speculative_generator``'s draft is a module carrying its own weights
+  (seeded, on the state's device) rather than a params tree.
 
 Structured output: prefix a prompt with ``@<grammar> `` (see ``GRAMMARS``) and
 that request's continuation is constrained to the grammar's regex by
@@ -22,6 +23,7 @@ token-DFA masking — per request, through ``predictor`` and the
 continuously-batched ``stream_predictor``.
 """
 
+import dataclasses
 import threading
 from typing import List, Optional, Tuple
 
@@ -32,6 +34,7 @@ import torch
 from unionml_tpu_torch import Dataset, Model, TrainerConfig, TrainState, make_train_step
 from unionml_tpu_torch.models import (
     ConstraintSet,
+    DraftSpec,
     GenerationConfig,
     Generator,
     Llama,
@@ -266,11 +269,29 @@ def stream_predictor(state: TrainState, features: List[str]):
         yield [decode(row) for row in chunk]
 
 
-def speculative_generator(state: TrainState, draft_params=None, gamma: int = 4) -> Generator:
-    """A half-depth draft proposing for the full model: not ported yet."""
-    raise NotImplementedError(
-        "speculative decoding is not ported yet (ROADMAP.md, Queue A item 3: speculative decoding and beam search)"
+# --- speculative decoding: a half-depth draft proposes, the full model verifies.
+# Greedy output is token-for-token identical to plain decoding (the draft can
+# only change speed, never tokens); the template test pins that oracle.
+draft_config = dataclasses.replace(config, n_layers=1)
+
+
+def speculative_generator(state: TrainState, draft_module: Optional[Llama] = None, gamma: int = 4) -> Generator:
+    """The Generator façade with a DraftSpec attached. Pass a trained
+    ``draft_module`` (e.g. a distilled copy) for real speedups; an untrained
+    draft (seeded, on the state's device) still produces exact greedy
+    tokens, just with low acceptance."""
+    if draft_module is None:
+        draft_module = Llama(draft_config, device=_device(state), seed=1)
+    cfg = GenerationConfig(
+        max_new_tokens=NEW_TOKENS, temperature=0.0, prompt_buckets=(SEQ_LEN,),
+        # the SAME eos and grammar set as the predictor's config, so the
+        # greedy-exact oracle (spec output == predict output) holds for plain
+        # and grammar-constrained calls alike
+        eos_id=PAD_ID,
+        constraints=_CONSTRAINTS,
+        draft=DraftSpec(module=draft_module, gamma=gamma),
     )
+    return Generator(state.model, cfg, device=_device(state))
 
 
 if __name__ == "__main__":

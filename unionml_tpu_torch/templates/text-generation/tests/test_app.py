@@ -1,6 +1,4 @@
-import pytest
-
-from app import CHARS, NEW_TOKENS, model, speculative_generator, stream_predictor
+from app import CHARS, NEW_TOKENS, decode, encode, model, speculative_generator, stream_predictor
 
 #: the tests ask for the CPU; unset, the app trains and serves on the card
 HYPERPARAMETERS = {"learning_rate": 3e-3, "device": "cpu"}
@@ -28,6 +26,8 @@ def test_train_and_generate():
     pieces = [chunk[0] for chunk in stream_predictor(state, [prompts[0]])]
     assert prompts[0] + "".join(pieces) == outputs[0]
 
-    # speculative decoding is not ported yet
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        speculative_generator(state)
+    # speculative decoding (half-depth draft through the Generator façade) is
+    # greedy-EXACT: the draft can change speed, never tokens
+    spec = speculative_generator(state)
+    spec_out = spec([encode(p) for p in prompts])
+    assert [p + decode(row) for p, row in zip(prompts, spec_out)] == outputs
