@@ -13,10 +13,14 @@ Phases (no phase catches a failure; any fault exits non-zero):
    speculative draft) and at the length limits (0, 1, page edges, ragged,
    the full table, past it) for D = 16, 32, 64 and 128, two calls bitwise
    equal; its int8-page mode (int8 pages, f32 scales per position and head)
-   in float32 and bfloat16 q at D = 64 and 128 over the same lengths, two
-   calls bitwise equal, timed beside its twin (the int8 gather route), SDPA
-   on the gathered dequantized K/V and its bytes bound at the three paged
-   shapes; the flash kernels at full width
+   in float32 and bfloat16 q at D = 16, 24, 40, 64, 128 and 256 over the
+   same lengths and at D = 128 on pools off a 16-byte boundary, two calls
+   bitwise equal, each case printing the route it took (``mma``: tensor
+   cores over staged pages, bf16 q at D % 16 == 0; ``direct``: CUDA cores,
+   rows loaded directly, every other case; both routes must launch) and the
+   ring's stages, timed beside its twin (the int8 gather
+   route), SDPA on the gathered dequantized K/V, its bytes bound and the
+   bf16-page kernel at the three paged shapes; the flash kernels at full width
    causal, non-causal, cross-length causal and custom blocks: in float32 the
    f32 forward and the fused f32 backward (3xTF32; also at D=50 and with
    tensors off a 16-byte boundary), in bfloat16 the tensor-core forward and
@@ -90,7 +94,7 @@ Phases (no phase catches a failure; any fault exits non-zero):
    streams equal the plain int8 ``Generator``'s, counting int8 launches at
    M = 20; (c) phase 3's weights served over int8 pages (the gather route),
    then the int8-page kernel against its twin on that engine's live pools
-   of every layer, timed on one.
+   of every layer (each launch by the tensor-core route), timed on one.
 
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
@@ -299,15 +303,16 @@ def device_ms(fn, runs: int = 50) -> tuple:
     return statistics.median(times), statistics.median(hosts)
 
 
-def paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128):
-    """Random q and pools, and a table whose rows own disjoint real pages
-    (the last pool page is the engine's scratch page)."""
+def paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128, page=BLOCK):
+    """Random q and pools of ``page``-position pages, and a table whose rows
+    own disjoint real pages (the last pool page is the engine's scratch
+    page)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(batch, 32, head_dim, device="cuda", generator=g).to(dtype)
-    k = torch.randn(8, n_pages, BLOCK, head_dim, device="cuda", generator=g).to(dtype)
-    v = torch.randn(8, n_pages, BLOCK, head_dim, device="cuda", generator=g).to(dtype)
+    k = torch.randn(8, n_pages, page, head_dim, device="cuda", generator=g).to(dtype)
+    v = torch.randn(8, n_pages, page, head_dim, device="cuda", generator=g).to(dtype)
     perm = torch.randperm(n_pages - 1, device="cuda", generator=g)
     table = perm[: batch * pages_per_seq].reshape(batch, pages_per_seq).to(torch.int32).contiguous()
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda"), table
@@ -356,12 +361,12 @@ def sdpa_on_gathered(q, k, v, lens, table):
     return lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask, enable_gqa=True)
 
 
-def float_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128):
+def float_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128, page=BLOCK):
     """:func:`paged_inputs` and the wrapper's keyword arguments for float pages (none)."""
-    return (*paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim), {})
+    return (*paged_inputs(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim, page), {})
 
 
-def int8_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128):
+def int8_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128, page=BLOCK):
     """:func:`paged_inputs` with the pools stored as the engine stores int8
     pages (int8 values, f32 scales per position and KV head), the scales as
     the wrapper's keyword arguments."""
@@ -369,7 +374,7 @@ def int8_pages(batch, lengths, n_pages, pages_per_seq, dtype, seed, head_dim=128
 
     from unionml_tpu_torch.models.layers import quantize_kv_rows
 
-    q, k, v, lens, table = paged_inputs(batch, lengths, n_pages, pages_per_seq, torch.float32, seed, head_dim)
+    q, k, v, lens, table = paged_inputs(batch, lengths, n_pages, pages_per_seq, torch.float32, seed, head_dim, page)
     (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
     return q.to(dtype), kq, vq, lens, table, dict(k_scales=ks, v_scales=vs)
 
@@ -378,7 +383,8 @@ def hold_paged(label: str, cases, make, pool_pages: int, pages_per_seq: int) -> 
     """The paged wrapper against its twin over ``cases`` ((head_dim,
     lengths) pairs) in float32 and bfloat16 q, on the pages ``make`` gives:
     within :data:`TOLERANCE`, rows of length 0 exact zeros, two calls
-    bitwise equal. Returns the largest bf16 error."""
+    bitwise equal. Over int8 pages each case also prints the route its two
+    launches took and the ring's stages. Returns the largest bf16 error."""
     import torch
 
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
@@ -389,6 +395,7 @@ def hold_paged(label: str, cases, make, pool_pages: int, pages_per_seq: int) -> 
         for seed, (head_dim, lengths) in enumerate(cases):
             q, k, v, lens, table, kw = make(len(lengths), lengths, pool_pages * 2, pages_per_seq, dtype, seed,
                                             head_dim)
+            routes = dict(paged_decode_attention.int8_route_launches)
             out = paged_decode_attention(q, k, v, lens, table, **kw)
             again = paged_decode_attention(q, k, v, lens, table, **kw)
             torch.cuda.synchronize()
@@ -397,7 +404,8 @@ def hold_paged(label: str, cases, make, pool_pages: int, pages_per_seq: int) -> 
             ok = bool((err <= atol + rtol * ref.float().abs()).all()) and not bool(out.isnan().any())
             zeros = all(int(torch.count_nonzero(out[i])) == 0 for i, n in enumerate(lengths) if n == 0)
             same = torch.equal(out, again)
-            print(f"{label} {dtype} q, B={len(lengths)} D={head_dim} lengths={lengths}: max_abs_err="
+            how = f" ({int8_route(q, k, v, table, kw, routes, 2)})" if kw else ""
+            print(f"{label} {dtype} q, B={len(lengths)} D={head_dim} lengths={lengths}{how}: max_abs_err="
                   f"{err.max().item()} (tolerance atol={atol} rtol={rtol}) {'ok' if ok else 'FAIL'}; rows of "
                   f"length 0 exact zeros: {zeros}; two calls bitwise equal: {same}", flush=True)
             require(ok and zeros, f"{label} disagrees with its plain twin")
@@ -405,6 +413,22 @@ def hold_paged(label: str, cases, make, pool_pages: int, pages_per_seq: int) -> 
             if dtype == torch.bfloat16:
                 worst = max(worst, err.max().item())
     return worst
+
+
+def int8_route(q, k_pages, v_pages, table, scales: dict, before: dict, calls: int) -> str:
+    """The int8-page kernel's route and plan for these inputs, as the
+    wrapper chooses them, after a check that the last ``calls`` launches
+    (the wrapper's counts by route, against ``before``) all took that
+    route."""
+    from unionml_tpu_torch.ops import paged_attention as pa
+
+    route, plan = pa._int8_launch(q, k_pages, v_pages, scales["k_scales"], scales["v_scales"], table,
+                                  pa._sm_count(q.device.index))
+    after = pa.paged_decode_attention.int8_route_launches
+    taken = {r: after[r] - before[r] for r in after}
+    require(taken == {r: calls * (r == route) for r in after},
+            f"int8-page launches by route {taken}, expected {calls} by the {route} route")
+    return f"route {route}, {plan.stages} stages, {plan.splits} splits of {plan.pages_per_split} pages"
 
 
 def paged_times(q, k, v, lens, table, pages_per_seq, **scales) -> dict:
@@ -418,7 +442,9 @@ def paged_times(q, k, v, lens, table, pages_per_seq, **scales) -> dict:
     def call():
         return paged_decode_attention(q, k, v, lens, table, **scales)
 
+    routes = dict(paged_decode_attention.int8_route_launches)
     require(torch.equal(call(), call()), "the paged kernel gave other bits on a second call")
+    how = {"int8_route": int8_route(q, k, v, table, scales, routes, 2)} if scales else {}
     ms = time_ms(call)
     dev_ms, host_ms = device_ms(call)
     plain_ms = time_ms(lambda: paged_decode_attention_reference(q, k, v, lens, table, **scales))
@@ -429,28 +455,34 @@ def paged_times(q, k, v, lens, table, pages_per_seq, **scales) -> dict:
     library_ms = time_ms(library)
     library_dev_ms, _ = device_ms(library)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, library_ms=library_ms, device_ms=dev_ms,
-                library_device_ms=library_dev_ms, host_ms=host_ms)
+                library_device_ms=library_dev_ms, host_ms=host_ms, **how)
 
 
-def time_paged(label: str, make, pool_pages: int, pages_per_seq: int) -> dict:
+#: the key prefix of each timed paged shape in the kernels line (the served shape's keys have none)
+PAGED_PREFIX = {"served": "", "B=8 ctx=2048": "b8_ctx2048_", "B=1 ctx=8192": "b1_ctx8192_"}
+
+
+def time_paged(label: str, make, pool_pages: int, pages_per_seq: int, beside: dict = None) -> dict:
     """:func:`paged_times` at the three :func:`paged_shapes` (bf16 q): the
-    served shape's numbers, then the long-context ones under a prefix."""
+    served shape's numbers, then the long-context ones under a prefix.
+    ``beside``, another kernel's row of the same shapes (the bf16-page
+    kernel's, beside the int8-page kernel), is printed with them."""
     import torch
 
-    numbers = {}
+    row = {}
     for shape, batch, lengths, n_pages, pps in paged_shapes(pool_pages, pages_per_seq):
         q, k, v, lens, table, kw = make(batch, lengths, n_pages, pps, torch.bfloat16, 7)
-        n = numbers[shape] = paged_times(q, k, v, lens, table, pps, **kw)
-        print(f"{label} bf16 q, {shape} lengths={lengths[:4]}{'...' if batch > 4 else ''}: kernel {n['ms']:.4f} ms, "
+        n = paged_times(q, k, v, lens, table, pps, **kw)
+        row.update({PAGED_PREFIX[shape] + key: value for key, value in n.items()})
+        other = f", bf16-page kernel {beside[PAGED_PREFIX[shape] + 'device_ms']:.4f} ms" if beside else ""
+        print(f"{label} bf16 q, {shape} lengths={lengths[:4]}{'...' if batch > 4 else ''}"
+              f"{' (' + n['int8_route'] + ')' if 'int8_route' in n else ''}: kernel {n['ms']:.4f} ms, "
               f"plain {n['plain_ms']:.4f} ms, library (SDPA on gathered K/V) {n['library_ms']:.4f} ms, bound "
               f"{n['bound_ms']:.6f} ms ({n['bound_by']}), {n['bound_ms'] / n['ms']:.1%} of bound; device only: "
               f"kernel {n['device_ms']:.4f} ms ({n['bound_ms'] / n['device_ms']:.1%} of bound), library "
-              f"{n['library_device_ms']:.4f} ms; host enqueue a call {n['host_ms']:.4f} ms", flush=True)
+              f"{n['library_device_ms']:.4f} ms{other}; host enqueue a call {n['host_ms']:.4f} ms", flush=True)
         del q, k, v, lens, table, kw
         torch.cuda.empty_cache()
-    row = dict(numbers["served"])
-    for shape, prefix in (("B=8 ctx=2048", "b8_ctx2048_"), ("B=1 ctx=8192", "b1_ctx8192_")):
-        row.update({prefix + key: value for key, value in numbers[shape].items()})
     return row
 
 
@@ -474,19 +506,55 @@ def kernel_phase(pool_pages: int, pages_per_seq: int) -> dict:
     return dict(max_abs_err=worst, **row, timer_floor_ms=floor_ms)
 
 
-def int8_page_phase(pool_pages: int, pages_per_seq: int) -> dict:
-    """The int8-page mode against its twin at D = 64 and 128 over the float
-    mode's length cases, then times at the three :func:`paged_shapes`."""
+def off16(t):
+    """A contiguous copy of ``t`` that starts 8 bytes past a 16-byte boundary."""
+    import torch
+
+    size = t.numel() * t.element_size()
+    flat = torch.empty(size + 24, dtype=torch.uint8, device=t.device)
+    start = (8 - flat.data_ptr() % 16) % 16
+    view = flat[start: start + size].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def int8_pages_off16(*args):
+    """:func:`int8_pages` with both int8 pools 8 bytes past a 16-byte
+    boundary (the kernel takes 8; a bulk copy needs 16)."""
+    q, k, v, lens, table, kw = int8_pages(*args)
+    return q, off16(k), off16(v), lens, table, kw
+
+
+def int8_page_phase(pool_pages: int, pages_per_seq: int, bf16_pages: dict) -> dict:
+    """The int8-page mode against its twin at D = 16, 24, 40, 64, 128 and
+    256 over the float mode's length cases, and at D = 128 on pools off a
+    16-byte boundary, printing the route and the ring of each and requiring
+    every route's launches (bf16 q at D % 16 == 0 on aligned pools: ``mma``;
+    f32 q, D = 24 and 40, and the pools off a boundary: ``direct``); then
+    times at the three :func:`paged_shapes` (the tensor-core route) beside
+    ``bf16_pages``, the bf16-page kernel's row."""
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
 
     table_end = pages_per_seq * BLOCK
     limits = (0, 1, BLOCK, 2 * BLOCK + 5, table_end, table_end + 40, 3, 2 * BLOCK)
-    cases = [(d, lengths) for d in (64, 128) for lengths in ((1, 17, 64, 300), limits)]
+    cases = [(d, lengths) for d in (16, 24, 40, 64, 128, 256) for lengths in ((1, 17, 64, 300), limits)]
+    off16_cases = [(128, limits)]
     paged_decode_attention.int8_launches = 0
+    before = dict(paged_decode_attention.int8_route_launches)
     worst = hold_paged("paged_decode_attention int8 pages", cases, int8_pages, pool_pages, pages_per_seq)
+    worst = max(worst, hold_paged("paged_decode_attention int8 pages off a 16-byte boundary", off16_cases,
+                                  int8_pages_off16, pool_pages, pages_per_seq))
     checked = paged_decode_attention.int8_launches
-    row = time_paged("paged_decode_attention int8 pages", int8_pages, pool_pages, pages_per_seq)
-    return dict(max_abs_err=worst, phase2_launches=checked, **row)
+    after = paged_decode_attention.int8_route_launches
+    by_route = {r: after[r] - before[r] for r in after}
+    mma = 2 * sum(d % 16 == 0 for d, _ in cases)  # two calls a case, bf16 q only
+    expected = {"direct": 4 * (len(cases) + len(off16_cases)) - mma, "mma": mma}
+    print(f"paged_decode_attention int8 pages: {checked} launches by route {by_route}", flush=True)
+    require(by_route == expected, f"int8-page launches by route {by_route}, expected {expected}")
+    row = time_paged("paged_decode_attention int8 pages", int8_pages, pool_pages, pages_per_seq, beside=bf16_pages)
+    require(all(row[prefix + "int8_route"].startswith("route mma") for prefix in PAGED_PREFIX.values()),
+            "the int8-page kernel's timed shapes (bf16 q, D=128, 16-position pages) must take the tensor-core route")
+    return dict(max_abs_err=worst, phase2_launches=checked, phase2_route_launches=by_route, **row)
 
 
 def serve(batcher, prompts, grammars=None, logprobs=None) -> tuple:
@@ -1989,6 +2057,7 @@ def int8_pool_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: 
     q = torch.randn(slots, mcfg.n_heads, mcfg.dim // mcfg.n_heads, device="cuda", generator=g).to(torch.bfloat16)
     atol, rtol = TOLERANCE[str(q.dtype)]
     paged_decode_attention.int8_launches = 0
+    routes = dict(paged_decode_attention.int8_route_launches)
     worst = 0.0
     for i, layer in enumerate(pools):
         args = (q, layer["k"], layer["v"], lens, table)
@@ -2001,18 +2070,21 @@ def int8_pool_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: 
         worst = max(worst, err.max().item())
     launches = paged_decode_attention.int8_launches
     layer = pools[0]
-    times = paged_times(q, layer["k"], layer["v"], lens, table, table.shape[1], k_scales=layer["k_scale"],
-                        v_scales=layer["v_scale"])
+    scales = dict(k_scales=layer["k_scale"], v_scales=layer["v_scale"])
+    how = int8_route(q, layer["k"], layer["v"], table, scales, routes, launches)
+    require(how.startswith("route mma"), f"the live pools (bf16 q, D=128, {BLOCK}-position pages) took {how}")
+    times = paged_times(q, layer["k"], layer["v"], lens, table, table.shape[1], **scales)
     print(f"phase 9c: served 4 streams x {MAX_NEW} over int8 pages (gather route, {gather_launches} paged launches) "
           f"at {len(prompts) * MAX_NEW / seconds:.1f} tok/s; the int8-page kernel on the live pools of all "
-          f"{len(pools)} layers ({launches} launches; {seen['live']} resident rows, lengths {lens.tolist()}): "
-          f"max_abs_err {worst} (tolerance atol={atol} rtol={rtol}); layer 0: kernel {times['ms']:.4f} ms "
+          f"{len(pools)} layers ({launches} launches, {how}; {seen['live']} resident rows, lengths "
+          f"{lens.tolist()}): max_abs_err {worst} (tolerance atol={atol} rtol={rtol}); layer 0: kernel {times['ms']:.4f} ms "
           f"({times['device_ms']:.4f} device only), twin (int8 gather route) {times['plain_ms']:.4f} ms, library "
           f"{times['library_ms']:.4f} ms ({times['library_device_ms']:.4f}), bound {times['bound_ms']:.6f} ms "
           f"({times['bound_by']}); card {card}", flush=True)
     del gen, engine, pools
     torch.cuda.empty_cache()
-    return dict(launches=launches, live_max_abs_err=worst, **{f"live_{k}": v for k, v in times.items()})
+    return dict(launches=launches, launch_int8_route=how, live_max_abs_err=worst,
+                **{f"live_{k}": v for k, v in times.items()})
 
 
 def main() -> int:
@@ -2057,7 +2129,7 @@ def main() -> int:
     numbers = kernel_phase(pool_pages, pages_per_seq)
     flash_numbers = flash_kernel_phase()
     int8_numbers = int8_kernel_phase()
-    int8_page_numbers = int8_page_phase(pool_pages, pages_per_seq)
+    int8_page_numbers = int8_page_phase(pool_pages, pages_per_seq, numbers)
 
     rng = np.random.RandomState(0)
 

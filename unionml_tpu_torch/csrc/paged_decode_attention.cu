@@ -47,7 +47,10 @@
 //    map, so no host work a call) into a ring of up to 8 stages, completing
 //    on the stage's `full` mbarrier, and refills a stage once the warps that
 //    read it have arrived on its `empty` mbarrier. A ragged last page is
-//    copied whole and masked by position.
+//    copied whole and masked by position. A reader waits for its page by the
+//    parity of the stage's fill, so each stage has one reader (the plan's
+//    stage count, _plan, and min(8, stages) readers): a reader has read the
+//    stage's previous fill itself and cannot take it for its own.
 //  - Compute, bf16 with D % 32 == 0 and D <= 128 (the served path): tensor
 //    cores. Each of 8 warps takes whole pages; per 16 keys,
 //    S^T[keys, heads] = K . q^T on mma.sync m16n8k16 with the keys as M and
@@ -69,10 +72,10 @@
 // pools and out of one dtype); pools 16-byte aligned; a page of at most
 // 64 KB. The wrapper checks them.
 //
-// Left for later: int8 pages with per-position scales (the JAX package keeps
-// int8 pools on its gather path); a padded or swizzled page layout (the pages
-// land unpadded, so ldmatrix reads of V rows 256 bytes apart conflict on the
-// banks); more pages in flight where one block has an SM to itself.
+// Left for later: a padded or swizzled page layout (the pages land unpadded,
+// so ldmatrix reads of V rows 256 bytes apart conflict on the banks); more
+// pages in flight where one block has an SM to itself. (int8 pages with
+// per-position scales have their own kernel, paged_decode_attention_int8.cu.)
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -260,7 +263,8 @@ __global__ void __launch_bounds__(kThreads, G <= 4 || DT > 0 ? 2 : 1) paged_deco
 #pragma unroll
     for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // heads 2 tig, 2 tig + 1 (l: this lane's keys)
-    for (int i = warp < kWarps ? warp : n_local; i < n_local; i += kWarps) {
+    const int readers = min(kWarps, stages);  // warp w reads pages w (mod readers): each stage has one reader
+    for (int i = warp < readers ? warp : n_local; i < n_local; i += readers) {
       const int s = i % stages;
       mbar_wait(&full[s], (i / stages) & 1);
       const T* ks = ring + static_cast<int64_t>(s) * 2 * page_elems;
@@ -368,11 +372,12 @@ __global__ void __launch_bounds__(kThreads, G <= 4 || DT > 0 ? 2 : 1) paged_deco
       }
     }
 
-    // consumer warp `warp` takes the pages i = warp / wpp (mod pao): wpp warps share a page, pao pages at once
+    // consumer warp `warp` takes the pages i = warp / wpp (mod pao): wpp warps share a page, pao pages at once,
+    // at most one a stage (each stage has one reader)
     const int wpp = warps_per_page(page_size, L);
-    const int pao = kWarps / wpp;
+    const int pao = min(kWarps / wpp, stages);
     const int wslot = warp % wpp;
-    for (int i = warp < kWarps ? warp / wpp : n_local; i < n_local; i += pao) {
+    for (int i = warp < pao * wpp ? warp / wpp : n_local; i < n_local; i += pao) {
       const int s = i % stages;
       mbar_wait(&full[s], (i / stages) & 1);
       const T* ks = ring + static_cast<int64_t>(s) * 2 * page_elems;

@@ -17,8 +17,12 @@ split-and-combine algorithm in plain torch, for the tests.
 The int8-page mode (``k_scales``/``v_scales``) goes through its own kernel,
 ``csrc/paged_decode_attention_int8.cu``, which reads the int8 rows and one
 f32 scale per position and head (the JAX library kernel broadcasts its scales
-to the full head width). As in the JAX package, the engine serves int8 pages
-through the gather path; the mode is held and timed against it.
+to the full head width) by one of two routes, :func:`_int8_route`'s choice
+from the shapes: ``"mma"`` (bf16 q: staged pages, dequantized to bf16, tensor
+cores) and ``"direct"`` (f32 q, and any other shape the kernel takes: rows
+loaded straight from device memory, CUDA cores). As in
+the JAX package, the engine serves int8 pages through the gather path; the
+mode is held and timed against it.
 """
 
 from __future__ import annotations
@@ -38,11 +42,19 @@ _MAX_HEAD_DIM = 256  # a key row is split over at most 32 lanes of 8 values
 _MAX_HEAD_TILE = 8  # heads of a GQA group one block takes (a larger group takes several tiles)
 _MAX_CLUSTER = 16  # the H100's non-portable thread-block cluster size
 _MAX_STAGES = 8
+#: the warps of a block that read pages (both kernels; one more warp copies them)
+_READERS = 8
+#: the int8-page kernel's ring: an int8 page with its scales is about half a bf16 page, so twice the stages fit
+#: in about the same bytes (16 stages of 16-position pages at D = 128; two blocks an SM still fit)
+_MAX_INT8_STAGES = 16
+_INT8_RING_BYTES = 72 << 10
 #: blocks an SM holds at once (8 reading warps and one copying warp each); a cluster's blocks share one
 #: GPC, so a grid of clusters reaches fewer SMs than the card has (124 of 132 on an H100): plan for 15/16
 _BLOCKS_PER_SM = 2
 _RING_BYTES = 64 << 10  # a block's ring of K and V pages in flight, in shared memory
 _MAX_PAGE_BYTES = 64 << 10  # one page of one KV head: a stage (K and V) must fit shared memory
+#: the int8-page kernel's routes and their codes in csrc/paged_decode_attention_int8.cu
+_INT8_ROUTES = {"direct": 0, "mma": 1}
 
 
 class _Plan(NamedTuple):
@@ -139,22 +151,57 @@ def paged_decode_attention_split_reference(
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(batch: int, n_kv_heads: int, group: int, pages_per_seq: int, page_bytes: int, n_sms: int) -> _Plan:
+def _plan(batch: int, n_kv_heads: int, group: int, pages_per_seq: int, page_bytes: int, n_sms: int,
+          max_stages: int = _MAX_STAGES, ring_bytes: int = _RING_BYTES) -> _Plan:
     """The split of one launch, from shapes alone (never from ``lengths``).
 
     Each (row, KV head, tile of up to 8 heads of the group) gets ``splits``
     blocks of one thread-block cluster (at most 16), aiming at
     :data:`_BLOCKS_PER_SM` blocks an SM; the table is cut into runs of
     ``pages_per_split`` entries, and ``splits`` is trimmed so that no split
-    is empty at full length. ``stages`` pages of K and V are in flight a
-    block (the ring holds at most :data:`_RING_BYTES`)."""
+    is empty at full length. ``stages`` pages of K and V (``page_bytes``
+    each, with their scales in the int8 mode) are in flight a block, at most
+    ``max_stages`` and ``ring_bytes`` in all.
+
+    A reader (a warp, or the warps that share a page) waits for its page by
+    the parity of the stage's fill, so it must never find the stage two
+    fills behind: the stages are all the split's pages (no refill), or a
+    multiple of the kernels' 8 reading warps, or a power of two under 8 (the
+    kernels then read with as many readers as stages). Each stage then has
+    one reader, which has read the stage's previous fill itself."""
     tiles = -(-group // _MAX_HEAD_TILE)
     want = _BLOCKS_PER_SM * n_sms * 15 // 16 // (batch * n_kv_heads * tiles)  # one wave at most
     splits = max(1, min(_MAX_CLUSTER, pages_per_seq, want))
     per = max(1, -(-pages_per_seq // splits))
     splits = max(1, -(-pages_per_seq // per))
-    stages = max(1, min(_MAX_STAGES, per, _RING_BYTES // (2 * page_bytes)))
+    cap = max(1, min(max_stages, ring_bytes // (2 * page_bytes)))
+    if per <= cap:
+        stages = per
+    elif cap >= _READERS:
+        stages = cap - cap % _READERS
+    else:
+        stages = 1 << (cap.bit_length() - 1)
     return _Plan(splits, per, stages)
+
+
+def _int8_page_bytes(page_size: int, head_dim: int) -> int:
+    """Bytes of one int8 page of one KV head with its f32 scales: half a
+    stage of the int8-page kernel's ring."""
+    return page_size * (head_dim + 4)
+
+
+def _int8_route(dtype: torch.dtype, head_dim: int, page_size: int, aligned16: bool) -> str:
+    """The int8-page kernel's route for a shape, from shapes alone.
+
+    ``"mma"`` (bf16 q) copies whole pages and their scales into a ring in
+    shared memory with 1D bulk copies, which move 16-byte units between
+    16-byte boundaries: it needs ``head_dim % 16 == 0``, ``page_size % 4 ==
+    0``, all four pools on a 16-byte boundary (``aligned16``) and a stage (K
+    and V pages and scales) of at most :data:`_INT8_RING_BYTES`. f32 q and
+    every other shape the kernel takes go ``"direct"``."""
+    mma = (dtype == torch.bfloat16 and aligned16 and head_dim % 16 == 0 and page_size % 4 == 0
+           and 2 * _int8_page_bytes(page_size, head_dim) <= _INT8_RING_BYTES)
+    return "mma" if mma else "direct"
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,7 +224,7 @@ def _int8_kernel():
     from unionml_tpu_torch._build import load_library
 
     fn = load_library("paged_decode_attention_int8").paged_decode_attention_int8
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -270,7 +317,8 @@ def paged_decode_attention(
     page_size, 1]``, the port's ``quantize_kv_rows`` convention ``dequant =
     int8 * scale``) select the int8-page mode over int8 pools: its own
     kernel, which dequantizes each value in f32 and rounds it to q's dtype
-    as the twin does, counted in ``paged_decode_attention.int8_launches``.
+    as the twin does, counted in ``paged_decode_attention.int8_launches``
+    (and by route in ``paged_decode_attention.int8_route_launches``).
     """
     _check_scales(k_scales, v_scales)
     if q.device.type == "cpu":
@@ -303,28 +351,44 @@ def paged_decode_attention(
     return out
 
 
+def _int8_launch(q, k_pages, v_pages, k_scales, v_scales, page_indices, n_sms: int) -> tuple:
+    """``(route, plan)`` of the int8-page kernel for these tensors: the
+    route from their shapes and alignment, the split with the ring sized
+    for int8 pages and their scales."""
+    batch, n_heads, head_dim = q.shape
+    n_kv, _, page_size, _ = k_pages.shape
+    aligned16 = all(t.data_ptr() % 16 == 0 for t in (k_pages, v_pages, k_scales, v_scales))
+    plan = _plan(batch, n_kv, n_heads // n_kv, page_indices.shape[1], _int8_page_bytes(page_size, head_dim), n_sms,
+                 _MAX_INT8_STAGES, _INT8_RING_BYTES)
+    return _int8_route(q.dtype, head_dim, page_size, aligned16), plan
+
+
 def _paged_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices) -> torch.Tensor:
-    """Launch the int8-page kernel (one launch a call, split as the float
-    kernel is planned)."""
+    """Launch the int8-page kernel by :func:`_int8_route`'s route (one
+    launch a call, split as the float kernel is planned, the ring sized for
+    int8 pages)."""
     _check_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices)
     batch, n_heads, head_dim = q.shape
     n_kv, n_pages, page_size, _ = k_pages.shape
     pages_per_seq = page_indices.shape[1]
     out = torch.empty_like(q)
     index = q.device.index
-    plan = _plan(batch, n_kv, n_heads // n_kv, pages_per_seq, page_size * head_dim, _sm_count(index))
+    route, plan = _int8_launch(q, k_pages, v_pages, k_scales, v_scales, page_indices, _sm_count(index))
     args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
             lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), batch, n_heads, n_kv, head_dim, n_pages,
-            page_size, pages_per_seq, plan.splits, plan.pages_per_split, _DTYPE_CODES[q.dtype], head_dim ** -0.5)
+            page_size, pages_per_seq, plan.splits, plan.pages_per_split, plan.stages, _INT8_ROUTES[route],
+            _DTYPE_CODES[q.dtype], head_dim ** -0.5)
     with torch.cuda.device(index):
         err = _int8_kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention int8-page kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"paged_decode_attention int8-page kernel ({route} route) launch failed: cudaError {err}")
     paged_decode_attention.int8_launches += 1
+    paged_decode_attention.int8_route_launches[route] += 1
     return out
 
 
 #: kernel launches since the count was last reset (CPU calls never count):
-#: float pages, then int8 pages
+#: float pages, then int8 pages, then the int8 pages' launches by route
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
+paged_decode_attention.int8_route_launches = dict.fromkeys(_INT8_ROUTES, 0)
