@@ -95,6 +95,21 @@ Phases (no phase catches a failure; any fault exits non-zero):
    M = 20; (c) phase 3's weights served over int8 pages (the gather route),
    then the int8-page kernel against its twin on that engine's live pools
    of every layer (each launch by the tensor-core route), timed on one.
+10. chunked admission and shared-prefix reuse: (a) phase 9's bf16 target
+   behind a 100-token system prompt (numpy seed 3, ``cache_prefix``: 6 full
+   pages and a 4-token tail) in ``ContinuousBatcher(slots=4,
+   decode_chunk=8, block_size=16, admit_chunk=64, prefill_budget=128,
+   max_admissions=2, prefix_cache=True)``, warmed with ``warmup()``: phase
+   3's prompts cold, the same prompts again (radix hits, equal streams), and
+   each prompt cut at an odd length and diverging (copy-on-write inside a
+   shared block); per wave tok/s, TTFT, chunks, hits and tokens avoided; the
+   chunks are required to be the chunk-aligned widths over 64 and the paged
+   launches 32 x 8 a dispatch (``prefix_launches``); (b) float32, 2 layers
+   (phase 4's weights, TF32 off): chunked admission without a prefix, with
+   the static prefix, with the prefix and the radix cache (two waves), and
+   the speculative engine (phase 9b's 2-layer draft) under ``admit_chunk``
+   and the prefix, each equal to the solo ``Generator(...)(prompts,
+   prefix=...)`` on the card.
 
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
@@ -208,6 +223,10 @@ BEAM_NEW, BEAM_BUCKET = 8, 64  # the card-against-CPU beam search: 2 prompts, 8 
 #: divergence must be a near-tie: the two tokens the top two of a third path's logits (the plain Generator's
 #: prefill of the common prefix), this far apart at most
 INT8_TIE_GAP = 0.01
+#: phase 10: a system prompt of SYSTEM_LEN tokens from numpy seed SYSTEM_SEED (6 full 16-position pages and a
+#: 4-token tail) and the engine's chunked admission: ADMIT_CHUNK columns a chunk, PREFILL_BUDGET a dispatch
+SYSTEM_LEN, SYSTEM_SEED = 100, 3
+ADMIT_CHUNK, PREFILL_BUDGET, MAX_ADMISSIONS = 64, 128, 2
 
 
 def card_line() -> str:
@@ -2087,6 +2106,181 @@ def int8_pool_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: 
                 **{f"live_{k}": v for k, v in times.items()})
 
 
+#: phase 10: chunked admission and shared-prefix reuse
+
+
+def serve_timed(batcher, prompts) -> tuple:
+    """Submit every prompt from its own thread; return (streams, seconds,
+    each stream's time to its first chunk in ms)."""
+    results, ttft = [None] * len(prompts), [None] * len(prompts)
+
+    def worker(i):
+        t0 = time.perf_counter()
+        tokens = []
+        for chunk in batcher.submit(prompts[i]):
+            if not tokens:
+                ttft[i] = (time.perf_counter() - t0) * 1e3
+            tokens.extend(int(t) for t in chunk)
+        results[i] = tokens
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise TimeoutError("a stream did not finish within 600 s")
+    return results, time.perf_counter() - t0, ttft
+
+
+def system_prompt(vocab: int) -> list:
+    import numpy as np
+
+    return np.random.RandomState(SYSTEM_SEED).randint(1, vocab, size=SYSTEM_LEN).tolist()
+
+
+def diverging(prompts, vocab: int) -> list:
+    """Each prompt cut at an odd length and continued with other tokens to
+    its own length: a radix hit that ends inside a shared block."""
+    import numpy as np
+
+    rng = np.random.RandomState(SYSTEM_SEED + 1)
+    out = []
+    for p in prompts:
+        cut = (len(p) // 2) | 1
+        tail = rng.randint(1, vocab, size=len(p) - cut).tolist()
+        tail[0] = p[cut] % (vocab - 1) + 1  # differs from the cut prompt's next token
+        out.append(p[:cut] + tail)
+    return out
+
+
+def prefix_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int) -> int:
+    """Phase 10a: chunked admission, the static prefix and the radix cache
+    at full width, bf16, on phase 9's target. Three waves of phase 3's
+    prompts: cold, again (hits), cut and diverging (copy-on-write). Returns
+    the paged kernel's launches in the three waves."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator
+    from unionml_tpu_torch.models import chunk_aligned
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t0 = time.perf_counter()
+    gen = Generator(target, gcfg)
+    system = gen.cache_prefix(system_prompt(target.config.vocab_size))
+    # the same prompts behind the same prefix, admitted monolithically (M = the 256 bucket, not 64): in bf16 the
+    # chunked streams may part from these, and the phase reports where
+    mono = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK, prefix=system)
+    mono_streams = serve(mono, prompts)[0]
+    mono.close()
+    engine = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK, prefix=system,
+                               admit_chunk=ADMIT_CHUNK, prefill_budget=PREFILL_BUDGET, max_admissions=MAX_ADMISSIONS,
+                               prefix_cache=True)
+    engine.warmup()
+    print(f"phase 10a: system prompt of {SYSTEM_LEN} tokens ({len(engine._shared_prefix_blocks)} shared pages, "
+          f"{engine.stats()['kv_blocks']['shared_prefix_tail_tokens']}-token tail), cache_len {engine.cache_len}, "
+          f"{engine.max_blocks} table entries, {engine.pool_blocks} pool pages; built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bucket = max(gcfg.prompt_buckets)
+    waves = (("cold", prompts), ("again (hits)", prompts),
+             ("cut and diverging (copy-on-write)", diverging(prompts, target.config.vocab_size)))
+    for counted in app_counted():
+        counted.launches = 0
+    before = {"prefill": dict(engine.stats()["prefill"]), "prefix_cache": dict(engine.stats()["prefix_cache"])}
+    streams_by_wave, expected_chunks = [], 0
+    for label, wave in waves:
+        cached = [engine.cached_prefix_tokens(p) for p in wave]
+        chunks = sum(chunk_aligned(len(p) - c, ADMIT_CHUNK) if c else chunk_aligned(bucket, ADMIT_CHUNK)
+                     for p, c in zip(wave, cached)) // ADMIT_CHUNK
+        expected_chunks += chunks
+        streams, seconds, ttft = serve_timed(engine, wave)
+        stats = engine.stats()
+        pc, pf = stats["prefix_cache"], stats["prefill"]
+        require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
+        require(all(0 <= t < target.config.vocab_size for s in streams for t in s), "a token id outside the vocabulary")
+        print(f"phase 10a, wave {label}: {len(wave) * MAX_NEW / seconds:.1f} tok/s aggregate, TTFT p50 "
+              f"{statistics.median(ttft):.1f} ms max {max(ttft):.1f} ms, chunks {pf['chunks'] - before['prefill']['chunks']} "
+              f"(expected {chunks} from the cached runs {cached}), hits {pc['hits'] - before['prefix_cache']['hits']}, "
+              f"tokens avoided {pc['tokens_avoided'] - before['prefix_cache']['tokens_avoided']}, copy-on-write "
+              f"{pc['cow_copies'] - before['prefix_cache']['cow_copies']}, cached blocks {pc['cached_blocks']}, "
+              f"evictions {pc['evictions']}; card {card}", flush=True)
+        before = {"prefill": dict(pf), "prefix_cache": dict(pc)}
+        streams_by_wave.append(streams)
+    stats = engine.stats()
+    launches = paged_decode_attention.launches
+    others = {c.__name__: c.launches for c in app_counted() if c is not paged_decode_attention}
+    engine.close()
+    pc, pf = stats["prefix_cache"], stats["prefill"]
+    expected = target.config.n_layers * stats["decode_dispatches"] * decode_chunk
+    same = streams_by_wave[1] == streams_by_wave[0]
+    print(f"phase 10a: wave 2 streams equal wave 1's: {same} (first divergence "
+          f"{[first_divergence(a, b) for a, b in zip(*streams_by_wave[:2])]}); chunked (wave 1) against monolithic "
+          f"admission behind the same prefix, first divergence "
+          f"{[first_divergence(a, b) for a, b in zip(streams_by_wave[0], mono_streams)]} of {MAX_NEW}; "
+          f"{pc['hits']} hits, {pc['misses']} "
+          f"misses, {pc['tokens_avoided']} tokens avoided, {pc['cow_copies']} copies on write, {pf['chunks']} chunks "
+          f"(expected {expected_chunks}), {pf['monolithic_admissions']} monolithic; paged launches {launches} "
+          f"(expected {target.config.n_layers} layers x {stats['decode_dispatches']} dispatches x {decode_chunk} = "
+          f"{expected}), other kernels {others}; card {card}", flush=True)
+    require(same, "the cache-hit streams differ from the cold streams")
+    require(pc["hits"] >= 3 and pc["tokens_avoided"] > 0 and pc["cow_copies"] >= 1, f"prefix cache {pc}")
+    require(pf["chunks"] == expected_chunks and pf["monolithic_admissions"] == 0, f"prefill {pf}")
+    require(launches == expected > 0, f"{launches} paged launches on the prefix path, expected {expected}")
+    require(all(n == 0 for n in others.values()), f"other kernels launched {others}")
+    del gen, system, engine, mono
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefix_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
+    """Phase 10b: float32, 2 layers (phase 4's weights), TF32 off. Chunked
+    admission alone, with the static prefix, with the prefix and the radix
+    cache (two waves), and the speculative engine (phase 9b's 2-layer
+    draft) under chunked admission and the prefix: each engine's streams
+    equal the solo ``Generator`` on the card, with the prefix where the
+    engine has one."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, DraftSpec, Generator, Llama, LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg32 = LlamaConfig.llama3_8b(n_layers=2, attention_impl="flash", dtype=torch.float32, param_dtype=torch.float32)
+    target = Llama(cfg32, seed=1)
+    solo = Generator(target, gcfg)
+    system = solo.cache_prefix(system_prompt(cfg32.vocab_size))
+    plain = [solo([p])[0].tolist() for p in prompts]
+    with_prefix = [solo([p], prefix=system)[0].tolist() for p in prompts]
+    knobs = dict(slots=slots, decode_chunk=decode_chunk, block_size=BLOCK, admit_chunk=ADMIT_CHUNK,
+                 prefill_budget=PREFILL_BUDGET, max_admissions=MAX_ADMISSIONS)
+    results = {}
+    for name, kwargs, waves, want in (
+        ("chunked admission", {}, 1, plain),
+        ("chunked + static prefix", dict(prefix=system), 1, with_prefix),
+        ("chunked + static prefix + radix cache", dict(prefix=system, prefix_cache=True), 2, with_prefix),
+    ):
+        engine = ContinuousBatcher(solo, **knobs, **kwargs)
+        results[name] = [serve(engine, prompts)[0] == want for _ in range(waves)]
+        stats = engine.stats()
+        engine.close()
+        if "radix" in name:
+            require(stats["prefix_cache"]["hits"] >= 3, f"radix waves {stats['prefix_cache']}")
+    draft = Llama(draft_config(torch.float32, n_layers=2), seed=DRAFT_SEED)
+    spec_gen = Generator(target, dataclasses.replace(gcfg, draft=DraftSpec(module=draft, gamma=GAMMA)))
+    engine = ContinuousBatcher(spec_gen, **knobs, prefix=system)
+    results["speculative + chunked + static prefix"] = [serve(engine, prompts)[0] == with_prefix]
+    chunks = engine.stats()["prefill"]["chunks"]
+    engine.close()
+    print(f"phase 10b, float32 (TF32 off), 2 layers: engine streams equal the solo Generator's (with the prefix "
+          f"where the engine has one): {results}; speculative chunks {chunks} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(all(all(v) for v in results.values()) and chunks > 0, f"phase 10b parity {results}")
+    del target, solo, system, draft, spec_gen, engine
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import argparse
 
@@ -2229,10 +2423,18 @@ def main() -> int:
     print(f"phase 9: the bf16 target (phase 3's weights) rebuilt in {time.perf_counter() - t0:.1f} s", flush=True)
     spec = spec_serving_phase(card, target, gcfg, prompts, slots, decode_chunk, bf16, bf16_streams)
     pool = int8_pool_phase(card, target, gcfg, prompts, slots, decode_chunk)
+    t10 = time.perf_counter()
+    # ---- phase 10a: chunked admission and shared-prefix reuse on the same target
+    prefix_launches = prefix_phase(card, target, gcfg, prompts, slots, decode_chunk)
+    t10 = time.perf_counter() - t10
     del target
     torch.cuda.empty_cache()
     spec_int8_launches = spec_parity_phase(gcfg, prompts, slots, decode_chunk)
-    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 9 took {time.perf_counter() - t0 - t10:.1f} s", flush=True)
+    # ---- phase 10b: f32 parity of chunked admission and the prefix caches with the solo Generator
+    t0 = time.perf_counter()
+    prefix_parity_phase(gcfg, prompts, slots, decode_chunk)
+    print(f"phase 10 took {t10 + time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [{
         "name": "paged_decode_attention",
@@ -2243,6 +2445,7 @@ def main() -> int:
         "app_launches": app_launches["paged_decode_attention"],
         "http_launches": http_launches["paged_decode_attention"],
         "spec_launches": spec["spec_launches"],
+        "prefix_launches": prefix_launches,
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -2271,6 +2474,7 @@ def main() -> int:
         **int8_page_numbers,
     })
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
+    require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

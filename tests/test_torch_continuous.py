@@ -38,10 +38,10 @@ INT8_SHAPE = dict(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, 
 PROMPTS = [[3, 14, 15, 92, 6], [27, 1], [8, 2, 8, 1, 8, 2, 8], [44, 9]]
 
 
-def _models(shape):
+def _models(shape, seed=0):
     jax_cfg = JaxLlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **shape)
     module = JaxLlama(jax_cfg)
-    params = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    params = module.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]
     cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, attention_impl="flash", **shape)
     state = llama_params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg)
     flash, plain = Llama(cfg, device="cpu"), Llama(dataclasses.replace(cfg, attention_impl="auto"), device="cpu")
@@ -197,23 +197,66 @@ def test_int8_generator_streams_match_jax_engine_and_solo(int8_models, kv):
 
 
 def test_chunked_admission_is_not_ported(models):
-    _, _, flash, _ = models
-    gen = Generator(flash, GenerationConfig(prompt_buckets=(16,), prefill_chunk=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
-        ContinuousBatcher(gen)
+    """A Generator's ``prefill_chunk`` selects chunked admission, as in the
+    JAX engine (the name is from before the port had it): the same resolved
+    knobs, and the engine's streams equal the JAX engine's and the solo
+    runs."""
+    module, params, flash, plain = models
+    kw = dict(max_new_tokens=6, temperature=0.0, prompt_buckets=(16,), prefill_chunk=8)
+    jax_engine = JaxContinuousBatcher(JaxGenerator(module, params, JaxGenerationConfig(**kw)), slots=2, decode_chunk=3)
+    try:
+        jax_streams = _concurrent(jax_engine, PROMPTS)
+    finally:
+        jax_engine.close()
+    engine = ContinuousBatcher(Generator(flash, GenerationConfig(**kw), device="cpu"), slots=2, decode_chunk=3)
+    try:
+        streams = _concurrent(engine, PROMPTS)
+        stats = engine.stats()["prefill"]
+    finally:
+        engine.close()
+    assert (engine.admit_chunk, engine.prefill_budget, engine.max_admissions) == (
+        jax_engine.admit_chunk, jax_engine.prefill_budget, jax_engine.max_admissions) == (8, 8, 1)
+    assert stats["mode"] == "chunked" and stats["chunks"] == len(PROMPTS) * 2  # 16 columns in chunks of 8
+    assert streams == jax_streams == _solo(plain, GenerationConfig(**kw), PROMPTS)
 
 
 @pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "prefix", "role", "aot"])
 def test_unported_engine_options_raise(models, option):
-    _, _, flash, _ = models
-    gen = Generator(flash, GenerationConfig(prompt_buckets=(16,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(gen, **{option: 8 if option == "admit_chunk" else True})
+    """``role=`` and ``aot=`` are still refused, naming ROADMAP.md. The
+    ported options behave as in the JAX engine: ``admit_chunk=8`` serves its
+    streams, ``prefix_cache=True`` on a dense engine and a ``prefix`` that
+    is no ``PrefixCache`` raise the JAX engine's errors."""
+    module, params, flash, _ = models
+    kw = dict(max_new_tokens=4, temperature=0.0, prompt_buckets=(16,))
+    gen = Generator(flash, GenerationConfig(**kw), device="cpu")
+    value = 8 if option == "admit_chunk" else True
+    if option in ("role", "aot"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ContinuousBatcher(gen, **{option: value})
+        return
+    jax_gen = JaxGenerator(module, params, JaxGenerationConfig(**kw))
+    if option != "admit_chunk":
+        error, match = (ValueError, "paged") if option == "prefix_cache" else (TypeError, "PrefixCache")
+        for build, g in ((JaxContinuousBatcher, jax_gen), (ContinuousBatcher, gen)):
+            with pytest.raises(error, match=match):
+                build(g, **{option: value})
+        return
+    jax_engine = JaxContinuousBatcher(jax_gen, slots=2, decode_chunk=3, admit_chunk=value)
+    try:
+        jax_streams = _concurrent(jax_engine, PROMPTS)
+    finally:
+        jax_engine.close()
+    engine = ContinuousBatcher(gen, slots=2, decode_chunk=3, admit_chunk=value)
+    try:
+        assert _concurrent(engine, PROMPTS) == jax_streams
+    finally:
+        engine.close()
 
 
 ADMISSION_ENV = ("UNIONML_TPU_ADMIT_CHUNK", "UNIONML_TPU_PREFILL_BUDGET", "UNIONML_TPU_MAX_ADMISSIONS",
                  "UNIONML_TPU_PREFIX_CACHE")
-#: (env, engine kwargs, None when the port serves it, else what its NotImplementedError names)
+#: (env, engine kwargs, None where the JAX engine admits monolithically without a radix cache, else what it
+#: selects, which the port now serves as well)
 ENV_CASES = {
     "zeros": ({"UNIONML_TPU_ADMIT_CHUNK": "0", "UNIONML_TPU_PREFILL_BUDGET": "0", "UNIONML_TPU_MAX_ADMISSIONS": "1",
                "UNIONML_TPU_PREFIX_CACHE": "0"}, {}, None),
@@ -231,13 +274,13 @@ ENV_CASES = {
 @pytest.mark.parametrize("case", list(ENV_CASES))
 def test_serve_env_knobs_resolve_as_in_jax(models, monkeypatch, caplog, case):
     """The serve CLI's four admission exports reach an engine built without
-    the kwargs, as in the JAX package: where the JAX engine resolves them to
-    monolithic admission without a radix cache, the port's resolves the same
-    values (and warns where it warns: garbage values, the prefix cache on a
-    dense engine); where the JAX engine would chunk its admissions or cache
-    prefixes, the port raises NotImplementedError naming the variable rather
-    than serving another schedule. Explicit kwargs win over the env."""
-    env, kwargs, refused = ENV_CASES[case]
+    the kwargs, as in the JAX package: the port resolves the JAX engine's
+    values (chunk, budget, admissions, radix cache on or off), warns where it
+    warns (garbage values, the prefix cache on a dense engine), and serves
+    the JAX engine's streams and prefill counters under them, chunked
+    admission and the radix cache included. Explicit kwargs win over the
+    env."""
+    env, kwargs, selects = ENV_CASES[case]
     for name in ADMISSION_ENV:
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -253,21 +296,23 @@ def test_serve_env_knobs_resolve_as_in_jax(models, monkeypatch, caplog, case):
     try:
         resolved = (jax_engine.admit_chunk, jax_engine.prefill_budget, jax_engine.max_admissions,
                     jax_engine._radix is not None)
+        jax_streams = [[int(t) for c in jax_engine.submit(p) for t in c] for p in PROMPTS[:2] * 2]
+        jax_prefill = jax_engine.stats()["prefill"]
     finally:
         jax_engine.close()
     jax_warnings = caplog.text
     caplog.clear()
     gen = Generator(flash, GenerationConfig(**kw), device="cpu")
-    if refused:
-        assert resolved != (None, None, 1, False)  # the JAX engine takes a path the port does not have
-        with pytest.raises(NotImplementedError, match=refused):
-            ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
-        return
     with caplog.at_level("WARNING"):
         engine = ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
-    engine.close()
-    assert (engine.admit_chunk, engine.prefill_budget, engine.max_admissions, False) == resolved
-    assert resolved == (None, None, 1, False)
+    try:
+        streams = [[int(t) for c in engine.submit(p) for t in c] for p in PROMPTS[:2] * 2]
+        prefill = engine.stats()["prefill"]
+    finally:
+        engine.close()
+    assert (engine.admit_chunk, engine.prefill_budget, engine.max_admissions, engine._radix is not None) == resolved
+    assert (resolved == (None, None, 1, False)) == (selects is None)
+    assert streams == jax_streams and prefill == jax_prefill
     for name in env:
         assert (name in caplog.text) == (name in jax_warnings), name
 

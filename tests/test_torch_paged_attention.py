@@ -258,6 +258,44 @@ def test_kernel_long_table_on_card(dtype):
     _assert_matches_twin(*_on_card(arrays, getattr(torch, dtype)))
 
 
+def _shared_prefix_inputs(seed=8, head_dim=128, pages_per_seq=8):
+    """Tables whose rows share their first pages, as the engine's static
+    prefix and radix-cached runs make them: every row starts on the same two
+    pages, rows 1 and 2 share a third, row 3 repeats row 0's table and q
+    (so its output must be row 0's, bit for bit); the rest of each row is
+    private."""
+    q, k, v, _, table = _inputs((0,) * 4, seed=seed, head_dim=head_dim, pages_per_seq=pages_per_seq)
+    table[:, :2] = table[0, :2]
+    table[2, 2] = table[1, 2]
+    table[3] = table[0]
+    q[3] = q[0]
+    lengths = np.asarray((37, 2 * PAGE + 9, 3 * PAGE, 37), np.int32)
+    return q, k, v, lengths, table
+
+
+def test_cpu_wrapper_over_shared_pages_matches_jax_gather_path():
+    q, k, v, lens, table = _shared_prefix_inputs()
+    ref = _jax_gather_path(q, k, v, lens, table)
+    out = pa.paged_decode_attention(*(torch.from_numpy(a) for a in (q, k, v, lens, table)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(out[3].numpy(), out[0].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_over_shared_pages_on_card(dtype):
+    """Rows whose tables share their first pages (several table entries
+    point at one block): the kernel matches its twin, leaves the pool
+    untouched (it only reads), and two rows with one table, q and length
+    give the same bits."""
+    _card()
+    q, k, v, lens, table = _on_card(_shared_prefix_inputs(), getattr(torch, dtype))
+    k0, v0 = k.clone(), v.clone()
+    out = _assert_matches_twin(q, k, v, lens, table)
+    assert torch.equal(k, k0) and torch.equal(v, v0)
+    assert torch.equal(out[3], out[0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_small_ring_refills_on_card(dtype):

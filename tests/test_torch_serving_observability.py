@@ -16,9 +16,6 @@ torch.set_num_threads(2)
 
 port_cases(globals(), "test_observability.py")
 
-# chunked admission is not ported (ROADMAP.md, Queue A item 4): admit_chunk=8 raises NotImplementedError
-del test_chunked_prefill_records_every_chunk  # noqa: F821
-
 
 @pytest.fixture
 def sklearn_model():

@@ -218,12 +218,39 @@ def test_speculative_engine_refuses_logprobs(models):
 
 @pytest.mark.parametrize("name,value", [("admit_chunk", 4), ("prefix", object()), ("role", "decode")])
 def test_unported_compositions_name_their_item(models, name, value):
-    (_, _, model), _ = models
-    _, cfg, _ = _configs(models, 3, max_new_tokens=4)
-    title = {"admit_chunk": "chunked admission", "prefix": "prefix caches",
-             "role": "parallelism and the replica layer"}[name]
-    with pytest.raises(NotImplementedError, match=f"Queue A: {title}"):
-        ContinuousBatcher(Generator(model, cfg, device="cpu"), slots=1, **{name: value})
+    """Compositions with a draft: ``role=`` is still refused, naming its
+    ROADMAP.md Queue A item. ``admit_chunk`` and ``prefix`` are ported: the
+    speculative engine streams the JAX engine's tokens, which are the
+    sequential plain runs' (of the full prompts, under a prefix); a prefix
+    that is no ``PrefixCache`` raises ``TypeError`` in both packages."""
+    (module, params, model), _ = models
+    jax_cfg, cfg, plain = _configs(models, 3, max_new_tokens=4)
+    gen = Generator(model, cfg, device="cpu")
+    if name == "role":
+        with pytest.raises(NotImplementedError, match="Queue A: parallelism and the replica layer"):
+            ContinuousBatcher(gen, slots=1, **{name: value})
+        return
+    jax_gen = JaxGenerator(module, params, jax_cfg)
+    kw, jax_kw, full = {name: value}, {name: value}, PROMPTS
+    if name == "prefix":
+        for build, g in ((ContinuousBatcher, gen), (JaxContinuousBatcher, jax_gen)):
+            with pytest.raises(TypeError, match="PrefixCache"):
+                build(g, slots=1, prefix=value)
+        system = [5, 7, 9, 11, 13]
+        kw, jax_kw = {"prefix": gen.cache_prefix(system)}, {"prefix": jax_gen.cache_prefix(system)}
+        full = [system + p for p in PROMPTS]
+    jax_engine = JaxContinuousBatcher(jax_gen, slots=2, decode_chunk=3, block_size=8, **jax_kw)
+    try:
+        jax_streams = [_drain(jax_engine.submit(p)) for p in PROMPTS]
+    finally:
+        jax_engine.close()
+    engine = ContinuousBatcher(gen, slots=2, decode_chunk=3, block_size=8, **kw)
+    try:
+        streams = [_drain(engine.submit(p)) for p in PROMPTS]
+        assert engine.stats()["prefill"] == jax_engine.stats()["prefill"]
+    finally:
+        engine.close()
+    assert streams == jax_streams == _sequential(model, plain, full)
 
 
 # ------------------------------------------------------------------ under grammars

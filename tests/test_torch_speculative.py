@@ -9,8 +9,8 @@ different numbers: the round's rejection law (accept test, residual) on
 fixed distributions within 1e-6 of the JAX expressions, and an empirical
 second-token histogram within total variation 0.06 of the exact target law.
 Left out: the MoE target (``models/moe.py`` is not ported: ROADMAP.md, Queue
-A, "the rest of training") and ``prefix=`` (prefix caches are not ported:
-Queue A, "prefix caches").
+A, "the rest of training"). The ``prefix=`` case runs in
+``test_torch_prefix_cache.py``.
 """
 
 import copy

@@ -11,6 +11,7 @@ from unionml_tpu_torch.models.generate import (
     DraftSpec,
     GenerationConfig,
     Generator,
+    PrefixCache,
     chunk_aligned,
     filtered_logits,
     init_cache,
@@ -44,6 +45,7 @@ __all__ = [
     "Generator",
     "Llama",
     "LlamaConfig",
+    "PrefixCache",
     "TokenConstraint",
     "causal_lm_loss",
     "chunk_aligned",

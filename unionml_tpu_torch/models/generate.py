@@ -29,7 +29,9 @@ __all__ = [
     "DraftSpec",
     "GenerationConfig",
     "Generator",
+    "PrefixCache",
     "chunk_aligned",
+    "gather_paged_rows",
     "filtered_logits",
     "init_cache",
     "init_paged_cache",
@@ -182,6 +184,51 @@ def init_paged_cache(
         }
         for _ in range(config.n_layers)
     )
+
+
+def _paste_prefix_rows(cache: Tuple[dict, ...], prefix_layers: Tuple[dict, ...]) -> Tuple[dict, ...]:
+    """Broadcast a :class:`PrefixCache`'s ``[1, p0, ...]`` K/V rows into
+    slots ``[0, p0)`` of every row of a dense cache, in place."""
+    with torch.no_grad():
+        for layer, pre in zip(cache, prefix_layers):
+            for name, rows in pre.items():
+                layer[name][:, : rows.shape[1]] = rows.to(layer[name].dtype)
+    return cache
+
+
+def gather_paged_rows(pool_cache: Tuple[dict, ...], blocks_row: Any, width: int) -> Tuple[dict, ...]:
+    """Materialize a dense ``[1, width, H_kv, last]`` cache row from a PAGED
+    pool (:func:`init_paged_cache`): position ``pos`` reads block
+    ``blocks_row[pos // block_size]`` at offset ``pos % block_size``, the
+    exact inverse of the engine's admission scatter, so a row gathered from
+    cached blocks is bit-identical to the row that was scattered in. Every
+    leaf but ``table`` is gathered (the int8 pools' scale planes too); the
+    result is a fresh copy. Positions past the cached run read whatever
+    their blocks (scratch) hold: the suffix prefill overwrites them before
+    anything attends to them."""
+    k = pool_cache[0]["k"]
+    block_size = k.shape[2]  # pools are heads-major [H, NB, bs, last]
+    pos = torch.arange(width, device=k.device)
+    blocks = torch.as_tensor(np.asarray(blocks_row), dtype=torch.long, device=k.device)
+    blk, off = blocks[pos // block_size], pos % block_size
+    return tuple(
+        {name: buf[:, blk, off].transpose(0, 1)[None].contiguous() for name, buf in layer.items() if name != "table"}
+        for layer in pool_cache
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixCache:
+    """Precomputed K/V rows for a shared prompt prefix (a system prompt),
+    built once by :meth:`Generator.cache_prefix` and reused by every request
+    that passes it: the prefix's prefill is paid once, not per call."""
+
+    layers: Tuple[Any, ...]  # per-layer cache leaves trimmed to [1, length, ...]
+    length: int
+    #: the prefix's token ids, kept so an engine with a second model (the
+    #: speculative draft) can prefill the same prefix through it; None for
+    #: hand-built caches, which then cannot compose with a draft
+    tokens: Optional[Tuple[int, ...]] = None
 
 
 def filtered_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Tensor:
@@ -405,24 +452,36 @@ class Generator:
         logger.info(f"prompt length {max_prompt} exceeds configured buckets; padding to {bucket}")
         return bucket
 
-    def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0, constraint: Any = None):
+    def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0, constraint: Any = None,
+               prefix: Optional[PrefixCache] = None):
         """Pad/bucket the prompts, allocate the cache, prefill (in
         ``prefill_chunk`` slices when set and the bucket is wider), and return
         ``(n, tok0, last, carry)``; the batch is padded to a power of two and
         the padding rows start done. ``constraint`` (an int, or one int per
         prompt) selects each row's grammar from ``config.constraints``; rows
         start at its DFA start state, and the carry gains the per-row state,
-        advanced past the first token, as its tail."""
+        advanced past the first token, as its tail. With ``prefix`` the
+        prompts are suffixes: :meth:`_start_with_prefix` prefills only them."""
         cfg = self.config
         if constraint is not None and self._cs is None:
             raise ValueError("constraint= requires GenerationConfig.constraints to be set")
         n = len(prompts)
+        if prefix is not None and any(len(p) == 0 for p in prompts):
+            # an empty suffix would condition on prefix + [pad_id] (lengths are
+            # clamped to >= 1); the prefix's last hidden row is not kept
+            raise ValueError("prompts must be non-empty when prefix= is given")
         lengths = np.array([max(len(p), 1) for p in prompts], np.int32)
         bucket = self._bucket(int(lengths.max()))
         batch = 1 << max(0, (n - 1).bit_length())
         tokens = np.full((batch, bucket), cfg.pad_id, np.int32)
         for i, p in enumerate(prompts):
             tokens[i, : len(p)] = np.asarray(p, np.int32)
+        state = None
+        if self._cs is not None:
+            starts = self._cs.start_states(self._grammar_ids(constraint, n, batch))
+            state = torch.as_tensor(starts, device=self.device)
+        if prefix is not None:
+            return self._start_with_prefix(prefix, tokens, lengths, batch, n, bucket, extra_cache, seed, state)
         all_lengths = np.ones((batch,), np.int32)
         all_lengths[:n] = lengths
         chunk = cfg.prefill_chunk
@@ -434,10 +493,6 @@ class Generator:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         row_valid = torch.arange(batch, device=self.device) < n
         lengths_t = torch.as_tensor(all_lengths, device=self.device)
-        state = None
-        if self._cs is not None:
-            starts = self._cs.start_states(self._grammar_ids(constraint, n, batch))
-            state = torch.as_tensor(starts, device=self.device)
         if chunk and bucket > chunk:
             last, cache = self._chunked_prefill_loop(tokens, lengths_t, cache, row_valid, chunk)
             tok0 = self._first_token(last, generator, state)
@@ -445,13 +500,41 @@ class Generator:
             tok0, cache, last = self._prefill(
                 torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid, state
             )
-        eos = cfg.eos_id
+        return self._finish_prefill(n, tok0, last, cache, lengths_t, row_valid, generator, state)
+
+    def _finish_prefill(self, n, tok0, last, cache, lengths_t, row_valid, generator, state):
+        eos = self.config.eos_id
         done = (tok0 == eos) if eos is not None else torch.zeros_like(row_valid)
         done = done | ~row_valid  # synthetic batch-padding rows emit pads, never advance
         carry = (cache, tok0, lengths_t, done, generator)
         if state is not None:
             carry += (self._cs_trans[state.long(), tok0.long()],)
         return n, tok0, last, carry
+
+    def _start_with_prefix(self, prefix: PrefixCache, tokens: np.ndarray, lengths: np.ndarray, batch: int, n: int,
+                           bucket: int, extra_cache: int, seed: int, state):
+        """Prefill only the per-request suffix: the prefix's K/V rows are
+        pasted into slots ``[0, p0)`` of every cache row and the suffix flows
+        through the chunked prefill with positions starting at ``p0`` (RoPE
+        phases and visibility continue where the prefix left off)."""
+        cfg = self.config
+        p0 = prefix.length
+        chunk = cfg.prefill_chunk or bucket
+        aligned = chunk_aligned(bucket, chunk)
+        if aligned > tokens.shape[1]:
+            tokens = np.pad(tokens, ((0, 0), (0, aligned - tokens.shape[1])), constant_values=cfg.pad_id)
+        cache_len = p0 + max(aligned, max(cfg.prompt_buckets, default=0)) + cfg.max_new_tokens + extra_cache
+        cache = init_cache(self.model.config, batch, cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        cache = _paste_prefix_rows(cache, prefix.layers)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        row_valid = torch.arange(batch, device=self.device) < n
+        # total length = prefix + suffix; padding rows pretend one suffix token
+        all_lengths = np.full((batch,), p0 + 1, np.int32)
+        all_lengths[:n] = p0 + lengths
+        lengths_t = torch.as_tensor(all_lengths, device=self.device)
+        last, cache = self._chunked_prefill_loop(tokens, lengths_t, cache, row_valid, chunk, start=p0)
+        tok0 = self._first_token(last, generator, state)
+        return self._finish_prefill(n, tok0, last, cache, lengths_t, row_valid, generator, state)
 
     @staticmethod
     def _grammar_ids(constraint: Any, n: int, batch: int) -> np.ndarray:
@@ -468,22 +551,17 @@ class Generator:
                 raise ValueError(f"constraint has {con.shape[0]} entries for {n} prompts")
         return gids
 
-    def _chunked_prefill_loop(self, tokens: np.ndarray, lengths, cache, row_valid, chunk: int):
+    def _chunked_prefill_loop(self, tokens: np.ndarray, lengths, cache, row_valid, chunk: int, start: int = 0):
         """Run right-padded ``tokens`` through :meth:`_prefill_chunk` in
-        ``chunk``-column slices, keeping each row's last-real-token hidden
-        state."""
+        ``chunk``-column slices whose absolute positions begin at ``start``,
+        keeping each row's last-real-token hidden state."""
         last = torch.zeros((tokens.shape[0], self.model.config.dim), dtype=torch.float32, device=self.device)
         for c in range(0, tokens.shape[1], chunk):
             chunk_last, has, cache = self._prefill_chunk(
-                torch.as_tensor(tokens[:, c : c + chunk], device=self.device), c, lengths, cache, row_valid
+                torch.as_tensor(tokens[:, c : c + chunk], device=self.device), start + c, lengths, cache, row_valid
             )
             last = torch.where(has[:, None], chunk_last, last)
         return last, cache
-
-    @staticmethod
-    def _unported(prefix: Any) -> None:
-        if prefix is not None:
-            raise NotImplementedError("prefix caches are not ported yet (ROADMAP.md, Queue A: prefix caches)")
 
     def _speculative(self):
         """The speculative engine behind ``config.draft``, built on first use:
@@ -497,18 +575,31 @@ class Generator:
 
     # ------------------------------------------------------------------ generate
 
+    def cache_prefix(self, prefix_tokens: Sequence[int]) -> PrefixCache:
+        """Prefill a shared prompt prefix once and return its K/V rows for
+        reuse: pass the result as ``prefix=`` to :meth:`__call__`,
+        :meth:`stream` or ``ContinuousBatcher`` and only the per-request
+        suffix is prefilled."""
+        p0 = len(prefix_tokens)
+        if p0 == 0:
+            raise ValueError("prefix_tokens must be non-empty")
+        _, _, _, carry = self._start([list(prefix_tokens)], 0)
+        layers = tuple({name: t[:1, :p0].clone() for name, t in layer.items()} for layer in carry[0])
+        return PrefixCache(layers=layers, length=p0, tokens=tuple(int(t) for t in prefix_tokens))
+
     def __call__(
-        self, prompts: Sequence[Sequence[int]], *, seed: int = 0, prefix: Any = None, constraint: Any = None
+        self, prompts: Sequence[Sequence[int]], *, seed: int = 0, prefix: Optional[PrefixCache] = None,
+        constraint: Any = None,
     ) -> np.ndarray:
         """Generate ``max_new_tokens`` per prompt; returns ``[len(prompts),
-        max_new]`` int32 (``pad_id`` after each example's ``eos_id``).
-        ``constraint`` (an int, or one int per prompt, indexing
-        ``config.constraints``; 0 = the FREE grammar) masks each row's
-        decoding by its grammar's token DFA."""
-        self._unported(prefix)
+        max_new]`` int32 (``pad_id`` after each example's ``eos_id``). With
+        ``prefix`` (from :meth:`cache_prefix`) the prompts are suffixes after
+        the shared prefix and only they are prefilled. ``constraint`` (an
+        int, or one int per prompt, indexing ``config.constraints``; 0 = the
+        FREE grammar) masks each row's decoding by its grammar's token DFA."""
         if self.config.draft is not None:
-            return self._speculative()(prompts, seed=seed, constraint=constraint)
-        n, tok0, _, carry = self._start(prompts, seed, constraint=constraint)
+            return self._speculative()(prompts, seed=seed, prefix=prefix, constraint=constraint)
+        n, tok0, _, carry = self._start(prompts, seed, prefix=prefix, constraint=constraint)
         steps = self.config.max_new_tokens - 1
         first = tok0.cpu().numpy()[:, None]
         if steps <= 0:
@@ -618,25 +709,25 @@ class Generator:
 
     def stream(
         self, prompts: Sequence[Sequence[int]], *, seed: int = 0, chunk_size: int = 16,
-        prefix: Any = None, constraint: Any = None,
+        prefix: Optional[PrefixCache] = None, constraint: Any = None,
     ) -> Iterator[np.ndarray]:
         """Yield ``[len(prompts), <=chunk_size]`` arrays of newly decoded tokens
         (the first yield is the prompt-sampled token); ends early once every
         row has emitted ``eos_id``. Total tokens equal ``__call__``'s, under
-        the same ``constraint``. With ``config.draft`` set, yields follow
-        :meth:`SpeculativeGenerator.stream`'s ragged shape (a list of per-row
-        1-D arrays): rows advance by whole rounds."""
-        self._unported(prefix)
+        the same ``prefix`` and ``constraint``. With ``config.draft`` set,
+        yields follow :meth:`SpeculativeGenerator.stream`'s ragged shape (a
+        list of per-row 1-D arrays): rows advance by whole rounds."""
         cfg = self.config
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         if cfg.draft is not None:
-            yield from self._speculative().stream(prompts, seed=seed, chunk_size=chunk_size, constraint=constraint)
+            yield from self._speculative().stream(prompts, seed=seed, chunk_size=chunk_size, prefix=prefix,
+                                                  constraint=constraint)
             return
         # the last chunk may overshoot max_new_tokens; give its cache writes room
         n_chunks = max(0, -(-(cfg.max_new_tokens - 1) // chunk_size))
         extra = n_chunks * chunk_size - (cfg.max_new_tokens - 1)
-        n, tok0, _, carry = self._start(prompts, seed, extra_cache=extra, constraint=constraint)
+        n, tok0, _, carry = self._start(prompts, seed, extra_cache=extra, constraint=constraint, prefix=prefix)
         yield tok0.cpu().numpy()[:n, None]
         produced = 1
         while produced < cfg.max_new_tokens:

@@ -32,13 +32,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from unionml_tpu_torch._device import DeviceLike
-from unionml_tpu_torch.models.generate import GenerationConfig, Generator, filtered_logits, policy_probs
+from unionml_tpu_torch.models.generate import GenerationConfig, Generator, PrefixCache, filtered_logits, policy_probs
 
 __all__ = ["SpeculativeGenerator", "rejection_step"]
 
@@ -127,6 +128,9 @@ class SpeculativeGenerator:
         self._target = target
         self._draft = draft
         self.device = target.device
+        #: the draft's rows of each target-side PrefixCache, keyed by id and
+        #: dropped with it (see :meth:`draft_prefix`)
+        self._draft_prefixes: dict = {}
 
     @classmethod
     def from_target(cls, target: Generator, draft: Any) -> "SpeculativeGenerator":
@@ -266,14 +270,41 @@ class SpeculativeGenerator:
 
     # ------------------------------------------------------------------ generate
 
-    def _start_state(self, prompts: Sequence[Sequence[int]], seed: int, constraint: Optional[Any] = None):
+    def draft_prefix(self, prefix: PrefixCache) -> PrefixCache:
+        """The DRAFT model's cache rows for a shared prefix: the draft
+        proposes and the target verifies conditioned on the system prompt,
+        and their layer shapes differ, so the draft prefills the same token
+        ids once here; the result is memoized per target-side PrefixCache
+        (weakly: it goes when that cache goes)."""
+        entry = self._draft_prefixes.get(id(prefix))
+        if entry is not None and entry[0]() is prefix:
+            return entry[1]
+        if prefix.tokens is None:
+            raise ValueError(
+                "prefix= with speculative decoding needs the prefix's token ids "
+                "(build it with cache_prefix(...); hand-built PrefixCaches "
+                "cannot be prefilled through the draft model)"
+            )
+        built = self._draft.cache_prefix(list(prefix.tokens))
+        self._draft_prefixes[id(prefix)] = (weakref.ref(prefix), built)
+        weakref.finalize(prefix, self._draft_prefixes.pop, id(prefix), None)
+        return built
+
+    def _start_state(self, prompts: Sequence[Sequence[int]], seed: int, constraint: Optional[Any] = None,
+                     prefix: Optional[PrefixCache] = None):
         """Prefill both models and assemble the loop state; the target's
         prompt-sampled token is emission #1 (the draft's is discarded). Both
         caches get ``gamma + 1`` rows of headroom for the last round's
-        verify writes."""
+        verify writes. With ``prefix`` each model gets its own prefix rows
+        and prefills only the suffix; lengths include the prefix, so the
+        rounds need no change."""
         cfg = self.config
-        n, tok0, _, t_carry = self._target._start(prompts, seed, extra_cache=self.gamma + 1, constraint=constraint)
-        _, _, _, d_carry = self._draft._start(prompts, seed, extra_cache=self.gamma + 1, constraint=constraint)
+        n, tok0, _, t_carry = self._target._start(prompts, seed, extra_cache=self.gamma + 1, constraint=constraint,
+                                                  prefix=prefix)
+        _, _, _, d_carry = self._draft._start(
+            prompts, seed, extra_cache=self.gamma + 1, constraint=constraint,
+            prefix=self.draft_prefix(prefix) if prefix is not None else None,
+        )
         batch = int(tok0.shape[0])
         out_buf = torch.full((batch, cfg.max_new_tokens + self.gamma + 1), cfg.pad_id, dtype=torch.int32,
                              device=self.device)
@@ -286,14 +317,17 @@ class SpeculativeGenerator:
                    seeded_streams(seed, self.device), *st)
 
     def __call__(
-        self, prompts: Sequence[Sequence[int]], *, seed: int = 0, constraint: Optional[Any] = None
+        self, prompts: Sequence[Sequence[int]], *, seed: int = 0, prefix: Optional[PrefixCache] = None,
+        constraint: Optional[Any] = None,
     ) -> np.ndarray:
         """Generate under the config's decoding policy: greedy output is
         exactly the target-only sequence, sampled output target-distributed.
-        ``constraint`` masks both the draft's proposals and the target's
-        verify by each row's DFA state."""
+        With ``prefix`` (from the target's ``cache_prefix``) the prompts are
+        suffixes after the shared prefix in both models. ``constraint`` masks
+        both the draft's proposals and the target's verify by each row's DFA
+        state."""
         cfg = self.config
-        n, state = self._start_state(prompts, seed, constraint=constraint)
+        n, state = self._start_state(prompts, seed, constraint=constraint, prefix=prefix)
         budget = torch.full_like(state[5], cfg.max_new_tokens)
         state = self._loop(state, budget, budget)
         self._count(state[7], state[8])
@@ -301,17 +335,17 @@ class SpeculativeGenerator:
 
     def stream(
         self, prompts: Sequence[Sequence[int]], *, seed: int = 0, chunk_size: int = 16,
-        constraint: Optional[Any] = None,
+        prefix: Optional[PrefixCache] = None, constraint: Optional[Any] = None,
     ) -> Iterator[List[np.ndarray]]:
         """Yield a LIST of ``len(prompts)`` 1-D int32 arrays of new tokens per
         row (the first yield is each row's prompt-sampled token). Rows advance
         by whole rounds, so chunks are ragged; each yield rolls rounds until
         every unfinished row has ``chunk_size`` more tokens. Token totals
-        equal :meth:`__call__`'s."""
+        equal :meth:`__call__`'s, ``prefix`` as there."""
         cfg = self.config
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
-        n, state = self._start_state(prompts, seed, constraint=constraint)
+        n, state = self._start_state(prompts, seed, constraint=constraint, prefix=prefix)
         prev = np.ones((n,), np.int64)
         first = state[6][:n, :1].cpu().numpy()
         yield [first[i] for i in range(n)]

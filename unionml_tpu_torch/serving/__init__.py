@@ -5,9 +5,10 @@ The port's counterpart of ``unionml_tpu/serving``: ``serving_app`` registers
 ``POST /predict``, ``POST /predict-stream``, the OpenAI-compatible ``/v1/*``
 routes, ``GET /health``, ``/healthz``, ``/metrics`` and the debug routes on a
 small stdlib-asyncio HTTP server, with a micro-batching queue between the
-socket and the device. The replica layer, the multi-host cluster, the radix
-prefix cache and the AOT program store are not ported yet (ROADMAP.md,
-Queue A).
+socket and the device; the continuous engine admits in chunks and reuses
+shared prefixes (a static ``prefix=`` and the radix prefix cache,
+``serving/prefix_cache.py``). The replica layer, the multi-host cluster and
+the AOT program store are not ported yet (ROADMAP.md, Queue A).
 """
 
 from unionml_tpu_torch.serving.app import ServingApp, serving_app
@@ -23,6 +24,7 @@ from unionml_tpu_torch.serving.overload import (
     current_deadline,
     expired,
 )
+from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from unionml_tpu_torch.serving.tenancy import TenantRegistry, TenantSpec, current_priority, current_tenant
 
 __all__ = [
@@ -33,6 +35,7 @@ __all__ = [
     "LatencyWindow",
     "MicroBatcher",
     "QueueFullError",
+    "RadixPrefixCache",
     "ServingApp",
     "ServingConfig",
     "ServingMetrics",

@@ -1,15 +1,24 @@
 """Continuous (in-flight) batching for generation serving.
 
-Counterpart of the monolithic-admission subset of
-``unionml_tpu/serving/continuous.py``: dense slots or a paged KV pool with a
-scratch block, lazy block growth and recompute preemption.
+Counterpart of ``unionml_tpu/serving/continuous.py`` without its replica
+roles and AOT store: dense slots or a paged KV pool with a scratch block,
+lazy block growth and recompute preemption, chunked admission, a static
+shared prefix and the radix prefix cache.
 
 - The engine owns ``slots`` cache rows (dense ``[S, cache_len, ...]`` per
   layer, or a shared pool of ``block_size`` blocks addressed through a block
   table) plus the decode carry (``tok/lengths/done`` per slot).
 - **Join at prefill**: an arriving prompt prefills through the Generator at
   batch 1 into a fresh ``[1, cache_len]`` row, which is pasted (dense) or
-  scattered through the slot's table (paged) between decode chunks.
+  scattered through the slot's table (paged) between decode chunks. With
+  ``admit_chunk`` the prefill runs ``admit_chunk`` columns at a time, at most
+  ``prefill_budget`` columns between two decode dispatches, with up to
+  ``max_admissions`` prompts in flight.
+- **Shared prefixes**: ``prefix=`` (a ``PrefixCache``) is pasted into every
+  row (its full blocks seeded once into the pool and shared by every table);
+  ``prefix_cache=True`` publishes admitted prompts' full blocks into a radix
+  tree (serving/prefix_cache.py), and a later prompt that extends a cached
+  run gathers it from the pool and prefills only the rest.
 - **Shared decode**: a background engine thread runs the Generator's decode
   for ``decode_chunk`` steps over ALL slots and routes each row's new tokens
   to its request's queue.
@@ -65,13 +74,22 @@ from unionml_tpu_torch.defaults import (
     serve_prefix_cache,
     serve_replica_roles,
 )
-from unionml_tpu_torch.models.generate import Generator, init_cache, init_paged_cache
+from unionml_tpu_torch.models.generate import (
+    Generator,
+    PrefixCache,
+    _paste_prefix_rows,
+    chunk_aligned,
+    gather_paged_rows,
+    init_cache,
+    init_paged_cache,
+)
 from unionml_tpu_torch.models.speculative import seeded_streams
 from unionml_tpu_torch.observability.slo import SLOConfig, SLOTracker, TenantSLORegistry
 from unionml_tpu_torch.observability.timeseries import EngineTimeseries
 from unionml_tpu_torch.observability.trace import current_trace
 from unionml_tpu_torch.serving.metrics import LatencyWindow
 from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, TenantThrottled, expired
+from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
 from unionml_tpu_torch.serving.tenancy import (
     PRIORITY_HIGH,
     PRIORITY_NORMAL,
@@ -87,10 +105,9 @@ __all__ = ["ContinuousBatcher"]
 logger = logging.getLogger(__name__)
 
 #: engine options of the JAX package that later slices of the port bring
-#: (static shared prefixes, disaggregated roles, the AOT store), each with the
-#: title of its ROADMAP.md Queue A item; chunked admission and the radix cache
-#: are resolved as in JAX and refused below
-_UNPORTED = {"prefix": "prefix caches", "role": "parallelism and the replica layer", "aot": "the rest"}
+#: (disaggregated roles, the AOT store), each with the title of its
+#: ROADMAP.md Queue A item
+_UNPORTED = {"role": "parallelism and the replica layer", "aot": "the rest"}
 
 _SENTINEL = object()
 
@@ -134,8 +151,20 @@ class _Session:
     deadline: Optional[float] = None
     created_at: float = 0.0
     last_emit: Optional[float] = None
-    #: block-table entries assigned (paged mode); lazy growth appends here
+    #: leading block-table entries that are SHARED (the static prefix's
+    #: pages, or radix-cached runs): read-only to this stream, so the
+    #: admission scatter diverts their writes to scratch
+    shared_blocks: int = 0
+    #: block-table entries assigned (shared + private, in table order); lazy
+    #: growth appends here. Ownership of an entry's block can move to the
+    #: radix tree without changing the table, so this is the growth cursor
     table_len: int = 0
+    #: radix-tree block ids this session holds pinned while its table reads
+    #: them; released on finish/cancel/preempt
+    pins: "List[int]" = dataclasses.field(default_factory=list)
+    #: the block ids behind the first ``table_len`` table entries (paged
+    #: mode), which the radix publish at finish reads
+    table: "List[int]" = dataclasses.field(default_factory=list)
     #: grammar id in the generator's ConstraintSet (0 = FREE)
     grammar: int = 0
     #: submit(logprobs=True): each emitted token's log-probability lands in
@@ -152,8 +181,11 @@ class _Session:
 
 @dataclasses.dataclass(eq=False)
 class _Admission:
-    """One admission: a slot-holding prompt whose batch-1 prefill runs as a
-    single step (monolithic admission), then pastes into the pool."""
+    """One in-flight admission: a slot-holding prompt whose prefill may be
+    partly done. With ``admit_chunk`` set the engine steps it one chunk at
+    a time between decode dispatches; otherwise (or for an exact-width
+    resume whose aligned width would overflow the row) the whole prefill
+    runs as one step."""
 
     session: _Session
     prompt: "List[int]"
@@ -161,15 +193,32 @@ class _Admission:
     seed: int
     budget: int  # this request's remaining generation budget
     blocks_row: Optional[np.ndarray]  # paged-mode block table row (None = dense)
-    tok0: Any = None
-    row_len: Any = None
-    row_cache: Any = None
-    d_row_cache: Any = None  # the draft model's row (speculative mode)
+    # chunked-prefill progress (set by _admission_begin)
+    chunk: int = 0  # 0 = monolithic (single-step) admission
+    width: int = 0  # chunk-aligned prefill width
+    pos: int = 0  # next column to prefill
+    start: int = 0  # absolute offset of column 0 (the shared prefix length)
+    tokens: Optional[np.ndarray] = None  # [1, width] padded prompt
+    lengths: Any = None  # device [1] absolute sequence length
+    generator: Any = None  # the first token's sampling stream
+    row_valid: Any = None
     #: the request's DFA state at this admission (None = unconstrained
     #: generator): the grammar's start, walked through the echo on a resume
     dfa_state: Optional[int] = None
-    #: last-token hidden row ``[1, dim]`` f32, for the first token's logprob
+    row_cache: Any = None  # the target's [1, cache_len] row (filling up)
+    #: last-real-token hidden row ``[1, dim]`` f32 (accumulated over chunks;
+    #: also the first token's logprob input)
     last: Any = None
+    d_row_cache: Any = None  # the draft model's row, chunked in lockstep
+    # radix prefix cache: tokens of the logical sequence already cached (>
+    # the prefix length on a hit) and the matched block ids, scratch-padded,
+    # that the dense-row gather reads
+    cached: int = 0
+    gather_row: Optional[np.ndarray] = None
+    # completion products consumed by _finalize_admission
+    tok0: Any = None
+    row_len: Any = None
+    done: bool = False
 
 
 class _TokenStream:
@@ -231,13 +280,24 @@ class ContinuousBatcher:
     ``None``/``True`` (read the ``UNIONML_TPU_SLO_*`` exports) or ``False``
     (no windowed telemetry); ``tenancy`` pins a ``TenantRegistry`` (else the
     process-wide one the serving app installs is read at each submit).
-    ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
-    ``prefix_cache`` resolve as in the JAX engine (the kwarg, else the serve
-    CLI's env export); the port admits monolithically without a radix cache
-    and raises ``NotImplementedError`` for a value that selects either. It
-    raises the same where the serve CLI's ``UNIONML_TPU_DP_REPLICAS`` or
-    ``UNIONML_TPU_REPLICA_ROLES`` asks for more than one replica, where the
-    JAX engine would build a fleet, and for any ``roles=``.
+    ``admit_chunk`` enables stall-free admission: the prefill runs in
+    ``admit_chunk``-token chunks interleaved with decode dispatches, at most
+    ``prefill_budget`` prefill tokens an engine iteration (default one
+    chunk), with up to ``max_admissions`` partly prefilled prompts in
+    flight; each resolves as in the JAX engine (the kwarg, else the serve
+    CLI's env export, else for the chunk ``GenerationConfig.prefill_chunk``).
+    ``prefix`` (a ``PrefixCache`` from ``generator.cache_prefix``) is a
+    server-wide prompt prefix: every submitted prompt is a suffix after it.
+    ``prefix_cache=True`` (paged mode; default ``UNIONML_TPU_PREFIX_CACHE``)
+    turns on the radix prefix cache: admitted prompts' full blocks are
+    published into a radix tree, later prompts extending a cached run skip
+    its prefill, cached blocks are pinned while a resident reads them,
+    copied on write where a prompt diverges inside a shared block and
+    evicted LRU under pool pressure; ``stats()["prefix_cache"]`` carries its
+    counters. The port raises ``NotImplementedError`` where the serve CLI's
+    ``UNIONML_TPU_DP_REPLICAS`` or ``UNIONML_TPU_REPLICA_ROLES`` asks for
+    more than one replica, where the JAX engine would build a fleet, and
+    for any ``roles=``.
     """
 
     def __init__(
@@ -246,6 +306,7 @@ class ContinuousBatcher:
         *,
         slots: int = 4,
         decode_chunk: int = 8,
+        prefix: Optional[PrefixCache] = None,
         block_size: Optional[int] = None,
         pool_blocks: Optional[int] = None,
         max_waiting: Optional[int] = None,
@@ -271,7 +332,6 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A: {_UNPORTED[name]})"
                 )
-        self._resolve_admission(generator, admit_chunk, prefill_budget, max_admissions, prefix_cache, block_size)
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if decode_chunk < 1:
@@ -280,6 +340,12 @@ class ContinuousBatcher:
             raise ValueError("block_size must be >= 1")
         if max_waiting is not None and max_waiting < 1:
             raise ValueError("max_waiting must be >= 1")
+        if admit_chunk is not None and admit_chunk < 0:
+            raise ValueError("admit_chunk must be >= 0 (0 = monolithic admission)")
+        if prefill_budget is not None and prefill_budget < 0:
+            raise ValueError("prefill_budget must be >= 0 (0 = one chunk per iteration)")
+        if max_admissions is not None and max_admissions < 0:
+            raise ValueError("max_admissions must be >= 0 (0 = default of 1)")
         cfg = generator.config
         self.gen = generator
         self.device = generator.device
@@ -288,6 +354,19 @@ class ContinuousBatcher:
         #: submit() captured from its context; the HTTP layer's tracing switch
         #: decides whether a trace EXISTS, False opts this engine out
         self.trace_requests = True if trace is None else bool(trace)
+        #: stall-free admission: the kwarg, else the serve CLI's export, else
+        #: the model's own prefill_chunk; 0/None = monolithic admission
+        if admit_chunk is None:
+            admit_chunk = serve_admit_chunk() or (cfg.prefill_chunk or 0)
+        self.admit_chunk: Optional[int] = int(admit_chunk) or None
+        #: prefill tokens an engine iteration between decode dispatches
+        if prefill_budget is None:
+            prefill_budget = serve_prefill_budget()
+        self.prefill_budget: Optional[int] = int(prefill_budget) or self.admit_chunk or None
+        #: partly prefilled admissions in flight (chunked mode only)
+        if max_admissions is None:
+            max_admissions = serve_max_admissions()
+        self.max_admissions = max(int(max_admissions), 1) if max_admissions else 1
         self.slots = slots
         self.decode_chunk = decode_chunk
         #: speculative mode: with ``config.draft`` set, resident rows advance
@@ -296,13 +375,64 @@ class ContinuousBatcher:
         #: and verify dispatches and each greedy stream still equals its solo
         #: target-only run
         self._spec = generator._speculative() if cfg.draft is not None else None
-        #: room for every bucketed prompt, the full budget and the overshoot:
-        #: one chunk of decode, or one round's gamma + 1 verify writes in
-        #: speculative mode (which never runs the plain decode)
+        if prefix is not None and not isinstance(prefix, PrefixCache):
+            raise TypeError(f"prefix must be a PrefixCache (from generator.cache_prefix), got {type(prefix).__name__}")
+        #: the draft needs the system prompt in ITS cache too, prefilled once
+        #: here from the prefix's token ids
+        self._draft_prefix = self._spec.draft_prefix(prefix) if self._spec is not None and prefix is not None else None
+        self.prefix = prefix
+        #: the static prefix's length: where each prompt's own tokens start
+        self._p0 = p0 = prefix.length if prefix is not None else 0
+        #: room for the prefix, every bucketed prompt, the full budget and the
+        #: overshoot: one chunk of decode, or one round's gamma + 1 verify
+        #: writes in speculative mode (which never runs the plain decode)
         self._overshoot = self._spec.gamma + 1 if self._spec is not None else decode_chunk
         widest = max(cfg.prompt_buckets, default=64)
-        self.cache_len = widest + cfg.max_new_tokens + self._overshoot
+        buckets = cfg.prompt_buckets or (widest,)
+        self.cache_len = p0 + widest + cfg.max_new_tokens + self._overshoot
+        # each aligned prefill writes its whole chunk-aligned width at [p0,
+        # p0 + aligned): the rows must hold the widest aligned bucket
+        if prefix is not None and cfg.prefill_chunk:
+            self.cache_len = max(self.cache_len, p0 + max(chunk_aligned(b, cfg.prefill_chunk) for b in buckets))
+        if self.admit_chunk:
+            self.cache_len = max(self.cache_len, p0 + max(chunk_aligned(b, self.admit_chunk) for b in buckets))
+        #: the radix prefix cache: the kwarg, else UNIONML_TPU_PREFIX_CACHE;
+        #: paged mode only (the env default warns on a dense engine, where an
+        #: explicit True is a usage error)
+        if prefix_cache is None:
+            enable_radix = serve_prefix_cache()
+            if enable_radix and block_size is None:
+                # as in JAX: a fleet-wide export must not crash dense engines
+                logger.warning(
+                    "UNIONML_TPU_PREFIX_CACHE is set but this engine is not paged (block_size=None); prefix "
+                    "caching disabled"
+                )
+                enable_radix = False
+        else:
+            enable_radix = bool(prefix_cache)
+            if enable_radix and block_size is None:
+                raise ValueError("prefix_cache=True requires paged KV (block_size=...)")
+        if enable_radix:
+            if cfg.draft is not None:
+                raise ValueError("prefix_cache does not compose with speculative decoding (config.draft) yet")
+            if prefix is not None and prefix.tokens is None:
+                raise ValueError(
+                    "prefix_cache with a shared prefix needs its token ids (build the PrefixCache with "
+                    "generator.cache_prefix) so the prefix joins the radix key"
+                )
+            #: cache hits always prefill chunked, from an arbitrary start;
+            #: block_size is the last fallback for engines without chunking
+            self._radix_chunk = self.admit_chunk or (cfg.prefill_chunk or 0) or block_size
+            # a hit's suffix is chunk-aligned from a non-aligned start, which
+            # can reach one chunk past the cold path's widest aligned write
+            aligned = max(chunk_aligned(b, self._radix_chunk) for b in buckets)
+            self.cache_len = max(self.cache_len, p0 + aligned + self._radix_chunk)
+        else:
+            self._radix_chunk = 0
         self.block_size = block_size
+        #: the static prefix's FULL blocks: written once into the pool, every
+        #: slot's table points at them, nothing writes them again
+        self._shared_prefix_blocks: "List[int]" = []
         if block_size is not None:
             self.max_blocks = -(-self.cache_len // block_size)
             self.pool_blocks = pool_blocks if pool_blocks is not None else slots * self.max_blocks
@@ -326,8 +456,18 @@ class ContinuousBatcher:
             self._kv_dtype_label = cfg.kv_cache_dtype or str(mcfg.dtype).replace("torch.", "")
             self._free_blocks: "List[int]" = list(range(self.pool_blocks))
             self._slot_blocks: Dict[int, "List[int]"] = {}
+            if prefix is not None:
+                # (pool >= max_blocks covers shared + one worst-case private run)
+                self._shared_prefix_blocks = [self._free_blocks.pop(0) for _ in range(prefix.length // block_size)]
         elif pool_blocks is not None:
             raise ValueError("pool_blocks requires block_size (paged mode)")
+        #: the radix tree over paged blocks (None = prefix caching off); the
+        #: static prefix's full blocks are its permanently pinned root run
+        self._radix: Optional[RadixPrefixCache] = None
+        if enable_radix:
+            self._radix = RadixPrefixCache(block_size)
+            self._insert_static_run_locked()
+            self._radix.pin(self._shared_prefix_blocks)
         self._lock = threading.Condition()
         self._pending: "List[tuple]" = []  # (prompt, session) awaiting a free slot
         self._admissions: "List[_Admission]" = []
@@ -343,9 +483,18 @@ class ContinuousBatcher:
         self.decode_dispatches = 0
         self.decoded_rows = 0
         self.preemptions = 0
-        #: admissions that ran as one prefill (every admission: chunked
-        #: admission is not ported, so ``stats()["prefill"]["chunks"]`` stays 0)
+        #: stall-free-admission telemetry: chunked prefill steps, the tokens
+        #: they ran, and admissions that ran as one prefill
+        self.prefill_chunks = 0
+        self.prefill_chunk_tokens = 0
         self.prefill_monolithic = 0
+        #: prefix-cache telemetry (absent from stats() when the cache is
+        #: off): admissions served partly from cache or not, prompt tokens
+        #: whose prefill was skipped, partly shared tail blocks copied on write
+        self.prefix_cache_hits = 0
+        self.prefix_cache_misses = 0
+        self.prefix_cache_tokens_avoided = 0
+        self.prefix_cache_cow = 0
         #: TTFT (submit -> first token) and TBT (gap between emissions)
         self._ttft = LatencyWindow()
         self._tbt = LatencyWindow()
@@ -376,8 +525,9 @@ class ContinuousBatcher:
         self._health_lock = threading.Lock()
         self._health_cache: "Optional[tuple]" = None
         self._health_ttl = 0.5
-        #: token-weighted load normalizer: one widest bucket of queued prefill
-        #: counts as one unit of scheduling load (the DRR quantum too)
+        #: token-weighted load normalizer: one admit chunk (or one widest
+        #: bucket) of queued prefill counts as one unit of scheduling load
+        #: (the DRR quantum too)
         self._load_norm = float(self.admit_chunk or widest)
         #: overload counters: waiting-queue-full sheds and deadline sheds
         self.shed_queue_full = 0
@@ -412,53 +562,6 @@ class ContinuousBatcher:
                 "(ROADMAP.md, Queue A: parallelism and the replica layer)"
             )
 
-    def _resolve_admission(self, generator, admit_chunk, prefill_budget, max_admissions, prefix_cache,
-                           block_size) -> None:
-        """Resolve the admission options as the JAX engine does: each
-        constructor kwarg, else the serve CLI's env export, else (for the
-        chunk) the Generator's ``prefill_chunk``. The port admits
-        monolithically, without a radix cache: a value that selects chunked
-        admission or the cache raises, naming where it came from."""
-
-        def resolve(name, value, read, env_var):
-            if value is not None:
-                return value, f"{name}={value}"
-            value = read()
-            return value, f"{env_var}={value}"
-
-        chunk, chunk_from = resolve("admit_chunk", admit_chunk, serve_admit_chunk, "UNIONML_TPU_ADMIT_CHUNK")
-        if admit_chunk is None and not chunk and generator.config.prefill_chunk:
-            chunk, chunk_from = generator.config.prefill_chunk, f"prefill_chunk={generator.config.prefill_chunk}"
-        budget, budget_from = resolve("prefill_budget", prefill_budget, serve_prefill_budget,
-                                      "UNIONML_TPU_PREFILL_BUDGET")
-        cap, cap_from = resolve("max_admissions", max_admissions, serve_max_admissions, "UNIONML_TPU_MAX_ADMISSIONS")
-        self.admit_chunk: Optional[int] = int(chunk) or None
-        self.prefill_budget: Optional[int] = int(budget) or self.admit_chunk or None
-        self.max_admissions = max(int(cap), 1) if cap else 1
-        for selects, source in ((self.admit_chunk, chunk_from), (int(budget), budget_from),
-                                (self.max_admissions > 1, cap_from)):
-            if selects:
-                raise NotImplementedError(
-                    f"ContinuousBatcher: {source} selects chunked admission, which is not ported yet "
-                    "(ROADMAP.md, Queue A: chunked admission)"
-                )
-        if prefix_cache:
-            raise NotImplementedError(
-                "ContinuousBatcher prefix_cache= is not ported yet (ROADMAP.md, Queue A: prefix caches)"
-            )
-        if prefix_cache is None and serve_prefix_cache():
-            if block_size is None:
-                # as in JAX: a fleet-wide export must not crash dense engines
-                logger.warning(
-                    "UNIONML_TPU_PREFIX_CACHE is set but this engine is not paged (block_size=None); prefix "
-                    "caching disabled"
-                )
-            else:
-                raise NotImplementedError(
-                    "ContinuousBatcher: UNIONML_TPU_PREFIX_CACHE selects the radix prefix cache, which is not "
-                    "ported yet (ROADMAP.md, Queue A: prefix caches)"
-                )
-
     # ------------------------------------------------------------------ device fns
 
     @staticmethod
@@ -473,18 +576,25 @@ class ContinuousBatcher:
         done[slot] = False
 
     @staticmethod
-    def _paged_admit_impl(cache, row_cache, tok, lengths, done, slot, row_tok, row_len, blocks_row) -> None:
+    def _paged_admit_impl(cache, row_cache, tok, lengths, done, slot, row_tok, row_len, blocks_row,
+                          skip: int = 0) -> None:
         """Point slot ``slot``'s table row at ``blocks_row`` and scatter the
         dense ``[1, cache_len]`` row into those blocks, in place.
         ``blocks_row`` is scratch-padded past the allocation, so the row's
         unused tail lands in the scratch block, never in another request's
         pages; those colliding writes leave scratch holding arbitrary rows,
-        which nothing reads as live data."""
+        which nothing reads as live data. The first ``skip`` blocks' writes
+        go to scratch too: those entries are SHARED pages (the static
+        prefix's, or radix-cached runs) that already hold exactly these rows
+        and other rows read."""
         table = cache[0]["table"]  # one table tensor shared by every layer
         block_size = cache[0]["k"].shape[2]  # pools are heads-major [H_kv, NB, bs, last]
+        scratch = cache[0]["k"].shape[1] - 1  # scratch is the last pool block
         blocks = torch.as_tensor(blocks_row, dtype=torch.int32, device=table.device)
         pos = torch.arange(row_cache[0]["k"].shape[1], device=table.device)
         blk, off = blocks[pos // block_size].long(), pos % block_size
+        if skip:
+            blk = torch.where(pos < skip * block_size, scratch, blk)
         table[slot] = blocks
         for layer, row in zip(cache, row_cache):
             for name in row:
@@ -493,22 +603,39 @@ class ContinuousBatcher:
         lengths[slot] = row_len[0]
         done[slot] = False
 
-    def _init_pool(self, model_config: Any) -> tuple:
+    def _seed_shared_prefix(self, cache: tuple, prefix_layers: tuple) -> None:
+        """Write the prefix's FULL blocks into a pool once, in place; every
+        admission's table then points at these ids and nothing writes them
+        again (decode writes start at ``lengths >= p0``)."""
+        ids = torch.as_tensor(self._shared_prefix_blocks, dtype=torch.long, device=self.device)
+        width = len(self._shared_prefix_blocks) * self.block_size
+        pos = torch.arange(width, device=self.device)
+        blk, off = ids[pos // self.block_size], pos % self.block_size
+        with torch.no_grad():
+            for layer, pre in zip(cache, prefix_layers):
+                for name, rows in pre.items():  # pools heads-major; prefix rows [1, p0, H, last]
+                    layer[name][:, blk, off] = rows[0, :width].transpose(0, 1).to(layer[name].dtype)
+
+    def _init_pool(self, model_config: Any, prefix: Optional[PrefixCache] = None) -> tuple:
         """A zeroed KV cache of the engine's geometry for one model: the
         dense ``[slots, cache_len]`` rows or the paged pool (``pool_blocks +
         1`` blocks: the extra one is scratch; the table starts all-scratch so
-        never-admitted slots' ride-along writes are harmless)."""
+        never-admitted slots' ride-along writes are harmless), with
+        ``prefix``'s full blocks seeded into the pool."""
         kv_dtype = self.gen.config.kv_cache_dtype
         if self.block_size is not None:
-            return init_paged_cache(
+            cache = init_paged_cache(
                 model_config, self.slots, self.pool_blocks + 1, self.block_size, self.max_blocks,
                 kv_dtype=kv_dtype, fill_block=self._scratch_block, device=self.device,
             )
+            if self._shared_prefix_blocks:
+                self._seed_shared_prefix(cache, prefix.layers)
+            return cache
         return init_cache(model_config, self.slots, self.cache_len, kv_dtype=kv_dtype, device=self.device)
 
     def _init_carry(self) -> tuple:
         cfg = self.gen.config
-        cache = self._init_pool(self.gen.model.config)
+        cache = self._init_pool(self.gen.model.config, self.prefix)
         tok = torch.zeros((self.slots,), dtype=torch.int32, device=self.device)
         lengths = torch.ones((self.slots,), dtype=torch.int32, device=self.device)
         done = torch.ones((self.slots,), dtype=torch.bool, device=self.device)  # every slot starts free
@@ -518,7 +645,7 @@ class ContinuousBatcher:
         if self._spec is None:
             generator = torch.Generator(device=self.device).manual_seed(self._seed)
             return (cache, tok, lengths, done, generator, *tail)
-        d_cache = self._init_pool(self._spec._draft.model.config)
+        d_cache = self._init_pool(self._spec._draft.model.config, self._draft_prefix)
         if self.block_size is not None:
             # the draft's pool has the same BLOCK COUNT (other shapes), so one
             # host allocation addresses both; its layers hold the target's
@@ -535,40 +662,60 @@ class ContinuousBatcher:
                 seeded_streams(self._seed, self.device), *tail)
 
     def _prefill_row(self, prompt: Sequence[int], seed: int, budget: Optional[int] = None,
-                     dfa_state: Optional[int] = None, gen: Optional[Generator] = None):
+                     dfa_state: Optional[int] = None, gen: Optional[Generator] = None,
+                     prefix: Optional[PrefixCache] = None):
         """Prefill one prompt at batch 1 into a fresh ``[1, cache_len]`` cache
         with the Generator's own prefill, the first token masked by
-        ``dfa_state`` when given. Returns ``(tok0, lengths, row_cache, last)``
-        (``last``: the last-token hidden row, f32). ``budget`` is THIS
-        request's remaining token budget; ``gen`` overrides the model
-        (speculative mode prefills the draft's row too)."""
-        gen = gen or self.gen
+        ``dfa_state`` when given. With a shared prefix its rows are pasted
+        at ``[0, p0)`` and the prompt (a suffix) flows through the offset
+        chunked prefill, as ``Generator.__call__(..., prefix=...)`` does.
+        Returns ``(tok0, lengths, row_cache, last)`` (``last``: the
+        last-token hidden row, f32). ``budget`` is THIS request's remaining
+        token budget; ``gen``/``prefix`` override the model and its prefix
+        rows (speculative mode prefills the draft's row too)."""
+        if gen is None:
+            gen, prefix = self.gen, self.prefix
         cfg = gen.config
         if budget is None:
             budget = cfg.max_new_tokens
+        p0 = self._p0  # the draft's prefix has the same length
         bucket = self._prefill_width(prompt, budget)
         tokens = np.full((1, bucket), cfg.pad_id, np.int32)
         tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
-        lengths = torch.tensor([max(len(prompt), 1)], dtype=torch.int32, device=self.device)
+        lengths = torch.tensor([p0 + max(len(prompt), 1)], dtype=torch.int32, device=self.device)
         row_cache = init_cache(gen.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         row_valid = torch.ones((1,), dtype=torch.bool, device=self.device)
         state = None if dfa_state is None else torch.tensor([dfa_state], dtype=torch.int32, device=self.device)
-        tok0, row_cache, last = gen._prefill(
-            torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid, state
-        )
+        if prefix is not None:
+            chunk = cfg.prefill_chunk or bucket
+            aligned = chunk_aligned(bucket, chunk)
+            if p0 + aligned > self.cache_len:  # the constructor sizes for every bucket; this guards others
+                raise ValueError(
+                    f"chunk-aligned prefill width {aligned} + prefix {p0} exceeds cache_len {self.cache_len}"
+                )
+            if aligned > bucket:
+                tokens = np.pad(tokens, ((0, 0), (0, aligned - bucket)), constant_values=cfg.pad_id)
+            row_cache = _paste_prefix_rows(row_cache, prefix.layers)
+            last, row_cache = gen._chunked_prefill_loop(tokens, lengths, row_cache, row_valid, chunk, start=p0)
+            tok0 = gen._first_token(last, generator, state)
+        else:
+            tok0, row_cache, last = gen._prefill(
+                torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid, state
+            )
         return tok0, lengths, row_cache, last
 
     def _prefill_width(self, prompt: Sequence[int], budget: int) -> int:
         """The prefill's padded width: the prompt's bucket, or its exact
         length where a PREEMPTED request resumed as prompt + emitted tokens
         outgrows every bucket while still fitting the cache contiguously."""
+        p0 = self._p0
         bucket = self.gen._bucket(max(len(prompt), 1))
-        if bucket + budget > self.cache_len:
+        if p0 + bucket + budget > self.cache_len:
             exact = max(len(prompt), 1)
-            if exact + budget > self.cache_len:
+            if p0 + exact + budget > self.cache_len:
                 raise ValueError(
-                    f"prompt of length {len(prompt)} needs bucket {bucket} + {budget} new tokens "
+                    f"prompt of length {len(prompt)} needs prefix {p0} + bucket {bucket} + {budget} new tokens "
                     f"> cache_len {self.cache_len}"
                 )
             bucket = exact
@@ -588,29 +735,140 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------------ block allocator
 
-    def _blocks_for_tokens(self, tokens: int) -> int:
-        """Blocks (= block-table entries) covering positions ``[0, tokens)``.
-        The prefill scatter also writes the bucket's pad columns, but those
-        are hidden by the ``slot <= position`` mask until decode overwrites
-        them in order, so they may land in the scratch block."""
+    def _table_entries(self, tokens: int) -> int:
+        """Block-table entries covering positions ``[0, tokens)``."""
         return -(-tokens // self.block_size)
 
-    def _blocks_initial(self, prompt: Sequence[int], budget: int) -> int:
-        """Blocks an ADMISSION needs: prompt + one chunk of lookahead, capped
-        at the request's remaining budget — the target the first growth pass
-        demands, so a fresh admission is never admit-then-instantly-preempted."""
+    def _blocks_for_tokens(self, tokens: int, shared: Optional[int] = None) -> int:
+        """Private (non-shared) blocks covering positions ``[0, tokens)``.
+        The prefill scatter also writes the bucket's pad columns, but those
+        are hidden by the ``slot <= position`` mask until decode overwrites
+        them in order, so they may land in the scratch block. The ``shared``
+        leading entries (default: the static prefix's pages) are excluded."""
+        if shared is None:
+            shared = len(self._shared_prefix_blocks)
+        return max(0, self._table_entries(tokens) - shared)
+
+    def _blocks_initial(self, prompt: Sequence[int], budget: int, shared: Optional[int] = None) -> int:
+        """Blocks an ADMISSION needs: prefix + prompt + one chunk of
+        lookahead, capped at the request's remaining budget, the target the
+        first growth pass demands, so a fresh admission is never
+        admit-then-instantly-preempted."""
+        p0 = self._p0
         plen = max(len(prompt), 1)
-        tokens = min(plen + self.decode_chunk + self._overshoot, plen + budget - 1 + self._overshoot)
-        return self._blocks_for_tokens(tokens)
+        tokens = min(p0 + plen + self.decode_chunk + self._overshoot, p0 + plen + budget - 1 + self._overshoot)
+        return self._blocks_for_tokens(tokens, shared)
 
     def _blocks_lifetime(self, prompt: Sequence[int], budget: int) -> int:
-        """Worst-case blocks over a request's whole life."""
-        return self._blocks_for_tokens(max(len(prompt), 1) + budget + self._overshoot)
+        """Worst-case private blocks over a request's whole life."""
+        return self._blocks_for_tokens(self._p0 + max(len(prompt), 1) + budget + self._overshoot)
 
-    def _release_blocks_locked(self, slot: int) -> None:
-        """Return a slot's pool blocks to the allocator (caller holds the lock)."""
+    def _release_blocks_locked(self, slot: int, session: Optional[_Session] = None) -> None:
+        """Return a slot's PRIVATE pool blocks to the allocator and release
+        the session's radix pins (caller holds the lock). Tree-owned blocks
+        the session's table read stay cached, evictable again."""
         if self.block_size is not None:
             self._free_blocks.extend(self._slot_blocks.pop(slot, []))
+        if session is not None and session.pins:
+            self._radix.release(session.pins)
+            session.pins = []
+
+    def _reclaim_blocks_locked(self, n: int) -> None:
+        """Evict least-recently-used unpinned radix runs until ``n`` more
+        blocks are free (or nothing evictable remains), so cache pressure
+        resolves before admission waits and before preemption fires (caller
+        holds the lock)."""
+        if self._radix is None or n <= 0:
+            return
+        self._free_blocks.extend(self._radix.evict(n))
+
+    def _insert_static_run_locked(self) -> None:
+        """Insert the static prefix's full blocks as the tree's root run
+        (matches walk through it; the first admission caches its partial
+        tail block on top). The constructor pins them for good."""
+        if self._shared_prefix_blocks:
+            ids = list(self._shared_prefix_blocks)
+            self._radix.insert(list(self.prefix.tokens)[: len(ids) * self.block_size], ids)
+
+    def _radix_insert_locked(self, adm: _Admission, session: _Session) -> None:
+        """Publish a completed admission's full-token blocks into the radix
+        tree (caller holds the lock). Only blocks every position of which
+        holds a REAL token's K/V are insertable; the partial tail block stays
+        private. The transferred blocks' ownership moves to the tree and the
+        session keeps them pinned (its table still reads them) until
+        release."""
+        full = (self._p0 + max(len(adm.prompt), 1)) // self.block_size  # entries fully covered by real tokens
+        shared = session.shared_blocks
+        if full <= shared:
+            return
+        key = self._radix_key(adm.prompt)[: full * self.block_size]
+        kept = self._radix.insert(key, [int(b) for b in adm.blocks_row[:full]])
+        # a concurrent admission may have inserted a longer run first (kept >
+        # shared): entries [shared, kept) keep their private duplicates
+        lo, hi = max(kept, shared) - shared, full - shared
+        if lo >= hi:
+            return
+        alloc = self._slot_blocks.get(adm.slot, [])
+        transferred = alloc[lo:hi]
+        self._slot_blocks[adm.slot] = alloc[:lo] + alloc[hi:]
+        self._radix.pin(transferred)
+        session.pins.extend(transferred)
+
+    def _radix_publish_finished_locked(self, slot: int, session: _Session) -> None:
+        """Publish a FINISHED stream's prompt + generated tokens into the
+        radix tree (caller holds the lock): block-aligned only, and one token
+        short of the emissions (the last sampled token was never fed back,
+        so its K/V was never written). Leading blocks already in the tree are
+        kept; the generated tail's blocks leave the slot's allocation
+        unpinned, cached and evictable like any idle prefix."""
+        if not session.table or not session.prompt:
+            return
+        full = (self._p0 + len(session.prompt) + len(session.echo) - 1) // self.block_size
+        if full <= 0 or full > len(session.table):
+            return
+        key = self._radix_key(list(session.prompt) + list(session.echo))[: full * self.block_size]
+        entries = [int(b) for b in session.table[:full]]
+        kept = self._radix.insert(key, entries)
+        alloc = self._slot_blocks.get(slot)
+        if alloc is None:
+            return
+        for b in entries[kept:full]:
+            # blocks the session never owned privately are covered by kept
+            if b in alloc:
+                alloc.remove(b)
+
+    def _radix_reset_locked(self) -> None:
+        """Drop every cached run and zero the cache counters (caller holds
+        the lock; no stream may be live): warmup's probes must not leave
+        junk prefixes cached. The static prefix's blocks are re-seeded as
+        the root run."""
+        static = set(self._shared_prefix_blocks)
+        self._free_blocks.extend(b for b in self._radix.clear() if b not in static)
+        self._radix.evictions = 0
+        self._radix.evicted_blocks = 0
+        self._insert_static_run_locked()  # clear() keeps the pins
+        self.prefix_cache_hits = 0
+        self.prefix_cache_misses = 0
+        self.prefix_cache_tokens_avoided = 0
+        self.prefix_cache_cow = 0
+
+    def _radix_key(self, prompt: Sequence[int]) -> "List[int]":
+        """The radix key of a prompt: the full LOGICAL token sequence, the
+        static prefix's tokens followed by the prompt's."""
+        key = list(self.prefix.tokens) if self.prefix is not None else []
+        key.extend(int(t) for t in prompt)
+        return key
+
+    def cached_prefix_tokens(self, prompt: Sequence[int]) -> int:
+        """Prompt tokens this engine could serve from its radix cache right
+        now beyond the static prefix (0 when prefix caching is off)."""
+        if self._radix is None:
+            return 0
+        p0 = self._p0
+        total = p0 + max(len(prompt), 1)
+        with self._lock:
+            m = self._radix.match_len(self._radix_key(prompt))
+        return max(0, min(m, total - 1) - p0)
 
     def _extend_tables(self, slot: int, start_idx: int, ids: "List[int]") -> None:
         """Append freshly allocated block ids to a resident slot's table row
@@ -641,9 +899,10 @@ class ContinuousBatcher:
         _tev(session, "engine.preempt", produced=session.produced,
              **({"reason": reason} if reason != "capacity" else {}))
         self._free.append(slot)
-        self._release_blocks_locked(slot)
+        self._release_blocks_locked(slot, session)
         self._mask_slot_done(slot)
         session.slot = -1
+        session.table = []
         if not session.finished:
             self._pending.insert(0, (list(session.prompt) + list(session.echo), session))
 
@@ -662,16 +921,23 @@ class ContinuousBatcher:
                     session.row_start + max(produced_res - 1, 0) + self.decode_chunk + self._overshoot,
                     session.row_start + (session.max_new - session.resident_base) - 1 + self._overshoot,
                 )
-                target = self._blocks_for_tokens(tokens)
+                # measured against the table cursor, not the private list:
+                # radix-transferred entries stay in the table
+                target = self._table_entries(tokens)
                 if target > session.table_len:
                     deficits[slot] = target - session.table_len
-            if sum(deficits.values()) <= len(self._free_blocks):
+            need = sum(deficits.values())
+            if need > len(self._free_blocks):
+                # evict idle cached runs before preempting live residents
+                self._reclaim_blocks_locked(need - len(self._free_blocks))
+            if need <= len(self._free_blocks):
                 for slot, extra in deficits.items():
                     session = self._sessions[slot]
                     alloc = [self._free_blocks.pop(0) for _ in range(extra)]
                     self._slot_blocks[slot].extend(alloc)
                     self._extend_tables(slot, session.table_len, alloc)
                     session.table_len += extra
+                    session.table.extend(alloc)
                 return
             # lowest-priority first, youngest within a tier (with priorities
             # unset: the youngest resident)
@@ -861,7 +1127,7 @@ class ContinuousBatcher:
             if self._sessions.get(session.slot) is session:
                 self._sessions.pop(session.slot)
                 self._free.append(session.slot)
-                self._release_blocks_locked(session.slot)
+                self._release_blocks_locked(session.slot, session)
                 self._mask_slot_done(session.slot)
 
     def configure_slo(self, config: "SLOConfig") -> None:
@@ -924,9 +1190,21 @@ class ContinuousBatcher:
         backlog = sum(len(p) for p, s in self._pending if not s.finished)
         for adm in self._admissions:
             if not adm.session.finished:
-                # monolithic admissions owe their whole prompt until they finish
-                backlog += max(len(adm.prompt), 1)
+                backlog += self._admission_backlog(adm)
         return backlog
+
+    @staticmethod
+    def _admission_backlog(adm: _Admission) -> int:
+        """Prefill tokens an in-flight admission still owes: the unchunked
+        remainder once stepping started, else the prompt minus its radix-
+        cached run (``adm.start`` holds the static prefix length until
+        :meth:`_admission_begin` runs)."""
+        if adm.tokens is not None:
+            return max(adm.width - adm.pos, 0)
+        remaining = max(len(adm.prompt), 1)
+        if adm.cached:
+            remaining = max(remaining - max(adm.cached - adm.start, 0), 1)
+        return remaining
 
     def load(self) -> float:
         """Scheduling load: live residents + live waiters plus the prefill
@@ -961,8 +1239,8 @@ class ContinuousBatcher:
                     "admit_chunk": self.admit_chunk or 0,
                     "budget": self.prefill_budget or 0,
                     "max_admissions": self.max_admissions,
-                    "chunks": 0,
-                    "chunk_tokens": 0,
+                    "chunks": self.prefill_chunks,
+                    "chunk_tokens": self.prefill_chunk_tokens,
                     "monolithic_admissions": self.prefill_monolithic,
                     "backlog_tokens": backlog,
                 },
@@ -971,14 +1249,34 @@ class ContinuousBatcher:
                 used = self.pool_blocks - len(self._free_blocks)
                 snapshot["kv_blocks"] = {
                     "total": self.pool_blocks,
-                    "used": used,
-                    # static shared prefixes are not ported: no shared pages
-                    "shared_prefix": 0,
+                    "used": used,  # includes the permanently resident shared-prefix pages
+                    "shared_prefix": len(self._shared_prefix_blocks),
                     "block_size": self.block_size,
                     "preemptions": self.preemptions,
                     "block_bytes": self._block_bytes,
                     "used_bytes": used * self._block_bytes,
                     "kv_dtype": self._kv_dtype_label,
+                }
+                if self.prefix is not None:
+                    # the prefix's partial tail block is not a shared page:
+                    # each admission scatters it into a private block
+                    snapshot["kv_blocks"]["shared_prefix_tail_tokens"] = (
+                        self.prefix.length - len(self._shared_prefix_blocks) * self.block_size
+                    )
+            if self._radix is not None:
+                snapshot["prefix_cache"] = {
+                    "hits": self.prefix_cache_hits,
+                    "misses": self.prefix_cache_misses,
+                    "tokens_avoided": self.prefix_cache_tokens_avoided,
+                    "cow_copies": self.prefix_cache_cow,
+                    "evictions": self._radix.evictions,
+                    "evicted_blocks": self._radix.evicted_blocks,
+                    "cached_blocks": self._radix.cached_blocks(),
+                    "cached_tokens": self._radix.cached_tokens(),
+                    # at the pool dtype: int8 pools count their scale planes
+                    "cached_bytes": self._radix.cached_bytes(self._block_bytes),
+                    "pinned_blocks": self._radix.pinned_blocks(),
+                    "nodes": self._radix.nodes(),
                 }
             if self._registry() is not None or self.shed_tenant_limit or self.priority_preemptions:
                 # absent entirely when QoS is off
@@ -1039,7 +1337,13 @@ class ContinuousBatcher:
         with self._lock:
             self.decode_dispatches = 0
             self.decoded_rows = 0
+            self.prefill_chunks = 0
+            self.prefill_chunk_tokens = 0
             self.prefill_monolithic = 0
+            if self._radix is not None:
+                # drop the probes' junk prefixes and counts: real traffic
+                # starts from a clean tree
+                self._radix_reset_locked()
             self._ttft.clear()  # warmup probes must not skew the percentiles
             self._tbt.clear()
             if self.timeseries is not None:
@@ -1110,9 +1414,15 @@ class ContinuousBatcher:
                     session.out.put(_SENTINEL)
 
     def _admit_pending(self) -> None:
-        """Move waiting prompts into free slots, one monolithic admission at
-        a time. The lock is held only for queue/slot/block bookkeeping; the
-        prefill runs unlocked so submit()/close() callers never wait on it."""
+        """Move waiting prompts toward residency. The lock is held only for
+        queue/slot/block bookkeeping; the prefill runs unlocked so
+        submit()/close() callers never wait on it. With ``admit_chunk`` set,
+        each in-flight admission advances ONE chunk a pass and this returns
+        once ``prefill_budget`` prefill tokens have run, so the caller's
+        decode dispatch interleaves with long prefills; monolithic admissions
+        complete in a single step."""
+        budget = self.prefill_budget
+        spent = 0
         while True:
             self._start_admissions()
             if not self._admissions:
@@ -1120,19 +1430,8 @@ class ContinuousBatcher:
             for adm in list(self._admissions):
                 if not self._admission_alive(adm):
                     continue
-                self._set_dfa_state(adm)
                 try:
-                    # the whole batch-1 prefill, unlocked
-                    adm.tok0, adm.row_len, adm.row_cache, adm.last = self._prefill_row(
-                        adm.prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state
-                    )
-                    if self._spec is not None:
-                        # the draft's row: the same prompt through the draft
-                        # (its prompt-sampled token is discarded: emission #1
-                        # is the target's)
-                        adm.d_row_cache = self._prefill_row(
-                            adm.prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state, gen=self._spec._draft
-                        )[2]
+                    spent += self._admission_step(adm)
                 except ValueError as exc:
                     # a bad prompt fails its own stream; the admission built
                     # only a fresh [1, ...] row, so the engine carries on
@@ -1146,17 +1445,20 @@ class ContinuousBatcher:
                             adm.session.finished = True
                             adm.session.out.put(exc)
                     raise
-                with self._lock:
-                    self.prefill_monolithic += 1
-                _tev(adm.session, "engine.prefill", tokens=self._prefill_width(adm.prompt, adm.budget),
-                     mode="monolithic")
-                self._finalize_admission(adm)
+                if adm.done:
+                    self._finalize_admission(adm)
+                if budget is not None and spent >= budget:
+                    return
 
     def _start_admissions(self) -> None:
-        """Sweep dead/expired waiters, then move the head of the queue into a
-        free slot as an admission (lock held; no device work). Paged mode
-        allocates only the prompt + first dispatch; the head keeps its FIFO
-        position while the pool cannot supply its initial blocks."""
+        """Sweep dead/expired waiters, then move head-of-queue prompts into
+        free slots as in-flight admissions (lock held; no device work): one
+        at a time, or up to ``max_admissions`` in chunked mode. Paged mode
+        allocates only the prompt + first dispatch, past the shared leading
+        entries (the static prefix's pages, or a radix hit's cached run,
+        pinned here); the head keeps its FIFO position while the pool
+        cannot supply its initial blocks, once idle cached runs are
+        evicted."""
         with self._lock:
             live = []
             for prompt_s, s in self._pending:
@@ -1175,7 +1477,9 @@ class ContinuousBatcher:
             self._pending = live
             if self._closed:
                 return
-            while self._pending and not self._admissions:
+            limit = self.max_admissions if self.admit_chunk else 1
+            p0 = self._p0
+            while self._pending and len(self._admissions) < limit:
                 self._select_pending_locked()
                 if not self._free:
                     if self._preempt_for_priority_locked():
@@ -1183,37 +1487,67 @@ class ContinuousBatcher:
                         # high-priority prompt rotates back in front of it
                         continue
                     break
-                blocks_row = None
-                needed = 0
+                blocks_row = gather_row = None
+                cached = 0
+                pins: "List[int]" = []
                 if self.block_size is not None:
                     head_prompt, head_session = self._pending[0]
                     head_budget = head_session.max_new - head_session.produced
                     lifetime = self._blocks_lifetime(head_prompt, head_budget)
-                    if lifetime > self.max_blocks:
+                    if len(self._shared_prefix_blocks) + lifetime > self.max_blocks:
                         # an oversized prompt can never fit a table row: fail
                         # its stream now instead of wedging the FIFO head
                         _, session = self._pending.pop(0)
                         if not session.finished:
                             session.finished = True
                             session.out.put(ValueError(
-                                f"prompt needs {lifetime} KV blocks but a slot's table holds {self.max_blocks}"
+                                f"prompt needs {len(self._shared_prefix_blocks) + lifetime} KV blocks but a "
+                                f"slot's table holds {self.max_blocks}"
                             ))
                         continue
-                    needed = self._blocks_initial(head_prompt, head_budget)
+                    # seeded leading table entries: the static prefix's full
+                    # blocks, or (on a radix hit) the matched cached run
+                    seeded = list(self._shared_prefix_blocks)
+                    if self._radix is not None:
+                        # the last prompt token always prefills: the first
+                        # sampled token needs its hidden row
+                        m, mblocks = self._radix.match(self._radix_key(head_prompt))
+                        m = min(m, p0 + max(len(head_prompt), 1) - 1)
+                        if m > p0:
+                            cached = m
+                            pins = mblocks[: -(-m // self.block_size)]
+                            seeded = pins[: m // self.block_size]
+                            # pin every matched block (the partial tail too:
+                            # the gather reads it) until this stream releases
+                            self._radix.pin(pins)
+                    needed = self._blocks_initial(head_prompt, head_budget, shared=len(seeded))
                     if needed > len(self._free_blocks):
+                        # cached-but-idle prefixes are the memory the next
+                        # admission may take back
+                        self._reclaim_blocks_locked(needed - len(self._free_blocks))
+                    if needed > len(self._free_blocks):
+                        if pins:
+                            self._radix.release(pins)
                         return
                 prompt, session = self._pending.pop(0)
                 slot = self._free.pop(0)
+                # the session owns the pins from here: every exit releases them
+                session.pins = pins
                 session.slot = slot
                 session.admit_seq = self._admit_counter
                 self._admit_counter += 1
-                session.row_start = max(len(prompt), 1)
+                session.row_start = p0 + max(len(prompt), 1)
                 if self.block_size is not None:
                     alloc = [self._free_blocks.pop(0) for _ in range(needed)]
                     self._slot_blocks[slot] = alloc
-                    session.table_len = len(alloc)
+                    session.shared_blocks = len(seeded)
+                    session.table_len = len(seeded) + len(alloc)
+                    session.table = seeded + alloc
                     blocks_row = np.full((self.max_blocks,), self._scratch_block, np.int32)
-                    blocks_row[: len(alloc)] = alloc
+                    blocks_row[: session.table_len] = session.table
+                    if cached:
+                        gather_row = np.full((self.max_blocks,), self._scratch_block, np.int32)
+                        gather_row[: len(pins)] = pins
                 self._seed += 1
                 _tev(
                     session, "engine.admission_start", slot=slot,
@@ -1221,7 +1555,8 @@ class ContinuousBatcher:
                 )
                 self._admissions.append(_Admission(
                     session=session, prompt=prompt, slot=slot, seed=self._seed,
-                    budget=session.max_new - session.produced, blocks_row=blocks_row,
+                    budget=session.max_new - session.produced, blocks_row=blocks_row, start=p0,
+                    cached=cached, gather_row=gather_row,
                 ))
 
     def _select_pending_locked(self) -> None:
@@ -1332,19 +1667,6 @@ class ContinuousBatcher:
                     bump(adm.session.tenant, "waiting")
         return census
 
-    def _set_dfa_state(self, adm: _Admission) -> None:
-        """The admission's DFA state, a pure function of (grammar, emitted
-        tokens): a fresh admission starts at the grammar's start state, a
-        preemption resume walks the echo on the host, so the resumed row
-        masks exactly where the evicted one stopped."""
-        cs = self.gen._cs
-        if cs is None:
-            return
-        state = int(cs.starts[adm.session.grammar])
-        for t in adm.session.echo:
-            state = int(cs.trans[state, t])
-        adm.dfa_state = state
-
     def _admission_alive(self, adm: _Admission) -> bool:
         """Drop an admission whose consumer went away, or whose deadline passed,
         before its prefill ran: the slot and blocks come back at once."""
@@ -1362,7 +1684,7 @@ class ContinuousBatcher:
                 if adm in self._admissions:
                     self._admissions.remove(adm)
                 self._free.append(adm.slot)
-                self._release_blocks_locked(adm.slot)
+                self._release_blocks_locked(adm.slot, session)
                 return False
             return True
 
@@ -1372,10 +1694,155 @@ class ContinuousBatcher:
             if adm in self._admissions:
                 self._admissions.remove(adm)
             self._free.append(adm.slot)
-            self._release_blocks_locked(adm.slot)
+            self._release_blocks_locked(adm.slot, adm.session)
             if not adm.session.finished:
                 adm.session.finished = True
                 adm.session.out.put(exc)
+
+    def _admission_begin(self, adm: _Admission) -> int:
+        """Classify an admission and set up its prefill. A radix hit goes to
+        :meth:`_begin_cached`; a monolithic admission (chunking off, or an
+        exact-width resume whose chunk-aligned width would overflow the row)
+        runs its whole prefill here through :meth:`_prefill_row` and returns
+        its token cost; a chunked one gets its row(s) and padded prompt and
+        leaves the stepping to :meth:`_admission_step` (cost 0)."""
+        cfg, gen = self.gen.config, self.gen
+        prompt, session = adm.prompt, adm.session
+        if gen._cs is not None:
+            # the DFA state is a pure function of (grammar, emitted tokens): a
+            # fresh admission starts at the grammar's start state, a
+            # preemption resume walks the echo on the host
+            cs = gen._cs
+            state = int(cs.starts[session.grammar])
+            for t in session.echo:
+                state = int(cs.trans[state, t])
+            adm.dfa_state = state
+        p0 = self._p0
+        if adm.gather_row is not None and self._begin_cached(adm):
+            return 0
+        if self._radix is not None:
+            with self._lock:
+                self.prefix_cache_misses += 1
+        bucket = self._prefill_width(prompt, adm.budget)
+        chunk = self.admit_chunk
+        aligned = chunk_aligned(bucket, chunk) if chunk else bucket
+        if not chunk or p0 + aligned > self.cache_len:
+            adm.tok0, adm.row_len, adm.row_cache, adm.last = self._prefill_row(
+                prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state
+            )
+            if self._spec is not None:
+                # the draft's row: the same prompt through the draft with the
+                # DRAFT's prefix rows (its prompt-sampled token is discarded:
+                # emission #1 is the target's)
+                adm.d_row_cache = self._prefill_row(
+                    prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state, gen=self._spec._draft,
+                    prefix=self._draft_prefix,
+                )[2]
+            adm.done = True
+            with self._lock:
+                self.prefill_monolithic += 1
+            _tev(session, "engine.prefill", tokens=p0 + bucket, mode="monolithic")
+            return p0 + bucket
+        adm.chunk, adm.width = chunk, aligned
+        tokens = np.full((1, aligned), cfg.pad_id, np.int32)
+        tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
+        adm.tokens = tokens
+        self._chunk_state(adm, p0 + max(len(prompt), 1))
+        row_cache = init_cache(gen.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        if self.prefix is not None:
+            row_cache = _paste_prefix_rows(row_cache, self.prefix.layers)
+        adm.row_cache = row_cache
+        if self._spec is not None:
+            # the draft's row chunks in LOCKSTEP with the target's (the same
+            # columns a step), so speculative admissions stall residents no
+            # longer than plain ones
+            draft = self._spec._draft
+            d_row = init_cache(draft.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+            if self._draft_prefix is not None:
+                d_row = _paste_prefix_rows(d_row, self._draft_prefix.layers)
+            adm.d_row_cache = d_row
+        return 0
+
+    def _chunk_state(self, adm: _Admission, total: int) -> None:
+        """The chunked prefill's carry: the row's absolute length, the first
+        token's sampling stream (derived as :meth:`_prefill_row` derives it,
+        so chunked, monolithic and cache-hit admissions sample the same first
+        token) and the accumulated last hidden row."""
+        adm.lengths = torch.tensor([total], dtype=torch.int32, device=self.device)
+        adm.generator = torch.Generator(device=self.device).manual_seed(adm.seed)
+        adm.row_valid = torch.ones((1,), dtype=torch.bool, device=self.device)
+        adm.last = torch.zeros((1, self.gen.model.config.dim), dtype=torch.float32, device=self.device)
+
+    def _begin_cached(self, adm: _Admission) -> bool:
+        """Set up a radix-cache HIT: gather the matched blocks into a dense
+        row and arrange chunked prefill of only the uncached suffix, from the
+        first uncached token (an arbitrary, possibly non-block-aligned
+        offset). The gathered K/V is bit-identical to what a cold prefill
+        writes at those positions (one wrote it), so the stream's tokens equal
+        its cold run's. Returns False to fall back to the cold path where the
+        suffix would overflow the row (exact-width preemption resumes): the
+        admission then prefills everything but still shares the matched
+        blocks through its table."""
+        p0 = self._p0
+        start = adm.cached  # > p0 by the hit condition
+        chunk = self._radix_chunk
+        suffix = list(adm.prompt)[start - p0:]
+        width = chunk_aligned(len(suffix), chunk)
+        if start + width > self.cache_len or self._carry is None:
+            # (a tree hit implies a prior finalize built the carry)
+            return False
+        # the inverse of the admission scatter; positions past the cached run
+        # read scratch, which the suffix prefill overwrites before anything
+        # can attend to it
+        adm.row_cache = gather_paged_rows(self._carry[0], adm.gather_row, self.cache_len)
+        tokens = np.full((1, width), self.gen.config.pad_id, np.int32)
+        tokens[0, : len(suffix)] = np.asarray(suffix, np.int32)
+        adm.tokens = tokens
+        adm.chunk, adm.width, adm.start, adm.pos = chunk, width, start, 0
+        self._chunk_state(adm, p0 + max(len(adm.prompt), 1))
+        with self._lock:
+            self.prefix_cache_hits += 1
+            self.prefix_cache_tokens_avoided += start - p0
+            if start % self.block_size:
+                # the partly shared tail block was gathered into the row and
+                # scatters back into THIS request's private block: copy on write
+                self.prefix_cache_cow += 1
+        _tev(adm.session, "prefill.cache_hit", tokens=start - p0, cached=start)
+        return True
+
+    def _admission_step(self, adm: _Admission) -> int:
+        """Advance one admission's prefill by one unit (engine thread; device
+        work unlocked): a monolithic admission completes inside
+        :meth:`_admission_begin`; a chunked one runs one ``chunk``-wide slice
+        through the Generator's chunked prefill and samples the first token
+        once the last chunk lands. Returns the prefill tokens spent (the
+        per-iteration budget's unit)."""
+        gen = self.gen
+        if adm.tokens is None:
+            cost = self._admission_begin(adm)
+            if adm.done:
+                return cost
+        c = adm.pos
+        sl = torch.as_tensor(adm.tokens[:, c: c + adm.chunk], device=self.device)
+        chunk_last, has, adm.row_cache = gen._prefill_chunk(sl, adm.start + c, adm.lengths, adm.row_cache,
+                                                            adm.row_valid)
+        adm.last = torch.where(has[:, None], chunk_last, adm.last)
+        if self._spec is not None:
+            draft = self._spec._draft
+            _, _, adm.d_row_cache = draft._prefill_chunk(sl, adm.start + c, adm.lengths, adm.d_row_cache,
+                                                         adm.row_valid)
+        adm.pos = c + adm.chunk
+        with self._lock:
+            self.prefill_chunks += 1
+            self.prefill_chunk_tokens += adm.chunk
+        _tev(adm.session, "engine.prefill_chunk", pos=adm.pos, width=adm.width, chunk=adm.chunk)
+        if adm.pos >= adm.width:
+            state = None if adm.dfa_state is None else torch.tensor([adm.dfa_state], dtype=torch.int32,
+                                                                    device=self.device)
+            adm.tok0 = gen._first_token(adm.last, adm.generator, state)
+            adm.row_len = adm.lengths
+            adm.done = True
+        return adm.chunk
 
     def _finalize_admission(self, adm: _Admission) -> None:
         """Paste a completed admission's row into the pool and activate its
@@ -1399,7 +1866,8 @@ class ContinuousBatcher:
                 for cache, row_cache in zip(caches, rows):
                     if adm.blocks_row is not None:
                         self._paged_admit_impl(
-                            cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row
+                            cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row,
+                            session.shared_blocks,
                         )
                     else:
                         self._admit_impl(cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
@@ -1428,11 +1896,15 @@ class ContinuousBatcher:
         with self._lock:
             if adm in self._admissions:
                 self._admissions.remove(adm)
+            if self._radix is not None and adm.blocks_row is not None:
+                # the prompt's full blocks now hold exactly the K/V a cold
+                # prefill writes: publish them (even a cancelled stream's)
+                self._radix_insert_locked(adm, session)
             if session.finished:
                 # cancelled during the unlocked prefill: mask the just
                 # activated row back out and return the slot
                 self._free.append(slot)
-                self._release_blocks_locked(slot)
+                self._release_blocks_locked(slot, session)
                 self._mask_slot_done(slot)
                 return
             if lp0 is not None:
@@ -1479,7 +1951,11 @@ class ContinuousBatcher:
         session.finished = True
         _tev(session, "engine.finish", produced=session.produced)
         self._free.append(slot)
-        self._release_blocks_locked(slot)
+        if self._radix is not None:
+            # the finished stream's prompt + generated tokens become a
+            # cacheable prefix: the next turn of a conversation hits it all
+            self._radix_publish_finished_locked(slot, session)
+        self._release_blocks_locked(slot, session)
         if not device_done or self.block_size is not None:
             # paged mode masks unconditionally: the table repoint to scratch
             # must happen even when the device already flagged done
