@@ -111,6 +111,34 @@ Phases (no phase catches a failure; any fault exits non-zero):
    and the prefix, each equal to the solo ``Generator(...)(prompts,
    prefix=...)`` on the card.
 
+11. the serve CLI in its own process (``python -m unionml_tpu_torch.cli``):
+   (a) its ``init`` renders the text-generation template into a temporary
+   directory, a child process trains it on the card and saves it, ``serve``
+   boots it, a ``@word`` stream over ``/predict-stream`` matches the
+   grammar's regex and ``/metrics`` reports the engine; (b) an app module the
+   phase writes around phase 3's model (Llama-3-8B width, bf16, seed 0,
+   ``attention_impl="flash"``), its weights saved once as the artifact,
+   served in this process through ``Model.serve()`` and by the CLI with
+   ``--admit-chunk 64 --prefix-cache``: phase 3's prompts stream the same
+   tokens from both; a second wave runs under the child's ``POST
+   /debug/profile`` capture, whose Chrome trace gives the paged kernel's
+   launches in the child (``cli_launches``, exactly 32 layers x the wave's
+   dispatches x 8); ``serve --dp-replicas 2`` exits
+   1 before an app module that raises at import is imported;
+12. the routed-experts decoder: (a) ``MoEConfig()`` (vocab 32,000, dim 4096,
+   8 layers, every second routed over 8 experts of hidden 14,336, k = 2,
+   capacity factor 1.25; bf16 parameters, seed 0) serves 4 prompts x 32
+   tokens through a paged ``ContinuousBatcher``: tok/s, TTFT, TBT; no port
+   kernel launches (``moe_launches`` on the kernels line, all 0, as in JAX,
+   whose MoE attention takes the plain routes); (b) float32, TF32 off, 2
+   layers (one dense, one routed) at capacity factor 4 (= experts / k: no
+   token dropped): the engine's streams, paged and dense, a speculative
+   engine's with a 1-layer draft, and under ``quantize="int8"`` the engine's
+   against the plain int8 ``Generator``, each equal to the solo run.
+
+Phase 10a also holds bf16 chunked admission to monolithic admission behind
+the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
+
 ``--profile`` adds one more served run (bf16 and int8) and one more training
 step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
 name, the device's idle share).
@@ -227,6 +255,13 @@ INT8_TIE_GAP = 0.01
 #: 4-token tail) and the engine's chunked admission: ADMIT_CHUNK columns a chunk, PREFILL_BUDGET a dispatch
 SYSTEM_LEN, SYSTEM_SEED = 100, 3
 ADMIT_CHUNK, PREFILL_BUDGET, MAX_ADMISSIONS = 64, 128, 2
+#: phase 10a: bf16 first-token logits of chunked (GEMM M = 64) against monolithic (M = 256) admission behind the
+#: same prefix. A forward rounds 225 matmul outputs to bf16 (7 a layer x 32 layers, and the head), each to 8
+#: significant bits; summed in other orders for the two M, any of them may land one bf16 ulp (2**-8 relative)
+#: apart. Taken as independent, those differences add in quadrature: the relative RMS difference of the logits
+#: (|a - b| / |b| over the vocabulary) stays within sqrt(225) * 2**-8 = 0.0586
+BF16_ROUNDINGS = 7 * 32 + 1
+CHUNKED_LOGITS_REL_RMS = math.sqrt(BF16_ROUNDINGS) * 2.0 ** -8
 
 
 def card_line() -> str:
@@ -1672,6 +1707,33 @@ def parse_prometheus(text: str) -> int:
     return count
 
 
+@contextlib.contextmanager
+def served_in_thread(app):
+    """``app.server.serve`` on an ephemeral loopback port, its event loop on a
+    daemon thread; yields the port. On leaving, the SIGTERM path: ``shutdown``
+    drains the server (and closes its engine), the micro-batcher's leftover
+    collector is cancelled and the loop closed."""
+    import asyncio
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_until_complete, args=(app.server.serve("127.0.0.1", 0),), daemon=True)
+    thread.start()
+    for _ in range(500):
+        if app.server._server is not None and app.server._server.sockets:
+            break
+        time.sleep(0.01)
+    yield app.server._server.sockets[0].getsockname()[1]
+    asyncio.run_coroutine_threadsafe(app.server.shutdown(drain_timeout_s=60), loop).result(timeout=120)
+    thread.join(timeout=60)
+    leftover = asyncio.all_tasks(loop)  # the micro-batcher's collector waits on its queue forever
+    for task in leftover:
+        task.cancel()
+    if leftover:
+        loop.run_until_complete(asyncio.gather(*leftover, return_exceptions=True))
+    loop.close()
+    require(not thread.is_alive(), "the server did not drain")
+
+
 def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16: dict, profile: bool) -> dict:
     """Phase 8, the serving half: ``Model.serve()`` on the bf16 serving model,
     ``HTTPServer.serve`` on an ephemeral loopback port, driven by
@@ -1679,8 +1741,6 @@ def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf1
     ``/v1/completions``, ``/metrics``, ``/healthz`` and ``/debug/requests``;
     then the SIGTERM-path drain. Returns each kernel's launches across the
     HTTP requests."""
-    import asyncio
-
     import torch
 
     from unionml_tpu_torch import Llama
@@ -1715,111 +1775,93 @@ def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf1
     direct_dispatches = batcher.decode_dispatches - before
     require(all(len(r) == MAX_NEW for r in reference), f"direct stream lengths {[len(r) for r in reference]}")
 
-    # ---- the server on an ephemeral loopback port, its loop on its own thread
-    loop = asyncio.new_event_loop()
-    server_thread = threading.Thread(
-        target=loop.run_until_complete, args=(app.server.serve("127.0.0.1", 0),), daemon=True
-    )
-    server_thread.start()
-    for _ in range(500):
-        if app.server._server is not None and app.server._server.sockets:
-            break
-        time.sleep(0.01)
-    port = app.server._server.sockets[0].getsockname()[1]
+    # ---- the server on an ephemeral loopback port; leaving the block drains it by the SIGTERM path
+    # (shutdown), which closes the engine
+    with served_in_thread(app) as port:
+        for fn in counted:
+            fn.launches = 0
+        dispatches_before = batcher.decode_dispatches
 
-    for fn in counted:
-        fn.launches = 0
-    dispatches_before = batcher.decode_dispatches
+        # POST /predict with the 4 prompts (one batch through the engine)
+        status, _, body = http_request(port, "POST", "/predict", {"features": prompts})
+        require(status == 200, f"/predict answered {status}: {body[:300]!r}")
+        predicted = json.loads(body)
+        require([len(r) for r in predicted] == [MAX_NEW] * len(prompts) and predicted == reference,
+                "/predict tokens differ from the engine's direct tokens")
 
-    # POST /predict with the 4 prompts (one batch through the engine)
-    status, _, body = http_request(port, "POST", "/predict", {"features": prompts})
-    require(status == 200, f"/predict answered {status}: {body[:300]!r}")
-    predicted = json.loads(body)
-    require([len(r) for r in predicted] == [MAX_NEW] * len(prompts) and predicted == reference,
-            "/predict tokens differ from the engine's direct tokens")
+        # 4 concurrent single-prompt ND-JSON streams
+        ttft_http: list = []
 
-    # 4 concurrent single-prompt ND-JSON streams
-    ttft_http: list = []
+        def stream_one(prompt):
+            status, headers, body = http_request(port, "POST", "/predict-stream", {"features": [prompt]},
+                                                 first_chunk=ttft_http)
+            require(status == 200 and headers.get("Content-Type") == "application/x-ndjson", f"stream {status}")
+            return [t for line in body.decode().splitlines() if line for t in json.loads(line)]
 
-    def stream_one(prompt):
-        status, headers, body = http_request(port, "POST", "/predict-stream", {"features": [prompt]},
-                                             first_chunk=ttft_http)
-        require(status == 200 and headers.get("Content-Type") == "application/x-ndjson", f"stream {status}")
-        return [t for line in body.decode().splitlines() if line for t in json.loads(line)]
+        before = batcher.decode_dispatches
+        streamed, http_s = concurrent([functools.partial(stream_one, p) for p in prompts])
+        stream_dispatches = batcher.decode_dispatches - before
+        require(streamed == reference, "an ND-JSON stream differs from the engine's direct tokens")
 
-    before = batcher.decode_dispatches
-    streamed, http_s = concurrent([functools.partial(stream_one, p) for p in prompts])
-    stream_dispatches = batcher.decode_dispatches - before
-    require(streamed == reference, "an ND-JSON stream differs from the engine's direct tokens")
+        # /v1/completions, stream=true, logprobs=1, on a token-id prompt
+        status, headers, body = http_request(
+            port, "POST", "/v1/completions",
+            {"prompt": prompts[0], "max_tokens": MAX_NEW, "stream": True, "logprobs": 1},
+        )
+        require(status == 200 and headers.get("Content-Type", "").startswith("text/event-stream"), f"/v1 {status}")
+        events = [line[len("data: "):] for line in body.decode().split("\n\n") if line.startswith("data: ")]
+        require(events and events[-1] == "[DONE]", "the SSE stream does not end with [DONE]")
+        payloads = [json.loads(e) for e in events[:-1]]
+        sse_tokens, sse_logprobs = [], []
+        for payload in payloads:
+            block = payload["choices"][0].get("logprobs")
+            if block:
+                sse_tokens += [int(t) for t in block["tokens"]]
+                sse_logprobs += block["token_logprobs"]
+        usage = payloads[-1].get("usage", {})
+        require(sse_tokens == streamed[0], "the SSE tokens differ from the ND-JSON stream's")
+        require(len(sse_logprobs) == MAX_NEW and all(math.isfinite(v) and v <= 0 for v in sse_logprobs),
+                "SSE logprobs not finite")
+        require(usage == {"prompt_tokens": len(prompts[0]), "completion_tokens": MAX_NEW,
+                          "total_tokens": len(prompts[0]) + MAX_NEW}, f"usage {usage}")
 
-    # /v1/completions, stream=true, logprobs=1, on a token-id prompt
-    status, headers, body = http_request(
-        port, "POST", "/v1/completions",
-        {"prompt": prompts[0], "max_tokens": MAX_NEW, "stream": True, "logprobs": 1},
-    )
-    require(status == 200 and headers.get("Content-Type", "").startswith("text/event-stream"), f"/v1 {status}")
-    events = [line[len("data: "):] for line in body.decode().split("\n\n") if line.startswith("data: ")]
-    require(events and events[-1] == "[DONE]", "the SSE stream does not end with [DONE]")
-    payloads = [json.loads(e) for e in events[:-1]]
-    sse_tokens, sse_logprobs = [], []
-    for payload in payloads:
-        block = payload["choices"][0].get("logprobs")
-        if block:
-            sse_tokens += [int(t) for t in block["tokens"]]
-            sse_logprobs += block["token_logprobs"]
-    usage = payloads[-1].get("usage", {})
-    require(sse_tokens == streamed[0], "the SSE tokens differ from the ND-JSON stream's")
-    require(len(sse_logprobs) == MAX_NEW and all(math.isfinite(v) and v <= 0 for v in sse_logprobs),
-            "SSE logprobs not finite")
-    require(usage == {"prompt_tokens": len(prompts[0]), "completion_tokens": MAX_NEW,
-                      "total_tokens": len(prompts[0]) + MAX_NEW}, f"usage {usage}")
+        # the deadline header sheds with 503
+        status, headers, _ = http_request(port, "POST", "/predict-stream", {"features": [prompts[1]]},
+                                          headers={"X-Request-Deadline-Ms": str(HTTP_DEADLINE_MS)})
+        require(status == 503, f"a {HTTP_DEADLINE_MS} ms deadline answered {status}")
 
-    # the deadline header sheds with 503
-    status, headers, _ = http_request(port, "POST", "/predict-stream", {"features": [prompts[1]]},
-                                      headers={"X-Request-Deadline-Ms": str(HTTP_DEADLINE_MS)})
-    require(status == 503, f"a {HTTP_DEADLINE_MS} ms deadline answered {status}")
+        for _ in range(6000):  # the shed request's session, if it was admitted, ends within a dispatch
+            if batcher.occupancy() == (0, 0):
+                break
+            time.sleep(0.01)
+        dispatches = batcher.decode_dispatches - dispatches_before
+        http_launches = {fn.__name__: fn.launches for fn in counted}
 
-    for _ in range(6000):  # the shed request's session, if it was admitted, ends within a dispatch
-        if batcher.occupancy() == (0, 0):
-            break
-        time.sleep(0.01)
-    dispatches = batcher.decode_dispatches - dispatches_before
-    http_launches = {fn.__name__: fn.launches for fn in counted}
+        # /metrics (json and prometheus), /healthz, /debug/requests
+        status, _, body = http_request(port, "GET", "/metrics")
+        metrics = json.loads(body)
+        generation = metrics["generation"]
+        require(status == 200 and generation["slots"] == slots and generation["decode_dispatches"] > 0
+                and generation["speculative"] is False and generation["kv_blocks"]["used"] == 0,
+                f"/metrics generation {generation}")
+        route = next(v for k, v in metrics["routes"].items() if k.endswith("/predict-stream"))
+        status, headers, body = http_request(port, "GET", "/metrics?format=prometheus")
+        samples = parse_prometheus(body.decode())
+        require(status == 200 and samples > 0, "the Prometheus exposition is empty")
+        status, _, body = http_request(port, "GET", "/healthz")
+        require(status == 200 and json.loads(body)["ready"] is True, f"/healthz {status}")
+        status, _, body = http_request(port, "GET", "/debug/requests")
+        timelines = json.loads(body)["completed"]
+        engine_events = {e["event"] for t in timelines for e in t["events"] if e["event"].startswith("engine.")}
+        require(status == 200 and {"engine.submit", "engine.first_token", "engine.finish"} <= engine_events,
+                f"/debug/requests engine events {sorted(engine_events)}")
 
-    # /metrics (json and prometheus), /healthz, /debug/requests
-    status, _, body = http_request(port, "GET", "/metrics")
-    metrics = json.loads(body)
-    generation = metrics["generation"]
-    require(status == 200 and generation["slots"] == slots and generation["decode_dispatches"] > 0
-            and generation["speculative"] is False and generation["kv_blocks"]["used"] == 0,
-            f"/metrics generation {generation}")
-    route = next(v for k, v in metrics["routes"].items() if k.endswith("/predict-stream"))
-    status, headers, body = http_request(port, "GET", "/metrics?format=prometheus")
-    samples = parse_prometheus(body.decode())
-    require(status == 200 and samples > 0, "the Prometheus exposition is empty")
-    status, _, body = http_request(port, "GET", "/healthz")
-    require(status == 200 and json.loads(body)["ready"] is True, f"/healthz {status}")
-    status, _, body = http_request(port, "GET", "/debug/requests")
-    timelines = json.loads(body)["completed"]
-    engine_events = {e["event"] for t in timelines for e in t["events"] if e["event"].startswith("engine.")}
-    require(status == 200 and {"engine.submit", "engine.first_token", "engine.finish"} <= engine_events,
-            f"/debug/requests engine events {sorted(engine_events)}")
-
-    if profile:
-        profile_run("HTTP /predict-stream 4 streams",
-                    lambda: concurrent([functools.partial(stream_one, p) for p in prompts]))
-
-    # ---- drain: the SIGTERM path (shutdown), which closes the engine
-    asyncio.run_coroutine_threadsafe(app.server.shutdown(drain_timeout_s=60), loop).result(timeout=120)
-    server_thread.join(timeout=60)
-    leftover = asyncio.all_tasks(loop)  # the micro-batcher's collector waits on its queue forever
-    for task in leftover:
-        task.cancel()
-    loop.run_until_complete(asyncio.gather(*leftover, return_exceptions=True))
-    loop.close()
+        if profile:
+            profile_run("HTTP /predict-stream 4 streams",
+                        lambda: concurrent([functools.partial(stream_one, p) for p in prompts]))
     if batcher._thread is not None:
         batcher._thread.join(timeout=60)
-    require(not server_thread.is_alive() and batcher._closed and not (batcher._thread and batcher._thread.is_alive()),
+    require(batcher._closed and not (batcher._thread and batcher._thread.is_alive()),
             "the server did not drain and close the engine")
 
     expected = cfg.n_layers * dispatches * decode_chunk
@@ -2155,6 +2197,53 @@ def diverging(prompts, vocab: int) -> list:
     return out
 
 
+def first_token_logits(gen, prefix, prompt, chunk: int, cache_len: int):
+    """The f32 first-token logits ``[V]`` of one engine admission behind
+    ``prefix``, computed as the engine computes them: a dense row cache of
+    ``cache_len`` with the prefix's rows pasted, the prompt's bucket (padded
+    to whole chunks) through ``Generator._chunked_prefill_loop`` in
+    ``chunk``-column slices (a monolithic admission's chunk is the whole
+    bucket), and the head on the last prompt row."""
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch.models import chunk_aligned, init_cache
+    from unionml_tpu_torch.models.generate import _paste_prefix_rows
+
+    bucket = gen._bucket(len(prompt))
+    width = chunk_aligned(bucket, chunk)
+    tokens = np.full((1, width), gen.config.pad_id, np.int32)
+    tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
+    lengths = torch.tensor([prefix.length + len(prompt)], dtype=torch.int32, device=gen.device)
+    row = _paste_prefix_rows(init_cache(gen.model.config, 1, cache_len, device=gen.device), prefix.layers)
+    row_valid = torch.ones((1,), dtype=torch.bool, device=gen.device)
+    with torch.no_grad():
+        last, _ = gen._chunked_prefill_loop(tokens, lengths, row, row_valid, chunk, start=prefix.length)
+        return gen._head(last.to(gen.model.config.dtype))[0]
+
+
+def chunked_logits_check(gen, prefix, prompts, mono_cache_len: int, chunked_cache_len: int, card: str) -> None:
+    """Phase 10a's bf16 check of chunked against monolithic admission: each
+    prompt's first-token logits both ways, within ``CHUNKED_LOGITS_REL_RMS``
+    (the reasoning is beside the constant)."""
+    rows = []
+    for prompt in prompts:
+        mono = first_token_logits(gen, prefix, prompt, max(gen.config.prompt_buckets), mono_cache_len)
+        chunked = first_token_logits(gen, prefix, prompt, ADMIT_CHUNK, chunked_cache_len)
+        diff = (chunked - mono).float()
+        rows.append(dict(rel_rms=float(diff.norm() / mono.float().norm()), max_abs=float(diff.abs().max()),
+                         logit_rms=float(mono.float().pow(2).mean().sqrt()),
+                         same_argmax=bool(chunked.argmax() == mono.argmax())))
+    print(f"phase 10a: bf16 first-token logits, chunked (M = {ADMIT_CHUNK}) against monolithic (M = "
+          f"{max(gen.config.prompt_buckets)}) admission behind the same prefix, per prompt: relative RMS "
+          f"{[round(r['rel_rms'], 6) for r in rows]} (tolerance {CHUNKED_LOGITS_REL_RMS:.4f} = sqrt({BF16_ROUNDINGS}) "
+          f"x 2**-8), max |difference| {[round(r['max_abs'], 4) for r in rows]} (logit RMS "
+          f"{[round(r['logit_rms'], 3) for r in rows]}), same argmax {[r['same_argmax'] for r in rows]}; "
+          f"card {card}", flush=True)
+    require(all(r["rel_rms"] <= CHUNKED_LOGITS_REL_RMS for r in rows),
+            f"chunked admission's bf16 first-token logits part from monolithic admission's: {rows}")
+
+
 def prefix_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int) -> int:
     """Phase 10a: chunked admission, the static prefix and the radix cache
     at full width, bf16, on phase 9's target. Three waves of phase 3's
@@ -2177,6 +2266,7 @@ def prefix_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int
     engine = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK, prefix=system,
                                admit_chunk=ADMIT_CHUNK, prefill_budget=PREFILL_BUDGET, max_admissions=MAX_ADMISSIONS,
                                prefix_cache=True)
+    chunked_logits_check(gen, system, prompts, mono.cache_len, engine.cache_len, card)
     engine.warmup()
     print(f"phase 10a: system prompt of {SYSTEM_LEN} tokens ({len(engine._shared_prefix_blocks)} shared pages, "
           f"{engine.stats()['kv_blocks']['shared_prefix_tail_tokens']}-token tail), cache_len {engine.cache_len}, "
@@ -2278,6 +2368,456 @@ def prefix_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     require(all(all(v) for v in results.values()) and chunks > 0, f"phase 10b parity {results}")
     del target, solo, system, draft, spec_gen, engine
+    torch.cuda.empty_cache()
+
+
+#: phase 11: the serve CLI in its own process on the card
+CLI_STARTUP_S = 600  # seconds a served app may take to load its artifact and warm up
+#: the child's POST /debug/profile capture lasts the first wave's time and this margin, so that it spans the
+#: second wave (the 1 s head start included); the phase requires that the wave ended inside it
+CLI_PROFILE_MARGIN_MS = 5000.0
+#: the template's grammar prompt and what its stream must match (the template's GRAMMARS["word"])
+TEMPLATE_PROMPT, TEMPLATE_REGEX = "@word the quick brown ", r"[a-z]+"
+#: the app module phase 11b writes: phase 3's serving model and engine behind a pandas-free Dataset/Model; the
+#: artifact is the Llama's state dict, loaded into an uninitialized Llama (init without a seed)
+CLI_APP_SOURCE = '''
+from typing import List
+
+import torch
+
+from unionml_tpu_torch import ContinuousBatcher, Dataset, GenerationConfig, Generator, Llama, LlamaConfig, Model
+from unionml_tpu_torch.serving import current_deadline
+
+CONFIG = LlamaConfig.llama3_8b(attention_impl="flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+GENERATION = GenerationConfig(prompt_buckets=(256,), max_new_tokens={max_new}, temperature=0.0)
+
+dataset = Dataset(name="token_ids")
+model = Model(name="llama3_8b_width", dataset=dataset)
+model.__app_module__ = "llama_app:model"
+engines = {{}}
+
+
+@dataset.reader
+def reader(n: int = 4) -> List[List[int]]:
+    return [[1 + i] for i in range(n)]
+
+
+@dataset.feature_loader
+def feature_loader(raw) -> List[List[int]]:
+    return [[int(t) for t in row] for row in raw]
+
+
+@model.init
+def init(hyperparameters: dict) -> Llama:
+    return Llama(CONFIG, seed=hyperparameters.get("seed"))
+
+
+def engine(module: Llama) -> ContinuousBatcher:
+    """One engine an artifact; the serve CLI's --admit-chunk/--prefix-cache exports reach it."""
+    if engines.get("module") is not module:
+        engines["module"] = module
+        engines["batcher"] = ContinuousBatcher(Generator(module, GENERATION), slots=4, decode_chunk=8,
+                                               block_size=16)
+        model.generation_batcher = engines["batcher"]
+    return engines["batcher"]
+
+
+@model.predictor
+def predictor(module: Llama, features: List[List[int]]) -> List[List[int]]:
+    streams = [engine(module).submit(prompt) for prompt in features]
+    return [[int(t) for chunk in stream for t in chunk] for stream in streams]
+
+
+@model.stream_predictor
+def stream_predictor(module: Llama, features: List[List[int]]):
+    for chunk in engine(module).submit(features[0], deadline=current_deadline()):
+        yield [int(t) for t in chunk]
+
+
+def warmup() -> None:
+    engine(model.artifact.model_object).warmup()
+
+
+model.generation_warmup = warmup
+'''
+#: phase 12: MoEConfig()'s widths; (b) cut to 2 layers (one dense, one routed) at capacity_factor = n_experts / k
+MOE_PROMPT_SEED = 12
+MOE_PARITY_LAYERS, MOE_NO_DROP_CAPACITY = 2, 4.0
+
+
+def repo_root() -> str:
+    import os
+
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_env(**extra) -> dict:
+    """The environment of a CLI child: this checkout on ``PYTHONPATH`` (the
+    project directory is the child's working directory), nothing inherited
+    that would point the app at another artifact."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("UNIONML_")}
+    env["PYTHONPATH"] = repo_root()
+    env.update(extra)
+    return env
+
+
+def run_cli(args, cwd, timeout: float, **env) -> "subprocess.CompletedProcess":
+    return subprocess.run([sys.executable, "-m", "unionml_tpu_torch.cli", *args], cwd=cwd, env=cli_env(**env),
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+@contextlib.contextmanager
+def cli_server(args, cwd, log_path: str):
+    """``python -m unionml_tpu_torch.cli serve ARGS`` on a free loopback
+    port: polls ``/health`` until the app has loaded and warmed, yields
+    (port, seconds to ready), then stops the child (SIGTERM, then kill)."""
+    port = free_port()
+    with open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-m", "unionml_tpu_torch.cli", "serve", *args, "--port", str(port)],
+                                 cwd=cwd, env=cli_env(), stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if child.poll() is not None:
+                    raise AssertionError(f"the CLI server exited with {child.returncode}: " + tail(log_path))
+                try:
+                    status, _, _ = http_request(port, "GET", "/health")
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > CLI_STARTUP_S:
+                    raise AssertionError(f"the CLI server was not up in {CLI_STARTUP_S} s: " + tail(log_path))
+                time.sleep(0.5)
+            yield port, time.perf_counter() - t0
+        finally:
+            child.terminate()
+            try:
+                child.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+
+
+def tail(path: str, size: int = 3000) -> str:
+    with open(path, "rb") as handle:
+        return handle.read()[-size:].decode(errors="replace")
+
+
+def stream_http(port: int, features, ttft: list = None) -> list:
+    """One ``/predict-stream`` request: the ND-JSON lines' items, in order."""
+    status, headers, body = http_request(port, "POST", "/predict-stream", {"features": features}, first_chunk=ttft)
+    require(status == 200, f"/predict-stream answered {status}: {body[:300]!r}")
+    return [item for line in body.decode().splitlines() if line for item in json.loads(line)]
+
+
+def paged_kernel_events(trace_dir: str) -> tuple:
+    """(launches of the paged decode kernel, device ms of every kernel, the
+    capture's wall ms) in the Chrome traces a ``POST /debug/profile`` wrote."""
+    import glob
+
+    launches, kernel_us, span = 0, 0.0, 0.0
+    for path in glob.glob(f"{trace_dir}/*.trace.json"):
+        with open(path) as handle:
+            events = json.load(handle).get("traceEvents", [])
+        stamps = [e["ts"] for e in events if "ts" in e and e.get("ph") == "X"]
+        span += (max(stamps) - min(stamps)) if stamps else 0.0
+        for event in events:
+            if event.get("cat") == "kernel":
+                kernel_us += float(event.get("dur", 0.0))
+                launches += "paged_decode_kernel" in event.get("name", "")
+    return launches, kernel_us / 1e3, span / 1e3
+
+
+def template_cli_phase(card: str, workdir: str) -> None:
+    """Phase 11a: the port's ``init`` renders the text-generation template,
+    a child process trains it on the card (its own schedule) and saves it,
+    and ``serve`` boots it: a ``@word`` stream over ``/predict-stream``
+    matches the grammar's regex and ``/metrics`` reports the engine."""
+    import os
+    import re
+
+    t0 = time.perf_counter()
+    done = run_cli(["init", "genapp", "--template", "text-generation"], workdir, 120)
+    require(done.returncode == 0, f"init failed: {done.stderr[-2000:]}")
+    project = os.path.join(workdir, "genapp")
+    train = subprocess.run(
+        [sys.executable, "-c", "import app; _, m = app.model.train(hyperparameters={'learning_rate': 3e-3}); "
+         "print('metrics', m, 'steps', app.model.last_fit_result.steps, 'device', "
+         "next(app.model.artifact.model_object.model.parameters()).device); app.model.save('model_object.ckpt')"],
+        cwd=project, env=cli_env(), capture_output=True, text=True, timeout=600,
+    )
+    require(train.returncode == 0, f"the template's training failed: {train.stderr[-3000:]}")
+    trained = train.stdout.strip().splitlines()[-1]
+    require("device cuda" in trained, f"the template did not train on the card: {trained}")
+    train_s = time.perf_counter() - t0
+    with cli_server(["app:model", "--model-path", os.path.join(project, "model_object.ckpt")], project,
+                    os.path.join(workdir, "template_server.log")) as (port, ready_s):
+        text = "".join(stream_http(port, [TEMPLATE_PROMPT]))
+        status, _, body = http_request(port, "GET", "/metrics")
+        generation = json.loads(body).get("generation")
+    print(f"phase 11a: the text-generation template rendered by the CLI's init and trained in a child process on "
+          f"the card ({trained}) in {train_s:.1f} s; `serve app:model` ready in {ready_s:.1f} s; {TEMPLATE_PROMPT!r} "
+          f"streamed {text!r}; /metrics generation: slots {generation and generation.get('slots')}, decode "
+          f"dispatches {generation and generation.get('decode_dispatches')}; card {card}", flush=True)
+    require(text and re.fullmatch(TEMPLATE_REGEX, text) is not None, f"the @word stream {text!r} is not [a-z]+")
+    require(status == 200 and generation is not None and generation["decode_dispatches"] > 0,
+            f"/metrics generation {generation}")
+
+
+def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
+    """Phase 11b: the CLI's main path at Llama-3-8B width. The phase writes
+    an app module (``CLI_APP_SOURCE``), saves phase 3's seeded bf16 weights
+    once as its artifact, and serves that artifact twice with chunked
+    admission (``ADMIT_CHUNK``) and the radix prefix cache: in this process
+    through ``Model.serve()`` (the env exports the CLI would make) and through
+    ``python -m unionml_tpu_torch.cli serve ... --admit-chunk 64
+    --prefix-cache --profile-dir``. Phase 3's prompts stream concurrently
+    over ``/predict-stream`` to both, and the answers must be equal. The
+    child's paged kernel launches are read from a ``POST /debug/profile``
+    capture spanning its streams. Then a refused flag (``--dp-replicas 2``)
+    must exit 1 before an app module that raises at import is imported."""
+    import os
+    import shutil
+
+    import torch
+
+    from unionml_tpu_torch import Llama, LlamaConfig
+    from unionml_tpu_torch.artifact import ModelArtifact
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    with open(os.path.join(workdir, "llama_app.py"), "w") as handle:
+        handle.write(CLI_APP_SOURCE.format(max_new=MAX_NEW))
+    with open(os.path.join(workdir, "boom_app.py"), "w") as handle:
+        handle.write('raise RuntimeError("the app module was imported")\n')
+    sys.path.insert(0, workdir)
+    import llama_app
+
+    artifact = os.path.join(workdir, "llama3_8b_width.pt")
+    t0 = time.perf_counter()
+    module = Llama(LlamaConfig.llama3_8b(attention_impl="flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                   seed=0)  # phase 3's weights
+    llama_app.model.artifact = ModelArtifact(module, {})
+    llama_app.model.save(artifact)
+    del module
+    llama_app.model.artifact = None
+    torch.cuda.empty_cache()
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(artifact)
+
+    # ---- in process: Model.serve() on the same artifact, the same admission and prefix-cache settings
+    exports = {"UNIONML_TPU_ADMIT_CHUNK": str(ADMIT_CHUNK), "UNIONML_TPU_PREFIX_CACHE": "1"}
+    os.environ.update(exports)
+    try:
+        t0 = time.perf_counter()
+        llama_app.model.load(artifact)
+        app = llama_app.model.serve()
+        app.startup()
+        ready_s = time.perf_counter() - t0
+        engine = llama_app.model.generation_batcher
+        require(engine.admit_chunk == ADMIT_CHUNK and engine._radix is not None,
+                "the in-process engine did not take the admission and prefix-cache exports")
+        with served_in_thread(app) as port:
+            paged_decode_attention.launches = 0
+            ttft_in: list = []
+            inproc, inproc_s = concurrent([functools.partial(stream_http, port, [p], ttft_in) for p in prompts])
+            in_launches = paged_decode_attention.launches
+    finally:
+        for name in exports:
+            os.environ.pop(name, None)
+    del app, engine
+    llama_app.engines.clear()
+    llama_app.model.artifact = None
+    llama_app.model.generation_batcher = None
+    torch.cuda.empty_cache()
+    require(all(len(s) == MAX_NEW for s in inproc), f"in-process stream lengths {[len(s) for s in inproc]}")
+
+    # ---- the CLI's own process: a timed wave, then a wave under the child's own profiler (radix hits now)
+    profile_dir = os.path.join(workdir, "cli_profile")
+    args = ["llama_app:model", "--model-path", artifact, "--admit-chunk", str(ADMIT_CHUNK), "--prefix-cache",
+            "--profile-dir", profile_dir]
+    with cli_server(args, workdir, os.path.join(workdir, "llama_server.log")) as (port, cli_ready_s):
+        ttft_cli: list = []
+        served, cli_s = concurrent([functools.partial(stream_http, port, [p], ttft_cli) for p in prompts])
+        generation = json.loads(http_request(port, "GET", "/metrics")[2])["generation"]
+        captured: dict = {}
+        capture_ms = cli_s * 1e3 + CLI_PROFILE_MARGIN_MS
+
+        def capture():
+            captured["response"] = http_request(port, "POST", "/debug/profile", {"duration_ms": capture_ms})
+
+        profiler = threading.Thread(target=capture)
+        sent = time.perf_counter()
+        profiler.start()
+        time.sleep(1.0)  # the capture starts before the second wave
+        # the server's loop answers a second capture request only after the first one's profiler.start() returned,
+        # and then with 409: so a 409 here means the capture is on before the wave is sent
+        probe = http_request(port, "POST", "/debug/profile", {"duration_ms": 1.0})
+        require(probe[0] == 409, f"the capture had not started before the profiled wave: {probe[0]} {probe[2][:200]!r}")
+        profiled_wave, profiled_s = concurrent([functools.partial(stream_http, port, [p]) for p in prompts])
+        wave_end_s = time.perf_counter() - sent
+        profiler.join(timeout=capture_ms / 1e3 + 120)
+        after = json.loads(http_request(port, "GET", "/metrics")[2])["generation"]
+    status = captured.get("response", (None, None, b""))
+    require(status[0] == 200, f"POST /debug/profile answered {status[0]}: {status[2][:300]!r}")
+    cli_launches, kernel_ms, window_ms = paged_kernel_events(profile_dir)
+    profiled_dispatches = after["decode_dispatches"] - generation["decode_dispatches"]
+    expected = 32 * profiled_dispatches * 8
+    prefill = after.get("prefill", {})
+    require(profiled_wave == served, "the profiled wave's streams (radix hits) differ from the first wave's")
+
+    # ---- a refused flag exits 1 before the app module is imported
+    refused = run_cli(["serve", "boom_app:model", "--dp-replicas", "2"], workdir, 120)
+    print(f"phase 11b: Llama-3-8B width bf16 artifact saved once ({size / 2**30:.1f} GiB in {save_s:.1f} s); "
+          f"in-process Model.serve() ready in {ready_s:.1f} s, 4 /predict-stream streams x {MAX_NEW} tokens "
+          f"{len(prompts) * MAX_NEW / inproc_s:.1f} tok/s, time to first chunk p50 "
+          f"{statistics.median(ttft_in) * 1e3:.1f} ms, {in_launches} paged launches; `python -m "
+          f"unionml_tpu_torch.cli serve llama_app:model --admit-chunk {ADMIT_CHUNK} --prefix-cache` ready in "
+          f"{cli_ready_s:.1f} s, {len(prompts) * MAX_NEW / cli_s:.1f} tok/s, time to first chunk p50 "
+          f"{statistics.median(ttft_cli) * 1e3:.1f} ms; /metrics after it: {generation['decode_dispatches']} decode "
+          f"dispatches, TTFT p50 {generation['ttft_ms'].get('p50_ms')} ms, TBT p50 "
+          f"{generation['tbt_ms'].get('p50_ms')} ms; streams equal the in-process answers: {served == inproc} "
+          f"(first divergence {[first_divergence(a, b) for a, b in zip(served, inproc)]}); a second wave under the "
+          f"child's profiler {len(prompts) * MAX_NEW / profiled_s:.1f} tok/s, prefill after both {prefill}, its "
+          f"profile ({window_ms:.0f} ms traced, kernels busy {kernel_ms:.1f} ms, the device's idle share "
+          f"{1 - kernel_ms / (profiled_s * 1e3):.3f} over the wave's {profiled_s:.1f} s): {cli_launches} paged "
+          f"launches (the wave's {profiled_dispatches} dispatches give 32 x {profiled_dispatches} x 8 = {expected}); "
+          f"`serve boom_app:model --dp-replicas 2` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
+          f"card {card}", flush=True)
+    require(served == inproc, "the CLI's streams differ from the in-process Model.serve() answers")
+    require(wave_end_s * 1e3 < capture_ms and status[2] and json.loads(status[2])["duration_ms"] == capture_ms,
+            f"the profiled wave ended {wave_end_s:.1f} s after the capture was asked for, past its "
+            f"{capture_ms / 1e3:.1f} s")
+    require(cli_launches == expected > 0, f"{cli_launches} paged launches in the CLI child's profile, "
+            f"expected {expected}")
+    require(prefill.get("chunks", 0) > 0, f"the CLI's engine admitted no chunk: {prefill}")
+    require(refused.returncode == 1 and "parallelism and the replica layer" in refused.stderr
+            and "was imported" not in refused.stderr + refused.stdout, "the refused flag did not exit 1 at boot")
+    os.remove(artifact)
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    sys.path.remove(workdir)
+    return dict(cli_launches=cli_launches, in_process_launches=in_launches,
+                cli_tok_s=len(prompts) * MAX_NEW / cli_s, in_process_tok_s=len(prompts) * MAX_NEW / inproc_s)
+
+
+def moe_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.RandomState(MOE_PROMPT_SEED)
+    return [rng.randint(1, vocab, size=n).tolist() for n in PROMPT_LENS]
+
+
+def moe_serving_phase(card: str, gcfg, slots: int, decode_chunk: int) -> dict:
+    """Phase 12a: ``MoEConfig()`` as the JAX package defines it (8 layers,
+    every second routed over 8 experts, k = 2, capacity_factor 1.25) in
+    bf16 parameters, seeded on the card, serving 4 prompts x 32 tokens
+    through a paged ``ContinuousBatcher``. MoE reaches no port kernel (its
+    attention takes the plain routes, as in JAX): every kernel's launches
+    in the run are counted and must be 0."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator
+    from unionml_tpu_torch.models import MoEConfig, MoETransformer
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t0 = time.perf_counter()
+    cfg = MoEConfig(param_dtype=torch.bfloat16)
+    model = MoETransformer(cfg, seed=0)
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in model.parameters())
+    print(f"phase 12a: MoEConfig() (vocab {cfg.vocab_size}, dim {cfg.dim}, {cfg.n_layers} layers, every "
+          f"{cfg.moe_every}nd routed over {cfg.n_experts} experts of hidden {cfg.hidden_dim}, k {cfg.k}, capacity "
+          f"factor {cfg.capacity_factor}), bf16 parameters, seed 0: built in {time.perf_counter() - t0:.1f} s, "
+          f"{held / 2**30:.1f} GiB", flush=True)
+    prompts = moe_prompts(cfg.vocab_size)
+    gen = Generator(model, gcfg)
+    warm = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    serve(warm, [prompts[0][:3]])  # set-up: first cuBLAS/allocator calls
+    warm.close()
+    batcher = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    for counted in app_counted():
+        counted.launches = 0
+    paged_decode_attention.int8_launches = 0
+    streams, seconds = serve(batcher, prompts)
+    launches = {c.__name__: c.launches for c in app_counted()}
+    launches["paged_decode_attention_int8"] = paged_decode_attention.int8_launches
+    stats = batcher.stats()
+    batcher.close()
+    aux = [round(float(m.aux_loss), 4) for m in model.modules() if hasattr(m, "aux_loss") and m.aux_loss is not None]
+    tok_s = len(prompts) * MAX_NEW / seconds
+    print(f"phase 12a: served 4 streams x {MAX_NEW} tokens: {tok_s:.1f} tok/s aggregate, TTFT p50 "
+          f"{stats['ttft_ms']['p50_ms']} ms max {stats['ttft_ms']['max_ms']} ms, TBT p50 {stats['tbt_ms']['p50_ms']} ms "
+          f"(a dispatch of {decode_chunk} steps), {stats['decode_dispatches']} dispatches; routed layers' last aux "
+          f"losses {aux}; port kernel launches {launches} (MoE reaches none, as in JAX); card {card}", flush=True)
+    require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
+    require(all(0 <= t < cfg.vocab_size for s in streams for t in s), "a token id outside the vocabulary")
+    require(not any(launches.values()), f"a port kernel launched on the MoE path: {launches}")
+    del model, gen, warm, batcher
+    torch.cuda.empty_cache()
+    return dict(moe_launches=launches, tok_s=tok_s, ttft_p50=stats["ttft_ms"]["p50_ms"],
+                tbt_p50=stats["tbt_ms"]["p50_ms"])
+
+
+def moe_parity_phase(gcfg, slots: int, decode_chunk: int) -> None:
+    """Phase 12b: float32, TF32 off, ``MoEConfig()``'s widths cut to 2
+    layers (one dense, one routed) at ``capacity_factor = n_experts / k``,
+    where no token is dropped, so routing is per token: the engine's
+    streams, paged and dense, equal the solo ``Generator``'s; a speculative
+    engine with a 1-layer draft (the 1B-shaped draft's widths over the MoE
+    vocabulary) equals the solo target; and under ``quantize="int8"`` (the
+    expert stacks in int8, dequantized as in JAX) the engine equals the
+    plain int8 ``Generator``."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, DraftSpec, Generator, Llama
+    from unionml_tpu_torch.models import MoEConfig, MoETransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = MoEConfig(n_layers=MOE_PARITY_LAYERS, capacity_factor=MOE_NO_DROP_CAPACITY, dtype=torch.float32,
+                    param_dtype=torch.float32)
+    model = MoETransformer(cfg, seed=1)
+    prompts = moe_prompts(cfg.vocab_size)
+    solo = Generator(model, gcfg)
+    want = [solo([p])[0].tolist() for p in prompts]
+    results = {}
+    for name, kw in (("paged", dict(block_size=BLOCK)), ("dense", {})):
+        engine = ContinuousBatcher(solo, slots=slots, decode_chunk=decode_chunk, **kw)
+        results[name] = serve(engine, prompts)[0] == want
+        engine.close()
+    draft = Llama(draft_config(torch.float32, n_layers=1, vocab_size=cfg.vocab_size), seed=DRAFT_SEED)
+    spec = Generator(model, dataclasses.replace(gcfg, draft=DraftSpec(module=draft, gamma=GAMMA)))
+    engine = ContinuousBatcher(spec, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    results["speculative, 1-layer draft"] = serve(engine, prompts)[0] == want
+    engine.close()
+    del draft, spec, engine
+    int8 = Generator(model, gcfg, quantize="int8")  # quantizes the model in place: the last use of it
+    slot = model.layer_1.moe.experts.wi.kernel
+    want8 = [int8([p])[0].tolist() for p in prompts]
+    engine = ContinuousBatcher(int8, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    results["int8, paged"] = serve(engine, prompts)[0] == want8
+    engine.close()
+    print(f"phase 12b, float32 (TF32 off), {MOE_PARITY_LAYERS} layers (one dense, one routed), capacity factor "
+          f"{MOE_NO_DROP_CAPACITY}: engine streams equal the solo Generator's: {results}; int8 expert stack "
+          f"{tuple(slot.q.shape)} with scales {tuple(slot.scale.shape)}, router "
+          f"{type(model.layer_1.moe.router.kernel).__name__} {model.layer_1.moe.router.kernel.dtype}; int8 streams "
+          f"against the float ones: first divergence {[first_divergence(a, b) for a, b in zip(want8, want)]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(all(results.values()), f"phase 12b parity {results}")
+    require(slot.q.dtype == torch.int8 and tuple(slot.scale.shape) == (cfg.n_experts, 1, cfg.hidden_dim)
+            and model.layer_1.moe.router.kernel.dtype == torch.float32, "the int8 expert slots")
+    del model, solo, int8, engine
     torch.cuda.empty_cache()
 
 
@@ -2436,6 +2976,26 @@ def main() -> int:
     prefix_parity_phase(gcfg, prompts, slots, decode_chunk)
     print(f"phase 10 took {t10 + time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 11: the serve CLI in its own process (the template, then Llama-3-8B width)
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        template_cli_phase(card, workdir)
+        cli = llama_cli_phase(card, prompts, workdir)
+        print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: the routed-experts decoder (MoE): MoEConfig() served, then f32 parity at 2 layers
+    t0 = time.perf_counter()
+    moe = moe_serving_phase(card, gcfg, slots, decode_chunk)
+    moe_parity_phase(gcfg, slots, decode_chunk)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -2446,6 +3006,7 @@ def main() -> int:
         "http_launches": http_launches["paged_decode_attention"],
         "spec_launches": spec["spec_launches"],
         "prefix_launches": prefix_launches,
+        "cli_launches": cli["cli_launches"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -2473,6 +3034,8 @@ def main() -> int:
         **pool,
         **int8_page_numbers,
     })
+    for kernel in kernels:  # MoE reaches no port kernel (phase 12a counted every one, and required 0)
+        kernel["moe_launches"] = moe["moe_launches"][kernel["name"]]
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
     print(json.dumps({"kernels": kernels}), flush=True)

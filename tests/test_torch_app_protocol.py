@@ -717,11 +717,11 @@ def test_step_mode_trains_on_the_device_init_chose(monkeypatch, evaluate_steps):
 def test_unported_parts_raise_naming_the_roadmap(call):
     model = make_sklearn_model(PACKAGES["torch"])
     calls = {
-        "serve": (lambda: model.serve(remote=True), "Queue A item 8"),
+        "serve": (lambda: model.serve(remote=True), "Queue A: the rest"),
         "predictor-jit": (lambda: model.predictor(model._predictor, config=SimpleNamespace(jit=True, mesh="data")),
                           "parallelism and the replica layer"),
-        "remote": (lambda: model.remote(backend_store="store"), "Queue A item 8"),
-        "remote_train": (lambda: model.remote_train(hyperparameters={}), "Queue A item 8"),
+        "remote": (lambda: model.remote(backend_store="store"), "Queue A: the rest"),
+        "remote_train": (lambda: model.remote_train(hyperparameters={}), "Queue A: the rest"),
     }
     fn, item = calls[call]
     with pytest.raises(NotImplementedError, match=item):

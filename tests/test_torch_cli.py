@@ -1,0 +1,294 @@
+"""The port's CLI (``unionml_tpu_torch/cli.py``, ``templating.py``,
+``resolver.py``) on the CPU.
+
+The local cases of ``tests/unit/test_cli.py`` run against the port (see
+``test_torch_serving_units.py``): the templating cases, the ``serve``
+model-path guards and the ``--reload`` source snapshot. ``CliRunner`` is a
+shim whose ``invoke(app, args)`` calls the port's ``app(args)`` and gathers
+stdout and stderr into ``.output`` and the ``SystemExit`` code into
+``.exit_code``; the ``cli_project`` fixture is the same app over the port's
+``Dataset``/``Model``. Left out of the unit file: the remote round trip
+(``:48``, the remote backend is ROADMAP.md Queue A's "the rest") and
+``replay`` (``:168``, the same item); ``test_templating_list_and_validate``
+asks for templates the port does not have yet, so its copy here expects the
+port's two.
+
+The cluster and fault-tolerance cases (``:90``, ``:128``) become refusal
+checks: each refused flag and command exits 1, names its ROADMAP item by
+title, exports nothing and never imports the app module (one that raises at
+import).
+"""
+
+import contextlib
+import io
+import os
+import subprocess
+import sys
+import textwrap
+import types
+
+import pytest
+
+from tests.test_torch_serving_units import port_cases
+
+CASES = (
+    "test_init_renders_template",
+    "test_init_rejects_existing_dir",
+    "test_render_template_unknown",
+    "test_serve_rejects_preset_env",
+    "test_serve_requires_existing_model_path",
+    "test_app_source_files_snapshot",
+)
+
+port_cases(globals(), "test_cli.py")
+for _name in [n for n in globals() if n.startswith("test_") and n not in CASES]:
+    del globals()[_name]
+
+from unionml_tpu_torch.cli import _reload_argv, app  # noqa: E402
+from unionml_tpu_torch.templating import list_templates, render_template, validate_app_name  # noqa: E402
+
+
+class CliRunner:
+    """``click.testing.CliRunner`` over the port's argparse ``app``."""
+
+    def invoke(self, command, args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            try:
+                command(list(args))
+                code = 0
+            except SystemExit as exc:
+                code = exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
+        return types.SimpleNamespace(output=out.getvalue(), exit_code=code)
+
+
+#: ``tests/conftest.py``'s CLI app on the port's Dataset/Model
+CLI_APP_SOURCE = textwrap.dedent(
+    """
+    from typing import List
+
+    import pandas as pd
+    from sklearn.linear_model import LogisticRegression
+
+    from unionml_tpu_torch import Dataset, Model
+
+    dataset = Dataset(name="ds", test_size=0.2, shuffle=True, targets=["y"])
+    model = Model(name="cli_test_model", init=LogisticRegression, dataset=dataset)
+    model.__app_module__ = "cli_app:model"
+
+
+    @dataset.reader
+    def reader(n: int = 60) -> pd.DataFrame:
+        rows = []
+        for i in range(n):
+            rows.append({"x0": float(i % 7), "x1": float((i * 3) % 5), "y": i % 2})
+        return pd.DataFrame(rows)
+
+
+    @model.trainer
+    def trainer(est: LogisticRegression, features: pd.DataFrame, target: pd.DataFrame) -> LogisticRegression:
+        return est.fit(features, target.squeeze())
+
+
+    @model.predictor
+    def predictor(est: LogisticRegression, features: pd.DataFrame) -> List[float]:
+        return [float(v) for v in est.predict(features)]
+    """
+)
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture()
+def cli_project(tmp_path, monkeypatch):
+    """A committed git project holding the port's CLI app (and, as
+    ``boom_app.py``, an app module that raises when imported)."""
+    (tmp_path / "cli_app.py").write_text(CLI_APP_SOURCE)
+    (tmp_path / "boom_app.py").write_text('raise RuntimeError("the app module was imported")\n')
+    subprocess.run(["git", "init", "-q"], cwd=tmp_path, check=True)
+    subprocess.run(["git", "add", "."], cwd=tmp_path, check=True)
+    subprocess.run(["git", "-c", "user.email=t@t", "-c", "user.name=t", "commit", "-q", "-m", "init"],
+                   cwd=tmp_path, check=True)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join([str(tmp_path), _REPO_ROOT]))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    yield tmp_path
+    sys.modules.pop("cli_app", None)
+    sys.modules.pop("boom_app", None)
+
+
+def test_templating_list_and_validate():
+    """The unit case's checks, over the port's two templates (the JAX
+    package's ``basic-serverless`` and ``image-classification`` are still
+    to be ported)."""
+    assert set(list_templates()) == {"basic", "text-generation"}
+    validate_app_name("my-app_1")
+    with pytest.raises(ValueError):
+        validate_app_name("1bad")
+    with pytest.raises(ValueError):
+        validate_app_name("bad name")
+
+
+def test_templates_command_lists_both_and_init_renders_each(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    result = CliRunner().invoke(app, ["templates"])
+    assert result.exit_code == 0 and result.output.split() == ["basic", "text-generation"]
+    for template in ("basic", "text-generation"):
+        result = CliRunner().invoke(app, ["init", f"app-{template}", "-t", template])
+        assert result.exit_code == 0, result.output
+        project = tmp_path / f"app-{template}"
+        assert f"app-{template}" in (project / "README.md").read_text()
+        assert "python -m unionml_tpu_torch.cli serve" in (project / "README.md").read_text()
+        for path in project.rglob("*"):
+            assert "__pycache__" not in path.parts
+            if path.is_file() and ".git" not in path.parts:
+                assert "{{app_name}}" not in path.read_text()
+    assert "unionml_tpu_torch.cli" in (tmp_path / "app-basic" / "Dockerfile").read_text()
+
+
+def test_help_version_and_usage_codes():
+    """``--help`` exits 0; an unknown option or a missing argument is a
+    usage error (2, as click's); a check that fails exits 1."""
+    runner = CliRunner()
+    assert runner.invoke(app, ["--help"]).exit_code == 0
+    assert runner.invoke(app, ["serve", "--help"]).exit_code == 0
+    assert runner.invoke(app, ["--version"]).exit_code == 0
+    assert runner.invoke(app, ["serve", "x:model", "--no-such-option"]).exit_code == 2
+    assert runner.invoke(app, ["serve"]).exit_code == 2
+    assert runner.invoke(app, ["serve", "x:model", "--quantize", "int4"]).exit_code == 2
+    result = runner.invoke(app, ["init", "1bad"])
+    assert result.exit_code == 1 and result.output.startswith("Error: ")
+
+
+PARALLELISM, THE_REST = "parallelism and the replica layer", "the rest"
+#: (serve flags, the ROADMAP item they name)
+REFUSED_FLAGS = [
+    (["--dp-replicas", "2"], PARALLELISM),
+    (["--replica-roles", "prefill=1,decode=1"], PARALLELISM),
+    (["--prefill-threshold", "8"], PARALLELISM),
+    (["--autoscale-high", "0.8"], PARALLELISM),
+    (["--autoscale-low", "0.1"], PARALLELISM),
+    (["--autoscale-interval", "1.0"], PARALLELISM),
+    (["--min-replicas", "1"], PARALLELISM),
+    (["--max-replicas", "2"], PARALLELISM),
+    (["--num-hosts", "2"], PARALLELISM),
+    (["--coordinator", "127.0.0.1:9"], PARALLELISM),
+    (["--process-id", "0"], PARALLELISM),
+    (["--fault-plan", '{"events": []}'], PARALLELISM),
+    (["--probe-interval", "0.5"], PARALLELISM),
+    (["--probation-probes", "3"], PARALLELISM),
+    (["--lease-ttl", "2.0"], PARALLELISM),
+    (["--compile-cache", "cache-dir"], THE_REST),
+    (["--aot-preload"], THE_REST),
+    (["--aot-preload", "store-dir"], THE_REST),
+    (["--remote"], THE_REST),
+]
+#: knobs of ported parts given beside a refused flag: a refusal must leave every one unexported
+EXPORTS = {
+    "UNIONML_TPU_ADMIT_CHUNK": ["--admit-chunk", "8"],
+    "UNIONML_TPU_PREFIX_CACHE": ["--prefix-cache"],
+    "UNIONML_TPU_QUANTIZE": ["--quantize", "int8"],
+    "UNIONML_TPU_TRACE": ["--trace"],
+    "UNIONML_TPU_SLO_TTFT_P95_MS": ["--slo-ttft-p95-ms", "100"],
+    "UNIONML_TPU_DP_REPLICAS": [],
+    "UNIONML_TPU_COMPILE_CACHE": [],
+    "UNIONML_TPU_AOT_PRELOAD": [],
+}
+
+
+@pytest.fixture
+def clean_exports(monkeypatch):
+    for name in [*EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
+        monkeypatch.delenv(name, raising=False)
+    yield
+    for name in [*EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
+        # plain pop: the CLI set these after the delenv, and monkeypatch would restore nothing for them
+        os.environ.pop(name, None)
+
+
+@pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[" ".join(f) for f, _ in REFUSED_FLAGS])
+def test_refused_serve_flag_exits_before_export_and_import(cli_project, clean_exports, flags, item):
+    """The unit file's cluster and fault-tolerance cases as refusals: exit
+    1 naming the item by title, no knob exported, the app never imported."""
+    model_file = cli_project / "m.joblib"
+    model_file.write_text("x")
+    knobs = [arg for args in EXPORTS.values() for arg in args]
+    result = CliRunner().invoke(app, ["serve", "boom_app:model", *flags, *knobs, "--model-path", str(model_file)])
+    assert result.exit_code == 1, result.output
+    assert result.output.startswith("Error: ") and f"ROADMAP.md, Queue A: {item}" in result.output
+    assert flags[0] in result.output
+    assert "boom_app" not in sys.modules
+    for name in [*EXPORTS, "UNIONML_MODEL_PATH"]:
+        assert name not in os.environ, name
+
+
+@pytest.mark.parametrize("command", ["deploy", "train", "predict", "list-model-versions", "fetch-model", "replay",
+                                     "lint"])
+def test_unported_commands_exist_and_refuse(cli_project, command):
+    result = CliRunner().invoke(app, [command, "boom_app:model", "--any", "option"])
+    assert result.exit_code == 1
+    assert f"the {command!r} command is not ported yet (ROADMAP.md, Queue A: the rest)" in result.output
+    assert "boom_app" not in sys.modules
+
+
+def test_ported_knobs_export_before_the_app_imports(cli_project, clean_exports):
+    """One engine (``--dp-replicas 1``), the off value of a refused store
+    (``--compile-cache 0``) and the ported knobs are exported, and only
+    then is the app module imported (it raises here)."""
+    knobs = [arg for args in EXPORTS.values() for arg in args]
+    with pytest.raises(RuntimeError, match="the app module was imported"):
+        app(["serve", "boom_app:model", "--dp-replicas", "1", "--compile-cache", "0", *knobs])
+    assert os.environ["UNIONML_TPU_DP_REPLICAS"] == "1"
+    assert os.environ["UNIONML_TPU_COMPILE_CACHE"] == "0"
+    assert os.environ["UNIONML_TPU_ADMIT_CHUNK"] == "8"
+    assert os.environ["UNIONML_TPU_PREFIX_CACHE"] == "1"
+    assert os.environ["UNIONML_TPU_QUANTIZE"] == "int8"
+    assert os.environ["UNIONML_TPU_TRACE"] == "1"
+    assert os.environ["UNIONML_TPU_SLO_TTFT_P95_MS"] == "100.0"
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--admit-chunk", "-1"], "--admit-chunk must be >= 0"),
+    (["--max-admissions", "-2"], "--max-admissions must be >= 0"),
+    (["--slo-shed-ratio", "-0.5"], "--slo-shed-ratio must be >= 0"),
+    (["--flight-recorder-size", "0"], "--flight-recorder-size must be >= 1"),
+    (["--default-tenant-rate", "-1"], "--default-tenant-rate must be >= 0"),
+    (["--tenant-config", "no-such-tenants.json"], "does not exist"),
+    (["--dp-replicas", "-1"], "--dp-replicas must be >= 0"),
+])
+def test_bad_knob_values_are_usage_errors(cli_project, clean_exports, flags, message):
+    result = CliRunner().invoke(app, ["serve", "boom_app:model", *flags])
+    assert result.exit_code == 1 and message in result.output
+    assert "boom_app" not in sys.modules
+
+
+def test_workers_refused_once_startup_initialized_cuda(cli_project, clean_exports, monkeypatch):
+    """``--workers 2`` forks after ``startup()``; CUDA does not survive a
+    fork, so an app whose startup initialized it exits 1 before forking
+    (the card's state is simulated here)."""
+    import torch
+
+    import cli_app
+
+    cli_app.model.train(hyperparameters={"max_iter": 500})
+    model_file = cli_project / "model.joblib"
+    cli_app.model.save(str(model_file))
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(os, "fork", lambda: pytest.fail("forked"))
+    result = CliRunner().invoke(app, ["serve", "cli_app:model", "--model-path", str(model_file), "--workers", "2"])
+    assert result.exit_code == 1
+    assert "--workers 2" in result.output and "does not survive a fork" in result.output
+
+
+def test_reload_reexecs_the_module_without_reload_and_model_path():
+    argv = ["serve", "app:model", "--reload", "--model-path", "m.ckpt", "--port", "9", "--model-path=x"]
+    assert _reload_argv(argv) == [sys.executable, "-m", "unionml_tpu_torch.cli", "serve", "app:model", "--port", "9"]
+
+
+def test_cli_module_imports_no_click():
+    """The card's machine has no ``click``: the port's CLI runs without it."""
+    code = ("import sys; sys.modules['click'] = None; from unionml_tpu_torch.cli import app\n"
+            "try:\n    app(['templates'])\nexcept SystemExit as e:\n    assert e.code == 0")
+    env = dict(os.environ, PYTHONPATH=_REPO_ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["basic", "text-generation"]

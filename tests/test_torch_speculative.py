@@ -8,8 +8,7 @@ held on the distribution, since ``jax.random`` and ``torch.Generator`` draw
 different numbers: the round's rejection law (accept test, residual) on
 fixed distributions within 1e-6 of the JAX expressions, and an empirical
 second-token histogram within total variation 0.06 of the exact target law.
-Left out: the MoE target (``models/moe.py`` is not ported: ROADMAP.md, Queue
-A, "the rest of training"). The ``prefix=`` case runs in
+The MoE target's case runs in ``test_torch_moe.py``, the ``prefix=`` case in
 ``test_torch_prefix_cache.py``.
 """
 

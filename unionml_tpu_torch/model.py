@@ -23,7 +23,7 @@ Serving: :meth:`Model.serve` returns the port's
 a :class:`~unionml_tpu_torch.serving.compile.CompiledPredictor` (bucketed
 padding under ``torch.inference_mode()``). Not ported yet, each raising
 ``NotImplementedError`` that names its ROADMAP item: ``serve(remote=True)``
-and ``remote*`` (Queue A item 8: the remote backend).
+and ``remote*`` (ROADMAP.md, Queue A: the rest, the remote backend).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from unionml_tpu_torch.utils import resolved_signature as signature
 
 __all__ = ["BaseHyperparameters", "Model", "ModelArtifact"]
 
-_UNPORTED_REMOTE = "the remote backend is not ported yet (ROADMAP.md, Queue A item 8: the rest)"
+_UNPORTED_REMOTE = "the remote backend is not ported yet (ROADMAP.md, Queue A: the rest)"
 
 
 def _state_device(model_object: Any) -> Any:

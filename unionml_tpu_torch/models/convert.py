@@ -27,6 +27,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig
+from unionml_tpu_torch.models.moe import MoEConfig, MoETransformer
 from unionml_tpu_torch.ops.quant import QuantizedTensor, set_quantized
 
 
@@ -46,7 +47,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 def _meta_llama(tree: Mapping[str, Any], config: LlamaConfig) -> Llama:
     """A :class:`Llama` on the meta device with an (empty) int8 slot for
     every kernel that ``tree`` holds quantized."""
-    module = Llama(config, device="meta")
+    return _with_int8_slots(Llama(config, device="meta"), tree)
+
+
+def _with_int8_slots(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """``module`` (on the meta device) with an (empty) int8 slot for every
+    kernel that ``tree`` holds quantized."""
     flat = _flatten(tree)
     for name in [n for n, _ in module.named_parameters()]:
         if f"{name}.q" in flat and f"{name}.scale" in flat:
@@ -100,14 +106,27 @@ def llama_from_jax(tree: Mapping[str, Any], config: LlamaConfig, *, device: Devi
     tree: each quantized leaf becomes an int8 slot holding its values and
     scales bit for bit, every other leaf a parameter in ``config.param_dtype``.
     Nothing is allocated in float for the quantized kernels."""
-    module = _meta_llama(tree, config)
+    return _load(_meta_llama(tree, config), tree, device)
+
+
+def moe_from_jax(tree: Mapping[str, Any], config: MoEConfig, *, device: DeviceLike = None) -> MoETransformer:
+    """A :class:`~unionml_tpu_torch.models.moe.MoETransformer` on ``device``
+    (``None`` = CUDA) loaded from a flax MoE tree, as :func:`llama_from_jax`
+    loads a Llama: the routed blocks' ``layer_{i}/moe/router/kernel`` and
+    ``layer_{i}/moe/experts/{wg,wi,wo}/kernel`` (``[n_experts, in, out]``,
+    quantized with ``[n_experts, 1, out]`` scales or not), the dense blocks'
+    ``layer_{i}/mlp/...``, and the shared leaves of a Llama tree."""
+    return _load(_with_int8_slots(MoETransformer(config, device="meta"), tree), tree, device)
+
+
+def _load(module: nn.Module, tree: Mapping[str, Any], device: DeviceLike) -> nn.Module:
     state = state_dict_from_jax(tree, module)
     module = module.to_empty(device=resolve_device(device))
     module.load_state_dict(state)
     return module
 
 
-def llama_params_to_numpy(model: Llama) -> Dict[str, Any]:
+def llama_params_to_numpy(model: nn.Module) -> Dict[str, Any]:
     """The way back of :func:`llama_params_from_jax`: a :class:`Llama`'s
     parameters as nested dicts of f32 numpy arrays shaped like the flax tree
     (``layer_0.attn.q_proj.kernel`` -> ``tree["layer_0"]["attn"]["q_proj"]["kernel"]``),
@@ -122,3 +141,8 @@ def llama_params_to_numpy(model: Llama) -> Dict[str, Any]:
         value = tensor.detach().cpu()
         node[leaf] = (value.float() if isinstance(tensor, nn.Parameter) else value).numpy()
     return tree
+
+
+#: the way back of :func:`moe_from_jax`: the same walk over a
+#: ``MoETransformer``'s parameters and int8 buffers
+moe_params_to_numpy = llama_params_to_numpy

@@ -327,6 +327,6 @@ def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None)
             param.zero_()
         elif leaf == "lora_a":
             param.normal_(0.0, 0.02, generator=generator)
-        else:  # kernel [in, out] (fan_in = in) or embedding [vocab, dim] (fan_in = dim)
-            fan_in = param.shape[1] if leaf == "embedding" else param.shape[0]
+        else:  # kernel [..., in, out] (fan_in = in; stacked experts lead with E) or embedding [vocab, dim]
+            fan_in = param.shape[1] if leaf == "embedding" else param.shape[-2]
             param.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)

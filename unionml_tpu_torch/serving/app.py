@@ -83,7 +83,7 @@ class ServingApp:
         if remote:
             raise NotImplementedError(
                 "serving a remote model (remote=True) is not ported yet: the remote backend is ROADMAP.md, "
-                "Queue A item 8 (the rest)"
+                "Queue A: the rest"
             )
         self.model = model
         self.remote = remote
@@ -333,7 +333,7 @@ class ServingApp:
             if value is not None and str(value).strip().lower() not in _FALSY_FLAGS:
                 raise NotImplementedError(
                     f"configure_cold_start({flag}={value!r}): the AOT program store and the compile cache are "
-                    "not ported yet (ROADMAP.md, Queue A item 8: the rest)"
+                    "not ported yet (ROADMAP.md, Queue A: the rest)"
                 )
         if compile_cache is not None:
             os.environ[SERVE_COMPILE_CACHE_ENV_VAR] = str(compile_cache)

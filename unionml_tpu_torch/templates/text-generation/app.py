@@ -15,7 +15,9 @@ engine arguments are the JAX template's. What differs is torch's:
 - ``init`` builds the module on the ``device`` hyperparameter: unset means
   the card, and the CPU is asked for with ``{"device": "cpu"}``;
 - ``speculative_generator``'s draft is a module carrying its own weights
-  (seeded, on the state's device) rather than a params tree.
+  (seeded, on the state's device) rather than a params tree;
+- the corpus is a list of lines with the default splitter's rows written
+  out (``splitter``) rather than a DataFrame: the app imports no pandas.
 
 Structured output: prefix a prompt with ``@<grammar> `` (see ``GRAMMARS``) and
 that request's continuation is constrained to the grammar's regex by
@@ -28,7 +30,6 @@ import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
-import pandas as pd
 import torch
 
 from unionml_tpu_torch import Dataset, Model, TrainerConfig, TrainState, make_train_step
@@ -90,17 +91,27 @@ def _device(state: TrainState) -> torch.device:
 
 
 @dataset.reader
-def reader(repeats: int = 24) -> pd.DataFrame:
-    return pd.DataFrame({"text": CORPUS * repeats})
+def reader(repeats: int = 24) -> List[str]:
+    return CORPUS * repeats
+
+
+@dataset.splitter
+def splitter(data: List[str], test_size: float, shuffle: bool, random_state: int) -> Tuple[List[str], List[str]]:
+    """The default splitter's rows over a list of lines: a seeded
+    permutation, the test rows from its tail (the app imports no pandas, so
+    it runs where pandas is not installed)."""
+    n_test = int(np.ceil(len(data) * test_size))
+    order = np.random.default_rng(random_state).permutation(len(data)) if shuffle else np.arange(len(data))
+    return [data[i] for i in order[:-n_test]], [data[i] for i in order[-n_test:]]
 
 
 @dataset.parser
 def parser(
-    data: pd.DataFrame, features: Optional[List[str]], targets: List[str]
+    data: List[str], features: Optional[List[str]], targets: List[str]
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Chop the corpus into fixed [N, SEQ_LEN] next-token-prediction windows."""
     stream: List[int] = []
-    for line in data["text"]:
+    for line in data:
         stream.extend(encode(line) + [STOI[" "]])
     n = max(len(stream) // SEQ_LEN, 1)
     stream = (stream * SEQ_LEN)[: n * SEQ_LEN]  # wrap-pad the tail window
