@@ -134,13 +134,34 @@ Phases (no phase catches a failure; any fault exits non-zero):
    layers (one dense, one routed) at capacity factor 4 (= experts / k: no
    token dropped): the engine's streams, paged and dense, a speculative
    engine's with a 1-layer draft, and under ``quantize="int8"`` the engine's
-   against the plain int8 ``Generator``, each equal to the solo run.
+   against the plain int8 ``Generator``, each equal to the solo run;
+13. the encoder models at their published widths (random weights, seed 0,
+   f32 parameters, bf16 compute): (a) ``BertConfig.base()`` fine-tuned 8
+   steps of ``fit`` with ``classification_loss`` on SST-2-shaped batches
+   (numpy seed 0, B = 32, L = 128, ragged lengths 8-128 under the attention
+   mask, 2 classes; the plain route, as a masked call takes in JAX):
+   samples/s, losses, no kernel launch; (b) 12 encoder blocks at BERT-base
+   width with ``attention_impl="flash"``, one forward and backward of
+   unmasked bf16 ``[8, 512, 768]``: exactly 12 bf16 flash forwards and 12
+   fused backwards (non-causal, D = 64; ``encoder_launches`` on the kernels
+   line), output and input gradient held to the plain route
+   (``ENC_FLASH_REL_RMS``) and both to an f32 run, each route's step timed
+   in turns with its launch work, and its device time under the profiler;
+   (c) ``ViTConfig.large()`` (ViT-L/16 at 224): inference images/s at
+   B = 64, 6 steps of ``fit`` at B = 32 (the plain route: 197 positions are
+   not tiled by the flash blocks); (d) ``MLPConfig()`` (``BASELINE.json``
+   config 2) through ``Model.train`` on 60,000 MNIST-shaped rows and
+   ``model.predict`` on 4; (e) float32, TF32 off: 2-layer BERT-base and ViT-L
+   and the MLP on the card equal the port on the CPU (forwards and 2 steps of
+   ``fit``), and the 13b stack in f32 through the f32 flash kernels equals
+   the plain route. 13a, 13c and 13d launch no kernel
+   (``encoder_model_launches``).
 
 Phase 10a also holds bf16 chunked admission to monolithic admission behind
 the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
 
-``--profile`` adds one more served run (bf16 and int8) and one more training
-step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
+``--profile`` adds one more served run (bf16 and int8), one more training
+step and one BERT-base fine-tune step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
 name, the device's idle share).
 
 Prints one ``{"kernels": [...]}`` line and ends with
@@ -182,12 +203,14 @@ FLASH_CASES = (
     ("cross-length causal Lq=256 Lk=512", 256, 512, True, None),
     ("blocks=(64,64) causal L=192", 192, 192, True, (64, 64)),
 )
-#: (label, Lq, Lk, causal, D, misaligned) held beside FLASH_CASES: in bfloat16 a ragged D=64 case for the bf16
-#: kernels; in float32 a head dim that is not a multiple of 4 (4-byte copies) and tensors that start 4 bytes past
-#: a 16-byte boundary
-FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64, False),)
-F32_EXTRA_CASES = (("ragged D=50 causal L=1000", 1000, 1000, True, 50, False),
-                   ("misaligned causal L=1000", 1000, 1000, True, 128, True))
+#: (label, Lq, Lk, causal, D, misaligned, (B, H, Hkv)) held beside FLASH_CASES: in bfloat16 a ragged D=64 case for
+#: the bf16 kernels; in float32 a head dim that is not a multiple of 4 (4-byte copies) and tensors that start 4 bytes
+#: past a 16-byte boundary; in both, the encoder's shape (phase 13b: BERT-base heads, non-causal, no GQA)
+FLASH_HEADS = (1, 32, 8)
+ENCODER_FLASH_CASE = ("encoder non-causal L=512", 512, 512, False, 64, False, (8, 12, 12))
+FUSED_EXTRA_CASES = (("ragged D=64 causal L=1000", 1000, 1000, True, 64, False, FLASH_HEADS), ENCODER_FLASH_CASE)
+F32_EXTRA_CASES = (("ragged D=50 causal L=1000", 1000, 1000, True, 50, False, FLASH_HEADS),
+                   ("misaligned causal L=1000", 1000, 1000, True, 128, True, FLASH_HEADS), ENCODER_FLASH_CASE)
 #: products of 2 * Lq * Lk * D multiply-adds (per head, visible pairs only) each kernel computes
 FLASH_PRODUCTS = {"flash_forward": 2, "flash_backward": 5, "flash_forward_f32": 2, "flash_backward_f32": 5}
 FLASH_REPLACES = {
@@ -636,11 +659,10 @@ def serve(batcher, prompts, grammars=None, logprobs=None) -> tuple:
     return results, time.perf_counter() - t0
 
 
-def profile_run(label: str, fn) -> None:
-    """Run ``fn`` once more under ``torch.profiler`` and print where the
-    device time goes: kernel time by name (the 12 largest, and every kernel
-    of the port's), and the device's busy share of the wall time (the rest is
-    the host launching eager PyTorch ops)."""
+def profiled(fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler``: (wall seconds, {device op
+    name: (summed device ms, calls)}). Every device busy time of this script
+    is the sum of these."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -654,6 +676,15 @@ def profile_run(label: str, fn) -> None:
         if str(event.device_type).endswith("CUDA") and event.device_time > 0:
             total, count = by_name.get(event.name, (0.0, 0))
             by_name[event.name] = (total + event.device_time / 1e3, count + 1)  # us -> ms
+    return seconds, by_name
+
+
+def profile_run(label: str, fn) -> None:
+    """Run ``fn`` once more under ``torch.profiler`` and print where the
+    device time goes: kernel time by name (the 12 largest, and every kernel
+    of the port's), and the device's busy share of the wall time (the rest is
+    the host launching eager PyTorch ops)."""
+    seconds, by_name = profiled(fn)
     busy_ms = sum(total for total, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
 
@@ -744,26 +775,27 @@ def flash_kernel_phase() -> dict:
         flash_forward_reference,
     )
 
-    def inputs(q_len, k_len, dtype, seed, head_dim=128, misaligned=False):
+    def inputs(q_len, k_len, dtype, seed, head_dim=128, misaligned=False, heads=FLASH_HEADS):
+        batch, n_heads, n_kv_heads = heads
         g = torch.Generator(device="cuda").manual_seed(seed)
         def make(length, heads):
-            x = torch.randn(1, length, heads, head_dim, device="cuda", generator=g).to(dtype)
+            x = torch.randn(batch, length, heads, head_dim, device="cuda", generator=g).to(dtype)
             if not misaligned:
                 return x
             flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:]  # 4 bytes past the allocation
             return flat.copy_(x.flatten()).view(x.shape)
 
-        return make(q_len, 32), make(k_len, 8), make(k_len, 8), make(q_len, 32)
+        return make(q_len, n_heads), make(k_len, n_kv_heads), make(k_len, n_kv_heads), make(q_len, n_heads)
 
     worst = {name: 0.0 for name in FLASH_PRODUCTS}
-    cases = [(label, q_len, k_len, causal, 128, False) for label, q_len, k_len, causal, _ in FLASH_CASES]
+    cases = [(label, q_len, k_len, causal, 128, False, FLASH_HEADS) for label, q_len, k_len, causal, _ in FLASH_CASES]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = FLASH_TOLERANCE[str(dtype)]
         bf16 = dtype == torch.bfloat16
         extra = list(FUSED_EXTRA_CASES if bf16 else F32_EXTRA_CASES)
         forward, backward = ("flash_forward", "flash_backward") if bf16 else ("flash_forward_f32", "flash_backward_f32")
-        for seed, (label, q_len, k_len, causal, head_dim, misaligned) in enumerate(cases + extra):
-            q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim, misaligned)
+        for seed, (label, q_len, k_len, causal, head_dim, misaligned, heads) in enumerate(cases + extra):
+            q, k, v, dout = inputs(q_len, k_len, dtype, seed, head_dim, misaligned, heads)
             require(not misaligned or q.data_ptr() % 16, f"{label}: the tensors are 16-byte aligned")
             out, lse = flash_forward(q, k, v, causal)
             out_again, lse_again = flash_forward(q, k, v, causal)
@@ -790,7 +822,7 @@ def flash_kernel_phase() -> dict:
             same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
             errors.append(f"backward bitwise equal on a second call: {same}")
             require(same, f"{backward} gave other bits on a second call ({label})")
-            print(f"flash kernels {dtype} {label} D={head_dim}: max_abs_err {', '.join(errors)} "
+            print(f"flash kernels {dtype} {label} B, H, Hkv={heads} D={head_dim}: max_abs_err {', '.join(errors)} "
                   f"(tolerance atol={atol} rtol={rtol}) ok", flush=True)
 
     def timed(name, kernel, plain, q, k, causal, library_ms, library_device_ms, library_label):
@@ -1450,6 +1482,24 @@ def app_counted():
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
 
     return (flash_forward, flash_backward, flash_forward_f32, flash_backward_f32, int8_matmul, paged_decode_attention)
+
+
+def all_launches() -> dict:
+    """Every port kernel's launch count, the int8-page mode's apart."""
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    counts = {fn.__name__: fn.launches for fn in app_counted()}
+    counts["paged_decode_attention_int8"] = paged_decode_attention.int8_launches
+    return counts
+
+
+def reset_counts() -> None:
+    """Set every count of :func:`all_launches` to 0."""
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    for fn in app_counted():
+        fn.launches = 0
+    paged_decode_attention.int8_launches = 0
 
 
 def app_protocol_phase(card: str) -> dict:
@@ -2374,8 +2424,10 @@ def prefix_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
 #: phase 11: the serve CLI in its own process on the card
 CLI_STARTUP_S = 600  # seconds a served app may take to load its artifact and warm up
 #: the child's POST /debug/profile capture lasts the first wave's time and this margin, so that it spans the
-#: second wave (the 1 s head start included); the phase requires that the wave ended inside it
-CLI_PROFILE_MARGIN_MS = 5000.0
+#: second wave (the 1 s head start included) after the profiler's start in the child, which has taken about 10 s
+#: on the H100 machine (a 5 s margin once ended the capture 0.2 s before a wave that began 10.7 s after the
+#: request); the phase requires that the wave ended inside it. The request carries a deadline past the capture
+CLI_PROFILE_MARGIN_MS = 20000.0
 #: the template's grammar prompt and what its stream must match (the template's GRAMMARS["word"])
 TEMPLATE_PROMPT, TEMPLATE_REGEX = "@word the quick brown ", r"[a-z]+"
 #: the app module phase 11b writes: phase 3's serving model and engine behind a pandas-free Dataset/Model; the
@@ -2653,8 +2705,9 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
         captured: dict = {}
         capture_ms = cli_s * 1e3 + CLI_PROFILE_MARGIN_MS
 
-        def capture():
-            captured["response"] = http_request(port, "POST", "/debug/profile", {"duration_ms": capture_ms})
+        def capture():  # a request that lasts the capture: its deadline (the server's default is 30 s) outlasts it
+            captured["response"] = http_request(port, "POST", "/debug/profile", {"duration_ms": capture_ms},
+                                                {"X-Request-Deadline-Ms": str(capture_ms + 60_000)})
 
         profiler = threading.Thread(target=capture)
         sent = time.perf_counter()
@@ -2728,7 +2781,6 @@ def moe_serving_phase(card: str, gcfg, slots: int, decode_chunk: int) -> dict:
 
     from unionml_tpu_torch import ContinuousBatcher, Generator
     from unionml_tpu_torch.models import MoEConfig, MoETransformer
-    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
 
     t0 = time.perf_counter()
     cfg = MoEConfig(param_dtype=torch.bfloat16)
@@ -2745,12 +2797,9 @@ def moe_serving_phase(card: str, gcfg, slots: int, decode_chunk: int) -> dict:
     serve(warm, [prompts[0][:3]])  # set-up: first cuBLAS/allocator calls
     warm.close()
     batcher = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
-    for counted in app_counted():
-        counted.launches = 0
-    paged_decode_attention.int8_launches = 0
+    reset_counts()
     streams, seconds = serve(batcher, prompts)
-    launches = {c.__name__: c.launches for c in app_counted()}
-    launches["paged_decode_attention_int8"] = paged_decode_attention.int8_launches
+    launches = all_launches()
     stats = batcher.stats()
     batcher.close()
     aux = [round(float(m.aux_loss), 4) for m in model.modules() if hasattr(m, "aux_loss") and m.aux_loss is not None]
@@ -2819,6 +2868,499 @@ def moe_parity_phase(gcfg, slots: int, decode_chunk: int) -> None:
             and model.layer_1.moe.router.kernel.dtype == torch.float32, "the int8 expert slots")
     del model, solo, int8, engine
     torch.cuda.empty_cache()
+
+
+#: phase 13: the encoder models at their published widths, random weights from a seed, bf16 compute, f32 params.
+#: (a) BERT-base fine-tuned on SST-2-shaped batches: numpy seed 0, lengths 8-128 (mask 1 = a real token, pad id 0)
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_MIN_LEN, BERT_LR = 32, 128, 8, 8, 2e-5
+#: (b) a stack of BertConfig.base()'s 12 encoder blocks through the flash kernels, unmasked, B x L; each route's
+#: step timed in turns, ENC_TIMED_STEPS runs a turn
+ENC_FLASH_BATCH, ENC_FLASH_SEQ, ENC_TIMED_STEPS = 8, 512, 5
+#: phase 2 holds both kernels alone at this shape (ENCODER_FLASH_CASE), every output element for element; the
+#: 12-layer bf16 stack cannot be held element for element to that single-kernel tolerance (FLASH_TOLERANCE):
+#: both routes round every matmul, norm and activation output to 8 significant bits over 12 layers, in other
+#: orders, and the residual stream's elements reach ~14 while many lie near 0 (a CPU run of the twins at L = 256:
+#: 8-14 % of the elements beyond it, each route's relative RMS error against an f32 run 0.009-0.012, equal to
+#: 3 digits). So the two routes are held on the tensor's relative RMS difference, within phase 2's bf16 relative
+#: tolerance, and the kernel route's error against an f32-compute run of the same weights may be at most
+#: ENC_FLASH_ERR_RATIO times the plain route's (the kernels are no less accurate than the plain route)
+ENC_FLASH_REL_RMS = FLASH_TOLERANCE["torch.bfloat16"][1]
+ENC_FLASH_ERR_RATIO = 1.25
+#: (c) ViT-L/16 at 224: inference at B = 64, then 6 steps of fit at B = 32 on numpy seed 1 images
+VIT_INFER_BATCH, VIT_INFER_RUNS, VIT_BATCH, VIT_STEPS, VIT_LR = 64, 5, 32, 6, 1e-4
+#: (d) MLPConfig() (BASELINE.json config 2) through Model.train on MNIST-shaped rows: 60,000 train, 10,000 test,
+#: 784 inputs, labels of a fixed random linear teacher (numpy seed 4), one epoch at B = 128
+MLP_TRAIN_ROWS, MLP_TEST_ROWS, MLP_INPUTS, MLP_BATCH, MLP_SEED = 60_000, 10_000, 784, 128, 4
+#: (e) float32, TF32 off, card against the port on the CPU: 2-layer BERT-base and ViT-L, the MLP. Forwards within
+#: ENC_CPU_TOL (atol and rtol: both sides sum f32 products in other orders over widths of 768-4096); 2 steps of
+#: fit (Adam, ENC_CPU_LR): losses within ENC_CPU_LOSS_REL, parameters within 1e-6 on the mean difference, at most
+#: 1e-4 of the entries beyond 1e-5, none beyond 2 * lr * steps (Adam's step is lr * m / (sqrt(v) + 1e-8), so a
+#: gradient near 1e-8 carries both sides' rounding into a sizable part of a step: the rule of the CPU tests)
+ENC_PARITY_LAYERS, ENC_CPU_TOL, ENC_CPU_LOSS_REL, ENC_CPU_LR, ENC_CPU_STEPS = 2, 1e-4, 1e-5, 1e-3, 2
+
+
+def sst2_batches(vocab: int, rows: int, seed: int = 0) -> list:
+    """SST-2-shaped fine-tuning data: ``[tokens, attention_mask, labels]``,
+    lengths uniform in BERT_MIN_LEN..BERT_SEQ, a [CLS]-like id first, pad id
+    0 after each row's length, 2 classes."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(BERT_MIN_LEN, BERT_SEQ + 1, size=rows)
+    mask = (np.arange(BERT_SEQ)[None, :] < lengths[:, None]).astype(np.int64)
+    tokens = rng.randint(1000, vocab, size=(rows, BERT_SEQ)).astype(np.int64) * mask
+    tokens[:, 0] = 101
+    labels = rng.randint(0, 2, size=rows).astype(np.int64)
+    return [tokens, mask, labels]
+
+
+def encoder_matmul_params(model) -> int:
+    return sum(p.numel() for n, p in model.named_parameters() if n.endswith(".kernel"))
+
+
+def bert_phase(card: str, profile: bool) -> dict:
+    """Phase 13a: ``BertConfig.base()`` fine-tuned for BERT_STEPS steps of
+    ``fit`` with ``classification_loss`` on masked SST-2-shaped batches (the
+    plain attention route: a masked call never takes the kernels, as in
+    JAX). Every port kernel's launches are counted and must be 0."""
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch import TrainerConfig, TrainState, fit, make_train_step
+    from unionml_tpu_torch.models import BertConfig, BertEncoder, classification_loss
+
+    cfg = BertConfig.base()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = BertEncoder(cfg, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    data = sst2_batches(cfg.vocab_size, BERT_BATCH * BERT_STEPS)
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=BERT_LR))
+    step = make_train_step(classification_loss, has_aux=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = fit(state, step, data, TrainerConfig(epochs=1, batch_size=BERT_BATCH, shuffle=True, log_every_steps=1))
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    losses = [h["loss"] for h in result.history]
+    accuracy = [h["accuracy"] for h in result.history]
+    sps = result.samples_per_sec
+    n_params = sum(p.numel() for p in model.parameters())
+    matmul = encoder_matmul_params(model)
+    # 6 * N * T for the dense layers (forward, input and weight gradients) plus the 6 attention products
+    # (2 forward, 4 backward) of 2 * B * L^2 * dim multiply-adds per layer, over the whole (padded) length
+    tokens = BERT_BATCH * BERT_SEQ
+    flops = 6 * matmul * tokens + 6 * 2 * BERT_BATCH * BERT_SEQ ** 2 * cfg.dim * cfg.n_layers
+    print(f"phase 13a: BERT-base (vocab {cfg.vocab_size}, {cfg.n_layers} x {cfg.dim}, {cfg.n_heads} heads, FFN "
+          f"{cfg.hidden_dim}; {n_params} parameters, f32, bf16 compute, seed 0, built in {build_s:.1f} s) fine-tuned "
+          f"{result.steps} steps of B={BERT_BATCH} x L={BERT_SEQ} (masked, lengths {BERT_MIN_LEN}-{BERT_SEQ}, Adam lr "
+          f"{BERT_LR}) in {seconds:.1f} s (first step {result.compile_time_s:.2f} s): {sps:.1f} samples/s over steps "
+          f"2-{BERT_STEPS}, {sps * BERT_SEQ:.0f} tokens/s, "
+          f"{1e3 * BERT_BATCH / sps if sps else float('nan'):.1f} ms/step, "
+          f"{flops * sps / BERT_BATCH / 1e12:.1f} TFLOP/s achieved ({flops / 1e12:.3f} TFLOP a step); peak memory "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before; "
+          f"losses {losses}; accuracy {accuracy}; port kernel "
+          f"launches {launches} (the plain route, as in JAX: all 0); card {card}", flush=True)
+    require(result.steps == BERT_STEPS and all(math.isfinite(x) for x in losses), f"BERT losses {losses}")
+    require(not any(launches.values()), f"a port kernel launched on the masked BERT path: {launches}")
+    if profile:
+        batch = tuple(torch.from_numpy(a[:BERT_BATCH]).cuda() for a in data)
+        profile_run("one BERT-base fine-tune step", lambda: step(state, batch))
+    del model, state, result
+    torch.cuda.empty_cache()
+    return dict(launches=launches, samples_per_s=sps)
+
+
+def encoder_stack(impl: str, dtype, seed: int = None, layers: int = None):
+    """``BertConfig.base()``'s encoder blocks as a ``Sequential`` on the card."""
+    import torch
+
+    from unionml_tpu_torch.models import BertConfig
+    from unionml_tpu_torch.models.layers import TransformerBlock, init_weights
+
+    cfg = BertConfig.base()
+    stack = torch.nn.Sequential(*[
+        TransformerBlock(cfg.dim, cfg.n_heads, cfg.hidden_dim, decoder=False, attention_impl=impl, dtype=dtype,
+                         device="cuda")
+        for _ in range(layers or cfg.n_layers)])
+    if seed is not None:
+        init_weights(stack, torch.Generator(device="cuda").manual_seed(seed))
+    return stack
+
+
+def device_busy_ms(fn) -> float:
+    """The device time of one call of ``fn`` (after one unprofiled call), as
+    ``profiled`` sums it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    busy_ms = sum(total for total, _ in profiled(fn)[1].values())
+    require(busy_ms > 0, "the profiler recorded no device time")
+    return busy_ms
+
+
+def stack_step(stack, x, dy) -> tuple:
+    """One forward and backward of ``stack`` on ``x``: (output, input gradient)."""
+    inp = x.detach().clone().requires_grad_()
+    out = stack(inp)
+    out.backward(dy)
+    return out.detach(), inp.grad
+
+
+def rel_rms(a, b) -> float:
+    return ((a.float() - b.float()).pow(2).mean().sqrt() / b.float().pow(2).mean().sqrt()).item()
+
+
+def encoder_flash_phase(card: str) -> dict:
+    """Phase 13b: the kernels on the encoder path. 12 encoder blocks at
+    BERT-base width with ``attention_impl="flash"`` run a forward and a
+    backward on unmasked bf16 ``[8, 512, 768]`` inputs: each step launches
+    the bf16 forward and the fused backward once a layer (non-causal, D =
+    64). The output and the input gradient are held to the same weights on
+    the plain route, and both routes to an f32-compute run; each route's
+    step is timed in turns."""
+    import torch
+
+    from unionml_tpu_torch.models import BertConfig
+
+    cfg = BertConfig.base()
+    flash = encoder_stack("flash", torch.bfloat16, seed=3)
+    plain = encoder_stack("xla", torch.bfloat16)
+    plain.load_state_dict(flash.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(ENC_FLASH_BATCH, ENC_FLASH_SEQ, cfg.dim, device="cuda", generator=g).to(torch.bfloat16)
+    dy = torch.randn(ENC_FLASH_BATCH, ENC_FLASH_SEQ, cfg.dim, device="cuda", generator=g).to(torch.bfloat16)
+    reset_counts()
+    got = stack_step(flash, x, dy)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = stack_step(plain, x, dy)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exact = encoder_stack("xla", torch.float32)
+    exact.load_state_dict(flash.state_dict())
+    ref = stack_step(exact, x.float(), dy.float())
+    del exact
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    atol, rtol = FLASH_TOLERANCE["torch.bfloat16"]
+    report, ok = [], True
+    for what, a, b, r in (("out", got[0], want[0], ref[0]), ("dx", got[1], want[1], ref[1])):
+        err = (a.float() - b.float()).abs()
+        beyond = (err > atol + rtol * b.float().abs()).float().mean().item()
+        between, kernel_err, plain_err = rel_rms(a, b), rel_rms(a, r), rel_rms(b, r)
+        ok &= between <= ENC_FLASH_REL_RMS and kernel_err <= ENC_FLASH_ERR_RATIO * plain_err
+        report.append(f"{what}: max_abs_err {err.max().item():.4g} (max |plain| {b.float().abs().max().item():.4g}; "
+                      f"{beyond:.2%} of elements beyond phase 2's atol={atol} rtol={rtol}), relative RMS difference "
+                      f"{between:.4g} (limit {ENC_FLASH_REL_RMS}), against f32 compute: kernel {kernel_err:.4g}, "
+                      f"plain {plain_err:.4g} (limit {ENC_FLASH_ERR_RATIO}x plain)")
+    worst = max((got[i].float() - want[i].float()).abs().max().item() for i in range(2))
+
+    # each route's step timed twice, in turns (kernel, plain, plain, kernel), with the host's launch work; then
+    # its device time: the kernels, copies and fills of one step under torch.profiler (device_ms's spin does not
+    # fit a step of more launches than the card's launch queue holds)
+    turns = {"flash": [], "plain": []}
+    for route in ("flash", "plain", "plain", "flash"):
+        turns[route].append(time_ms(functools.partial(stack_step, flash if route == "flash" else plain, x, dy),
+                                    ENC_TIMED_STEPS))
+    flash_ms, plain_ms = statistics.mean(turns["flash"]), statistics.mean(turns["plain"])
+    flash_dev, plain_dev = (device_busy_ms(functools.partial(stack_step, stack, x, dy)) for stack in (flash, plain))
+    print(f"phase 13b: {cfg.n_layers} encoder blocks at BERT-base width (D = {cfg.dim // cfg.n_heads}, non-causal, "
+          f"unmasked, bf16 compute), one forward + backward of B={ENC_FLASH_BATCH} x L={ENC_FLASH_SEQ}: launches "
+          f"{launches} (expected {cfg.n_layers} bf16 forwards and {cfg.n_layers} fused backwards, every other kernel "
+          f"0); kernel route against the plain route: {'; '.join(report)}; a step {flash_ms:.3f} ms through the "
+          f"kernels, {plain_ms:.3f} ms on the plain route ({plain_ms / flash_ms:.2f}x; CUDA events with the host's "
+          f"launch work, medians of {ENC_TIMED_STEPS} runs in two turns each: kernel "
+          f"{[round(t, 3) for t in turns['flash']]}, plain {[round(t, 3) for t in turns['plain']]}); device busy a "
+          f"step {flash_dev:.3f} ms and {plain_dev:.3f} ms "
+          f"({plain_dev / flash_dev:.2f}x; torch.profiler, one step each); card {card}", flush=True)
+    expected = {name: 0 for name in launches}
+    expected.update(flash_forward=cfg.n_layers, flash_backward=cfg.n_layers)
+    require(launches == expected, f"encoder flash launches {launches}, expected {expected}")
+    require(ok, "the encoder stack's kernel route disagrees with the plain route")
+    del flash, plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=worst, flash_ms=flash_ms, plain_ms=plain_ms, flash_device_ms=flash_dev,
+                plain_device_ms=plain_dev)
+
+
+def vit_phase(card: str) -> dict:
+    """Phase 13c: ``ViTConfig.large()`` (ViT-L/16 at 224: 24 x 1024, 16
+    heads, FFN 4096, 197 positions): inference images/s at B =
+    VIT_INFER_BATCH, then VIT_STEPS steps of ``fit`` with cross-entropy at B
+    = VIT_BATCH on seeded images. The plain route (197 positions are not
+    tiled by the flash blocks, in JAX as here); every port kernel's
+    launches must be 0."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch import TrainerConfig, TrainState, fit, make_train_step
+    from unionml_tpu_torch.models import ViT, ViTConfig
+
+    cfg = ViTConfig.large()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = ViT(cfg, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(1)
+    reset_counts()
+    images = torch.from_numpy(rng.rand(VIT_INFER_BATCH, cfg.image_size, cfg.image_size, cfg.channels)
+                              .astype(np.float32)).cuda()
+    with torch.no_grad():
+        logits = model(images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VIT_INFER_RUNS):
+            logits = model(images)
+        torch.cuda.synchronize()
+        infer_s = (time.perf_counter() - t0) / VIT_INFER_RUNS
+    require(logits.shape == (VIT_INFER_BATCH, cfg.num_classes) and bool(torch.isfinite(logits).all()), "ViT logits")
+    del images
+    data = [rng.rand(VIT_BATCH * VIT_STEPS, cfg.image_size, cfg.image_size, cfg.channels).astype(np.float32),
+            rng.randint(0, cfg.num_classes, size=VIT_BATCH * VIT_STEPS).astype(np.int64)]
+
+    def loss_fn(module, batch):
+        return F.cross_entropy(module(batch[0]).float(), batch[1].long())
+
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=VIT_LR))
+    t0 = time.perf_counter()
+    result = fit(state, make_train_step(loss_fn), data,
+                 TrainerConfig(epochs=1, batch_size=VIT_BATCH, shuffle=True, log_every_steps=1))
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    losses = [h["loss"] for h in result.history]
+    sps = result.samples_per_sec
+    matmul = encoder_matmul_params(model)
+    seq = 1 + cfg.n_patches
+    # dense layers and the patch convolution (6 * N * T) and the attention products
+    train_flops = 6 * matmul * VIT_BATCH * seq + 6 * 2 * VIT_BATCH * seq ** 2 * cfg.dim * cfg.n_layers
+    print(f"phase 13c: ViT-L/16 at {cfg.image_size} ({cfg.n_layers} x {cfg.dim}, {cfg.n_heads} heads, FFN "
+          f"{cfg.hidden_dim}, {seq} positions; {sum(p.numel() for p in model.parameters())} parameters, f32, bf16 "
+          f"compute, seed 0, built in {build_s:.1f} s): inference {VIT_INFER_BATCH / infer_s:.1f} images/s at "
+          f"B={VIT_INFER_BATCH} ({1e3 * infer_s:.1f} ms a batch, mean of {VIT_INFER_RUNS}); trained {result.steps} "
+          f"steps of B={VIT_BATCH} in {seconds:.1f} s (first step {result.compile_time_s:.2f} s): {sps:.1f} samples/s "
+          f"over steps 2-{VIT_STEPS}, {train_flops * sps / VIT_BATCH / 1e12:.1f} TFLOP/s achieved; peak memory "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+          f"before; losses {losses}; port kernel launches {launches} "
+          f"(the plain route: all 0); card {card}", flush=True)
+    require(result.steps == VIT_STEPS and all(math.isfinite(x) for x in losses), f"ViT losses {losses}")
+    require(not any(launches.values()), f"a port kernel launched on the ViT path: {launches}")
+    del model, state, result, data
+    torch.cuda.empty_cache()
+    return dict(launches=launches, images_per_s=VIT_INFER_BATCH / infer_s, samples_per_s=sps)
+
+
+def mlp_app(rows: dict):
+    """``MLPConfig()`` behind a pandas-free ``Dataset``/``Model``: a reader
+    of the seeded MNIST-shaped rows, a splitter of the train and test rows, a
+    step trainer at B = MLP_BATCH, an accuracy evaluator and a predictor."""
+    from typing import List, Optional, Tuple
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch import Dataset, Model, TrainerConfig, TrainState, make_train_step
+    from unionml_tpu_torch.models import MLPConfig, make_train_state
+
+    dataset = Dataset(name="mnist_shaped")
+    model = Model(name="mlp_classifier", dataset=dataset)
+
+    @dataset.reader
+    def reader() -> dict:
+        return rows
+
+    @dataset.splitter
+    def splitter(data: dict, test_size: float, shuffle: bool, random_state: int) -> Tuple[dict, dict]:
+        return ({k: v[:MLP_TRAIN_ROWS] for k, v in data.items()}, {k: v[MLP_TRAIN_ROWS:] for k, v in data.items()})
+
+    @dataset.parser
+    def parser(data: dict, features: Optional[List[str]], targets: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+        return data["x"], data["y"]
+
+    @dataset.feature_loader
+    def feature_loader(raw) -> np.ndarray:
+        return np.asarray(raw, dtype=np.float32)
+
+    @model.init
+    def init(hyperparameters: dict) -> TrainState:
+        return make_train_state(MLPConfig(), MLP_INPUTS, learning_rate=1e-3, seed=0)
+
+    step = make_train_step(lambda module, batch: F.cross_entropy(module(batch[0]).float(), batch[1].long()))
+
+    @model.trainer(config=TrainerConfig(epochs=1, batch_size=MLP_BATCH, shuffle=True))
+    def trainer(state: TrainState, batch) -> tuple:
+        return step(state, batch)
+
+    def logits(state: TrainState, features) -> torch.Tensor:
+        with torch.no_grad():
+            return state.model(torch.as_tensor(np.asarray(features, np.float32), device="cuda"))
+
+    @model.evaluator
+    def evaluator(state: TrainState, features: np.ndarray, target: np.ndarray) -> float:
+        return float((logits(state, features).argmax(-1).cpu().numpy() == target).mean())
+
+    @model.predictor
+    def predictor(state: TrainState, features: np.ndarray) -> List[int]:
+        return [int(i) for i in logits(state, features).argmax(-1)]
+
+    return model
+
+
+def mlp_phase(card: str) -> dict:
+    """Phase 13d: ``BASELINE.json`` config 2, ``MLPConfig()`` on MNIST shapes
+    through ``Model.train`` (one epoch of the 60,000 train rows at B = 128)
+    and ``model.predict`` on 4 rows. No port kernel launches."""
+    import numpy as np
+
+    rng = np.random.RandomState(MLP_SEED)
+    teacher = rng.randn(MLP_INPUTS, 10).astype(np.float32)  # drawn before the rows: one labelling for any size
+    x = rng.rand(MLP_TRAIN_ROWS + MLP_TEST_ROWS, MLP_INPUTS).astype(np.float32)
+    rows = {"x": x, "y": ((x - 0.5) @ teacher).argmax(-1).astype(np.int64)}
+    model = mlp_app(rows)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, metrics = model.train()
+    seconds = time.perf_counter() - t0
+    fit = model.last_fit_result
+    predictions = model.predict(features=x[-4:])
+    launches = all_launches()
+    losses = [h["loss"] for h in fit.history]
+    print(f"phase 13d: MLPConfig() (784 -> 512 -> 256 -> 10, bf16 compute, f32 parameters) through Model.train: "
+          f"{fit.steps} steps of B={MLP_BATCH} in {seconds:.1f} s (data, init and evaluation included; first step "
+          f"{fit.compile_time_s:.3f} s): {fit.samples_per_sec:.0f} samples/s; accuracy train {metrics['train']:.4f} "
+          f"test {metrics['test']:.4f}; last loss {losses[-1]:.4f}; model.predict on 4 rows {predictions} "
+          f"(labels {rows['y'][-4:].tolist()}); port kernel launches {launches} (all 0); card {card}", flush=True)
+    require(fit.steps == MLP_TRAIN_ROWS // MLP_BATCH and math.isfinite(losses[-1]), f"MLP fit {fit.steps} {losses}")
+    require(len(predictions) == 4 and all(0 <= p < 10 for p in predictions), f"predictions {predictions}")
+    require(not any(launches.values()), f"a port kernel launched on the MLP path: {launches}")
+    return dict(launches=launches, samples_per_s=fit.samples_per_sec)
+
+
+def cpu_card_fit(make, data, loss_fn) -> tuple:
+    """The same seeded model on the CPU and on the card, ENC_CPU_STEPS steps
+    of ``fit`` each: ((cpu losses, cpu params), (card losses, card params),
+    forward check inputs)."""
+    import torch
+
+    from unionml_tpu_torch import TrainerConfig, TrainState, fit, make_train_step
+
+    runs = []
+    for device in ("cpu", "cuda"):
+        model = make(device)
+        state = TrainState(model, torch.optim.Adam(model.parameters(), lr=ENC_CPU_LR))
+        result = fit(state, make_train_step(loss_fn), data,
+                     TrainerConfig(epochs=1, batch_size=len(data[-1]) // ENC_CPU_STEPS, shuffle=True,
+                                   log_every_steps=1), device=device)
+        runs.append(([h["loss"] for h in result.history],
+                     {n: p.detach().cpu() for n, p in model.named_parameters()}))
+        del model, state, result
+    return runs
+
+
+def hold_fit(label: str, runs) -> str:
+    import torch
+
+    (cpu_losses, cpu_params), (card_losses, card_params) = runs
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    diffs = torch.cat([(card_params[n] - cpu_params[n]).abs().flatten() for n in cpu_params])
+    beyond = (diffs > 1e-5).float().mean().item()
+    ok = (len(card_losses) == ENC_CPU_STEPS and loss_err <= ENC_CPU_LOSS_REL and diffs.mean().item() <= 1e-6
+          and beyond <= 1e-4 and diffs.max().item() <= 2 * ENC_CPU_LR * ENC_CPU_STEPS)
+    require(ok, f"{label}: fit on the card differs from the CPU (losses {card_losses} vs {cpu_losses}, parameter "
+                f"differences max {diffs.max().item():.3g} mean {diffs.mean().item():.3g} share beyond 1e-5 {beyond})")
+    return (f"{label}: {ENC_CPU_STEPS} steps of fit, losses card {card_losses} CPU {cpu_losses} (max rel err "
+            f"{loss_err:.3g}), parameters max diff {diffs.max().item():.3g} mean {diffs.mean().item():.3g}, "
+            f"{beyond:.2e} of {diffs.numel()} entries beyond 1e-5")
+
+
+def encoder_parity_phase() -> dict:
+    """Phase 13e, float32 with TF32 off: 2-layer BERT-base and ViT-L and the
+    MLP on the card against the port on the CPU (forwards, and
+    ENC_CPU_STEPS steps of ``fit``: losses and parameters), then the 12-layer
+    encoder stack of 13b in f32 through the f32 flash kernels against the
+    plain route (FLASH_TOLERANCE's f32 entry, element for element). Returns
+    the f32 stack's launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import (
+        BertConfig, BertEncoder, MLPClassifier, MLPConfig, ViT, ViTConfig, classification_loss,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    bert_cfg = BertConfig.base(n_layers=ENC_PARITY_LAYERS, **f32)
+    vit_cfg = ViTConfig.large(n_layers=ENC_PARITY_LAYERS, **f32)
+    mlp_cfg = MLPConfig(**f32)
+    rng = np.random.RandomState(5)
+    bert_data = sst2_batches(bert_cfg.vocab_size, 4 * ENC_CPU_STEPS, seed=5)
+    vit_data = [rng.rand(2 * ENC_CPU_STEPS, vit_cfg.image_size, vit_cfg.image_size, 3).astype(np.float32),
+                rng.randint(0, vit_cfg.num_classes, size=2 * ENC_CPU_STEPS).astype(np.int64)]
+    mlp_data = [rng.rand(128 * ENC_CPU_STEPS, 28, 28).astype(np.float32),
+                rng.randint(0, 10, size=128 * ENC_CPU_STEPS).astype(np.int64)]
+    # each model is seeded on the CPU and moved: the CPU's and the card's generators draw other numbers
+    cases = (
+        ("BERT-base, 2 layers", lambda d: BertEncoder(bert_cfg, device="cpu", seed=1).to(d), bert_data,
+         lambda m, b: classification_loss(m, b)[0], lambda m, b: m(b[0], b[1])),
+        ("ViT-L/16, 2 layers", lambda d: ViT(vit_cfg, device="cpu", seed=2).to(d), vit_data,
+         lambda m, b: F.cross_entropy(m(b[0]), b[1]), lambda m, b: m(b[0])),
+        ("MLPConfig()", lambda d: MLPClassifier(mlp_cfg, 784, device="cpu", seed=3).to(d), mlp_data,
+         lambda m, b: F.cross_entropy(m(b[0]), b[1]), lambda m, b: m(b[0])),
+    )
+    lines = []
+    for label, make, data, loss_fn, forward in cases:
+        outs = []
+        for device in ("cpu", "cuda"):
+            model = make(device)
+            batch = [torch.from_numpy(a[: len(a) // ENC_CPU_STEPS]).to(device) for a in data]
+            with torch.no_grad():
+                outs.append(forward(model, batch).cpu())
+            del model
+        err = (outs[1] - outs[0]).abs().max().item()
+        same = torch.allclose(outs[1], outs[0], atol=ENC_CPU_TOL, rtol=ENC_CPU_TOL)
+        require(same, f"{label}: the card's forward differs from the CPU's by {err:.3g}")
+        lines.append(f"{label}: forward {tuple(outs[0].shape)} max abs diff {err:.3g} (tolerance {ENC_CPU_TOL}); "
+                     + hold_fit(label, cpu_card_fit(make, data, loss_fn)))
+        torch.cuda.empty_cache()
+    print(f"phase 13e, float32 (TF32 off), card against the port on the CPU: {'; '.join(lines)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the 13b stack in f32: the f32 forward and the fused f32 backward against the plain route
+    cfg = BertConfig.base()
+    flash = encoder_stack("flash", torch.float32, seed=6)
+    plain = encoder_stack("xla", torch.float32)
+    plain.load_state_dict(flash.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(ENC_FLASH_BATCH, ENC_FLASH_SEQ, cfg.dim, device="cuda", generator=g)
+    dy = torch.randn(ENC_FLASH_BATCH, ENC_FLASH_SEQ, cfg.dim, device="cuda", generator=g)
+    reset_counts()
+    got = stack_step(flash, x, dy)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = stack_step(plain, x, dy)
+    atol, rtol = FLASH_TOLERANCE["torch.float32"]
+    errs = [(got[i] - want[i]).abs().max().item() for i in range(2)]
+    ok = all(torch.allclose(got[i], want[i], atol=atol, rtol=rtol) for i in range(2))
+    expected = {name: 0 for name in launches}
+    expected.update(flash_forward_f32=cfg.n_layers, flash_backward_f32=cfg.n_layers)
+    print(f"phase 13e, float32: {cfg.n_layers} encoder blocks at BERT-base width through the f32 flash kernels "
+          f"(B={ENC_FLASH_BATCH} x L={ENC_FLASH_SEQ}, non-causal) against the plain route: output max_abs_err "
+          f"{errs[0]:.3g}, input gradient {errs[1]:.3g} (tolerance atol={atol} rtol={rtol}); launches {launches} "
+          f"(expected {expected})", flush=True)
+    require(ok, "the f32 encoder stack's kernel route disagrees with the plain route")
+    require(launches == expected, f"f32 encoder launches {launches}, expected {expected}")
+    del flash, plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches, max_abs_err=max(errs))
 
 
 def main() -> int:
@@ -2996,6 +3538,17 @@ def main() -> int:
     moe_parity_phase(gcfg, slots, decode_chunk)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 13: the encoder models (BERT-base, the flash encoder stack, ViT-L, the MLP), then f32 parity
+    t0 = time.perf_counter()
+    bert = bert_phase(card, args.profile)
+    encoder = encoder_flash_phase(card)
+    vit = vit_phase(card)
+    mlp = mlp_phase(card)
+    encoder_f32 = encoder_parity_phase()
+    model_launches = {name: bert["launches"][name] + vit["launches"][name] + mlp["launches"][name]
+                      for name in bert["launches"]}
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -3036,6 +3589,16 @@ def main() -> int:
     })
     for kernel in kernels:  # MoE reaches no port kernel (phase 12a counted every one, and required 0)
         kernel["moe_launches"] = moe["moe_launches"][kernel["name"]]
+        # phase 13: 13b's step through the encoder stack, the f32 stack of 13e, and 13a + 13c + 13d (all 0)
+        kernel["encoder_launches"] = encoder["launches"][kernel["name"]]
+        kernel["encoder_f32_launches"] = encoder_f32["launches"][kernel["name"]]
+        kernel["encoder_model_launches"] = model_launches[kernel["name"]]
+    for kernel in kernels:
+        if kernel["name"] == "flash_forward":  # the encoder stack's worst output/gradient difference (13b)
+            kernel["encoder_max_abs_err"] = encoder["max_abs_err"]
+            kernel["encoder_step_ms"], kernel["encoder_plain_step_ms"] = encoder["flash_ms"], encoder["plain_ms"]
+            kernel["encoder_step_device_ms"] = encoder["flash_device_ms"]
+            kernel["encoder_plain_step_device_ms"] = encoder["plain_device_ms"]
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -69,6 +69,9 @@ def test_scan_sees_every_port_module():
             "unionml_tpu_torch/utils/__init__.py", "unionml_tpu_torch/native/__init__.py",
             "unionml_tpu_torch/templates/text-generation/app.py",
             "unionml_tpu_torch/templates/text-generation/tests/test_app.py"} <= names
+    assert {"unionml_tpu_torch/models/bert.py", "unionml_tpu_torch/models/vit.py", "unionml_tpu_torch/models/mlp.py",
+            "unionml_tpu_torch/templates/image-classification/app.py",
+            "unionml_tpu_torch/templates/image-classification/tests/test_app.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -117,10 +117,9 @@ def cli_project(tmp_path, monkeypatch):
 
 
 def test_templating_list_and_validate():
-    """The unit case's checks, over the port's two templates (the JAX
-    package's ``basic-serverless`` and ``image-classification`` are still
-    to be ported)."""
-    assert set(list_templates()) == {"basic", "text-generation"}
+    """The unit case's checks, over the port's three templates (the JAX
+    package's ``basic-serverless`` is still to be ported)."""
+    assert set(list_templates()) == {"basic", "image-classification", "text-generation"}
     validate_app_name("my-app_1")
     with pytest.raises(ValueError):
         validate_app_name("1bad")
@@ -131,8 +130,8 @@ def test_templating_list_and_validate():
 def test_templates_command_lists_both_and_init_renders_each(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     result = CliRunner().invoke(app, ["templates"])
-    assert result.exit_code == 0 and result.output.split() == ["basic", "text-generation"]
-    for template in ("basic", "text-generation"):
+    assert result.exit_code == 0 and result.output.split() == ["basic", "image-classification", "text-generation"]
+    for template in ("basic", "image-classification", "text-generation"):
         result = CliRunner().invoke(app, ["init", f"app-{template}", "-t", template])
         assert result.exit_code == 0, result.output
         project = tmp_path / f"app-{template}"
@@ -291,4 +290,4 @@ def test_cli_module_imports_no_click():
     env = dict(os.environ, PYTHONPATH=_REPO_ROOT)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["basic", "text-generation"]
+    assert out.stdout.split() == ["basic", "image-classification", "text-generation"]

@@ -7,7 +7,11 @@ as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``), so this package never imports JAX. It raises on any leaf left
 over and on any parameter left missing, and casts once to the dtype asked for.
 The way back, :func:`llama_params_to_numpy`, gives a module's parameters as
-the same nested dicts, so trained weights compare leaf for leaf.
+the same nested dicts, so trained weights compare leaf for leaf. The encoder
+models (BERT, ViT, the MLP classifier) cross the same way
+(:func:`bert_from_jax`, :func:`vit_from_jax`, :func:`mlp_from_jax`), and a
+HuggingFace BERT state dict becomes the JAX package's tree through
+:func:`bert_params_from_hf_state_dict`.
 
 Quantized leaves cross too. In the tree they are objects with ``.q``/``.scale``
 fields (what ``tree_map(np.asarray, quantize_params(params))`` gives) or
@@ -19,15 +23,19 @@ gives them as ``{"q", "scale"}`` dicts.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import os
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
+from unionml_tpu_torch.models.bert import BertConfig, BertEncoder
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig
+from unionml_tpu_torch.models.mlp import MLPClassifier, MLPConfig
 from unionml_tpu_torch.models.moe import MoEConfig, MoETransformer
+from unionml_tpu_torch.models.vit import ViT, ViTConfig
 from unionml_tpu_torch.ops.quant import QuantizedTensor, set_quantized
 
 
@@ -146,3 +154,93 @@ def llama_params_to_numpy(model: nn.Module) -> Dict[str, Any]:
 #: the way back of :func:`moe_from_jax`: the same walk over a
 #: ``MoETransformer``'s parameters and int8 buffers
 moe_params_to_numpy = llama_params_to_numpy
+
+
+def bert_from_jax(tree: Mapping[str, Any], config: BertConfig, *, device: DeviceLike = None) -> BertEncoder:
+    """A :class:`~unionml_tpu_torch.models.bert.BertEncoder` on ``device``
+    (``None`` = CUDA) loaded from a flax BERT tree (``tok_embed``,
+    ``pos_embed``, ``embed_norm``, ``layer_{i}``, ``pooler``, ``classifier``
+    and, when the tree has it, ``type_embed``: the module gets the table
+    exactly when the tree holds one)."""
+    return _load(BertEncoder(config, device="meta", token_types="type_embed" in tree), tree, device)
+
+
+def vit_from_jax(tree: Mapping[str, Any], config: ViTConfig, *, device: DeviceLike = None) -> ViT:
+    """A :class:`~unionml_tpu_torch.models.vit.ViT` on ``device`` (``None`` =
+    CUDA) loaded from a flax ViT tree (``embed/{patch_embed,cls_token,
+    pos_embed}``, ``layer_{i}``, ``head/{final_norm,head}``); the patch
+    kernel loads in flax's ``[kh, kw, in, out]`` as it is."""
+    return _load(ViT(config, device="meta"), tree, device)
+
+
+def mlp_from_jax(tree: Mapping[str, Any], config: MLPConfig, *, device: DeviceLike = None) -> MLPClassifier:
+    """A :class:`~unionml_tpu_torch.models.mlp.MLPClassifier` on ``device``
+    (``None`` = CUDA) loaded from a flax tree (``dense_{i}``, ``head``); the
+    input width is read from the first kernel."""
+    first = tree["dense_0"] if config.features else tree["head"]
+    return _load(MLPClassifier(config, int(np.shape(first["kernel"])[0]), device="meta"), tree, device)
+
+
+#: the ways back of :func:`bert_from_jax`, :func:`vit_from_jax` and
+#: :func:`mlp_from_jax`: the same walk over the module's parameters
+bert_params_to_numpy = vit_params_to_numpy = mlp_params_to_numpy = llama_params_to_numpy
+
+
+def bert_params_from_hf_state_dict(
+    state_dict: Union[Mapping[str, Any], str, "os.PathLike[str]"], config: BertConfig
+) -> Dict[str, Any]:
+    """The JAX package's BERT tree (``load_hf_bert_params``'s mapping) from a
+    HuggingFace BERT state dict: a ``{name: tensor or array}`` mapping in
+    memory, or the path of one saved with ``torch.save`` (e.g. a local
+    ``pytorch_model.bin``). Names may carry the ``bert.`` prefix of the
+    task models. Nothing is downloaded and ``transformers`` is not needed.
+
+    The tree is the reference's exactly: nested dicts of f32 numpy arrays
+    with ``tok_embed``, ``pos_embed`` (cut to ``config.max_seq_len`` rows),
+    ``type_embed``, ``embed_norm``, ``pooler`` and ``layer_{i}`` for
+    ``config.n_layers`` layers, and no ``classifier`` (a fine-tune adds its
+    own). Load it with :func:`bert_from_jax` once a classifier is merged in.
+
+    It reproduces the reference's mapping, not HF BERT's function: HF BERT
+    is post-norm, and the mapping puts each layer's post-attention norm
+    (``attention.output.LayerNorm``) in the pre-norm ``attn_norm`` slot and
+    its post-FFN norm (``output.LayerNorm``) in ``mlp_norm``; the blocks
+    have no projection biases, so HF's query/key/value/output and FFN biases
+    are dropped."""
+    if isinstance(state_dict, (str, os.PathLike)):
+        state_dict = torch.load(state_dict, map_location="cpu", weights_only=True)
+    sd = {}
+    for name, value in state_dict.items():
+        value = value.detach().cpu().float().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        sd[name[len("bert."):] if name.startswith("bert.") else name] = value
+
+    def dense(prefix: str) -> Dict[str, np.ndarray]:
+        return {"kernel": sd[f"{prefix}.weight"].T, "bias": sd[f"{prefix}.bias"]}
+
+    def norm(prefix: str) -> Dict[str, np.ndarray]:
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    params: Dict[str, Any] = {
+        "tok_embed": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "pos_embed": {"embedding": sd["embeddings.position_embeddings.weight"][: config.max_seq_len]},
+        "type_embed": {"embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "embed_norm": norm("embeddings.LayerNorm"),
+        "pooler": dense("pooler.dense"),
+    }
+    for i in range(config.n_layers):
+        hf = f"encoder.layer.{i}"
+        params[f"layer_{i}"] = {
+            "attn_norm": norm(f"{hf}.attention.output.LayerNorm"),
+            "attn": {
+                "q_proj": {"kernel": sd[f"{hf}.attention.self.query.weight"].T},
+                "k_proj": {"kernel": sd[f"{hf}.attention.self.key.weight"].T},
+                "v_proj": {"kernel": sd[f"{hf}.attention.self.value.weight"].T},
+                "o_proj": {"kernel": sd[f"{hf}.attention.output.dense.weight"].T},
+            },
+            "mlp_norm": norm(f"{hf}.output.LayerNorm"),
+            "mlp": {
+                "wi": {"kernel": sd[f"{hf}.intermediate.dense.weight"].T},
+                "wo": {"kernel": sd[f"{hf}.output.dense.weight"].T},
+            },
+        }
+    return params

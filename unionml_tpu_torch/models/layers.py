@@ -8,7 +8,9 @@ Conventions kept from the JAX package so the two compare like with like:
 - dense kernels are stored ``[in, out]`` and applied as ``x @ W``; parameter
   names follow the flax tree (``q_proj.kernel``, ``attn_norm.scale``), so the
   weight bridge (:mod:`unionml_tpu_torch.models.convert`) maps paths 1:1;
-- RoPE rotates interleaved pairs ``x[..., 0::2]``/``x[..., 1::2]``.
+- RoPE rotates interleaved pairs ``x[..., 0::2]``/``x[..., 1::2]``;
+- convolution kernels keep flax's ``[kh, kw, in, out]`` and images flax's
+  ``[B, H, W, C]``; :class:`Conv` permutes both at the call.
 
 Where JAX returns a new cache (and donates the old buffers), the port writes
 the cache tensors IN PLACE and returns the same dict: one cache lives in
@@ -67,6 +69,59 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         norm = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + self.epsilon)
         return (norm * self.scale).to(self.dtype)
+
+
+#: flax ``nn.LayerNorm``'s default epsilon, which every encoder uses (torch's is 1e-5)
+_FLAX_LN_EPS = 1e-6
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (the encoder's norm): statistics in f32 with
+    ``epsilon=1e-6`` and the fast variance ``E[x^2] - E[x]^2`` clipped at 0,
+    f32 ``scale``/``bias``, the result cast to ``dtype``. (torch's
+    ``LayerNorm`` uses 1e-5 and the two-pass variance.)"""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16, device: Any = None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + _FLAX_LN_EPS) * self.scale
+        return ((x32 - mean) * mul + self.bias).to(self.dtype)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` (with its bias) over ``[B, H, W, C]`` images with ``SAME`` padding:
+    the kernel is kept ``[kh, kw, in, out]`` (so a flax tree loads as it
+    is) and permuted to torch's ``[out, in, kh, kw]`` at the call, the
+    images to ``[B, C, H, W]`` and the result back to ``[B, H', W', out]``.
+    The input, kernel and bias are cast to ``dtype``. ``SAME`` pads each
+    spatial side as XLA does: ``max((ceil(n / s) - 1) * s + k - n, 0)`` in
+    all, the odd one at the end."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int],
+                 strides: Tuple[int, int] = (1, 1), dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32, device: Any = None):
+        super().__init__()
+        self.kernel_size, self.strides, self.dtype = tuple(kernel_size), tuple(strides), dtype
+        self.kernel = nn.Parameter(torch.empty(*kernel_size, in_features, features, dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(features, dtype=param_dtype, device=device))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = images.to(self.dtype).permute(0, 3, 1, 2)
+        pads = []
+        for size, k, s in reversed(list(zip(x.shape[2:], self.kernel_size, self.strides))):
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        if any(pads):
+            x = F.pad(x, pads)
+        y = F.conv2d(x, self.kernel.to(self.dtype).permute(3, 2, 0, 1), self.bias.to(self.dtype), stride=self.strides)
+        return y.permute(0, 2, 3, 1)
 
 
 class IotaEmbed(nn.Module):
@@ -269,35 +324,46 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Gated SwiGLU feed-forward block (the decoder's)."""
+    """Feed-forward block: gated SwiGLU (``wg``, ``wi``, ``wo``; the
+    decoder's) or, with ``gated=False``, plain ``wi`` -> GELU -> ``wo`` (the
+    encoder's). The GELU is ``jax.nn.gelu``'s default, the tanh
+    approximation."""
 
-    def __init__(self, features: int, hidden_dim: int, lora_rank: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32, device: Any = None):
+    def __init__(self, features: int, hidden_dim: int, gated: bool = True, lora_rank: int = 0,
+                 dtype: torch.dtype = torch.bfloat16, param_dtype: torch.dtype = torch.float32, device: Any = None):
         super().__init__()
+        self.gated = gated
         dense = lambda i, o: LoRADense(i, o, rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device)  # noqa: E731
-        self.wg = dense(features, hidden_dim)
+        if gated:
+            self.wg = dense(features, hidden_dim)
         self.wi = dense(features, hidden_dim)
         self.wo = dense(hidden_dim, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(F.silu(self.wg(x)) * self.wi(x))
+        if self.gated:
+            return self.wo(F.silu(self.wg(x)) * self.wi(x))
+        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm decoder block: RMSNorm, causal attention, RMSNorm, SwiGLU."""
+    """Pre-norm transformer block: decoder (RMSNorm, causal attention,
+    SwiGLU) or, with ``decoder=False``, encoder (LayerNorm, bidirectional
+    attention under the caller's ``mask``, GELU MLP)."""
 
     def __init__(self, features: int, n_heads: int, hidden_dim: int, n_kv_heads: Optional[int] = None,
-                 rope: bool = False, rope_theta: float = 10000.0, attention_impl: str = "auto",
-                 lora_rank: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 decoder: bool = True, rope: bool = False, rope_theta: float = 10000.0,
+                 attention_impl: str = "auto", lora_rank: int = 0, dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, device: Any = None):
         super().__init__()
-        self.attn_norm = RMSNorm(features, dtype=dtype, device=device)
+        norm = RMSNorm if decoder else LayerNorm
+        self.attn_norm = norm(features, dtype=dtype, device=device)
         self.attn = Attention(
-            features, n_heads, n_kv_heads, causal=True, rope=rope, rope_theta=rope_theta,
+            features, n_heads, n_kv_heads, causal=decoder, rope=rope, rope_theta=rope_theta,
             impl=attention_impl, lora_rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device,
         )
-        self.mlp_norm = RMSNorm(features, dtype=dtype, device=device)
-        self.mlp = MLP(features, hidden_dim, lora_rank=lora_rank, dtype=dtype, param_dtype=param_dtype, device=device)
+        self.mlp_norm = norm(features, dtype=dtype, device=device)
+        self.mlp = MLP(features, hidden_dim, gated=decoder, lora_rank=lora_rank, dtype=dtype,
+                       param_dtype=param_dtype, device=device)
 
     def forward(
         self,
@@ -317,16 +383,25 @@ class TransformerBlock(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Random weights from a seeded ``torch.Generator`` (on the module's
-    device): lecun-normal dense kernels, ``1/sqrt(dim)`` embeddings, unit norm
-    scales, zero LoRA ``B`` — the flax initializers' laws, not their bits."""
+    device): lecun-normal dense and convolution kernels, ``1/sqrt(dim)``
+    embeddings, unit norm scales, zero biases, LoRA ``B`` and ``cls_token``,
+    normal(0.02) LoRA ``A`` and learned ``pos_embed`` tables — the flax
+    initializers' laws, not their bits."""
+    owners = dict(module.named_modules())
     for name, param in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        owner, _, leaf = name.rpartition(".")
         if leaf == "scale":
             param.fill_(1.0)
-        elif leaf in ("lora_b", "bias"):
+        elif leaf in ("lora_b", "bias", "cls_token"):
             param.zero_()
-        elif leaf == "lora_a":
+        elif leaf in ("lora_a", "pos_embed"):
             param.normal_(0.0, 0.02, generator=generator)
-        else:  # kernel [..., in, out] (fan_in = in; stacked experts lead with E) or embedding [vocab, dim]
-            fan_in = param.shape[1] if leaf == "embedding" else param.shape[-2]
+        else:  # kernel [..., in, out] (fan_in = in; stacked experts lead with E), conv kernel [kh, kw, in, out]
+            # (fan_in = kh * kw * in) or embedding [vocab, dim]
+            if leaf == "embedding":
+                fan_in = param.shape[1]
+            elif isinstance(owners[owner], Conv):
+                fan_in = math.prod(param.shape[:-1])
+            else:
+                fan_in = param.shape[-2]
             param.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
