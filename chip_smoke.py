@@ -123,7 +123,7 @@ Phases (no phase catches a failure; any fault exits non-zero):
    tokens from both; a second wave runs under the child's ``POST
    /debug/profile`` capture, whose Chrome trace gives the paged kernel's
    launches in the child (``cli_launches``, exactly 32 layers x the wave's
-   dispatches x 8); ``serve --dp-replicas 2`` exits
+   dispatches x 8); ``serve --num-hosts 2`` exits
    1 before an app module that raises at import is imported;
 12. the routed-experts decoder: (a) ``MoEConfig()`` (vocab 32,000, dim 4096,
    8 layers, every second routed over 8 experts of hidden 14,336, k = 2,
@@ -156,13 +156,30 @@ Phases (no phase catches a failure; any fault exits non-zero):
    ``fit``), and the 13b stack in f32 through the f32 flash kernels equals
    the plain route. 13a, 13c and 13d launch no kernel
    (``encoder_model_launches``).
+14. the in-process replica layer on phase 9's target (phase 3's weights and
+   knobs), run after phase 10a: (a) ``UNIONML_TPU_DP_REPLICAS=2`` makes
+   ``ContinuousBatcher(gen, ...)`` a ``ReplicaSet`` of two mixed replicas
+   on this card sharing the weights; 8 concurrent streams (phase 3's prompts
+   twice) equal phase 3's streams, both replicas serve, the paged launches
+   are exactly 32 x 8 x the dispatches summed over the replicas
+   (``replica_launches``, with (b)'s), the memory grows by at most the two
+   pools + 1 GiB; tok/s and TTFT beside one engine of 8 slots on the same
+   streams; (b) ``roles={"prefill": 1, "decode": 1}``,
+   ``prefill_threshold=64``: the 120- and 250-token prompts hand their KV
+   pages off (16 and 32 MiB), the others do not, streams phase 3's; the
+   handoff's export and import timed; (c) (a)'s fleet with 8 streams in
+   flight: ``scale_to(3)`` then ``scale_to(1)``, every stream whole and
+   phase 3's, then the autoscaler armed and joined by ``close``; (d)
+   float32, 2 layers: (a)'s and (b)'s fleets on the card equal the same
+   fleets on the CPU, and the handoff pages agree within 1e-5 of each leaf's scale.
 
 Phase 10a also holds bf16 chunked admission to monolithic admission behind
 the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
 
 ``--profile`` adds one more served run (bf16 and int8), one more training
-step and one BERT-base fine-tune step under ``torch.profiler`` and prints each device-time breakdown (kernel time by
-name, the device's idle share).
+step, one BERT-base fine-tune step and one wave of phase 14a's fleet and of
+its 8-slot engine under ``torch.profiler`` and prints each device-time
+breakdown (kernel time by name, the device's idle share).
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -2203,17 +2220,21 @@ def int8_pool_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: 
 
 def serve_timed(batcher, prompts) -> tuple:
     """Submit every prompt from its own thread; return (streams, seconds,
-    each stream's time to its first chunk in ms)."""
-    results, ttft = [None] * len(prompts), [None] * len(prompts)
+    each stream's time to its first chunk in ms, and from its first chunk to
+    its second in ms or None). Through a replica handoff the first chunk is
+    the prefill replica's token and the second the decode replica's first
+    after the import."""
+    results, ttft, gap = [None] * len(prompts), [None] * len(prompts), [None] * len(prompts)
 
     def worker(i):
         t0 = time.perf_counter()
-        tokens = []
+        tokens, stamps = [], []
         for chunk in batcher.submit(prompts[i]):
-            if not tokens:
-                ttft[i] = (time.perf_counter() - t0) * 1e3
+            stamps.append(time.perf_counter())
             tokens.extend(int(t) for t in chunk)
         results[i] = tokens
+        ttft[i] = (stamps[0] - t0) * 1e3
+        gap[i] = (stamps[1] - stamps[0]) * 1e3 if len(stamps) > 1 else None
 
     threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
     t0 = time.perf_counter()
@@ -2223,7 +2244,7 @@ def serve_timed(batcher, prompts) -> tuple:
         t.join(timeout=600)
         if t.is_alive():
             raise TimeoutError("a stream did not finish within 600 s")
-    return results, time.perf_counter() - t0, ttft
+    return results, time.perf_counter() - t0, ttft, gap
 
 
 def system_prompt(vocab: int) -> list:
@@ -2334,7 +2355,7 @@ def prefix_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int
         chunks = sum(chunk_aligned(len(p) - c, ADMIT_CHUNK) if c else chunk_aligned(bucket, ADMIT_CHUNK)
                      for p, c in zip(wave, cached)) // ADMIT_CHUNK
         expected_chunks += chunks
-        streams, seconds, ttft = serve_timed(engine, wave)
+        streams, seconds, ttft, _ = serve_timed(engine, wave)
         stats = engine.stats()
         pc, pf = stats["prefix_cache"], stats["prefill"]
         require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
@@ -2418,6 +2439,294 @@ def prefix_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     require(all(all(v) for v in results.values()) and chunks > 0, f"phase 10b parity {results}")
     del target, solo, system, draft, spec_gen, engine
+    torch.cuda.empty_cache()
+
+
+#: phase 14: the in-process replica layer on phase 9's target. (b) splits the fleet prefill=1,decode=1 at this
+#: threshold: the 120- and 250-token prompts hand off, the 5- and 40-token ones admit on the decode replica
+REPLICA_THRESHOLD = 64
+#: (d) the f32 parity at 2 layers: each card fleet against the same fleet on the CPU, 8 new tokens, the short
+#: prompts in a 64-token bucket (the CPU's prefill dominates the phase)
+REPLICA_PARITY_NEW, REPLICA_PARITY_BUCKETS = 8, (64, 256)
+#: (d) the handoff pages card against CPU, per leaf: |card - cpu| <= HANDOFF_PAGE_REL x max|cpu leaf|. K carries
+#: RoPE at positions up to 250: its angle, an f32 product of up to 250 rad through pow, sin and cos that may differ
+#: by an ulp between the card and the CPU, is uncertain by up to an ulp at 250 (2**-16 = 1.5e-5 rad), which moves K
+#: by up to that share of its scale; V differs by the order of its 4096-term f32 dot products, about sqrt(4096) x
+#: 2**-24 = 3.8e-6 of its scale. TOLERANCE's f32 entry (1e-5 absolute) holds one kernel against its twin on outputs
+#: of magnitude ~1, not values of magnitude ~5 made on two devices
+HANDOFF_PAGE_REL = 1e-5
+
+
+def handoff_times(cfg, engine, n_pages: int) -> dict:
+    """The handoff's two halves at the served geometry, on seeded bf16 rows:
+    the export's copy of ``n_pages`` pages out of a ``[1, cache_len]`` row and
+    the import's whole-page write into a pool of ``engine``'s shape, each
+    timed with launch work (CUDA events) and on the device (the profiler's
+    op times of 5 calls summed, a call), beside the bytes bound (each half
+    reads and writes the pages once)."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher
+    from unionml_tpu_torch.models import init_cache, init_paged_cache
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    row = init_cache(cfg, 1, engine.cache_len, device="cuda")
+    for layer in row:
+        for buf in layer.values():
+            buf.copy_(torch.randn(buf.shape, device="cuda", generator=g).to(buf.dtype))
+    pool = init_paged_cache(cfg, engine.slots, engine.pool_blocks + 1, BLOCK, engine.max_blocks,
+                            fill_block=engine.pool_blocks, device="cuda")
+    tok, lengths = torch.zeros(engine.slots, dtype=torch.int32, device="cuda"), torch.ones(engine.slots, dtype=torch.int32, device="cuda")
+    done = torch.ones(engine.slots, dtype=torch.bool, device="cuda")
+    # the table row already on the card: a host copy would wait on the card and void the device-only time
+    blocks_row = torch.full((engine.max_blocks,), engine.pool_blocks, dtype=torch.int32, device="cuda")
+    blocks_row[:n_pages] = torch.arange(n_pages, dtype=torch.int32, device="cuda")
+    tok0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    row_len = torch.full((1,), n_pages * BLOCK, dtype=torch.int32, device="cuda")
+    pages = ContinuousBatcher._export_pages_impl(row, n_pages, BLOCK)
+
+    def export():
+        ContinuousBatcher._export_pages_impl(row, n_pages, BLOCK)
+
+    def import_():
+        ContinuousBatcher._paged_page_admit_impl(pool, pages, tok, lengths, done, 0, tok0, row_len, blocks_row)
+
+    calls = 5
+    with torch.no_grad():
+        export_ms, import_ms = time_ms(export, runs=20), time_ms(import_, runs=20)
+        # device time: the profiler's kernel and copy times of `calls` calls of each half, summed, a call
+        ops = {label: profiled(lambda: [fn() for _ in range(calls)])[1]
+               for label, fn in (("export", export), ("import", import_))}
+    moved = sum(t.numel() * t.element_size() for layer in pages for t in layer.values())
+    out = dict(bytes=moved, export_ms=export_ms, import_ms=import_ms,
+               export_device_ms=sum(ms for ms, _ in ops["export"].values()) / calls,
+               import_device_ms=sum(ms for ms, _ in ops["import"].values()) / calls,
+               device_ops={label: {name[:60]: n / calls for name, (_, n) in by.items()} for label, by in ops.items()},
+               bound_ms=4 * moved / HBM_BYTES_PER_S * 1e3)
+    del row, pool, pages
+    torch.cuda.empty_cache()
+    return out
+
+
+def replica_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams,
+                  profile: bool = False) -> dict:
+    """Phase 14a-c: the in-process replica layer at full width, bf16, on
+    phase 9's target (phase 3's weights and knobs). (a) ``UNIONML_TPU_DP_
+    REPLICAS=2`` through ``ContinuousBatcher(gen, ...)``: two mixed replicas
+    on this card sharing the weights serve phase 3's prompts twice,
+    concurrently, token for token phase 3's, both replicas serving, the
+    paged launches exactly 32 x 8 x the dispatches summed over the replicas,
+    the memory grown by at most the two pools + 1 GiB; then one engine of
+    ``2 * slots`` slots on the same 8 streams. (b) ``roles={"prefill": 1,
+    "decode": 1}``, ``prefill_threshold=REPLICA_THRESHOLD``: the long prompts
+    hand off, the short ones do not, streams phase 3's; the handoff's bytes
+    and its two halves timed. (c) (a)'s fleet with 8 streams in flight:
+    ``scale_to(3)``, then ``scale_to(1)``, every stream whole and phase 3's;
+    then the autoscaler armed and the set closed (its thread joined).
+    ``profile`` adds a torch.profiler breakdown of the fleet's wave and of
+    the 8-slot engine's."""
+    import os
+
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+    from unionml_tpu_torch.serving import ReplicaSet
+
+    mcfg = target.config
+    gen = Generator(target, gcfg)
+    wave, expected = list(prompts) * 2, list(bf16_streams) * 2
+
+    def warm(engine):  # set-up of an engine's pool and first dispatch (not counted)
+        for _ in engine.submit(prompts[0][:3], max_new_tokens=2):
+            pass
+
+    # ---- (a) two mixed replicas through the engine's constructor (the --dp-replicas export)
+    mem0 = torch.cuda.memory_allocated()
+    os.environ["UNIONML_TPU_DP_REPLICAS"] = "2"  # the serve CLI's --dp-replicas export
+    try:
+        fleet = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    finally:
+        del os.environ["UNIONML_TPU_DP_REPLICAS"]
+    require(isinstance(fleet, ReplicaSet) and fleet.replicas == 2, f"the export built {type(fleet).__name__}")
+    require(all(b.gen.model is target for b in fleet.batchers), "a replica on the card holds its own weights")
+    for b in fleet.batchers:
+        warm(b)
+    before = [b.decode_dispatches for b in fleet.batchers]
+    for counted in app_counted():
+        counted.launches = 0
+    streams, seconds, ttft, _ = serve_timed(fleet, wave)
+    launches = paged_decode_attention.launches
+    others = {c.__name__: c.launches for c in app_counted() if c is not paged_decode_attention}
+    dispatches = [b.decode_dispatches - d for b, d in zip(fleet.batchers, before)]
+    grown = torch.cuda.memory_allocated() - mem0
+    pools = sum((b.pool_blocks + 1) * b._block_bytes for b in fleet.batchers)  # blocks and scratch
+    want = mcfg.n_layers * sum(dispatches) * decode_chunk
+    fleet_tok_s, fleet_ttft = len(wave) * MAX_NEW / seconds, statistics.median(ttft)
+    one = ContinuousBatcher(gen, slots=2 * slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    warm(one)
+    one_streams, one_seconds, one_ttft, _ = serve_timed(one, wave)
+    if profile:
+        profile_run("2 replicas on one card, 8 streams", lambda: serve(fleet, wave))
+        profile_run(f"one engine of {2 * slots} slots, 8 streams", lambda: serve(one, wave))
+    one.close()
+    one_tok_s = len(wave) * MAX_NEW / one_seconds
+    print(f"phase 14a: 2 mixed replicas on one card (UNIONML_TPU_DP_REPLICAS=2, weights shared), 8 streams x "
+          f"{MAX_NEW}: {fleet_tok_s:.1f} tok/s aggregate, TTFT p50 {fleet_ttft:.1f} ms; one engine of "
+          f"{2 * slots} slots on the same streams: {one_tok_s:.1f} tok/s, TTFT p50 {statistics.median(one_ttft):.1f} "
+          f"ms (fleet / one engine {fleet_tok_s / one_tok_s:.3f}x); dispatches per replica {dispatches}, submitted "
+          f"{fleet.stats()['scheduler']['submitted']}; paged launches {launches} (expected {mcfg.n_layers} x "
+          f"{sum(dispatches)} x {decode_chunk} = {want}), other kernels {others}; memory grown "
+          f"{grown / 2**30:.3f} GiB (limit: the two pools {pools / 2**30:.3f} GiB + 1 GiB); streams equal phase 3's: "
+          f"{streams == expected} (the 8-slot engine's, whose decode GEMMs have M = 8, first part from them at "
+          f"{[first_divergence(a, b) for a, b in zip(one_streams, expected)]} of {MAX_NEW}); card {card}", flush=True)
+    require(streams == expected, f"the fleet's streams differ from phase 3's: first divergence "
+                                 f"{[first_divergence(a, b) for a, b in zip(streams, expected)]}")
+    require(all(len(s) == MAX_NEW for s in one_streams), f"8-slot stream lengths {[len(s) for s in one_streams]}")
+    require(all(d > 0 for d in dispatches), f"a replica served no work: dispatches {dispatches}")
+    require(launches == want > 0 and not any(others.values()), f"{launches} paged launches, expected {want}; {others}")
+    require(grown <= pools + 2**30, f"the fleet grew memory by {grown} bytes, over {pools} + 1 GiB")
+    replica_launches = launches
+
+    # ---- (b) prefill=1,decode=1 with KV handoff
+    handoffs = sum(len(p) >= REPLICA_THRESHOLD for p in prompts)
+    split = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK,
+                              roles={"prefill": 1, "decode": 1}, prefill_threshold=REPLICA_THRESHOLD)
+    require(isinstance(split, ReplicaSet) and split.roles == ["prefill", "decode"], f"roles {split.roles}")
+    for b in split.batchers:
+        warm(b)
+    before = [b.decode_dispatches for b in split.batchers]
+    paged_decode_attention.launches = 0
+    split_streams, split_seconds, split_first, gap = serve_timed(split, prompts)
+    launches = paged_decode_attention.launches
+    stats = split.stats()
+    split.close()
+    dispatches = [e["decode_dispatches"] - d for e, d in zip(stats["per_replica"], before)]
+    want = mcfg.n_layers * sum(dispatches) * decode_chunk
+    head_dim = mcfg.dim // mcfg.n_heads
+    page_bytes = mcfg.n_layers * 2 * mcfg.n_kv_heads * BLOCK * head_dim * torch.empty((), dtype=mcfg.dtype).element_size()
+    sizes = {len(p): -(-len(p) // BLOCK) * page_bytes for p in prompts if len(p) >= REPLICA_THRESHOLD}
+    times = handoff_times(mcfg, split.batchers[1], -(-max(len(p) for p in prompts) // BLOCK))
+    transfer = stats["per_replica"][1]["handoff"]["transfer_ms"]
+    print(f"phase 14b: prefill=1,decode=1, prefill_threshold {REPLICA_THRESHOLD}: handoffs routed "
+          f"{stats['handoffs']['routed']}, exported {stats['handoffs']['exported']}, imported "
+          f"{stats['handoffs']['imported']} (expected {handoffs}: prompts of {[len(p) for p in prompts]} tokens); "
+          f"handoff bytes by prompt length {({n: f'{b / 2**20:.1f} MiB' for n, b in sizes.items()})}; first item "
+          f"{[round(x, 1) for x in split_first]} ms, first item to the next (through the import where handed off) "
+          f"{[round(x, 1) if x is not None else None for x in gap]} ms; export to import p50 "
+          f"{transfer.get('p50_ms')} ms; the 250-token handoff ({times['bytes'] / 2**20:.1f} MiB): export "
+          f"{times['export_ms']:.4f} ms ({times['export_device_ms']:.4f} device only), import {times['import_ms']:.4f} "
+          f"ms ({times['import_device_ms']:.4f}), bound {times['bound_ms']:.4f} ms (bytes), device ops "
+          f"{times['device_ops']}; {len(prompts) * MAX_NEW / split_seconds:.1f} "
+          f"tok/s; decode dispatches {dispatches}, paged launches {launches} (expected {want}); streams equal phase "
+          f"3's: {split_streams == list(bf16_streams)}; card {card}", flush=True)
+    require(split_streams == list(bf16_streams), f"the role-split streams differ from phase 3's: first divergence "
+                                                 f"{[first_divergence(a, b) for a, b in zip(split_streams, bf16_streams)]}")
+    require(stats["handoffs"]["routed"] == stats["handoffs"]["exported"] == stats["handoffs"]["imported"] == handoffs,
+            f"handoffs {stats['handoffs']}, expected {handoffs}")
+    require(stats["per_replica"][0]["handoff"]["exported"] == handoffs and dispatches[0] == 0,
+            f"the prefill replica decoded or exported other than {handoffs}: {stats['per_replica'][0]['handoff']}")
+    require(launches == want > 0, f"{launches} paged launches on the role-split fleet, expected {want}")
+    replica_launches += launches
+
+    # ---- (c) elasticity on (a)'s fleet with 8 streams in flight, then the autoscaler
+    results = [None] * len(wave)
+
+    def worker(i):
+        results[i] = [int(t) for chunk in fleet.submit(wave[i]) for t in chunk]
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(wave))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while sum(b.occupancy()[0] for b in fleet.batchers) == 0:
+        require(time.perf_counter() - t0 < 120, "no stream of (c) became resident within 120 s")
+        time.sleep(0.001)
+    up = fleet.scale_to(3)
+    t_up = time.perf_counter() - t0
+    in_flight = sum(sum(b.occupancy()) for b in fleet.batchers)
+    down = fleet.scale_to(1)
+    t_down = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=600)
+    resize = fleet.stats()["resize"]
+    fleet.configure_autoscaler(high=4.0, low=0.0, interval_s=0.05)
+    time.sleep(0.25)  # a few evaluations of an idle fleet: no resize
+    thread = fleet._autoscale_thread
+    replicas_after = fleet.replicas
+    fleet.close()
+    print(f"phase 14c: 8 streams in flight on (a)'s fleet: scale_to(3) returned {up} at {t_up:.2f} s (the new replica "
+          f"warmed before it joined; {in_flight} streams resident or waiting after), scale_to(1) returned {down} at "
+          f"{t_down:.2f} s; stream lengths {[len(r) if r else 0 for r in results]}, equal phase 3's: "
+          f"{results == expected}; resize {resize}; autoscaler armed on the idle fleet: {replicas_after} replica, "
+          f"its thread joined by close: {not thread.is_alive()}; card {card}", flush=True)
+    require(up == 3 and down == 1 and results == expected, "a stream was lost or changed across the resize")
+    # scale_to(1) from 3 removes two replicas: each removal counts
+    require(resize["scaled_up"] == 1 and resize["scaled_down"] == 2, f"resize counters {resize}")
+    require(replicas_after == 1 and not thread.is_alive(), "the autoscaler resized an idle fleet or outlived close")
+    del gen, fleet, split, one
+    torch.cuda.empty_cache()
+    return dict(replica_launches=replica_launches, tok_s=fleet_tok_s, one_tok_s=one_tok_s, handoff=times)
+
+
+def replica_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
+    """Phase 14d: float32, TF32 off, 2 layers at Llama-3-8B width (phase 4's
+    weights): (a)'s two mixed replicas and (b)'s prefill/decode split on the
+    card serve the streams of the same fleets on the CPU, and the 250-token
+    prompt's handoff pages agree card against CPU within ``HANDOFF_PAGE_REL`` of
+    each leaf's largest value."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama, LlamaConfig
+    from unionml_tpu_torch.serving import ReplicaSet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg32 = LlamaConfig.llama3_8b(n_layers=2, attention_impl="flash", dtype=torch.float32, param_dtype=torch.float32)
+    pcfg = dataclasses.replace(gcfg, max_new_tokens=REPLICA_PARITY_NEW, prompt_buckets=REPLICA_PARITY_BUCKETS)
+    card_model = Llama(cfg32, seed=1)  # phase 4's weights
+    cpu_model = Llama(cfg32, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    kw = dict(slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    fleets = {"2 mixed replicas": {"replicas": 2}, "prefill=1,decode=1": {"roles": {"prefill": 1, "decode": 1},
+                                                                          "prefill_threshold": REPLICA_THRESHOLD}}
+    runs, pages = {}, []
+    for model, device in ((card_model, None), (cpu_model, "cpu")):
+        gen = Generator(model, pcfg, device=device)
+        for label, extra in fleets.items():
+            fleet = ReplicaSet.from_generator(gen, autoscale=False, **kw, **extra)
+            runs.setdefault(label, []).append(serve(fleet, prompts)[0])
+            stats = fleet.stats()
+            fleet.close()
+            if "roles" in extra:
+                require(stats["handoffs"]["imported"] == sum(len(p) >= REPLICA_THRESHOLD for p in prompts),
+                        f"{label} on {device or 'the card'}: handoffs {stats['handoffs']}")
+        prefill = ContinuousBatcher._single(gen, role="prefill", **kw)
+        stream = prefill.submit(max(prompts, key=len), export_handoff=True)
+        first = [int(t) for chunk in stream for t in chunk]
+        prefill.close()
+        pages.append((first, stream.handoff))
+    (card_first, card_payload), (cpu_first, cpu_payload) = pages
+    leaves = []  # (layer, name, max |card - cpu|, max |cpu|)
+    for i, (card_layer, cpu_layer) in enumerate(zip(card_payload["pages"], cpu_payload["pages"])):
+        for name in card_layer:
+            got, want = card_layer[name].cpu(), cpu_layer[name]
+            leaves.append((i, name, (got - want).abs().max().item(), want.abs().max().item()))
+    errs = [err for *_, err, _ in leaves]
+    within = all(err <= HANDOFF_PAGE_REL * scale for *_, err, scale in leaves)
+    same = {label: card == cpu for label, (card, cpu) in runs.items()}
+    print(f"phase 14d, float32 (TF32 off), 2 layers, {len(prompts)} prompts x {REPLICA_PARITY_NEW} tokens: fleets on "
+          f"the card equal the same fleets on the CPU: {same}; the {max(len(p) for p in prompts)}-token prompt's "
+          f"handoff ({len(card_payload['pages'])} layers of {tuple(card_payload['pages'][0]['k'].shape)} pages): first "
+          f"token card {card_first} CPU {cpu_first}, pages max_abs_err {max(errs):.3g} (TOLERANCE's f32 atol "
+          f"{TOLERANCE['torch.float32'][0]}); per leaf (layer, name, max abs err, max |value|, err / max |value|) "
+          f"{[(i, n, f'{e:.3g}', f'{m:.3g}', f'{e / m:.2e}') for i, n, e, m in leaves]} (limit {HANDOFF_PAGE_REL} "
+          f"of max |value|) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(all(same.values()), f"a card fleet's streams differ from the CPU's: {runs}")
+    require(card_first == cpu_first and card_payload["lengths"] == cpu_payload["lengths"] and within,
+            f"the handoff payloads differ: first {card_first}/{cpu_first}, leaves {leaves}")
+    del card_model, cpu_model
     torch.cuda.empty_cache()
 
 
@@ -2637,7 +2946,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     --prefix-cache --profile-dir``. Phase 3's prompts stream concurrently
     over ``/predict-stream`` to both, and the answers must be equal. The
     child's paged kernel launches are read from a ``POST /debug/profile``
-    capture spanning its streams. Then a refused flag (``--dp-replicas 2``)
+    capture spanning its streams. Then a refused flag (``--num-hosts 2``, the multi-host fleet)
     must exit 1 before an app module that raises at import is imported."""
     import os
     import shutil
@@ -2730,7 +3039,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     require(profiled_wave == served, "the profiled wave's streams (radix hits) differ from the first wave's")
 
     # ---- a refused flag exits 1 before the app module is imported
-    refused = run_cli(["serve", "boom_app:model", "--dp-replicas", "2"], workdir, 120)
+    refused = run_cli(["serve", "boom_app:model", "--num-hosts", "2"], workdir, 120)
     print(f"phase 11b: Llama-3-8B width bf16 artifact saved once ({size / 2**30:.1f} GiB in {save_s:.1f} s); "
           f"in-process Model.serve() ready in {ready_s:.1f} s, 4 /predict-stream streams x {MAX_NEW} tokens "
           f"{len(prompts) * MAX_NEW / inproc_s:.1f} tok/s, time to first chunk p50 "
@@ -2745,7 +3054,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
           f"profile ({window_ms:.0f} ms traced, kernels busy {kernel_ms:.1f} ms, the device's idle share "
           f"{1 - kernel_ms / (profiled_s * 1e3):.3f} over the wave's {profiled_s:.1f} s): {cli_launches} paged "
           f"launches (the wave's {profiled_dispatches} dispatches give 32 x {profiled_dispatches} x 8 = {expected}); "
-          f"`serve boom_app:model --dp-replicas 2` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
+          f"`serve boom_app:model --num-hosts 2` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
           f"card {card}", flush=True)
     require(served == inproc, "the CLI's streams differ from the in-process Model.serve() answers")
     require(wave_end_s * 1e3 < capture_ms and status[2] and json.loads(status[2])["duration_ms"] == capture_ms,
@@ -3509,10 +3818,16 @@ def main() -> int:
     # ---- phase 10a: chunked admission and shared-prefix reuse on the same target
     prefix_launches = prefix_phase(card, target, gcfg, prompts, slots, decode_chunk)
     t10 = time.perf_counter() - t10
+    # ---- phase 14a-c: the in-process replica layer on the same target (d: f32 parity, below)
+    t14 = time.perf_counter()
+    replica = replica_phase(card, target, gcfg, prompts, slots, decode_chunk, bf16_streams, args.profile)
     del target
     torch.cuda.empty_cache()
+    replica_parity_phase(gcfg, prompts, slots, decode_chunk)
+    t14 = time.perf_counter() - t14
+    print(f"phase 14 took {t14:.1f} s", flush=True)
     spec_int8_launches = spec_parity_phase(gcfg, prompts, slots, decode_chunk)
-    print(f"phase 9 took {time.perf_counter() - t0 - t10:.1f} s", flush=True)
+    print(f"phase 9 took {time.perf_counter() - t0 - t10 - t14:.1f} s", flush=True)
     # ---- phase 10b: f32 parity of chunked admission and the prefix caches with the solo Generator
     t0 = time.perf_counter()
     prefix_parity_phase(gcfg, prompts, slots, decode_chunk)
@@ -3560,6 +3875,7 @@ def main() -> int:
         "spec_launches": spec["spec_launches"],
         "prefix_launches": prefix_launches,
         "cli_launches": cli["cli_launches"],
+        "replica_launches": replica["replica_launches"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -3601,6 +3917,7 @@ def main() -> int:
             kernel["encoder_plain_step_device_ms"] = encoder["plain_device_ms"]
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
+    require(kernels[0]["replica_launches"] > 0, "the paged kernel never launched on the replica path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

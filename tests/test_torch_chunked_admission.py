@@ -3,12 +3,15 @@ held against the JAX package on the CPU.
 
 The chunked and prefix cases of ``tests/unit/test_continuous.py`` run here
 against the port (see ``test_torch_serving_units.py``), their fixtures port
-builds of the same shapes. Then converted weights and the same prompts go
+builds of the same shapes; ``test_prefill_budget_groups_chunks_per_iteration``
+is the port's own copy, which waits out a race of the unit case (see it). Then converted weights and the same prompts go
 through both engines under every admission option: greedy streams equal,
 and ``stats()["prefill"]``, ``["prefix_cache"]`` and ``["kv_blocks"]``
 equal, as are ``cache_len``, ``max_blocks`` and ``pool_blocks``. Tiny f32
 models; tolerance 0 on tokens and counters.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -42,6 +45,47 @@ for _name in [n for n in globals() if n.startswith("test_") and n not in CASES]:
     # the rest of the file runs against the port in test_torch_continuous.py
     del globals()[_name]
 Generator = generator  # noqa: F811
+
+
+def test_prefill_budget_groups_chunks_per_iteration(tiny_gen):  # noqa: F811
+    """The unit case with one wait added. The occupant's first token is
+    emitted inside the engine iteration that admitted it, and that
+    iteration's admission loop goes on: a prompt submitted before the loop
+    ends shares the occupant's prefill budget, so its first chunk lands
+    alone (as the budget says, in the port and in JAX). The case waits for
+    the first decode dispatch, which follows that loop, before it submits."""
+    module, params = tiny_gen
+    cfg = GenerationConfig(max_new_tokens=48, temperature=0.0, prompt_buckets=(4, 32))
+    gen = Generator(module, params, cfg)
+    batcher = ContinuousBatcher(gen, slots=2, decode_chunk=2, admit_chunk=4, prefill_budget=8)
+    try:
+        occupant = batcher.submit([5, 5, 5])
+        next(occupant)
+        deadline = time.monotonic() + 60
+        while batcher.decode_dispatches < 1:
+            assert time.monotonic() < deadline, "the occupant never reached a decode dispatch"
+            time.sleep(0.001)
+        dispatches_at_chunk = []
+        orig = gen._prefill_chunk
+
+        def spy(*args, **kwargs):
+            dispatches_at_chunk.append(batcher.decode_dispatches)
+            return orig(*args, **kwargs)
+
+        gen._prefill_chunk = spy
+        try:
+            _drain(batcher.submit([9] * 20, max_new_tokens=2))  # bucket 32 -> 8 chunks
+        finally:
+            gen._prefill_chunk = orig
+        _drain(occupant)
+        assert len(dispatches_at_chunk) == 8
+        # chunks arrive in pairs: both members of a pair see the same decode
+        # count, and decode advances between pairs
+        pairs = list(zip(dispatches_at_chunk[0::2], dispatches_at_chunk[1::2]))
+        assert all(a == b for a, b in pairs), dispatches_at_chunk
+        assert all(n[0] > p[0] for p, n in zip(pairs, pairs[1:])), dispatches_at_chunk
+    finally:
+        batcher.close()
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,9 @@ port's two.
 The cluster and fault-tolerance cases (``:90``, ``:128``) become refusal
 checks: each refused flag and command exits 1, names its ROADMAP item by
 title, exports nothing and never imports the app module (one that raises at
-import).
+import). The in-process replica fleet's flags are exported as the JAX CLI
+exports them (both CLIs run on the same arguments), before the app module is
+imported.
 """
 
 import contextlib
@@ -159,16 +161,17 @@ def test_help_version_and_usage_codes():
 
 
 PARALLELISM, THE_REST = "parallelism and the replica layer", "the rest"
-#: (serve flags, the ROADMAP item they name)
+#: (serve flags, the ROADMAP item they name; None: a flag of the in-process
+#: replica fleet, exported as the JAX CLI exports it)
 REFUSED_FLAGS = [
-    (["--dp-replicas", "2"], PARALLELISM),
-    (["--replica-roles", "prefill=1,decode=1"], PARALLELISM),
-    (["--prefill-threshold", "8"], PARALLELISM),
-    (["--autoscale-high", "0.8"], PARALLELISM),
-    (["--autoscale-low", "0.1"], PARALLELISM),
-    (["--autoscale-interval", "1.0"], PARALLELISM),
-    (["--min-replicas", "1"], PARALLELISM),
-    (["--max-replicas", "2"], PARALLELISM),
+    (["--dp-replicas", "2"], None),
+    (["--replica-roles", "prefill=1,decode=1"], None),
+    (["--prefill-threshold", "8"], None),
+    (["--autoscale-high", "0.8"], None),
+    (["--autoscale-low", "0.1"], None),
+    (["--autoscale-interval", "1.0"], None),
+    (["--min-replicas", "1"], None),
+    (["--max-replicas", "2"], None),
     (["--num-hosts", "2"], PARALLELISM),
     (["--coordinator", "127.0.0.1:9"], PARALLELISM),
     (["--process-id", "0"], PARALLELISM),
@@ -181,6 +184,10 @@ REFUSED_FLAGS = [
     (["--aot-preload", "store-dir"], THE_REST),
     (["--remote"], THE_REST),
 ]
+#: the replica fleet's exports
+REPLICA_EXPORTS = ("UNIONML_TPU_DP_REPLICAS", "UNIONML_TPU_REPLICA_ROLES", "UNIONML_TPU_PREFILL_THRESHOLD",
+                   "UNIONML_TPU_AUTOSCALE_HIGH", "UNIONML_TPU_AUTOSCALE_LOW", "UNIONML_TPU_AUTOSCALE_INTERVAL_S",
+                   "UNIONML_TPU_MIN_REPLICAS", "UNIONML_TPU_MAX_REPLICAS")
 #: knobs of ported parts given beside a refused flag: a refusal must leave every one unexported
 EXPORTS = {
     "UNIONML_TPU_ADMIT_CHUNK": ["--admit-chunk", "8"],
@@ -196,10 +203,10 @@ EXPORTS = {
 
 @pytest.fixture
 def clean_exports(monkeypatch):
-    for name in [*EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
+    for name in [*EXPORTS, *REPLICA_EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
         monkeypatch.delenv(name, raising=False)
     yield
-    for name in [*EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
+    for name in [*EXPORTS, *REPLICA_EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
         # plain pop: the CLI set these after the delenv, and monkeypatch would restore nothing for them
         os.environ.pop(name, None)
 
@@ -207,9 +214,26 @@ def clean_exports(monkeypatch):
 @pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[" ".join(f) for f, _ in REFUSED_FLAGS])
 def test_refused_serve_flag_exits_before_export_and_import(cli_project, clean_exports, flags, item):
     """The unit file's cluster and fault-tolerance cases as refusals: exit
-    1 naming the item by title, no knob exported, the app never imported."""
+    1 naming the item by title, no knob exported, the app never imported.
+    A flag of the in-process replica fleet (``item`` None) is exported as
+    the JAX CLI exports it, and then the app module is imported."""
     model_file = cli_project / "m.joblib"
     model_file.write_text("x")
+    if item is None:
+        from click.testing import CliRunner as ClickRunner
+
+        from unionml_tpu.cli import app as jax_app
+
+        args = ["serve", "boom_app:model", *flags, "--model-path", str(model_file)]
+        result = ClickRunner().invoke(jax_app, args)
+        assert "the app module was imported" in str(result.exception), result.output
+        jax_exported = {name: os.environ.pop(name, None) for name in REPLICA_EXPORTS}
+        os.environ.pop("UNIONML_MODEL_PATH", None)
+        with pytest.raises(RuntimeError, match="the app module was imported"):
+            app(args)
+        assert {name: os.environ.get(name) for name in REPLICA_EXPORTS} == jax_exported
+        assert sum(value is not None for value in jax_exported.values()) == 1
+        return
     knobs = [arg for args in EXPORTS.values() for arg in args]
     result = CliRunner().invoke(app, ["serve", "boom_app:model", *flags, *knobs, "--model-path", str(model_file)])
     assert result.exit_code == 1, result.output
@@ -253,6 +277,11 @@ def test_ported_knobs_export_before_the_app_imports(cli_project, clean_exports):
     (["--default-tenant-rate", "-1"], "--default-tenant-rate must be >= 0"),
     (["--tenant-config", "no-such-tenants.json"], "does not exist"),
     (["--dp-replicas", "-1"], "--dp-replicas must be >= 0"),
+    (["--replica-roles", "turbo=1"], "--replica-roles: bad replica-role entry"),
+    (["--prefill-threshold", "-1"], "--prefill-threshold must be >= 0"),
+    (["--autoscale-high", "-0.5"], "--autoscale-high must be >= 0"),
+    (["--min-replicas", "0"], "--min-replicas must be >= 1"),
+    (["--max-replicas", "-1"], "--max-replicas must be >= 0"),
 ])
 def test_bad_knob_values_are_usage_errors(cli_project, clean_exports, flags, message):
     result = CliRunner().invoke(app, ["serve", "boom_app:model", *flags])

@@ -222,21 +222,23 @@ def test_chunked_admission_is_not_ported(models):
 
 @pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "prefix", "role", "aot"])
 def test_unported_engine_options_raise(models, option):
-    """``role=`` and ``aot=`` are still refused, naming ROADMAP.md. The
-    ported options behave as in the JAX engine: ``admit_chunk=8`` serves its
-    streams, ``prefix_cache=True`` on a dense engine and a ``prefix`` that
-    is no ``PrefixCache`` raise the JAX engine's errors."""
+    """``aot=`` is still refused, naming ROADMAP.md. The ported options
+    behave as in the JAX engine: ``admit_chunk=8`` serves its streams;
+    ``prefix_cache=True`` on a dense engine, a ``prefix`` that is no
+    ``PrefixCache`` and a ``role`` that is none of prefill/decode/mixed raise
+    the JAX engine's errors."""
     module, params, flash, _ = models
     kw = dict(max_new_tokens=4, temperature=0.0, prompt_buckets=(16,))
     gen = Generator(flash, GenerationConfig(**kw), device="cpu")
     value = 8 if option == "admit_chunk" else True
-    if option in ("role", "aot"):
+    if option == "aot":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatcher(gen, **{option: value})
         return
     jax_gen = JaxGenerator(module, params, JaxGenerationConfig(**kw))
     if option != "admit_chunk":
-        error, match = (ValueError, "paged") if option == "prefix_cache" else (TypeError, "PrefixCache")
+        error, match = {"prefix_cache": (ValueError, "paged"), "prefix": (TypeError, "PrefixCache"),
+                        "role": (ValueError, "role must be one of")}[option]
         for build, g in ((JaxContinuousBatcher, jax_gen), (ContinuousBatcher, gen)):
             with pytest.raises(error, match=match):
                 build(g, **{option: value})
@@ -318,8 +320,8 @@ def test_serve_env_knobs_resolve_as_in_jax(models, monkeypatch, caplog, case):
 
 
 REPLICA_ENV = ("UNIONML_TPU_DP_REPLICAS", "UNIONML_TPU_REPLICA_ROLES")
-#: (env, engine kwargs, how many replicas the JAX engine's constructor would
-#: build); the port refuses a fleet, and refuses roles= whatever it names
+#: (env, engine kwargs, how many replicas the JAX engine's constructor
+#: builds; 0 = it raises TypeError, as for a roles= kwarg of one replica)
 REPLICA_CASES = {
     "dp-2": ({"UNIONML_TPU_DP_REPLICAS": "2"}, {}, 2),
     "dp-garbage": ({"UNIONML_TPU_DP_REPLICAS": "abc"}, {}, 1),
@@ -328,7 +330,7 @@ REPLICA_CASES = {
     "roles-garbage": ({"UNIONML_TPU_REPLICA_ROLES": "prefill=x"}, {}, 1),
     "roles-one": ({"UNIONML_TPU_REPLICA_ROLES": "mixed=1"}, {}, 1),
     "roles-kwarg": ({}, {"roles": {"prefill": 1, "decode": 1}}, 2),
-    "roles-kwarg-one": ({}, {"roles": {"prefill": 1}}, 1),
+    "roles-kwarg-one": ({}, {"roles": {"prefill": 1}}, 0),
     "unset": ({}, {}, 1),
 }
 
@@ -337,11 +339,12 @@ REPLICA_CASES = {
 def test_replica_exports_resolve_as_in_jax_and_refuse_a_fleet(models, monkeypatch, caplog, case):
     """The serve CLI's ``--dp-replicas`` and ``--replica-roles`` exports read
     as the JAX package reads them (values, and a warning where it warns on
-    garbage); where the JAX engine's constructor would build more than one
-    replica, the port's raises NotImplementedError rather than build one
-    engine."""
+    garbage), and the port's constructor builds what the JAX engine's
+    builds: one engine, or a ``ReplicaSet`` of as many replicas with the
+    same roles, or (a ``roles=`` kwarg of one replica) the same TypeError."""
     from unionml_tpu import defaults as jax_defaults
     from unionml_tpu_torch import defaults
+    from unionml_tpu_torch.serving import ReplicaSet
 
     env, kwargs, replicas = REPLICA_CASES[case]
     for name in REPLICA_ENV:
@@ -360,10 +363,24 @@ def test_replica_exports_resolve_as_in_jax_and_refuse_a_fleet(models, monkeypatc
     for name in env:
         assert (name in caplog.text) == (name in jax_warnings), name
     roles = kwargs.get("roles") or read[1]
-    assert max(read[0], sum(roles.values()), 1) == replicas
-    gen = Generator(models[2], GenerationConfig(max_new_tokens=4, prompt_buckets=(16,)), device="cpu")
-    if replicas > 1 or "roles" in kwargs:
-        with pytest.raises(NotImplementedError, match="Queue A: parallelism and the replica layer"):
-            ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
+    assert max(read[0], sum(roles.values()), 1) == max(replicas, 1)
+    module, params, flash, _ = models
+    kw = dict(max_new_tokens=4, prompt_buckets=(16,))
+    jax_gen = JaxGenerator(module, params, JaxGenerationConfig(**kw))
+    gen = Generator(flash, GenerationConfig(**kw), device="cpu")
+    if replicas == 0:
+        for build, g in ((JaxContinuousBatcher, jax_gen), (ContinuousBatcher, gen)):
+            with pytest.raises(TypeError, match="roles"):
+                build(g, slots=2, decode_chunk=4, **kwargs)
         return
-    ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs).close()
+    jax_engine = JaxContinuousBatcher(jax_gen, slots=2, decode_chunk=4, **kwargs)
+    engine = ContinuousBatcher(gen, slots=2, decode_chunk=4, **kwargs)
+    try:
+        assert isinstance(engine, ReplicaSet) == (replicas > 1) == (type(jax_engine).__name__ == "ReplicaSet")
+        if replicas > 1:
+            assert engine.replicas == jax_engine.replicas == replicas
+            assert engine.roles == jax_engine.roles
+            assert all(b.gen.model is flash for b in engine.batchers)  # one device: the weights are shared
+    finally:
+        engine.close()
+        jax_engine.close()

@@ -15,7 +15,7 @@ and the sklearn app of ``tests/conftest.py`` built on the port's
 
 import re
 from pathlib import Path
-from typing import Any, Iterable, List
+from typing import Any, Iterable, List, Tuple
 
 import numpy as np
 import pandas as pd
@@ -26,16 +26,20 @@ torch.set_num_threads(2)
 UNIT = Path(__file__).resolve().parent / "unit"
 
 
-def port_cases(namespace: dict, name: str, drop_lines: Iterable[str] = ()) -> None:
+def port_cases(namespace: dict, name: str, drop_lines: Iterable[str] = (),
+               subs: Iterable[Tuple[str, str]] = ()) -> None:
     """Exec ``tests/unit/<name>`` into ``namespace`` with every import of the
     JAX package (``from unionml_tpu...``/``import unionml_tpu...``, in code
     and in subprocess code strings) pointed at the port. Lines containing
     any of ``drop_lines`` (imports of modules the port does not have) are
-    left out."""
+    left out; each ``(pattern, replacement)`` of ``subs`` is then applied
+    with :func:`re.sub` (a call shape that differs in the port)."""
     path = UNIT / name
     lines = [line for line in path.read_text().splitlines(keepends=True)
              if not any(drop in line for drop in drop_lines)]
     source = re.sub(r"\b(from|import) unionml_tpu\b", r"\1 unionml_tpu_torch", "".join(lines))
+    for pattern, replacement in subs:
+        source = re.sub(pattern, replacement, source)
     exec(compile(source, f"{path} [unionml_tpu_torch]", "exec"), namespace)
 
 

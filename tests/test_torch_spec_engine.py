@@ -218,19 +218,27 @@ def test_speculative_engine_refuses_logprobs(models):
 
 @pytest.mark.parametrize("name,value", [("admit_chunk", 4), ("prefix", object()), ("role", "decode")])
 def test_unported_compositions_name_their_item(models, name, value):
-    """Compositions with a draft: ``role=`` is still refused, naming its
-    ROADMAP.md Queue A item. ``admit_chunk`` and ``prefix`` are ported: the
-    speculative engine streams the JAX engine's tokens, which are the
-    sequential plain runs' (of the full prompts, under a prefix); a prefix
-    that is no ``PrefixCache`` raises ``TypeError`` in both packages."""
+    """Compositions with a draft, each ported: the speculative engine
+    streams the JAX engine's tokens, which are the sequential plain runs'
+    (of the full prompts, under a prefix). A decode ``role`` composes; a
+    prefill role raises ``ValueError`` in both packages (the draft's row
+    cannot ride the handoff), and so does ``export_handoff``; a prefix that
+    is no ``PrefixCache`` raises ``TypeError`` in both."""
     (module, params, model), _ = models
     jax_cfg, cfg, plain = _configs(models, 3, max_new_tokens=4)
     gen = Generator(model, cfg, device="cpu")
-    if name == "role":
-        with pytest.raises(NotImplementedError, match="Queue A: parallelism and the replica layer"):
-            ContinuousBatcher(gen, slots=1, **{name: value})
-        return
     jax_gen = JaxGenerator(module, params, jax_cfg)
+    if name == "role":
+        for build, g in ((ContinuousBatcher, gen), (JaxContinuousBatcher, jax_gen)):
+            with pytest.raises(ValueError, match="speculative"):
+                build(g, slots=1, role="prefill")
+            engine = build(g, slots=1, role="decode")
+            try:
+                with pytest.raises(ValueError, match="export_handoff"):
+                    engine.submit(PROMPTS[0], export_handoff=True)
+                assert engine.stats()["role"] == "decode"
+            finally:
+                engine.close()
     kw, jax_kw, full = {name: value}, {name: value}, PROMPTS
     if name == "prefix":
         for build, g in ((ContinuousBatcher, gen), (JaxContinuousBatcher, jax_gen)):

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: the compiler's output (``-Xptxas -v``) of each library built by this process
 build_logs: Dict[str, str] = {}
@@ -95,3 +96,15 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def count_launch(counter: Any, attr: str = "launches", key: Optional[str] = None) -> None:
+    """Add one to a kernel wrapper's launch count, ``counter.<attr>`` (or its
+    entry ``key`` where that is a dict), under one lock: the engines of a
+    replica fleet launch from threads of their own, and a bare ``+= 1`` can
+    lose counts between them."""
+    with _count_lock:
+        if key is None:
+            setattr(counter, attr, getattr(counter, attr) + 1)
+        else:
+            getattr(counter, attr)[key] += 1

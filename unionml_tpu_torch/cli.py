@@ -14,10 +14,15 @@ error such as an unknown option.
   ported part is validated and exported as an environment variable before
   the app module is imported, as in the JAX package, so engines built at
   import time see it.
+- The in-process replica fleet's flags (``--dp-replicas``,
+  ``--replica-roles``, ``--prefill-threshold``, the autoscaler's
+  ``--autoscale-high/-low/-interval`` and ``--min/--max-replicas``) are
+  validated and exported as the JAX CLI exports them; the engine's
+  constructor reads them and builds a ``ReplicaSet``.
 - What the port does not have is refused at boot, before any export and
-  before the app module is imported, naming its ROADMAP.md item: the replica,
-  fleet and fault-injection flags (Queue A: parallelism and the replica
-  layer), and ``--compile-cache``, ``--aot-preload``, ``--remote`` and the
+  before the app module is imported, naming its ROADMAP.md item: the
+  multi-host fleet and fault-injection flags (Queue A: parallelism and the
+  replica layer), and ``--compile-cache``, ``--aot-preload``, ``--remote`` and the
   ``deploy``, ``train``, ``predict``, ``list-model-versions``,
   ``fetch-model``, ``replay`` and ``lint`` commands (Queue A: the rest).
   Each of those commands exists and refuses.
@@ -83,12 +88,10 @@ def templates() -> None:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    """Raise on the first serve flag that selects a part the port does not have."""
-    if args.dp_replicas is not None and args.dp_replicas > 1:
-        raise _not_ported(f"--dp-replicas {args.dp_replicas} (engine replicas)", _PARALLELISM)
-    for flag in ("replica_roles", "prefill_threshold", "autoscale_high", "autoscale_low", "autoscale_interval",
-                 "min_replicas", "max_replicas", "num_hosts", "coordinator", "process_id", "fault_plan",
-                 "probe_interval", "probation_probes", "lease_ttl"):
+    """Raise on the first serve flag that selects a part the port does not
+    have: the multi-host fleet and its fault injection."""
+    for flag in ("num_hosts", "coordinator", "process_id", "fault_plan", "probe_interval", "probation_probes",
+                 "lease_ttl"):
         if getattr(args, flag) is not None:
             raise _not_ported(f"--{flag.replace('_', '-')}", _PARALLELISM)
     from unionml_tpu_torch.defaults import _FALSY_FLAGS
@@ -111,6 +114,26 @@ def _export_knobs(args: argparse.Namespace) -> None:
         if args.dp_replicas < 0:
             raise UsageError("--dp-replicas must be >= 0 (0 = derive from the mesh)")
         os.environ[defaults.SERVE_DP_REPLICAS_ENV_VAR] = str(args.dp_replicas)
+    if args.replica_roles is not None:
+        # a typo'd flag is a usage error (an inherited export only warns)
+        try:
+            defaults.parse_replica_roles(args.replica_roles)
+        except ValueError as exc:
+            raise UsageError(f"--replica-roles: {exc}")
+        os.environ[defaults.SERVE_REPLICA_ROLES_ENV_VAR] = args.replica_roles
+    for flag, value, env_name, cast in (
+        ("--prefill-threshold", args.prefill_threshold, defaults.SERVE_PREFILL_THRESHOLD_ENV_VAR, int),
+        ("--autoscale-high", args.autoscale_high, defaults.SERVE_AUTOSCALE_HIGH_ENV_VAR, float),
+        ("--autoscale-low", args.autoscale_low, defaults.SERVE_AUTOSCALE_LOW_ENV_VAR, float),
+        ("--autoscale-interval", args.autoscale_interval, defaults.SERVE_AUTOSCALE_INTERVAL_S_ENV_VAR, float),
+        ("--min-replicas", args.min_replicas, defaults.SERVE_MIN_REPLICAS_ENV_VAR, int),
+        ("--max-replicas", args.max_replicas, defaults.SERVE_MAX_REPLICAS_ENV_VAR, int),
+    ):
+        if value is not None:
+            floor = 1 if flag == "--min-replicas" else 0
+            if value < floor:
+                raise UsageError(f"{flag} must be >= {floor}")
+            os.environ[env_name] = repr(cast(value))
     if args.prefix_cache is not None:
         os.environ[defaults.SERVE_PREFIX_CACHE_ENV_VAR] = "1" if args.prefix_cache else "0"
     for value, env_name in ((args.compile_cache, defaults.SERVE_COMPILE_CACHE_ENV_VAR),
@@ -212,7 +235,7 @@ def serve(args: argparse.Namespace, argv: Sequence[str]) -> None:
         max_deadline_ms=args.max_deadline_ms,
         drain_timeout_s=args.drain_timeout,
     ).configure_replicas(
-        args.dp_replicas
+        args.dp_replicas, replica_roles=args.replica_roles, prefill_threshold=args.prefill_threshold
     ).configure_quantization(
         quantize=args.quantize, kv_cache_dtype=args.kv_cache_dtype
     ).configure_cold_start(
@@ -404,17 +427,26 @@ def _serve_parser(sub: Any) -> None:
     add("--slo-shed-ratio", type=float, default=None, help="SLO: tolerated shed fraction (0 = disarmed)")
     add("--tenant-config", type=Path, default=None, help="tenants.json of per-tenant weights, rates and keys")
     add("--default-tenant-rate", type=float, default=None, help="req/s for tenants not in --tenant-config")
+    add("--dp-replicas", type=int, default=None,
+        help="replica engines for generation serving, placed round-robin over the visible devices and routed "
+        "least-loaded first (0 and 1 are one engine)")
+    add("--replica-roles", default=None,
+        help="disaggregated serving: per-role replica counts, e.g. 'prefill=1,decode=3'; prompts of at least "
+        "--prefill-threshold tokens prefill on a prefill replica and hand their KV pages to a decode replica; "
+        "implies the fleet size when --dp-replicas is unset")
+    add("--prefill-threshold", type=int, default=None,
+        help="prompt length (tokens) at which an admission takes the prefill->decode handoff (0 = every one)")
+    add("--autoscale-high", type=float, default=None,
+        help="per-replica load above which the fleet adds a replica (also while a replica's SLO state is breach); "
+        "0/unset = autoscaler off")
+    add("--autoscale-low", type=float, default=None,
+        help="per-replica load below which the fleet drains one replica (no stream lost); 0 = never scale down")
+    add("--autoscale-interval", type=float, default=None, help="seconds between autoscaler evaluations")
+    add("--min-replicas", type=int, default=None, help="fleet-size floor the autoscaler never drains below")
+    add("--max-replicas", type=int, default=None, help="fleet-size ceiling for the autoscaler (0 = the device count)")
     refused = p.add_argument_group(
         "not ported yet (refused at boot; ROADMAP.md, Queue A: parallelism and the replica layer, the rest)")
     radd = refused.add_argument
-    radd("--dp-replicas", type=int, default=None, help="engine replicas (0 and 1 are one engine)")
-    radd("--replica-roles", default=None)
-    radd("--prefill-threshold", type=int, default=None)
-    radd("--autoscale-high", type=float, default=None)
-    radd("--autoscale-low", type=float, default=None)
-    radd("--autoscale-interval", type=float, default=None)
-    radd("--min-replicas", type=int, default=None)
-    radd("--max-replicas", type=int, default=None)
     radd("--num-hosts", type=int, default=None)
     radd("--coordinator", default=None, metavar="HOST:PORT")
     radd("--process-id", type=int, default=None)

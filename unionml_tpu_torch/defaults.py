@@ -9,8 +9,10 @@ The subset of ``unionml_tpu/defaults.py`` that the port reads:
   ``config.kv_cache_dtype`` from ``UNIONML_TPU_QUANTIZE`` and
   ``UNIONML_TPU_KV_CACHE_DTYPE``; every engine resolves an unset
   ``admit_chunk``, ``prefill_budget``, ``max_admissions`` and
-  ``prefix_cache`` from the four admission knobs, and reads the replica
-  exports ``UNIONML_TPU_DP_REPLICAS`` and ``UNIONML_TPU_REPLICA_ROLES``;
+  ``prefix_cache`` from the four admission knobs; the engine's constructor
+  reads ``UNIONML_TPU_DP_REPLICAS`` and ``UNIONML_TPU_REPLICA_ROLES`` to
+  build a replica fleet, which reads the prefill threshold and the
+  autoscaler's watermarks, interval and fleet bounds;
 - the serving app's overload limits (``SERVE_MAX_INFLIGHT`` and its
   siblings) and the serve readers it and the engine call at construction:
   tracing, the flight recorder, the profile directory, the log format,
@@ -121,9 +123,27 @@ SERVE_PREFIX_CACHE_ENV_VAR = "UNIONML_TPU_PREFIX_CACHE"
 SERVE_COMPILE_CACHE_ENV_VAR = "UNIONML_TPU_COMPILE_CACHE"
 SERVE_AOT_PRELOAD_ENV_VAR = "UNIONML_TPU_AOT_PRELOAD"
 
-#: prefill-threshold export of the replica layer (read by the serving app's
-#: ``configure_replicas``; the engine refuses a fleet)
+#: prompt-length threshold (tokens) at which an admission routes to a
+#: prefill-role replica and its finished KV hands off to a decode replica;
+#: 0 (the default) disaggregates every admission once roles are configured
 SERVE_PREFILL_THRESHOLD_ENV_VAR = "UNIONML_TPU_PREFILL_THRESHOLD"
+
+#: autoscaler high watermark on per-replica scheduling load (the engines'
+#: token-weighted ``load()`` averaged over the fleet); 0 = autoscaler off
+SERVE_AUTOSCALE_HIGH_ENV_VAR = "UNIONML_TPU_AUTOSCALE_HIGH"
+
+#: autoscaler low watermark (scale down below it); 0 = never scale down
+SERVE_AUTOSCALE_LOW_ENV_VAR = "UNIONML_TPU_AUTOSCALE_LOW"
+
+#: seconds between autoscaler evaluations
+SERVE_AUTOSCALE_INTERVAL_S_ENV_VAR = "UNIONML_TPU_AUTOSCALE_INTERVAL_S"
+SERVE_AUTOSCALE_INTERVAL_S = 10.0
+
+#: fleet-size floor the autoscaler never drains below
+SERVE_MIN_REPLICAS_ENV_VAR = "UNIONML_TPU_MIN_REPLICAS"
+
+#: fleet-size ceiling; 0 = bounded by the devices a fleet places on
+SERVE_MAX_REPLICAS_ENV_VAR = "UNIONML_TPU_MAX_REPLICAS"
 
 #: path to a tenants.json (per-tenant weights, req/s + generated-tokens/s
 #: bucket rates, default priority tier, api-key -> tenant mapping). A missing
@@ -323,6 +343,37 @@ def serve_replica_roles() -> Dict[str, int]:
             "falling back to a symmetric (all-mixed) fleet"
         )
         return {}
+
+
+def serve_prefill_threshold() -> int:
+    """Prompt-length threshold (tokens) for routing to prefill-role replicas;
+    0 = every admission disaggregates once roles are configured."""
+    return env_int(SERVE_PREFILL_THRESHOLD_ENV_VAR, 0, minimum=0)
+
+
+def serve_autoscale_high() -> float:
+    """Autoscaler high watermark on per-replica load; 0.0 = autoscaler off."""
+    return env_float(SERVE_AUTOSCALE_HIGH_ENV_VAR, 0.0, minimum=0.0)
+
+
+def serve_autoscale_low() -> float:
+    """Autoscaler low watermark; 0.0 = never scale down."""
+    return env_float(SERVE_AUTOSCALE_LOW_ENV_VAR, 0.0, minimum=0.0)
+
+
+def serve_autoscale_interval_s() -> float:
+    """Seconds between autoscaler evaluations."""
+    return env_float(SERVE_AUTOSCALE_INTERVAL_S_ENV_VAR, SERVE_AUTOSCALE_INTERVAL_S, minimum=0.05)
+
+
+def serve_min_replicas() -> int:
+    """Fleet-size floor for the autoscaler."""
+    return env_int(SERVE_MIN_REPLICAS_ENV_VAR, 1, minimum=1)
+
+
+def serve_max_replicas() -> int:
+    """Fleet-size ceiling for the autoscaler; 0 = bounded by the devices."""
+    return env_int(SERVE_MAX_REPLICAS_ENV_VAR, 0, minimum=0)
 
 
 #: env values that mean "on, default location" / "off" for path-or-flag knobs

@@ -47,6 +47,8 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from unionml_tpu_torch._build import count_launch
+
 __all__ = [
     "flash_attention",
     "flash_backward",
@@ -222,7 +224,7 @@ def _launch(name: str, counter, q, k, *pointers_and_tensors, causal: bool) -> No
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    counter.launches += 1
+    count_launch(counter)
 
 
 def _device_of(q: torch.Tensor) -> str:

@@ -23,6 +23,8 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from unionml_tpu_torch._build import count_launch
+
 __all__ = ["int8_matmul", "int8_matmul_reference", "quantized_matmul"]
 
 _F_CANDIDATES = (512, 256, 128)
@@ -176,7 +178,7 @@ def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: to
             err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
-    int8_matmul.launches += 1
+    count_launch(int8_matmul)
     return out
 
 

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from unionml_tpu_torch._build import count_launch
 from unionml_tpu_torch.ops.attention import dot_product_attention
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference", "paged_decode_attention_split_reference"]
@@ -347,7 +348,7 @@ def paged_decode_attention(
             err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 
@@ -382,8 +383,8 @@ def _paged_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices) 
         err = _int8_kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention int8-page kernel ({route} route) launch failed: cudaError {err}")
-    paged_decode_attention.int8_launches += 1
-    paged_decode_attention.int8_route_launches[route] += 1
+    count_launch(paged_decode_attention, "int8_launches")
+    count_launch(paged_decode_attention, "int8_route_launches", route)
     return out
 
 

@@ -7,8 +7,11 @@ routes, ``GET /health``, ``/healthz``, ``/metrics`` and the debug routes on a
 small stdlib-asyncio HTTP server, with a micro-batching queue between the
 socket and the device; the continuous engine admits in chunks and reuses
 shared prefixes (a static ``prefix=`` and the radix prefix cache,
-``serving/prefix_cache.py``). The replica layer, the multi-host cluster and
-the AOT program store are not ported yet (ROADMAP.md, Queue A).
+``serving/prefix_cache.py``); the in-process replica layer
+(``serving/replicas.py``) runs N engines behind one scheduler, with
+prefill/decode roles and KV handoff and an elastic fleet. The mesh path of
+the replica layer, the multi-host cluster and the AOT program store are not
+ported yet (ROADMAP.md, Queue A).
 """
 
 from unionml_tpu_torch.serving.app import ServingApp, serving_app
@@ -25,6 +28,7 @@ from unionml_tpu_torch.serving.overload import (
     expired,
 )
 from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
+from unionml_tpu_torch.serving.replicas import ReplicaScheduler, ReplicaSet
 from unionml_tpu_torch.serving.tenancy import TenantRegistry, TenantSpec, current_priority, current_tenant
 
 __all__ = [
@@ -36,6 +40,8 @@ __all__ = [
     "MicroBatcher",
     "QueueFullError",
     "RadixPrefixCache",
+    "ReplicaScheduler",
+    "ReplicaSet",
     "ServingApp",
     "ServingConfig",
     "ServingMetrics",

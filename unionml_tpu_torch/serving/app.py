@@ -16,8 +16,10 @@ Deviations, both deliberate:
   so no request pays a bucket's first call.
 
 What the port does not carry yet raises ``NotImplementedError`` naming ROADMAP.md's
-Queue A: ``remote=True`` (the remote backend), a cold-start knob that turns on the
-AOT program store or the compile cache, and (through the engine) a replica fleet.
+Queue A: ``remote=True`` (the remote backend) and a cold-start knob that turns on the
+AOT program store or the compile cache. A replica fleet (``--dp-replicas``,
+``--replica-roles``) is built by the engine's constructor and resized by ``POST
+/debug/scale``.
 """
 
 from __future__ import annotations
@@ -288,11 +290,9 @@ class ServingApp:
         ``--prefill-threshold`` overrides and export them so generation
         engines built after startup (warmup hooks, first-request
         construction) replicate — and disaggregate:
-        ``ContinuousBatcher(...)`` consults the env vars and transparently
-        builds a fleet from them in the JAX package. The port's engine reads
-        the same exports and raises ``NotImplementedError`` where they select
-        more than one replica (ROADMAP.md, Queue A: parallelism and the
-        replica layer)."""
+        ``ContinuousBatcher(...)`` consults the env vars and builds a
+        :class:`~unionml_tpu_torch.serving.replicas.ReplicaSet` from them,
+        which ``POST /debug/scale`` then resizes."""
         if dp_replicas is not None:
             if dp_replicas < 0:
                 raise ValueError("dp_replicas must be >= 0 (0 = derive from the mesh)")

@@ -1,9 +1,11 @@
 """Continuous (in-flight) batching for generation serving.
 
-Counterpart of ``unionml_tpu/serving/continuous.py`` without its replica
-roles and AOT store: dense slots or a paged KV pool with a scratch block,
-lazy block growth and recompute preemption, chunked admission, a static
-shared prefix and the radix prefix cache.
+Counterpart of ``unionml_tpu/serving/continuous.py`` without its AOT
+store: dense slots or a paged KV pool with a scratch block, lazy block
+growth and recompute preemption, chunked admission, a static shared prefix,
+the radix prefix cache, and the engine half of the replica layer
+(``role=``, the KV handoff pair, ``quiesce``; the fleet itself is
+``serving/replicas.py``).
 
 - The engine owns ``slots`` cache rows (dense ``[S, cache_len, ...]`` per
   layer, or a shared pool of ``block_size`` blocks addressed through a block
@@ -36,6 +38,12 @@ shared prefix and the radix prefix cache.
   the carry's tail; a preemption resume replays it over the echo on the
   host), and ``submit(logprobs=True)`` records each emitted token's
   log-probability on the stream.
+- **Disaggregation**: ``submit(..., export_handoff=True)`` runs only the
+  prefill, emits the first token and ends the stream with the prefilled KV
+  (block-sized pages in paged mode, the dense row otherwise) on its
+  ``handoff``; :meth:`ContinuousBatcher.import_handoff` on a sibling engine
+  writes those pages into fresh blocks and decodes on from there, token for
+  token what one engine would have produced.
 - **Serving surface**: ``trace=`` records lifecycle events on the request
   trace each submit captures from its context (observability/trace.py);
   ``slo=`` keeps windowed telemetry and an SLO tracker (read from the
@@ -66,6 +74,7 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch.defaults import (
+    REPLICA_ROLES,
     SERVE_MAX_WAITING,
     serve_admit_chunk,
     serve_dp_replicas,
@@ -104,10 +113,9 @@ __all__ = ["ContinuousBatcher"]
 
 logger = logging.getLogger(__name__)
 
-#: engine options of the JAX package that later slices of the port bring
-#: (disaggregated roles, the AOT store), each with the title of its
-#: ROADMAP.md Queue A item
-_UNPORTED = {"role": "parallelism and the replica layer", "aot": "the rest"}
+#: engine options of the JAX package that a later slice of the port brings
+#: (the AOT store), each with the title of its ROADMAP.md Queue A item
+_UNPORTED = {"aot": "the rest"}
 
 _SENTINEL = object()
 
@@ -177,6 +185,16 @@ class _Session:
     #: priority tier; all-default values keep admission plain FIFO
     tenant: Optional[str] = None
     priority: int = PRIORITY_NORMAL
+    #: an EXPORT session (``submit(export_handoff=True)``) runs its prefill
+    #: here and never takes residency: at admission-complete the first token
+    #: is emitted and the prefilled KV is packaged as ``handoff``
+    export: bool = False
+    #: the export payload, set just before the sentinel; the replica layer's
+    #: relay reads it off the finished stream and imports it elsewhere
+    handoff: "Optional[Dict[str, Any]]" = None
+    #: an IMPORT session's inbound payload (a sibling's export): the
+    #: admission runs no prefill, it writes the payload into fresh blocks
+    pending_import: "Optional[Dict[str, Any]]" = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -215,6 +233,9 @@ class _Admission:
     # that the dense-row gather reads
     cached: int = 0
     gather_row: Optional[np.ndarray] = None
+    #: an imported handoff's pages ``[H_kv, n_blocks, block_size, last]`` a
+    #: layer, on this engine's device: finalize writes them whole-block
+    import_pages: Optional[tuple] = None
     # completion products consumed by _finalize_admission
     tok0: Any = None
     row_len: Any = None
@@ -251,6 +272,13 @@ class _TokenStream:
         logprobs BEFORE enqueueing its tokens, so after consuming k tokens at
         least k entries are here."""
         return list(self._session.lp)
+
+    @property
+    def handoff(self) -> "Optional[Dict[str, Any]]":
+        """The export payload of a ``submit(..., export_handoff=True)`` stream
+        once it has finished (None while in flight, or when the stream ended
+        at the prompt-sampled token, was shed or was cancelled)."""
+        return self._session.handoff
 
     def __del__(self):  # pragma: no cover - refcount backstop
         try:
@@ -294,11 +322,47 @@ class ContinuousBatcher:
     its prefill, cached blocks are pinned while a resident reads them,
     copied on write where a prompt diverges inside a shared block and
     evicted LRU under pool pressure; ``stats()["prefix_cache"]`` carries its
-    counters. The port raises ``NotImplementedError`` where the serve CLI's
-    ``UNIONML_TPU_DP_REPLICAS`` or ``UNIONML_TPU_REPLICA_ROLES`` asks for
-    more than one replica, where the JAX engine would build a fleet, and
-    for any ``roles=``.
+    counters.
+
+    Where the serve CLI's ``UNIONML_TPU_DP_REPLICAS`` is above 1, or a
+    ``roles=`` spec (else ``UNIONML_TPU_REPLICA_ROLES``) totals more than one
+    replica, the constructor returns a
+    :class:`~unionml_tpu_torch.serving.replicas.ReplicaSet` instead: that
+    many engines behind one scheduler, with this surface. ``role``
+    (``"prefill"``/``"decode"``/``"mixed"``) tags an engine of such a fleet
+    and unlocks the KV handoff pair; ``None`` keeps ``stats()`` the role-less
+    keys.
     """
+
+    def __new__(cls, generator: Optional[Generator] = None, **engine_kwargs: Any):
+        """Replica delegation, as in the JAX package: with the serve CLI's
+        ``--dp-replicas`` above 1 exported, or a role spec (the ``roles=``
+        kwarg, else ``--replica-roles``'s export) of more than one replica,
+        return a :class:`~unionml_tpu_torch.serving.replicas.ReplicaSet` of
+        that many engines, each built with these knobs. The port has no mesh,
+        so no mesh axis implies replicas."""
+        if cls is ContinuousBatcher and generator is not None:
+            env = serve_dp_replicas()
+            roles_kw = engine_kwargs.get("roles")
+            if isinstance(roles_kw, dict):
+                role_total = sum(roles_kw.values())
+            elif isinstance(roles_kw, (list, tuple)):
+                role_total = len(roles_kw)
+            else:
+                role_total = sum(serve_replica_roles().values())
+            if env > 1 or role_total > 1:
+                from unionml_tpu_torch.serving.replicas import ReplicaSet
+
+                return ReplicaSet.from_generator(generator, replicas=env or (role_total or None), **engine_kwargs)
+        return super().__new__(cls)
+
+    @classmethod
+    def _single(cls, generator: Generator, **kwargs: Any) -> "ContinuousBatcher":
+        """One plain engine, bypassing the replica delegation of
+        :meth:`__new__`: the replica layer builds its engines through this."""
+        self = object.__new__(cls)
+        self.__init__(generator, **kwargs)
+        return self
 
     def __init__(
         self,
@@ -316,14 +380,10 @@ class ContinuousBatcher:
         trace: Optional[bool] = None,
         prefix_cache: Optional[bool] = None,
         slo: Optional[Any] = None,
+        role: Optional[str] = None,
         tenancy: Optional[Any] = None,
         **unported: Any,
     ):
-        if "roles" in unported:
-            raise NotImplementedError(
-                "ContinuousBatcher roles= is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer)"
-            )
-        self._refuse_replicas()
         unknown = sorted(set(unported) - set(_UNPORTED))
         if unknown:
             raise TypeError(f"unexpected ContinuousBatcher arguments {unknown}")
@@ -334,6 +394,8 @@ class ContinuousBatcher:
                 )
         if slots < 1:
             raise ValueError("slots must be >= 1")
+        if role is not None and role not in REPLICA_ROLES:
+            raise ValueError(f"role must be one of 'prefill'/'decode'/'mixed' (or None), got {role!r}")
         if decode_chunk < 1:
             raise ValueError("decode_chunk must be >= 1")
         if block_size is not None and block_size < 1:
@@ -375,6 +437,14 @@ class ContinuousBatcher:
         #: and verify dispatches and each greedy stream still equals its solo
         #: target-only run
         self._spec = generator._speculative() if cfg.draft is not None else None
+        #: the disaggregated-serving role (None = a role-less engine, whose
+        #: stats() keep the role-less keys)
+        self.role = role
+        if role == "prefill" and self._spec is not None:
+            raise ValueError(
+                "a prefill-role engine does not compose with speculative decoding "
+                "(config.draft) yet: the draft's row cannot ride the KV handoff"
+            )
         if prefix is not None and not isinstance(prefix, PrefixCache):
             raise TypeError(f"prefix must be a PrefixCache (from generator.cache_prefix), got {type(prefix).__name__}")
         #: the draft needs the system prompt in ITS cache too, prefilled once
@@ -475,6 +545,10 @@ class ContinuousBatcher:
         self._free = list(range(slots))
         self._cancelled: "List[_Session]" = []
         self._closed = False
+        #: a quiesced engine (a fleet's scale-down) sheds NEW submits with
+        #: QueueFullError, which the replica scheduler walks past, and drains
+        #: what it holds
+        self._quiesced = False
         self._carry: Optional[tuple] = None  # (cache, tok, lengths, done, generator)
         self._seed = 0
         self._thread: Optional[threading.Thread] = None
@@ -495,6 +569,11 @@ class ContinuousBatcher:
         self.prefix_cache_misses = 0
         self.prefix_cache_tokens_avoided = 0
         self.prefix_cache_cow = 0
+        #: disaggregated-serving telemetry: rows exported to a sibling, rows
+        #: imported from one, and the export -> import latency
+        self.handoffs_exported = 0
+        self.handoffs_imported = 0
+        self._handoff_ms = LatencyWindow()
         #: TTFT (submit -> first token) and TBT (gap between emissions)
         self._ttft = LatencyWindow()
         self._tbt = LatencyWindow()
@@ -545,23 +624,6 @@ class ContinuousBatcher:
         #: folded into the acceptance telemetry, so each dispatch adds its delta
         self._spec_seen = (0, 0, 0)
 
-    @staticmethod
-    def _refuse_replicas() -> None:
-        """Where the JAX engine's constructor returns a fleet of replicas (the
-        serve CLI's ``UNIONML_TPU_DP_REPLICAS`` above 1, or a
-        ``UNIONML_TPU_REPLICA_ROLES`` spec of more than one replica), the port
-        raises rather than build one engine."""
-        env_roles = serve_replica_roles()
-        role_total, source = sum(env_roles.values()), f"UNIONML_TPU_REPLICA_ROLES={env_roles}"
-        dp = serve_dp_replicas()
-        if dp > 1:
-            role_total, source = dp, f"UNIONML_TPU_DP_REPLICAS={dp}"
-        if role_total > 1:
-            raise NotImplementedError(
-                f"ContinuousBatcher: {source} selects {role_total} engine replicas, which are not ported yet "
-                "(ROADMAP.md, Queue A: parallelism and the replica layer)"
-            )
-
     # ------------------------------------------------------------------ device fns
 
     @staticmethod
@@ -599,6 +661,47 @@ class ContinuousBatcher:
         for layer, row in zip(cache, row_cache):
             for name in row:
                 layer[name][:, blk, off] = row[name][0].transpose(0, 1).to(layer[name].dtype)
+        tok[slot] = row_tok[0]
+        lengths[slot] = row_len[0]
+        done[slot] = False
+
+    @staticmethod
+    def _export_pages_impl(row_cache, n_blocks: int, block_size: int) -> tuple:
+        """The first ``n_blocks`` block-sized pages of a prefilled dense
+        ``[1, cache_len, H_kv, last]`` row in pool layout, ``[H_kv,
+        n_blocks, block_size, last]`` a leaf: the block-native handoff
+        payload, holding what the admission scatter would have written into
+        those blocks. Each page is a fresh copy, never a view: nothing the
+        exporting engine writes later can reach a payload in flight."""
+        width = n_blocks * block_size
+        return tuple(
+            {
+                name: buf[0, :width].transpose(0, 1).reshape(buf.shape[2], n_blocks, block_size, buf.shape[3])
+                .clone(memory_format=torch.contiguous_format)
+                for name, buf in layer.items()
+            }
+            for layer in row_cache
+        )
+
+    @staticmethod
+    def _paged_page_admit_impl(cache, pages, tok, lengths, done, slot, row_tok, row_len, blocks_row,
+                               skip: int = 0) -> None:
+        """Block-native import, in place: point slot ``slot``'s table row at
+        ``blocks_row`` and write the payload's pages whole-block into its
+        first ``n_blocks`` entries. The first ``skip`` pages go to scratch:
+        those entries are SHARED (the static prefix's pages), already holding
+        exactly that content, as in :meth:`_paged_admit_impl`."""
+        table = cache[0]["table"]
+        scratch = cache[0]["k"].shape[1] - 1  # scratch is the last pool block
+        n_blocks = pages[0]["k"].shape[1]
+        blocks = torch.as_tensor(blocks_row, dtype=torch.int32, device=table.device)
+        ids = blocks[:n_blocks].long()
+        if skip:
+            ids = torch.where(torch.arange(n_blocks, device=table.device) < skip, scratch, ids)
+        table[slot] = blocks
+        for layer, page in zip(cache, pages):
+            for name in page:
+                layer[name][:, ids] = page[name].to(layer[name].dtype)
         tok[slot] = row_tok[0]
         lengths[slot] = row_len[0]
         done[slot] = False
@@ -974,8 +1077,8 @@ class ContinuousBatcher:
 
     def submit(
         self, prompt: Sequence[int], *, max_new_tokens: Optional[int] = None, constraint: Optional[int] = None,
-        deadline: Optional[float] = None, tenant: Optional[str] = None, priority: Optional[Any] = None,
-        logprobs: bool = False,
+        deadline: Optional[float] = None, export_handoff: bool = False, tenant: Optional[str] = None,
+        priority: Optional[Any] = None, logprobs: bool = False,
     ) -> Iterator[np.ndarray]:
         """Enqueue a prompt; returns an iterator of 1-D int32 arrays of new
         tokens (the first item is the prompt-sampled token). Safe from any
@@ -985,7 +1088,12 @@ class ContinuousBatcher:
         emitted token's log-probability on the stream's ``logprobs``.
         ``deadline`` (absolute ``time.monotonic()``) sheds the request with
         :class:`DeadlineExceeded` if it is still waiting past it; a full
-        waiting queue sheds at once with :class:`QueueFullError`.
+        waiting queue, or a quiesced engine, sheds at once with
+        :class:`QueueFullError`.
+
+        ``export_handoff`` (the prefill-role path) runs ONLY the prefill: the
+        prompt-sampled token is emitted and the stream ends with the prefilled
+        KV on its ``handoff`` for :meth:`import_handoff` on another engine.
 
         ``tenant``/``priority`` default to the request contextvars the HTTP
         layer binds: a tenant with an empty token bucket is shed with
@@ -996,10 +1104,18 @@ class ContinuousBatcher:
         lowest-priority resident (which resumes token-identically)."""
         if len(prompt) == 0:
             raise ValueError("prompt must be non-empty")
+        if export_handoff and self._spec is not None:
+            raise ValueError("export_handoff does not compose with speculative decoding (config.draft)")
         if logprobs and self._spec is not None:
             raise ValueError(
                 "logprobs does not compose with speculative decoding (config.draft) yet: "
                 "accepted draft tokens carry no per-token policy logprob"
+            )
+        if logprobs and export_handoff:
+            raise ValueError(
+                "logprobs does not compose with export_handoff: the logprob column "
+                "does not ride the KV handoff payload (the replica layer routes "
+                "logprobs requests onto a decode/mixed replica directly)"
             )
         req_trace = current_trace() if self.trace_requests else None
         if expired(deadline):
@@ -1043,12 +1159,17 @@ class ContinuousBatcher:
         session = _Session(
             slot=-1, out=queue.Queue(), max_new=budget, deadline=deadline, created_at=time.monotonic(),
             grammar=grammar, want_logprobs=bool(logprobs), trace=req_trace, tenant=tenant, priority=priority,
+            export=export_handoff,
             # the original prompt is kept only where preemption can resume it
             prompt=list(prompt) if self.block_size is not None else [],
         )
         with self._lock:
             if self._closed:
                 raise RuntimeError("ContinuousBatcher is closed")
+            if self._quiesced:
+                # draining for a scale-down: the replica scheduler walks to a
+                # sibling; routing, not load, so no shed counter moves
+                raise QueueFullError("replica is quiescing for a fleet resize")
             # admission control counts LIVE waiters only
             waiting = sum(1 for _, s in self._pending if not s.finished)
             if waiting >= self.max_waiting:
@@ -1102,6 +1223,40 @@ class ContinuousBatcher:
         except BaseException:
             _refund_admission(registry, tenant)
             raise
+
+    def import_handoff(self, payload: Dict[str, Any]) -> Iterator[np.ndarray]:
+        """Adopt a sibling engine's exported prefill (the decode-role path):
+        at admission the payload's pages are copied onto this engine's device
+        and written into freshly allocated blocks (a dense engine pastes the
+        row); no prefill runs here. The stream carries every token AFTER the
+        prompt-sampled one, which the exporting engine emitted, and equals
+        what one engine serving the request would have produced: the KV is
+        what this engine's own prefill would have written. Imports bypass
+        ``max_waiting``: the prefill is paid for, and shedding here would
+        waste it."""
+        if self._spec is not None:
+            raise ValueError("import_handoff does not compose with speculative decoding (config.draft)")
+        trace = payload.get("trace") if self.trace_requests else None
+        session = _Session(
+            slot=-1, out=queue.Queue(), max_new=int(payload["max_new"]), produced=int(payload["produced"]),
+            grammar=int(payload.get("grammar", 0)), deadline=payload.get("deadline"),
+            created_at=payload.get("created_at", time.monotonic()), trace=trace, tenant=payload.get("tenant"),
+            priority=int(payload.get("priority", PRIORITY_NORMAL)),
+            prompt=list(payload["prompt"]) if self.block_size is not None else [],
+            echo=list(payload["echo"]) if self.block_size is not None else [],
+        )
+        session.pending_import = dict(payload)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("ContinuousBatcher is closed")
+            if self._quiesced:
+                raise QueueFullError("replica is quiescing for a fleet resize")
+            self._pending.append((list(payload["prompt"]), session))
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._engine_loop, daemon=True)
+                self._thread.start()
+            self._lock.notify_all()
+        return _TokenStream(self, session)
 
     def _cancel(self, session: _Session) -> None:
         """Stop producing for a session whose consumer went away. Pending
@@ -1198,7 +1353,9 @@ class ContinuousBatcher:
         """Prefill tokens an in-flight admission still owes: the unchunked
         remainder once stepping started, else the prompt minus its radix-
         cached run (``adm.start`` holds the static prefix length until
-        :meth:`_admission_begin` runs)."""
+        :meth:`_admission_begin` runs). An imported handoff owes none."""
+        if adm.session.pending_import is not None:
+            return 0
         if adm.tokens is not None:
             return max(adm.width - adm.pos, 0)
         remaining = max(len(adm.prompt), 1)
@@ -1278,6 +1435,12 @@ class ContinuousBatcher:
                     "pinned_blocks": self._radix.pinned_blocks(),
                     "nodes": self._radix.nodes(),
                 }
+            if self.role is not None:
+                snapshot["role"] = self.role
+            if self.role is not None or self.handoffs_exported or self.handoffs_imported:
+                # absent on role-less engines that never handed off (ints
+                # only; the latency window joins after the lock)
+                snapshot["handoff"] = {"exported": self.handoffs_exported, "imported": self.handoffs_imported}
             if self._registry() is not None or self.shed_tenant_limit or self.priority_preemptions:
                 # absent entirely when QoS is off
                 snapshot["tenancy"] = {
@@ -1293,6 +1456,9 @@ class ContinuousBatcher:
         # window work, OUTSIDE the engine lock
         snapshot["ttft_ms"] = self._ttft.snapshot()
         snapshot["tbt_ms"] = self._tbt.snapshot()
+        if "handoff" in snapshot:
+            # export -> import latency, observed where the import begins
+            snapshot["handoff"]["transfer_ms"] = self._handoff_ms.snapshot()
         if self.timeseries is not None:
             fast_s = self.slo.config.fast_window_s if self.slo is not None else 60.0
             snapshot["rates"] = {**self.timeseries.rates(fast_s), "prefill_backlog_tokens": backlog}
@@ -1346,6 +1512,9 @@ class ContinuousBatcher:
                 self._radix_reset_locked()
             self._ttft.clear()  # warmup probes must not skew the percentiles
             self._tbt.clear()
+            self.handoffs_exported = 0
+            self.handoffs_imported = 0
+            self._handoff_ms.clear()
             if self.timeseries is not None:
                 self.timeseries.clear()  # probe tokens are not traffic rates
             if self.slo is not None:
@@ -1357,6 +1526,15 @@ class ContinuousBatcher:
                 self._spec.rounds = self._spec.accepted_tokens = self._spec.proposed_tokens = 0
         with self._health_lock:
             self._health_cache = None
+
+    def quiesce(self) -> None:
+        """Stop ACCEPTING new submissions and imports (they shed with
+        :class:`QueueFullError`, which the replica scheduler routes around)
+        while everything queued or resident runs to completion: the first
+        phase of a zero-loss scale-down; :meth:`close` is the second, once
+        :meth:`occupancy` reads empty."""
+        with self._lock:
+            self._quiesced = True
 
     def close(self, wait: bool = True, timeout: float = 120.0) -> None:
         """Stop admitting, drain resident streams to completion, stop the
@@ -1446,7 +1624,10 @@ class ContinuousBatcher:
                             adm.session.out.put(exc)
                     raise
                 if adm.done:
-                    self._finalize_admission(adm)
+                    if adm.session.export:
+                        self._export_admission(adm)
+                    else:
+                        self._finalize_admission(adm)
                 if budget is not None and spent >= budget:
                     return
 
@@ -1508,7 +1689,9 @@ class ContinuousBatcher:
                     # seeded leading table entries: the static prefix's full
                     # blocks, or (on a radix hit) the matched cached run
                     seeded = list(self._shared_prefix_blocks)
-                    if self._radix is not None:
+                    # an imported handoff skips the radix match: its row
+                    # arrives whole, so there is no prefill to skip
+                    if self._radix is not None and head_session.pending_import is None:
                         # the last prompt token always prefills: the first
                         # sampled token needs its hidden row
                         m, mblocks = self._radix.match(self._radix_key(head_prompt))
@@ -1708,6 +1891,8 @@ class ContinuousBatcher:
         leaves the stepping to :meth:`_admission_step` (cost 0)."""
         cfg, gen = self.gen.config, self.gen
         prompt, session = adm.prompt, adm.session
+        if session.pending_import is not None:
+            return self._import_begin(adm)
         if gen._cs is not None:
             # the DFA state is a pure function of (grammar, emitted tokens): a
             # fresh admission starts at the grammar's start state, a
@@ -1772,6 +1957,57 @@ class ContinuousBatcher:
         adm.generator = torch.Generator(device=self.device).manual_seed(adm.seed)
         adm.row_valid = torch.ones((1,), dtype=torch.bool, device=self.device)
         adm.last = torch.zeros((1, self.gen.model.config.dim), dtype=torch.float32, device=self.device)
+
+    def _import_begin(self, adm: _Admission) -> int:
+        """Set up an imported-handoff admission (engine thread): copy the
+        payload's pages (or a dense engine's row) onto this engine's device
+        and mark the admission complete; no prefill runs. The grammar state
+        is recovered from the payload's emitted tokens as a preemption resume
+        recovers it, stopping one short so :meth:`_finalize_admission`'s
+        advance past the first token lands on the right state."""
+        payload = adm.session.pending_import
+        pages = payload.get("pages")
+        if pages is not None:
+            if self.block_size is None:
+                raise ValueError(
+                    "a block-native (paged) handoff cannot import into a dense engine; "
+                    "disaggregated replicas must be built with identical engine knobs"
+                )
+            if int(payload.get("block_size") or 0) != self.block_size:
+                raise ValueError(
+                    f"handoff block_size {payload.get('block_size')} != this engine's {self.block_size}; "
+                    "disaggregated replicas must be built with identical engine knobs"
+                )
+            if int(payload["lengths"]) > self.cache_len:
+                raise ValueError(
+                    f"handoff covers {payload['lengths']} positions but this engine's cache_len is "
+                    f"{self.cache_len}; disaggregated replicas must be built with identical engine knobs"
+                )
+            # allocated on THIS engine's device (a no-op where the exporter shares it)
+            adm.import_pages = tuple({name: buf.to(self.device) for name, buf in layer.items()} for layer in pages)
+        else:
+            row = payload["row"]
+            width = int(row[0]["k"].shape[1])
+            if width != self.cache_len:
+                raise ValueError(
+                    f"handoff row width {width} != this engine's cache_len {self.cache_len}; "
+                    "disaggregated replicas must be built with identical engine knobs"
+                )
+            adm.row_cache = tuple({name: buf.to(self.device) for name, buf in layer.items()} for layer in row)
+        adm.tok0 = torch.tensor([int(payload["first"])], dtype=torch.int32, device=self.device)
+        adm.row_len = torch.tensor([int(payload["lengths"])], dtype=torch.int32, device=self.device)
+        if self.gen._cs is not None:
+            cs = self.gen._cs
+            state = int(cs.starts[adm.session.grammar])
+            for t in list(payload["echo"])[:-1]:
+                state = int(cs.trans[state, int(t)])
+            adm.dfa_state = state
+        adm.done = True
+        exported_at = payload.get("exported_at")
+        if exported_at is not None:
+            self._handoff_ms.observe(time.monotonic() - exported_at)
+        _tev(adm.session, "engine.handoff_import", tokens=int(payload["lengths"]), produced=adm.session.produced)
+        return 0
 
     def _begin_cached(self, adm: _Admission) -> bool:
         """Set up a radix-cache HIT: gather the matched blocks into a dense
@@ -1844,27 +2080,89 @@ class ContinuousBatcher:
             adm.done = True
         return adm.chunk
 
-    def _finalize_admission(self, adm: _Admission) -> None:
-        """Paste a completed admission's row into the pool and activate its
-        session. A failure in the paste is engine-fatal: the pool may be
-        half-written."""
+    def _export_admission(self, adm: _Admission) -> None:
+        """Complete an EXPORT admission (the prefill-role path): emit the
+        prompt-sampled first token, free the slot and blocks (the row is
+        never pasted into this engine's pool) and package the prefilled KV
+        as the session's handoff payload: the ``ceil(lengths / block_size)``
+        pages the prompt occupies in a paged engine, the dense row in a dense
+        one. A request whose first token already ends it (eos, or a budget
+        of 1) finishes here with no handoff."""
         cfg = self.gen.config
         session, slot = adm.session, adm.slot
-        lp0 = self._first_logprob(adm) if session.want_logprobs else None
+        first = adm.tok0.cpu().numpy()
+        hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
+        done_now = hit_eos or session.produced + 1 >= session.max_new
+        row_cache, row_len = adm.row_cache, int(adm.row_len[0])
+        adm.row_cache = adm.last = None
+        pages = None
+        if self.block_size is not None and not done_now:
+            with torch.no_grad():
+                pages = self._export_pages_impl(row_cache, -(-row_len // self.block_size), self.block_size)
+            row_cache = None  # the dense row never leaves a paged engine
+        with self._lock:
+            if adm in self._admissions:
+                self._admissions.remove(adm)
+            self._free.append(slot)
+            self._release_blocks_locked(slot, session)
+            if session.finished:
+                # cancelled (or shed) during the unlocked prefill: the
+                # consumer already holds its sentinel
+                return
+            self._emit_first_locked(session, first, None)
+            session.finished = True
+            if done_now:
+                _tev(session, "engine.finish", produced=session.produced)
+            else:
+                self.handoffs_exported += 1
+                session.handoff = {
+                    "prompt": list(adm.prompt),
+                    "first": int(first[0]),
+                    **({"pages": pages, "block_size": self.block_size} if pages is not None else {"row": row_cache}),
+                    "lengths": row_len,
+                    "max_new": session.max_new,
+                    "produced": session.produced,
+                    "echo": [int(first[0])],
+                    "grammar": session.grammar,
+                    "deadline": session.deadline,
+                    "created_at": session.created_at,
+                    "trace": session.trace,
+                    "tenant": session.tenant,
+                    "priority": session.priority,
+                    "exported_at": session.last_emit,
+                }
+                _tev(session, "engine.handoff_export", tokens=row_len, produced=session.produced)
+            session.out.put(_SENTINEL)
+
+    def _finalize_admission(self, adm: _Admission) -> None:
+        """Paste a completed admission's row (or an imported handoff's pages)
+        into the pool and activate its session. A failure in the paste is
+        engine-fatal: the pool may be half-written."""
+        cfg = self.gen.config
+        session, slot = adm.session, adm.slot
+        imported = session.pending_import is not None
+        lp0 = self._first_logprob(adm) if session.want_logprobs and not imported else None
         try:
             if self._carry is None:
                 self._carry = self._init_carry()
             first = adm.tok0.cpu().numpy()
             hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
-            # produced carries across preemptions; this residency adds one token
-            start_done = hit_eos or session.produced + 1 >= session.max_new
+            # produced carries across preemptions; this residency adds one
+            # token. An import's first token was emitted (and its eos/budget
+            # ending handled) by the exporting engine: never start-done here
+            start_done = not imported and (hit_eos or session.produced + 1 >= session.max_new)
             spec = self._spec is not None
             caches = self._carry[:2] if spec else self._carry[:1]
             rows = (adm.row_cache, adm.d_row_cache) if spec else (adm.row_cache,)
             tok, lengths, done = self._carry[len(caches): len(caches) + 3]
             with torch.no_grad():
                 for cache, row_cache in zip(caches, rows):
-                    if adm.blocks_row is not None:
+                    if adm.import_pages is not None:
+                        self._paged_page_admit_impl(
+                            cache, adm.import_pages, tok, lengths, done, slot, adm.tok0, adm.row_len,
+                            adm.blocks_row, session.shared_blocks,
+                        )
+                    elif adm.blocks_row is not None:
                         self._paged_admit_impl(
                             cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row,
                             session.shared_blocks,
@@ -1884,7 +2182,7 @@ class ContinuousBatcher:
                     # device: an indexed copy, no host round trip
                     trans = self.gen._cs_trans
                     cstate[0][slot : slot + 1].copy_(trans[adm.dfa_state][adm.tok0.long()])
-            adm.row_cache = adm.d_row_cache = adm.last = None
+            adm.row_cache = adm.d_row_cache = adm.last = adm.import_pages = None
         except BaseException as exc:
             with self._lock:
                 if adm in self._admissions:
@@ -1907,44 +2205,63 @@ class ContinuousBatcher:
                 self._release_blocks_locked(slot, session)
                 self._mask_slot_done(slot)
                 return
-            if lp0 is not None:
-                session.lp.append(lp0)  # before the token: k tokens => >= k logprobs
-            session.out.put(first)
-            now = time.monotonic()
-            if session.produced == 0:  # a resume is a later residency, not a first token
-                self._ttft.observe(now - session.created_at)
-                if self.slo is not None:
-                    self.slo.note_ttft(session.trace, (now - session.created_at) * 1e3)
+            if imported:
+                # the exporting engine emitted the first token and took the
+                # TTFT; this residency decodes on from produced = 1, the
+                # state one engine holds right after its own finalize
+                session.pending_import = None
+                session.resident_base = 0
+                session.last_emit = time.monotonic()
+                if self.timeseries is not None:
+                    self.timeseries.admissions.add()
                 if self._tenant_slo is not None and session.tenant is not None:
-                    self._tenant_slo.note_ttft(session.tenant, session.trace, now - session.created_at)
-                _tev(session, "engine.first_token", ttft_ms=round((now - session.created_at) * 1e3, 3))
-            _tev(session, "engine.emit", tokens=1, produced=session.produced + 1)
-            if session.last_emit is not None:
-                self._tbt.observe(now - session.last_emit)
-                if self.slo is not None:
-                    self.slo.note_tbt(session.trace, (now - session.last_emit) * 1e3)
-                if self._tenant_slo is not None and session.tenant is not None:
-                    self._tenant_slo.note_tbt(session.tenant, session.trace, now - session.last_emit)
-            session.last_emit = now
-            if self.timeseries is not None:
-                self.timeseries.admissions.add()
-                self.timeseries.tokens.add()
-            if self._tenant_slo is not None and session.tenant is not None:
-                self._tenant_slo.admitted(session.tenant)
-                self._tenant_slo.tokens(session.tenant, 1)
-            registry = self._registry()
-            if registry is not None:
-                registry.charge_tokens(session.tenant, 1)
-            if self.block_size is not None:  # echo exists only for preemption resume
-                session.echo.append(int(first[0]))
-            session.resident_base = session.produced
-            session.produced += 1
+                    self._tenant_slo.admitted(session.tenant)
+                self.handoffs_imported += 1
+            else:
+                self._emit_first_locked(session, first, lp0)
             self._sessions[slot] = session
             if start_done:
                 # the plain decode only flags done on tokens IT samples, so the
                 # prompt-sampled token's ending is masked here (speculative
                 # mode flagged it on the device already)
                 self._finish_locked(slot, device_done=self._spec is not None)
+
+    def _emit_first_locked(self, session: _Session, first: np.ndarray, lp0: Optional[float]) -> None:
+        """Emit an admission's prompt-sampled token (caller holds the lock):
+        the stream, TTFT (a resume is a later residency, not a first token),
+        TBT, rates, tenant accounting and the echo."""
+        if lp0 is not None:
+            session.lp.append(lp0)  # before the token: k tokens => >= k logprobs
+        session.out.put(first)
+        now = time.monotonic()
+        if session.produced == 0:
+            self._ttft.observe(now - session.created_at)
+            if self.slo is not None:
+                self.slo.note_ttft(session.trace, (now - session.created_at) * 1e3)
+            if self._tenant_slo is not None and session.tenant is not None:
+                self._tenant_slo.note_ttft(session.tenant, session.trace, now - session.created_at)
+            _tev(session, "engine.first_token", ttft_ms=round((now - session.created_at) * 1e3, 3))
+        _tev(session, "engine.emit", tokens=1, produced=session.produced + 1)
+        if session.last_emit is not None:
+            self._tbt.observe(now - session.last_emit)
+            if self.slo is not None:
+                self.slo.note_tbt(session.trace, (now - session.last_emit) * 1e3)
+            if self._tenant_slo is not None and session.tenant is not None:
+                self._tenant_slo.note_tbt(session.tenant, session.trace, now - session.last_emit)
+        session.last_emit = now
+        if self.timeseries is not None:
+            self.timeseries.admissions.add()
+            self.timeseries.tokens.add()
+        if self._tenant_slo is not None and session.tenant is not None:
+            self._tenant_slo.admitted(session.tenant)
+            self._tenant_slo.tokens(session.tenant, 1)
+        registry = self._registry()
+        if registry is not None:
+            registry.charge_tokens(session.tenant, 1)
+        if self.block_size is not None:  # echo exists only for preemption resume
+            session.echo.append(int(first[0]))
+        session.resident_base = session.produced
+        session.produced += 1
 
     def _finish_locked(self, slot: int, *, device_done: bool) -> None:
         session = self._sessions.pop(slot)
