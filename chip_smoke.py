@@ -173,6 +173,32 @@ Phases (no phase catches a failure; any fault exits non-zero):
    float32, 2 layers: (a)'s and (b)'s fleets on the card equal the same
    fleets on the CPU, and the handoff pages agree within 1e-5 of each leaf's scale.
 
+15. the serving mesh (``unionml_tpu_torch/parallel``; the engine's mesh
+   path in ``serving/mesh.py``), run last: (a) phase 3's model through
+   ``Generator(mesh=MeshSpec(model=1).build(), partition_rules=
+   llama_partition_rules())``, a world of one process over NCCL, and a
+   ``ContinuousBatcher`` with phase 3's knobs: streams equal phase 3's, paged
+   launches 32 x 8 a dispatch; tok/s and TTFT; (b) the int8 kernel at one
+   rank's weight shapes at model=2 against its twin, timed (``tp_shards`` on
+   the kernels line); then two processes on cuda:0 over gloo (NCCL refuses
+   two ranks on one card; gloo's collectives move CUDA tensors through host
+   memory, counted), each holding half the weights, rank 0 serving and rank
+   1 following its step plans: Llama-3-8B width bf16 at model=2 (phase 3's
+   weights, knobs and prompts; first-token logits within
+   ``MESH_LOGITS_REL_RMS`` of (a)'s; on each rank 16 query and 4 KV heads,
+   paged launches exactly 32 x 8 x the dispatches, one launch on its live
+   layer-0 pool equal to the twin; rank 0's host time a decode step; memory
+   a rank; tok/s and TTFT), the same with ``quantize="int8"`` (225 int8
+   launches a forward on each rank), ``sp_prefill="ring"`` at sequence=2 on
+   a 2048-token prompt, ``MoEConfig()`` at expert=2; and the same four in
+   f32 at 2 layers, TF32 off, each token for token equal to the unsharded
+   card run and to the CPU. The ranks run the f32 four first, while the
+   parent computes those references, and the timed bf16 four once it is
+   done: their times share the card and the host with nothing. Every
+   kernel is counted on every rank in every case, and ``OFF_MESH_PATH``'s
+   must count 0; ``tp_launches`` on the kernels line is rank 0's count
+   over the eight served runs.
+
 Phase 10a also holds bf16 chunked admission to monolithic admission behind
 the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
 
@@ -190,6 +216,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib
 import json
 import math
@@ -302,6 +329,27 @@ ADMIT_CHUNK, PREFILL_BUDGET, MAX_ADMISSIONS = 64, 128, 2
 #: (|a - b| / |b| over the vocabulary) stays within sqrt(225) * 2**-8 = 0.0586
 BF16_ROUNDINGS = 7 * 32 + 1
 CHUNKED_LOGITS_REL_RMS = math.sqrt(BF16_ROUNDINGS) * 2.0 ** -8
+#: phase 15: the mesh on the card. (b)'s ranks share cuda:0 over gloo, which moves each CUDA tensor of a
+#: collective through host memory (parallel/collectives.py)
+MESH_RANKS = 2
+#: (b): bf16 first-token logits of the model=2 run against the unsharded run. On top of the 225 roundings of a
+#: forward (CHUNKED_LOGITS_REL_RMS), each row-parallel product (o_proj and wo: 2 x 32 layers) is summed from two
+#: bf16 partial products, each rounded, and their bf16 sum is rounded again: two more roundings each, 128 in all.
+#: The column-parallel and head products keep one rounding each (their cuBLAS kernels may differ, as chunking's
+#: do). Taken as independent: sqrt(225 + 2 x 64) x 2**-8 = 0.0734
+ROW_PARALLEL_ROUNDINGS = 2 * 2 * 32
+MESH_LOGITS_REL_RMS = math.sqrt(BF16_ROUNDINGS + ROW_PARALLEL_ROUNDINGS) * 2.0 ** -8
+SP_PROMPT_LEN = 2048  # (b): the sequence-parallel prefill's prompt, numpy seed 4
+#: kernels that no served run of the mesh path reaches, counted on every rank and required 0: the flash kernels
+#: (sp prefill attends by ring, cached prefill takes the plain path) and int8 pages (int8 pools take the gather path)
+OFF_MESH_PATH = frozenset({"flash_forward", "flash_backward", "flash_forward_f32", "flash_backward_f32",
+                           "paged_decode_attention_int8"})
+#: the int8 matmul's weight shapes on one rank at model=2 (Llama-3-8B): column-parallel q, k/v, wi/wg and the
+#: vocab-parallel head split F; row-parallel o and wo split K
+INT8_SHARDS = (
+    ("q", 4096, 2048), ("k/v", 4096, 512), ("o", 2048, 4096), ("wg/wi", 4096, 7168), ("wo", 7168, 4096),
+    ("lm_head", 4096, 64128),
+)
 
 
 def card_line() -> str:
@@ -3672,6 +3720,415 @@ def encoder_parity_phase() -> dict:
     return dict(launches=launches, max_abs_err=max(errs))
 
 
+# ---------------------------------------------------------------------------- phase 15: the mesh
+
+
+def first_logits(gen, prompt):
+    """The f32 logits of ``prompt``'s first generated token (batch 1, the
+    Generator's own prefill; a collective on a mesh: every rank calls it)."""
+    import torch
+
+    with torch.no_grad():
+        _, _, last, _ = gen._start([prompt], 0)
+        return gen._head(last.to(gen.model.config.dtype))[0].float()
+
+
+def mesh_world1_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams) -> dict:
+    """Phase 15a: phase 3's model (Llama-3-8B width, bf16, seed 0) through
+    ``Generator(mesh=MeshSpec(model=1).build(), partition_rules=llama_partition_rules())``
+    (a world of one process over NCCL) and a ``ContinuousBatcher`` with phase 3's
+    knobs and prompts: its streams must equal phase 3's, and its paged launches
+    be 32 x 8 a dispatch. Returns the first-token logits (the unsharded run's),
+    which (b) holds its model=2 run to."""
+    import torch
+    import torch.distributed as dist
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama, LlamaConfig
+    from unionml_tpu_torch.models import llama_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec
+
+    mesh = MeshSpec(model=1).build()
+    require(dist.get_backend() == "nccl" and mesh.devices == 1, f"world-1 mesh over {dist.get_backend()}")
+    cfg = LlamaConfig.llama3_8b(attention_impl="flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    gen = Generator(Llama(cfg, seed=0), gcfg, mesh=mesh, partition_rules=llama_partition_rules())
+    warm = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    serve(warm, [prompts[0][:3]])  # set-up: first cuBLAS/allocator calls
+    warm.close()
+    batcher = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+    reset_counts()
+    streams, seconds = serve(batcher, prompts)
+    counts = all_launches()
+    launches = counts["paged_decode_attention"]
+    stats = batcher.stats()
+    batcher.close()
+    expected = cfg.n_layers * stats["decode_dispatches"] * decode_chunk
+    logits = [first_logits(gen, p) for p in prompts]
+    result = dict(tok_s=len(prompts) * MAX_NEW / seconds, ttft_p50=stats["ttft_ms"]["p50_ms"], launches=launches,
+                  logits=logits)
+    print(f"phase 15a: world of 1 over NCCL ({mesh}), Llama-3-8B width bf16 through Generator(mesh=, "
+          f"partition_rules=): {result['tok_s']:.1f} tok/s, TTFT p50 {result['ttft_p50']} ms, paged launches "
+          f"{launches} (expected {expected}), every count {counts}; streams "
+          f"{'equal' if streams == bf16_streams else 'NOT EQUAL'} to phase 3's; card {card}", flush=True)
+    require(streams == bf16_streams, f"world-1 mesh streams {streams} != phase 3's {bf16_streams}")
+    require(launches == expected > 0, f"{launches} paged launches on the world-1 mesh, expected {expected}")
+    others = {name: n for name, n in counts.items() if name != "paged_decode_attention"}
+    require(not any(others.values()), f"kernels off the world-1 mesh path launched: {others}")
+    del gen, warm, batcher
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15a: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated in this process before the "
+          f"ranks start", flush=True)
+    return result
+
+
+def mesh_cases(prompts, gcfg) -> list:
+    """Phase 15b's cases: (model, dtype, layers, seed, mesh axes, rules, engine knobs, prompts), the four in f32
+    at 2 layers first (untimed: they run beside the parent's references), then bf16 at full width."""
+    import numpy as np
+
+    sp_prompt = np.random.RandomState(4).randint(1, 128256, size=SP_PROMPT_LEN).tolist()
+    base = dict(max_new_tokens=gcfg.max_new_tokens, temperature=0.0, prompt_buckets=tuple(gcfg.prompt_buckets))
+    moe = moe_prompts(32000)
+    return [
+        dict(name="tp32", model="llama", f32=True, seed=1, spec=dict(model=2), rules="llama", gen=base, slots=4,
+             prompts=prompts),
+        dict(name="int832", model="llama", f32=True, seed=3, spec=dict(model=2), rules="llama",
+             gen={**base, "max_new_tokens": INT8_PARITY_NEW}, slots=4, prompts=prompts[:2], quantize="int8"),
+        dict(name="sp32", model="llama", f32=True, seed=1, spec=dict(sequence=2), rules=None, slots=4,
+             gen={**base, "sp_prefill": "ring"}, prompts=prompts),
+        dict(name="moe32", model="moe", f32=True, seed=1, spec=dict(expert=2), rules="moe", gen=base, slots=4,
+             prompts=moe),
+        dict(name="tp", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
+             prompts=prompts, logits=True, pool_check=True, host_time=True),
+        dict(name="int8", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
+             prompts=prompts, quantize="int8"),
+        dict(name="sp", model="llama", f32=False, seed=0, spec=dict(sequence=2), rules=None, slots=1,
+             gen={**base, "prompt_buckets": (SP_PROMPT_LEN,), "sp_prefill": "ring"}, prompts=[sp_prompt]),
+        dict(name="moe", model="moe", f32=False, seed=0, spec=dict(expert=2), rules="moe", gen=base, slots=4,
+             prompts=moe),
+    ]
+
+
+def mesh_model(case):
+    """A case's model on the card, built from its seed (every process that
+    builds it on cuda:0 gets the same weights)."""
+    import torch
+
+    from unionml_tpu_torch import Llama, LlamaConfig
+    from unionml_tpu_torch.models import MoEConfig, MoETransformer
+
+    dtype = torch.float32 if case["f32"] else torch.bfloat16
+    if case["model"] == "moe":
+        layers = dict(n_layers=MOE_PARITY_LAYERS, capacity_factor=MOE_NO_DROP_CAPACITY) if case["f32"] else {}
+        return MoETransformer(MoEConfig(dtype=dtype, param_dtype=dtype, **layers), seed=case["seed"])
+    layers = dict(n_layers=2) if case["f32"] else {}
+    cfg = LlamaConfig.llama3_8b(attention_impl="flash", dtype=dtype, param_dtype=dtype, **layers)
+    return Llama(cfg, seed=case["seed"])
+
+
+def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
+    """Run one case of phase 15b on this rank: build, place, serve from rank
+    0 (the other rank follows its step plans), then the checks each rank
+    makes on its own shards."""
+    import torch
+    import torch.distributed as dist
+
+    from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator
+    from unionml_tpu_torch.models import llama_partition_rules, moe_partition_rules
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.collectives import host_route
+
+    torch.backends.cuda.matmul.allow_tf32 = not case["f32"]
+    torch.backends.cudnn.allow_tf32 = not case["f32"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = MeshSpec(**case["spec"]).build()
+    rules = {"llama": llama_partition_rules(), "moe": moe_partition_rules()}.get(case["rules"])
+    gen = Generator(mesh_model(case), GenerationConfig(**case["gen"]), mesh=mesh, partition_rules=rules,
+                    quantize=case.get("quantize"))
+    engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=decode_chunk, block_size=BLOCK)
+    res = dict(build_s=time.perf_counter() - t0, heads=(gen.cache_config.n_heads, gen.cache_config.n_kv_heads))
+    prompts = case["prompts"]
+    if rank == 0 and not case["f32"]:
+        serve(engine, [prompts[0][:3]])  # set-up: the rank pair's first cuBLAS and allocator calls
+    dist.barrier(group=sync)
+    reset_counts()
+    host_route.count = 0
+    dist.barrier(group=sync)
+    if rank == 0:
+        before = engine.decode_dispatches  # the set-up stream's dispatches are not this run's
+        streams, seconds = serve(engine, prompts)
+        stats = engine.stats()
+        res.update(streams=streams, seconds=seconds, ttft_p50=stats["ttft_ms"]["p50_ms"],
+                   tbt_p50=stats["tbt_ms"]["p50_ms"], dispatches=engine.decode_dispatches - before,
+                   admissions=len(prompts))
+    dist.barrier(group=sync)
+    launches = all_launches()
+    res.update(launches=launches, paged=launches["paged_decode_attention"], int8=launches["int8_matmul"],
+               transfers=host_route.count)
+    if case.get("logits"):  # every rank runs the prefill (a collective); rank 0 compares
+        mine = [first_logits(gen, p) for p in prompts]
+        if rank == 0:
+            res["logits_rel_rms"] = [rel_rms(a, b.to(a.device)) for a, b in zip(mine, logits)]
+            res["argmax_equal"] = sum(int(a.argmax() == b.argmax()) for a, b in zip(mine, logits))
+    if case.get("pool_check"):  # one launch on this rank's live pool of layer 0, against the twin
+        layer = engine._carry[0][0]
+        cfg = gen.cache_config
+        dev = layer["k"].device
+        g = torch.Generator(device=dev).manual_seed(17 + rank)
+        q = torch.randn(case["slots"], cfg.n_heads, cfg.dim // cfg.n_heads, device=dev, generator=g)
+        q = q.to(layer["k"].dtype)
+        lengths = engine._carry[2].clamp(min=1).to(torch.int32)
+        before = paged_decode_attention.launches
+        out = paged_decode_attention(q, layer["k"], layer["v"], lengths, layer["table"])
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_reference(q, layer["k"], layer["v"], lengths, layer["table"])
+        atol, rtol = TOLERANCE[str(q.dtype)]
+        err = (out.float() - ref.float()).abs()
+        res.update(pool_err=err.max().item(), pool_ok=bool((err <= atol + rtol * ref.float().abs()).all()),
+                   pool_launches=paged_decode_attention.launches - before, pool_shape=tuple(layer["k"].shape))
+    if case.get("host_time") and rank == 0:
+        # one decode dispatch driven from here while the engine idles (the
+        # other rank follows its plan): the controller thread's CPU time a step
+        torch.cuda.synchronize()
+        cpu0, wall0 = time.thread_time(), time.perf_counter()
+        engine._dev("decode", None, decode_chunk)
+        torch.cuda.synchronize()
+        res["host_ms_per_step"] = (time.thread_time() - cpu0) * 1e3 / decode_chunk
+        res["wall_ms_per_step"] = (time.perf_counter() - wall0) * 1e3 / decode_chunk
+    res["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.barrier(group=sync)
+    engine.close()
+    del gen, engine
+    gc.collect()  # the next case's peak must not hold this one's model (reference cycles)
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(rank: int, store: str, cases: list, decode_chunk: int, logits, out, refs_done) -> None:
+    """One of phase 15b's two processes, both on cuda:0 over gloo (NCCL
+    refuses two ranks on one card). The timed bf16 cases start once the
+    parent sets ``refs_done``. Puts ``(rank, ok, results or traceback)`` on
+    ``out``."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS), rank=rank, world_size=MESH_RANKS)
+        sync = dist.new_group(list(range(MESH_RANKS)))  # the phase's own barriers, beside the mesh's groups
+        results = {}
+        for case in cases:
+            if not case["f32"]:
+                refs_done.wait()
+            results[case["name"]] = mesh_case(rank, case, decode_chunk, logits, sync)
+        dist.destroy_process_group()
+        out.put((rank, True, results))
+    except BaseException:
+        import traceback
+
+        out.put((rank, False, traceback.format_exc()))
+
+
+def mesh_expected(case, base_streams=None) -> tuple:
+    """An f32 case's unsharded streams on the card (the engine with the
+    case's knobs) and on the CPU (the same weights, the solo Generator)."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = mesh_model(case)
+    gcfg = GenerationConfig(**{k: v for k, v in case["gen"].items() if k != "sp_prefill"})
+    gen = Generator(model, gcfg, quantize=case.get("quantize"))
+    engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=8, block_size=BLOCK)
+    card_streams, _ = serve(engine, case["prompts"])
+    engine.close()
+    from unionml_tpu_torch.models import llama_from_jax, llama_params_to_numpy, moe_from_jax, moe_params_to_numpy
+
+    if case["model"] == "moe":  # the same bits (int8 slots too) on the CPU
+        cpu = moe_from_jax(moe_params_to_numpy(model), model.config, device="cpu")
+    else:
+        cpu = llama_from_jax(llama_params_to_numpy(model), model.config, device="cpu")
+    del gen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu_gen = Generator(cpu, gcfg, device="cpu")
+    cpu_streams = [cpu_gen([p])[0].tolist() for p in case["prompts"]]
+    return card_streams, cpu_streams
+
+
+def int8_shard_phase() -> dict:
+    """Phase 15b's int8 weight shapes (one rank's at model=2) through the
+    kernel, against its twin, timed beside the twin and cuBLAS on the
+    dequantized bf16 weight, at M = 4 (decode) and 256 (admission)."""
+    import torch
+
+    from unionml_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from unionml_tpu_torch.ops.quant import dequantize, quantize_array
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rows, worst = {}, 0.0
+    for label, k_dim, f_dim in INT8_SHARDS:
+        qt = quantize_array(torch.randn(k_dim, f_dim, device="cuda", generator=g) * k_dim ** -0.5)
+        w_bf16 = dequantize(qt, torch.bfloat16)
+        for m in (4, 256):
+            x = torch.randn(m, k_dim, device="cuda", generator=g).to(torch.bfloat16)
+            out = int8_matmul(x, qt.q, qt.scale)
+            torch.cuda.synchronize()
+            ref = int8_matmul_reference(x, qt.q, qt.scale)
+            atol, rtol = TOLERANCE["torch.bfloat16"]
+            err = (out.float() - ref.float()).abs()
+            require(bool((err <= atol + rtol * ref.float().abs()).all()),
+                    f"int8_matmul disagrees with its twin at the shard shape [{k_dim}, {f_dim}], M={m}")
+            worst = max(worst, err.max().item())
+            ms = time_ms(lambda: int8_matmul(x, qt.q, qt.scale))
+            plain_ms = time_ms(lambda: int8_matmul_reference(x, qt.q, qt.scale))
+            library_ms = time_ms(lambda: x @ w_bf16)
+            bms, bound_by = int8_bound_ms(m, k_dim, f_dim, 2, 2)
+            rows[f"{label} [{k_dim}, {f_dim}] M={m}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                             bound_ms=bms, bound_by=bound_by,
+                                                             max_abs_err=err.max().item())
+            print(f"phase 15: int8_matmul shard {label} [{k_dim}, {f_dim}] M={m}: max_abs_err "
+                  f"{err.max().item():.3g} ok; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS bf16 "
+                  f"{library_ms:.4f} ms, bound {bms:.4f} ms ({bound_by}), {bms / ms:.1%} of bound", flush=True)
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, shards=rows)
+
+
+def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams) -> dict:
+    """Phase 15: the serving mesh. (a) a world of one over NCCL at full
+    width; (b) two ranks on cuda:0 over gloo, each holding half the weights:
+    bf16 model=2 streams (first-token logits within MESH_LOGITS_REL_RMS of
+    (a)'s, paged launches 32 x 8 a dispatch on each rank with 16 query and 4
+    KV heads a rank, one launch on each rank's live pool equal to the twin,
+    the controller's host time a decode step), int8 at model=2 (225 int8
+    launches a forward on each rank), sp_prefill="ring" at sequence=2 on a
+    2048-token prompt, MoEConfig() at expert=2; and the same four in f32 at
+    2 layers, TF32 off, each equal token for token to the unsharded card run
+    and to the CPU (the ranks run these first, beside the parent's
+    references, and the timed bf16 cases after them). The int8 kernel runs
+    at each rank's weight shapes against its twin, timed."""
+    import multiprocessing
+    import tempfile
+
+    from unionml_tpu_torch import _build
+
+    t_phase = time.perf_counter()
+    _build.build_all()  # built once here, before any rank starts: ranks load the libraries, never race nvcc
+    gc.collect()
+    world1 = mesh_world1_phase(card, gcfg, prompts, slots, decode_chunk, bf16_streams)
+    shards = int8_shard_phase()
+    cases = mesh_cases(prompts, gcfg)
+    logits = [t.cpu() for t in world1["logits"]]
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    store = tempfile.mktemp(prefix="chip_smoke_mesh_")
+    refs_done = ctx.Event()
+    procs = [ctx.Process(target=mesh_rank, args=(r, store, cases, decode_chunk, logits, out, refs_done))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        # the f32 cases' unsharded runs (card and CPU) while the ranks run their f32 cases; the ranks start the
+        # timed bf16 cases only once these are done, so those times share the card and the host with nothing
+        t_ref = time.perf_counter()
+        expected = {}
+        try:
+            for case in cases:
+                if case["f32"] and case["name"] != "sp32":
+                    expected[case["name"]] = mesh_expected(case)
+        finally:
+            refs_done.set()
+        expected["sp32"] = expected["tp32"]  # the same weights, knobs and prompts, prefilled plainly
+        print(f"phase 15b: the f32 references took {time.perf_counter() - t_ref:.1f} s beside the ranks' f32 "
+              f"cases; the bf16 cases started after them", flush=True)
+        deadline = time.monotonic() + 900
+        while len(results) + len(errors) < MESH_RANKS and time.monotonic() < deadline:
+            try:
+                rank, ok, value = out.get(timeout=5)
+            except Exception:  # queue.Empty: look for a rank that died without a word
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    errors.append(f"a rank exited with {dead} before reporting")
+                continue
+            (results.__setitem__(rank, value) if ok else errors.append(f"rank {rank}:\n{value}"))
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    require(not errors and len(results) == MESH_RANKS, "phase 15b failed:\n" + "\n".join(errors))
+    r0 = results[0]
+    tp = r0["tp"]
+    print(f"phase 15b: {MESH_RANKS} ranks on cuda:0 over gloo, Llama-3-8B width bf16 at model=2: "
+          f"{len(prompts) * MAX_NEW / tp['seconds']:.1f} tok/s aggregate (world of 1: {world1['tok_s']:.1f}), "
+          f"TTFT p50 {tp['ttft_p50']} ms (world of 1: {world1['ttft_p50']} ms), decode dispatch p50 "
+          f"{tp['tbt_p50']} ms; rank 0's controller: {tp['host_ms_per_step']:.3f} ms host (thread CPU) and "
+          f"{tp['wall_ms_per_step']:.3f} ms wall a decode step; gloo host transfers "
+          f"{[results[r]['tp']['transfers'] for r in range(MESH_RANKS)]} a rank over the served run; memory "
+          f"{[round(results[r]['tp']['memory_gib'], 2) for r in range(MESH_RANKS)]} GiB a rank; card {card}",
+          flush=True)
+    print(f"phase 15b: bf16 first-token logits, model=2 against the world of 1: relative RMS "
+          f"{[round(x, 5) for x in tp['logits_rel_rms']]} (bound {MESH_LOGITS_REL_RMS:.4f}), argmax equal "
+          f"{tp['argmax_equal']} of {len(prompts)}", flush=True)
+    failed = []  # every line prints before the phase fails on any of them
+
+    def check(condition: bool, what: str) -> None:
+        if not condition:
+            failed.append(what)
+
+    check(all(x <= MESH_LOGITS_REL_RMS for x in tp["logits_rel_rms"]), "model=2 bf16 logits outside the bound")
+    for r in range(MESH_RANKS):
+        res = results[r]["tp"]
+        expected_launches = 32 * decode_chunk * tp["dispatches"]
+        print(f"phase 15b rank {r}: local heads {res['heads']} (query, KV), paged launches {res['paged']} "
+              f"(expected 32 x {decode_chunk} x {tp['dispatches']} dispatches = {expected_launches}); one launch on "
+              f"its live layer-0 pool {res['pool_shape']}: max_abs_err {res['pool_err']:.3g} "
+              f"{'ok' if res['pool_ok'] else 'FAIL'}", flush=True)
+        check(res["heads"] == (16, 4), f"rank {r} holds heads {res['heads']}, expected (16, 4)")
+        check(res["paged"] == expected_launches > 0, f"rank {r}: {res['paged']} paged launches")
+        check(res["pool_ok"] and res["pool_launches"] == 1, f"rank {r}: the paged kernel on its pool failed")
+        int8 = results[r]["int8"]
+        forwards = r0["int8"]["admissions"] + r0["int8"]["dispatches"] * decode_chunk
+        print(f"phase 15b rank {r}: int8 launches {int8['int8']} (expected {INT8_PER_FORWARD} x {forwards} "
+              f"forwards = {INT8_PER_FORWARD * forwards})", flush=True)
+        check(int8["int8"] == INT8_PER_FORWARD * forwards, f"rank {r}: {int8['int8']} int8 launches")
+    for name in ("int8", "sp", "moe"):
+        res = r0[name]
+        toks = [t for s in res["streams"] for t in s]
+        print(f"phase 15b {name} ({cases[[c['name'] for c in cases].index(name)]['spec']}): "
+              f"{len(toks) / res['seconds']:.1f} tok/s, TTFT p50 {res['ttft_p50']} ms, memory "
+              f"{[round(results[r][name]['memory_gib'], 2) for r in range(MESH_RANKS)]} GiB a rank, gloo host "
+              f"transfers {[results[r][name]['transfers'] for r in range(MESH_RANKS)]}, int8 launches "
+              f"{[results[r][name]['int8'] for r in range(MESH_RANKS)]}", flush=True)
+        check(toks and all(0 <= t < 128256 for t in toks), f"phase 15b {name}: tokens out of range")
+    for name, res in ((c["name"], results[r][c["name"]]) for c in cases for r in range(MESH_RANKS)):
+        off = {k: n for k, n in res["launches"].items() if k in OFF_MESH_PATH}
+        check(not any(off.values()), f"phase 15b {name}: kernels off the mesh path launched: {off}")
+    tp_launches = {k: sum(r0[c["name"]]["launches"][k] for c in cases) for k in r0["tp"]["launches"]}
+    print(f"phase 15b: rank 0's launches over the eight served runs {tp_launches}; on every rank and case "
+          f"{sorted(OFF_MESH_PATH)} counted 0 {'(ok)' if not failed else ''}", flush=True)
+    for name in ("tp32", "int832", "sp32", "moe32"):
+        card_streams, cpu_streams = expected[name]
+        got = r0[name]["streams"]
+        equal = got == card_streams == cpu_streams
+        print(f"phase 15b {name}: f32 streams on the mesh {'equal' if equal else 'DIFFERENT'} to the unsharded card "
+              f"run and the CPU", flush=True)
+        check(equal, f"phase 15b {name}: {got} / {card_streams} / {cpu_streams}")
+    require(not failed, "phase 15b: " + "; ".join(failed))
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 15 took {seconds:.1f} s", flush=True)
+    return dict(tp_launches=tp_launches, shards=shards)
+
+
 def main() -> int:
     import argparse
 
@@ -3864,6 +4321,9 @@ def main() -> int:
                       for name in bert["launches"]}
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 15: the serving mesh (a world of one over NCCL; two ranks on this card over gloo)
+    mesh = mesh_phase(card, gcfg, prompts, slots, decode_chunk, bf16_streams)
+
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -3892,6 +4352,8 @@ def main() -> int:
         "app_launches": app_launches["int8_matmul"],
         "http_launches": http_launches["int8_matmul"],
         "spec_launches": spec_int8_launches,
+        "tp_shards": mesh["shards"]["shards"],
+        "tp_shards_max_abs_err": mesh["shards"]["max_abs_err"],
         **int8_numbers,
     })
     kernels.append({
@@ -3905,6 +4367,8 @@ def main() -> int:
     })
     for kernel in kernels:  # MoE reaches no port kernel (phase 12a counted every one, and required 0)
         kernel["moe_launches"] = moe["moe_launches"][kernel["name"]]
+        # phase 15b: rank 0's counts over its eight served runs (the flash kernels and int8 pages counted 0)
+        kernel["tp_launches"] = mesh["tp_launches"][kernel["name"]]
         # phase 13: 13b's step through the encoder stack, the f32 stack of 13e, and 13a + 13c + 13d (all 0)
         kernel["encoder_launches"] = encoder["launches"][kernel["name"]]
         kernel["encoder_f32_launches"] = encoder_f32["launches"][kernel["name"]]

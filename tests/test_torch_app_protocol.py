@@ -715,11 +715,14 @@ def test_step_mode_trains_on_the_device_init_chose(monkeypatch, evaluate_steps):
 
 @pytest.mark.parametrize("call", ["serve", "predictor-jit", "remote", "remote_train"])
 def test_unported_parts_raise_naming_the_roadmap(call):
+    from unionml_tpu_torch.parallel import MeshSpec
+
     model = make_sklearn_model(PACKAGES["torch"])
     calls = {
         "serve": (lambda: model.serve(remote=True), "Queue A: the rest"),
-        "predictor-jit": (lambda: model.predictor(model._predictor, config=SimpleNamespace(jit=True, mesh="data")),
-                          "parallelism and the replica layer"),
+        # a MeshSpec runs (tests/test_torch_serving_mesh.py); a pipe axis waits for the training slice
+        "predictor-jit": (lambda: model.predictor(model._predictor, config=SimpleNamespace(jit=True, mesh=MeshSpec(
+            pipe=2))), "parallelism and the replica layer"),
         "remote": (lambda: model.remote(backend_store="store"), "Queue A: the rest"),
         "remote_train": (lambda: model.remote_train(hyperparameters={}), "Queue A: the rest"),
     }

@@ -27,6 +27,7 @@ from unionml_tpu_torch import (
     make_train_step,
 )
 from unionml_tpu_torch.data import PrefetchIterator
+from unionml_tpu_torch.parallel import MeshSpec
 from unionml_tpu_torch.ops.quant import QuantizedKernel
 from unionml_tpu_torch.models import causal_lm_loss, init_cache, init_paged_cache, llama_from_jax, llama_params_to_numpy
 
@@ -69,6 +70,10 @@ def test_scan_sees_every_port_module():
             "unionml_tpu_torch/utils/__init__.py", "unionml_tpu_torch/native/__init__.py",
             "unionml_tpu_torch/templates/text-generation/app.py",
             "unionml_tpu_torch/templates/text-generation/tests/test_app.py"} <= names
+    assert {"unionml_tpu_torch/distributed.py", "unionml_tpu_torch/parallel/__init__.py",
+            "unionml_tpu_torch/parallel/mesh.py", "unionml_tpu_torch/parallel/sharding.py",
+            "unionml_tpu_torch/parallel/collectives.py", "unionml_tpu_torch/ops/ring_attention.py",
+            "unionml_tpu_torch/serving/mesh.py"} <= names
     assert {"unionml_tpu_torch/models/bert.py", "unionml_tpu_torch/models/vit.py", "unionml_tpu_torch/models/mlp.py",
             "unionml_tpu_torch/templates/image-classification/app.py",
             "unionml_tpu_torch/templates/image-classification/tests/test_app.py"} <= names
@@ -96,7 +101,7 @@ def _no_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "entry",
     ["Llama", "Generator", "ContinuousBatcher", "init_cache", "init_paged_cache", "PrefetchIterator", "fit",
-     "evaluate", "Generator-int8", "llama_from_jax"],
+     "evaluate", "Generator-int8", "llama_from_jax", "MeshSpec.build"],
 )
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
     cfg = LlamaConfig.tiny(dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=32, vocab_size=16,
@@ -116,6 +121,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, entry):
         "PrefetchIterator": lambda: PrefetchIterator(tokens, 2),
         "fit": lambda: fit(state, make_train_step(causal_lm_loss), tokens, TrainerConfig(batch_size=2)),
         "evaluate": lambda: evaluate(state, lambda s, b: {}, tokens),
+        "MeshSpec.build": lambda: MeshSpec(model=1).build(),  # the card (NCCL) unless device="cpu" (gloo)
     }
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()

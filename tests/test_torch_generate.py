@@ -126,13 +126,18 @@ def test_policy_distribution_matches_jax(name):
     ["mesh", "sp_prefill"],
 )
 def test_unported_options_raise(pair, option):
+    """The mesh path and sp_prefill are ported (tests/test_torch_generate_tp.py).
+    What is still refused: a mesh that is not a built ``Mesh``, and an
+    sp_prefill that names no sequence-parallel attention."""
     _, _, model = pair
     cfg, kw = GenerationConfig(), {}
     if option == "mesh":
         kw[option] = object()
+        err, match = TypeError, "MeshSpec"
     else:
-        cfg = dataclasses.replace(cfg, sp_prefill="ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg = dataclasses.replace(cfg, sp_prefill="rings")
+        err, match = ValueError, "sp_prefill"
+    with pytest.raises(err, match=match):
         Generator(model, cfg, device="cpu", **kw)
 
 

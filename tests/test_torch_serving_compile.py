@@ -14,12 +14,18 @@ torch.set_num_threads(2)
 
 port_cases(globals(), "test_compiled_predictor.py")
 
-# a device mesh is not ported (ROADMAP.md, Queue A: parallelism and the replica layer)
+# its data=4 mesh needs four ranks: tests/test_torch_serving_mesh.py runs it there
 del test_mesh_placement_rounds_buckets_to_data_axis  # noqa: F821
 
 
 def test_mesh_is_refused_naming_the_roadmap():
+    """A MeshSpec runs (tests/test_torch_serving_mesh.py); a pipe axis waits
+    for the training slice, and a mesh that is not a MeshSpec is refused."""
+    from unionml_tpu_torch.parallel import MeshSpec
+
     with pytest.raises(NotImplementedError, match="parallelism and the replica layer"):
+        ServingConfig(bucket_sizes=[4], mesh=MeshSpec(pipe=2))  # noqa: F821
+    with pytest.raises(TypeError, match="MeshSpec"):
         ServingConfig(bucket_sizes=[4], mesh="data")  # noqa: F821
 
 

@@ -169,8 +169,9 @@ def test_draft_spec_refuses_params_and_partition_rules(target):
         DraftSpec(module=model, params={"w": 1})
     with pytest.raises(ValueError, match="params"):
         DraftSpec(model, {"w": 1})  # the JAX field order: module, params
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DraftSpec(module=model, partition_rules=[("x", None)])
+    # partition_rules place the draft on the target's mesh (tests/test_torch_generate_tp.py)
+    rules = [("x", None)]
+    assert DraftSpec(module=model, partition_rules=rules).partition_rules is rules
 
 
 def test_stream_matches_call_with_eos(target, drafts):

@@ -22,7 +22,7 @@ error such as an unknown option.
 - What the port does not have is refused at boot, before any export and
   before the app module is imported, naming its ROADMAP.md item: the
   multi-host fleet and fault-injection flags (Queue A: parallelism and the
-  replica layer), and ``--compile-cache``, ``--aot-preload``, ``--remote`` and the
+  replica layer, the multi-host fleet), and ``--compile-cache``, ``--aot-preload``, ``--remote`` and the
   ``deploy``, ``train``, ``predict``, ``list-model-versions``,
   ``fetch-model``, ``replay`` and ``lint`` commands (Queue A: the rest).
   Each of those commands exists and refuses.
@@ -39,7 +39,7 @@ from typing import Any, List, Optional, Sequence
 from unionml_tpu_torch.defaults import MODEL_PATH_ENV_VAR
 
 PROG = "unionml-tpu-torch"
-_PARALLELISM = "parallelism and the replica layer"
+_PARALLELISM = "parallelism and the replica layer, the multi-host fleet"
 _THE_REST = "the rest"
 #: commands of the JAX CLI that the port refuses: the remote backend, the replayer and the linter
 _REFUSED_COMMANDS = ("deploy", "train", "predict", "list-model-versions", "fetch-model", "replay", "lint")

@@ -16,7 +16,10 @@ The subset of ``unionml_tpu/defaults.py`` that the port reads:
 - the serving app's overload limits (``SERVE_MAX_INFLIGHT`` and its
   siblings) and the serve readers it and the engine call at construction:
   tracing, the flight recorder, the profile directory, the log format,
-  tenancy, traffic capture and the six ``UNIONML_TPU_SLO_*`` targets.
+  tenancy, traffic capture and the six ``UNIONML_TPU_SLO_*`` targets;
+- the multi-process bootstrap's three knobs (``UNIONML_TPU_COORDINATOR``,
+  ``UNIONML_TPU_NUM_PROCESSES``, ``UNIONML_TPU_PROCESS_ID``), which
+  :mod:`unionml_tpu_torch.distributed` reads beside torchrun's.
 
 A copy, not an import: the port never imports the JAX package.
 """
@@ -204,6 +207,18 @@ SERVE_SLO_SLOW_WINDOW_S = 600.0
 #: breach: an idle engine is healthy, not failing.
 SERVE_SLO_MIN_SAMPLES_ENV_VAR = "UNIONML_TPU_SLO_MIN_SAMPLES"
 SERVE_SLO_MIN_SAMPLES = 3
+
+#: rendezvous address (``host:port``) of a multi-process runtime; unset =
+#: single process. torchrun's ``MASTER_ADDR``/``MASTER_PORT`` are read too
+#: (:mod:`unionml_tpu_torch.distributed`).
+DISTRIBUTED_COORDINATOR_ENV_VAR = "UNIONML_TPU_COORDINATOR"
+
+#: total processes in the runtime (1 = single process).
+DISTRIBUTED_NUM_PROCESSES_ENV_VAR = "UNIONML_TPU_NUM_PROCESSES"
+
+#: this process's id in ``[0, num_processes)``.
+DISTRIBUTED_PROCESS_ID_ENV_VAR = "UNIONML_TPU_PROCESS_ID"
+
 
 def env_int(name: str, default: int, *, minimum: Optional[int] = None) -> int:
     """Parse an integer env var, tolerating garbage: unset/empty -> ``default``,
@@ -483,3 +498,23 @@ def serve_slo_slow_window_s() -> float:
 def serve_slo_min_samples() -> int:
     """Samples a window needs before it can breach (idle engines stay healthy)."""
     return env_int(SERVE_SLO_MIN_SAMPLES_ENV_VAR, SERVE_SLO_MIN_SAMPLES, minimum=1)
+
+
+def distributed_coordinator() -> Optional[str]:
+    """The multi-process rendezvous address (``host:port``); None = single
+    process."""
+    raw = os.environ.get(DISTRIBUTED_COORDINATOR_ENV_VAR)
+    if raw is None or not raw.strip():
+        return None
+    return raw.strip()
+
+
+def distributed_num_processes() -> int:
+    """Total processes in the runtime; garbage warns and degrades to 1."""
+    return env_int(DISTRIBUTED_NUM_PROCESSES_ENV_VAR, 1, minimum=1)
+
+
+def distributed_process_id() -> int:
+    """This process's id in ``[0, num_processes)``; garbage warns and
+    degrades to 0 (a mis-set worker then fails at the rendezvous)."""
+    return env_int(DISTRIBUTED_PROCESS_ID_ENV_VAR, 0, minimum=0)

@@ -9,10 +9,27 @@ Randomness comes from explicit ``torch.Generator`` objects where JAX threads
 ``jax.random`` keys; the two give different numbers from the same seed, so
 sampled decoding matches the JAX package in distribution
 (:func:`filtered_logits`/:func:`policy_probs`), greedy decoding token for token.
+
+**Over a mesh** (``mesh=MeshSpec(...).build()``, ``partition_rules=``) the
+JAX engine's single controller becomes one process per rank, every rank
+making the same calls (they are deterministic given their arguments). The
+model is cut to this rank's shards (:mod:`unionml_tpu_torch.parallel.sharding`)
+and its layers run the collectives. The rows of a batch split over the
+``data`` axis (the cache is ``P(data, None, model, None)``: ``data``
+rows, ``model`` KV heads), padded to a multiple of it; every other axis
+holds the same rows. Results are gathered over ``data``, so every rank
+returns the whole batch. A sampled token is drawn only by the rank at index
+0 of the axes beside ``data`` and broadcast to them: ranks never draw from
+their own generators. Greedy ids are the argmax of logits every rank holds
+bit for bit (the head's vocab shards are gathered), so they need no
+broadcast. ``config.sp_prefill`` ("ring"/"ulysses") runs the prefill
+sequence-parallel over the ``sequence`` axis and assembles the cache from
+each layer's gathered K/V; decode then runs on every rank of that axis.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -23,7 +40,11 @@ import torch
 
 from unionml_tpu_torch._device import DeviceLike, module_device, resolve_device
 from unionml_tpu_torch.defaults import serve_kv_cache_dtype, serve_quantize
+from unionml_tpu_torch.models.layers import quantize_kv_rows
 from unionml_tpu_torch.ops.quant import quantize_params
+from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum, broadcast
+from unionml_tpu_torch.parallel.mesh import AXIS_ORDER, ROW_AXES, Mesh
+from unionml_tpu_torch.parallel.sharding import combine_fsdp_tp, place_module, splits
 
 __all__ = [
     "DraftSpec",
@@ -55,7 +76,8 @@ class DraftSpec:
     field order and must stay ``None``: a port model carries its own
     weights. ``quantize`` ("int8") stores the draft quantized IN PLACE; None
     follows ``UNIONML_TPU_QUANTIZE`` as the target's own kwarg does.
-    ``partition_rules`` is refused, as :class:`Generator`'s ``mesh`` is."""
+    ``partition_rules`` places the draft on the target's mesh (None: the
+    inferred FSDP layout)."""
 
     module: Any
     params: Any = None
@@ -66,10 +88,6 @@ class DraftSpec:
     def __post_init__(self):
         if self.params is not None:
             raise ValueError("DraftSpec.params must be None in the port: the draft module carries its own weights")
-        if self.partition_rules is not None:
-            raise NotImplementedError(
-                "DraftSpec partition_rules is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer)"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +98,9 @@ class GenerationConfig:
     that many columns. ``constraints`` (a
     :class:`~unionml_tpu_torch.models.structured.ConstraintSet`) lets each
     call pick a grammar per row (``constraint=``). ``draft`` (a
-    :class:`DraftSpec`) decodes speculatively. ``sp_prefill`` mirrors the JAX
-    package's field; the port does not serve it yet and its
-    :class:`Generator` raises when it is set."""
+    :class:`DraftSpec`) decodes speculatively. ``sp_prefill`` ("ring" or
+    "ulysses") prefills sequence-parallel over a mesh's ``sequence`` axis
+    (ignored without one, as in the JAX package)."""
 
     max_new_tokens: int = 128
     temperature: float = 1.0
@@ -289,6 +307,68 @@ def _reorder(cache: Tuple[dict, ...], rows: torch.Tensor) -> Tuple[dict, ...]:
     return tuple({name: t.index_select(0, rows) for name, t in layer.items()} for layer in cache)
 
 
+#: the axes beside ``data``: their ranks hold the same rows, and the one at
+#: index 0 draws a sampled token for them
+_REPLICA_AXES = tuple(a for a in AXIS_ORDER if a not in ROW_AXES)
+
+
+def _place(model: Any, mesh: Mesh, partition_rules: Any) -> Any:
+    """Cut ``model`` to this rank's shards under ``partition_rules`` (else
+    the inferred FSDP layout) and return the config its caches are
+    allocated from: this rank's query and KV heads. The layers compute on
+    whole heads, so a projection split over ``model`` must split its heads
+    evenly, and the row-parallel output projection must take the query
+    projection's split."""
+    from unionml_tpu_torch.models.layers import Attention
+
+    shardings = combine_fsdp_tp(model, mesh, partition_rules)
+    cfg = model.config
+    m = mesh.shape["model"]
+    head_dim = cfg.dim // cfg.n_heads
+    local = None
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Attention):
+            continue
+        split = {p: splits(shardings[f"{name}/{p}/kernel".replace(".", "/")].spec, 1, "model", mesh)
+                 for p in ("q_proj", "k_proj", "v_proj")}
+        row = splits(shardings[f"{name}/o_proj/kernel".replace(".", "/")].spec, 0, "model", mesh)
+        heads = (mod.n_heads // (m if split["q_proj"] else 1), mod.n_kv // (m if split["k_proj"] else 1))
+        if (split["q_proj"] and mod.n_heads % m) or (split["k_proj"] and mod.n_kv % m) \
+                or split["k_proj"] != split["v_proj"] or split["q_proj"] != row or heads[0] % heads[1]:
+            raise NotImplementedError(
+                f"{name}: {mod.n_heads} query and {mod.n_kv} KV heads under this layout over model={m}; the "
+                "port's tensor parallelism splits q/k/v by whole heads (column-parallel) and o_proj by the "
+                "same heads (row-parallel)"
+            )
+        if local is not None and heads != local:
+            raise NotImplementedError("every attention layer must split its heads alike")
+        local = heads
+    place_module(model, shardings)
+    if local is None:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=local[0], n_kv_heads=local[1], dim=local[0] * head_dim)
+
+
+@contextlib.contextmanager
+def _sequence_parallel(model: Any, impl: str):
+    """Run ``model``'s attention layers with ``impl`` (ring/ulysses) and
+    collect each layer's post-RoPE ``(k, v)``, in layer order, into the
+    list this yields."""
+    from unionml_tpu_torch.models.layers import Attention
+
+    layers = [m for m in model.modules() if isinstance(m, Attention)]
+    kvs: list = []
+    saved = [m.impl for m in layers]
+    for m in layers:
+        m.impl, m.kv_sink = impl, kvs
+    try:
+        yield kvs
+    finally:
+        for m, impl_was in zip(layers, saved):
+            m.impl = impl_was
+            del m.kv_sink
+
+
 class Generator:
     """Batch text generation over a cached decoder.
 
@@ -311,6 +391,12 @@ class Generator:
     numerics. As there, an unset ``quantize`` and ``config.kv_cache_dtype``
     follow the serve CLI's ``UNIONML_TPU_QUANTIZE`` and
     ``UNIONML_TPU_KV_CACHE_DTYPE``; explicit values win.
+
+    ``mesh`` (a :class:`~unionml_tpu_torch.parallel.mesh.Mesh`) and
+    ``partition_rules`` cut the model IN PLACE to this rank's shards
+    (quantized first, so int8 scales are the whole kernel's); see the module
+    docstring for how the ranks run. The model must be on the mesh's device
+    and every rank builds the Generator at the same point.
     """
 
     def __init__(
@@ -323,10 +409,18 @@ class Generator:
         partition_rules: Optional[Any] = None,
         quantize: Optional[str] = None,
     ):
-        unported = {"mesh": mesh, "partition_rules": partition_rules, "config.sp_prefill": config.sp_prefill}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(f"Generator {name} is not ported yet (ROADMAP.md, Queue A)")
+        if config.sp_prefill not in (None, "ring", "ulysses"):
+            raise ValueError(f"unsupported sp_prefill {config.sp_prefill!r}; expected None, 'ring' or 'ulysses'")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a Mesh from MeshSpec(...).build(), got {type(mesh).__name__}")
+            if mesh.shape["pipe"] > 1:
+                raise NotImplementedError(
+                    "a pipe axis is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer, "
+                    "parallel training)"
+                )
+            if device is None:
+                device = mesh.device
         if quantize is None:
             quantize = serve_quantize()
         if config.kv_cache_dtype is None:
@@ -345,6 +439,13 @@ class Generator:
         self.model = model
         self.config = config
         self.quantize = quantize
+        self.mesh = mesh
+        #: kept so engines re-hosting these weights can rebuild alike
+        self.partition_rules = partition_rules
+        #: the config caches are allocated from: this rank's heads on a mesh
+        self.cache_config = model.config
+        if mesh is not None:
+            self.cache_config = _place(model, mesh, partition_rules)
         self.prefill_traces = 0
         self.decode_traces = 0
         self._spec_engine = None
@@ -368,6 +469,53 @@ class Generator:
             return logits
         return logits.masked_fill(~self._cs_allowed[state.long()], -math.inf)
 
+    # ------------------------------------------------------------------ mesh
+
+    def _row_slice(self, batch: int, split: bool = True) -> slice:
+        """This rank's rows of a ``batch`` padded to the ``data`` axis."""
+        if self.mesh is None or not split:
+            return slice(0, batch)
+        per = batch // self.mesh.size(ROW_AXES)
+        lo = self.mesh.index(ROW_AXES) * per
+        return slice(lo, lo + per)
+
+    def _row_batch(self, batch: int) -> int:
+        """``batch`` rounded up to a multiple of the ``data`` axis."""
+        rows = self.mesh.size(ROW_AXES) if self.mesh is not None else 1
+        return -(-batch // rows) * rows
+
+    def _gather_rows(self, arr: np.ndarray) -> np.ndarray:
+        """Every rank's rows of a host array, in batch order."""
+        if self.mesh is None or self.mesh.size(ROW_AXES) == 1:
+            return arr
+        t = torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+        return all_gather(t, self.mesh, ROW_AXES[0]).cpu().numpy()
+
+    def _all_done(self, done: torch.Tensor) -> bool:
+        """Whether every row of the whole batch is done (an agreement over
+        ``data``: ranks that gather per chunk must stop together)."""
+        live = (~done).any().to(torch.int32)[None]
+        if self.mesh is not None:
+            live = allreduce_sum(live, self.mesh, ROW_AXES[0])
+        return not bool(live.item())
+
+    def _draw(self, fn, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """A random draw: ``fn()`` here, or on a mesh only on the rank at
+        index 0 of the axes beside ``data``, broadcast to the others."""
+        if self.mesh is None:
+            return fn()
+        axes = _REPLICA_AXES
+        if self.mesh.size(axes) == 1:
+            return fn()
+        out = fn() if self.mesh.index(axes) == 0 else torch.empty(shape, dtype=dtype, device=self.device)
+        return broadcast(out, self.mesh, axes)
+
+    def _sample(self, logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """:func:`sample_tokens` under the mesh's draw rule."""
+        if self.config.temperature == 0.0:
+            return sample_tokens(logits, generator, self.config)
+        return self._draw(lambda: sample_tokens(logits, generator, self.config), (logits.shape[0],), torch.int32)
+
     @torch.no_grad()
     def _prefill(self, tokens, lengths, cache, generator, row_valid, state=None):
         """Prefill ``tokens [B, P]`` into ``cache`` (in place) and sample each
@@ -381,7 +529,37 @@ class Generator:
             tokens, positions=positions, return_hidden=True, cache=cache, token_mask=token_mask
         )
         last = hidden[torch.arange(batch, device=self.device), (lengths - 1).long()]
-        tok0 = sample_tokens(self._constrain(self._head(last), state), generator, self.config)
+        tok0 = self._sample(self._constrain(self._head(last), state), generator)
+        return tok0, cache, last.float()
+
+    @torch.no_grad()
+    def _sp_prefill(self, tokens, lengths, cache, generator, row_valid, state=None):
+        """Sequence-parallel prefill: this rank runs the decoder over its
+        block of columns with the ``sequence`` axis's ring or ulysses
+        attention at global positions, each layer's post-RoPE K/V is
+        gathered over the axis and written into ``cache[:, :width]``, and
+        the first token is sampled from the gathered last-token hiddens.
+        ``tokens`` is already padded to a multiple of the axis."""
+        mesh = self.mesh
+        batch, width = tokens.shape
+        block = width // mesh.size("sequence")
+        lo = mesh.index("sequence") * block
+        positions = (lo + torch.arange(block, device=self.device))[None].expand(batch, block)
+        token_mask = (positions < lengths[:, None]) & row_valid[:, None]
+        with _sequence_parallel(self.model, self.config.sp_prefill) as kvs:
+            hidden = self.model(tokens[:, lo:lo + block], positions=positions, return_hidden=True,
+                                token_mask=token_mask)
+        hidden = all_gather(hidden, mesh, "sequence", gather_axis=1)
+        for layer, (k, v) in zip(cache, kvs):
+            rows = {"k": all_gather(k, mesh, "sequence", gather_axis=1),
+                    "v": all_gather(v, mesh, "sequence", gather_axis=1)}
+            if "k_scale" in layer:
+                rows["k"], rows["k_scale"] = quantize_kv_rows(rows["k"])
+                rows["v"], rows["v_scale"] = quantize_kv_rows(rows["v"])
+            for name, t in rows.items():
+                layer[name][:, :width] = t.to(layer[name].dtype)
+        last = hidden[torch.arange(batch, device=self.device), (lengths - 1).long()]
+        tok0 = self._sample(self._constrain(self._head(last), state), generator)
         return tok0, cache, last.float()
 
     @torch.no_grad()
@@ -406,7 +584,7 @@ class Generator:
         """Sample the first generated token from the accumulated last-row
         hiddens (the chunked prefill's epilogue), masked by ``state``."""
         logits = self._head(last.to(self.model.config.dtype))
-        return sample_tokens(self._constrain(logits, state), generator, self.config)
+        return self._sample(self._constrain(logits, state), generator)
 
     @torch.no_grad()
     def _decode(self, cache, tok, lengths, done, generator, *cstate, steps: int):
@@ -428,7 +606,7 @@ class Generator:
                 token_mask=(~done)[:, None],
             )
             logits = self._constrain(self._head(hidden[:, 0]), state)
-            nxt = sample_tokens(logits, generator, cfg)
+            nxt = self._sample(logits, generator)
             lp = torch.log_softmax(logits, dim=-1).gather(1, nxt[:, None].long())[:, 0]
             lps.append(lp.masked_fill(done, 0.0))
             if state is not None:
@@ -453,7 +631,7 @@ class Generator:
         return bucket
 
     def _start(self, prompts: Sequence[Sequence[int]], seed: int, extra_cache: int = 0, constraint: Any = None,
-               prefix: Optional[PrefixCache] = None):
+               prefix: Optional[PrefixCache] = None, split: bool = True):
         """Pad/bucket the prompts, allocate the cache, prefill (in
         ``prefill_chunk`` slices when set and the bucket is wider), and return
         ``(n, tok0, last, carry)``; the batch is padded to a power of two and
@@ -473,27 +651,42 @@ class Generator:
         lengths = np.array([max(len(p), 1) for p in prompts], np.int32)
         bucket = self._bucket(int(lengths.max()))
         batch = 1 << max(0, (n - 1).bit_length())
+        if split:
+            batch = self._row_batch(batch)
+        rows = self._row_slice(batch, split)
         tokens = np.full((batch, bucket), cfg.pad_id, np.int32)
         for i, p in enumerate(prompts):
             tokens[i, : len(p)] = np.asarray(p, np.int32)
+        tokens = tokens[rows]
         state = None
         if self._cs is not None:
             starts = self._cs.start_states(self._grammar_ids(constraint, n, batch))
-            state = torch.as_tensor(starts, device=self.device)
+            state = torch.as_tensor(starts[rows], device=self.device)
+        row_valid = (torch.arange(batch, device=self.device) < n)[rows]
         if prefix is not None:
-            return self._start_with_prefix(prefix, tokens, lengths, batch, n, bucket, extra_cache, seed, state)
+            return self._start_with_prefix(prefix, tokens, lengths, batch, rows, n, bucket, extra_cache, seed,
+                                           state, row_valid)
         all_lengths = np.ones((batch,), np.int32)
         all_lengths[:n] = lengths
+        sp = self.config.sp_prefill and self.mesh is not None and self.mesh.shape["sequence"] > 1
         chunk = cfg.prefill_chunk
-        if chunk:
+        if sp:
+            # each sequence rank gets an equal block of columns
+            bucket = chunk_aligned(bucket, self.mesh.shape["sequence"])
+            tokens = np.pad(tokens, ((0, 0), (0, bucket - tokens.shape[1])), constant_values=cfg.pad_id)
+        elif chunk:
             bucket = chunk_aligned(bucket, chunk)  # bucket shape is moot once chunked
             tokens = np.pad(tokens, ((0, 0), (0, bucket - tokens.shape[1])), constant_values=cfg.pad_id)
         cache_len = max(bucket, max(cfg.prompt_buckets, default=0)) + cfg.max_new_tokens + extra_cache
-        cache = init_cache(self.model.config, batch, cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        cache = init_cache(self.cache_config, tokens.shape[0], cache_len, kv_dtype=cfg.kv_cache_dtype,
+                           device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        row_valid = torch.arange(batch, device=self.device) < n
-        lengths_t = torch.as_tensor(all_lengths, device=self.device)
-        if chunk and bucket > chunk:
+        lengths_t = torch.as_tensor(all_lengths[rows], device=self.device)
+        if sp:
+            tok0, cache, last = self._sp_prefill(
+                torch.as_tensor(tokens, device=self.device), lengths_t, cache, generator, row_valid, state
+            )
+        elif chunk and bucket > chunk:
             last, cache = self._chunked_prefill_loop(tokens, lengths_t, cache, row_valid, chunk)
             tok0 = self._first_token(last, generator, state)
         else:
@@ -511,8 +704,8 @@ class Generator:
             carry += (self._cs_trans[state.long(), tok0.long()],)
         return n, tok0, last, carry
 
-    def _start_with_prefix(self, prefix: PrefixCache, tokens: np.ndarray, lengths: np.ndarray, batch: int, n: int,
-                           bucket: int, extra_cache: int, seed: int, state):
+    def _start_with_prefix(self, prefix: PrefixCache, tokens: np.ndarray, lengths: np.ndarray, batch: int,
+                           rows: slice, n: int, bucket: int, extra_cache: int, seed: int, state, row_valid):
         """Prefill only the per-request suffix: the prefix's K/V rows are
         pasted into slots ``[0, p0)`` of every cache row and the suffix flows
         through the chunked prefill with positions starting at ``p0`` (RoPE
@@ -524,14 +717,14 @@ class Generator:
         if aligned > tokens.shape[1]:
             tokens = np.pad(tokens, ((0, 0), (0, aligned - tokens.shape[1])), constant_values=cfg.pad_id)
         cache_len = p0 + max(aligned, max(cfg.prompt_buckets, default=0)) + cfg.max_new_tokens + extra_cache
-        cache = init_cache(self.model.config, batch, cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        cache = init_cache(self.cache_config, tokens.shape[0], cache_len, kv_dtype=cfg.kv_cache_dtype,
+                           device=self.device)
         cache = _paste_prefix_rows(cache, prefix.layers)
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        row_valid = torch.arange(batch, device=self.device) < n
         # total length = prefix + suffix; padding rows pretend one suffix token
         all_lengths = np.full((batch,), p0 + 1, np.int32)
         all_lengths[:n] = p0 + lengths
-        lengths_t = torch.as_tensor(all_lengths, device=self.device)
+        lengths_t = torch.as_tensor(all_lengths[rows], device=self.device)
         last, cache = self._chunked_prefill_loop(tokens, lengths_t, cache, row_valid, chunk, start=p0)
         tok0 = self._first_token(last, generator, state)
         return self._finish_prefill(n, tok0, last, cache, lengths_t, row_valid, generator, state)
@@ -583,7 +776,8 @@ class Generator:
         p0 = len(prefix_tokens)
         if p0 == 0:
             raise ValueError("prefix_tokens must be non-empty")
-        _, _, _, carry = self._start([list(prefix_tokens)], 0)
+        # every rank prefills the one row itself: a prefix is not split over data
+        _, _, _, carry = self._start([list(prefix_tokens)], 0, split=False)
         layers = tuple({name: t[:1, :p0].clone() for name, t in layer.items()} for layer in carry[0])
         return PrefixCache(layers=layers, length=p0, tokens=tuple(int(t) for t in prefix_tokens))
 
@@ -601,11 +795,11 @@ class Generator:
             return self._speculative()(prompts, seed=seed, prefix=prefix, constraint=constraint)
         n, tok0, _, carry = self._start(prompts, seed, prefix=prefix, constraint=constraint)
         steps = self.config.max_new_tokens - 1
-        first = tok0.cpu().numpy()[:, None]
-        if steps <= 0:
-            return first[:n]
-        rest, _, _ = self._decode(*carry, steps=steps)
-        return np.concatenate([first, rest.cpu().numpy()], axis=1)[:n]
+        out = tok0.cpu().numpy()[:, None]
+        if steps > 0:
+            rest, _, _ = self._decode(*carry, steps=steps)
+            out = np.concatenate([out, rest.cpu().numpy()], axis=1)
+        return self._gather_rows(out)[:n]
 
     def beam_search(
         self, prompts: Sequence[Sequence[int]], *, num_beams: int = 4, length_penalty: float = 0.0,
@@ -642,20 +836,21 @@ class Generator:
         cfg = self.config
         eos, pad = cfg.eos_id, cfg.pad_id
         # prefill each unique prompt once (the batch padded to a power of two
-        # of groups, padding groups start done), then tile every cache row to
-        # its beams as fresh tensors
+        # of groups, and to the data axis; padding groups start done), then
+        # tile every cache row to its beams as fresh tensors
         n, _, last, carry = self._start(prompts, 0, constraint=constraint)
-        groups = last.shape[0]
+        groups = last.shape[0]  # this rank's groups
+        rows = self._row_slice(self._row_batch(1 << max(0, (n - 1).bit_length())))
         batch = groups * num_beams
         tile = torch.arange(batch, device=self.device) // num_beams
         cache = _reorder(carry[0], tile)
         last, lengths = last[tile], carry[2][tile]
-        done = tile >= n
+        done = (torch.arange(rows.stop, device=self.device)[rows] >= n)[tile]
         st = None
         if self._cs is not None:
             # the search seeds from the prefill distribution, so every beam
             # starts at its grammar's start state
-            gids = self._grammar_ids(constraint, n, groups)
+            gids = self._grammar_ids(constraint, n, rows.stop)[rows]
             st = torch.as_tensor(self._cs.start_states(gids), device=self.device)[tile]
 
         def logprobs(hidden, state):
@@ -704,8 +899,8 @@ class Generator:
                 stp = st[flat_parent]
                 st = torch.where(prev_done, stp, self._cs_trans[stp.long(), tok.long()])
             scores = top_scores
-        out_np = out.cpu().numpy().reshape(groups, num_beams, -1)[:n]
-        return out_np, scores.cpu().numpy().reshape(groups, num_beams)[:n]
+        out_np = self._gather_rows(out.cpu().numpy().reshape(groups, num_beams, -1))[:n]
+        return out_np, self._gather_rows(scores.cpu().numpy().reshape(groups, num_beams))[:n]
 
     def stream(
         self, prompts: Sequence[Sequence[int]], *, seed: int = 0, chunk_size: int = 16,
@@ -728,12 +923,12 @@ class Generator:
         n_chunks = max(0, -(-(cfg.max_new_tokens - 1) // chunk_size))
         extra = n_chunks * chunk_size - (cfg.max_new_tokens - 1)
         n, tok0, _, carry = self._start(prompts, seed, extra_cache=extra, constraint=constraint, prefix=prefix)
-        yield tok0.cpu().numpy()[:n, None]
+        yield self._gather_rows(tok0.cpu().numpy())[:n, None]
         produced = 1
         while produced < cfg.max_new_tokens:
-            if bool(carry[3].all()):
+            if self._all_done(carry[3]):
                 return  # every row finished with eos
             toks, _, carry = self._decode(*carry, steps=chunk_size)
             take = min(chunk_size, cfg.max_new_tokens - produced)
-            yield toks.cpu().numpy()[:n, :take]
+            yield self._gather_rows(toks.cpu().numpy())[:n, :take]
             produced += take

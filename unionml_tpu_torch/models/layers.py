@@ -15,6 +15,18 @@ Conventions kept from the JAX package so the two compare like with like:
 Where JAX returns a new cache (and donates the old buffers), the port writes
 the cache tensors IN PLACE and returns the same dict: one cache lives in
 device memory, as there.
+
+Over a mesh (:func:`unionml_tpu_torch.parallel.sharding.place_module`) each
+layer holds only its rank's shards and runs the collectives its sharding
+implies, where GSPMD inserts them in the JAX package: axes other than
+``model`` and ``expert`` (``fsdp``) are all-gathered before use; a kernel
+split over ``model`` on its output dim is column-parallel (this rank's
+output columns: its heads, its MLP hidden units), one split on its input
+dim row-parallel (a sum over ``model`` follows); the embedding table and
+the LM head are vocab-parallel (a masked lookup and a sum; the head's
+logits gathered). Attention infers its local head counts from its
+projections' widths, so the paged decode kernel reads only this rank's
+``H_kv / model`` heads.
 """
 
 from __future__ import annotations
@@ -28,7 +40,10 @@ from torch import nn
 
 from unionml_tpu_torch.ops.attention import multihead_attention
 from unionml_tpu_torch.ops.int8_matmul import quantized_matmul
-from unionml_tpu_torch.ops.quant import QuantizedKernel
+from unionml_tpu_torch.ops.quant import QuantizedKernel, QuantizedTensor
+from unionml_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
+from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum
+from unionml_tpu_torch.parallel.sharding import gathered, scale_spec, splits
 
 #: One layer's KV cache: dense ``{"k": [B, S_max, H_kv, D], "v": ...}`` (plus
 #: ``k_scale``/``v_scale`` for int8), or paged heads-major pools plus ``table``.
@@ -44,6 +59,18 @@ def _write_cache(buffer: torch.Tensor, new: torch.Tensor, starts: torch.Tensor) 
     rows = starts[:, None] + torch.arange(length, device=buffer.device)[None, :]
     buffer[torch.arange(batch, device=buffer.device)[:, None], rows] = new.to(buffer.dtype)
     return buffer
+
+
+def sharded_weight(kernel: Any, spec: Any, mesh: Any) -> Any:
+    """A placed kernel (float, or an int8 slot) with every axis but
+    ``model`` and ``expert`` all-gathered: the weight this rank multiplies
+    by. An int8 slot that needs no gather is returned as it is (its
+    ``kernel_checked`` flag then keeps holding)."""
+    if isinstance(kernel, QuantizedKernel):
+        q = gathered(kernel.q, spec, mesh)
+        scale = gathered(kernel.scale, scale_spec(kernel.scale.shape, spec), mesh)
+        return kernel if q is kernel.q and scale is kernel.scale else QuantizedTensor(q, scale)
+    return gathered(kernel, spec, mesh)
 
 
 def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,6 +158,10 @@ class IotaEmbed(nn.Module):
     gives the same ``dW`` (the summed rows of the output gradient per
     token), and a frozen table (LoRA) computes none."""
 
+    #: set by ``place_module`` over a mesh (the table is then this rank's shard)
+    _mesh = None
+    _specs = None
+
     def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, device: Any = None):
         super().__init__()
@@ -138,7 +169,23 @@ class IotaEmbed(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features, dtype=param_dtype, device=device))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.long(), self.embedding).to(self.dtype)
+        """Over a mesh the lookup is vocab-parallel: this rank's rows answer
+        the tokens in its range, the others read 0, and the sum over
+        ``model`` is exact (one nonzero term a token). A table split on its
+        feature dim gathers the features instead."""
+        mesh, tokens = self._mesh, tokens.long()
+        spec = None if mesh is None else self._specs["embedding"]
+        table = self.embedding if mesh is None else gathered(self.embedding, spec, mesh)
+        if mesh is not None and splits(spec, 0, "model", mesh):
+            rows = table.shape[0]
+            local = tokens - mesh.index("model") * rows
+            inside = (local >= 0) & (local < rows)
+            out = F.embedding(local.clamp(0, rows - 1), table) * inside[..., None].to(table.dtype)
+            return allreduce_sum(out, mesh, "model").to(self.dtype)
+        out = F.embedding(tokens, table)
+        if mesh is not None and splits(spec, 1, "model", mesh):
+            out = all_gather(out, mesh, "model", gather_axis=-1)
+        return out.to(self.dtype)
 
 
 def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
@@ -166,6 +213,9 @@ class LoRADense(nn.Module):
 
     #: parameters whose slot may hold an int8 kernel (ops/quant.set_quantized)
     quantizable = ("kernel",)
+    #: set by ``place_module`` over a mesh (the kernel is then this rank's shard)
+    _mesh = None
+    _specs = None
 
     def __init__(self, in_features: int, features: int, rank: int = 0, alpha: float = 16.0,
                  use_bias: bool = False, dtype: torch.dtype = torch.bfloat16,
@@ -180,10 +230,19 @@ class LoRADense(nn.Module):
         self.bias = empty(features) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Over a mesh, column-parallel (kernel split over ``model`` on its
+        output dim) gives this rank's output columns; row-parallel (split on
+        its input dim) takes this rank's input columns in ``x`` and sums the
+        products over ``model``. ``place_module`` refuses adapters and
+        biases over a mesh."""
+        mesh = self._mesh
+        w = self.kernel if mesh is None else sharded_weight(self.kernel, self._specs["kernel"], mesh)
         if isinstance(self.kernel, QuantizedKernel):
-            y = quantized_matmul(x, self.kernel, out_dtype=self.dtype, impl=self.kernel.impl)
+            y = quantized_matmul(x, w, out_dtype=self.dtype, impl=self.kernel.impl)
         else:
-            y = x @ self.kernel.to(self.dtype)
+            y = x @ w.to(self.dtype)
+        if mesh is not None and splits(self._specs["kernel"], 0, "model", mesh):
+            y = allreduce_sum(y, mesh, "model")
         if self.rank > 0:
             y = y + ((x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)) * (self.alpha / self.rank)
         if self.bias is not None:
@@ -202,8 +261,18 @@ class Attention(nn.Module):
     every other case takes the plain path, exactly as in the JAX package.
     The same switch routes the model's int8 projections
     (:func:`~unionml_tpu_torch.ops.quant.int8_route`): under ``"flash"``
-    they go through the int8 matmul kernel.
+    they go through the int8 matmul kernel. ``"ring"``/``"ulysses"`` run
+    the uncached forward sequence-parallel over the placed mesh's
+    ``sequence`` axis (:mod:`unionml_tpu_torch.ops.ring_attention`); the
+    model must be placed on a mesh (``Generator(mesh=...)`` does it).
+
+    Head counts come from the projections' widths at the call: on a mesh
+    they are this rank's heads. ``kv_sink``, when a list, receives each
+    uncached forward's post-RoPE ``(k, v)`` (the JAX module's ``sow``; the
+    sequence-parallel prefill assembles the cache from them).
     """
+
+    kv_sink: Optional[list] = None
 
     def __init__(self, features: int, n_heads: int, n_kv_heads: Optional[int] = None,
                  head_dim: Optional[int] = None, causal: bool = False, rope: bool = False,
@@ -211,8 +280,6 @@ class Attention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, param_dtype: torch.dtype = torch.float32,
                  device: Any = None):
         super().__init__()
-        if impl in ("ring", "ulysses"):
-            raise NotImplementedError(f"attention impl {impl!r} is not ported yet (ROADMAP.md, Queue A)")
         self.n_heads = n_heads
         self.n_kv = n_kv_heads or n_heads
         self.head_dim = head_dim or features // n_heads
@@ -231,9 +298,9 @@ class Attention(nn.Module):
         cache: Optional[LayerCache] = None,
     ) -> Any:
         batch, length = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(batch, length, self.n_heads, self.head_dim)
-        k = self.k_proj(x).reshape(batch, length, self.n_kv, self.head_dim)
-        v = self.v_proj(x).reshape(batch, length, self.n_kv, self.head_dim)
+        q = self.q_proj(x).reshape(batch, length, -1, self.head_dim)
+        k = self.k_proj(x).reshape(batch, length, -1, self.head_dim)
+        v = self.v_proj(x).reshape(batch, length, -1, self.head_dim)
 
         if self.rope:
             if positions is None:
@@ -269,8 +336,23 @@ class Attention(nn.Module):
             out = multihead_attention(q, keys, values, causal=False, mask=visible, impl="xla")
             return self.o_proj(out.reshape(batch, length, -1)), cache
 
-        out = multihead_attention(q, k, v, causal=self.causal, mask=mask, impl=self.impl)
+        if self.kv_sink is not None:
+            self.kv_sink.append((k, v))
+        if self.impl in ("ring", "ulysses"):
+            out = self._sequence_parallel(q, k, v, mask)
+        else:
+            out = multihead_attention(q, k, v, causal=self.causal, mask=mask, impl=self.impl)
         return self.o_proj(out.reshape(batch, length, -1))
+
+    def _sequence_parallel(self, q, k, v, mask):
+        mesh = self.q_proj._mesh
+        if mesh is None:
+            raise ValueError(f"attention impl {self.impl!r} runs over a mesh's sequence axis; place the model "
+                             "on a mesh first (Generator(mesh=...))")
+        if mask is not None:
+            raise NotImplementedError("sequence-parallel attention does not support arbitrary masks")
+        fn = ring_attention if self.impl == "ring" else ulysses_attention
+        return fn(q, k, v, mesh, causal=self.causal)
 
     def _paged_cached_attention(self, q, k, v, positions, cache):
         """The paged write + read. New rows scatter through the block table

@@ -17,9 +17,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
-from unionml_tpu_torch.models.layers import IotaEmbed, RMSNorm, TransformerBlock, init_weights
+from unionml_tpu_torch.models.layers import IotaEmbed, RMSNorm, TransformerBlock, init_weights, sharded_weight
 from unionml_tpu_torch.ops.int8_matmul import quantized_matmul
 from unionml_tpu_torch.ops.quant import QuantizedKernel
+from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum
+from unionml_tpu_torch.parallel.sharding import P, PartitionRules, splits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,9 @@ class _LMHead(nn.Module):
     int8 (then through ``quantized_matmul`` on the route its slot records)."""
 
     quantizable = ("kernel",)
+    #: set by ``place_module`` over a mesh (the kernel is then this rank's shard)
+    _mesh = None
+    _specs = None
 
     def __init__(self, dim: int, vocab_size: int, dtype: torch.dtype, param_dtype: torch.dtype, device: Any):
         super().__init__()
@@ -77,9 +82,22 @@ class _LMHead(nn.Module):
         self.kernel = nn.Parameter(torch.empty(dim, vocab_size, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = self.kernel
+        if self._mesh is not None:
+            kernel = sharded_weight(kernel, self._specs["kernel"], self._mesh)
         if isinstance(self.kernel, QuantizedKernel):
-            return quantized_matmul(x.to(self.dtype), self.kernel, out_dtype=self.dtype, impl=self.kernel.impl)
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+            y = quantized_matmul(x.to(self.dtype), kernel, out_dtype=self.dtype, impl=self.kernel.impl)
+        else:
+            y = x.to(self.dtype) @ kernel.to(self.dtype)
+        if self._mesh is not None:
+            # vocab-parallel: this rank's logit columns, gathered; a head split
+            # on its input dim sums over ``model`` instead
+            spec, mesh = self._specs["kernel"], self._mesh
+            if splits(spec, 1, "model", mesh):
+                y = all_gather(y, mesh, "model", gather_axis=-1)
+            elif splits(spec, 0, "model", mesh):
+                y = allreduce_sum(y, mesh, "model")
+        return y
 
 
 class Llama(nn.Module):
@@ -144,6 +162,27 @@ class Llama(nn.Module):
         if not return_hidden:
             x = self.lm_head(x)
         return (x, tuple(new_cache)) if cache is not None else x
+
+
+def llama_partition_rules() -> PartitionRules:
+    """Megatron-style TP layout plus a vocab-parallel embedding and head
+    (the JAX package's table, verbatim: the port's parameter paths are the
+    flax paths). Column-parallel (output dim over ``model``): q/k/v, the
+    MLP's wi/wg. Row-parallel (input dim over ``model``): o_proj, the MLP's
+    wo. The complementary dim takes ``fsdp``."""
+    return PartitionRules(
+        [
+            (r"attn/(q_proj|k_proj|v_proj)/kernel", P("fsdp", "model")),
+            (r"attn/o_proj/kernel", P("model", "fsdp")),
+            (r"mlp/(wi|wg)/kernel", P("fsdp", "model")),
+            (r"mlp/wo/kernel", P("model", "fsdp")),
+            (r"embed/embedding", P("model", "fsdp")),
+            (r"lm_head/kernel", P("fsdp", "model")),
+            (r"lora_a", P("fsdp", None)),
+            (r"lora_b", P(None, "model")),
+            (r".*(norm|scale|bias)", P()),
+        ]
+    )
 
 
 def lora_param_labels(model: nn.Module) -> Dict[str, str]:

@@ -28,9 +28,9 @@ What the port keeps bit for bit, since each one changes tokens:
 JAX's ``sow`` of the Switch load-balance loss becomes an attribute: each
 :class:`MoELayer` keeps the aux loss of its last forward in ``aux_loss``, and
 :func:`moe_lm_loss` sums them. The sharding constraints of the JAX layer
-(``_constrain``) do nothing on one card and are left out; its
-``moe_partition_rules`` come with the port's parallelism (ROADMAP.md, Queue
-A: parallelism and the replica layer).
+(``_constrain``) are left out: a placed layer computes on its rank's
+experts and sums over the ``expert`` axis itself (:meth:`MoELayer.forward`),
+under :func:`moe_partition_rules`.
 """
 
 from __future__ import annotations
@@ -43,9 +43,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
-from unionml_tpu_torch.models.layers import Attention, IotaEmbed, LoRADense, RMSNorm, TransformerBlock, init_weights
+from unionml_tpu_torch.models.layers import (
+    Attention,
+    IotaEmbed,
+    LoRADense,
+    RMSNorm,
+    TransformerBlock,
+    init_weights,
+    sharded_weight,
+)
 from unionml_tpu_torch.models.llama import _LMHead, _split_batch
-from unionml_tpu_torch.ops.quant import QuantizedKernel
+from unionml_tpu_torch.ops.quant import QuantizedKernel, QuantizedTensor
+from unionml_tpu_torch.parallel.collectives import allreduce_sum
+from unionml_tpu_torch.parallel.sharding import P, PartitionRules, splits
 
 
 def top_k_dispatch(
@@ -105,6 +115,10 @@ class _StackedDense(nn.Module):
     and then multiplies, as the JAX package's ``dequantize_tree`` does."""
 
     quantizable = ("kernel",)
+    #: set by ``place_module`` over a mesh: the stack is then this rank's
+    #: experts (split over ``expert``), each tensor-parallel over ``model``
+    _mesh = None
+    _specs = None
 
     def __init__(self, n_experts: int, in_features: int, features: int, dtype: torch.dtype,
                  param_dtype: torch.dtype, device: Any):
@@ -114,11 +128,16 @@ class _StackedDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernel = self.kernel
-        if isinstance(kernel, QuantizedKernel):
+        if self._mesh is not None:
+            kernel = sharded_weight(kernel, self._specs["kernel"], self._mesh)
+        if isinstance(kernel, (QuantizedKernel, QuantizedTensor)):
             weight = (kernel.q.float() * kernel.scale).to(self.dtype)
         else:
             weight = kernel.to(self.dtype)
-        return torch.bmm(x.to(self.dtype), weight)
+        y = torch.bmm(x.to(self.dtype), weight)
+        if self._mesh is not None and splits(self._specs["kernel"], 1, "model", self._mesh):
+            y = allreduce_sum(y, self._mesh, "model")  # row-parallel inside each expert
+        return y
 
 
 class _Experts(nn.Module):
@@ -160,9 +179,19 @@ class MoELayer(nn.Module):
         valid = token_mask.reshape(n_tokens) if token_mask is not None else None
         dispatch, combine, self.aux_loss = top_k_dispatch(torch.softmax(router_logits, dim=-1), self.k, capacity,
                                                           valid)
+        held = self.experts.wi.kernel.shape[0]
+        mesh = self.experts.wi._mesh
+        if held != self.n_experts:
+            # expert-parallel: this rank holds experts [e0, e0 + held); the
+            # tokens are the same on every rank of the expert axis, so each
+            # runs its experts' share and the shares sum over the axis
+            e0 = mesh.index("expert") * held
+            dispatch, combine = dispatch[:, e0:e0 + held], combine[:, e0:e0 + held]
         expert_in = torch.einsum("nec,nd->ecd", dispatch.to(self.dtype), tokens.to(self.dtype))
         expert_out = self.experts(expert_in)  # [E, C, D]
         out = torch.einsum("nec,ecd->nd", combine.to(self.dtype), expert_out)
+        if held != self.n_experts:
+            out = allreduce_sum(out, mesh, "expert")
         return out.reshape(batch, length, dim)
 
 
@@ -287,6 +316,28 @@ class MoETransformer(nn.Module):
         if not return_hidden:
             x = self.lm_head(x)
         return (x, tuple(new_cache)) if cache is not None else x
+
+
+def moe_partition_rules() -> PartitionRules:
+    """Expert-parallel layout (the JAX package's table): stacked expert
+    weights shard their leading dim over ``expert``, with the megatron TP
+    pattern inside each expert; everything else follows the llama rules."""
+    return PartitionRules(
+        [
+            (r"experts/(wi|wg)/kernel", P("expert", "fsdp", "model")),
+            (r"experts/wo/kernel", P("expert", "model", "fsdp")),
+            (r"experts/.*(bias|scale)", P("expert")),
+            (r"router/kernel", P()),
+            (r"attn/(q_proj|k_proj|v_proj)/kernel", P("fsdp", "model")),
+            (r"attn/o_proj/kernel", P("model", "fsdp")),
+            # dense interleaved blocks (moe_every > 1) follow the llama MLP layout
+            (r"mlp/(wi|wg)/kernel", P("fsdp", "model")),
+            (r"mlp/wo/kernel", P("model", "fsdp")),
+            (r"embed/embedding", P("model", "fsdp")),
+            (r"lm_head/kernel", P("fsdp", "model")),
+            (r".*(norm|scale|bias)", P()),
+        ]
+    )
 
 
 def moe_lm_loss(model: MoETransformer, batch: Any) -> torch.Tensor:

@@ -89,7 +89,9 @@ class SpeculativeGenerator:
     Both models carry their weights and live on ``device`` (``None`` = CUDA).
     ``quantize``/``quantize_draft`` ("int8") quantize either IN PLACE, as
     :class:`Generator`'s ``quantize`` does (None follows
-    ``UNIONML_TPU_QUANTIZE``). ``rounds``/``accepted_tokens`` count the
+    ``UNIONML_TPU_QUANTIZE``). ``mesh``/``partition_rules`` place both
+    models on a mesh, as :class:`Generator` does; a draft drawn on a mesh is
+    drawn on one rank and broadcast (``Generator._draw``). ``rounds``/``accepted_tokens`` count the
     realized acceptance as the JAX package does (``accepted_tokens /
     (rounds * gamma)``, the accepts summed over a batch's rows);
     ``proposed_tokens`` counts the proposals each live row had budget room
@@ -105,13 +107,17 @@ class SpeculativeGenerator:
         *,
         gamma: int = 4,
         device: DeviceLike = None,
+        mesh: Optional[Any] = None,
+        partition_rules: Optional[Any] = None,
         quantize: Optional[str] = None,
         quantize_draft: Optional[str] = None,
     ):
         # strip any attached DraftSpec: the internal Generators decode plainly
         config = dataclasses.replace(config, draft=None)
-        target_gen = Generator(target, config, device=device, quantize=quantize)
-        draft_gen = Generator(draft, target_gen.config, device=target_gen.device, quantize=quantize_draft)
+        target_gen = Generator(target, config, device=device, mesh=mesh, partition_rules=partition_rules,
+                               quantize=quantize)
+        draft_gen = Generator(draft, target_gen.config, device=target_gen.device, mesh=mesh,
+                              partition_rules=partition_rules, quantize=quantize_draft)
         self._init_state(target_gen, draft_gen, target_gen.config, gamma)
 
     def _init_state(self, target: Generator, draft: Generator, config: GenerationConfig, gamma: int) -> None:
@@ -141,7 +147,9 @@ class SpeculativeGenerator:
         self = cls.__new__(cls)
         # target.config already resolved the KV dtype: both caches share it
         config = dataclasses.replace(target.config, draft=None)
-        draft_gen = Generator(draft.module, config, device=target.device, quantize=draft.quantize)
+        # the draft is placed on the target's mesh under its own rules
+        draft_gen = Generator(draft.module, config, device=target.device, mesh=target.mesh,
+                              partition_rules=draft.partition_rules, quantize=draft.quantize)
         self._init_state(target, draft_gen, config, draft.gamma)
         return self
 
@@ -175,7 +183,8 @@ class SpeculativeGenerator:
                 nxt = lg.argmax(dim=-1).to(torch.int32)
             else:
                 probs = torch.softmax(filtered_logits(lg, cfg), dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=draft_rng)[:, 0].to(torch.int32)
+                nxt = target._draw(lambda: torch.multinomial(probs, 1, generator=draft_rng)[:, 0].to(torch.int32),
+                                   (batch,), torch.int32)
             if s is not None:
                 states.append(s)  # the state BEFORE this position
                 s = target._cs_trans[s.long(), nxt.long()]
@@ -211,12 +220,14 @@ class SpeculativeGenerator:
 
         # --- rejection against the policy distributions (greedy: one-hot,
         # accept iff the argmaxes agree; no random draw is needed)
-        u = None if greedy else torch.rand((gamma, batch), generator=accept_rng, device=dev)
+        u = None if greedy else target._draw(
+            lambda: torch.rand((gamma, batch), generator=accept_rng, device=dev), (gamma, batch), torch.float32)
         accepted, resid = rejection_step(p, q, drafts_t, u)
         if greedy:
             correction = resid.argmax(dim=-1).to(torch.int32)
         else:
-            correction = torch.multinomial(resid, 1, generator=corr_rng)[:, 0].to(torch.int32)
+            correction = target._draw(lambda: torch.multinomial(resid, 1, generator=corr_rng)[:, 0].to(torch.int32),
+                                      (batch,), torch.int32)
 
         # --- emitted tokens this round: the accepted drafts, then the correction
         idx = torch.arange(gamma + 1, device=dev)[None]
@@ -331,7 +342,7 @@ class SpeculativeGenerator:
         budget = torch.full_like(state[5], cfg.max_new_tokens)
         state = self._loop(state, budget, budget)
         self._count(state[7], state[8])
-        return state[6].cpu().numpy()[:n, : cfg.max_new_tokens]
+        return self._target._gather_rows(state[6].cpu().numpy())[:n, : cfg.max_new_tokens]
 
     def stream(
         self, prompts: Sequence[Sequence[int]], *, seed: int = 0, chunk_size: int = 16,
@@ -346,16 +357,19 @@ class SpeculativeGenerator:
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         n, state = self._start_state(prompts, seed, constraint=constraint, prefix=prefix)
+        gather = self._target._gather_rows
         prev = np.ones((n,), np.int64)
-        first = state[6][:n, :1].cpu().numpy()
+        first = gather(state[6][:, :1].cpu().numpy())[:n]
         yield [first[i] for i in range(n)]
         budget = torch.full_like(state[5], cfg.max_new_tokens)
         try:
-            while not bool(state[4][:n].all()):
+            # padding rows start done, so the whole batch's flags decide (on
+            # a mesh: every data rank's, as they gather each yield together)
+            while not self._target._all_done(state[4]):
                 floor = torch.clamp(state[5] + chunk_size, max=cfg.max_new_tokens)
                 state = self._loop(state, floor, budget)
-                out_np = state[6].cpu().numpy()
-                prod_np = state[5][:n].cpu().numpy()
+                out_np = gather(state[6].cpu().numpy())
+                prod_np = gather(state[5].cpu().numpy())[:n]
                 yield [out_np[i, prev[i]: prod_np[i]] for i in range(n)]
                 prev = prod_np.astype(np.int64)
         finally:

@@ -1,0 +1,319 @@
+"""Sharding rules and placement for parameter trees, counterpart of
+``unionml_tpu/parallel/sharding.py``.
+
+Two of the JAX package's three mechanisms carry over:
+
+1. :class:`PartitionRules`: an ordered ``(path-regex, PartitionSpec)``
+   table applied to parameter paths, first match wins. The port's parameter
+   names follow the flax tree (``layer_0.attn.q_proj.kernel``, kernels
+   stored ``[in, out]``), so a path joined with ``/`` is the JAX path and
+   the JAX rule tables apply verbatim; no spec is transposed.
+2. :func:`infer_fsdp_sharding`: each large leaf's largest divisible dim
+   over the ``fsdp`` axis; small leaves replicate.
+
+The third, flax's ``nn.Partitioned`` metadata boxes, has no torch
+counterpart: a torch module carries no boxes, so :func:`unbox_partitioned`
+is the identity, kept for the name.
+
+Placement is explicit: each rank keeps only its shard of every leaf, cut
+exactly as JAX's ``NamedSharding.devices_indices_map`` cuts it for the
+same mesh coordinate (:func:`shard_slices`). The layers then compute on
+those shards and run the collectives themselves (``models/layers.py``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterable, Mapping, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from unionml_tpu_torch.parallel.mesh import BATCH_AXES
+
+__all__ = [
+    "NamedSharding",
+    "P",
+    "PartitionRules",
+    "PartitionSpec",
+    "batch_axis_size",
+    "batch_sharding",
+    "combine_fsdp_tp",
+    "infer_fsdp_sharding",
+    "named_sharding",
+    "replicated",
+    "shard_pytree",
+    "shard_slices",
+    "unbox_partitioned",
+]
+
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: one entry a dim, each None (the dim
+    is whole), an axis name, or a tuple of axis names (split over their
+    product, row-major); dims past the spec's length are whole."""
+
+    def __new__(cls, *entries: Any) -> "PartitionSpec":
+        # a one-axis tuple is that axis, as JAX normalizes it
+        return super().__new__(cls, (e[0] if isinstance(e, (tuple, list)) and len(e) == 1 else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _entry_axes(entry: Any) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def shard_slices(shape: Sequence[int], spec: Sequence[Any], sizes: Mapping[str, int],
+                 coordinate: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The index of the shard that the rank at ``coordinate`` holds of an
+    array of ``shape`` under ``spec`` on a mesh of axis ``sizes``: the
+    slices ``devices_indices_map`` gives for the device at that coordinate.
+    A dim split over several axes takes index ``i_a * size_b + i_b``. A dim
+    that does not divide evenly raises."""
+    out = []
+    for dim, size in enumerate(shape):
+        axes = _entry_axes(spec[dim]) if dim < len(spec) else ()
+        n, idx = 1, 0
+        for a in axes:
+            n, idx = n * sizes[a], idx * sizes[a] + coordinate[a]
+        if n == 1:
+            out.append(slice(None))
+            continue
+        if size % n:
+            raise ValueError(f"dim {dim} of size {size} does not split evenly over {axes} ({n} shards)")
+        step = size // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+class NamedSharding:
+    """A spec on a mesh: :meth:`local` cuts this rank's shard of a full
+    tensor."""
+
+    def __init__(self, mesh: Any, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return all(self.mesh.shape[a] == 1 for entry in self.spec for a in _entry_axes(entry))
+
+    def slices(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        return shard_slices(shape, self.spec, self.mesh.shape, self.mesh.coordinate)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``x``: a fresh contiguous copy (the full
+        tensor may then be freed)."""
+        if self.is_fully_replicated:
+            return x
+        return x[self.slices(x.shape)].clone(memory_format=torch.contiguous_format)
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, NamedSharding) and other.mesh is self.mesh and other.spec == self.spec
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def named_sharding(mesh: Any, *spec: Any) -> NamedSharding:
+    return NamedSharding(mesh, P(*spec))
+
+
+def batch_sharding(mesh: Any) -> NamedSharding:
+    """A batch's leading (sample) dim over every batch axis of size > 1,
+    the rest whole."""
+    present = tuple(a for a in BATCH_AXES if a in mesh.axis_names and mesh.shape[a] > 1)
+    return NamedSharding(mesh, P(present if present else None))
+
+
+def batch_axis_size(mesh: Any) -> int:
+    """Shards of the batch dim under :func:`batch_sharding`."""
+    size = 1
+    for a in BATCH_AXES:
+        if a in mesh.axis_names:
+            size *= mesh.shape[a]
+    return size
+
+
+def replicated(mesh: Any) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+class PartitionRules:
+    """Ordered ``(regex, PartitionSpec)`` table mapped over parameter paths
+    (``/``-joined, the flax form)."""
+
+    def __init__(self, rules: Sequence[Tuple[str, Any]]):
+        self._rules = [(re.compile(pattern), spec) for pattern, spec in rules]
+
+    def spec_for(self, path: str) -> Optional[PartitionSpec]:
+        """First matching rule's spec, or None when no rule matches (None,
+        not ``P()``: an explicit replication rule is honoured, not
+        overridden by inferred FSDP)."""
+        for pattern, spec in self._rules:
+            if pattern.search(path):
+                return spec
+        return None
+
+    def shardings(self, tree: Any, mesh: Any) -> Dict[str, NamedSharding]:
+        """A sharding for every leaf path of ``tree`` (unmatched: replicated)."""
+        return {path: NamedSharding(mesh, self.spec_for(path) or P()) for path, _ in _leaves(tree)}
+
+
+def _leaves(tree: Any) -> Iterable[Tuple[str, Any]]:
+    """``(path, leaf)`` over a module (parameters, and each int8 kernel slot
+    as one leaf, shaped as its kernel) or a nested mapping, paths
+    ``/``-joined."""
+    if isinstance(tree, nn.Module):
+        from unionml_tpu_torch.ops.quant import QuantizedKernel
+
+        for name, mod in tree.named_modules():
+            if isinstance(mod, QuantizedKernel):
+                yield name.replace(".", "/"), mod
+        for name, param in tree.named_parameters():
+            yield name.replace(".", "/"), param
+        return
+
+    def walk(node: Mapping[str, Any], prefix: str) -> Iterable[Tuple[str, Any]]:
+        for key, leaf in node.items():
+            path = f"{prefix}{key}"
+            if isinstance(leaf, Mapping):
+                yield from walk(leaf, path + "/")
+            else:
+                yield path, leaf
+
+    yield from walk(tree, "")
+
+
+def _fsdp_spec(shape: Sequence[int], mesh: Any, axis: str, min_weight_size: int) -> PartitionSpec:
+    axis_size = mesh.shape.get(axis, 1)
+    numel = 1
+    for d in shape:
+        numel *= int(d)
+    if axis_size <= 1 or not shape or numel < min_weight_size:
+        return P()
+    # the largest dim divisible by the axis size; ties -> the last dim
+    candidates = [(int(d), i) for i, d in enumerate(shape) if int(d) % axis_size == 0]
+    if not candidates:
+        return P()
+    _, best = max(candidates)
+    spec = [None] * len(shape)
+    spec[best] = axis
+    return P(*spec)
+
+
+def infer_fsdp_sharding(tree: Any, mesh: Any, *, axis: str = "fsdp", min_weight_size: int = 2**14
+                        ) -> Dict[str, NamedSharding]:
+    """Automatic FSDP layout: each leaf of at least ``min_weight_size``
+    elements sharded over ``axis`` along its largest divisible dim."""
+    return {path: NamedSharding(mesh, _fsdp_spec(tuple(leaf.shape), mesh, axis, min_weight_size))
+            for path, leaf in _leaves(tree)}
+
+
+def unbox_partitioned(tree: Any) -> Any:
+    """The identity: torch modules carry no ``nn.Partitioned`` boxes."""
+    return tree
+
+
+def combine_fsdp_tp(tree: Any, mesh: Any, rules: Optional[PartitionRules], *, min_weight_size: int = 2**14,
+                    logical_rules: Optional[Sequence[Tuple[str, Any]]] = None) -> Dict[str, NamedSharding]:
+    """A sharding for every leaf: an explicit rule where one matches, else
+    the inferred FSDP layout. ``logical_rules`` maps flax's logical-axis
+    boxes, which a torch module never carries; it must stay None."""
+    if logical_rules is not None:
+        raise ValueError("logical_rules maps flax nn.Partitioned metadata, which torch modules do not carry")
+    out = {}
+    for path, leaf in _leaves(tree):
+        spec = rules.spec_for(path) if rules is not None else None
+        if spec is None:
+            spec = _fsdp_spec(tuple(leaf.shape), mesh, "fsdp", min_weight_size)
+        out[path] = NamedSharding(mesh, spec)
+    return out
+
+
+def scale_spec(scale_shape: Sequence[int], spec: Sequence[Any]) -> PartitionSpec:
+    """An int8 kernel's per-channel scale keeps its kernel's axes on its
+    non-unit dims only (``_quantized_shardings`` in the JAX package)."""
+    padded = tuple(spec) + (None,) * (len(scale_shape) - len(spec))
+    return P(*(None if dim == 1 else axis for dim, axis in zip(scale_shape, padded)))
+
+
+def shard_pytree(tree: Any, shardings: Mapping[str, NamedSharding]) -> Any:
+    """Each leaf of ``tree`` cut to this rank's shard. A nested mapping
+    gives a new tree; a module is cut IN PLACE (parameters and int8 slots;
+    see :func:`place_module`) and returned."""
+    if isinstance(tree, nn.Module):
+        place_module(tree, shardings)
+        return tree
+
+    def walk(node: Mapping[str, Any], prefix: str) -> dict:
+        out = {}
+        for key, leaf in node.items():
+            path = f"{prefix}{key}"
+            out[key] = walk(leaf, path + "/") if isinstance(leaf, Mapping) else shardings[path].local(leaf)
+        return out
+
+    return walk(tree, "")
+
+
+def place_module(module: nn.Module, shardings: Mapping[str, NamedSharding]) -> None:
+    """Cut a module's leaves to this rank's shards IN PLACE and record each
+    leaf's spec on its owner (``owner._specs[leaf_name]``) with the mesh
+    (``owner._mesh``): the sharded layers read both at their forward. An
+    int8 slot's ``q`` takes its kernel's spec and its ``scale``
+    :func:`scale_spec`. Adapters and biases of a dense layer are not placed
+    yet (the training slice), so a module that has them is refused."""
+    from unionml_tpu_torch.models.layers import LoRADense
+    from unionml_tpu_torch.ops.quant import QuantizedKernel
+
+    for name, owner in module.named_modules():
+        if isinstance(owner, LoRADense) and (owner.rank > 0 or owner.bias is not None):
+            raise NotImplementedError(
+                f"{name}: LoRA adapters and dense biases over a mesh are not ported yet (ROADMAP.md, Queue A: "
+                "parallelism and the replica layer, parallel training)"
+            )
+    with torch.no_grad():
+        for path, sharding in shardings.items():
+            owner_path, _, leaf = path.rpartition("/")
+            owner = module.get_submodule(owner_path.replace("/", ".")) if owner_path else module
+            target = getattr(owner, leaf)
+            if isinstance(target, QuantizedKernel):
+                target.q = sharding.local(target.q)
+                target.scale = NamedSharding(sharding.mesh, scale_spec(target.scale.shape, sharding.spec)).local(
+                    target.scale)
+            else:
+                target.data = sharding.local(target.data)
+            specs = owner.__dict__.setdefault("_specs", {})
+            specs[leaf] = sharding.spec
+            owner.__dict__["_mesh"] = sharding.mesh
+
+
+def splits(spec: Sequence[Any], dim: int, axis: str, mesh: Any) -> bool:
+    """Whether ``spec`` splits ``dim`` over ``axis`` (of size > 1)."""
+    return dim < len(spec) and axis in _entry_axes(spec[dim]) and mesh.shape[axis] > 1
+
+
+def gathered(t: torch.Tensor, spec: Sequence[Any], mesh: Any, keep: Tuple[str, ...] = ("model", "expert")
+             ) -> torch.Tensor:
+    """A shard with every axis of ``spec`` but ``keep`` all-gathered back
+    (FSDP's gather at use): what remains split is the tensor- and
+    expert-parallel layout the layers compute in. A dim split over a kept
+    axis and a gathered one at once is refused."""
+    from unionml_tpu_torch.parallel.collectives import all_gather
+
+    for dim, entry in enumerate(spec):
+        axes = [a for a in _entry_axes(entry) if mesh.shape[a] > 1]
+        drop = [a for a in axes if a not in keep]
+        if not drop:
+            continue
+        if len(axes) > 1:
+            raise NotImplementedError(f"a dim split over several axes {axes} of which some are gathered at use")
+        t = all_gather(t, mesh, drop[0], gather_axis=dim)
+    return t

@@ -9,9 +9,10 @@ socket and the device; the continuous engine admits in chunks and reuses
 shared prefixes (a static ``prefix=`` and the radix prefix cache,
 ``serving/prefix_cache.py``); the in-process replica layer
 (``serving/replicas.py``) runs N engines behind one scheduler, with
-prefill/decode roles and KV handoff and an elastic fleet. The mesh path of
-the replica layer, the multi-host cluster and the AOT program store are not
-ported yet (ROADMAP.md, Queue A).
+prefill/decode roles and KV handoff and an elastic fleet; one engine serves a
+``model``/``sequence``/``expert`` mesh from rank 0 (``serving/mesh.py``). The
+mesh path of the replica layer, the multi-host cluster and the AOT program
+store are not ported yet (ROADMAP.md, Queue A).
 """
 
 from unionml_tpu_torch.serving.app import ServingApp, serving_app

@@ -45,8 +45,13 @@ class ServingConfig:
     predictor that cannot take arrays falls back to eager serving
     automatically with unchanged semantics.
 
-    ``mesh`` stays a field for the JAX package's signature; the port has no
-    device mesh yet, and a non-``None`` value raises ``NotImplementedError``.
+    ``mesh`` (a :class:`~unionml_tpu_torch.parallel.mesh.MeshSpec`) runs
+    the bucketed predictor over a mesh of ranks: buckets round up to the
+    ``data`` axis, each rank runs its rows of the padded batch on its full
+    copy of the model, and the results are gathered, so every rank returns
+    them all. Every rank serves the same requests in the same order; the
+    mesh is built at the first dispatch. A ``pipe`` axis waits for the
+    training slice.
     """
 
     max_batch_size: int = 32
@@ -72,9 +77,9 @@ class ServingConfig:
 
     def __post_init__(self) -> None:
         if self.mesh is not None:
-            raise NotImplementedError(
-                "ServingConfig(mesh=...) is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer)"
-            )
+            from unionml_tpu_torch.parallel.mesh import serving_spec
+
+            serving_spec(self.mesh)
 
     def buckets(self) -> List[int]:
         if self.bucket_sizes:

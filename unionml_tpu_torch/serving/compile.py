@@ -163,25 +163,38 @@ class CompiledPredictor:
     The bucketed path returns torch tensors (or the predictor's own tree of
     them), sliced to the real rows; a predictor body written against
     DataFrames keeps its container type only on the eager path.
+
+    With ``config.mesh`` (a ``MeshSpec``) buckets round up to multiples of
+    its ``data`` axis, the padded batch is split over ``data`` and the model
+    object stays whole on every rank (the JAX package's replicated
+    parameters): each rank runs its rows, and the outputs are gathered over
+    ``data``. Every rank of the mesh makes the same calls.
     """
 
     def __init__(self, predict_fn: Callable[[Any, Any], Any], config: Any):
-        if getattr(config, "mesh", None) is not None:
-            raise NotImplementedError(
-                "CompiledPredictor over a mesh is not ported yet (ROADMAP.md, Queue A: parallelism and the "
-                "replica layer)"
-            )
         self._fn = predict_fn
         self.config = config
         self.traces = 0
         self._eager = False
         #: padded (shape, dtype) signatures already dispatched
         self._seen: Set[Tuple[Any, ...]] = set()
+        #: built at the first dispatch, on the model's device (building is a
+        #: collective every rank reaches there)
+        self._mesh: Any = None
+        spec = getattr(config, "mesh", None)
+        if spec is not None:
+            from unionml_tpu_torch.distributed import process_count
+            from unionml_tpu_torch.parallel.mesh import serving_spec
+
+            self._data_axis = serving_spec(spec).axis_sizes(process_count())["data"]
+        else:
+            self._data_axis = 1
 
     # ------------------------------------------------------------------ buckets
 
     def _buckets(self) -> Tuple[int, ...]:
-        return tuple(sorted({max(1, b) for b in self.config.buckets()}))
+        d = self._data_axis
+        return tuple(sorted({max(1, -(-b // d) * d) for b in self.config.buckets()}))
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets():
@@ -200,10 +213,21 @@ class CompiledPredictor:
             self._seen.add(key)
             self.traces += 1  # the first call of each padded shape
         device = _model_device(model_object)
-        placed = _tree_map(lambda a: torch.from_numpy(a).to(device), padded)
+        if getattr(self.config, "mesh", None) is None:
+            placed = _tree_map(lambda a: torch.from_numpy(a).to(device), padded)
+            with torch.inference_mode():
+                out = self._fn(model_object, placed)
+            return _tree_map(lambda a: a[:n], out)
+        from unionml_tpu_torch.parallel.collectives import all_gather
+
+        if self._mesh is None:
+            self._mesh = self.config.mesh.build(device="cpu" if device.type == "cpu" else None)
+        rows = bucket // self._data_axis
+        lo = self._mesh.index("data") * rows
+        placed = _tree_map(lambda a: torch.from_numpy(a[lo:lo + rows]).to(device), padded)
         with torch.inference_mode():
             out = self._fn(model_object, placed)
-        return _tree_map(lambda a: a[:n], out)
+        return _tree_map(lambda a: all_gather(torch.as_tensor(a, device=device), self._mesh, "data")[:n], out)
 
     def __call__(self, model_object: Any, features: Any) -> Any:
         if self._eager:

@@ -54,9 +54,15 @@ the radix prefix cache, and the engine half of the replica layer
   high-priority admission on a full paged engine preempt the
   lowest-priority resident (serving/tenancy.py).
 
+- **Over a mesh**: a Generator placed on a mesh with ``model``,
+  ``sequence`` or ``expert`` axes is served by rank 0's engine, every other
+  rank following its device steps (the design is in
+  :mod:`unionml_tpu_torch.serving.mesh`).
+
 With greedy decoding each stream's tokens equal a solo
 ``Generator.__call__([prompt], constraint=g)`` run. Thread model: ``submit`` may be called
-from any thread; the engine thread is the only one touching device state.
+from any thread; the engine thread is the only one touching device state,
+and it does so only through the ``_op_*`` methods (:meth:`ContinuousBatcher._dev`).
 Where JAX donates the pool through its jitted admission and decode, the port
 updates the pool tensors in place.
 """
@@ -68,7 +74,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +102,7 @@ from unionml_tpu_torch.models.speculative import seeded_streams
 from unionml_tpu_torch.observability.slo import SLOConfig, SLOTracker, TenantSLORegistry
 from unionml_tpu_torch.observability.timeseries import EngineTimeseries
 from unionml_tpu_torch.observability.trace import current_trace
+from unionml_tpu_torch.serving.mesh import HEARTBEAT_S, StepPlan
 from unionml_tpu_torch.serving.metrics import LatencyWindow
 from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, TenantThrottled, expired
 from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
@@ -118,6 +125,13 @@ logger = logging.getLogger(__name__)
 _UNPORTED = {"aot": "the rest"}
 
 _SENTINEL = object()
+
+#: the engine's device operations that run collectives over a mesh (the
+#: model's forwards and head): a step plan is sent before each of them
+_COLLECTIVE_OPS = frozenset({"prefill_row", "row_chunk", "row_first", "first_logprob", "decode"})
+
+#: the item that brings an engine over a batch-axis mesh
+_FLEET = "ROADMAP.md, Queue A: parallelism and the replica layer, the multi-host fleet"
 
 
 def _tev(session: "_Session", name: str, **attrs: Any) -> None:
@@ -409,6 +423,19 @@ class ContinuousBatcher:
         if max_admissions is not None and max_admissions < 0:
             raise ValueError("max_admissions must be >= 0 (0 = default of 1)")
         cfg = generator.config
+        mesh = generator.mesh
+        if mesh is not None:
+            for axis in ("dcn_data", "data", "fsdp"):
+                if mesh.shape[axis] > 1:
+                    raise NotImplementedError(
+                        f"a continuous engine over a mesh with {axis}={mesh.shape[axis]} is not ported yet "
+                        f"(a batch-1 admission row cannot split a batch axis; {_FLEET})"
+                    )
+            if cfg.draft is not None or role is not None:
+                raise NotImplementedError(
+                    "speculative decoding and replica roles over a mesh are not ported yet "
+                    f"({_FLEET})"
+                )
         self.gen = generator
         self.device = generator.device
         self.max_waiting = SERVE_MAX_WAITING if max_waiting is None else max_waiting
@@ -460,6 +487,13 @@ class ContinuousBatcher:
         widest = max(cfg.prompt_buckets, default=64)
         buckets = cfg.prompt_buckets or (widest,)
         self.cache_len = p0 + widest + cfg.max_new_tokens + self._overshoot
+        #: sp admission (sp_prefill over a >1 sequence axis, no shared
+        #: prefix: Generator._start's rule): the row prefills sequence-
+        #: parallel, each bucket padded to a multiple of the axis
+        self._sp_seq = mesh.shape["sequence"] if mesh is not None else 1
+        self._sp = bool(cfg.sp_prefill) and self._sp_seq > 1 and prefix is None
+        if self._sp:
+            self.cache_len = max(self.cache_len, max(chunk_aligned(b, self._sp_seq) for b in buckets))
         # each aligned prefill writes its whole chunk-aligned width at [p0,
         # p0 + aligned): the rows must hold the widest aligned bucket
         if prefix is not None and cfg.prefill_chunk:
@@ -514,7 +548,7 @@ class ContinuousBatcher:
             #: block index ``pool_blocks`` is the SCRATCH block: unused and
             #: finished table entries point there
             self._scratch_block = self.pool_blocks
-            mcfg = generator.model.config
+            mcfg = generator.cache_config  # this rank's KV heads on a mesh
             head_dim = mcfg.dim // mcfg.n_heads
             if cfg.kv_cache_dtype == "int8":
                 kv_itemsize, scale_bytes = 1, 8  # k_scale + v_scale, f32 each
@@ -623,6 +657,81 @@ class ContinuousBatcher:
         #: the speculative carry's (rounds, accepted, proposed) when last
         #: folded into the acceptance telemetry, so each dispatch adds its delta
         self._spec_seen = (0, 0, 0)
+        #: over a mesh of several ranks: rank 0's record of the device steps
+        #: (or a follower's end of it), and a follower's admission rows by key
+        self._plan: Optional[StepPlan] = None
+        self._follower = False
+        self._rows: Dict[int, _Admission] = {}
+        #: what ended a follower's loop early (``close`` raises it)
+        self._follower_error: Optional[BaseException] = None
+        if mesh is not None and mesh.devices > 1:
+            self._plan = StepPlan(mesh)
+            self._follower = mesh.rank != self._plan.leader
+            # rank 0's engine thread runs from the start: it sends the idle
+            # heartbeat the followers' wait needs
+            self._thread = threading.Thread(target=self._follow if self._follower else self._engine_loop,
+                                            daemon=True)
+            self._thread.start()
+
+    # ------------------------------------------------------------------ device steps
+
+    def _dev(self, op: str, adm: Optional[_Admission], *args: Any) -> Any:
+        """Run the device operation ``_op_<op>`` on ``adm``'s rows (None for
+        the pool and carry) with host ``args``. Over a mesh rank 0 records it
+        in the step plan first (see :mod:`unionml_tpu_torch.serving.mesh`);
+        followers run the same operation from :meth:`_follow`."""
+        if self._plan is not None:
+            self._plan.record(op, None if adm is None else adm.seed, args, op in _COLLECTIVE_OPS)
+        return getattr(self, "_op_" + op)(adm, *args)
+
+    def _stop_followers(self) -> None:
+        """Send the plan that ends the followers' loops (rank 0 of a mesh)."""
+        if self._plan is not None:
+            self._plan.record("stop", None, (), True)
+
+    def _follow(self) -> None:
+        """A follower rank's engine thread: run each received plan's
+        operations in order on this rank's shards until rank 0 stops.
+
+        A ``ValueError`` from an admission's operation is the refusal of a
+        bad request, which rank 0 meets on the same arguments before any
+        collective: it is let pass only when rank 0's next operation drops
+        that admission's rows. Any other failure, that one included when
+        rank 0 went on, ends the follower: it is logged, kept for
+        :meth:`close` to raise, and rank 0 then waits in its next
+        collective."""
+        refused: Optional[Tuple[int, ValueError]] = None
+        try:
+            while True:
+                for op, key, args in self._plan.receive():
+                    if refused is not None and (op, key) != ("drop_row", refused[0]):
+                        raise RuntimeError(
+                            f"follower rank {self.gen.mesh.rank} alone refused an operation of admission "
+                            f"{refused[0]}: rank 0 went on with {op!r}"
+                        ) from refused[1]
+                    refused = None
+                    if op == "stop":
+                        return
+                    if op == "noop":
+                        continue
+                    adm = None
+                    if key is not None:
+                        adm = self._rows.get(key)
+                        if adm is None:
+                            adm = self._rows[key] = _Admission(
+                                session=None, prompt=[], slot=-1, seed=key, budget=0, blocks_row=None)
+                    try:
+                        getattr(self, "_op_" + op)(adm, *args)
+                    except ValueError as exc:
+                        if key is None:
+                            raise
+                        refused = (key, exc)
+                    if op in ("finalize", "drop_row"):
+                        self._rows.pop(key, None)
+        except Exception as exc:  # a follower that fails leaves rank 0 waiting: say why before the thread ends
+            logger.exception("continuous-batching follower failed")
+            self._follower_error = exc
+            raise
 
     # ------------------------------------------------------------------ device fns
 
@@ -738,7 +847,7 @@ class ContinuousBatcher:
 
     def _init_carry(self) -> tuple:
         cfg = self.gen.config
-        cache = self._init_pool(self.gen.model.config, self.prefix)
+        cache = self._init_pool(self.gen.cache_config, self.prefix)
         tok = torch.zeros((self.slots,), dtype=torch.int32, device=self.device)
         lengths = torch.ones((self.slots,), dtype=torch.int32, device=self.device)
         done = torch.ones((self.slots,), dtype=torch.bool, device=self.device)  # every slot starts free
@@ -748,7 +857,7 @@ class ContinuousBatcher:
         if self._spec is None:
             generator = torch.Generator(device=self.device).manual_seed(self._seed)
             return (cache, tok, lengths, done, generator, *tail)
-        d_cache = self._init_pool(self._spec._draft.model.config, self._draft_prefix)
+        d_cache = self._init_pool(self._spec._draft.cache_config, self._draft_prefix)
         if self.block_size is not None:
             # the draft's pool has the same BLOCK COUNT (other shapes), so one
             # host allocation addresses both; its layers hold the target's
@@ -786,7 +895,7 @@ class ContinuousBatcher:
         tokens = np.full((1, bucket), cfg.pad_id, np.int32)
         tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
         lengths = torch.tensor([p0 + max(len(prompt), 1)], dtype=torch.int32, device=self.device)
-        row_cache = init_cache(gen.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        row_cache = init_cache(gen.cache_config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         row_valid = torch.ones((1,), dtype=torch.bool, device=self.device)
         state = None if dfa_state is None else torch.tensor([dfa_state], dtype=torch.int32, device=self.device)
@@ -802,6 +911,16 @@ class ContinuousBatcher:
             row_cache = _paste_prefix_rows(row_cache, prefix.layers)
             last, row_cache = gen._chunked_prefill_loop(tokens, lengths, row_cache, row_valid, chunk, start=p0)
             tok0 = gen._first_token(last, generator, state)
+        elif self._sp and gen is self.gen and chunk_aligned(bucket, self._sp_seq) <= self.cache_len:
+            # long-context admission: the row prefills sequence-parallel over
+            # the mesh's sequence axis, then pastes like any dense row (an
+            # exact-width resume too wide to align falls through below:
+            # both prefills give the same tokens)
+            aligned = chunk_aligned(bucket, self._sp_seq)
+            tokens = np.pad(tokens, ((0, 0), (0, aligned - bucket)), constant_values=cfg.pad_id)
+            tok0, row_cache, last = gen._sp_prefill(
+                torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid, state
+            )
         else:
             tok0, row_cache, last = gen._prefill(
                 torch.as_tensor(tokens, device=self.device), lengths, row_cache, generator, row_valid, state
@@ -824,13 +943,13 @@ class ContinuousBatcher:
             bucket = exact
         return bucket
 
-    def _first_logprob(self, adm: _Admission) -> float:
+    def _op_first_logprob(self, adm: _Admission, dfa_state: Optional[int]) -> float:
         """The prompt-sampled token's log-probability: head, mask and
         log-softmax over the admission's last hidden row — the constrained
         distribution the token was sampled from, as the decode steps'
         logprobs are."""
         gen = self.gen
-        state = None if adm.dfa_state is None else torch.tensor([adm.dfa_state], dtype=torch.int32, device=self.device)
+        state = None if dfa_state is None else torch.tensor([dfa_state], dtype=torch.int32, device=self.device)
         with torch.no_grad():
             logits = gen._constrain(gen._head(adm.last.to(gen.model.config.dtype)), state)
             lp = torch.log_softmax(logits, dim=-1).gather(1, adm.tok0[:, None].long())
@@ -978,6 +1097,9 @@ class ContinuousBatcher:
         (engine thread only)."""
         if not ids or self._carry is None:
             return
+        self._dev("extend_tables", None, slot, start_idx, list(ids))
+
+    def _op_extend_tables(self, _: None, slot: int, start_idx: int, ids: "List[int]") -> None:
         table = self._carry[0][0]["table"]
         table[slot, start_idx : start_idx + len(ids)] = torch.as_tensor(ids, dtype=torch.int32, device=table.device)
 
@@ -988,6 +1110,9 @@ class ContinuousBatcher:
         ride-along K/V write per step."""
         if self._carry is None:
             return
+        self._dev("mask_done", None, slot)
+
+    def _op_mask_done(self, _: None, slot: int) -> None:
         self._carry[3 if self._spec is None else 4][slot] = True
         if self.block_size is not None:  # the table tensor both pools share
             self._carry[0][0]["table"][slot] = self._scratch_block
@@ -1102,6 +1227,10 @@ class ContinuousBatcher:
         robin across tenants within strict priority tiers, and a
         high-priority admission on a full paged engine preempts the
         lowest-priority resident (which resumes token-identically)."""
+        if self._follower:
+            raise RuntimeError(
+                f"submit to rank 0 of the mesh: rank {self.gen.mesh.rank} runs rank 0's device steps"
+            )
         if len(prompt) == 0:
             raise ValueError("prompt must be non-empty")
         if export_handoff and self._spec is not None:
@@ -1542,8 +1671,12 @@ class ContinuousBatcher:
         with self._lock:
             self._closed = True
             self._lock.notify_all()
+        # (a follower's thread ends when rank 0's engine closes)
         if wait and self._thread is not None:
             self._thread.join(timeout=timeout)
+        if self._follower_error is not None:
+            raise RuntimeError("this rank's follower loop failed; rank 0 and this rank fell out of step") from (
+                self._follower_error)
 
     # ------------------------------------------------------------------ engine
 
@@ -1551,15 +1684,26 @@ class ContinuousBatcher:
         try:
             while True:
                 with self._lock:
+                    idle = False
                     while not self._closed and not self._pending and not self._admissions and not self._sessions:
-                        self._lock.wait()
-                    self._apply_cancellations_locked()
-                    if self._closed:
-                        for _, session in self._pending:
-                            session.out.put(_SENTINEL)
-                        self._pending.clear()
-                        if not self._sessions and not self._admissions:
+                        if self._plan is None:
+                            self._lock.wait()
+                        elif not self._lock.wait(timeout=HEARTBEAT_S):
+                            idle = True
                             break
+                    if not idle:
+                        self._apply_cancellations_locked()
+                        if self._closed:
+                            for _, session in self._pending:
+                                session.out.put(_SENTINEL)
+                            self._pending.clear()
+                            if not self._sessions and not self._admissions:
+                                break
+                if idle:
+                    # an idle mesh engine's empty plan, sent unlocked: no
+                    # follower waits in a collective past the group's timeout
+                    self._plan.record("noop", None, (), True)
+                    continue
                 self._admit_pending()
                 if self._sessions:
                     self._decode_chunk()
@@ -1590,6 +1734,7 @@ class ContinuousBatcher:
                     adm.session.out.put(_SENTINEL)
                 for session in self._sessions.values():
                     session.out.put(_SENTINEL)
+            self._stop_followers()
 
     def _admit_pending(self) -> None:
         """Move waiting prompts toward residency. The lock is held only for
@@ -1868,6 +2013,7 @@ class ContinuousBatcher:
                     self._admissions.remove(adm)
                 self._free.append(adm.slot)
                 self._release_blocks_locked(adm.slot, session)
+                self._dev("drop_row", adm)
                 return False
             return True
 
@@ -1878,6 +2024,7 @@ class ContinuousBatcher:
                 self._admissions.remove(adm)
             self._free.append(adm.slot)
             self._release_blocks_locked(adm.slot, adm.session)
+            self._dev("drop_row", adm)
             if not adm.session.finished:
                 adm.session.finished = True
                 adm.session.out.put(exc)
@@ -1911,18 +2058,11 @@ class ContinuousBatcher:
         bucket = self._prefill_width(prompt, adm.budget)
         chunk = self.admit_chunk
         aligned = chunk_aligned(bucket, chunk) if chunk else bucket
-        if not chunk or p0 + aligned > self.cache_len:
-            adm.tok0, adm.row_len, adm.row_cache, adm.last = self._prefill_row(
-                prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state
-            )
-            if self._spec is not None:
-                # the draft's row: the same prompt through the draft with the
-                # DRAFT's prefix rows (its prompt-sampled token is discarded:
-                # emission #1 is the target's)
-                adm.d_row_cache = self._prefill_row(
-                    prompt, adm.seed, budget=adm.budget, dfa_state=adm.dfa_state, gen=self._spec._draft,
-                    prefix=self._draft_prefix,
-                )[2]
+        if not chunk or self._sp or p0 + aligned > self.cache_len:
+            # monolithic: chunking off, a sequence-parallel prefill (already
+            # spread over the ranks), or an exact-width resume whose aligned
+            # width would overflow the row
+            self._dev("prefill_row", adm, list(prompt), adm.budget, adm.dfa_state)
             adm.done = True
             with self._lock:
                 self.prefill_monolithic += 1
@@ -1932,21 +2072,49 @@ class ContinuousBatcher:
         tokens = np.full((1, aligned), cfg.pad_id, np.int32)
         tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
         adm.tokens = tokens
-        self._chunk_state(adm, p0 + max(len(prompt), 1))
-        row_cache = init_cache(gen.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+        self._dev("row_begin", adm, p0 + max(len(prompt), 1), None)
+        return 0
+
+    def _op_prefill_row(self, adm: _Admission, prompt: "List[int]", budget: int, dfa_state: Optional[int]) -> None:
+        """A monolithic admission's prefill (:meth:`_prefill_row`) into its
+        row, and the draft's row in speculative mode: the same prompt
+        through the draft with the DRAFT's prefix rows (its prompt-sampled
+        token is discarded: emission #1 is the target's)."""
+        adm.tok0, adm.row_len, adm.row_cache, adm.last = self._prefill_row(
+            prompt, adm.seed, budget=budget, dfa_state=dfa_state
+        )
+        if self._spec is not None:
+            adm.d_row_cache = self._prefill_row(
+                prompt, adm.seed, budget=budget, dfa_state=dfa_state, gen=self._spec._draft,
+                prefix=self._draft_prefix,
+            )[2]
+
+    def _op_row_begin(self, adm: _Admission, total: int, gather_row: Optional[np.ndarray]) -> None:
+        """A chunked admission's row and prefill carry (:meth:`_chunk_state`):
+        a fresh row with the static prefix pasted, or, on a radix hit, the
+        matched blocks gathered from the pool (the inverse of the admission
+        scatter; positions past the cached run read scratch, which the
+        suffix prefill overwrites before anything can attend to it). In
+        speculative mode the draft's row chunks in LOCKSTEP with the
+        target's, so speculative admissions stall residents no longer than
+        plain ones."""
+        cfg = self.gen.config
+        self._chunk_state(adm, total)
+        if gather_row is not None:
+            adm.row_cache = gather_paged_rows(self._carry[0], gather_row, self.cache_len)
+            return
+        row_cache = init_cache(self.gen.cache_config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype,
+                               device=self.device)
         if self.prefix is not None:
             row_cache = _paste_prefix_rows(row_cache, self.prefix.layers)
         adm.row_cache = row_cache
         if self._spec is not None:
-            # the draft's row chunks in LOCKSTEP with the target's (the same
-            # columns a step), so speculative admissions stall residents no
-            # longer than plain ones
             draft = self._spec._draft
-            d_row = init_cache(draft.model.config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype, device=self.device)
+            d_row = init_cache(draft.cache_config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype,
+                               device=self.device)
             if self._draft_prefix is not None:
                 d_row = _paste_prefix_rows(d_row, self._draft_prefix.layers)
             adm.d_row_cache = d_row
-        return 0
 
     def _chunk_state(self, adm: _Admission, total: int) -> None:
         """The chunked prefill's carry: the row's absolute length, the first
@@ -2027,15 +2195,11 @@ class ContinuousBatcher:
         if start + width > self.cache_len or self._carry is None:
             # (a tree hit implies a prior finalize built the carry)
             return False
-        # the inverse of the admission scatter; positions past the cached run
-        # read scratch, which the suffix prefill overwrites before anything
-        # can attend to it
-        adm.row_cache = gather_paged_rows(self._carry[0], adm.gather_row, self.cache_len)
         tokens = np.full((1, width), self.gen.config.pad_id, np.int32)
         tokens[0, : len(suffix)] = np.asarray(suffix, np.int32)
         adm.tokens = tokens
         adm.chunk, adm.width, adm.start, adm.pos = chunk, width, start, 0
-        self._chunk_state(adm, p0 + max(len(adm.prompt), 1))
+        self._dev("row_begin", adm, p0 + max(len(adm.prompt), 1), adm.gather_row)
         with self._lock:
             self.prefix_cache_hits += 1
             self.prefix_cache_tokens_avoided += start - p0
@@ -2053,32 +2217,38 @@ class ContinuousBatcher:
         through the Generator's chunked prefill and samples the first token
         once the last chunk lands. Returns the prefill tokens spent (the
         per-iteration budget's unit)."""
-        gen = self.gen
         if adm.tokens is None:
             cost = self._admission_begin(adm)
             if adm.done:
                 return cost
         c = adm.pos
-        sl = torch.as_tensor(adm.tokens[:, c: c + adm.chunk], device=self.device)
-        chunk_last, has, adm.row_cache = gen._prefill_chunk(sl, adm.start + c, adm.lengths, adm.row_cache,
-                                                            adm.row_valid)
-        adm.last = torch.where(has[:, None], chunk_last, adm.last)
-        if self._spec is not None:
-            draft = self._spec._draft
-            _, _, adm.d_row_cache = draft._prefill_chunk(sl, adm.start + c, adm.lengths, adm.d_row_cache,
-                                                         adm.row_valid)
+        self._dev("row_chunk", adm, adm.tokens[:, c: c + adm.chunk], adm.start + c)
         adm.pos = c + adm.chunk
         with self._lock:
             self.prefill_chunks += 1
             self.prefill_chunk_tokens += adm.chunk
         _tev(adm.session, "engine.prefill_chunk", pos=adm.pos, width=adm.width, chunk=adm.chunk)
         if adm.pos >= adm.width:
-            state = None if adm.dfa_state is None else torch.tensor([adm.dfa_state], dtype=torch.int32,
-                                                                    device=self.device)
-            adm.tok0 = gen._first_token(adm.last, adm.generator, state)
-            adm.row_len = adm.lengths
+            self._dev("row_first", adm, adm.dfa_state)
             adm.done = True
         return adm.chunk
+
+    def _op_row_chunk(self, adm: _Admission, tokens: np.ndarray, start: int) -> None:
+        """One ``chunk``-wide slice of a chunked admission through the
+        Generator's chunked prefill (and the draft's, in lockstep)."""
+        sl = torch.as_tensor(tokens, device=self.device)
+        chunk_last, has, adm.row_cache = self.gen._prefill_chunk(sl, start, adm.lengths, adm.row_cache,
+                                                                 adm.row_valid)
+        adm.last = torch.where(has[:, None], chunk_last, adm.last)
+        if self._spec is not None:
+            _, _, adm.d_row_cache = self._spec._draft._prefill_chunk(sl, start, adm.lengths, adm.d_row_cache,
+                                                                     adm.row_valid)
+
+    def _op_row_first(self, adm: _Admission, dfa_state: Optional[int]) -> None:
+        """Sample a chunked admission's first token once its last chunk landed."""
+        state = None if dfa_state is None else torch.tensor([dfa_state], dtype=torch.int32, device=self.device)
+        adm.tok0 = self.gen._first_token(adm.last, adm.generator, state)
+        adm.row_len = adm.lengths
 
     def _export_admission(self, adm: _Admission) -> None:
         """Complete an EXPORT admission (the prefill-role path): emit the
@@ -2141,48 +2311,15 @@ class ContinuousBatcher:
         cfg = self.gen.config
         session, slot = adm.session, adm.slot
         imported = session.pending_import is not None
-        lp0 = self._first_logprob(adm) if session.want_logprobs and not imported else None
+        lp0 = self._dev("first_logprob", adm, adm.dfa_state) if session.want_logprobs and not imported else None
         try:
-            if self._carry is None:
-                self._carry = self._init_carry()
             first = adm.tok0.cpu().numpy()
             hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
             # produced carries across preemptions; this residency adds one
             # token. An import's first token was emitted (and its eos/budget
             # ending handled) by the exporting engine: never start-done here
             start_done = not imported and (hit_eos or session.produced + 1 >= session.max_new)
-            spec = self._spec is not None
-            caches = self._carry[:2] if spec else self._carry[:1]
-            rows = (adm.row_cache, adm.d_row_cache) if spec else (adm.row_cache,)
-            tok, lengths, done = self._carry[len(caches): len(caches) + 3]
-            with torch.no_grad():
-                for cache, row_cache in zip(caches, rows):
-                    if adm.import_pages is not None:
-                        self._paged_page_admit_impl(
-                            cache, adm.import_pages, tok, lengths, done, slot, adm.tok0, adm.row_len,
-                            adm.blocks_row, session.shared_blocks,
-                        )
-                    elif adm.blocks_row is not None:
-                        self._paged_admit_impl(
-                            cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, adm.blocks_row,
-                            session.shared_blocks,
-                        )
-                    else:
-                        self._admit_impl(cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
-                if spec:
-                    # the speculative activation: the slot's out_buf row reset
-                    # (pad, then tok0), produced at 1 and the start-done flag
-                    produced, out_buf = self._carry[5], self._carry[6]
-                    out_buf[slot] = self.gen.config.pad_id
-                    out_buf[slot, 0] = adm.tok0[0]
-                    produced[slot] = 1
-                    done[slot] = start_done
-                if cstate := self._carry[10 if spec else 5:]:  # the DFA state tail
-                    # advance past the (constrained) prompt-sampled token on the
-                    # device: an indexed copy, no host round trip
-                    trans = self.gen._cs_trans
-                    cstate[0][slot : slot + 1].copy_(trans[adm.dfa_state][adm.tok0.long()])
-            adm.row_cache = adm.d_row_cache = adm.last = adm.import_pages = None
+            self._dev("finalize", adm, slot, adm.blocks_row, session.shared_blocks, adm.dfa_state, start_done)
         except BaseException as exc:
             with self._lock:
                 if adm in self._admissions:
@@ -2225,6 +2362,48 @@ class ContinuousBatcher:
                 # prompt-sampled token's ending is masked here (speculative
                 # mode flagged it on the device already)
                 self._finish_locked(slot, device_done=self._spec is not None)
+
+    def _op_finalize(self, adm: _Admission, slot: int, blocks_row: Optional[np.ndarray], shared: int,
+                     dfa_state: Optional[int], start_done: bool) -> None:
+        """Paste a completed admission's row (or an imported handoff's
+        pages) into slot ``slot`` of the pool, activate its carry entries
+        and drop the row (the carry is made at the first admission)."""
+        if self._carry is None:
+            self._carry = self._init_carry()
+        spec = self._spec is not None
+        caches = self._carry[:2] if spec else self._carry[:1]
+        rows = (adm.row_cache, adm.d_row_cache) if spec else (adm.row_cache,)
+        tok, lengths, done = self._carry[len(caches): len(caches) + 3]
+        with torch.no_grad():
+            for cache, row_cache in zip(caches, rows):
+                if adm.import_pages is not None:
+                    self._paged_page_admit_impl(
+                        cache, adm.import_pages, tok, lengths, done, slot, adm.tok0, adm.row_len, blocks_row, shared,
+                    )
+                elif blocks_row is not None:
+                    self._paged_admit_impl(
+                        cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len, blocks_row, shared,
+                    )
+                else:
+                    self._admit_impl(cache, row_cache, tok, lengths, done, slot, adm.tok0, adm.row_len)
+            if spec:
+                # the speculative activation: the slot's out_buf row reset
+                # (pad, then tok0), produced at 1 and the start-done flag
+                produced, out_buf = self._carry[5], self._carry[6]
+                out_buf[slot] = self.gen.config.pad_id
+                out_buf[slot, 0] = adm.tok0[0]
+                produced[slot] = 1
+                done[slot] = start_done
+            if cstate := self._carry[10 if spec else 5:]:  # the DFA state tail
+                # advance past the (constrained) prompt-sampled token on the
+                # device: an indexed copy, no host round trip
+                trans = self.gen._cs_trans
+                cstate[0][slot : slot + 1].copy_(trans[dfa_state][adm.tok0.long()])
+        self._op_drop_row(adm)
+
+    def _op_drop_row(self, adm: _Admission) -> None:
+        """Release an admission's device rows (finalized, or abandoned)."""
+        adm.row_cache = adm.d_row_cache = adm.last = adm.import_pages = None
 
     def _emit_first_locked(self, session: _Session, first: np.ndarray, lp0: Optional[float]) -> None:
         """Emit an admission's prompt-sampled token (caller holds the lock):
@@ -2287,11 +2466,10 @@ class ContinuousBatcher:
         if self._spec is not None:
             return self._spec_chunk()
         cfg = self.gen.config
-        toks, lps, carry = self.gen._decode(*self._carry, steps=self.decode_chunk)
-        self._carry = carry
+        toks, lps = self._dev("decode", None, self.decode_chunk)
         toks_np = toks.cpu().numpy()  # [S, chunk]; also waits for the dispatch
         lps_np = lps.cpu().numpy()  # [S, chunk] f32: each sampled token's logprob
-        done_np = carry[3].cpu().numpy()
+        done_np = self._carry[3].cpu().numpy()
         registry = self._registry()
         with self._lock:
             self.decode_dispatches += 1
@@ -2332,6 +2510,11 @@ class ContinuousBatcher:
                 device_done = bool(done_np[slot])
                 if session.produced >= session.max_new or device_done:
                     self._finish_locked(slot, device_done=device_done)
+
+    def _op_decode(self, _: None, steps: int) -> tuple:
+        """One shared decode dispatch of ``steps`` steps over every slot."""
+        toks, lps, self._carry = self.gen._decode(*self._carry, steps=steps)
+        return toks, lps
 
     def _spec_chunk(self) -> None:
         """Speculative shared dispatch: rounds (gamma draft steps, one verify

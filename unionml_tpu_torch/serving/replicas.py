@@ -36,8 +36,10 @@ An expired deadline sheds before routing (:class:`DeadlineExceeded`), and a
 prompt sheds with :class:`QueueFullError` only when every replica's waiting
 queue is full. ``ContinuousBatcher(generator, ...)`` returns a set where the
 serve CLI's ``--dp-replicas`` or ``--replica-roles`` asks for more than one
-replica. Device meshes (``mesh=``, ``partition_rules=``, :func:`slice_mesh`,
-:func:`dp_extent` over a mesh) are not ported yet.
+replica. The mesh path (``mesh=``, ``partition_rules=``, :func:`slice_mesh`,
+:func:`dp_extent` over a mesh) is not ported yet (ROADMAP.md, Queue A:
+parallelism and the replica layer, the multi-host fleet); a single engine
+over a model/sequence/expert mesh is ``ContinuousBatcher`` itself.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ __all__ = ["ReplicaScheduler", "ReplicaSet", "dp_extent", "slice_mesh"]
 
 logger = logging.getLogger(__name__)
 
-_MESH_REFUSAL = "{what} is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer)"
+_MESH_REFUSAL = "{what} is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer, the multi-host fleet)"
 
 
 def dp_extent(mesh: Any) -> int:

@@ -23,7 +23,7 @@ What differs from the JAX driver:
 - One card: ``mesh``, ``partition_rules``, ``logical_axis_rules`` and
   ``shard_batch_by_process`` raise ``NotImplementedError`` unless left at
   their defaults (``ROADMAP.md``, Queue A: parallelism and the replica
-  layer); ``fsdp_min_weight_size`` is
+  layer, parallel training); ``fsdp_min_weight_size`` is
   read only with a mesh.
 """
 
@@ -119,7 +119,7 @@ def _refuse_parallel(**options: Any) -> None:
         if value not in (None, False):
             raise NotImplementedError(
                 f"{name} is not ported: the port trains on one card (ROADMAP.md, Queue A: parallelism and the "
-                "replica layer)"
+                "replica layer, parallel training)"
             )
 
 
