@@ -116,13 +116,14 @@ Phases (no phase catches a failure; any fault exits non-zero):
    directory, a child process trains it on the card and saves it, ``serve``
    boots it, a ``@word`` stream over ``/predict-stream`` matches the
    grammar's regex and ``/metrics`` reports the engine; (b) an app module the
-   phase writes around phase 3's model (Llama-3-8B width, bf16, seed 0,
-   ``attention_impl="flash"``), its weights saved once as the artifact,
+   phase writes around phase 3's model cut to ``CLI_LAYERS`` layers
+   (Llama-3-8B width, bf16, seed 0, ``attention_impl="flash"``), its
+   weights saved once as the artifact,
    served in this process through ``Model.serve()`` and by the CLI with
    ``--admit-chunk 64 --prefix-cache``: phase 3's prompts stream the same
    tokens from both; a second wave runs under the child's ``POST
    /debug/profile`` capture, whose Chrome trace gives the paged kernel's
-   launches in the child (``cli_launches``, exactly 32 layers x the wave's
+   launches in the child (``cli_launches``, exactly CLI_LAYERS x the wave's
    dispatches x 8); ``serve --num-hosts 2`` exits
    1 before an app module that raises at import is imported;
 12. the routed-experts decoder: (a) ``MoEConfig()`` (vocab 32,000, dim 4096,
@@ -198,6 +199,33 @@ Phases (no phase catches a failure; any fault exits non-zero):
    kernel is counted on every rank in every case, and ``OFF_MESH_PATH``'s
    must count 0; ``tp_launches`` on the kernels line is rank 0's count
    over the eight served runs.
+
+16. parallel training (``fit`` over a mesh), run after 15: (a) phase 5's
+   configuration through ``fit(config=TrainerConfig(mesh=MeshSpec(data=1),
+   partition_rules=llama_partition_rules()))``, a world of one over NCCL,
+   on phase 5's first 3 batches: losses equal phase 5's, 32 + 32 flash
+   launches a step; then the world of one's losses on (b)'s batches; the
+   flash kernels against their twins at each rank's local shapes; then two
+   processes on cuda:0 over gloo: (c) f32 at 2 layers, TF32 off: LoRA fits
+   at data=2, fsdp=2, model=2 and sequence=2 (ring), and ``pipeline_apply``
+   at pipe=2 with ``param_specs`` (a 2-layer ``PipelinedViT`` at ViT-L
+   width), each against the unsharded card run and the CPU, which the
+   parent computes meanwhile; (b) Llama-3-8B width and depth built on the
+   meta device and drawn leaf by leaf on the card (each rank holds its
+   shard of the f32 model only), LoRA rank 8, ``make_train_step(remat=
+   True)``, 2 steps of a 2 x 1024 global batch at fsdp=2 and at model=2:
+   losses within ``MESH_TRAIN_LOSS_REL`` of the world of one, and each
+   rank's shards of the last step's LoRA gradients and of the adapters'
+   moves within ``MESH_TRAIN_GRAD_REL`` and ``MESH_TRAIN_MOVE_REL`` of the
+   world of one's; samples/s, ms a step, memory a rank, gloo host transfers
+   a step, flash launches a rank at its local heads (32/8 and 16/4), a
+   base shard kept and an adapter shard moved; (d) ``PipelinedViT`` at
+   ViT-L/16 width at pipe=2, 4 microbatches of a 32-image batch, 2 Adam
+   steps, losses within ``VIT_MESH_LOSS_REL`` of the unpipelined ``ViT`` on
+   the same weights, images/s. Every kernel is counted on every rank in
+   every case, and all but the four flash kernels must count 0.
+   ``train_mesh_launches`` on the kernels line is 16a's and rank 0's 16b
+   count, ``train_mesh_f32_launches`` rank 0's over 16c.
 
 Phase 10a also holds bf16 chunked admission to monolithic admission behind
 the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
@@ -1286,9 +1314,10 @@ def lora_llama(cfg, seed):
     return TrainState(model, lora_optimizer(model, LR))
 
 
-def training_phase(card: str, profile: bool) -> dict:
+def training_phase(card: str, profile: bool) -> tuple:
     """LoRA fine-tune at Llama-3-8B width through ``fit``: returns the flash
-    kernels' launch counts on this run."""
+    kernels' launch counts on this run and its losses (phase 16a's
+    reference)."""
     import math
 
     import numpy as np
@@ -1309,7 +1338,7 @@ def training_phase(card: str, profile: bool) -> dict:
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
     probe = state.model.layer_0.attn.q_proj.kernel.detach().clone()  # one base kernel
     adapters_b = {n: p.detach().clone() for n, p in state.model.named_parameters() if n.endswith("lora_b")}
-    tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, size=(TRAIN_STEPS, TRAIN_SEQ)).astype(np.int64)
+    tokens = phase5_tokens(cfg.vocab_size)
     step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
     config = TrainerConfig(epochs=1, batch_size=1, shuffle=True, log_every_steps=1)
 
@@ -1349,7 +1378,7 @@ def training_phase(card: str, profile: bool) -> dict:
     if profile:
         batch = torch.from_numpy(tokens[:1]).cuda()
         profile_run("one training step", lambda: step(state, batch))
-    return launches
+    return launches, losses
 
 
 def parity_runs(cfg, seed: int) -> dict:
@@ -1466,6 +1495,7 @@ def protocol_app(cfg, batch_size: int, new_tokens: int, prompt_len: int):
     dataset = Dataset(name="tokens")
     model = Model(name="app_protocol", dataset=dataset)
     engines: dict = {}
+    engines_lock = threading.Lock()  # concurrent streams must share one engine, not each make their own
 
     @dataset.reader
     def reader(n: int, seq: int, seed: int = 1) -> np.ndarray:
@@ -1486,20 +1516,21 @@ def protocol_app(cfg, batch_size: int, new_tokens: int, prompt_len: int):
         return step(state, batch)
 
     def engines_for(state: TrainState) -> tuple:
-        entry = engines.get(id(state))
-        if entry is None or entry[0] is not state:
-            for _, _, stale in engines.values():
-                stale.close()
-            engines.clear()
-            gen = Generator(
-                state.model,
-                GenerationConfig(max_new_tokens=new_tokens, temperature=0.0, prompt_buckets=(prompt_len,)),
-                device=next(state.model.parameters()).device,
-            )
-            batcher = ContinuousBatcher(gen, slots=4, decode_chunk=8, block_size=BLOCK)
-            entry = engines[id(state)] = (state, gen, batcher)
-            model.generation_batcher = batcher
-        return entry[1], entry[2]
+        with engines_lock:
+            entry = engines.get(id(state))
+            if entry is None or entry[0] is not state:
+                for _, _, stale in engines.values():
+                    stale.close()
+                engines.clear()
+                gen = Generator(
+                    state.model,
+                    GenerationConfig(max_new_tokens=new_tokens, temperature=0.0, prompt_buckets=(prompt_len,)),
+                    device=next(state.model.parameters()).device,
+                )
+                batcher = ContinuousBatcher(gen, slots=4, decode_chunk=8, block_size=BLOCK)
+                entry = engines[id(state)] = (state, gen, batcher)
+                model.generation_batcher = batcher
+            return entry[1], entry[2]
 
     @model.predictor
     def predictor(state: TrainState, features: np.ndarray) -> np.ndarray:
@@ -2780,6 +2811,9 @@ def replica_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
 
 #: phase 11: the serve CLI in its own process on the card
 CLI_STARTUP_S = 600  # seconds a served app may take to load its artifact and warm up
+#: (b)'s depth: Llama-3-8B width at 8 of its 32 layers, cut so that the whole script stays well inside its time
+#: limit (the 32-layer artifact's save, load and eager decode waves took about 150 s of it)
+CLI_LAYERS = 8
 #: the child's POST /debug/profile capture lasts the first wave's time and this margin, so that it spans the
 #: second wave (the 1 s head start included) after the profiler's start in the child, which has taken about 10 s
 #: on the H100 machine (a 5 s margin once ended the capture 0.2 s before a wave that began 10.7 s after the
@@ -2787,8 +2821,8 @@ CLI_STARTUP_S = 600  # seconds a served app may take to load its artifact and wa
 CLI_PROFILE_MARGIN_MS = 20000.0
 #: the template's grammar prompt and what its stream must match (the template's GRAMMARS["word"])
 TEMPLATE_PROMPT, TEMPLATE_REGEX = "@word the quick brown ", r"[a-z]+"
-#: the app module phase 11b writes: phase 3's serving model and engine behind a pandas-free Dataset/Model; the
-#: artifact is the Llama's state dict, loaded into an uninitialized Llama (init without a seed)
+#: the app module phase 11b writes: phase 3's serving model (CLI_LAYERS deep) and engine behind a pandas-free
+#: Dataset/Model; the artifact is the Llama's state dict, loaded into an uninitialized Llama (init without a seed)
 CLI_APP_SOURCE = '''
 from typing import List
 
@@ -2797,7 +2831,8 @@ import torch
 from unionml_tpu_torch import ContinuousBatcher, Dataset, GenerationConfig, Generator, Llama, LlamaConfig, Model
 from unionml_tpu_torch.serving import current_deadline
 
-CONFIG = LlamaConfig.llama3_8b(attention_impl="flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+CONFIG = LlamaConfig.llama3_8b(n_layers={layers}, attention_impl="flash", dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
 GENERATION = GenerationConfig(prompt_buckets=(256,), max_new_tokens={max_new}, temperature=0.0)
 
 dataset = Dataset(name="token_ids")
@@ -2985,9 +3020,9 @@ def template_cli_phase(card: str, workdir: str) -> None:
 
 
 def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
-    """Phase 11b: the CLI's main path at Llama-3-8B width. The phase writes
-    an app module (``CLI_APP_SOURCE``), saves phase 3's seeded bf16 weights
-    once as its artifact, and serves that artifact twice with chunked
+    """Phase 11b: the CLI's main path at Llama-3-8B width, CLI_LAYERS deep.
+    The phase writes an app module (``CLI_APP_SOURCE``), saves the seeded
+    bf16 weights once as its artifact, and serves that artifact twice with chunked
     admission (``ADMIT_CHUNK``) and the radix prefix cache: in this process
     through ``Model.serve()`` (the env exports the CLI would make) and through
     ``python -m unionml_tpu_torch.cli serve ... --admit-chunk 64
@@ -3006,7 +3041,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
 
     with open(os.path.join(workdir, "llama_app.py"), "w") as handle:
-        handle.write(CLI_APP_SOURCE.format(max_new=MAX_NEW))
+        handle.write(CLI_APP_SOURCE.format(max_new=MAX_NEW, layers=CLI_LAYERS))
     with open(os.path.join(workdir, "boom_app.py"), "w") as handle:
         handle.write('raise RuntimeError("the app module was imported")\n')
     sys.path.insert(0, workdir)
@@ -3014,8 +3049,8 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
 
     artifact = os.path.join(workdir, "llama3_8b_width.pt")
     t0 = time.perf_counter()
-    module = Llama(LlamaConfig.llama3_8b(attention_impl="flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16),
-                   seed=0)  # phase 3's weights
+    module = Llama(LlamaConfig.llama3_8b(n_layers=CLI_LAYERS, attention_impl="flash", dtype=torch.bfloat16,
+                                         param_dtype=torch.bfloat16), seed=0)
     llama_app.model.artifact = ModelArtifact(module, {})
     llama_app.model.save(artifact)
     del module
@@ -3082,13 +3117,14 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     require(status[0] == 200, f"POST /debug/profile answered {status[0]}: {status[2][:300]!r}")
     cli_launches, kernel_ms, window_ms = paged_kernel_events(profile_dir)
     profiled_dispatches = after["decode_dispatches"] - generation["decode_dispatches"]
-    expected = 32 * profiled_dispatches * 8
+    expected = CLI_LAYERS * profiled_dispatches * 8
     prefill = after.get("prefill", {})
     require(profiled_wave == served, "the profiled wave's streams (radix hits) differ from the first wave's")
 
     # ---- a refused flag exits 1 before the app module is imported
     refused = run_cli(["serve", "boom_app:model", "--num-hosts", "2"], workdir, 120)
-    print(f"phase 11b: Llama-3-8B width bf16 artifact saved once ({size / 2**30:.1f} GiB in {save_s:.1f} s); "
+    print(f"phase 11b: Llama-3-8B width bf16 artifact at {CLI_LAYERS} layers saved once ({size / 2**30:.1f} GiB in "
+          f"{save_s:.1f} s); "
           f"in-process Model.serve() ready in {ready_s:.1f} s, 4 /predict-stream streams x {MAX_NEW} tokens "
           f"{len(prompts) * MAX_NEW / inproc_s:.1f} tok/s, time to first chunk p50 "
           f"{statistics.median(ttft_in) * 1e3:.1f} ms, {in_launches} paged launches; `python -m "
@@ -3101,7 +3137,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
           f"child's profiler {len(prompts) * MAX_NEW / profiled_s:.1f} tok/s, prefill after both {prefill}, its "
           f"profile ({window_ms:.0f} ms traced, kernels busy {kernel_ms:.1f} ms, the device's idle share "
           f"{1 - kernel_ms / (profiled_s * 1e3):.3f} over the wave's {profiled_s:.1f} s): {cli_launches} paged "
-          f"launches (the wave's {profiled_dispatches} dispatches give 32 x {profiled_dispatches} x 8 = {expected}); "
+          f"launches (the wave's {profiled_dispatches} dispatches give {CLI_LAYERS} x {profiled_dispatches} x 8 = {expected}); "
           f"`serve boom_app:model --num-hosts 2` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
           f"card {card}", flush=True)
     require(served == inproc, "the CLI's streams differ from the in-process Model.serve() answers")
@@ -4129,6 +4165,677 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     return dict(tp_launches=tp_launches, shards=shards)
 
 
+#: phase 16: parallel training on the card. (a) phase 5's configuration through fit over a world of one
+#: (MeshSpec(data=1), NCCL) for WORLD1_STEPS of its batches; (b) two ranks on cuda:0 over gloo at Llama-3-8B
+#: width and depth, MESH_TRAIN_STEPS steps of a global batch of MESH_TRAIN_ROWS x MESH_TRAIN_SEQ under each layout
+#: (make_train_step(remat=True)); (c) f32 parity at 2 layers; (d) PipelinedViT at ViT-L/16 width at pipe=2
+WORLD1_STEPS = 3
+MESH_TRAIN_STEPS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ = 2, 2, 1024
+MESH_TRAIN_LAYOUTS = (("fsdp2", dict(fsdp=2)), ("model2", dict(model=2)))
+#: (b): bf16 losses of a mesh run against the world of one, relative. The layouts round to bf16 at other places
+#: (model=2 sums two bf16 partials of each row-parallel product; fsdp=2 runs another cuBLAS kernel for a local
+#: batch of one row): each place differs by at most one rounding, 2^-9 = 1.95e-3 relative, independently at each
+#: of the 2 x 1024 positions the loss averages, so by about 2^-9 / sqrt(2048) = 4.3e-5 a place; ten such places
+#: give 4.3e-4. Read on an H100 80GB HBM3 at 700 W: 8.3e-6 to 2.1e-5 (fsdp=2) and 3.8e-5 (model=2)
+MESH_TRAIN_LOSS_REL = 5e-4
+#: (b): each rank's LoRA gradient shards of the last step (reduced: what the optimizer took) and its adapters'
+#: moves over the run, against the world of one's cut to the rank's shard, as the relative L2 error over all
+#: 32 x 7 adapter pairs. Gradients: a layout that rounds to bf16 at other places moves each backward activation
+#: by about one rounding (2^-9), and a leaf's gradient sums those over the batch's positions: 1-3e-2 read on the
+#: H100 (2 and 32 layers); a gradient scaled by 2 errs by 0.5, one not summed over a batch axis or taken from
+#: another shard by more. Moves: Adam's first steps are about lr x sign(g), so a share f of elements whose sign
+#: differs errs by about 2 sqrt(f): the bound is f = 6 %; bf16 flips the signs of the near-zero gradients (1.4 %
+#: at model=2 on the H100), a gradient not summed over fsdp=2 about a quarter of them, another shard's half
+MESH_TRAIN_GRAD_REL, MESH_TRAIN_MOVE_REL = 0.1, 0.5
+#: (d): bf16 losses of the pipelined ViT against the unpipelined one, relative (the training parity's bound)
+VIT_MESH_LOSS_REL = BF16_PARITY_LOSS_REL
+MESH_TRAIN_MEMORY_GIB = 30  # (b): predicted peak memory a rank (half the f32 weights, 16 GiB, and its activations)
+#: (c): f32, 2 layers, TF32 off: global batch MESH_PARITY_ROWS x PARITY_SEQ for MESH_PARITY_STEPS steps
+MESH_PARITY_ROWS, MESH_PARITY_STEPS = 2, 2
+MESH_PARITY_CASES = (("data2", dict(data=2), "flash"), ("fsdp2", dict(fsdp=2), "flash"),
+                     ("model2", dict(model=2), "flash"), ("sp2", dict(sequence=2), "ring"))
+#: (c) pipeline: PipelinedViT at ViT-L width, 2 layers, f32, a batch of 4 images in 2 microbatches; gradients
+#: against the sequential runs, relative (the L2 norm of the difference over the leaf's): f32 sums in other orders
+PIPE_PARITY_IMAGES, PIPE_PARITY_GRAD_REL = 4, 1e-5
+#: (d): ViT-L/16 at pipe=2, n_microbatches=4, a global batch of 32 images (numpy seed 0), 2 Adam steps
+VIT_MESH_IMAGES, VIT_MESH_MICRO, VIT_MESH_STEPS, VIT_MESH_LR = 32, 4, 2, 1e-4
+
+
+def phase5_tokens(vocab: int):
+    import numpy as np
+
+    return np.random.RandomState(1).randint(0, vocab, size=(TRAIN_STEPS, TRAIN_SEQ)).astype(np.int64)
+
+
+def mesh_train_tokens(vocab: int, rows: int, seq: int, seed: int):
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(0, vocab, size=(rows, seq)).astype(np.int64)
+
+
+def lora_leaves(model, grads: bool = False) -> dict:
+    """``{name: numpy}`` of ``model``'s LoRA adapters (this rank's shards),
+    or of their gradients."""
+    return {n: (p.grad if grads else p).detach().float().cpu().numpy() for n, p in model.named_parameters()
+            if "lora" in n}
+
+
+def shard_rel_err(got: dict, want: dict, specs: dict, sizes: dict, coordinate: dict) -> float:
+    """The relative L2 error of a rank's shards ``got`` over all leaves,
+    against the whole leaves ``want`` cut to the rank's shard."""
+    import numpy as np
+
+    from unionml_tpu_torch.parallel.sharding import shard_slices
+
+    err = norm = 0.0
+    for name, value in got.items():
+        ref = want[name][shard_slices(want[name].shape, specs[name], sizes, coordinate)]
+        err += float(np.sum((value.astype(np.float64) - ref) ** 2))
+        norm += float(np.sum(ref.astype(np.float64) ** 2))
+    return (err / max(norm, 1e-300)) ** 0.5
+
+
+def train_world1_phase(card: str, phase5_losses: list) -> dict:
+    """Phase 16a: phase 5's configuration (Llama-3-8B width, LoRA rank 8,
+    bf16 compute, f32 params, seed 0, 1 x 2048, no remat) through
+    ``fit(config=TrainerConfig(mesh=MeshSpec(data=1), partition_rules=
+    llama_partition_rules()))``, a world of one over NCCL, on phase 5's
+    first WORLD1_STEPS batches: its losses must equal phase 5's, and the
+    flash kernels launch 32 forward and 32 backward a step. Then, from the
+    same initial weights, the world of one's losses on (b)'s global batches,
+    which (b)'s ranks are held to."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from unionml_tpu_torch import LlamaConfig, TrainerConfig, TrainState, fit, make_train_step
+    from unionml_tpu_torch.models import chunked_causal_lm_loss, llama_partition_rules, lora_optimizer
+    from unionml_tpu_torch.parallel import MeshSpec
+
+    cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash", remat=TRAIN_REMAT)
+    order = np.random.default_rng(0).permutation(TRAIN_STEPS)[:WORLD1_STEPS]  # fit's seeded schedule in phase 5
+    tokens = phase5_tokens(cfg.vocab_size)[order]
+    torch.cuda.reset_peak_memory_stats()
+    state = lora_llama(cfg, seed=0)
+    initial = {n: p.detach().clone() for n, p in state.model.named_parameters() if "lora" in n}
+    step = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch))
+    config = TrainerConfig(mesh=MeshSpec(data=1), partition_rules=llama_partition_rules(), batch_size=1,
+                           shuffle=False, log_every_steps=1)
+    reset_counts()
+    result = fit(state, step, tokens, config)
+    launches = all_launches()
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1, f"16a ran over {dist.get_backend()}")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in result.history]
+    want = phase5_losses[:WORLD1_STEPS]
+    expected = {**{k: 0 for k in launches}, "flash_forward": cfg.n_layers * WORLD1_STEPS,
+                "flash_backward": cfg.n_layers * WORLD1_STEPS}
+    sps = result.samples_per_sec
+    print(f"phase 16a: fit over MeshSpec(data=1), a world of one over NCCL, phase 5's configuration: losses {losses} "
+          f"(phase 5's first {WORLD1_STEPS}: {want}; {'equal' if losses == want else 'DIFFERENT'}); {sps:.4f} "
+          f"samples/s, {1e3 / sps if sps else float('nan'):.1f} ms/step; peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated); flash launches {launches} (expected {expected}: 32 x 32 / 8 heads a step); "
+          f"card {card}", flush=True)
+    require(losses == want, f"16a losses {losses} != phase 5's {want}")
+    require(launches == expected, f"16a flash launches {launches}, expected {expected}")
+
+    # (b)'s reference: the same initial weights on (b)'s global batches
+    with torch.no_grad():
+        for name, param in state.model.named_parameters():
+            if name in initial:
+                param.copy_(initial[name])
+    state = TrainState(state.model, lora_optimizer(state.model, LR))
+    rows = MESH_TRAIN_STEPS * MESH_TRAIN_ROWS
+    batches = mesh_train_tokens(cfg.vocab_size, rows, MESH_TRAIN_SEQ, 7)
+    remat = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch), remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    ref = fit(state, remat, batches, TrainerConfig(mesh=MeshSpec(data=1), partition_rules=llama_partition_rules(),
+                                                   batch_size=MESH_TRAIN_ROWS, shuffle=False, log_every_steps=1))
+    ref_losses = [h["loss"] for h in ref.history]
+    ref_sps = ref.samples_per_sec
+    # what (b)'s ranks are held to: the last step's LoRA gradients (what the optimizer took) and the moves
+    ref_grads = lora_leaves(state.model, grads=True)
+    ref_moves = {n: v - initial[n].float().cpu().numpy() for n, v in lora_leaves(state.model).items()}
+    print(f"phase 16a: the world of one on (b)'s {MESH_TRAIN_STEPS} global batches of {MESH_TRAIN_ROWS} x "
+          f"{MESH_TRAIN_SEQ} (remat): losses {ref_losses}, {ref_sps:.4f} samples/s, "
+          f"{1e3 * MESH_TRAIN_ROWS / ref_sps if ref_sps else float('nan'):.1f} ms/step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del state, result, ref, initial
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, sps=sps, peak_gib=peak / 2**30, launches=launches, ref_losses=ref_losses,
+                ref_ms=1e3 * MESH_TRAIN_ROWS / ref_sps if ref_sps else float("nan"), tokens=batches,
+                ref_grads=ref_grads, ref_moves=ref_moves)
+
+
+def hold_flash_local(shapes) -> float:
+    """Each flash kernel against its twin at the local shapes the mesh path
+    gives it (``(label, B, L, H, Hkv, dtype)``, causal, D = 128): out, lse,
+    dq, dk, dv within FLASH_TOLERANCE. Returns the worst error."""
+    import torch
+
+    from unionml_tpu_torch.ops.flash_attention import (
+        flash_backward, flash_backward_f32, flash_backward_reference, flash_forward, flash_forward_f32,
+        flash_forward_reference,
+    )
+
+    worst = 0.0
+    for label, batch, length, heads, kv, dtype in shapes:
+        g = torch.Generator(device="cuda").manual_seed(heads * 7 + batch)
+        q, dout = (torch.randn(batch, length, heads, 128, device="cuda", generator=g).to(dtype) for _ in range(2))
+        k, v = (torch.randn(batch, length, kv, 128, device="cuda", generator=g).to(dtype) for _ in range(2))
+        f32 = dtype == torch.float32
+        forward, backward = (flash_forward_f32, flash_backward_f32) if f32 else (flash_forward, flash_backward)
+        out, lse = forward(q, k, v, True)
+        ref_out, ref_lse = flash_forward_reference(q, k, v, True)
+        delta = torch.einsum("blhd,blhd->bhl", dout.float(), ref_out.float())
+        grads = backward(q, k, v, dout, ref_lse, delta, True)
+        refs = flash_backward_reference(q, k, v, dout, ref_lse, delta, True)
+        atol, rtol = FLASH_TOLERANCE[str(dtype)]
+        errs = []
+        for what, got, ref in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads), (ref_out, ref_lse, *refs)):
+            err = (got.float() - ref.float()).abs()
+            require(bool((err <= atol + rtol * ref.float().abs()).all()), f"flash {label}: {what} disagrees")
+            errs.append(err.max().item())
+            worst = max(worst, err.max().item())
+        print(f"phase 16: flash kernels at {label} (B={batch}, L={length}, H={heads}, Hkv={kv}, D=128, {dtype}, "
+              f"causal) against their twins: max_abs_err out/lse/dq/dk/dv {[f'{e:.3g}' for e in errs]} ok",
+              flush=True)
+    return worst
+
+
+def vit_from_pipelined_state(tree, layers_per_stage: int) -> dict:
+    """The unpipelined ViT's state dict from a PipelinedViT params tree: the
+    stacked stage ``s``'s ``layer_i`` is layer ``s * layers_per_stage + i``."""
+    state = {}
+
+    def walk(node, prefix, out):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.", out)
+            else:
+                out[f"{prefix}{k}"] = v
+
+    walk(tree["embed"], "embed.", state)
+    walk(tree["head"], "head.", state)
+    stages = {}
+    walk(tree["stages"], "", stages)
+    for name, stacked in stages.items():
+        layer, rest = name.split(".", 1)
+        for s in range(stacked.shape[0]):
+            state[f"layer_{s * layers_per_stage + int(layer.split('_')[1])}.{rest}"] = stacked[s]
+    return state
+
+
+def vit_images(n: int, seed: int, image_size: int = 224, classes: int = 1000):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, image_size, image_size, 3).astype(np.float32),
+            rng.randint(0, classes, size=n).astype(np.int64))
+
+
+def vit_mesh_reference() -> dict:
+    """Phase 16d's reference: the unpipelined ``ViT`` at ``ViTConfig.large()``
+    on the PipelinedViT's weights (from a cuda generator, seed 0), the same
+    32 images and Adam steps."""
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import PipelinedViT, ViT, ViTConfig
+
+    cfg = ViTConfig.large()
+    pipelined = PipelinedViT(cfg, n_stages=MESH_RANKS, n_microbatches=VIT_MESH_MICRO)
+    tree = pipelined.init(torch.Generator(device="cuda").manual_seed(0))
+    vit = ViT(cfg)
+    vit.load_state_dict(vit_from_pipelined_state(tree, pipelined.layers_per_stage))
+    del tree
+    images, labels = (torch.from_numpy(a).cuda() for a in vit_images(VIT_MESH_IMAGES, 0))
+    opt = torch.optim.Adam(vit.parameters(), lr=VIT_MESH_LR)
+    losses, seconds = [], []
+    for _ in range(VIT_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(vit(images).float(), labels)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    del vit, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, images_s=VIT_MESH_IMAGES / seconds[-1])
+
+
+def parity_llama_config(impl: str):
+    import torch
+
+    from unionml_tpu_torch import LlamaConfig
+
+    return LlamaConfig.llama3_8b(n_layers=2, lora_rank=8, attention_impl=impl, dtype=torch.float32,
+                                 param_dtype=torch.float32)
+
+
+def mesh_parity_reference(device: str) -> dict:
+    """Phase 16c's unsharded runs: the 2-layer f32 LoRA Llama (weights from a
+    cuda generator, seed 2, copied to ``device``) through ``fit`` on the
+    global batches, and the 2-layer f32 PipelinedViT's loss and gradients
+    through the sequential stages (seed 3)."""
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch import Llama, TrainerConfig, TrainState, fit, make_train_step
+    from unionml_tpu_torch.models import PipelinedViT, ViTConfig, chunked_causal_lm_loss, lora_optimizer
+    from unionml_tpu_torch.parallel.pipeline import _flat, tree_map
+
+    cfg = parity_llama_config("flash")
+    model = Llama(cfg, seed=2)
+    if device == "cpu":
+        cpu = Llama(cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        model = cpu
+    state = TrainState(model, lora_optimizer(model, LR))
+    tokens = mesh_train_tokens(cfg.vocab_size, MESH_PARITY_ROWS * MESH_PARITY_STEPS, PARITY_SEQ, 8)
+    result = fit(state, make_train_step(lambda m, b: chunked_causal_lm_loss(m, b)), tokens,
+                 TrainerConfig(batch_size=MESH_PARITY_ROWS, shuffle=False, log_every_steps=1), device=device)
+    adapters = {n: p.detach().cpu().numpy() for n, p in model.named_parameters() if "lora" in n}
+    losses = [h["loss"] for h in result.history]
+    del state, model, result
+
+    vcfg = ViTConfig.large(n_layers=2, dtype=torch.float32)
+    pipelined = PipelinedViT(vcfg, n_stages=MESH_RANKS, n_microbatches=2)
+    tree = tree_map(lambda t: t.to(device).requires_grad_(True),
+                    pipelined.init(torch.Generator(device="cuda").manual_seed(3)))
+    images, labels = (torch.from_numpy(a).to(device) for a in vit_images(PIPE_PARITY_IMAGES, 5))
+    loss = F.cross_entropy(pipelined.apply(tree, images).float(), labels)
+    loss.backward()
+    grads = {path: t.grad.detach().cpu().numpy() for path, t in _flat(tree, sep="/").items()}
+    del tree
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return dict(losses=losses, adapters=adapters, pipe_loss=loss.item(), pipe_grads=grads)
+
+
+def mesh_parity_case(name: str, spec: dict, impl: str) -> dict:
+    """One rank's f32 LoRA fit of phase 16c over ``spec``."""
+    import torch
+
+    from unionml_tpu_torch import Llama, TrainerConfig, TrainState, fit, make_train_step
+    from unionml_tpu_torch.models import chunked_causal_lm_loss, llama_partition_rules, lora_optimizer
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.sharding import leaf_specs
+
+    cfg = parity_llama_config(impl)
+    model = Llama(cfg, seed=2)
+    state = TrainState(model, lora_optimizer(model, LR))
+    tokens = mesh_train_tokens(cfg.vocab_size, MESH_PARITY_ROWS * MESH_PARITY_STEPS, PARITY_SEQ, 8)
+    reset_counts()
+    result = fit(state, make_train_step(lambda m, b: chunked_causal_lm_loss(m, b)), tokens,
+                 TrainerConfig(mesh=MeshSpec(**spec), partition_rules=llama_partition_rules(),
+                               batch_size=MESH_PARITY_ROWS, shuffle=False, log_every_steps=1))
+    mesh = model.embed._mesh
+    out = dict(losses=[h["loss"] for h in result.history], launches=all_launches(),
+               heads=(model.layer_0.attn.q_proj.kernel.shape[1] // 128,
+                      model.layer_0.attn.k_proj.kernel.shape[1] // 128),
+               adapters={n: p.detach().cpu().numpy() for n, p in model.named_parameters() if "lora" in n},
+               specs={k: tuple(v) for k, v in leaf_specs(model).items()}, sizes=dict(mesh.shape),
+               coordinate=dict(mesh.coordinate))
+    del state, model, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_parity_case() -> dict:
+    """One rank's PipelinedViT (2 layers, f32) loss and gradient shards at
+    pipe=2 under ``pipelined_vit_partition_rules()`` (``param_specs``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import PipelinedViT, ViTConfig, pipelined_vit_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec, shard_pytree
+    from unionml_tpu_torch.parallel.pipeline import _flat, tree_map
+    from unionml_tpu_torch.parallel.sharding import reduce_scope
+    from unionml_tpu_torch.train import reduce_gradients
+
+    vcfg = ViTConfig.large(n_layers=2, dtype=torch.float32)
+    pipelined = PipelinedViT(vcfg, n_stages=MESH_RANKS, n_microbatches=2)
+    mesh = MeshSpec(pipe=MESH_RANKS).build()
+    rules = pipelined_vit_partition_rules()
+    tree = pipelined.init(torch.Generator(device="cuda").manual_seed(3))
+    shardings = rules.shardings(tree, mesh)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), shard_pytree(tree, shardings))
+    del tree
+    specs = {k: s.spec for k, s in shardings.items()}
+    images, labels = (torch.from_numpy(a).cuda() for a in vit_images(PIPE_PARITY_IMAGES, 5))
+    with reduce_scope(mesh):
+        loss = F.cross_entropy(pipelined.apply(params, images, mesh, rules).float(), labels)
+        loss.backward()
+        reduce_gradients(params, specs)
+    return dict(loss=loss.item(), grads={p: t.grad.cpu().numpy() for p, t in _flat(params, sep="/").items()},
+                specs={k: tuple(v) for k, v in specs.items()}, sizes=dict(mesh.shape),
+                coordinate=dict(mesh.coordinate))
+
+
+def mesh_train_case(name: str, spec: dict, tokens) -> dict:
+    """One rank's phase 16b layout: Llama-3-8B width and depth, built on the
+    meta device and drawn leaf by leaf on the card (each leaf cut to this
+    rank's shard as it is drawn: the world of one's draws, and never more
+    than one whole f32 leaf beside the shards), LoRA rank 8, bf16 compute,
+    ``fit`` over ``spec`` with ``make_train_step(remat=True)``."""
+    import torch
+
+    from unionml_tpu_torch import Llama, LlamaConfig, TrainerConfig, TrainState, fit, make_train_step
+    from unionml_tpu_torch.models import chunked_causal_lm_loss, llama_partition_rules, lora_optimizer
+    from unionml_tpu_torch.models.layers import init_weights
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.collectives import host_route
+    from unionml_tpu_torch.parallel.sharding import combine_fsdp_tp, leaf_specs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = MeshSpec(**spec).build()
+    cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash")
+    model = Llama(cfg, device="meta")
+    rules = llama_partition_rules()
+    init_weights(model, torch.Generator(device=mesh.device).manual_seed(0),
+                 shardings=combine_fsdp_tp(model, mesh, rules), device=mesh.device)
+    state = TrainState(model, lora_optimizer(model, LR))
+    built = time.perf_counter() - t0
+    frozen = model.layer_0.attn.q_proj.kernel.detach().clone()
+    adapter = model.layer_0.attn.q_proj.lora_b.detach().clone()
+    initial = lora_leaves(model)
+    step = make_train_step(lambda m, b: chunked_causal_lm_loss(m, b), remat=True)
+    reset_counts()
+    host_route.count = 0
+    t0 = time.perf_counter()
+    result = fit(state, step, tokens, TrainerConfig(mesh=MeshSpec(**spec), partition_rules=rules,
+                                                    batch_size=MESH_TRAIN_ROWS, shuffle=False, log_every_steps=1))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sps = result.samples_per_sec
+    mesh = model.embed._mesh
+    out = dict(losses=[h["loss"] for h in result.history], launches=all_launches(), built_s=built, seconds=seconds,
+               sps=sps, sps_per_chip=result.samples_per_sec_per_chip,
+               ms_step=1e3 * MESH_TRAIN_ROWS / sps if sps else float("nan"),
+               first_step_s=result.compile_time_s, transfers=host_route.count / MESH_TRAIN_STEPS,
+               memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               heads=(model.layer_0.attn.q_proj.kernel.shape[1] // 128,
+                      model.layer_0.attn.k_proj.kernel.shape[1] // 128),
+               shard=tuple(model.layer_0.attn.q_proj.kernel.shape),
+               frozen_kept=torch.equal(frozen, model.layer_0.attn.q_proj.kernel),
+               adapter_moved=not torch.equal(adapter, model.layer_0.attn.q_proj.lora_b),
+               adapter_shard=tuple(adapter.shape), grads=lora_leaves(model, grads=True),
+               moves={n: v - initial[n] for n, v in lora_leaves(model).items()},
+               specs={k: tuple(v) for k, v in leaf_specs(model).items()}, sizes=dict(mesh.shape),
+               coordinate=dict(mesh.coordinate))
+    del state, model, result, frozen, adapter, initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_mesh_case() -> dict:
+    """One rank's phase 16d: PipelinedViT at ViT-L/16 width at pipe=2, the
+    whole batch on each rank in VIT_MESH_MICRO microbatches, Adam."""
+    import torch
+    import torch.nn.functional as F
+
+    from unionml_tpu_torch.models import PipelinedViT, ViTConfig, pipelined_vit_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec, shard_pytree
+    from unionml_tpu_torch.parallel.collectives import host_route
+    from unionml_tpu_torch.parallel.pipeline import _flat, tree_map
+    from unionml_tpu_torch.parallel.sharding import reduce_scope
+    from unionml_tpu_torch.train import reduce_gradients
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ViTConfig.large()
+    pipelined = PipelinedViT(cfg, n_stages=MESH_RANKS, n_microbatches=VIT_MESH_MICRO)
+    mesh = MeshSpec(pipe=MESH_RANKS).build()
+    rules = pipelined_vit_partition_rules()
+    tree = pipelined.init(torch.Generator(device="cuda").manual_seed(0))
+    shardings = rules.shardings(tree, mesh)
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True), shard_pytree(tree, shardings))
+    del tree
+    specs = {k: s.spec for k, s in shardings.items()}
+    leaves = list(_flat(params).values())
+    opt = torch.optim.Adam(leaves, lr=VIT_MESH_LR)
+    images, labels = (torch.from_numpy(a).cuda() for a in vit_images(VIT_MESH_IMAGES, 0))
+    reset_counts()
+    host_route.count = 0
+    losses, seconds = [], []
+    for _ in range(VIT_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        with reduce_scope(mesh):
+            loss = F.cross_entropy(pipelined.apply(params, images, mesh, rules).float(), labels)
+            loss.backward()
+            reduce_gradients(params, specs)
+        opt.step()
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    stage_leaf = params["stages"]["layer_0"]["attn"]["q_proj"]["kernel"]
+    out = dict(losses=losses, images_s=VIT_MESH_IMAGES / seconds[-1], step_s=seconds,
+               transfers=host_route.count / VIT_MESH_STEPS, memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               stage_shape=tuple(stage_leaf.shape), launches=all_launches())
+    del params, opt, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(rank: int, store: str, tokens, out, refs_done) -> None:
+    """One of phase 16's two processes, both on cuda:0 over gloo: (c)'s f32
+    cases first (beside the parent's references), then, once the parent sets
+    ``refs_done``, (b)'s layouts and (d). Puts ``(rank, ok, results or
+    traceback)`` on ``out``."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False  # the parent's setting since phase 4
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS), rank=rank, world_size=MESH_RANKS)
+        results = {}
+        for name, spec, impl in MESH_PARITY_CASES:
+            results[name] = mesh_parity_case(name, spec, impl)
+        results["pipe2"] = pipeline_parity_case()
+        refs_done.wait()
+        for name, spec in MESH_TRAIN_LAYOUTS:
+            results[name + "_bf16"] = mesh_train_case(name, spec, tokens)
+        results["vit"] = vit_mesh_case()
+        dist.destroy_process_group()
+        foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "unionml_tpu"))
+        require(not foreign, f"rank {rank} imported {foreign[:5]}: the port imports neither JAX nor unionml_tpu")
+        out.put((rank, True, results))
+    except BaseException:
+        import traceback
+
+        out.put((rank, False, traceback.format_exc()))
+
+
+def train_mesh_phase(card: str, phase5_losses: list) -> dict:
+    """Phase 16: parallel training on the card. (a) a world of one over NCCL
+    (``train_world1_phase``); the flash kernels against their twins at the
+    local shapes of (b) and (c); then two ranks on cuda:0 over gloo: (c) f32
+    parity at 2 layers (data=2, fsdp=2, model=2, sequence=2 ring LoRA fits,
+    and ``pipeline_apply`` at pipe=2 with ``param_specs``) against the
+    unsharded card run and the CPU, which this process computes meanwhile;
+    (b) Llama-3-8B width and depth at fsdp=2 and at model=2, 2 steps of a
+    2 x 1024 global batch, held to (a)'s world of one; (d) PipelinedViT at
+    ViT-L/16 width at pipe=2 held to the unpipelined ViT. Returns the flash
+    launches of the path (16a, and rank 0 in (b) and (c))."""
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch import _build
+
+    t_phase = time.perf_counter()
+    _build.build_all()
+    world1 = train_world1_phase(card, phase5_losses)
+    vit_ref = vit_mesh_reference()
+    print(f"phase 16d reference: the unpipelined ViT-L/16 on the same weights, {VIT_MESH_IMAGES} images, Adam: "
+          f"losses {vit_ref['losses']}, {vit_ref['images_s']:.1f} images/s", flush=True)
+    worst = hold_flash_local((
+        ("16b fsdp=2, a rank's rows", 1, MESH_TRAIN_SEQ, 32, 8, torch.bfloat16),
+        ("16b model=2, a rank's heads", MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, 16, 4, torch.bfloat16),
+        ("16c data=2 / fsdp=2, a rank's rows", 1, PARITY_SEQ, 32, 8, torch.float32),
+        ("16c model=2, a rank's heads", MESH_PARITY_ROWS, PARITY_SEQ, 16, 4, torch.float32),
+    ))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    store = tempfile.mktemp(prefix="chip_smoke_train_mesh_")
+    refs_done = ctx.Event()
+    procs = [ctx.Process(target=train_mesh_rank, args=(r, store, world1["tokens"], out, refs_done))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        t_ref = time.perf_counter()
+        try:
+            refs = {device: mesh_parity_reference(device) for device in ("cuda", "cpu")}
+        finally:
+            refs_done.set()
+        print(f"phase 16c: the unsharded references (card and CPU) took {time.perf_counter() - t_ref:.1f} s beside "
+              f"the ranks' f32 cases; (b) and (d) started after them", flush=True)
+        deadline = time.monotonic() + 900
+        while len(results) + len(errors) < MESH_RANKS and time.monotonic() < deadline:
+            try:
+                rank, ok, value = out.get(timeout=5)
+            except Exception:  # queue.Empty: look for a rank that died without a word
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    errors.append(f"a rank exited with {dead} before reporting")
+                continue
+            (results.__setitem__(rank, value) if ok else errors.append(f"rank {rank}:\n{value}"))
+        if len(results) + len(errors) < MESH_RANKS:
+            errors.append("the ranks did not finish within 900 s")
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    require(not errors and len(results) == MESH_RANKS, "phase 16 failed:\n" + "\n".join(errors))
+    failed = []  # every line prints before the phase fails on any of them
+
+    def check(condition: bool, what: str) -> None:
+        if not condition:
+            failed.append(what)
+
+    # (c) f32 parity
+    from unionml_tpu_torch.parallel.sharding import shard_slices
+
+    max_tol, mean_tol = 2 * LR * MESH_PARITY_STEPS, 1e-3 * LR
+    for name, spec, impl in MESH_PARITY_CASES:
+        for r in range(MESH_RANKS):
+            res = results[r][name]
+            line = []
+            for device, ref in refs.items():
+                loss_err = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], ref["losses"]))
+                diffs = np.concatenate([np.abs(v - ref["adapters"][k][shard_slices(
+                    ref["adapters"][k].shape, res["specs"][k], res["sizes"], res["coordinate"])]).ravel()
+                    for k, v in res["adapters"].items()])
+                ok = len(res["losses"]) == MESH_PARITY_STEPS and loss_err <= 1e-5 and diffs.max() <= max_tol \
+                    and diffs.mean() <= mean_tol
+                line.append(f"{device}: loss rel err {loss_err:.3g}, adapters max {diffs.max():.3g} mean "
+                            f"{diffs.mean():.3g} {'ok' if ok else 'FAIL'}")
+                check(ok, f"16c {name} rank {r} against the {device} run")
+            f32_expected = MESH_PARITY_STEPS * 2 if impl == "flash" else 0
+            launches = res["launches"]
+            print(f"phase 16c {name} ({spec}, {impl}) rank {r}: losses {res['losses']}; {'; '.join(line)}; local "
+                  f"heads {res['heads']}; f32 flash launches {launches['flash_forward_f32']} forward, "
+                  f"{launches['flash_backward_f32']} backward (expected {f32_expected} each)", flush=True)
+            check(launches["flash_forward_f32"] == launches["flash_backward_f32"] == f32_expected,
+                  f"16c {name}: f32 flash launches {launches}")
+            check(launches["flash_forward"] == launches["flash_backward"] == 0, f"16c {name}: bf16 flash launched")
+            off = {k: n for k, n in launches.items() if k not in FLASH_PRODUCTS and n}
+            check(not off, f"16c {name} rank {r}: kernels off the training path launched: {off}")
+    print(f"phase 16c: tolerances loss 1e-5 relative, adapters max {max_tol} mean {mean_tol} (phase 6's: Adam's "
+          f"step near lr x sign(g) for a tiny gradient)", flush=True)
+    for r in range(MESH_RANKS):
+        res = results[r]["pipe2"]
+        worst_rel = {}
+        for device, ref in refs.items():
+            loss_err = abs(res["loss"] - ref["pipe_loss"]) / abs(ref["pipe_loss"])
+            rel = 0.0
+            for path, grad in res["grads"].items():
+                want = ref["pipe_grads"][path][shard_slices(ref["pipe_grads"][path].shape, res["specs"][path],
+                                                            res["sizes"], res["coordinate"])]
+                rel = max(rel, float(np.linalg.norm(grad - want) / max(np.linalg.norm(want), 1e-30)))
+            worst_rel[device] = (loss_err, rel)
+            check(loss_err <= 1e-5 and rel <= PIPE_PARITY_GRAD_REL, f"16c pipe2 rank {r} against {device}")
+        print(f"phase 16c pipe2 rank {r}: PipelinedViT (ViT-L width, 2 layers, f32) through pipeline_apply with "
+              f"param_specs: loss {res['loss']:.7g}; (loss rel err, worst gradient rel L2 err) against the card "
+              f"{worst_rel['cuda']} and the CPU {worst_rel['cpu']} (bounds 1e-5, {PIPE_PARITY_GRAD_REL})", flush=True)
+
+    # (b) Llama-3-8B width and depth at fsdp=2 and model=2
+    expected_heads = {"fsdp2": (32, 8), "model2": (16, 4)}
+    per_step = 32 * MESH_TRAIN_STEPS
+    for name, spec in MESH_TRAIN_LAYOUTS:
+        for r in range(MESH_RANKS):
+            res = results[r][name + "_bf16"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], world1["ref_losses"]))
+            expected = {**{k: 0 for k in res["launches"]}, "flash_forward": 2 * per_step, "flash_backward": per_step}
+            where = (res["specs"], res["sizes"], res["coordinate"])
+            grad_rel = shard_rel_err(res["grads"], world1["ref_grads"], *where)
+            move_rel = shard_rel_err(res["moves"], world1["ref_moves"], *where)
+            print(f"phase 16b {name} ({spec}) rank {r}: losses {res['losses']} against the world of one "
+                  f"{world1['ref_losses']} (max rel err {rel:.3g}, bound {MESH_TRAIN_LOSS_REL}); built on meta and "
+                  f"drawn on the card in {res['built_s']:.1f} s; {res['sps']:.4f} samples/s global "
+                  f"({res['sps_per_chip']:.4f} a rank), {res['ms_step']:.1f} ms/step (world of one "
+                  f"{world1['ref_ms']:.1f}), first step {res['first_step_s']:.1f} s; peak memory "
+                  f"{res['memory_gib']:.2f} GiB (predicted under {MESH_TRAIN_MEMORY_GIB}); gloo host transfers "
+                  f"{res['transfers']:.0f} a step; local heads {res['heads']} (query, KV); flash launches "
+                  f"{res['launches']} (expected {expected}: remat runs each forward twice); layer 0 q_proj kernel "
+                  f"shard {res['shard']} {'unchanged' if res['frozen_kept'] else 'CHANGED'}, its lora_b shard "
+                  f"{res['adapter_shard']} {'moved' if res['adapter_moved'] else 'DID NOT MOVE'}; against the world "
+                  f"of one cut to this rank's shards (relative L2 over every adapter): the last step's LoRA "
+                  f"gradients {grad_rel:.3g} (bound {MESH_TRAIN_GRAD_REL}), the adapters' moves {move_rel:.3g} "
+                  f"(bound {MESH_TRAIN_MOVE_REL}); card {card}", flush=True)
+            check(rel <= MESH_TRAIN_LOSS_REL, f"16b {name} rank {r}: losses off the world of one")
+            check(grad_rel <= MESH_TRAIN_GRAD_REL, f"16b {name} rank {r}: LoRA gradients off the world of one")
+            check(move_rel <= MESH_TRAIN_MOVE_REL, f"16b {name} rank {r}: adapters off the world of one")
+            check(res["heads"] == expected_heads[name], f"16b {name} rank {r}: heads {res['heads']}")
+            check(res["launches"] == expected, f"16b {name} rank {r}: flash launches {res['launches']}")
+            check(res["frozen_kept"] and res["adapter_moved"], f"16b {name} rank {r}: frozen/adapter check")
+
+    # (d) PipelinedViT at ViT-L/16 width
+    for r in range(MESH_RANKS):
+        res = results[r]["vit"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], vit_ref["losses"]))
+        print(f"phase 16d rank {r}: PipelinedViT ViT-L/16 at pipe=2, {VIT_MESH_MICRO} microbatches of "
+              f"{VIT_MESH_IMAGES // VIT_MESH_MICRO}: losses {res['losses']} against the unpipelined ViT "
+              f"{vit_ref['losses']} (max rel err {rel:.3g}, bound {VIT_MESH_LOSS_REL}); {res['images_s']:.1f} "
+              f"images/s (unpipelined {vit_ref['images_s']:.1f}); step times {[round(s, 3) for s in res['step_s']]} "
+              f"s; gloo host transfers {res['transfers']:.0f} a step; peak memory {res['memory_gib']:.2f} GiB; its "
+              f"stage's q_proj kernel {res['stage_shape']}; kernel launches {res['launches']} (the plain route: "
+              f"197 positions)", flush=True)
+        check(rel <= VIT_MESH_LOSS_REL, f"16d rank {r}: losses off the unpipelined ViT")
+        check(not any(res["launches"].values()), f"16d rank {r}: a kernel launched on the plain route")
+
+    require(not failed, "phase 16: " + "; ".join(failed))
+    r0 = results[0]
+    launches = {k: world1["launches"][k] + sum(r0[n + "_bf16"]["launches"][k] for n, _ in MESH_TRAIN_LAYOUTS)
+                for k in world1["launches"]}
+    f32_launches = {k: sum(r0[n]["launches"][k] for n, _, _ in MESH_PARITY_CASES) for k in world1["launches"]}
+    print(f"phase 16: flash launches on the mesh training path (16a + rank 0 of 16b) {launches}; rank 0 of 16c "
+          f"{f32_launches}; worst flash error at the local shapes {worst:.3g}", flush=True)
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, f32_launches=f32_launches, max_abs_err=worst)
+
+
 def main() -> int:
     import argparse
 
@@ -4247,7 +4954,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 5: LoRA fine-tune at full width, then f32 training parity
-    flash_launches = training_phase(card, args.profile)
+    flash_launches, phase5_losses = training_phase(card, args.profile)
     torch.cuda.empty_cache()
     bf16_training_parity_phase()
     f32_launches = training_parity_phase()
@@ -4324,6 +5031,9 @@ def main() -> int:
     # ---- phase 15: the serving mesh (a world of one over NCCL; two ranks on this card over gloo)
     mesh = mesh_phase(card, gcfg, prompts, slots, decode_chunk, bf16_streams)
 
+    # ---- phase 16: parallel training (a world of one over NCCL; two ranks on this card over gloo)
+    train_mesh = train_mesh_phase(card, phase5_losses)
+
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -4373,6 +5083,11 @@ def main() -> int:
         kernel["encoder_launches"] = encoder["launches"][kernel["name"]]
         kernel["encoder_f32_launches"] = encoder_f32["launches"][kernel["name"]]
         kernel["encoder_model_launches"] = model_launches[kernel["name"]]
+        # phase 16: the mesh training path (16a and rank 0 of 16b, bf16; rank 0 of 16c, f32), at each rank's heads
+        kernel["train_mesh_launches"] = train_mesh["launches"][kernel["name"]]
+        kernel["train_mesh_f32_launches"] = train_mesh["f32_launches"][kernel["name"]]
+        if kernel["name"] in FLASH_PRODUCTS:
+            kernel["train_mesh_max_abs_err"] = train_mesh["max_abs_err"]
     for kernel in kernels:
         if kernel["name"] == "flash_forward":  # the encoder stack's worst output/gradient difference (13b)
             kernel["encoder_max_abs_err"] = encoder["max_abs_err"]

@@ -15,8 +15,10 @@ JAX package's, on the CPU.
   needed;
 - then one world of 4 gloo ranks (``tests/torch_mesh_ranks.py``): every
   collective over ``model`` and ``data`` of a ``data=2 x model=2`` mesh
-  against numpy, and each rank's placed weights, as ``Generator(mesh=...)``
-  cut them, against JAX's shard for the same mesh coordinate.
+  against numpy, each rank's placed weights, as ``Generator(mesh=...)``
+  cut them, against JAX's shard for the same mesh coordinate, a LoRA
+  model's placed adapters and tokens, and a biased column/row-parallel
+  pair's gradients against the unplaced pair's.
 """
 
 import ast
@@ -344,12 +346,76 @@ def test_each_rank_holds_jax_shard(models, world, which):
             np.testing.assert_array_equal(arr, ref[key, coord][1], err_msg=f"{key} at {coord}")
 
 
-def test_placement_refuses_lora_adapters(world):
-    """A model with LoRA adapters is refused where it is placed, naming the
-    training slice, on every rank."""
+def test_placement_places_lora_adapters(world):
+    """A LoRA model is placed at ``model=4``: each rank holds JAX's
+    ``lora_a`` ``P("fsdp", None)`` (whole here) and its ``lora_b`` columns
+    ``P(None, "model")``, and its greedy tokens equal the unplaced model's."""
+    from tests.torch_mesh_ranks import _seeded_lora
+
+    model = _seeded_lora(LLAMA_INT8)
+    whole = {n: p.detach().numpy() for n, p in model.named_parameters() if "lora" in n}
+    tokens = Generator(model, GenerationConfig(max_new_tokens=2, temperature=0.0, prompt_buckets=(8,)),
+                       device="cpu")([[5, 6, 7], [9]])
     for res in world[2]:
-        assert "LoRA adapters and dense biases over a mesh" in res["lora_refused"]
-        assert "parallel training" in res["lora_refused"]
+        shards, got, index = res["lora_placed"]
+        for name, value in shards.items():
+            if name.endswith("lora_a"):
+                np.testing.assert_array_equal(value, whole[name])
+            else:
+                np.testing.assert_array_equal(value, np.split(whole[name], 4, axis=1)[index])
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(tokens))
+
+
+def test_column_and_row_parallel_adapters_and_biases_train(world):
+    """A column-parallel then a row-parallel ``LoRADense``, each with an
+    adapter and a bias, over ``fsdp=2, model=2``: the output equals the
+    unplaced pair's, and every rank's gradient of every leaf (kernels,
+    adapters, biases) is its shard of the unplaced pair's, within 1e-5
+    relative (the gradients reach ~100; f32 sums in other orders).
+    The column bias is sliced to the rank's columns, the row bias added
+    once after the sum."""
+    for res in world[2]:
+        got = res["lora_dense"]
+        y, want = got["y"]
+        np.testing.assert_allclose(y, want, atol=1e-5)
+        for name, grad in got["grads"].items():
+            full = got["whole"][name]
+            index = shard_slices(full.shape, got["specs"][name], got["sizes"], got["coordinate"])
+            np.testing.assert_allclose(grad, full[index], rtol=1e-5, atol=1e-5, err_msg=name)
+        assert got["specs"]["0.kernel"] == ("fsdp", "model") and got["specs"]["1.bias"] == ()
+
+
+def test_gradient_buckets_reduce_in_place(world):
+    """``train.driver``'s gradient reduction over ``data=2, fsdp=2`` gives every
+    rank the mean of the four ranks' gradients, within 1e-6, in the same
+    tensors and layouts (a transposed leaf stays transposed): at the
+    default cap in one collective an axis; at a 64-byte cap with the small
+    leaves sharing buffers of at most 16 floats and the large ones reduced
+    in slices of at most 16."""
+    for res in world[2]:
+        got = res["buckets"]
+        for cap, (grads, calls, contiguous) in got["by_cap"].items():
+            for g, want in zip(grads, got["want"]):
+                np.testing.assert_allclose(g, want, rtol=1e-6, atol=1e-6, err_msg=str(cap))
+            assert contiguous == [True] * 5 + [False]
+            if cap == 64:
+                assert max(calls) == 16 and len(calls) > 2 * 6 and sum(calls) == 2 * sum(w.size for w in got["want"])
+            else:
+                assert calls == [sum(w.size for w in got["want"])] * 2
+
+
+def test_checkpointed_loss_recomputes_in_the_reduce_scope(world):
+    """A checkpointed loss's recompute runs where the backward runs, which
+    on the card is autograd's device thread, not the thread that entered
+    ``reduce_scope``: it must still take ``batch_mean``'s global quotient.
+    Ranks count 1-4 entries (10 in all) of a loss ``sum(x^2)`` with ``x =
+    (1, 2, 3)``: each rank's share is ``4 * 14 / 10`` and its gradient
+    ``4 * 2x / 10``, checkpointed or not."""
+    for res in world[2]:
+        for name in ("plain", "remat"):
+            value, grad = res["recomputed"][name]
+            assert value == pytest.approx(4 * 14 / 10, rel=1e-6), name
+            np.testing.assert_allclose(grad, 0.8 * np.arange(1.0, 4.0), rtol=1e-6, err_msg=name)
 
 
 def test_world_agreement_primitives(world):

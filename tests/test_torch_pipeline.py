@@ -71,8 +71,10 @@ def test_bad_inputs_raise():
         PrefetchIterator([np.zeros(3), np.zeros(4)], 2, device="cpu")
     with pytest.raises(ValueError, match="positive"):
         PrefetchIterator(np.zeros(3), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A: parallelism and the replica layer"):
-        PrefetchIterator(np.zeros(3), 1, device="cpu", shard_by_process=True)
+    # shard_by_process in a world of one process: every batch whole, as JAX with one process
+    whole = [b.tolist() for b in PrefetchIterator(np.arange(5), 2, device="cpu", drop_remainder=False)]
+    assert [b.tolist() for b in PrefetchIterator(np.arange(5), 2, device="cpu", drop_remainder=False,
+                                                 shard_by_process=True)] == whole == [[0, 1], [2, 3], [4]]
 
 
 def test_abandoned_iteration_stops_its_producer():

@@ -19,12 +19,12 @@ del test_mesh_placement_rounds_buckets_to_data_axis  # noqa: F821
 
 
 def test_mesh_is_refused_naming_the_roadmap():
-    """A MeshSpec runs (tests/test_torch_serving_mesh.py); a pipe axis waits
-    for the training slice, and a mesh that is not a MeshSpec is refused."""
+    """A MeshSpec runs (tests/test_torch_serving_mesh.py), a pipe axis too
+    (the rules leave it replicated, as in the JAX package); a mesh that is
+    not a MeshSpec is refused."""
     from unionml_tpu_torch.parallel import MeshSpec
 
-    with pytest.raises(NotImplementedError, match="parallelism and the replica layer"):
-        ServingConfig(bucket_sizes=[4], mesh=MeshSpec(pipe=2))  # noqa: F821
+    assert ServingConfig(bucket_sizes=[4], mesh=MeshSpec(pipe=2)).mesh.pipe == 2  # noqa: F821
     with pytest.raises(TypeError, match="MeshSpec"):
         ServingConfig(bucket_sizes=[4], mesh="data")  # noqa: F821
 

@@ -251,9 +251,23 @@ def test_evaluate_weights_partial_batches():
     ids=["mesh", "partition_rules", "logical_axis_rules", "shard_batch_by_process"],
 )
 def test_multi_device_options_raise_pointing_at_the_roadmap(option):
-    model = Llama(dataclasses.replace(LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)),
-                  device="cpu", seed=0)
-    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A: parallelism and the replica layer"):
-        fit(state, make_train_step(causal_lm_loss), _windows(512, n=8), TrainerConfig(batch_size=4, **option),
-            device="cpu")
+    """Training over a mesh is ported (tests/test_torch_parallel_train.py):
+    a mesh that is no ``MeshSpec`` raises ``TypeError`` and flax's logical
+    rules ``ValueError``, as the JAX driver's resolution does; partition
+    rules and per-process batches in a world of one process train as
+    without them."""
+    def run(**options):
+        model = Llama(dataclasses.replace(LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)),
+                      device="cpu", seed=0)
+        state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1))
+        cfg = TrainerConfig(batch_size=4, log_every_steps=1, **options)
+        return fit(state, make_train_step(causal_lm_loss), _windows(512, n=8), cfg, device="cpu")
+
+    if "mesh" in option:
+        with pytest.raises(TypeError, match="MeshSpec"):
+            run(**option)
+    elif "logical_axis_rules" in option:
+        with pytest.raises(ValueError, match="nn.Partitioned"):
+            run(**option)
+    else:
+        assert [h["loss"] for h in run(**option).history] == [h["loss"] for h in run().history]

@@ -40,8 +40,8 @@ def _rank_main(rank: int, world: int, store: str, target: str, payload: Any, out
             result = globals()[target](rank, payload)
         finally:
             dist.destroy_process_group()
-        if "jax" in sys.modules:
-            raise AssertionError("a rank imported jax: the port and this module must not")
+        if "jax" in sys.modules or any(m.split(".")[0] == "unionml_tpu" for m in sys.modules):
+            raise AssertionError("a rank imported jax or unionml_tpu: the port and this module must not")
         out.put((rank, True, result))
     except BaseException:  # the parent reports it; the rank must not hang its queue
         out.put((rank, False, traceback.format_exc()))
@@ -193,16 +193,157 @@ def parallel_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
         Generator(model, gcfg, mesh=mesh, partition_rules=rules, quantize=quantize or None)
         out[f"placed/{name}/{sorted(spec.items())}"] = (dict(mesh.coordinate), _local_state(model))
 
-    # LoRA adapters are not placed yet: refused at placement
+    # LoRA adapters are placed: each rank's adapter shards, and its greedy tokens
+    lora = _seeded_lora(payload["configs"]["llama"])
+    mesh = MeshSpec(model=4).build(device="cpu")
+    gen = Generator(lora, gcfg, mesh=mesh, partition_rules=llama_partition_rules())
+    out["lora_placed"] = (_shards(lora, "lora"), gen([[5, 6, 7], [9]]), mesh.index("model"))
+    out["lora_dense"] = _biased_pair_grads()
+    out["buckets"] = _bucketed_reduction()
+    out["recomputed"] = _recomputed_in_another_thread()
+    return out
+
+
+def _seeded_lora(config: Dict[str, Any]):
+    """A tiny f32 LoRA Llama from seed 0, its ``lora_b`` drawn too (seed 1)
+    so the adapters change the tokens."""
+    import torch
+
     from unionml_tpu_torch.models import Llama, LlamaConfig
 
-    lora = Llama(LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, lora_rank=2,
-                                  **payload["configs"]["llama"]), seed=0, device="cpu")
+    model = Llama(LlamaConfig.tiny(**_dtypes({**config, "lora_rank": 2})), seed=0, device="cpu")
+    generator = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=generator)
+    return model
+
+
+def biased_pair(device: str = "cpu"):
+    """A column-parallel then a row-parallel ``LoRADense`` (8 -> 16 -> 8), each
+    with an adapter and a bias, from seed 0, and their rules."""
+    import torch
+    from torch import nn
+
+    from unionml_tpu_torch.models.layers import LoRADense, init_weights
+    from unionml_tpu_torch.parallel import P, PartitionRules
+
+    f32 = dict(rank=2, use_bias=True, dtype=torch.float32, param_dtype=torch.float32, device=device)
+    pair = nn.Sequential(LoRADense(8, 16, **f32), LoRADense(16, 8, **f32))
+    generator = torch.Generator().manual_seed(0)
+    init_weights(pair, generator)
+    with torch.no_grad():
+        for name, p in pair.named_parameters():
+            if name.endswith(("lora_b", "bias")):
+                p.normal_(0.0, 0.5, generator=generator)
+    rules = PartitionRules([(r"^0/kernel", P("fsdp", "model")), (r"^1/kernel", P("model", "fsdp")),
+                            (r"lora_a", P("fsdp", None)), (r"lora_b", P(None, "model")), (r"bias", P())])
+    return pair, rules
+
+
+def _biased_pair_grads() -> Dict[str, Any]:
+    """The pair placed over ``fsdp=2, model=2``: its output and every rank's
+    gradient shards (averaged by ``reduce_gradients`` in a reduce scope, every
+    rank holding the same rows) beside the unplaced pair's on this rank."""
+    import torch
+
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.sharding import combine_fsdp_tp, leaf_specs, place_module, reduce_scope
+    from unionml_tpu_torch.train import reduce_gradients
+
+    x = torch.randn(2, 3, 8, generator=torch.Generator().manual_seed(2))
+    whole, _ = biased_pair()
+    (whole(x) ** 2).sum().backward()
+    placed, rules = biased_pair()
+    mesh = MeshSpec(fsdp=2, model=2).build(device="cpu")
+    place_module(placed, combine_fsdp_tp(placed, mesh, rules, min_weight_size=1))
+    with reduce_scope(mesh):
+        y = placed(x)
+        (y ** 2).sum().backward()
+        reduce_gradients(placed)
+    return {"y": (y.detach().numpy(), whole(x).detach().numpy()), "coordinate": dict(mesh.coordinate),
+            "sizes": dict(mesh.shape), "specs": {k: tuple(v) for k, v in leaf_specs(placed).items()},
+            "grads": {n: p.grad.numpy() for n, p in placed.named_parameters()},
+            "whole": {n: p.grad.numpy() for n, p in whole.named_parameters()}}
+
+
+def _recomputed_in_another_thread() -> Dict[str, Any]:
+    """A checkpointed ``batch_mean`` loss whose backward (and so its
+    recompute) runs in another thread than the one inside ``reduce_scope``,
+    as autograd runs a card's backward in its device thread; beside the
+    same loss not checkpointed. Each rank counts its rank + 1 entries."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.checkpoint import checkpoint
+
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.sharding import batch_mean, reduce_scope
+
+    mesh = MeshSpec(data=2, fsdp=2).build(device="cpu")
+    den = torch.tensor(float(dist.get_rank() + 1))
+
+    def loss(x: torch.Tensor) -> torch.Tensor:
+        return batch_mean((x * x).sum(), den)
+
+    grads = []
+    for remat in (False, True):
+        x = torch.arange(1.0, 4.0, requires_grad=True)
+        with reduce_scope(mesh):
+            value = checkpoint(loss, x, use_reentrant=False) if remat else loss(x)
+            worker = threading.Thread(target=value.backward)
+            worker.start()
+            worker.join()
+        grads.append((value.item(), x.grad.numpy()))
+    return {"plain": grads[0], "remat": grads[1]}
+
+
+def _bucketed_reduction() -> Dict[str, Any]:
+    """``train.driver``'s in-place reduction over ``data=2, fsdp=2`` of this
+    rank's gradients (drawn from its rank): at the default cap (one shared
+    buffer) and at a 64-byte cap (small leaves sharing buffers, large and
+    transposed ones reduced slice by slice), with the collectives counted,
+    beside the mean of every rank's gradients gathered whole."""
+    import torch
+    import torch.distributed as dist
+
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel import collectives
+    from unionml_tpu_torch.train import driver
+
+    mesh = MeshSpec(data=2, fsdp=2).build(device="cpu")
+    generator = torch.Generator().manual_seed(dist.get_rank())
+    shapes = [(3,), (5, 4), (2,), (40, 7), (1,)]
+    grads = [torch.randn(*s, generator=generator) for s in shapes]
+    grads.append(torch.randn(30, 7, generator=generator).t())  # a transposed leaf
+    parts = {i: [torch.empty_like(g) for _ in range(dist.get_world_size())] for i, g in enumerate(grads)}
+    for i, g in enumerate(grads):
+        dist.all_gather(parts[i], g.contiguous())
+    want = [torch.stack(parts[i]).mean(0).numpy() for i in range(len(grads))]
+    calls = []
+    raw = collectives._all_reduce_
+
+    def counted(x: Any, group: Any) -> None:
+        calls.append(x.numel())
+        raw(x, group)
+
+    collectives._all_reduce_ = counted
     try:
-        Generator(lora, gcfg, mesh=MeshSpec(model=4).build(device="cpu"), partition_rules=llama_partition_rules())
-    except NotImplementedError as exc:
-        out["lora_refused"] = str(exc)
-    return out
+        out = {}
+        for cap in (driver.BUCKET_BYTES, 64):
+            copies = [g.clone() if g.is_contiguous() else g.clone().t().contiguous().t() for g in grads]
+            previous, driver.BUCKET_BYTES = driver.BUCKET_BYTES, cap
+            calls.clear()
+            try:
+                driver._reduce_in_place(copies, mesh, ("data", "fsdp"), 4)
+            finally:
+                driver.BUCKET_BYTES = previous
+            out[cap] = ([c.numpy() for c in copies], list(calls), [c.is_contiguous() for c in copies])
+    finally:
+        collectives._all_reduce_ = raw
+    return {"want": want, "by_cap": out}
 
 
 # ---------------------------------------------------------------------------
@@ -396,3 +537,235 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_train.py
+
+
+def _lora_llama(tree: Dict[str, Any], config: Dict[str, Any], lr: float, **overrides: Any):
+    """A LoRA Llama whose base is frozen (``lora_optimizer``'s labels) and
+    whose adapters step by SGD: an update linear in the gradient, so the
+    trained adapters hold the gradients to the JAX side's."""
+    import torch
+
+    from unionml_tpu_torch import TrainState
+    from unionml_tpu_torch.models import lora_optimizer
+
+    model = llama(tree, {**config, **overrides})
+    lora_optimizer(model, lr)
+    return TrainState(model, torch.optim.SGD([p for p in model.parameters() if p.requires_grad], lr=lr))
+
+
+def _shards(model, keyword: str) -> Dict[str, np.ndarray]:
+    return {name: p.detach().numpy().copy() for name, p in model.named_parameters() if keyword in name}
+
+
+def train_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    import torch
+
+    from unionml_tpu_torch import TrainerConfig, evaluate, fit, make_train_step
+    from unionml_tpu_torch.models import (
+        bert_from_jax,
+        bert_partition_rules,
+        causal_lm_loss,
+        chunked_causal_lm_loss,
+        classification_loss,
+        llama_partition_rules,
+    )
+    from unionml_tpu_torch.models.bert import BertConfig
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.sharding import leaf_specs, shard_slices
+
+    out: Dict[str, Any] = {}
+    tree, config = payload["tree"], payload["config"]
+    for case in payload["cases"]:
+        spec = case["spec"]
+        state = _lora_llama(tree, config, payload["lr"], **case.get("model", {}))
+        whole = _shards(state.model, "kernel")
+        loss = (lambda m, b: chunked_causal_lm_loss(m, b, chunk_size=4)) if case["loss"] == "chunked" \
+            else causal_lm_loss
+        step = make_train_step(loss, grad_accum_steps=case.get("accum", 1))
+        saves = dict(checkpoint_dir=payload["checkpoints"], checkpoint_every_steps=2) if case.get("checkpoint") else {}
+        cfg = TrainerConfig(mesh=MeshSpec(**spec), partition_rules=llama_partition_rules(),
+                            fsdp_min_weight_size=payload["min_weight"], log_every_steps=1, **case["trainer"], **saves)
+        result = fit(state, step, case["data"], cfg, device="cpu")
+        mesh = state.model.embed._mesh
+        specs = leaf_specs(state.model)
+        frozen = all(np.array_equal(whole[k][shard_slices(whole[k].shape, specs[k], mesh.shape, mesh.coordinate)], v)
+                     for k, v in _shards(state.model, "kernel").items())
+        out[case["name"]] = {
+            "losses": [h["loss"] for h in result.history],
+            "steps": result.steps,
+            "coordinate": dict(mesh.coordinate),
+            "sizes": dict(mesh.shape),
+            "specs": {k: tuple(v) for k, v in specs.items()},
+            "lora": _shards(state.model, "lora"),
+            "frozen": frozen,
+            "per_chip": (result.samples_per_sec, result.samples_per_sec_per_chip),
+        }
+        if saves:  # each rank resumes its own shards: nothing left to run, the trained adapters back
+            import dataclasses
+            import os
+
+            fresh = _lora_llama(tree, config, payload["lr"], **case.get("model", {}))
+            resumed = fit(fresh, step, case["data"], dataclasses.replace(cfg, resume=True), device="cpu")
+            trained = out[case["name"]]["lora"]
+            out[case["name"]]["resumed"] = (resumed.steps, all(np.array_equal(v, trained[k]) for k, v in
+                                                                _shards(fresh.model, "lora").items()),
+                                            sorted(os.listdir(payload["checkpoints"])))
+        if case.get("evaluate"):
+            out[case["name"]]["evaluate"] = evaluate(state, lambda s, b: {"loss": causal_lm_loss(s.model, b)},
+                                                     case["data"], batch_size=6)
+
+    # the encoders under their rules: two steps of classification_loss each
+    from unionml_tpu_torch import TrainState
+    from unionml_tpu_torch.models import ViTConfig, vit_from_jax, vit_partition_rules
+
+    for name, build, rules in (
+        ("bert", lambda p: bert_from_jax(p["tree"], BertConfig.tiny(**_dtypes(p["config"])), device="cpu"),
+         bert_partition_rules()),
+        ("vit", lambda p: vit_from_jax(p["tree"], ViTConfig.tiny(**_dtypes(p["config"])), device="cpu"),
+         vit_partition_rules()),
+    ):
+        enc = payload[name]
+        model = build(enc)
+        state = TrainState(model, torch.optim.SGD(model.parameters(), lr=payload["lr"]))
+        cfg = TrainerConfig(mesh=MeshSpec(**enc["spec"]), partition_rules=rules, log_every_steps=1, **enc["trainer"])
+        result = fit(state, make_train_step(classification_loss, has_aux=True), enc["data"], cfg, device="cpu")
+        mesh = model.layer_0.attn.q_proj._mesh
+        out[name] = {"history": result.history, "coordinate": dict(mesh.coordinate), "sizes": dict(mesh.shape),
+                     "specs": {k: tuple(v) for k, v in leaf_specs(model).items()},
+                     "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()}}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_pipeline_parallel.py
+
+
+def toy_stage(dim: int):
+    """The JAX tests' ``ToyStage``: ``x + Dense_1(tanh(Dense_0(x)))``."""
+    import torch
+    from torch import nn
+
+    from unionml_tpu_torch.models.layers import LoRADense
+
+    class ToyStage(nn.Module):
+        def __init__(self):
+            super().__init__()
+            f32 = dict(use_bias=True, dtype=torch.float32, param_dtype=torch.float32, device="meta")
+            self.Dense_0 = LoRADense(dim, 2 * dim, **f32)
+            self.Dense_1 = LoRADense(2 * dim, dim, **f32)
+
+        def forward(self, x):
+            return x + self.Dense_1(torch.tanh(self.Dense_0(x)))
+
+    return ToyStage()
+
+
+def _tree(tree: Any, requires_grad: bool = True) -> Any:
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tree(v, requires_grad) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree)).requires_grad_(requires_grad)
+
+
+def _requiring_grad(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _requiring_grad(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
+def _grads(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _grads(v) for k, v in tree.items()}
+    return tree.grad.numpy().copy()
+
+
+def pipeline_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    import torch
+
+    from unionml_tpu_torch.parallel import MeshSpec, P, pipeline_apply, shard_pytree, stage_call
+    from unionml_tpu_torch.parallel.sharding import NamedSharding, gathered, reduce_scope, shard_slices
+    from unionml_tpu_torch.train import reduce_gradients
+
+    out: Dict[str, Any] = {}
+    stage_fn = stage_call(toy_stage(16))
+    for case in payload["toy"]:
+        mesh = MeshSpec(**case["spec"]).build(device="cpu")
+        full = case["params"]
+        specs = case.get("specs")
+        flat_specs = {f"{o}/{leaf}": P(*s) for o, leaves in (specs or {}).items() for leaf, s in leaves.items()}
+        default = {f"{o}/{leaf}": P("pipe") for o, leaves in full.items() for leaf in leaves}
+        use = {**default, **flat_specs}
+        shardings = {path: NamedSharding(mesh, spec) for path, spec in use.items()}
+        params = _requiring_grad(shard_pytree(_tree(full, False), shardings))
+        rows = NamedSharding(mesh, P(tuple(a for a in ("data", "fsdp") if mesh.shape[a] > 1) or None))
+        x = torch.tensor(case["x"])[rows.slices(case["x"].shape)]
+        with reduce_scope(mesh):
+            y = pipeline_apply(stage_fn, params, x, mesh, n_microbatches=case["microbatches"],
+                               param_specs={k: use[k] for k in use} if specs else None)
+            (y ** 2).mean().backward()
+            reduce_gradients(params, use)
+        out[case["name"]] = {"coordinate": dict(mesh.coordinate), "sizes": dict(mesh.shape), "y": y.detach().numpy(),
+                             "grads": _grads(params), "specs": {k: tuple(v) for k, v in use.items()}}
+
+    # a dim split over two axes, gathered back minor axis first (the JAX order)
+    mesh = MeshSpec(data=1, fsdp=2, model=2).build(device="cpu")
+    whole = torch.arange(4 * 8, dtype=torch.float32).reshape(4, 8)
+    spec = P(None, ("fsdp", "model"))
+    shard = whole[shard_slices(whole.shape, spec, mesh.shape, mesh.coordinate)].clone().requires_grad_(True)
+    back = gathered(shard, spec, mesh, keep=())
+    (back * torch.arange(32.0).reshape(4, 8)).sum().backward()
+    out["two_axis"] = (back.detach().numpy(), shard.grad.numpy(), dict(mesh.coordinate))
+
+    # ring and ulysses gradients, whole on every rank
+    from unionml_tpu_torch.ops.ring_attention import sequence_sharded_attention
+
+    for name, (spec, impl, q, k, v) in payload["sp"].items():
+        mesh = MeshSpec(**spec).build(device="cpu")
+        q, k, v = (torch.tensor(a).requires_grad_(True) for a in (q, k, v))
+        res = sequence_sharded_attention(q, k, v, mesh, causal=True, impl=impl)
+        (res ** 2).mean().backward()
+        out[name] = (res.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy())
+
+    # one PipelinedViT train step over pipe=2 x model=2
+    from unionml_tpu_torch.models import PipelinedViT, ViTConfig, pipelined_vit_from_jax, pipelined_vit_partition_rules
+
+    vit = payload["vit"]
+    cfg = ViTConfig.tiny(**_dtypes(vit["config"]))
+    model = PipelinedViT(cfg, n_stages=2, n_microbatches=2)
+    mesh = MeshSpec(**vit["spec"]).build(device="cpu")
+    rules = pipelined_vit_partition_rules()
+    tree = pipelined_vit_from_jax(vit["tree"], cfg, 2, device="cpu")
+    shardings = rules.shardings(tree, mesh)
+    params = _requiring_grad(shard_pytree(tree, shardings))
+    specs = {k: s.spec for k, s in shardings.items()}
+    images, labels = torch.tensor(vit["images"]), torch.tensor(vit["labels"])
+    from unionml_tpu_torch.parallel.pipeline import _flat
+
+    leaves = list(_flat(params).values())
+    before = [t.detach().clone() for t in leaves]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    with reduce_scope(mesh):
+        logits = model.apply(params, images, mesh, rules)
+        loss = torch.nn.functional.cross_entropy(logits.float(), labels.long())
+        loss.backward()
+        reduce_gradients(params, specs)
+    grads = _grads(params)
+    opt.step()
+    out["vit"] = {"loss": float(loss), "grads": grads, "coordinate": dict(mesh.coordinate), "sizes": dict(mesh.shape),
+                  "specs": {k: tuple(v) for k, v in specs.items()},
+                  "moved": max(float((a - b).abs().max()) for a, b in zip(leaves, before))}
+
+    # a Generator over a pipe axis: the rules leave it replicated
+    from unionml_tpu_torch.models import GenerationConfig, Generator, llama_partition_rules
+
+    gen = payload["generate"]
+    mesh = MeshSpec(**gen["spec"]).build(device="cpu")
+    generator = Generator(llama(gen["tree"], gen["config"]), GenerationConfig(**gen["kw"]), mesh=mesh,
+                          partition_rules=llama_partition_rules())
+    out["generate"] = generator(gen["prompts"])
+    return out

@@ -11,9 +11,13 @@ Counterpart of ``unionml_tpu/data/pipeline.py``. Batches are
 3. produced ``prefetch + 1`` batches ahead by one background thread, which
    keeps the order and overlaps the host gather and the copy with the step.
 
-Multi-process sharding (``shard_by_process``) is not ported: this slice runs
-on one card (``ROADMAP.md``, Queue A: parallelism and the replica layer,
-parallel training).
+Over a mesh (``sharding=batch_sharding(mesh)``, one process a rank) every
+rank computes the same global schedule and takes its rows of each batch,
+cut as JAX's ``devices_indices_map`` cuts ``P(BATCH_AXES)``
+(:func:`local_rows`); an indivisible batch arrives whole on every rank, as
+the JAX package places it replicated. ``shard_by_process`` slices each
+global batch per process as ``index_batches`` does there, every process of
+the ``torch.distributed`` world counting as one.
 """
 
 from __future__ import annotations
@@ -26,6 +30,35 @@ import numpy as np
 import torch
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
+
+
+def _processes() -> Tuple[int, int]:
+    """``(count, index)`` of the processes of the ``torch.distributed``
+    world (``(1, 0)`` without one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def local_rows(idx: np.ndarray, sharding: Any, microbatches: int = 1) -> np.ndarray:
+    """This rank's rows of a global batch's sample indices ``idx`` under a
+    batch ``sharding``. With ``microbatches=k`` the batch is the JAX
+    accumulation step's ``[k, B / k]`` view cut ``P(None, batch axes)``:
+    the rank's rows of each microbatch in turn, so its own split into ``k``
+    is its part of each global microbatch. A batch that does not divide
+    stays whole (replicated)."""
+    if sharding is None or sharding.is_fully_replicated:
+        return idx
+    from unionml_tpu_torch.parallel.sharding import P, shard_slices
+
+    mesh = sharding.mesh
+    if len(idx) % (mesh.size(sharding.spec[0]) * microbatches):
+        return idx
+    view = idx.reshape(microbatches, -1)
+    index = shard_slices(view.shape, P(None, sharding.spec[0]), mesh.shape, mesh.coordinate)
+    return view[index].reshape(-1)
 
 
 def to_host_arrays(data: Any) -> Any:
@@ -79,6 +112,12 @@ class PrefetchIterator:
     :param batch_size: the batch size.
     :param device: where batches land; ``None`` is CUDA (and raises without a
         CUDA device), ``"cpu"`` must be asked for.
+    :param sharding: a batch sharding (:func:`~unionml_tpu_torch.parallel.batch_sharding`)
+        over a mesh: each rank takes its rows (:func:`local_rows`, with
+        ``microbatches``).
+    :param shard_by_process: slice each global batch per process of the
+        ``torch.distributed`` world (the short final batch dropped by every
+        process alike); the slice is the rank's rows.
     """
 
     def __init__(
@@ -94,13 +133,11 @@ class PrefetchIterator:
         shard_by_process: bool = False,
         epochs: int = 1,
         skip_batches: int = 0,
+        sharding: Any = None,
+        microbatches: int = 1,
     ):
-        if shard_by_process:
-            raise NotImplementedError(
-                "shard_by_process is not ported: the port runs on one card (ROADMAP.md, Queue A: parallelism "
-                "and the replica layer, parallel training)"
-            )
         self.device = resolve_device(device)
+        self.sharding, self.microbatches, self.shard_by_process = sharding, microbatches, shard_by_process
         if isinstance(data, (list, tuple)):
             data = tuple(leaf for leaf in data if leaf is not None and _nonempty(leaf))
         leaves, self._structure = flatten(data)
@@ -155,7 +192,14 @@ class PrefetchIterator:
                 yield epoch, lo, size
 
     def index_batches(self) -> Iterator[np.ndarray]:
-        """Yield each step's sample-index vector (host batching path)."""
+        """Yield each step's sample-index vector (host batching path); with
+        ``shard_by_process``, this process's slice of it."""
+        proc_count, proc_index = _processes() if self.shard_by_process else (1, 0)
+        per_process = self.batch_size
+        if proc_count > 1:
+            if self.batch_size % proc_count:
+                raise ValueError(f"global batch {self.batch_size} not divisible by process count {proc_count}")
+            per_process = self.batch_size // proc_count
         emitted = 0
         for epoch in range(self.epochs):
             order = self.epoch_order(epoch)
@@ -164,9 +208,25 @@ class PrefetchIterator:
                 if emitted <= self.skip_batches:
                     continue
                 lo = step * self.batch_size
-                yield order[lo : lo + self.batch_size]
+                idx = order[lo : lo + self.batch_size]
+                if proc_count > 1:
+                    if len(idx) < self.batch_size:
+                        # a short final batch cannot be split alike over the
+                        # processes: every process drops it
+                        continue
+                    idx = idx[proc_index * per_process : (proc_index + 1) * per_process]
+                yield idx
+
+    def rows(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch ``idx`` (all of them without a
+        sharding, or where ``shard_by_process`` already sliced it)."""
+        if self.shard_by_process and _processes()[0] > 1:
+            return idx
+        return local_rows(idx, self.sharding, self.microbatches)
 
     def _place(self, idx: np.ndarray) -> Any:
+        idx = self.rows(idx)
+
         def leaf_to_device(leaf: np.ndarray) -> torch.Tensor:
             host = torch.from_numpy(np.ascontiguousarray(leaf[idx]))
             if self.device.type != "cuda":

@@ -15,7 +15,9 @@ Two trainer modes, as in the JAX package:
   registered function is a ``(state, batch) -> (state, metrics)`` step, run
   over the epoch schedule by :func:`unionml_tpu_torch.train.fit` on the
   device of the state ``init`` builds: an app whose ``init`` asked for the
-  CPU trains there, every other on the card.
+  CPU trains there, every other on the card. ``TrainerConfig(mesh=...,
+  partition_rules=...)`` trains over a mesh, one process a rank, each
+  running the same app (the state is cut to the rank's shards).
 
 Serving: :meth:`Model.serve` returns the port's
 :class:`~unionml_tpu_torch.serving.ServingApp`, and

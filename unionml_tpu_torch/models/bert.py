@@ -26,6 +26,7 @@ from torch import nn
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
 from unionml_tpu_torch.models.layers import IotaEmbed, LayerNorm, LoRADense, TransformerBlock, init_weights
+from unionml_tpu_torch.parallel.sharding import P, PartitionRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +107,22 @@ class BertEncoder(nn.Module):
             x = layer(x, mask=mask)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return self.classifier(pooled)
+
+
+def bert_partition_rules() -> PartitionRules:
+    """Megatron-style TP and FSDP for :class:`BertEncoder` (the JAX
+    package's table: the port's paths are the flax paths)."""
+    return PartitionRules(
+        [
+            (r"attn/(q_proj|k_proj|v_proj)/kernel", P("fsdp", "model")),
+            (r"attn/o_proj/kernel", P("model", "fsdp")),
+            (r"mlp/wi/kernel", P("fsdp", "model")),
+            (r"mlp/wo/kernel", P("model", "fsdp")),
+            (r"(tok|pos|type)_embed/embedding", P(None, "fsdp")),
+            (r"(pooler|classifier)/kernel", P("fsdp", None)),
+            (r".*(norm|scale|bias)", P()),
+        ]
+    )
 
 
 def classification_loss(model: nn.Module, batch: Any) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -9,7 +9,8 @@ over and on any parameter left missing, and casts once to the dtype asked for.
 The way back, :func:`llama_params_to_numpy`, gives a module's parameters as
 the same nested dicts, so trained weights compare leaf for leaf. The encoder
 models (BERT, ViT, the MLP classifier) cross the same way
-(:func:`bert_from_jax`, :func:`vit_from_jax`, :func:`mlp_from_jax`), and a
+(:func:`bert_from_jax`, :func:`vit_from_jax`, :func:`mlp_from_jax`; the
+pipelined ViT's stacked tree through :func:`pipelined_vit_from_jax`), and a
 HuggingFace BERT state dict becomes the JAX package's tree through
 :func:`bert_params_from_hf_state_dict`.
 
@@ -35,7 +36,7 @@ from unionml_tpu_torch.models.bert import BertConfig, BertEncoder
 from unionml_tpu_torch.models.llama import Llama, LlamaConfig
 from unionml_tpu_torch.models.mlp import MLPClassifier, MLPConfig
 from unionml_tpu_torch.models.moe import MoEConfig, MoETransformer
-from unionml_tpu_torch.models.vit import ViT, ViTConfig
+from unionml_tpu_torch.models.vit import PipelinedViT, ViT, ViTConfig
 from unionml_tpu_torch.ops.quant import QuantizedTensor, set_quantized
 
 
@@ -179,6 +180,40 @@ def mlp_from_jax(tree: Mapping[str, Any], config: MLPConfig, *, device: DeviceLi
     input width is read from the first kernel."""
     first = tree["dense_0"] if config.features else tree["head"]
     return _load(MLPClassifier(config, int(np.shape(first["kernel"])[0]), device="meta"), tree, device)
+
+
+def pipelined_vit_from_jax(tree: Mapping[str, Any], config: ViTConfig, n_stages: int, *,
+                           device: DeviceLike = None, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A :class:`~unionml_tpu_torch.models.vit.PipelinedViT` params tree on
+    ``device`` (``None`` = CUDA) from the JAX ``PipelinedViT`` tree:
+    ``embed`` and ``head`` leaf for leaf, and the ``stages`` subtree's
+    stacked ``[n_stages, ...]`` leaves as they are (the same nesting: a
+    stage's parameter paths under ``stages/``). Every leaf must match the
+    model's names and shapes; each becomes a tensor in ``dtype`` (default
+    ``config.param_dtype``)."""
+    model = PipelinedViT(config, n_stages)
+    dtype = dtype or config.param_dtype
+    device = resolve_device(device)
+    expected = {f"embed.{n}": tuple(p.shape) for n, p in model.embed.named_parameters()}
+    expected.update({f"stages.{n}": (n_stages, *p.shape) for n, p in model.stage.named_parameters()})
+    expected.update({f"head.{n}": tuple(p.shape) for n, p in model.head.named_parameters()})
+    from unionml_tpu_torch.parallel.pipeline import _nest
+
+    flat = _flatten(tree)
+    if set(flat) != set(expected):
+        raise ValueError(f"tree leaves {sorted(set(flat) ^ set(expected))} do not match PipelinedViT's parameters")
+    for name, value in flat.items():
+        if tuple(np.shape(value)) != expected[name]:
+            raise ValueError(f"{name}: shape {np.shape(value)} is not {expected[name]}")
+    # a copy: the tree's arrays may be read-only, and the params are trained in place
+    return _nest({name: torch.tensor(np.asarray(value), dtype=dtype, device=device) for name, value in flat.items()})
+
+
+def pipelined_vit_params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The way back of :func:`pipelined_vit_from_jax`: the params tree as
+    nested dicts of f32 numpy arrays, stacked stage leaves included."""
+    return {k: pipelined_vit_params_to_numpy(v) if isinstance(v, Mapping) else
+            v.detach().float().cpu().numpy() for k, v in params.items()}
 
 
 #: the ways back of :func:`bert_from_jax`, :func:`vit_from_jax` and

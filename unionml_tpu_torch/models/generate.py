@@ -414,11 +414,6 @@ class Generator:
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a Mesh from MeshSpec(...).build(), got {type(mesh).__name__}")
-            if mesh.shape["pipe"] > 1:
-                raise NotImplementedError(
-                    "a pipe axis is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer, "
-                    "parallel training)"
-                )
             if device is None:
                 device = mesh.device
         if quantize is None:

@@ -27,6 +27,14 @@ the LM head are vocab-parallel (a masked lookup and a sum; the head's
 logits gathered). Attention infers its local head counts from its
 projections' widths, so the paged decode kernel reads only this rank's
 ``H_kv / model`` heads.
+
+Training runs the same layers backward. The collectives carry gradients
+(``parallel/collectives.py``): a column-parallel layer's input passes
+Megatron's *f* (``sum_gradients``: each rank's input gradient is a part of
+the whole), a row-parallel layer's output sum is *g* (``allreduce_sum``);
+a LoRA adapter and a bias follow their layer's split (see
+:class:`LoRADense`), and an FSDP gather at use keeps only the shard for
+the backward, gathering again there (:func:`gathered_matmul`).
 """
 
 from __future__ import annotations
@@ -42,8 +50,16 @@ from unionml_tpu_torch.ops.attention import multihead_attention
 from unionml_tpu_torch.ops.int8_matmul import quantized_matmul
 from unionml_tpu_torch.ops.quant import QuantizedKernel, QuantizedTensor
 from unionml_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
-from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum
-from unionml_tpu_torch.parallel.sharding import gathered, scale_spec, splits
+from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum, gather_from, split_to, sum_gradients
+from unionml_tpu_torch.parallel.sharding import (
+    _gather_axes,
+    gather_raw,
+    gather_transpose,
+    gathered,
+    record_spec,
+    scale_spec,
+    splits,
+)
 
 #: One layer's KV cache: dense ``{"k": [B, S_max, H_kv, D], "v": ...}`` (plus
 #: ``k_scale``/``v_scale`` for int8), or paged heads-major pools plus ``table``.
@@ -59,6 +75,54 @@ def _write_cache(buffer: torch.Tensor, new: torch.Tensor, starts: torch.Tensor) 
     rows = starts[:, None] + torch.arange(length, device=buffer.device)[None, :]
     buffer[torch.arange(batch, device=buffer.device)[:, None], rows] = new.to(buffer.dtype)
     return buffer
+
+
+class _GatheredMatmul(torch.autograd.Function):
+    """``x @ gathered(w).to(dtype)`` that saves the shard, not the gathered
+    weight: the backward gathers it again (as torch's FSDP does), so a rank
+    never holds more than one layer's gathered weight. The weight's own
+    gradient (skipped for a frozen weight) goes back through the gather's
+    transpose."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, w: torch.Tensor, steps: list, mesh: Any, dtype: torch.dtype) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.args = (steps, mesh, dtype)
+        return x @ gather_raw(w.to(dtype), steps, mesh)
+
+    @staticmethod
+    def backward(ctx: Any, dy: torch.Tensor) -> Any:
+        x, w = ctx.saved_tensors
+        steps, mesh, dtype = ctx.args
+        full = gather_raw(w.to(dtype), steps, mesh)
+        dx = dy @ full.t() if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).t() @ dy.reshape(-1, dy.shape[-1])
+            dw = gather_transpose(dw.to(w.dtype), steps, mesh)
+        return dx, dw, None, None, None
+
+
+def gathered_matmul(x: torch.Tensor, w: torch.Tensor, spec: Any, mesh: Any, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` in ``dtype`` for a placed float kernel ``w``: every axis of
+    ``spec`` but ``model`` and ``expert`` gathered at use (the compute
+    copy, cast first, is what crosses), and kept for the backward only as
+    the shard. With nothing to gather it is the plain product."""
+    steps = [] if mesh is None else _gather_axes(spec, mesh, ("model", "expert"))
+    if not steps:
+        return x @ w.to(dtype)
+    return _GatheredMatmul.apply(x, w, steps, mesh, dtype)
+
+
+def model_input(x: torch.Tensor, dense: "LoRADense") -> Optional[torch.Tensor]:
+    """``x`` through *f* (:func:`sum_gradients` over ``model``) when
+    ``dense`` is column-parallel, else None: what an attention or MLP block
+    passes as ``entered`` to its column-parallel projections, so their
+    input gradients are summed once."""
+    mesh = dense._mesh
+    if mesh is None or not splits(dense._specs["kernel"], 1, "model", mesh):
+        return None
+    return sum_gradients(x, mesh, "model")
 
 
 def sharded_weight(kernel: Any, spec: Any, mesh: Any) -> Any:
@@ -131,6 +195,10 @@ class Conv(nn.Module):
     spatial side as XLA does: ``max((ceil(n / s) - 1) * s + k - n, 0)`` in
     all, the odd one at the end."""
 
+    #: set by ``place_module`` over a mesh (the leaves are then this rank's shards, gathered at use)
+    _mesh = None
+    _specs = None
+
     def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1), dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, device: Any = None):
@@ -147,7 +215,11 @@ class Conv(nn.Module):
             pads += [total // 2, total - total // 2]
         if any(pads):
             x = F.pad(x, pads)
-        y = F.conv2d(x, self.kernel.to(self.dtype).permute(3, 2, 0, 1), self.bias.to(self.dtype), stride=self.strides)
+        kernel, bias = self.kernel, self.bias
+        if self._mesh is not None:
+            kernel = gathered(kernel, self._specs["kernel"], self._mesh)
+            bias = gathered(bias, self._specs["bias"], self._mesh)
+        y = F.conv2d(x, kernel.to(self.dtype).permute(3, 2, 0, 1), bias.to(self.dtype), stride=self.strides)
         return y.permute(0, 2, 3, 1)
 
 
@@ -175,7 +247,11 @@ class IotaEmbed(nn.Module):
         feature dim gathers the features instead."""
         mesh, tokens = self._mesh, tokens.long()
         spec = None if mesh is None else self._specs["embedding"]
-        table = self.embedding if mesh is None else gathered(self.embedding, spec, mesh)
+        table = self.embedding
+        if mesh is not None:
+            if _gather_axes(spec, mesh, ("model", "expert")):
+                table = table.to(self.dtype)  # the compute copy crosses (a lookup commutes with the cast)
+            table = gathered(table, spec, mesh)
         if mesh is not None and splits(spec, 0, "model", mesh):
             rows = table.shape[0]
             local = tokens - mesh.index("model") * rows
@@ -184,7 +260,7 @@ class IotaEmbed(nn.Module):
             return allreduce_sum(out, mesh, "model").to(self.dtype)
         out = F.embedding(tokens, table)
         if mesh is not None and splits(spec, 1, "model", mesh):
-            out = all_gather(out, mesh, "model", gather_axis=-1)
+            out = gather_from(out, mesh, "model", gather_axis=-1)
         return out.to(self.dtype)
 
 
@@ -229,24 +305,61 @@ class LoRADense(nn.Module):
             self.lora_b = empty(rank, features)
         self.bias = empty(features) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, entered: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Over a mesh, column-parallel (kernel split over ``model`` on its
-        output dim) gives this rank's output columns; row-parallel (split on
-        its input dim) takes this rank's input columns in ``x`` and sums the
-        products over ``model``. ``place_module`` refuses adapters and
-        biases over a mesh."""
-        mesh = self._mesh
-        w = self.kernel if mesh is None else sharded_weight(self.kernel, self._specs["kernel"], mesh)
+        output dim) gives this rank's output columns from ``x`` passed
+        through *f* (or from ``entered``, the caller's ``model_input(x)``);
+        row-parallel (split on its input dim) takes this rank's input
+        columns in ``x`` and sums the products over ``model``.
+
+        The adapter: column-parallel, ``x @ A`` passes *f* before this
+        rank's columns of ``B``; row-parallel, this rank's rows of ``A``
+        (gathered back in the backward) and the whole ``B`` (its backward
+        a reduce-scatter) give a partial product that joins the base
+        product's sum. The bias: column-parallel, this rank's columns of it;
+        row-parallel, added once after the sum."""
+        mesh, specs = self._mesh, self._specs
+
+        def placed(name: str) -> torch.Tensor:
+            leaf = getattr(self, name)
+            return leaf if mesh is None else gathered(leaf, specs[name], mesh)
+
+        spec = None if mesh is None else specs["kernel"]
+        column = mesh is not None and splits(spec, 1, "model", mesh)
+        row = mesh is not None and splits(spec, 0, "model", mesh)
+        base_in = x
+        if column:
+            base_in = entered if entered is not None else sum_gradients(x, mesh, "model")
         if isinstance(self.kernel, QuantizedKernel):
-            y = quantized_matmul(x, w, out_dtype=self.dtype, impl=self.kernel.impl)
+            kernel = self.kernel if mesh is None else sharded_weight(self.kernel, spec, mesh)
+            y = quantized_matmul(base_in, kernel, out_dtype=self.dtype, impl=self.kernel.impl)
         else:
-            y = x @ w.to(self.dtype)
-        if mesh is not None and splits(self._specs["kernel"], 0, "model", mesh):
-            y = allreduce_sum(y, mesh, "model")
+            y = gathered_matmul(base_in, self.kernel, spec, mesh, self.dtype)
         if self.rank > 0:
-            y = y + ((x @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)) * (self.alpha / self.rank)
+            a, b = placed("lora_a").to(self.dtype), placed("lora_b").to(self.dtype)
+            b_split = mesh is not None and splits(specs["lora_b"], 1, "model", mesh)
+            if row:
+                if not splits(specs["lora_a"], 0, "model", mesh):
+                    a = split_to(a, mesh, "model", dim=0)
+                if b_split:
+                    b = all_gather(b, mesh, "model", gather_axis=1)
+                h = x @ a
+            else:
+                h = x @ a
+                if column:
+                    h = sum_gradients(h, mesh, "model")
+                    if not b_split:
+                        b = split_to(b, mesh, "model", dim=1)
+                elif b_split:
+                    b = gather_from(b, mesh, "model", gather_axis=1)
+            y = y + (h @ b) * (self.alpha / self.rank)
+        if row:
+            y = allreduce_sum(y, mesh, "model")
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            bias = placed("bias")
+            if column and not splits(specs["bias"], 0, "model", mesh):
+                bias = split_to(bias, mesh, "model", dim=0)
+            y = y + bias.to(self.dtype)
         return y
 
 
@@ -298,9 +411,10 @@ class Attention(nn.Module):
         cache: Optional[LayerCache] = None,
     ) -> Any:
         batch, length = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(batch, length, -1, self.head_dim)
-        k = self.k_proj(x).reshape(batch, length, -1, self.head_dim)
-        v = self.v_proj(x).reshape(batch, length, -1, self.head_dim)
+        entered = model_input(x, self.q_proj)
+        q = self.q_proj(x, entered).reshape(batch, length, -1, self.head_dim)
+        k = self.k_proj(x, entered).reshape(batch, length, -1, self.head_dim)
+        v = self.v_proj(x, entered).reshape(batch, length, -1, self.head_dim)
 
         if self.rope:
             if positions is None:
@@ -422,9 +536,10 @@ class MLP(nn.Module):
         self.wo = dense(hidden_dim, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        entered = model_input(x, self.wi)
         if self.gated:
-            return self.wo(F.silu(self.wg(x)) * self.wi(x))
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+            return self.wo(F.silu(self.wg(x, entered)) * self.wi(x, entered))
+        return self.wo(F.gelu(self.wi(x, entered), approximate="tanh"))
 
 
 class TransformerBlock(nn.Module):
@@ -462,28 +577,49 @@ class TransformerBlock(nn.Module):
         return (x, cache) if cache is not None else x
 
 
+def _init_leaf(param: torch.Tensor, leaf: str, owner: nn.Module, generator: Optional[torch.Generator]) -> None:
+    if leaf == "scale":
+        param.fill_(1.0)
+    elif leaf in ("lora_b", "bias", "cls_token"):
+        param.zero_()
+    elif leaf in ("lora_a", "pos_embed"):
+        param.normal_(0.0, 0.02, generator=generator)
+    else:  # kernel [..., in, out] (fan_in = in; stacked experts lead with E), conv kernel [kh, kw, in, out]
+        # (fan_in = kh * kw * in) or embedding [vocab, dim]
+        if leaf == "embedding":
+            fan_in = param.shape[1]
+        elif isinstance(owner, Conv):
+            fan_in = math.prod(param.shape[:-1])
+        else:
+            fan_in = param.shape[-2]
+        param.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+
 @torch.no_grad()
-def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None, *,
+                 shardings: Optional[Dict[str, Any]] = None, device: Any = None) -> None:
     """Random weights from a seeded ``torch.Generator`` (on the module's
     device): lecun-normal dense and convolution kernels, ``1/sqrt(dim)``
     embeddings, unit norm scales, zero biases, LoRA ``B`` and ``cls_token``,
     normal(0.02) LoRA ``A`` and learned ``pos_embed`` tables — the flax
-    initializers' laws, not their bits."""
+    initializers' laws, not their bits.
+
+    With ``shardings`` (``{path: NamedSharding}``, as
+    :func:`~unionml_tpu_torch.parallel.combine_fsdp_tp` gives them) the
+    module may be built on ``"meta"``: each leaf in turn is drawn whole on
+    ``device`` (the generator's), cut to this rank's shard, and the whole
+    freed, so a rank never holds more than one whole leaf beside its shards.
+    The draws are the unsharded model's, leaf for leaf."""
     owners = dict(module.named_modules())
-    for name, param in module.named_parameters():
-        owner, _, leaf = name.rpartition(".")
-        if leaf == "scale":
-            param.fill_(1.0)
-        elif leaf in ("lora_b", "bias", "cls_token"):
-            param.zero_()
-        elif leaf in ("lora_a", "pos_embed"):
-            param.normal_(0.0, 0.02, generator=generator)
-        else:  # kernel [..., in, out] (fan_in = in; stacked experts lead with E), conv kernel [kh, kw, in, out]
-            # (fan_in = kh * kw * in) or embedding [vocab, dim]
-            if leaf == "embedding":
-                fan_in = param.shape[1]
-            elif isinstance(owners[owner], Conv):
-                fan_in = math.prod(param.shape[:-1])
-            else:
-                fan_in = param.shape[-2]
-            param.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+    for name, param in list(module.named_parameters()):
+        owner_name, _, leaf = name.rpartition(".")
+        owner = owners[owner_name]
+        if shardings is None:
+            _init_leaf(param, leaf, owner, generator)
+            continue
+        whole = torch.empty(param.shape, dtype=param.dtype, device=device)
+        _init_leaf(whole, leaf, owner, generator)
+        sharding = shardings[name.replace(".", "/")]
+        setattr(owner, leaf, nn.Parameter(sharding.local(whole), requires_grad=param.requires_grad))
+        record_spec(owner, leaf, sharding)
+        del whole

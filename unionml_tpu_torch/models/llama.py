@@ -9,7 +9,7 @@ checkpoint leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,11 +17,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, resolve_device
-from unionml_tpu_torch.models.layers import IotaEmbed, RMSNorm, TransformerBlock, init_weights, sharded_weight
+from unionml_tpu_torch.models.layers import (
+    IotaEmbed,
+    RMSNorm,
+    TransformerBlock,
+    gathered_matmul,
+    init_weights,
+    sharded_weight,
+)
 from unionml_tpu_torch.ops.int8_matmul import quantized_matmul
 from unionml_tpu_torch.ops.quant import QuantizedKernel
-from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum
-from unionml_tpu_torch.parallel.sharding import P, PartitionRules, splits
+from unionml_tpu_torch.parallel.collectives import allreduce_sum, gather_from, sum_gradients
+from unionml_tpu_torch.parallel.sharding import P, PartitionRules, batch_mean, gathered, scope_mesh, splits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,21 +89,24 @@ class _LMHead(nn.Module):
         self.kernel = nn.Parameter(torch.empty(dim, vocab_size, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernel = self.kernel
-        if self._mesh is not None:
-            kernel = sharded_weight(kernel, self._specs["kernel"], self._mesh)
+        # over a mesh, vocab-parallel: this rank's logit columns (its input
+        # through *f*), gathered; a head split on its input dim sums over
+        # ``model`` instead
+        mesh = self._mesh
+        spec = None if mesh is None else self._specs["kernel"]
+        column = mesh is not None and splits(spec, 1, "model", mesh)
+        x = x.to(self.dtype)
+        if column:
+            x = sum_gradients(x, mesh, "model")
         if isinstance(self.kernel, QuantizedKernel):
-            y = quantized_matmul(x.to(self.dtype), kernel, out_dtype=self.dtype, impl=self.kernel.impl)
+            kernel = self.kernel if mesh is None else sharded_weight(self.kernel, spec, mesh)
+            y = quantized_matmul(x, kernel, out_dtype=self.dtype, impl=self.kernel.impl)
         else:
-            y = x.to(self.dtype) @ kernel.to(self.dtype)
-        if self._mesh is not None:
-            # vocab-parallel: this rank's logit columns, gathered; a head split
-            # on its input dim sums over ``model`` instead
-            spec, mesh = self._specs["kernel"], self._mesh
-            if splits(spec, 1, "model", mesh):
-                y = all_gather(y, mesh, "model", gather_axis=-1)
-            elif splits(spec, 0, "model", mesh):
-                y = allreduce_sum(y, mesh, "model")
+            y = gathered_matmul(x, self.kernel, spec, mesh, self.dtype)
+        if column:
+            y = gather_from(y, mesh, "model", gather_axis=-1)
+        elif mesh is not None and splits(spec, 0, "model", mesh):
+            y = allreduce_sum(y, mesh, "model")
         return y
 
 
@@ -130,6 +140,20 @@ class Llama(nn.Module):
     @property
     def layers(self) -> Sequence[TransformerBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.n_layers)]
+
+    def sequence_block(self, length: int) -> Optional[Tuple[int, int]]:
+        """``(lo, hi)``, this rank's block of ``length`` positions, when the
+        model runs sequence-parallel (placed on a mesh with a ``sequence``
+        axis, its attention ``"ring"`` or ``"ulysses"``); else None."""
+        mesh = self.embed._mesh
+        if mesh is None or mesh.shape["sequence"] <= 1 or self.layers[0].attn.impl not in ("ring", "ulysses"):
+            return None
+        n = mesh.shape["sequence"]
+        if length % n:
+            raise ValueError(f"a sequence of {length} positions does not split over sequence={n}")
+        block = length // n
+        lo = mesh.index("sequence") * block
+        return lo, lo + block
 
     def forward(
         self,
@@ -224,6 +248,39 @@ def _split_batch(batch: Any):
     return tokens, mask
 
 
+def _lm_rows(model: nn.Module, tokens: torch.Tensor, mask: Any, **kw: Any):
+    """The decoder's output over this rank's positions and the next-token
+    targets and weights there: every position but the last (one block of
+    them when the model runs sequence-parallel, the targets read from the
+    whole row every rank holds)."""
+    length = tokens.shape[1]
+    block = model.sequence_block(length) if hasattr(model, "sequence_block") else None
+    lo, hi = block if block is not None else (0, length)
+    if block is None:
+        out = model(tokens, **kw)[:, :-1]
+    else:
+        positions = torch.arange(lo, hi, device=tokens.device)
+        out = model(tokens[:, lo:hi], positions=positions, **kw)
+        if hi == length:
+            out = out[:, :-1]
+    end = min(hi, length - 1)
+    targets = tokens[:, lo + 1:end + 1].long()
+    valid = torch.ones(targets.shape, dtype=torch.float32, device=targets.device) if mask is None \
+        else mask[:, lo + 1:end + 1].float()
+    return out, targets, valid
+
+
+def _head_weight(model: nn.Module, dtype: torch.dtype):
+    """``(kernel in dtype, column-parallel mesh or None)``: the LM head as
+    the chunked loss multiplies by it, gathered once over ``fsdp``."""
+    head = model.lm_head
+    mesh = head._mesh
+    if mesh is None:
+        return head.kernel.to(dtype), None
+    spec = head._specs["kernel"]
+    return gathered(head.kernel.to(dtype), spec, mesh), (mesh if splits(spec, 1, "model", mesh) else None)
+
+
 def chunked_causal_lm_loss(model: "Llama", batch: Any, *, chunk_size: int = 256) -> torch.Tensor:
     """Next-token cross-entropy without the full ``[B, S, vocab]`` f32 logits.
 
@@ -233,13 +290,15 @@ def chunked_causal_lm_loss(model: "Llama", batch: Any, *, chunk_size: int = 256)
     them. The sequence is padded to a whole number of chunks (padding has
     weight 0) and the sum is divided by the mask's sum. Equal to
     :func:`causal_lm_loss` up to summation order. The head is cast to the
-    hidden states' dtype once, outside the chunks."""
+    hidden states' dtype once, outside the chunks.
+
+    Over a mesh the head is gathered over ``fsdp`` once, each chunk's
+    vocab-parallel logits are gathered over ``model``, and the quotient is
+    :func:`~unionml_tpu_torch.parallel.sharding.batch_mean`'s (the global
+    batch's mean under the driver)."""
     tokens, mask = _split_batch(batch)
-    hidden = model(tokens, return_hidden=True)[:, :-1]  # [B, S, D]
-    targets = tokens[:, 1:].long()
-    valid = torch.ones(targets.shape, dtype=torch.float32, device=targets.device) if mask is None \
-        else mask[:, 1:].float()
-    head = model.lm_head.kernel.to(hidden.dtype)
+    hidden, targets, valid = _lm_rows(model, tokens, mask, return_hidden=True)  # [B, S, D]
+    head, column = _head_weight(model, hidden.dtype)
     pad = (-targets.shape[1]) % chunk_size
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
@@ -247,7 +306,12 @@ def chunked_causal_lm_loss(model: "Llama", batch: Any, *, chunk_size: int = 256)
         valid = F.pad(valid, (0, pad))
 
     def chunk_loss(h: torch.Tensor, t: torch.Tensor, m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        logits = (h @ w).float()
+        if column is not None:
+            h = sum_gradients(h, column, "model")
+        logits = h @ w
+        if column is not None:
+            logits = gather_from(logits, column, "model", gather_axis=-1)
+        logits = logits.float()
         losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), t.reshape(-1), reduction="none")
         return (losses * m.reshape(-1)).sum()
 
@@ -256,18 +320,21 @@ def chunked_causal_lm_loss(model: "Llama", batch: Any, *, chunk_size: int = 256)
         hi = lo + chunk_size
         total = total + checkpoint(chunk_loss, hidden[:, lo:hi], targets[:, lo:hi], valid[:, lo:hi], head,
                                    use_reentrant=False)
-    return total / valid.sum().clamp_min(1.0)
+    return batch_mean(total, valid.sum())
 
 
 def causal_lm_loss(model: nn.Module, batch: Any) -> torch.Tensor:
     """Next-token cross-entropy. ``batch``: ``(tokens,
-    loss_mask)`` or a tokens tensor."""
+    loss_mask)`` or a tokens tensor. Under the driver over a mesh the
+    quotient is :func:`~unionml_tpu_torch.parallel.sharding.batch_mean`'s:
+    each rank's share of the global batch's mean."""
     tokens, mask = _split_batch(batch)
-    logits = model(tokens)[:, :-1].float()
-    targets = tokens[:, 1:].long()
+    logits, targets, valid = _lm_rows(model, tokens, mask)
+    logits = logits.float()
     losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), reduction="none")
     losses = losses.reshape(targets.shape)
+    if scope_mesh() is not None:
+        return batch_mean((losses * valid).sum(), valid.sum())
     if mask is not None:
-        m = mask[:, 1:].float()
-        return (losses * m).sum() / m.sum().clamp_min(1.0)
+        return (losses * valid).sum() / valid.sum().clamp_min(1.0)
     return losses.mean()

@@ -16,7 +16,11 @@ within rounding.
 :func:`ring_attention`/:func:`ulysses_attention` take each rank's local
 blocks (the layers call them inside a sequence-parallel forward);
 :func:`sequence_sharded_attention` takes the full arrays on every rank,
-cuts each rank's blocks, and gathers the result back.
+cuts each rank's blocks, and gathers the result back. Gradients flow
+through both: the K/V rotation's backward rotates the cotangents back,
+the all-to-all's is the inverse all-to-all, and the cut and the gather of
+:func:`sequence_sharded_attention` are each other's transposes, so every
+rank ends with the whole gradient of its whole inputs.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from unionml_tpu_torch.parallel.collectives import all_gather, all_to_all, ring_permute
+from unionml_tpu_torch.parallel.collectives import all_to_all, gather_from, ring_permute, split_to
 
 __all__ = ["ring_attention", "sequence_sharded_attention", "ulysses_attention"]
 
@@ -113,19 +117,16 @@ def sequence_sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     every rank holds: each rank takes its batch rows (over ``batch_axes``)
     and sequence block, runs :func:`ring_attention` (``impl="ring"``) or
     :func:`ulysses_attention` (``impl="ulysses"``), and the full output is
-    gathered back on every rank."""
+    gathered back on every rank (differentiable: each rank's gradients of
+    ``q``, ``k`` and ``v`` are the whole arrays')."""
     fn = {"ring": ring_attention, "ulysses": ulysses_attention}[impl]
     present = tuple(a for a in batch_axes if mesh.shape.get(a, 1) > 1)
-    nb, ib = mesh.size(present), mesh.index(present)
-    ns, i_s = mesh.size(sequence_axis), mesh.index(sequence_axis)
-    rows = q.shape[0] // nb
-    cols = q.shape[1] // ns
 
     def local(t: torch.Tensor) -> torch.Tensor:
-        return t[ib * rows:(ib + 1) * rows, i_s * cols:(i_s + 1) * cols]
+        return split_to(split_to(t, mesh, present, dim=0), mesh, sequence_axis, dim=1)
 
     out = fn(local(q), local(k), local(v), mesh, axis=sequence_axis, causal=causal)
-    out = all_gather(out, mesh, sequence_axis, gather_axis=1)
+    out = gather_from(out, mesh, sequence_axis, gather_axis=1)
     for a in reversed(present):  # rows are row-major over the batch axes: the innermost gathers first
-        out = all_gather(out, mesh, a, gather_axis=0)
+        out = gather_from(out, mesh, a, gather_axis=0)
     return out

@@ -12,8 +12,9 @@ this rank's coordinate, device and process groups.
 Axis conventions are the JAX package's (all optional, size-1 axes free):
 ``data`` (rows of a batch), ``fsdp`` (parameter shards, all-gathered at
 use), ``model`` (tensor parallelism), ``sequence`` (sequence-parallel
-prefill), ``pipe`` (pipeline stages; the training slice), ``expert``
-(expert parallelism), ``dcn_data`` (the outer pure-data axis).
+prefill and training), ``pipe`` (pipeline stages,
+:mod:`unionml_tpu_torch.parallel.pipeline`; replicated where serving),
+``expert`` (expert parallelism), ``dcn_data`` (the outer pure-data axis).
 """
 
 from __future__ import annotations
@@ -231,14 +232,11 @@ class MeshSpec:
 
 def serving_spec(mesh: Any) -> "MeshSpec":
     """Check the ``mesh`` of a serving config (``ServingConfig``, or any
-    config a ``CompiledPredictor`` is given): a :class:`MeshSpec`, with no
-    ``pipe`` axis (pipeline stages wait for the training slice)."""
+    config a ``CompiledPredictor`` is given): a :class:`MeshSpec`. A
+    ``pipe`` axis is taken as in the JAX package: serving rules leave it
+    replicated."""
     if not isinstance(mesh, MeshSpec):
         raise TypeError(f"a serving config's mesh must be a MeshSpec, got {type(mesh).__name__}")
-    if mesh.pipe > 1:
-        raise NotImplementedError(
-            "a pipe axis is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer, parallel training)"
-        )
     return mesh
 
 

@@ -23,8 +23,9 @@ those shards and run the collectives themselves (``models/layers.py``).
 
 from __future__ import annotations
 
+import contextlib
 import re
-from typing import Any, Dict, Iterable, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -36,11 +37,14 @@ __all__ = [
     "P",
     "PartitionRules",
     "PartitionSpec",
+    "REDUCE_AXES",
     "batch_axis_size",
+    "batch_mean",
     "batch_sharding",
     "combine_fsdp_tp",
     "infer_fsdp_sharding",
     "named_sharding",
+    "reduce_scope",
     "replicated",
     "shard_pytree",
     "shard_slices",
@@ -268,21 +272,13 @@ def place_module(module: nn.Module, shardings: Mapping[str, NamedSharding]) -> N
     leaf's spec on its owner (``owner._specs[leaf_name]``) with the mesh
     (``owner._mesh``): the sharded layers read both at their forward. An
     int8 slot's ``q`` takes its kernel's spec and its ``scale``
-    :func:`scale_spec`. Adapters and biases of a dense layer are not placed
-    yet (the training slice), so a module that has them is refused."""
-    from unionml_tpu_torch.models.layers import LoRADense
+    :func:`scale_spec`. LoRA adapters and biases are placed like any leaf;
+    the layers apply them over the mesh (``models/layers.py``)."""
     from unionml_tpu_torch.ops.quant import QuantizedKernel
 
-    for name, owner in module.named_modules():
-        if isinstance(owner, LoRADense) and (owner.rank > 0 or owner.bias is not None):
-            raise NotImplementedError(
-                f"{name}: LoRA adapters and dense biases over a mesh are not ported yet (ROADMAP.md, Queue A: "
-                "parallelism and the replica layer, parallel training)"
-            )
     with torch.no_grad():
         for path, sharding in shardings.items():
-            owner_path, _, leaf = path.rpartition("/")
-            owner = module.get_submodule(owner_path.replace("/", ".")) if owner_path else module
+            owner, leaf = _owner(module, path)
             target = getattr(owner, leaf)
             if isinstance(target, QuantizedKernel):
                 target.q = sharding.local(target.q)
@@ -290,9 +286,39 @@ def place_module(module: nn.Module, shardings: Mapping[str, NamedSharding]) -> N
                     target.scale)
             else:
                 target.data = sharding.local(target.data)
-            specs = owner.__dict__.setdefault("_specs", {})
-            specs[leaf] = sharding.spec
-            owner.__dict__["_mesh"] = sharding.mesh
+            record_spec(owner, leaf, sharding)
+
+
+def _owner(module: nn.Module, path: str) -> Tuple[nn.Module, str]:
+    owner_path, _, leaf = path.rpartition("/")
+    return (module.get_submodule(owner_path.replace("/", ".")) if owner_path else module), leaf
+
+
+def record_spec(owner: nn.Module, leaf: str, sharding: NamedSharding) -> None:
+    """Record that ``owner``'s ``leaf`` holds this rank's shard under
+    ``sharding`` (what :func:`place_module` leaves behind)."""
+    owner.__dict__.setdefault("_specs", {})[leaf] = sharding.spec
+    owner.__dict__["_mesh"] = sharding.mesh
+
+
+def placed_mesh(module: nn.Module) -> Any:
+    """The mesh ``module``'s leaves were placed on, or None."""
+    for owner in module.modules():
+        mesh = owner.__dict__.get("_mesh")
+        if mesh is not None:
+            return mesh
+    return None
+
+
+def leaf_specs(module: nn.Module) -> Dict[str, PartitionSpec]:
+    """``{parameter name: spec}`` of a placed module (``P()`` for a leaf no
+    rule placed)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name) if owner_name else module
+        out[name] = (owner.__dict__.get("_specs") or {}).get(leaf, P())
+    return out
 
 
 def splits(spec: Sequence[Any], dim: int, axis: str, mesh: Any) -> bool:
@@ -300,20 +326,133 @@ def splits(spec: Sequence[Any], dim: int, axis: str, mesh: Any) -> bool:
     return dim < len(spec) and axis in _entry_axes(spec[dim]) and mesh.shape[axis] > 1
 
 
-def gathered(t: torch.Tensor, spec: Sequence[Any], mesh: Any, keep: Tuple[str, ...] = ("model", "expert")
-             ) -> torch.Tensor:
-    """A shard with every axis of ``spec`` but ``keep`` all-gathered back
-    (FSDP's gather at use): what remains split is the tensor- and
-    expert-parallel layout the layers compute in. A dim split over a kept
-    axis and a gathered one at once is refused."""
-    from unionml_tpu_torch.parallel.collectives import all_gather
+def spec_axes(spec: Sequence[Any]) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` splits some dim over."""
+    return tuple(a for entry in spec for a in _entry_axes(entry))
 
+
+def _gather_axes(spec: Sequence[Any], mesh: Any, keep: Tuple[str, ...]) -> list:
+    """``[(dim, axis)]`` in the order :func:`gathered` gathers: per dim, the
+    axes of ``spec`` but ``keep`` (size > 1), minor first."""
+    out = []
     for dim, entry in enumerate(spec):
         axes = [a for a in _entry_axes(entry) if mesh.shape[a] > 1]
         drop = [a for a in axes if a not in keep]
         if not drop:
             continue
-        if len(axes) > 1:
-            raise NotImplementedError(f"a dim split over several axes {axes} of which some are gathered at use")
-        t = all_gather(t, mesh, drop[0], gather_axis=dim)
+        if any(axes.index(a) > axes.index(d) for a in axes if a in keep for d in drop):
+            raise NotImplementedError(f"dim {dim} is split over {axes}: a kept axis after a gathered one leaves "
+                                      "no contiguous block to compute on")
+        out += [(dim, a) for a in reversed(drop)]
+    return out
+
+
+def gather_raw(t: torch.Tensor, steps: list, mesh: Any) -> torch.Tensor:
+    """``t`` all-gathered along each ``(dim, axis)`` of ``steps`` in turn
+    (no autograd)."""
+    from unionml_tpu_torch.parallel.collectives import _raw_all_gather
+
+    for dim, a in steps:
+        t = _raw_all_gather(t, mesh.group(a), mesh.size(a), True, dim)
     return t
+
+
+def _gather_args(mesh: Any, dim: int, a: str) -> tuple:
+    """``(group, n, i, tiled, dim, scatter)`` of one gather step, as
+    ``collectives._AllGather`` and its transpose take them: the transpose
+    is a reduce-scatter over a batch axis (the ranks compute on their own
+    rows), the tile alone over another (the ranks compute alike)."""
+    return mesh.group(a), mesh.size(a), mesh.index(a), True, dim, a in BATCH_AXES
+
+
+def gather_transpose(g: torch.Tensor, steps: list, mesh: Any) -> torch.Tensor:
+    """The transpose of :func:`gather_raw` over ``steps`` (no autograd)."""
+    from unionml_tpu_torch.parallel.collectives import gather_transpose as transpose
+
+    for dim, a in reversed(steps):
+        g = transpose(g, *_gather_args(mesh, dim, a))
+    return g
+
+
+def gathered(t: torch.Tensor, spec: Sequence[Any], mesh: Any, keep: Tuple[str, ...] = ("model", "expert")
+             ) -> torch.Tensor:
+    """A shard with every axis of ``spec`` but ``keep`` all-gathered back
+    (FSDP's gather at use): what remains split is the tensor- and
+    expert-parallel layout the layers compute in.
+
+    A dim split over a tuple of axes is major-axis-first (shard ``f * M +
+    m`` at ``(f, m)``), so the minor axes gather first; a kept axis must
+    then come before every gathered one in the tuple. Differentiable, and
+    the gathered tensor is saved by nothing here: over a batch axis (the
+    ranks compute on their own rows) the backward is a reduce-scatter, over
+    any other axis the ranks compute alike and the backward keeps this
+    rank's tile."""
+    from unionml_tpu_torch.parallel.collectives import _AllGather
+
+    for dim, a in _gather_axes(spec, mesh, keep):
+        t = _AllGather.apply(t, *_gather_args(mesh, dim, a))
+    return t
+
+
+#: the axes a loss's value and gradients are averaged over: the batch axes
+#: (each rank holds its rows) and ``sequence`` (each rank its block of a
+#: sequence-parallel model's positions)
+REDUCE_AXES: Tuple[str, ...] = BATCH_AXES + ("sequence",)
+
+
+class _ReduceScope:
+    """Process-wide, not a thread's: a checkpointed loss recomputes where
+    its backward runs, which for a card's tensors is autograd's device
+    thread, and the recompute must take the quotient the forward took."""
+
+    mesh: Any = None
+
+
+_scope = _ReduceScope()
+
+
+@contextlib.contextmanager
+def reduce_scope(mesh: Any) -> Iterator[None]:
+    """Run a step's losses over ``mesh``: inside, :func:`batch_mean` gives
+    each rank its share of the global mean, and the driver averages every
+    gradient and metric over the mesh's :data:`REDUCE_AXES`."""
+    previous, _scope.mesh = _scope.mesh, mesh
+    try:
+        yield
+    finally:
+        _scope.mesh = previous
+
+
+def scope_mesh() -> Any:
+    """The mesh of the active :func:`reduce_scope`, or None."""
+    return _scope.mesh
+
+
+def reduce_axes(mesh: Any) -> Tuple[str, ...]:
+    """The axes of :data:`REDUCE_AXES` that ``mesh`` splits (size > 1)."""
+    return tuple(a for a in REDUCE_AXES if mesh.shape.get(a, 1) > 1)
+
+
+def batch_mean(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / max(den, 1)`` as the mean over the global batch.
+
+    ``num`` is this rank's sum of per-entry losses and ``den`` its count of
+    those entries (a mask's sum). Outside a :func:`reduce_scope` (or on a
+    mesh that splits nothing) this is the plain quotient. Inside, the
+    counts are summed over the reduce axes (ranks that hold the same rows
+    count them alike), and the rank's share ``n * num / sum(den)`` is
+    returned: the average of the shares over the ``n`` ranks of those axes,
+    which the driver takes, is the JAX package's global
+    ``sum(l * m) / max(sum(m), 1)`` whether each rank holds its own rows,
+    the same rows (an indivisible batch) or a block of each sequence, and
+    whatever each rank's count."""
+    mesh = _scope.mesh
+    axes = () if mesh is None else reduce_axes(mesh)
+    if not axes:
+        return num / den.clamp_min(1.0)
+    from unionml_tpu_torch.parallel.collectives import allreduce_sum
+
+    total = den.detach().float()
+    for a in axes:
+        total = allreduce_sum(total, mesh, a)
+    return num * (mesh.size(axes) / total.clamp_min(1.0))

@@ -50,8 +50,8 @@ class ServingConfig:
     ``data`` axis, each rank runs its rows of the padded batch on its full
     copy of the model, and the results are gathered, so every rank returns
     them all. Every rank serves the same requests in the same order; the
-    mesh is built at the first dispatch. A ``pipe`` axis waits for the
-    training slice.
+    mesh is built at the first dispatch. A ``pipe`` axis is replicated, as
+    in the JAX package.
     """
 
     max_batch_size: int = 32

@@ -12,6 +12,8 @@ C]``, the convolution kernels ``[kh, kw, in, out]``, and the flatten before
 ``Dense_0`` runs over ``(h, w, c)``. So the JAX template's parameters load
 as they are. ``init`` builds the module on the ``device`` hyperparameter:
 unset means the card, and the CPU is asked for with ``{"device": "cpu"}``.
+Swap ``MeshSpec`` into the TrainerConfig to shard across cards (one
+process a rank).
 """
 
 from typing import List, Optional, Tuple
@@ -89,6 +91,8 @@ def _loss(module: CNN, batch) -> torch.Tensor:
 _step = make_train_step(_loss)
 
 
+# swap in ``mesh=MeshSpec(data=-1)`` (``unionml_tpu_torch.parallel``) to train data-parallel over
+# every rank of a ``torchrun`` world: each rank takes its rows of every batch
 @model.trainer(config=TrainerConfig(epochs=10, batch_size=64, shuffle=True))
 def trainer(state: TrainState, batch) -> tuple:
     return _step(state, batch)

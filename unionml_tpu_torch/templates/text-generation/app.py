@@ -17,7 +17,9 @@ engine arguments are the JAX template's. What differs is torch's:
 - ``speculative_generator``'s draft is a module carrying its own weights
   (seeded, on the state's device) rather than a params tree;
 - the corpus is a list of lines with the default splitter's rows written
-  out (``splitter``) rather than a DataFrame: the app imports no pandas.
+  out (``splitter``) rather than a DataFrame: the app imports no pandas;
+- to shard, add ``MeshSpec(...)``/``llama_partition_rules()`` to the
+  TrainerConfig (one process a rank, see the comment at ``trainer``).
 
 Structured output: prefix a prompt with ``@<grammar> `` (see ``GRAMMARS``) and
 that request's continuation is constrained to the grammar's regex by
@@ -139,6 +141,9 @@ def _loss(module: Llama, batch) -> torch.Tensor:
 _step = make_train_step(_loss)
 
 
+# to shard, add ``mesh=MeshSpec(...)`` and ``partition_rules=llama_partition_rules()`` (from
+# ``unionml_tpu_torch.parallel`` and ``.models``) to the TrainerConfig and run one process a rank
+# (``torchrun --nproc-per-node N``); every rank trains the same app on its shards and rows
 @model.trainer(config=TrainerConfig(epochs=6, batch_size=16, shuffle=True))
 def trainer(state: TrainState, batch) -> tuple:
     return _step(state, batch)
