@@ -210,7 +210,7 @@ Phases (no phase catches a failure; any fault exits non-zero):
    at data=2, fsdp=2, model=2 and sequence=2 (ring), and ``pipeline_apply``
    at pipe=2 with ``param_specs`` (a 2-layer ``PipelinedViT`` at ViT-L
    width), each against the unsharded card run and the CPU, which the
-   parent computes meanwhile; (b) Llama-3-8B width and depth built on the
+   parent computes meanwhile; (b) Llama-3-8B width, MESH_TRAIN_LAYERS deep, built on the
    meta device and drawn leaf by leaf on the card (each rank holds its
    shard of the f32 model only), LoRA rank 8, ``make_train_step(remat=
    True)``, 2 steps of a 2 x 1024 global batch at fsdp=2 and at model=2:
@@ -226,6 +226,33 @@ Phases (no phase catches a failure; any fault exits non-zero):
    every case, and all but the four flash kernels must count 0.
    ``train_mesh_launches`` on the kernels line is 16a's and rank 0's 16b
    count, ``train_mesh_f32_launches`` rank 0's over 16c.
+
+17. the cold start (``unionml_tpu_torch/serving/aot.py``, ``compile_cache.py``,
+   ``serving/serverless.py``): (a) run after 3c on phase 3's weights, knobs
+   and prompts: an eager engine, ``aot=DIR`` on an empty store (a miss: each
+   program run once and captured as a CUDA graph, its entry written) and a
+   fresh ``Generator`` and engine on the populated store with the kernel
+   build cache pointed at an empty directory (a hit: the libraries installed
+   from the store, no ``nvcc``, no fresh capture); greedy streams equal phase
+   3's on all three; each kernel's launches in the profiler's trace of a
+   served run equal on the graph route and the eager one (and the eager
+   route's trace equals its wrappers' counts; the counts a graph adds per
+   replay are a cross-check); a seeded ``temperature=0.8`` pair
+   equal token for token, a program that reads a value back on the host
+   refuses its capture with an error; the same weights under
+   ``quantize="int8"``, eager against graph (the int8 matmul inside the
+   graphs); printed: both routes' TBT p50, tok/s, TTFT p50, the device's
+   idle share of a served run (profiled) and ``warmup()``'s seconds on a
+   miss and on a hit (``aot_launches`` on the kernels line: the traced
+   launches of the graph route's runs, bf16 hit and int8); (b) after phase
+   11b (whose child serves on the eager route), a child boots with
+   ``--aot-preload DIR --compile-cache DIR2`` on empty directories (it
+   builds its kernels and writes the store), then a second child on the
+   same directories, loading every program and building nothing, its wave
+   under its own profiler (the graph route's paged launches from its
+   trace); both stream 11b's in-process answers; seconds to ready of both;
+   (c) ``lambda_handler`` over that app in this process on
+   the populated store: two invocations, one startup, nothing compiled.
 
 Phase 10a also holds bf16 chunked admission to monolithic admission behind
 the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
@@ -3026,7 +3053,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     admission (``ADMIT_CHUNK``) and the radix prefix cache: in this process
     through ``Model.serve()`` (the env exports the CLI would make) and through
     ``python -m unionml_tpu_torch.cli serve ... --admit-chunk 64
-    --prefix-cache --profile-dir``. Phase 3's prompts stream concurrently
+    --prefix-cache --profile-dir`` (the eager route). Phase 3's prompts stream concurrently
     over ``/predict-stream`` to both, and the answers must be equal. The
     child's paged kernel launches are read from a ``POST /debug/profile``
     capture spanning its streams. Then a refused flag (``--num-hosts 2``, the multi-host fleet)
@@ -3088,9 +3115,9 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
 
     # ---- the CLI's own process: a timed wave, then a wave under the child's own profiler (radix hits now)
     profile_dir = os.path.join(workdir, "cli_profile")
-    args = ["llama_app:model", "--model-path", artifact, "--admit-chunk", str(ADMIT_CHUNK), "--prefix-cache",
-            "--profile-dir", profile_dir]
-    with cli_server(args, workdir, os.path.join(workdir, "llama_server.log")) as (port, cli_ready_s):
+    args = ["llama_app:model", "--model-path", artifact, "--admit-chunk", str(ADMIT_CHUNK), "--prefix-cache"]
+    with cli_server(args + ["--profile-dir", profile_dir], workdir, os.path.join(workdir, "llama_server.log")) as (
+            port, cli_ready_s):
         ttft_cli: list = []
         served, cli_s = concurrent([functools.partial(stream_http, port, [p], ttft_cli) for p in prompts])
         generation = json.loads(http_request(port, "GET", "/metrics")[2])["generation"]
@@ -3116,6 +3143,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     status = captured.get("response", (None, None, b""))
     require(status[0] == 200, f"POST /debug/profile answered {status[0]}: {status[2][:300]!r}")
     cli_launches, kernel_ms, window_ms = paged_kernel_events(profile_dir)
+    shutil.rmtree(profile_dir, ignore_errors=True)
     profiled_dispatches = after["decode_dispatches"] - generation["decode_dispatches"]
     expected = CLI_LAYERS * profiled_dispatches * 8
     prefill = after.get("prefill", {})
@@ -3149,11 +3177,11 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     require(prefill.get("chunks", 0) > 0, f"the CLI's engine admitted no chunk: {prefill}")
     require(refused.returncode == 1 and "parallelism and the replica layer" in refused.stderr
             and "was imported" not in refused.stderr + refused.stdout, "the refused flag did not exit 1 at boot")
-    os.remove(artifact)
-    shutil.rmtree(profile_dir, ignore_errors=True)
     sys.path.remove(workdir)
+    # the artifact stays for phase 17b-c (the caller's workdir goes with it)
     return dict(cli_launches=cli_launches, in_process_launches=in_launches,
-                cli_tok_s=len(prompts) * MAX_NEW / cli_s, in_process_tok_s=len(prompts) * MAX_NEW / inproc_s)
+                cli_tok_s=len(prompts) * MAX_NEW / cli_s, in_process_tok_s=len(prompts) * MAX_NEW / inproc_s,
+                artifact=artifact, inproc_streams=inproc, args=args, ready_s=cli_ready_s, wave_s=cli_s)
 
 
 def moe_prompts(vocab: int) -> list:
@@ -4167,10 +4195,12 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
 
 #: phase 16: parallel training on the card. (a) phase 5's configuration through fit over a world of one
 #: (MeshSpec(data=1), NCCL) for WORLD1_STEPS of its batches; (b) two ranks on cuda:0 over gloo at Llama-3-8B
-#: width and depth, MESH_TRAIN_STEPS steps of a global batch of MESH_TRAIN_ROWS x MESH_TRAIN_SEQ under each layout
-#: (make_train_step(remat=True)); (c) f32 parity at 2 layers; (d) PipelinedViT at ViT-L/16 width at pipe=2
+#: width, MESH_TRAIN_LAYERS deep, MESH_TRAIN_STEPS steps of a global batch of MESH_TRAIN_ROWS x MESH_TRAIN_SEQ
+#: under each layout (make_train_step(remat=True)); (c) f32 parity at 2 layers; (d) PipelinedViT at ViT-L/16 width
+#: at pipe=2. (b) is cut from 32 layers to 8: fsdp=2 gathers every layer's f32 weights through gloo's host route,
+#: which took 56 s a step at 32 layers (H100 80GB HBM3, 700 W); each layer's shapes and shards are the same
 WORLD1_STEPS = 3
-MESH_TRAIN_STEPS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ = 2, 2, 1024
+MESH_TRAIN_STEPS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, MESH_TRAIN_LAYERS = 2, 2, 1024, 8
 MESH_TRAIN_LAYOUTS = (("fsdp2", dict(fsdp=2)), ("model2", dict(model=2)))
 #: (b): bf16 losses of a mesh run against the world of one, relative. The layouts round to bf16 at other places
 #: (model=2 sums two bf16 partials of each row-parallel product; fsdp=2 runs another cuBLAS kernel for a local
@@ -4180,7 +4210,7 @@ MESH_TRAIN_LAYOUTS = (("fsdp2", dict(fsdp=2)), ("model2", dict(model=2)))
 MESH_TRAIN_LOSS_REL = 5e-4
 #: (b): each rank's LoRA gradient shards of the last step (reduced: what the optimizer took) and its adapters'
 #: moves over the run, against the world of one's cut to the rank's shard, as the relative L2 error over all
-#: 32 x 7 adapter pairs. Gradients: a layout that rounds to bf16 at other places moves each backward activation
+#: MESH_TRAIN_LAYERS x 7 adapter pairs. Gradients: a layout that rounds to bf16 at other places moves each backward activation
 #: by about one rounding (2^-9), and a leaf's gradient sums those over the batch's positions: 1-3e-2 read on the
 #: H100 (2 and 32 layers); a gradient scaled by 2 errs by 0.5, one not summed over a batch axis or taken from
 #: another shard by more. Moves: Adam's first steps are about lr x sign(g), so a share f of elements whose sign
@@ -4189,7 +4219,7 @@ MESH_TRAIN_LOSS_REL = 5e-4
 MESH_TRAIN_GRAD_REL, MESH_TRAIN_MOVE_REL = 0.1, 0.5
 #: (d): bf16 losses of the pipelined ViT against the unpipelined one, relative (the training parity's bound)
 VIT_MESH_LOSS_REL = BF16_PARITY_LOSS_REL
-MESH_TRAIN_MEMORY_GIB = 30  # (b): predicted peak memory a rank (half the f32 weights, 16 GiB, and its activations)
+MESH_TRAIN_MEMORY_GIB = 30  # (b): predicted peak memory a rank (half the f32 weights, 5.2 GiB, and its activations)
 #: (c): f32, 2 layers, TF32 off: global batch MESH_PARITY_ROWS x PARITY_SEQ for MESH_PARITY_STEPS steps
 MESH_PARITY_ROWS, MESH_PARITY_STEPS = 2, 2
 MESH_PARITY_CASES = (("data2", dict(data=2), "flash"), ("fsdp2", dict(fsdp=2), "flash"),
@@ -4248,8 +4278,8 @@ def train_world1_phase(card: str, phase5_losses: list) -> dict:
     import torch
     import torch.distributed as dist
 
-    from unionml_tpu_torch import LlamaConfig, TrainerConfig, TrainState, fit, make_train_step
-    from unionml_tpu_torch.models import chunked_causal_lm_loss, llama_partition_rules, lora_optimizer
+    from unionml_tpu_torch import LlamaConfig, TrainerConfig, fit, make_train_step
+    from unionml_tpu_torch.models import chunked_causal_lm_loss, llama_partition_rules
     from unionml_tpu_torch.parallel import MeshSpec
 
     cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash", remat=TRAIN_REMAT)
@@ -4279,12 +4309,13 @@ def train_world1_phase(card: str, phase5_losses: list) -> dict:
     require(losses == want, f"16a losses {losses} != phase 5's {want}")
     require(launches == expected, f"16a flash launches {launches}, expected {expected}")
 
-    # (b)'s reference: the same initial weights on (b)'s global batches
-    with torch.no_grad():
-        for name, param in state.model.named_parameters():
-            if name in initial:
-                param.copy_(initial[name])
-    state = TrainState(state.model, lora_optimizer(state.model, LR))
+    # (b)'s reference: (b)'s depth and initial weights on (b)'s global batches
+    del state, initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
+    state = lora_llama(cfg, seed=0)
+    initial = {n: p.detach().clone() for n, p in state.model.named_parameters() if "lora" in n}
     rows = MESH_TRAIN_STEPS * MESH_TRAIN_ROWS
     batches = mesh_train_tokens(cfg.vocab_size, rows, MESH_TRAIN_SEQ, 7)
     remat = make_train_step(lambda model, batch: chunked_causal_lm_loss(model, batch), remat=True)
@@ -4521,7 +4552,7 @@ def pipeline_parity_case() -> dict:
 
 
 def mesh_train_case(name: str, spec: dict, tokens) -> dict:
-    """One rank's phase 16b layout: Llama-3-8B width and depth, built on the
+    """One rank's phase 16b layout: Llama-3-8B width, MESH_TRAIN_LAYERS deep, built on the
     meta device and drawn leaf by leaf on the card (each leaf cut to this
     rank's shard as it is drawn: the world of one's draws, and never more
     than one whole f32 leaf beside the shards), LoRA rank 8, bf16 compute,
@@ -4538,7 +4569,7 @@ def mesh_train_case(name: str, spec: dict, tokens) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mesh = MeshSpec(**spec).build()
-    cfg = LlamaConfig.llama3_8b(lora_rank=8, attention_impl="flash")
+    cfg = LlamaConfig.llama3_8b(n_layers=MESH_TRAIN_LAYERS, lora_rank=8, attention_impl="flash")
     model = Llama(cfg, device="meta")
     rules = llama_partition_rules()
     init_weights(model, torch.Generator(device=mesh.device).manual_seed(0),
@@ -4666,7 +4697,7 @@ def train_mesh_phase(card: str, phase5_losses: list) -> dict:
     parity at 2 layers (data=2, fsdp=2, model=2, sequence=2 ring LoRA fits,
     and ``pipeline_apply`` at pipe=2 with ``param_specs``) against the
     unsharded card run and the CPU, which this process computes meanwhile;
-    (b) Llama-3-8B width and depth at fsdp=2 and at model=2, 2 steps of a
+    (b) Llama-3-8B width, MESH_TRAIN_LAYERS deep, at fsdp=2 and at model=2, 2 steps of a
     2 x 1024 global batch, held to (a)'s world of one; (d) PipelinedViT at
     ViT-L/16 width at pipe=2 held to the unpipelined ViT. Returns the flash
     launches of the path (16a, and rank 0 in (b) and (c))."""
@@ -4780,9 +4811,9 @@ def train_mesh_phase(card: str, phase5_losses: list) -> dict:
               f"param_specs: loss {res['loss']:.7g}; (loss rel err, worst gradient rel L2 err) against the card "
               f"{worst_rel['cuda']} and the CPU {worst_rel['cpu']} (bounds 1e-5, {PIPE_PARITY_GRAD_REL})", flush=True)
 
-    # (b) Llama-3-8B width and depth at fsdp=2 and model=2
+    # (b) Llama-3-8B width, MESH_TRAIN_LAYERS deep, at fsdp=2 and model=2
     expected_heads = {"fsdp2": (32, 8), "model2": (16, 4)}
-    per_step = 32 * MESH_TRAIN_STEPS
+    per_step = MESH_TRAIN_LAYERS * MESH_TRAIN_STEPS
     for name, spec in MESH_TRAIN_LAYOUTS:
         for r in range(MESH_RANKS):
             res = results[r][name + "_bf16"]
@@ -4834,6 +4865,329 @@ def train_mesh_phase(card: str, phase5_losses: list) -> dict:
           f"{f32_launches}; worst flash error at the local shapes {worst:.3g}", flush=True)
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(launches=launches, f32_launches=f32_launches, max_abs_err=worst)
+
+
+#: phase 17 (the cold start): the seeded sampled pair's temperature, and its prompts (phase 3's first two, one
+#: after another, so that both engines seed their admissions alike)
+AOT_TEMPERATURE, AOT_SAMPLED_PROMPTS = 0.8, 2
+
+
+#: each wrapper's CUDA kernel, by the name a profiler trace gives it (the int8-page mode has two)
+KERNEL_SYMBOLS = {"flash_forward": ("flash_forward_kernel",), "flash_backward": ("flash_backward_kernel",),
+                  "flash_forward_f32": ("flash_forward_f32_kernel",),
+                  "flash_backward_f32": ("flash_backward_f32_kernel",), "int8_matmul": ("int8_matmul_kernel",),
+                  "paged_decode_attention": ("paged_decode_kernel",),
+                  "paged_decode_attention_int8": ("paged_decode_int8_direct", "paged_decode_int8_mma")}
+
+
+def traced_launches(by_name: dict) -> dict:
+    """Each port kernel's launches in a ``profiled()`` run, counted from the
+    trace's kernel events by name: what ran on the device, inside a CUDA
+    graph's replay too."""
+    import re
+
+    owner = {symbol: name for name, symbols in KERNEL_SYMBOLS.items() for symbol in symbols}
+    counts = {name: 0 for name in KERNEL_SYMBOLS}
+    for event, (_, calls) in by_name.items():
+        # "void (anonymous namespace)::paged_decode_kernel<...>(...)": the function's own name
+        head = event.replace("(anonymous namespace)::", "").removeprefix("void ")
+        symbol = re.split(r"[<(]", head, maxsplit=1)[0].rsplit("::", 1)[-1].strip()
+        if symbol in owner:
+            counts[owner[symbol]] += calls
+    return counts
+
+
+def aot_engine_run(gen, prompts, slots: int, decode_chunk: int, aot, threads: bool = True,
+                   trace: bool = False) -> dict:
+    """One engine over ``gen`` with the AOT store ``aot`` (False: the eager
+    route): ``warmup()`` timed, then ``prompts`` served (concurrently, or one
+    after another) with every kernel counted from 0; with ``trace``, the same
+    prompts served once more under the profiler (its kernel launches by name
+    and the device's idle share); the engine is closed."""
+    from unionml_tpu_torch import ContinuousBatcher
+
+    engine = ContinuousBatcher(gen, slots=slots, decode_chunk=decode_chunk, block_size=BLOCK, aot=aot)
+    traced = idle = None
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        reset_counts()
+        if threads:
+            streams, seconds = serve(engine, prompts)
+        else:
+            t0 = time.perf_counter()
+            streams = [[int(t) for chunk in engine.submit(p) for t in chunk] for p in prompts]
+            seconds = time.perf_counter() - t0
+        launches = all_launches()
+        stats = engine.stats()
+        if trace:
+            traced_s, by_name = profiled(lambda: serve(engine, prompts))
+            busy_ms = sum(total for total, _ in by_name.values())
+            require(busy_ms > 0, "the profiler saw no device time in a served run")
+            traced, idle = traced_launches(by_name), 1 - busy_ms / (traced_s * 1e3)
+    finally:
+        engine.close()
+        # an engine sits in reference cycles: collect it now, with the generator, its graphs and its pool
+        del engine
+        gc.collect()
+    return dict(streams=streams, seconds=seconds, launches=launches, stats=stats, warmup_s=warmup_s,
+                tok_s=sum(len(s) for s in streams) / seconds, traced=traced, idle=idle)
+
+
+def aot_route_line(label: str, run: dict) -> str:
+    stats = run["stats"]
+    return (f"{label}: warmup() {run['warmup_s']:.2f} s, {run['tok_s']:.1f} tok/s, TBT p50 "
+            f"{stats['tbt_ms'].get('p50_ms')} ms, TTFT p50 {stats['ttft_ms'].get('p50_ms')} ms")
+
+
+def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams) -> dict:
+    """Phase 17a: the AOT program store in process, at phase 3's width,
+    weights, knobs and prompts. Three engines over one model, in turn: the
+    eager route, ``aot=DIR`` on an empty store (a miss: every program run
+    once, captured as a CUDA graph, its entry written) and a fresh
+    ``Generator`` and engine on the populated store with the kernel build
+    cache pointed at an empty directory (a hit: the libraries installed from
+    the store, no ``nvcc``, no fresh capture). Greedy streams equal phase 3's
+    on all three, and each kernel's launches on the graph route equal the
+    eager engine's; a seeded ``temperature=0.8`` pair equal token for token; a
+    program that reads a value back on the host fails its capture and
+    raises; then the same weights quantized in place serve the eager and
+    graph pair under ``quantize="int8"`` (the int8 matmul inside the graphs).
+    Prints both routes' TBT, tok/s, TTFT of the first request after
+    ``warmup()``, the device's idle share of one served run and the seconds
+    of ``warmup()`` on a miss and on a hit."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from unionml_tpu_torch import Generator, Llama, _build
+    from unionml_tpu_torch.compile_cache import enable_compile_cache
+    from unionml_tpu_torch.serving.aot import AOTFunction, ProgramStore
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved_before = torch.cuda.memory_reserved()
+    store = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    cache = tempfile.mkdtemp(prefix="chip_smoke_kernels_")
+    build_dir = _build.build_dir()
+    try:
+        model = Llama(cfg, seed=0)  # phase 3's weights
+        eager = aot_engine_run(Generator(model, gcfg), prompts, slots, decode_chunk, False, trace=True)
+        miss_gen = Generator(model, gcfg)
+        miss = aot_engine_run(miss_gen, prompts, slots, decode_chunk, store)
+        entries = ProgramStore(store).entries()
+        enable_compile_cache(cache)
+        nvcc_before = _build.nvcc_runs
+        hit_gen = Generator(model, gcfg)
+        hit = aot_engine_run(hit_gen, prompts, slots, decode_chunk, store, trace=True)
+        nvcc_runs = _build.nvcc_runs - nvcc_before
+        installed = sorted(os.listdir(cache))
+        _build.set_build_dir(build_dir)
+
+        sampled = dataclasses.replace(gcfg, temperature=AOT_TEMPERATURE)
+        few = prompts[:AOT_SAMPLED_PROMPTS]
+        sampled_eager = aot_engine_run(Generator(model, sampled), few, slots, decode_chunk, False, threads=False)
+        sampled_graph = aot_engine_run(Generator(model, sampled), few, slots, decode_chunk,
+                                       tempfile.mkdtemp(dir=store), threads=False)
+
+        def reads_back(x):  # a host read inside a program: its capture fails
+            return x * float(x.sum())
+
+        refused = None
+        try:
+            AOTFunction(reads_back, "reads_back", ProgramStore(tempfile.mkdtemp(dir=store)), {})(
+                torch.ones(4, device="cuda"))
+        except RuntimeError as exc:
+            refused = exc
+        traces = dict(miss=(miss_gen.prefill_traces, miss_gen.decode_traces),
+                      hit=(hit_gen.prefill_traces, hit_gen.decode_traces))
+        del model, miss_gen, hit_gen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        int8_model = Llama(cfg, seed=0)  # phase 3b's weights, quantized in place by the first Generator
+        int8_eager = aot_engine_run(Generator(int8_model, gcfg, quantize="int8"), prompts, slots, decode_chunk, False)
+        int8_graph = aot_engine_run(Generator(int8_model, gcfg, quantize="int8"), prompts, slots, decode_chunk,
+                                    tempfile.mkdtemp(dir=store), trace=True)
+        del int8_model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        _build.set_build_dir(build_dir)
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(cache, ignore_errors=True)
+    refused = None if refused is None else repr(refused)  # not the exception: its traceback holds this frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved_after = torch.cuda.memory_reserved()
+    graphs = sorted({(e["program"], e["graph"]) for e in entries})
+    decode = [e for e in entries if e["program"] == "decode"]
+    print(f"phase 17a: {aot_route_line('eager route', eager)}; device idle {eager['idle']:.3f} of a served run "
+          f"(profiled)", flush=True)
+    print(f"  {aot_route_line('AOT store, miss', miss)}; {miss['stats']['aot']}; entries {graphs}; the decode "
+          f"graph's launches a replay {[e['launches'] for e in decode]}, captured in "
+          f"{[e['capture_ms'] for e in decode]} ms", flush=True)
+    print(f"  {aot_route_line('AOT store, hit', hit)}; device idle {hit['idle']:.3f} of a served run (profiled); "
+          f"{hit['stats']['aot']}; fresh captures {traces['hit']} (miss: {traces['miss']}); nvcc runs {nvcc_runs}; "
+          f"libraries installed into the empty build cache {installed}", flush=True)
+    print(f"  launches in the profiler's trace of a served run: eager {eager['traced']}, graph route (hit) "
+          f"{hit['traced']}; counted by the wrappers (the graph route's per replay, a cross-check): eager "
+          f"{eager['launches']}, miss {miss['launches']}, hit {hit['launches']}; greedy streams "
+          f"equal phase 3's: eager {eager['streams'] == bf16_streams}, miss {miss['streams'] == bf16_streams}, hit "
+          f"{hit['streams'] == bf16_streams}; sampled (temperature {AOT_TEMPERATURE}, seeded) graph == eager: "
+          f"{sampled_graph['streams'] == sampled_eager['streams']} (launches {sampled_eager['launches']} / "
+          f"{sampled_graph['launches']}); a host read refused its capture: {refused!s:.200}", flush=True)
+    print(f"  int8: {aot_route_line('eager', int8_eager)}; {aot_route_line('graph', int8_graph)}, device idle "
+          f"{int8_graph['idle']:.3f}; launches: the eager engine's wrappers {int8_eager['launches']}, the graph "
+          f"route's trace {int8_graph['traced']} (per replay {int8_graph['launches']}); streams equal "
+          f"{int8_graph['streams'] == int8_eager['streams']}; memory reserved {reserved_before / 2**30:.2f} GiB before the "
+          f"phase, {reserved_after / 2**30:.2f} GiB after it (collected, cache emptied); phase 17a took "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+    for name, run in (("eager", eager), ("miss", miss), ("hit", hit)):
+        require(run["streams"] == bf16_streams, f"phase 17a: the {name} route's greedy streams differ from phase 3's")
+    # the trace counts each kernel as the wrappers do on the eager route, and the graph route launches as it does
+    require(eager["traced"] == eager["launches"],
+            "phase 17a: the profiler's kernel count differs from the wrappers' on the eager route")
+    require(hit["traced"] == eager["launches"] and int8_graph["traced"] == int8_eager["launches"],
+            "phase 17a: the graph route's traced launches differ from the eager engine's")
+    require(eager["launches"] == miss["launches"] == hit["launches"],
+            "phase 17a: the graph route's launches counted per replay differ from the eager engine's")
+    require(hit["traced"]["paged_decode_attention"] > 0, "phase 17a: no paged launch on the graph route")
+    require(miss["stats"]["aot"]["programs_compiled"] > 0 and miss["stats"]["aot"]["programs_loaded"] == 0
+            and miss["stats"]["aot"]["entries"] > 0, f"phase 17a: the empty store's engine {miss['stats']['aot']}")
+    require(("decode", True) in graphs and ("prefill", True) in graphs, f"phase 17a: entries {graphs}")
+    require(hit["stats"]["aot"]["programs_loaded"] > 0 and hit["stats"]["aot"]["programs_compiled"] == 0,
+            f"phase 17a: the populated store's engine {hit['stats']['aot']}")
+    require(traces["hit"] == (0, 0) and nvcc_runs == 0,
+            "phase 17a: the hit captured afresh or ran nvcc")
+    require(any(name.startswith("libpaged_decode_attention-") for name in installed),
+            f"phase 17a: the store did not install the paged kernel's library: {installed}")
+    require(sampled_graph["streams"] == sampled_eager["streams"]
+            and sampled_graph["launches"] == sampled_eager["launches"],
+            "phase 17a: the seeded sampled streams differ between the graph and eager routes")
+    require(refused is not None and "capture" in refused, "phase 17a: a failed capture did not raise")
+    require(reserved_after <= reserved_before + 2**30, "phase 17a: the graphs' memory was not given back")
+    require(int8_graph["streams"] == int8_eager["streams"] and int8_graph["launches"] == int8_eager["launches"]
+            and int8_graph["traced"]["int8_matmul"] > 0, "phase 17a: the int8 graph route differs from eager")
+    # the kernels line's aot_launches: what the profiler saw run on the graph route (bf16 hit and int8)
+    launches = {name: hit["traced"][name] + int8_graph["traced"][name] for name in hit["traced"]}
+    return dict(launches=launches, eager_tok_s=eager["tok_s"], graph_tok_s=hit["tok_s"])
+
+
+def aot_cli_phase(card: str, prompts, workdir: str, cli: dict) -> None:
+    """Phases 17b and 17c on phase 11b's app module and saved weights. (b): a
+    child boots ``serve llama_app:model --admit-chunk 64 --prefix-cache
+    --aot-preload DIR --compile-cache DIR2`` on empty directories (a miss: it
+    builds its kernels with ``nvcc``, captures its programs and writes the
+    store) and streams phase 3's prompts; a second child boots on the same
+    directories and must load every program (``/metrics``: loaded > 0,
+    compiled 0) and build nothing (no ``nvcc`` line in its log), and its
+    wave runs under its own profiler: the graph route's paged launches,
+    read from the trace, are CLI_LAYERS x its dispatches x 8, as phase 11b's
+    eager child's are. Both stream phase 11b's in-process answers. (c):
+    ``lambda_handler`` over the same app's ``ServingApp`` in this process,
+    with ``UNIONML_TPU_AOT_PRELOAD`` at the populated store: two
+    invocations, one startup, and its engine compiled nothing."""
+    import os
+    import shutil
+
+    import torch
+
+    from unionml_tpu_torch.serving.serverless import lambda_handler
+
+    import llama_app
+
+    artifact, inproc_streams = cli["artifact"], cli["inproc_streams"]
+    store, kernels = os.path.join(workdir, "aot_store"), os.path.join(workdir, "kernel_cache")
+    profile_dir = os.path.join(workdir, "aot_profile")
+    args = cli["args"] + ["--aot-preload", store, "--compile-cache", kernels]
+    boots = []
+    for label in ("first", "second"):
+        log = os.path.join(workdir, f"aot_{label}.log")
+        extra = ["--profile-dir", profile_dir] if label == "second" else []
+        with cli_server(args + extra, workdir, log) as (port, ready_s):
+            before = json.loads(http_request(port, "GET", "/metrics")[2])["generation"]
+            if label == "first":
+                streams, seconds = concurrent([functools.partial(stream_http, port, [p]) for p in prompts])
+                capture_ms = seconds * 1e3 + CLI_PROFILE_MARGIN_MS
+            else:  # the wave under the child's own profiler, started before the wave is sent (11b's protocol)
+                captured: dict = {}
+
+                def capture():
+                    captured["response"] = http_request(port, "POST", "/debug/profile", {"duration_ms": capture_ms},
+                                                        {"X-Request-Deadline-Ms": str(capture_ms + 60_000)})
+
+                profiler = threading.Thread(target=capture)
+                profiler.start()
+                time.sleep(1.0)
+                probe = http_request(port, "POST", "/debug/profile", {"duration_ms": 1.0})
+                require(probe[0] == 409, f"phase 17b: the capture had not started before the wave: {probe[0]}")
+                streams, seconds = concurrent([functools.partial(stream_http, port, [p]) for p in prompts])
+                profiler.join(timeout=capture_ms / 1e3 + 120)
+                require(captured.get("response", (None,))[0] == 200, f"phase 17b: POST /debug/profile answered "
+                        f"{captured.get('response', (None,))[0]}")
+            generation = json.loads(http_request(port, "GET", "/metrics")[2])["generation"]
+        with open(log, errors="replace") as handle:
+            nvcc = sum("nvcc: building" in line for line in handle)
+        boots.append(dict(ready_s=ready_s, streams=streams, tok_s=len(prompts) * MAX_NEW / seconds,
+                          aot=generation.get("aot"), nvcc=nvcc, tbt=generation["tbt_ms"].get("p50_ms"),
+                          dispatches=generation["decode_dispatches"] - before["decode_dispatches"]))
+    first, second = boots
+    traced, kernel_ms, _ = paged_kernel_events(profile_dir)
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    expected = CLI_LAYERS * second["dispatches"] * 8
+    print(f"phase 17b: `serve llama_app:model --admit-chunk {ADMIT_CHUNK} --prefix-cache --aot-preload DIR "
+          f"--compile-cache DIR2` on empty directories: ready in {first['ready_s']:.1f} s ({first['nvcc']} nvcc "
+          f"builds), {first['tok_s']:.1f} tok/s, TBT p50 {first['tbt']} ms, aot {first['aot']}; a second boot on the "
+          f"same directories: ready in {second['ready_s']:.1f} s ({second['nvcc']} nvcc builds), "
+          f"{second['tok_s']:.1f} tok/s under its profiler, aot {second['aot']}, {traced} paged launches in its trace "
+          f"(its {second['dispatches']} dispatches give {CLI_LAYERS} x {second['dispatches']} x 8 = {expected}; "
+          f"phase 11b's eager child: {cli['cli_launches']}); eager child (11b) ready in {cli['ready_s']:.1f} s; "
+          f"streams equal phase 11b's in-process answers: {first['streams'] == inproc_streams}, "
+          f"{second['streams'] == inproc_streams}; card {card}", flush=True)
+    require(first["streams"] == inproc_streams and second["streams"] == inproc_streams,
+            "phase 17b: a CLI child's streams differ from phase 11b's in-process answers")
+    require(first["aot"] is not None and first["aot"]["programs_compiled"] > 0 and first["nvcc"] > 0,
+            f"phase 17b: the first child did not compile: {first['aot']}, {first['nvcc']} nvcc builds")
+    require(second["aot"]["programs_loaded"] > 0 and second["aot"]["programs_compiled"] == 0
+            and second["nvcc"] == 0, f"phase 17b: the second child was no store hit: {second['aot']}, "
+            f"{second['nvcc']} nvcc builds")
+    require(traced == expected > 0, f"phase 17b: {traced} paged launches in the graph-route child's trace, "
+            f"expected {expected}")
+
+    # ---- 17c: serverless over the same app in this process, on the populated store
+    exports = {"UNIONML_TPU_ADMIT_CHUNK": str(ADMIT_CHUNK), "UNIONML_TPU_PREFIX_CACHE": "1",
+               "UNIONML_TPU_AOT_PRELOAD": store}
+    os.environ.update(exports)
+    try:
+        llama_app.model.load(artifact)
+        handler = lambda_handler(llama_app.model.serve())
+        # two of the prompts the children served: the same prompt again would be a radix hit, which runs programs
+        # (a gather, a chunk from another start) the children never ran
+        responses = [handler({"httpMethod": "POST", "path": "/predict", "body": json.dumps({"features": [p]})}, None)
+                     for p in prompts[:2]]
+        aot = llama_app.model.generation_batcher.stats()["aot"]
+        llama_app.model.generation_batcher.close()
+    finally:
+        for name in exports:
+            os.environ.pop(name, None)
+        llama_app.engines.clear()
+        llama_app.model.artifact = None
+        llama_app.model.generation_batcher = None
+        torch.cuda.empty_cache()
+    equal = [json.loads(r["body"]) == [want] for r, want in zip(responses, inproc_streams)]
+    print(f"phase 17c: lambda_handler over the app, UNIONML_TPU_AOT_PRELOAD at the populated store: statuses "
+          f"{[r['statusCode'] for r in responses]}, stats {handler.stats}, engine aot {aot}, answers equal phase "
+          f"11b's streams: {equal}; card {card}", flush=True)
+    require([r["statusCode"] for r in responses] == [200, 200] and all(equal),
+            "phase 17c: the handler's answers differ from phase 11b's")
+    require(handler.stats["invocations"] == 2 and handler.stats["startups"] == 1,
+            f"phase 17c: {handler.stats}")
+    require(aot["programs_compiled"] == 0 and aot["programs_loaded"] > 0, f"phase 17c: the engine's store {aot}")
 
 
 def main() -> int:
@@ -4930,6 +5284,10 @@ def main() -> int:
     structured_phase(cfg, gcfg, prompts, slots, decode_chunk, card, args.profile)
     torch.cuda.empty_cache()
 
+    # ---- phase 17a: the cold start in process (the AOT store's graph route against the eager one)
+    aot = aot_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16_streams)
+    torch.cuda.empty_cache()
+
     # ---- phase 4: token parity at float32, 2 layers of the same width
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5007,6 +5365,10 @@ def main() -> int:
         template_cli_phase(card, workdir)
         cli = llama_cli_phase(card, prompts, workdir)
         print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+        # ---- phase 17b-c: the AOT store and the kernel build cache in CLI children; serverless in process
+        t0 = time.perf_counter()
+        aot_cli_phase(card, prompts, workdir, cli)
+        print(f"phase 17b-c took {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5086,6 +5448,8 @@ def main() -> int:
         # phase 16: the mesh training path (16a and rank 0 of 16b, bf16; rank 0 of 16c, f32), at each rank's heads
         kernel["train_mesh_launches"] = train_mesh["launches"][kernel["name"]]
         kernel["train_mesh_f32_launches"] = train_mesh["f32_launches"][kernel["name"]]
+        # phase 17a: the graph route's profiled served runs (bf16 hit, int8), counted from the traces by kernel name
+        kernel["aot_launches"] = aot["launches"][kernel["name"]]
         if kernel["name"] in FLASH_PRODUCTS:
             kernel["train_mesh_max_abs_err"] = train_mesh["max_abs_err"]
     for kernel in kernels:
@@ -5097,6 +5461,8 @@ def main() -> int:
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
     require(kernels[0]["replica_launches"] > 0, "the paged kernel never launched on the replica path")
+    require(all(k["aot_launches"] > 0 for k in kernels if k["name"] in ("paged_decode_attention", "int8_matmul")),
+            "a kernel of the graph route never launched in phase 17a")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,10 +118,13 @@ def cli_project(tmp_path, monkeypatch):
     sys.modules.pop("boom_app", None)
 
 
+TEMPLATES = ["basic", "basic-serverless", "image-classification", "text-generation"]
+
+
 def test_templating_list_and_validate():
-    """The unit case's checks, over the port's three templates (the JAX
-    package's ``basic-serverless`` is still to be ported)."""
-    assert set(list_templates()) == {"basic", "image-classification", "text-generation"}
+    """The unit case's checks, over the port's four templates (the JAX
+    package's, ``basic-serverless`` included)."""
+    assert set(list_templates()) == {"basic", "basic-serverless", "image-classification", "text-generation"}
     validate_app_name("my-app_1")
     with pytest.raises(ValueError):
         validate_app_name("1bad")
@@ -132,8 +135,8 @@ def test_templating_list_and_validate():
 def test_templates_command_lists_both_and_init_renders_each(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     result = CliRunner().invoke(app, ["templates"])
-    assert result.exit_code == 0 and result.output.split() == ["basic", "image-classification", "text-generation"]
-    for template in ("basic", "image-classification", "text-generation"):
+    assert result.exit_code == 0 and result.output.split() == TEMPLATES
+    for template in TEMPLATES:
         result = CliRunner().invoke(app, ["init", f"app-{template}", "-t", template])
         assert result.exit_code == 0, result.output
         project = tmp_path / f"app-{template}"
@@ -179,11 +182,13 @@ REFUSED_FLAGS = [
     (["--probe-interval", "0.5"], PARALLELISM),
     (["--probation-probes", "3"], PARALLELISM),
     (["--lease-ttl", "2.0"], PARALLELISM),
-    (["--compile-cache", "cache-dir"], THE_REST),
-    (["--aot-preload"], THE_REST),
-    (["--aot-preload", "store-dir"], THE_REST),
+    (["--compile-cache", "cache-dir"], None),
+    (["--aot-preload"], None),
+    (["--aot-preload", "store-dir"], None),
     (["--remote"], THE_REST),
 ]
+#: the cold-start stores' exports (ported: exported as the JAX CLI exports them)
+STORE_EXPORTS = ("UNIONML_TPU_COMPILE_CACHE", "UNIONML_TPU_AOT_PRELOAD")
 #: the replica fleet's exports
 REPLICA_EXPORTS = ("UNIONML_TPU_DP_REPLICAS", "UNIONML_TPU_REPLICA_ROLES", "UNIONML_TPU_PREFILL_THRESHOLD",
                    "UNIONML_TPU_AUTOSCALE_HIGH", "UNIONML_TPU_AUTOSCALE_LOW", "UNIONML_TPU_AUTOSCALE_INTERVAL_S",
@@ -203,20 +208,29 @@ EXPORTS = {
 
 @pytest.fixture
 def clean_exports(monkeypatch):
+    import jax
+
+    from unionml_tpu_torch import _build
+
     for name in [*EXPORTS, *REPLICA_EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
         monkeypatch.delenv(name, raising=False)
+    # --compile-cache points both packages' caches at a directory in this process: put them back
+    build_dir, jax_cache = _build.build_dir(), jax.config.jax_compilation_cache_dir
     yield
     for name in [*EXPORTS, *REPLICA_EXPORTS, "UNIONML_MODEL_PATH", "UNIONML_TPU_LOGLEVEL"]:
         # plain pop: the CLI set these after the delenv, and monkeypatch would restore nothing for them
         os.environ.pop(name, None)
+    _build.set_build_dir(build_dir)
+    jax.config.update("jax_compilation_cache_dir", jax_cache)
 
 
 @pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[" ".join(f) for f, _ in REFUSED_FLAGS])
 def test_refused_serve_flag_exits_before_export_and_import(cli_project, clean_exports, flags, item):
     """The unit file's cluster and fault-tolerance cases as refusals: exit
     1 naming the item by title, no knob exported, the app never imported.
-    A flag of the in-process replica fleet (``item`` None) is exported as
-    the JAX CLI exports it, and then the app module is imported."""
+    A flag of the in-process replica fleet or of the cold-start stores
+    (``item`` None) is exported as the JAX CLI exports it, and then the app
+    module is imported."""
     model_file = cli_project / "m.joblib"
     model_file.write_text("x")
     if item is None:
@@ -224,14 +238,15 @@ def test_refused_serve_flag_exits_before_export_and_import(cli_project, clean_ex
 
         from unionml_tpu.cli import app as jax_app
 
+        exports = REPLICA_EXPORTS + STORE_EXPORTS
         args = ["serve", "boom_app:model", *flags, "--model-path", str(model_file)]
         result = ClickRunner().invoke(jax_app, args)
         assert "the app module was imported" in str(result.exception), result.output
-        jax_exported = {name: os.environ.pop(name, None) for name in REPLICA_EXPORTS}
+        jax_exported = {name: os.environ.pop(name, None) for name in exports}
         os.environ.pop("UNIONML_MODEL_PATH", None)
         with pytest.raises(RuntimeError, match="the app module was imported"):
             app(args)
-        assert {name: os.environ.get(name) for name in REPLICA_EXPORTS} == jax_exported
+        assert {name: os.environ.get(name) for name in exports} == jax_exported
         assert sum(value is not None for value in jax_exported.values()) == 1
         return
     knobs = [arg for args in EXPORTS.values() for arg in args]
@@ -254,9 +269,9 @@ def test_unported_commands_exist_and_refuse(cli_project, command):
 
 
 def test_ported_knobs_export_before_the_app_imports(cli_project, clean_exports):
-    """One engine (``--dp-replicas 1``), the off value of a refused store
-    (``--compile-cache 0``) and the ported knobs are exported, and only
-    then is the app module imported (it raises here)."""
+    """One engine (``--dp-replicas 1``), the off value of the compile
+    cache (``--compile-cache 0``) and the ported knobs are exported, and
+    only then is the app module imported (it raises here)."""
     knobs = [arg for args in EXPORTS.values() for arg in args]
     with pytest.raises(RuntimeError, match="the app module was imported"):
         app(["serve", "boom_app:model", "--dp-replicas", "1", "--compile-cache", "0", *knobs])
@@ -319,4 +334,4 @@ def test_cli_module_imports_no_click():
     env = dict(os.environ, PYTHONPATH=_REPO_ROOT)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["basic", "image-classification", "text-generation"]
+    assert out.stdout.split() == TEMPLATES

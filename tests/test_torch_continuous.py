@@ -221,21 +221,28 @@ def test_chunked_admission_is_not_ported(models):
 
 
 @pytest.mark.parametrize("option", ["admit_chunk", "prefix_cache", "prefix", "role", "aot"])
-def test_unported_engine_options_raise(models, option):
-    """``aot=`` is still refused, naming ROADMAP.md. The ported options
-    behave as in the JAX engine: ``admit_chunk=8`` serves its streams;
-    ``prefix_cache=True`` on a dense engine, a ``prefix`` that is no
-    ``PrefixCache`` and a ``role`` that is none of prefill/decode/mixed raise
-    the JAX engine's errors."""
+def test_unported_engine_options_raise(models, option, monkeypatch):
+    """The options once unported behave as in the JAX engine:
+    ``admit_chunk=8`` serves its streams; ``prefix_cache=True`` on a dense
+    engine, a ``prefix`` that is no ``PrefixCache`` and a ``role`` that is
+    none of prefill/decode/mixed raise the JAX engine's errors; ``aot=True``
+    with no ``UNIONML_TPU_AOT_PRELOAD`` export resolves to no store in both
+    engines, whose ``stats()`` then has no ``aot`` section (the store's own
+    cases are in ``tests/test_torch_aot.py``)."""
     module, params, flash, _ = models
     kw = dict(max_new_tokens=4, temperature=0.0, prompt_buckets=(16,))
     gen = Generator(flash, GenerationConfig(**kw), device="cpu")
     value = 8 if option == "admit_chunk" else True
-    if option == "aot":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ContinuousBatcher(gen, **{option: value})
-        return
     jax_gen = JaxGenerator(module, params, JaxGenerationConfig(**kw))
+    if option == "aot":
+        monkeypatch.delenv("UNIONML_TPU_AOT_PRELOAD", raising=False)
+        for build, g in ((JaxContinuousBatcher, jax_gen), (ContinuousBatcher, gen)):
+            engine = build(g, aot=value)
+            try:
+                assert engine._aot is None and "aot" not in engine.stats()
+            finally:
+                engine.close()
+        return
     if option != "admit_chunk":
         error, match = {"prefix_cache": (ValueError, "paged"), "prefix": (TypeError, "PrefixCache"),
                         "role": (ValueError, "role must be one of")}[option]

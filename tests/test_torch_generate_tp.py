@@ -15,7 +15,9 @@ sharded run at the same mesh shape on 4 of the emulated devices:
   sequence-parallel, the suffixes through the offset chunked path);
 - beam search at ``data=2 x model=2``;
 - expert-parallel MoE at ``data=2 x expert=2`` (ample capacity: drop-free
-  routing on every path);
+  routing on every path), and MoE at ``data=2 x model=2`` at capacity
+  factor 1.25 (tokens drop: the capacity and slots are the global
+  batch's);
 - int8 weights with an int8 KV cache at ``fsdp=2 x model=2``;
 - grammar constraints at ``data=2 x model=2``;
 - a speculative draft (its own rules) over ``model=4``: ``__call__`` and
@@ -49,6 +51,9 @@ CONFIGS = {
     "moe": dict(vocab_size=64, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=96, n_experts=4, k=2,
                 capacity_factor=8.0),
     "draft": dict(vocab_size=96, dim=64, n_layers=1, n_heads=4, n_kv_heads=4, hidden_dim=64),
+    # the default capacity factor: tokens drop, and the capacity is the global batch's
+    "moe_tight": dict(vocab_size=64, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=96, n_experts=4, k=2,
+                      capacity_factor=1.25),
 }
 PROMPTS = [[3, 1, 4, 1, 5, 9, 2, 6, 5, 3], [7, 1, 8], [2, 8, 1, 8, 2, 8], [4, 6]]
 BASE = dict(max_new_tokens=6, temperature=0.0, prompt_buckets=(16,))
@@ -80,11 +85,14 @@ CASES = [
     dict(name="constraints", spec=dict(data=2, model=2), model="llama", rules="llama",
          config={**BASE, "eos_id": 95}, prompts=PROMPTS, grammar=GRAMMAR, constraint=GIDS),
     dict(name="draft", spec=dict(model=4), model="llama", rules="llama", config=BASE, prompts=PROMPTS, draft=True),
+    # one prompt alone routes another batch: no single-prompt run
+    dict(name="moe-dp2-tight", spec=dict(data=2, model=2), model="moe_tight", rules="moe", config=BASE, prompts=PROMPTS,
+         single=False),
 ]
 
 
 def _jax_module(kind):
-    if kind == "moe":
+    if kind.startswith("moe"):
         return JaxMoETransformer(JaxMoEConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **CONFIGS[kind]))
     return JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **CONFIGS[kind]))
 

@@ -25,8 +25,9 @@ puts the kernels under FSDP:
   full batches);
 
 then BERT fine-tune steps under ``bert_partition_rules()`` at ``data=2,
-model=2`` and ViT steps under ``vit_partition_rules()`` at ``data=2,
-fsdp=2``. Each rank's loss history equals JAX's (1e-5
+model=2``, ViT steps under ``vit_partition_rules()`` at ``data=2,
+fsdp=2``, and MoE steps under ``moe_partition_rules()`` at ``data=2,
+expert=2`` with tokens dropped at capacity. Each rank's loss history equals JAX's (1e-5
 relative), and each rank's trained LoRA shards (BERT: every leaf) equal
 JAX's trained leaves cut to that rank's coordinate (stated tolerances);
 the frozen base kernels do not move.
@@ -50,6 +51,8 @@ from unionml_tpu.models.bert import classification_loss as jax_classification_lo
 from unionml_tpu.models.llama import causal_lm_loss as jax_causal_lm_loss
 from unionml_tpu.models.llama import chunked_causal_lm_loss as jax_chunked_loss
 from unionml_tpu.models.llama import lora_param_labels as jax_lora_param_labels
+from unionml_tpu.models.moe import MoEConfig as JaxMoEConfig, MoETransformer as JaxMoETransformer
+from unionml_tpu.models.moe import moe_lm_loss as jax_moe_lm_loss, moe_partition_rules as jax_moe_rules
 from unionml_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
 from unionml_tpu.parallel.sharding import _path_str
 from unionml_tpu.train import evaluate as jax_evaluate, fit as jax_fit
@@ -111,6 +114,10 @@ BERT = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, hidden_dim=128, max_s
 BERT_SPEC = dict(data=2, model=2)
 VIT = dict(n_layers=2)
 VIT_SPEC = dict(data=2, fsdp=2)
+#: JAX's expert-parallel layout (``tests/emulated/test_moe.py``) on 4 ranks, at the default capacity factor
+#: 1.25 (tokens drop) and aux loss weight 0.01
+MOE = dict(n_experts=4, capacity_factor=1.25, aux_loss_weight=0.01)
+MOE_SPEC = dict(data=2, expert=2)
 
 
 def _bert():
@@ -121,6 +128,22 @@ def _bert():
     labels = rng.randint(0, 2, size=16).astype(np.int32)
     params = module.init(jax.random.PRNGKey(1), jnp.asarray(tokens))["params"]
     return module, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params), [tokens, mask, labels]
+
+
+def _moe():
+    module = JaxMoETransformer(JaxMoEConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **MOE))
+    tokens = np.random.RandomState(11).randint(0, module.config.vocab_size, size=(16, 12)).astype(np.int32)
+    params = module.init(jax.random.PRNGKey(3), jnp.asarray(tokens[:1]))["params"]
+    return module, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params), tokens
+
+
+def _jax_moe_fit(module, tree, tokens):
+    state = train_state.TrainState.create(apply_fn=module.apply, params=jax.tree_util.tree_map(jnp.asarray, tree),
+                                          tx=optax.sgd(LR))
+    step = jax_make_train_step(lambda p, b: jax_moe_lm_loss(module, p, b))
+    cfg = JaxTrainerConfig(mesh=_On4(**MOE_SPEC), partition_rules=jax_moe_rules(), epochs=1, batch_size=8, seed=3,
+                           log_every_steps=1)
+    return jax_fit(state, step, tokens, cfg)
 
 
 def _jax_llama_fit(module, tree, case):
@@ -185,6 +208,7 @@ def started(tmp_path_factory):
     module, tree = _llama_tree()
     bert_module, bert_tree, bert_data = _bert()
     vit_module, vit_tree, vit_data = _vit()
+    moe_module, moe_tree, moe_data = _moe()
     payload = {
         "tree": tree, "config": dict(LLAMA, lora_rank=4), "lr": LR, "min_weight": MIN_WEIGHT,
         "checkpoints": str(tmp_path_factory.mktemp("checkpoints")),
@@ -193,11 +217,14 @@ def started(tmp_path_factory):
                  "trainer": dict(epochs=1, batch_size=8, seed=3)},
         "vit": {"tree": vit_tree, "config": VIT, "spec": VIT_SPEC, "data": vit_data,
                 "trainer": dict(epochs=1, batch_size=4, seed=3, fsdp_min_weight_size=MIN_WEIGHT)},
+        "moe": {"tree": moe_tree, "config": MOE, "spec": MOE_SPEC, "data": moe_data,
+                "trainer": dict(epochs=1, batch_size=8, seed=3)},
     }
     world = World(4, "train_rank", payload, tmp_path_factory.mktemp("train"), timeout=300)
     jobs = {case["name"]: (lambda case=case: _jax_llama_fit(module, tree, case)) for case in CASES}
     jobs["bert"] = lambda: _jax_bert_fit(bert_module, bert_tree, bert_data)
     jobs["vit"] = lambda: _jax_vit_fit(vit_module, vit_tree, vit_data)
+    jobs["moe"] = lambda: _jax_moe_fit(moe_module, moe_tree, moe_data)
     return tree, world, threaded(jobs, workers=2)
 
 
@@ -291,6 +318,24 @@ def test_encoder_steps_under_their_partition_rules(results, name):
         assert got["specs"]["layer_0.attn.q_proj.kernel"] == ("fsdp", "model")
         if name == "vit":
             assert got["specs"]["embed.patch_embed.kernel"] == (None, None, None, "fsdp")
+
+
+def test_moe_fit_over_expert_and_data_axes_matches_jax(results):
+    """MoE ``fit`` at ``data=2, expert=2`` (capacity factor 1.25, aux loss
+    weight 0.01), two SGD steps (lr 0.3) of every leaf against JAX's
+    ``fit`` on the same mesh: losses within 1e-5 relative, each rank's
+    shard of every leaf within 1e-5. The experts' share of each rank takes
+    the replicated tokens and gates through f, and the capacity, slots and
+    aux loss are the global batch's."""
+    _, ranks, refs = results
+    ref = refs["moe"]
+    want = _flat(ref.state.params)
+    for res in ranks:
+        got = res["moe"]
+        np.testing.assert_allclose(got["losses"], [h["loss"] for h in ref.history], rtol=1e-5)
+        _hold_shards(got, want, sorted(got["params"]), atol=1e-5)
+        assert got["specs"]["layer_0.moe.experts.wi.kernel"][0] == "expert"
+        assert got["params"]["layer_0.moe.experts.wi.kernel"].shape[0] == MOE["n_experts"] // 2
 
 
 def test_model_train_takes_a_mesh():

@@ -386,7 +386,7 @@ def generate_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
     for case in payload["cases"]:
         name, spec, kind = case["name"], case["spec"], case["model"]
         mesh = MeshSpec(**spec).build(device="cpu")
-        build = llama if kind != "moe" else moe
+        build = moe if kind.startswith("moe") else llama
         model = build(payload["trees"][kind], payload["configs"][kind])
         kw = dict(case["config"])
         if case.get("grammar"):
@@ -408,7 +408,8 @@ def generate_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
             out[name] = gen(prompts, constraint=case["constraint"])
         else:
             out[name] = gen(prompts)
-            out[name + "/single"] = gen(prompts[:1])
+            if case.get("single", True):
+                out[name + "/single"] = gen(prompts[:1])
             out[name + "/stream"] = np.concatenate(list(gen.stream(prompts, chunk_size=3)), axis=1)
         if case.get("draft"):
             chunks = list(gen.stream(prompts, chunk_size=3))
@@ -618,8 +619,22 @@ def train_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
             out[case["name"]]["evaluate"] = evaluate(state, lambda s, b: {"loss": causal_lm_loss(s.model, b)},
                                                      case["data"], batch_size=6)
 
-    # the encoders under their rules: two steps of classification_loss each
+    # MoE over expert and data axes: every leaf trained by SGD
     from unionml_tpu_torch import TrainState
+    from unionml_tpu_torch.models import moe_lm_loss, moe_partition_rules
+
+    spec = payload["moe"]
+    model = moe(spec["tree"], spec["config"])
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=payload["lr"]))
+    cfg = TrainerConfig(mesh=MeshSpec(**spec["spec"]), partition_rules=moe_partition_rules(), log_every_steps=1,
+                        **spec["trainer"])
+    result = fit(state, make_train_step(moe_lm_loss), spec["data"], cfg, device="cpu")
+    mesh = model.layer_0.moe.experts.wi._mesh
+    out["moe"] = {"losses": [h["loss"] for h in result.history], "coordinate": dict(mesh.coordinate),
+                  "sizes": dict(mesh.shape), "specs": {k: tuple(v) for k, v in leaf_specs(model).items()},
+                  "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()}}
+
+    # the encoders under their rules: two steps of classification_loss each
     from unionml_tpu_torch.models import ViTConfig, vit_from_jax, vit_partition_rules
 
     for name, build, rules in (

@@ -5,7 +5,8 @@ A package beside the JAX package ``unionml_tpu`` that mirrors its module names
 and never JAX or anything of the JAX package. Its entry points (``Llama``,
 ``Generator``, ``ContinuousBatcher``, and the trainer's ``fit`` and
 ``evaluate``) run on the card unless the caller passes ``device="cpu"``.
-Kernels live in ``csrc/`` and build at first use into ``_build/``.
+Kernels live in ``csrc/`` and build at first use into ``_build/`` (or the
+directory :func:`enable_compile_cache` names).
 
 The app protocol is UnionML's: a ``Dataset`` and a ``Model`` whose decorated
 user functions become train and predict graphs (``model.train()``,
@@ -14,6 +15,7 @@ neither pandas, scikit-learn nor joblib.
 """
 
 from unionml_tpu_torch.artifact import ModelArtifact
+from unionml_tpu_torch.compile_cache import enable_compile_cache
 from unionml_tpu_torch.dataset import Dataset
 from unionml_tpu_torch.model import BaseHyperparameters, Model
 from unionml_tpu_torch.models import DraftSpec, GenerationConfig, Generator, Llama, LlamaConfig
@@ -37,8 +39,16 @@ __all__ = [
     "Stage",
     "TrainState",
     "TrainerConfig",
+    "enable_compile_cache",
     "evaluate",
     "fit",
     "make_train_step",
     "stage",
 ]
+
+# env-gated: UNIONML_TPU_COMPILE_CACHE points the kernel build directory at a
+# persistent cache for every process that imports the package
+from unionml_tpu_torch.compile_cache import _maybe_enable_from_env as _cc_hook  # noqa: E402
+
+_cc_hook()
+del _cc_hook

@@ -19,10 +19,15 @@ error such as an unknown option.
   ``--autoscale-high/-low/-interval`` and ``--min/--max-replicas``) are
   validated and exported as the JAX CLI exports them; the engine's
   constructor reads them and builds a ``ReplicaSet``.
+- ``--compile-cache [DIR]`` points the kernel build directory at a
+  persistent cache in this process and exports it; ``--aot-preload [DIR]``
+  exports the AOT program store, which every engine then arms
+  (:mod:`unionml_tpu_torch.serving.aot`). Both are exported before the app
+  module imports.
 - What the port does not have is refused at boot, before any export and
   before the app module is imported, naming its ROADMAP.md item: the
   multi-host fleet and fault-injection flags (Queue A: parallelism and the
-  replica layer, the multi-host fleet), and ``--compile-cache``, ``--aot-preload``, ``--remote`` and the
+  replica layer, the multi-host fleet), and ``--remote`` and the
   ``deploy``, ``train``, ``predict``, ``list-model-versions``,
   ``fetch-model``, ``replay`` and ``lint`` commands (Queue A: the rest).
   Each of those commands exists and refuses.
@@ -94,12 +99,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                  "lease_ttl"):
         if getattr(args, flag) is not None:
             raise _not_ported(f"--{flag.replace('_', '-')}", _PARALLELISM)
-    from unionml_tpu_torch.defaults import _FALSY_FLAGS
-
-    for flag, what in (("compile_cache", "the compile cache"), ("aot_preload", "the AOT program store")):
-        value = getattr(args, flag)
-        if value is not None and value.strip().lower() not in _FALSY_FLAGS:
-            raise _not_ported(f"--{flag.replace('_', '-')} ({what})", _THE_REST)
     if args.remote:
         raise _not_ported("--remote (the remote backend)", _THE_REST)
 
@@ -136,10 +135,18 @@ def _export_knobs(args: argparse.Namespace) -> None:
             os.environ[env_name] = repr(cast(value))
     if args.prefix_cache is not None:
         os.environ[defaults.SERVE_PREFIX_CACHE_ENV_VAR] = "1" if args.prefix_cache else "0"
-    for value, env_name in ((args.compile_cache, defaults.SERVE_COMPILE_CACHE_ENV_VAR),
-                            (args.aot_preload, defaults.SERVE_AOT_PRELOAD_ENV_VAR)):
-        if value is not None:  # an off value; the refusals took every other
-            os.environ[env_name] = value
+    if args.compile_cache is not None:
+        os.environ[defaults.SERVE_COMPILE_CACHE_ENV_VAR] = args.compile_cache
+        if args.compile_cache.strip().lower() not in defaults._FALSY_FLAGS:
+            # now: this process's package-import hook already ran
+            from unionml_tpu_torch.compile_cache import enable_compile_cache
+
+            try:
+                enable_compile_cache(args.compile_cache)
+            except OSError as exc:
+                raise UsageError(f"--compile-cache {args.compile_cache}: {exc}")
+    if args.aot_preload is not None:
+        os.environ[defaults.SERVE_AOT_PRELOAD_ENV_VAR] = args.aot_preload
     # "none" exports too: it must override an inherited export in reload/fork children
     if args.quantize is not None:
         os.environ[defaults.SERVE_QUANTIZE_ENV_VAR] = args.quantize
@@ -444,6 +451,12 @@ def _serve_parser(sub: Any) -> None:
     add("--autoscale-interval", type=float, default=None, help="seconds between autoscaler evaluations")
     add("--min-replicas", type=int, default=None, help="fleet-size floor the autoscaler never drains below")
     add("--max-replicas", type=int, default=None, help="fleet-size ceiling for the autoscaler (0 = the device count)")
+    add("--compile-cache", default=None, metavar="DIR",
+        help="build and load the CUDA kernels under DIR, a cache kept across processes ('1' = "
+        "~/.cache/unionml_tpu/xla, '0' = off: the package's own _build/); exported as UNIONML_TPU_COMPILE_CACHE")
+    add("--aot-preload", nargs="?", const="1", default=None, metavar="DIR",
+        help="arm the AOT program store at DIR (bare: ~/.cache/unionml_tpu/aot): engines capture their programs "
+        "as CUDA graphs and load their kernels from the store; exported as UNIONML_TPU_AOT_PRELOAD")
     refused = p.add_argument_group(
         "not ported yet (refused at boot; ROADMAP.md, Queue A: parallelism and the replica layer, the rest)")
     radd = refused.add_argument
@@ -454,8 +467,6 @@ def _serve_parser(sub: Any) -> None:
     radd("--probe-interval", type=float, default=None)
     radd("--probation-probes", type=int, default=None)
     radd("--lease-ttl", type=float, default=None)
-    radd("--compile-cache", default=None, metavar="DIR", help="off values (0, off, ...) are accepted")
-    radd("--aot-preload", nargs="?", const="1", default=None, metavar="DIR", help="off values are accepted")
     radd("--remote", action="store_true")
 
 

@@ -42,6 +42,14 @@ def _processes() -> Tuple[int, int]:
     return 1, 0
 
 
+def splits_rows(rows: int, sharding: Any, microbatches: int = 1) -> bool:
+    """Whether :func:`local_rows` splits a batch of ``rows`` over the
+    batch axes (else every rank keeps it whole)."""
+    if sharding is None or sharding.is_fully_replicated:
+        return False
+    return rows % (sharding.mesh.size(sharding.spec[0]) * microbatches) == 0
+
+
 def local_rows(idx: np.ndarray, sharding: Any, microbatches: int = 1) -> np.ndarray:
     """This rank's rows of a global batch's sample indices ``idx`` under a
     batch ``sharding``. With ``microbatches=k`` the batch is the JAX
@@ -49,13 +57,11 @@ def local_rows(idx: np.ndarray, sharding: Any, microbatches: int = 1) -> np.ndar
     the rank's rows of each microbatch in turn, so its own split into ``k``
     is its part of each global microbatch. A batch that does not divide
     stays whole (replicated)."""
-    if sharding is None or sharding.is_fully_replicated:
+    if not splits_rows(len(idx), sharding, microbatches):
         return idx
     from unionml_tpu_torch.parallel.sharding import P, shard_slices
 
     mesh = sharding.mesh
-    if len(idx) % (mesh.size(sharding.spec[0]) * microbatches):
-        return idx
     view = idx.reshape(microbatches, -1)
     index = shard_slices(view.shape, P(None, sharding.spec[0]), mesh.shape, mesh.coordinate)
     return view[index].reshape(-1)

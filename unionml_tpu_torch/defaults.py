@@ -120,11 +120,13 @@ SERVE_MAX_ADMISSIONS_ENV_VAR = "UNIONML_TPU_MAX_ADMISSIONS"
 SERVE_PREFIX_CACHE_ENV_VAR = "UNIONML_TPU_PREFIX_CACHE"
 
 
-#: the AOT program store and the persistent compile cache (path-or-flag
-#: exports); the port has neither, so the serving app refuses a value that
-#: turns either on
+#: the persistent kernel build cache (compile_cache.py) and the AOT program
+#: store (serving/aot.py): path-or-flag exports, where a truthy flag means
+#: the default directory beside each
 SERVE_COMPILE_CACHE_ENV_VAR = "UNIONML_TPU_COMPILE_CACHE"
 SERVE_AOT_PRELOAD_ENV_VAR = "UNIONML_TPU_AOT_PRELOAD"
+COMPILE_CACHE_DEFAULT_DIR = "~/.cache/unionml_tpu/xla"
+AOT_PRELOAD_DEFAULT_DIR = "~/.cache/unionml_tpu/aot"
 
 #: prompt-length threshold (tokens) at which an admission routes to a
 #: prefill-role replica and its finished KV hands off to a decode replica;
@@ -413,12 +415,12 @@ def _env_path_flag(name: str, default_dir: str) -> Optional[str]:
 def serve_compile_cache() -> Optional[str]:
     """The compile-cache directory export (``UNIONML_TPU_COMPILE_CACHE``);
     None = off."""
-    return _env_path_flag(SERVE_COMPILE_CACHE_ENV_VAR, "~/.cache/unionml_tpu/xla")
+    return _env_path_flag(SERVE_COMPILE_CACHE_ENV_VAR, COMPILE_CACHE_DEFAULT_DIR)
 
 
 def serve_aot_preload() -> Optional[str]:
     """The AOT program store export (``UNIONML_TPU_AOT_PRELOAD``); None = off."""
-    return _env_path_flag(SERVE_AOT_PRELOAD_ENV_VAR, "~/.cache/unionml_tpu/aot")
+    return _env_path_flag(SERVE_AOT_PRELOAD_ENV_VAR, AOT_PRELOAD_DEFAULT_DIR)
 
 
 def serve_tenant_config() -> Optional[str]:

@@ -33,6 +33,7 @@ import contextlib
 import dataclasses
 import logging
 import math
+import weakref
 from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,7 +45,7 @@ from unionml_tpu_torch.models.layers import quantize_kv_rows
 from unionml_tpu_torch.ops.quant import quantize_params
 from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum, broadcast
 from unionml_tpu_torch.parallel.mesh import AXIS_ORDER, ROW_AXES, Mesh
-from unionml_tpu_torch.parallel.sharding import combine_fsdp_tp, place_module, splits
+from unionml_tpu_torch.parallel.sharding import combine_fsdp_tp, place_module, row_scope, splits
 
 __all__ = [
     "DraftSpec",
@@ -253,16 +254,16 @@ def filtered_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Ten
     """Apply temperature, ``min_p``, ``top_k`` and ``top_p`` to ``[..., V]``
     logits (masked entries become -inf); softmax of the result is the policy's
     sampling distribution."""
+    # no host-to-device copy in here: decode runs inside captured CUDA graphs
     logits = logits / config.temperature
-    neg_inf = torch.tensor(-math.inf, dtype=logits.dtype, device=logits.device)
     if config.min_p > 0.0:
         # prob(x) >= min_p * prob(argmax)  <=>  logit(x) >= max_logit + log(min_p)
-        log_min_p = torch.log(torch.tensor(config.min_p, dtype=logits.dtype, device=logits.device))
+        log_min_p = float(torch.log(torch.tensor(config.min_p, dtype=logits.dtype)))  # in the logits' dtype
         cutoff = logits.amax(dim=-1, keepdim=True) + log_min_p
-        logits = torch.where(logits < cutoff, neg_inf, logits)
+        logits = logits.masked_fill(logits < cutoff, -math.inf)
     if config.top_k > 0:
         kth = torch.sort(logits, dim=-1).values[..., -config.top_k][..., None]
-        logits = torch.where(logits < kth, neg_inf, logits)
+        logits = logits.masked_fill(logits < kth, -math.inf)
     if config.top_p < 1.0:
         sorted_desc = torch.flip(torch.sort(logits, dim=-1).values, dims=[-1])
         probs = torch.softmax(sorted_desc, dim=-1)
@@ -270,8 +271,8 @@ def filtered_logits(logits: torch.Tensor, config: GenerationConfig) -> torch.Ten
         # keep the smallest prefix whose mass reaches top_p; its lowest logit
         # becomes the cutoff on the unsorted axis
         dropped = exclusive_cum >= config.top_p
-        min_kept = torch.where(dropped, -neg_inf, sorted_desc).amin(dim=-1, keepdim=True)
-        logits = torch.where(logits < min_kept, neg_inf, logits)
+        min_kept = sorted_desc.masked_fill(dropped, math.inf).amin(dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < min_kept, -math.inf)
     return logits
 
 
@@ -378,8 +379,11 @@ class Generator:
     ``model`` follows :class:`~unionml_tpu_torch.models.llama.Llama`'s cache
     contract and must already live on ``device`` (``None`` = CUDA, which
     raises on a machine without one). ``prefill_traces``/``decode_traces``
-    mirror the JAX engine's compile counters; eager PyTorch compiles nothing,
-    so they stay 0.
+    mirror the JAX engine's compile counters: they count the programs this
+    generator resolved with no entry in its AOT store (:meth:`enable_aot`),
+    each run eagerly, captured as a CUDA graph on the card and written to
+    the store, so a generator whose store held every program reads ``(0,
+    0)``, as in JAX. Without a store nothing is compiled and both stay 0.
 
     ``quantize="int8"`` quantizes the model's matmul kernels
     (:func:`~unionml_tpu_torch.ops.quant.quantize_params`'s defaults) IN
@@ -443,6 +447,8 @@ class Generator:
             self.cache_config = _place(model, mesh, partition_rules)
         self.prefill_traces = 0
         self.decode_traces = 0
+        #: the AOT program store (serving/aot.py), set by :meth:`enable_aot`
+        self._aot_store = None
         self._spec_engine = None
         self._cs = config.constraints
         if self._cs is not None:
@@ -751,6 +757,94 @@ class Generator:
             last = torch.where(has[:, None], chunk_last, last)
         return last, cache
 
+    def _aot_context(self) -> dict:
+        """The key parts that pin a stored program to THIS generator's
+        programs: the module's architecture and config, the generation
+        config (the KV dtype, buckets and sampling law: all baked into a
+        graph), the quantization mode, the device, the mesh, and a digest of
+        the grammar tables."""
+        import hashlib
+
+        from unionml_tpu_torch.serving.aot import device_context, mesh_context
+
+        ctx = {
+            "module": type(self.model).__name__,
+            "module_config": repr(getattr(self.model, "config", None)),
+            "generation_config": repr(self.config),
+            "quantize": self.quantize,
+            **device_context(self.device),
+            **mesh_context(self.mesh),
+        }
+        if self._cs is not None:
+            digest = hashlib.sha256()
+            digest.update(np.asarray(self._cs.trans).tobytes())
+            digest.update(np.asarray(self._cs.allowed).tobytes())
+            ctx["constraints"] = digest.hexdigest()
+        return ctx
+
+    def enable_aot(self, store: Any) -> "Generator":
+        """Route this generator's programs (``_prefill`` per bucket,
+        ``_prefill_chunk``, ``_first_token`` and ``_decode``, whose ``steps``
+        is static) through an AOT
+        :class:`~unionml_tpu_torch.serving.aot.ProgramStore`: on the card each
+        distinct call signature is captured once as a CUDA graph, its kernel
+        libraries coming from the store where it holds them (no ``nvcc``), and
+        every program the store did not hold is written back for the next
+        cold process. Tokens are those of the eager programs. The graphs of
+        this generator share one memory pool. Idempotent; ``None`` is a
+        no-op. Over a mesh it raises ``NotImplementedError``: the
+        collectives go through gloo's host route, which a graph cannot
+        capture."""
+        if store is None or self._aot_store is not None:
+            return self
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the AOT store over a mesh is not ported yet: its collectives cannot be captured "
+                "(ROADMAP.md, Queue A: parallelism and the replica layer, the multi-host fleet)"
+            )
+        from unionml_tpu_torch.serving.aot import AOTFunction, GraphPool
+
+        owner = weakref.ref(self)  # the wrappers live in this generator's attributes: no cycle back to it
+
+        def traced(attr: str):
+            def bump() -> None:
+                gen = owner()
+                if gen is not None:
+                    setattr(gen, attr, getattr(gen, attr) + 1)
+            return bump
+
+        ctx = self._aot_context()
+        pool = GraphPool()
+        self._aot_store = store
+        prefill = dict(pool=pool, on_compile=traced("prefill_traces"))
+        self._prefill = AOTFunction(self._prefill, "prefill", store, ctx, **prefill)
+        self._prefill_chunk = AOTFunction(self._prefill_chunk, "prefill_chunk", store, ctx, **prefill)
+        self._first_token = AOTFunction(self._first_token, "first_token", store, ctx, **prefill)
+        self._decode = AOTFunction(self._decode, "decode", store, ctx, static_argnames=("steps",), pool=pool,
+                                   on_compile=traced("decode_traces"))
+        return self
+
+    def warmup(self) -> "Generator":
+        """Resolve the batch-1 prefill program of every configured prompt
+        bucket and one decode of ``max_new_tokens - 1`` steps: through the
+        AOT store when :meth:`enable_aot` armed one (a populated store makes
+        this load-bound: libraries installed, graphs captured, no ``nvcc``),
+        else as plain eager runs that build the kernels. The serving engines
+        have their own warmup; this is the standalone ``Generator``'s, which
+        the serverless batch path and notebooks use."""
+        cfg = self.config
+        vocab = int(getattr(self.model.config, "vocab_size", 2))
+        tok = 1 % max(vocab, 1)
+        decoded = False
+        for bucket in sorted(set(cfg.prompt_buckets)):
+            _, _, _, carry = self._start([[tok] * bucket], 0)
+            if not decoded and cfg.max_new_tokens >= 2:
+                # one decode covers every bucket: the cache width is the
+                # widest bucket's, whichever bucket prefilled the carry
+                self._decode(*carry, steps=cfg.max_new_tokens - 1)
+                decoded = True
+        return self
+
     def _speculative(self):
         """The speculative engine behind ``config.draft``, built on first use:
         THIS generator (its model already quantized and placed) is the verify
@@ -772,7 +866,8 @@ class Generator:
         if p0 == 0:
             raise ValueError("prefix_tokens must be non-empty")
         # every rank prefills the one row itself: a prefix is not split over data
-        _, _, _, carry = self._start([list(prefix_tokens)], 0, split=False)
+        with row_scope(()):
+            _, _, _, carry = self._start([list(prefix_tokens)], 0, split=False)
         layers = tuple({name: t[:1, :p0].clone() for name, t in layer.items()} for layer in carry[0])
         return PrefixCache(layers=layers, length=p0, tokens=tuple(int(t) for t in prefix_tokens))
 

@@ -269,7 +269,8 @@ def rotary_embedding(x: torch.Tensor, positions: torch.Tensor, theta: float = 10
     ``[B, L]``), rotating interleaved pairs; angles in f32."""
     head_dim = x.shape[-1]
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=x.device) / head_dim
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # a fill, not a host copy: the forward runs inside captured CUDA graphs
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exponent)
     angles = positions.to(x.device).float()[..., None] * freqs  # [..., L, D/2]
     angles = angles[None, :, None] if angles.dim() == 2 else angles[:, :, None]
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -18,7 +18,9 @@ What the port keeps bit for bit, since each one changes tokens:
   order);
 - the capacity, ``max(1, int(capacity_factor * k * n_tokens / n_experts))``
   over the whole call's ``B x L``, so a caller must route the same ``B`` and
-  ``L`` as the JAX package at every step;
+  ``L`` as the JAX package at every step; over a mesh whose ranks hold
+  different rows of the batch (``data``, ``fsdp``, ``dcn_data``), the
+  global batch's capacity, slots and aux loss, as JAX's jit computes them;
 - slot priority: every token's first choice claims capacity before any
   token's second, and only ``token_mask`` tokens claim it;
 - the router in f32 (quantization leaves it alone), the casts of tokens and
@@ -29,8 +31,9 @@ JAX's ``sow`` of the Switch load-balance loss becomes an attribute: each
 :class:`MoELayer` keeps the aux loss of its last forward in ``aux_loss``, and
 :func:`moe_lm_loss` sums them. The sharding constraints of the JAX layer
 (``_constrain``) are left out: a placed layer computes on its rank's
-experts and sums over the ``expert`` axis itself (:meth:`MoELayer.forward`),
-under :func:`moe_partition_rules`.
+experts and sums over the ``expert`` axis itself (:meth:`MoELayer.forward`,
+Megatron's f and g around the experts' share), under
+:func:`moe_partition_rules`.
 """
 
 from __future__ import annotations
@@ -54,12 +57,13 @@ from unionml_tpu_torch.models.layers import (
 )
 from unionml_tpu_torch.models.llama import _LMHead, _split_batch
 from unionml_tpu_torch.ops.quant import QuantizedKernel, QuantizedTensor
-from unionml_tpu_torch.parallel.collectives import allreduce_sum
-from unionml_tpu_torch.parallel.sharding import P, PartitionRules, splits
+from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum, sum_gradients
+from unionml_tpu_torch.parallel.sharding import P, PartitionRules, batch_mean, row_axes, scope_mesh, splits
 
 
 def top_k_dispatch(
-    router_probs: torch.Tensor, k: int, capacity: int, valid: Optional[torch.Tensor] = None
+    router_probs: torch.Tensor, k: int, capacity: int, valid: Optional[torch.Tensor] = None, *,
+    mesh: Any = None, row_axes: Tuple[str, ...] = (),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Build dispatch/combine tensors from router probabilities.
 
@@ -67,6 +71,14 @@ def top_k_dispatch(
     :param valid: optional ``[n_tokens]`` bool; False tokens (padding) claim
         no expert capacity, get zero dispatch/combine rows, and are left out
         of the aux loss.
+    :param row_axes: the ``mesh`` axes over which the ranks hold different
+        rows (:func:`~unionml_tpu_torch.parallel.sharding.row_axes`): the
+        tokens are then this rank's block of the global token array, in the
+        axes' row-major order, and ``capacity`` is the global one. Each
+        token takes the slot it takes in the global array (its rank's
+        cumsum, plus the earlier ranks' claims of that expert in this
+        choice, plus every rank's claims in the earlier choices), and the
+        aux loss is the global one, every rank holding its value.
     :returns: ``(dispatch [N, E, C] of 0/1, combine [N, E, C], aux_loss
         scalar)``, in ``router_probs``' dtype.
     """
@@ -77,17 +89,32 @@ def top_k_dispatch(
     # Mixtral-style renormalization: the k selected gates sum to 1 per token
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    dispatch = torch.zeros((n_tokens, n_experts, capacity), dtype=dtype, device=device)
-    combine = torch.zeros_like(dispatch)
-    counts = torch.zeros((n_experts,), dtype=torch.int64, device=device)
-    slots = torch.arange(capacity, device=device)
+    onehots = []
     for slot in range(k):
         onehot = F.one_hot(gate_idx[:, slot], n_experts)  # [N, E]
         if valid is not None:
             onehot = onehot * valid.long()[:, None]
+        onehots.append(onehot)
+    earlier = totals = None
+    if row_axes:
+        # every rank's claims per choice and expert, in the global rows' order
+        every = torch.stack([o.sum(dim=0) for o in onehots])[None]  # [1, k, E]
+        for axis in reversed(row_axes):
+            every = all_gather(every, mesh, axis)
+        earlier, totals = every[: mesh.index(row_axes)].sum(dim=0), every.sum(dim=0)
+
+    dispatch = torch.zeros((n_tokens, n_experts, capacity), dtype=dtype, device=device)
+    combine = torch.zeros_like(dispatch)
+    counts = torch.zeros((n_experts,), dtype=torch.int64, device=device)
+    slots = torch.arange(capacity, device=device)
+    for slot, onehot in enumerate(onehots):
         # position of each token within its chosen expert's capacity buffer
         pos = torch.cumsum(onehot, dim=0) - 1 + counts[None, :]
-        counts = counts + onehot.sum(dim=0)
+        if earlier is None:
+            counts = counts + onehot.sum(dim=0)
+        else:
+            pos = pos + earlier[slot][None, :]
+            counts = counts + totals[slot]
         within = (pos < capacity) & (onehot > 0)
         # jax.nn.one_hot of an index outside [0, capacity) is a zero row
         slot_dispatch = ((pos[..., None] == slots) & within[..., None]).to(dtype)  # [N, E, C]
@@ -96,7 +123,21 @@ def top_k_dispatch(
 
     # Switch load-balance loss: n_experts * sum_e f_e * p_e, minimized at uniform
     top1 = F.one_hot(gate_idx[:, 0], n_experts).to(dtype)
-    if valid is None:
+    if row_axes:
+        w = valid.to(dtype)[:, None] if valid is not None else torch.ones((n_tokens, 1), dtype=dtype, device=device)
+        with torch.no_grad():
+            token_sum, denom = (top1 * w).sum(dim=0), w.sum()
+            for axis in row_axes:
+                token_sum, denom = allreduce_sum((token_sum, denom), mesh, axis)
+        # every rank holds the global mean, and the driver averages the
+        # ranks' gradients: f before g sums the ranks' cotangents, so each
+        # rank's probabilities take the whole of theirs
+        prob_sum = (router_probs * w).sum(dim=0)
+        for axis in row_axes:
+            prob_sum = allreduce_sum(sum_gradients(prob_sum, mesh, axis), mesh, axis)
+        denom = denom.clamp_min(1.0)
+        token_frac, prob_frac = token_sum / denom, prob_sum / denom
+    elif valid is None:
         token_frac = top1.mean(dim=0)
         prob_frac = router_probs.mean(dim=0)
     else:
@@ -174,20 +215,30 @@ class MoELayer(nn.Module):
         batch, length, dim = x.shape
         n_tokens = batch * length
         tokens = x.reshape(n_tokens, dim)
-        capacity = max(1, int(self.capacity_factor * self.k * n_tokens / self.n_experts))
+        mesh = self.experts.wi._mesh
+        # over a mesh whose ranks hold different rows, the layer computes
+        # over the global token array (JAX's jit sees the global batch)
+        rows = row_axes(mesh) if mesh is not None else ()
+        n_global = n_tokens * (mesh.size(rows) if rows else 1)
+        capacity = max(1, int(self.capacity_factor * self.k * n_global / self.n_experts))
         router_logits = self.router(tokens.float())
         valid = token_mask.reshape(n_tokens) if token_mask is not None else None
         dispatch, combine, self.aux_loss = top_k_dispatch(torch.softmax(router_logits, dim=-1), self.k, capacity,
-                                                          valid)
+                                                          valid, mesh=mesh, row_axes=rows)
         held = self.experts.wi.kernel.shape[0]
-        mesh = self.experts.wi._mesh
+        expert_tokens = tokens
         if held != self.n_experts:
             # expert-parallel: this rank holds experts [e0, e0 + held); the
             # tokens are the same on every rank of the expert axis, so each
-            # runs its experts' share and the shares sum over the axis
+            # runs its experts' share and the shares sum over the axis. The
+            # replicated tokens and gates enter that share through f, so
+            # their cotangents sum the shares' (the router, which runs
+            # replicated, takes its whole gradient through the gates)
             e0 = mesh.index("expert") * held
+            combine = sum_gradients(combine, mesh, "expert")
             dispatch, combine = dispatch[:, e0:e0 + held], combine[:, e0:e0 + held]
-        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(self.dtype), tokens.to(self.dtype))
+            expert_tokens = sum_gradients(tokens, mesh, "expert")
+        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(self.dtype), expert_tokens.to(self.dtype))
         expert_out = self.experts(expert_in)  # [E, C, D]
         out = torch.einsum("nec,ecd->nd", combine.to(self.dtype), expert_out)
         if held != self.n_experts:
@@ -352,7 +403,10 @@ def moe_lm_loss(model: MoETransformer, batch: Any) -> torch.Tensor:
     losses = losses.reshape(targets.shape)
     # every routed layer's aux loss of this forward (the JAX package's "losses" collection)
     aux = sum(m.aux_loss for m in model.modules() if isinstance(m, MoELayer))
-    if mask is not None:
+    if scope_mesh() is not None:  # under the driver over a mesh: this rank's share of the global mean
+        m = mask[:, 1:].float() if mask is not None else torch.ones_like(losses)
+        ce = batch_mean((losses * m).sum(), m.sum())
+    elif mask is not None:
         m = mask[:, 1:].float()
         ce = (losses * m).sum() / m.sum().clamp_min(1.0)
     else:

@@ -224,7 +224,7 @@ def _launch(name: str, counter, q, k, *pointers_and_tensors, causal: bool) -> No
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    count_launch(counter)
+    count_launch(counter, library=_ENTRIES[name][0])
 
 
 def _device_of(q: torch.Tensor) -> str:

@@ -178,7 +178,7 @@ def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: to
             err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err}")
-    count_launch(int8_matmul)
+    count_launch(int8_matmul, library="int8_matmul")
     return out
 
 

@@ -348,7 +348,7 @@ def paged_decode_attention(
             err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
-    count_launch(paged_decode_attention)
+    count_launch(paged_decode_attention, library="paged_decode_attention")
     return out
 
 
@@ -383,7 +383,7 @@ def _paged_int8(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices) 
         err = _int8_kernel()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention int8-page kernel ({route} route) launch failed: cudaError {err}")
-    count_launch(paged_decode_attention, "int8_launches")
+    count_launch(paged_decode_attention, "int8_launches", library="paged_decode_attention_int8")
     count_launch(paged_decode_attention, "int8_route_launches", route)
     return out
 

@@ -30,7 +30,7 @@ from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Sequence, T
 import torch
 from torch import nn
 
-from unionml_tpu_torch.parallel.mesh import BATCH_AXES
+from unionml_tpu_torch.parallel.mesh import BATCH_AXES, ROW_AXES
 
 __all__ = [
     "NamedSharding",
@@ -46,6 +46,8 @@ __all__ = [
     "named_sharding",
     "reduce_scope",
     "replicated",
+    "row_axes",
+    "row_scope",
     "shard_pytree",
     "shard_slices",
     "unbox_partitioned",
@@ -406,6 +408,8 @@ class _ReduceScope:
     thread, and the recompute must take the quotient the forward took."""
 
     mesh: Any = None
+    #: the axes the innermost :func:`row_scope` names (None: none is open)
+    rows: Optional[Tuple[str, ...]] = None
 
 
 _scope = _ReduceScope()
@@ -421,6 +425,36 @@ def reduce_scope(mesh: Any) -> Iterator[None]:
         yield
     finally:
         _scope.mesh = previous
+
+
+@contextlib.contextmanager
+def row_scope(axes: Optional[Sequence[str]]) -> Iterator[None]:
+    """Run the forwards inside over rows split over ``axes`` (``()``: every
+    rank holds the same rows, as for a batch that does not divide over the
+    batch axes, or a prefix every rank prefills whole). ``None`` leaves the
+    enclosing layout as it is. See :func:`row_axes`."""
+    if axes is None:
+        yield
+        return
+    previous, _scope.rows = _scope.rows, tuple(axes)
+    try:
+        yield
+    finally:
+        _scope.rows = previous
+
+
+def row_axes(mesh: Any) -> Tuple[str, ...]:
+    """The axes of size > 1 whose ranks hold different rows of the batch
+    the model runs now, in the rows' order (row-major): those of the
+    innermost :func:`row_scope`, else inside a :func:`reduce_scope` the
+    batch axes (the driver's batch sharding), else ``ROW_AXES`` (a
+    ``Generator``'s rows). A layer whose result mixes rows (MoE's capacity)
+    reads it to compute over the global batch, as JAX's jit does."""
+    if _scope.rows is not None:
+        axes = _scope.rows
+    else:
+        axes = BATCH_AXES if _scope.mesh is not None else ROW_AXES
+    return tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
 
 
 def scope_mesh() -> Any:

@@ -10,11 +10,15 @@ shared prefixes (a static ``prefix=`` and the radix prefix cache,
 ``serving/prefix_cache.py``); the in-process replica layer
 (``serving/replicas.py``) runs N engines behind one scheduler, with
 prefill/decode roles and KV handoff and an elastic fleet; one engine serves a
-``model``/``sequence``/``expert`` mesh from rank 0 (``serving/mesh.py``). The
-mesh path of the replica layer, the multi-host cluster and the AOT program
-store are not ported yet (ROADMAP.md, Queue A).
+``model``/``sequence``/``expert`` mesh from rank 0 (``serving/mesh.py``); the
+AOT program store (``serving/aot.py``) captures an engine's programs as CUDA
+graphs and carries their kernels to the next cold process, and
+``serving/serverless.py`` wraps a ``ServingApp`` as a function handler. The
+mesh path of the replica layer and the multi-host cluster are not ported yet
+(ROADMAP.md, Queue A).
 """
 
+from unionml_tpu_torch.serving.aot import AOTFunction, ProgramStore
 from unionml_tpu_torch.serving.app import ServingApp, serving_app
 from unionml_tpu_torch.serving.batcher import MicroBatcher, ServingConfig
 from unionml_tpu_torch.serving.compile import CompiledPredictor
@@ -33,12 +37,14 @@ from unionml_tpu_torch.serving.replicas import ReplicaScheduler, ReplicaSet
 from unionml_tpu_torch.serving.tenancy import TenantRegistry, TenantSpec, current_priority, current_tenant
 
 __all__ = [
+    "AOTFunction",
     "CompiledPredictor",
     "ContinuousBatcher",
     "DeadlineExceeded",
     "HTTPServer",
     "LatencyWindow",
     "MicroBatcher",
+    "ProgramStore",
     "QueueFullError",
     "RadixPrefixCache",
     "ReplicaScheduler",

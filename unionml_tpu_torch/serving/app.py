@@ -16,8 +16,7 @@ Deviations, both deliberate:
   so no request pays a bucket's first call.
 
 What the port does not carry yet raises ``NotImplementedError`` naming ROADMAP.md's
-Queue A: ``remote=True`` (the remote backend) and a cold-start knob that turns on the
-AOT program store or the compile cache. A replica fleet (``--dp-replicas``,
+Queue A: ``remote=True`` (the remote backend). A replica fleet (``--dp-replicas``,
 ``--replica-roles``) is built by the engine's constructor and resized by ``POST
 /debug/scale``.
 """
@@ -317,26 +316,29 @@ class ServingApp:
         aot_preload: Optional[str] = None,
     ) -> "ServingApp":
         """Record the serve-time ``--compile-cache``/``--aot-preload``
-        overrides and export them — the :meth:`configure_replicas` env
-        contract. ``None`` leaves a knob alone; an empty string (or ``"0"``
-        and the other off-flags) turns it off and is accepted. The port has
-        neither the AOT program store nor a compile cache (their torch
-        meaning is still to be defined), so a value that turns either on
-        raises ``NotImplementedError``."""
+        overrides and export them: the :meth:`configure_replicas` env
+        contract, so generation engines built after startup (warmup hooks,
+        first-request construction) arm the AOT program store. ``None``
+        leaves a knob alone; an empty string (or ``"0"`` and the other
+        off-flags) turns it off. ``compile_cache`` also points the kernel
+        build directory at the cache now (the package-import hook already
+        ran by the time this executes); a directory that cannot be made
+        warns and keeps the old one."""
         from unionml_tpu_torch.defaults import (
             _FALSY_FLAGS,
             SERVE_AOT_PRELOAD_ENV_VAR,
             SERVE_COMPILE_CACHE_ENV_VAR,
         )
 
-        for value, flag in ((compile_cache, "compile_cache"), (aot_preload, "aot_preload")):
-            if value is not None and str(value).strip().lower() not in _FALSY_FLAGS:
-                raise NotImplementedError(
-                    f"configure_cold_start({flag}={value!r}): the AOT program store and the compile cache are "
-                    "not ported yet (ROADMAP.md, Queue A: the rest)"
-                )
         if compile_cache is not None:
             os.environ[SERVE_COMPILE_CACHE_ENV_VAR] = str(compile_cache)
+            if str(compile_cache).strip().lower() not in _FALSY_FLAGS:
+                from unionml_tpu_torch.compile_cache import enable_compile_cache
+
+                try:
+                    enable_compile_cache(str(compile_cache))
+                except OSError as exc:  # an unwritable dir degrades, never crashes
+                    logger.warning(f"could not enable the kernel build cache: {exc}")
         if aot_preload is not None:
             os.environ[SERVE_AOT_PRELOAD_ENV_VAR] = str(aot_preload)
         return self

@@ -1,11 +1,12 @@
 """Continuous (in-flight) batching for generation serving.
 
-Counterpart of ``unionml_tpu/serving/continuous.py`` without its AOT
-store: dense slots or a paged KV pool with a scratch block, lazy block
-growth and recompute preemption, chunked admission, a static shared prefix,
-the radix prefix cache, and the engine half of the replica layer
-(``role=``, the KV handoff pair, ``quiesce``; the fleet itself is
-``serving/replicas.py``).
+Counterpart of ``unionml_tpu/serving/continuous.py``: dense slots or a paged
+KV pool with a scratch block, lazy block growth and recompute preemption,
+chunked admission, a static shared prefix, the radix prefix cache, the AOT
+program store (``aot=``: the generator's programs captured as CUDA graphs,
+their kernels from the store; serving/aot.py), and the engine half of the
+replica layer (``role=``, the KV handoff pair, ``quiesce``; the fleet itself
+is ``serving/replicas.py``).
 
 - The engine owns ``slots`` cache rows (dense ``[S, cache_len, ...]`` per
   layer, or a shared pool of ``block_size`` blocks addressed through a block
@@ -83,6 +84,7 @@ from unionml_tpu_torch.defaults import (
     REPLICA_ROLES,
     SERVE_MAX_WAITING,
     serve_admit_chunk,
+    serve_aot_preload,
     serve_dp_replicas,
     serve_max_admissions,
     serve_prefill_budget,
@@ -102,6 +104,7 @@ from unionml_tpu_torch.models.speculative import seeded_streams
 from unionml_tpu_torch.observability.slo import SLOConfig, SLOTracker, TenantSLORegistry
 from unionml_tpu_torch.observability.timeseries import EngineTimeseries
 from unionml_tpu_torch.observability.trace import current_trace
+from unionml_tpu_torch.serving.aot import resolve_store
 from unionml_tpu_torch.serving.mesh import HEARTBEAT_S, StepPlan
 from unionml_tpu_torch.serving.metrics import LatencyWindow
 from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, TenantThrottled, expired
@@ -119,10 +122,6 @@ from unionml_tpu_torch.serving.tenancy import (
 __all__ = ["ContinuousBatcher"]
 
 logger = logging.getLogger(__name__)
-
-#: engine options of the JAX package that a later slice of the port brings
-#: (the AOT store), each with the title of its ROADMAP.md Queue A item
-_UNPORTED = {"aot": "the rest"}
 
 _SENTINEL = object()
 
@@ -396,16 +395,8 @@ class ContinuousBatcher:
         slo: Optional[Any] = None,
         role: Optional[str] = None,
         tenancy: Optional[Any] = None,
-        **unported: Any,
+        aot: Optional[Any] = None,
     ):
-        unknown = sorted(set(unported) - set(_UNPORTED))
-        if unknown:
-            raise TypeError(f"unexpected ContinuousBatcher arguments {unknown}")
-        for name, value in unported.items():
-            if value:  # None and False select what the port has
-                raise NotImplementedError(
-                    f"ContinuousBatcher {name}= is not ported yet (ROADMAP.md, Queue A: {_UNPORTED[name]})"
-                )
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if role is not None and role not in REPLICA_ROLES:
@@ -464,6 +455,34 @@ class ContinuousBatcher:
         #: and verify dispatches and each greedy stream still equals its solo
         #: target-only run
         self._spec = generator._speculative() if cfg.draft is not None else None
+        #: the AOT program store (serving/aot.py): a ProgramStore or directory
+        #: pins it, None reads the serve CLI's UNIONML_TPU_AOT_PRELOAD
+        #: export, False turns it off. Armed, the generator's (and the
+        #: draft's) prefill, chunk, first-token and decode programs are
+        #: captured as CUDA graphs per signature, their kernels installed from
+        #: the store where it holds them; the admission scatters and the
+        #: radix gather stay plain calls (they upload host block rows and
+        #: launch no hand-written kernel, so a store has nothing to hold for
+        #: them); off (the default) keeps the engine, stats() included, as it
+        #: is without one
+        if mesh is not None and aot is not None and aot is not False:
+            raise NotImplementedError(
+                "aot= over a mesh is not ported yet: the mesh's collectives go through gloo's host route, which a "
+                f"CUDA graph cannot capture ({_FLEET})"
+            )
+        if mesh is not None and aot is None and serve_aot_preload() is not None:
+            # as for the prefix cache: a fleet-wide export must not crash the mesh's engines
+            logger.warning("UNIONML_TPU_AOT_PRELOAD is set but this engine runs over a mesh; the AOT store is off")
+            aot = False
+        self._aot = resolve_store(aot)
+        if self._aot is not None:
+            generator.enable_aot(self._aot)
+            # the generator may already carry a store (an earlier engine, an
+            # explicit enable_aot): report the one its programs go through
+            self._aot = generator._aot_store
+            if self._spec is not None:
+                # the draft's programs load from the same store, under its own context
+                self._spec._draft.enable_aot(self._aot)
         #: the disaggregated-serving role (None = a role-less engine, whose
         #: stats() keep the role-less keys)
         self.role = role
@@ -1595,6 +1614,8 @@ class ContinuousBatcher:
             snapshot["slo"] = self.slo.evaluate(self.timeseries)
         if self._tenant_slo is not None and len(self._tenant_slo):
             snapshot["tenant_slo"] = self._tenant_slo.evaluate()
+        if self._aot is not None:
+            snapshot["aot"] = self._aot.stats()
         return snapshot
 
     def warmup(self) -> None:
@@ -1604,7 +1625,10 @@ class ContinuousBatcher:
         run the two decode dispatches (the first on the freshly made carry,
         the second on the steady-state one). Their first launches build and
         load the hand-written kernels the engine's path runs (``nvcc`` at
-        first use, the port's counterpart of the JAX engine's XLA compile).
+        first use, the port's counterpart of the JAX engine's XLA compile);
+        with an AOT store armed they resolve every program through it: each
+        bucket's prefill and the decode are captured as CUDA graphs, their
+        kernels installed from the store where it holds them.
         Counters, the TTFT/TBT windows, the windowed rates and the SLO
         tracker are reset afterwards, so :meth:`stats` reflects real traffic
         only."""

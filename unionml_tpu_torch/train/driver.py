@@ -56,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from unionml_tpu_torch._device import DeviceLike, module_device, resolve_device
 from unionml_tpu_torch._logging import logger
-from unionml_tpu_torch.data.pipeline import PrefetchIterator, _processes, flatten, local_rows, unflatten
+from unionml_tpu_torch.data.pipeline import PrefetchIterator, _processes, flatten, local_rows, splits_rows, unflatten
 from unionml_tpu_torch.parallel.sharding import (
     P,
     _leaves,
@@ -67,6 +67,7 @@ from unionml_tpu_torch.parallel.sharding import (
     placed_mesh,
     reduce_axes,
     reduce_scope,
+    row_scope,
     scope_mesh,
     spec_axes,
 )
@@ -536,7 +537,9 @@ def fit(
                         activities.append(torch.profiler.ProfilerActivity.CUDA)
                     profiler = torch.profiler.profile(activities=activities)
                     profiler.start()
-                with torch.profiler.record_function("unionml_tpu.train_step"):
+                # a batch that does not divide stays whole on every rank: its rows are not split
+                whole = sharding is not None and not splits_rows(batch_n // steps_in_payload, sharding, microbatches)
+                with torch.profiler.record_function("unionml_tpu.train_step"), row_scope(() if whole else None):
                     if loop_start is None:
                         t0 = time.perf_counter()
                         state, last_metrics = run_step(state, payload)
@@ -627,7 +630,9 @@ def evaluate(
     count = 0
     with torch.no_grad(), reduce_scope(built):
         for batch, n in zip(iterator, _global_sizes(iterator)):
-            metrics = _average_metrics(eval_step(state, batch), built)
+            whole = built is not None and not splits_rows(n, iterator.sharding)
+            with row_scope(() if whole else None):
+                metrics = _average_metrics(eval_step(state, batch), built)
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + float(v) * n
             count += n
