@@ -184,18 +184,20 @@ Phases (no phase catches a failure; any fault exits non-zero):
    the kernels line); then two processes on cuda:0 over gloo (NCCL refuses
    two ranks on one card; gloo's collectives move CUDA tensors through host
    memory, counted), each holding half the weights, rank 0 serving and rank
-   1 following its step plans: Llama-3-8B width bf16 at model=2 (phase 3's
-   weights, knobs and prompts; first-token logits within
-   ``MESH_LOGITS_REL_RMS`` of (a)'s; on each rank 16 query and 4 KV heads,
-   paged launches exactly 32 x 8 x the dispatches, one launch on its live
-   layer-0 pool equal to the twin; rank 0's host time a decode step; memory
-   a rank; tok/s and TTFT), the same with ``quantize="int8"`` (225 int8
-   launches a forward on each rank), ``sp_prefill="ring"`` at sequence=2 on
+   1 following its step plans: Llama-3-8B width bf16 at model=2, 8 of its
+   32 layers (``MESH_SERVE_LAYERS``; seed 0, phase 3's knobs and prompts;
+   first-token logits within ``MESH_LOGITS_REL_RMS`` of the unsharded run
+   at that depth; on each rank 16 query and 4 KV heads, paged launches
+   exactly 8 x 8 x the dispatches, one launch on its live layer-0 pool
+   equal to the twin; rank 0's host time a decode step; memory a rank;
+   tok/s and TTFT), the same with ``quantize="int8"`` (57 int8 launches a
+   forward on each rank), ``sp_prefill="ring"`` at sequence=2 on
    a 2048-token prompt, ``MoEConfig()`` at expert=2; and the same four in
    f32 at 2 layers, TF32 off, each token for token equal to the unsharded
-   card run and to the CPU. The ranks run the f32 four first, while the
-   parent computes those references, and the timed bf16 four once it is
-   done: their times share the card and the host with nothing. Every
+   card run (the mesh against the CPU is held by the CPU tests). The ranks
+   run the f32 four first, while the parent computes those references, and
+   the timed bf16 four once it is done: their times share the card and the
+   host with nothing. Every
    kernel is counted on every rank in every case, and ``OFF_MESH_PATH``'s
    must count 0; ``tp_launches`` on the kernels line is rank 0's count
    over the eight served runs.
@@ -387,13 +389,20 @@ CHUNKED_LOGITS_REL_RMS = math.sqrt(BF16_ROUNDINGS) * 2.0 ** -8
 #: phase 15: the mesh on the card. (b)'s ranks share cuda:0 over gloo, which moves each CUDA tensor of a
 #: collective through host memory (parallel/collectives.py)
 MESH_RANKS = 2
-#: (b): bf16 first-token logits of the model=2 run against the unsharded run. On top of the 225 roundings of a
-#: forward (CHUNKED_LOGITS_REL_RMS), each row-parallel product (o_proj and wo: 2 x 32 layers) is summed from two
-#: bf16 partial products, each rounded, and their bf16 sum is rounded again: two more roundings each, 128 in all.
-#: The column-parallel and head products keep one rounding each (their cuBLAS kernels may differ, as chunking's
-#: do). Taken as independent: sqrt(225 + 2 x 64) x 2**-8 = 0.0734
-ROW_PARALLEL_ROUNDINGS = 2 * 2 * 32
-MESH_LOGITS_REL_RMS = math.sqrt(BF16_ROUNDINGS + ROW_PARALLEL_ROUNDINGS) * 2.0 ** -8
+#: (b)'s bf16 Llama cases run Llama-3-8B width at MESH_SERVE_LAYERS of its 32 layers (seed 0), cut so that the
+#: whole script stays inside its budget once phase 18 joined it (1018.3 s with them at 32 layers, H100 80GB HBM3,
+#: 700 W); every layer's shapes and shards are the same, and (a) serves the 32-layer model
+MESH_SERVE_LAYERS = 8
+#: int8 matmuls of one forward at that depth: 7 a layer and the head
+MESH_INT8_PER_FORWARD = 7 * MESH_SERVE_LAYERS + 1
+#: (b): bf16 first-token logits of the model=2 run against the unsharded run at the same depth. On top of the
+#: 7 x layers + 1 roundings of a forward (as CHUNKED_LOGITS_REL_RMS counts them), each row-parallel product
+#: (o_proj and wo: 2 a layer) is summed from two bf16 partial products, each rounded, and their bf16 sum is
+#: rounded again: two more roundings each. The column-parallel and head products keep one rounding each (their
+#: cuBLAS kernels may differ, as chunking's do). Taken as independent at 8 layers: sqrt(57 + 2 x 16) x 2**-8 =
+#: 0.0369 (sqrt(225 + 2 x 64) x 2**-8 = 0.0734 at 32)
+ROW_PARALLEL_ROUNDINGS = 2 * 2 * MESH_SERVE_LAYERS
+MESH_LOGITS_REL_RMS = math.sqrt(MESH_INT8_PER_FORWARD + ROW_PARALLEL_ROUNDINGS) * 2.0 ** -8
 SP_PROMPT_LEN = 2048  # (b): the sequence-parallel prefill's prompt, numpy seed 4
 #: kernels that no served run of the mesh path reaches, counted on every rank and required 0: the flash kernels
 #: (sp prefill attends by ring, cached prefill takes the plain path) and int8 pages (int8 pools take the gather path)
@@ -2893,15 +2902,21 @@ def engine(module: Llama) -> ContinuousBatcher:
     return engines["batcher"]
 
 
+def served(module: Llama):
+    """The engine, or what the serve CLI put in its place (a multi-host fleet's coordinator)."""
+    engine(module)
+    return model.generation_batcher
+
+
 @model.predictor
 def predictor(module: Llama, features: List[List[int]]) -> List[List[int]]:
-    streams = [engine(module).submit(prompt) for prompt in features]
+    streams = [served(module).submit(prompt) for prompt in features]
     return [[int(t) for chunk in stream for t in chunk] for stream in streams]
 
 
 @model.stream_predictor
 def stream_predictor(module: Llama, features: List[List[int]]):
-    for chunk in engine(module).submit(features[0], deadline=current_deadline()):
+    for chunk in served(module).submit(features[0], deadline=current_deadline()):
         yield [int(t) for t in chunk]
 
 
@@ -3056,7 +3071,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     --prefix-cache --profile-dir`` (the eager route). Phase 3's prompts stream concurrently
     over ``/predict-stream`` to both, and the answers must be equal. The
     child's paged kernel launches are read from a ``POST /debug/profile``
-    capture spanning its streams. Then a refused flag (``--num-hosts 2``, the multi-host fleet)
+    capture spanning its streams. Then a refused flag (``--remote``, the remote backend)
     must exit 1 before an app module that raises at import is imported."""
     import os
     import shutil
@@ -3150,7 +3165,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     require(profiled_wave == served, "the profiled wave's streams (radix hits) differ from the first wave's")
 
     # ---- a refused flag exits 1 before the app module is imported
-    refused = run_cli(["serve", "boom_app:model", "--num-hosts", "2"], workdir, 120)
+    refused = run_cli(["serve", "boom_app:model", "--remote"], workdir, 120)
     print(f"phase 11b: Llama-3-8B width bf16 artifact at {CLI_LAYERS} layers saved once ({size / 2**30:.1f} GiB in "
           f"{save_s:.1f} s); "
           f"in-process Model.serve() ready in {ready_s:.1f} s, 4 /predict-stream streams x {MAX_NEW} tokens "
@@ -3166,7 +3181,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
           f"profile ({window_ms:.0f} ms traced, kernels busy {kernel_ms:.1f} ms, the device's idle share "
           f"{1 - kernel_ms / (profiled_s * 1e3):.3f} over the wave's {profiled_s:.1f} s): {cli_launches} paged "
           f"launches (the wave's {profiled_dispatches} dispatches give {CLI_LAYERS} x {profiled_dispatches} x 8 = {expected}); "
-          f"`serve boom_app:model --num-hosts 2` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
+          f"`serve boom_app:model --remote` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
           f"card {card}", flush=True)
     require(served == inproc, "the CLI's streams differ from the in-process Model.serve() answers")
     require(wave_end_s * 1e3 < capture_ms and status[2] and json.loads(status[2])["duration_ms"] == capture_ms,
@@ -3175,7 +3190,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     require(cli_launches == expected > 0, f"{cli_launches} paged launches in the CLI child's profile, "
             f"expected {expected}")
     require(prefill.get("chunks", 0) > 0, f"the CLI's engine admitted no chunk: {prefill}")
-    require(refused.returncode == 1 and "parallelism and the replica layer" in refused.stderr
+    require(refused.returncode == 1 and "Queue A: the rest" in refused.stderr
             and "was imported" not in refused.stderr + refused.stdout, "the refused flag did not exit 1 at boot")
     sys.path.remove(workdir)
     # the artifact stays for phase 17b-c (the caller's workdir goes with it)
@@ -3802,8 +3817,9 @@ def mesh_world1_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, b
     ``Generator(mesh=MeshSpec(model=1).build(), partition_rules=llama_partition_rules())``
     (a world of one process over NCCL) and a ``ContinuousBatcher`` with phase 3's
     knobs and prompts: its streams must equal phase 3's, and its paged launches
-    be 32 x 8 a dispatch. Returns the first-token logits (the unsharded run's),
-    which (b) holds its model=2 run to."""
+    be 32 x 8 a dispatch. Returns the first-token logits of the unsharded run
+    at (b)'s depth (MESH_SERVE_LAYERS of the 32 layers, seed 0), which (b)
+    holds its model=2 run to."""
     import torch
     import torch.distributed as dist
 
@@ -3826,6 +3842,12 @@ def mesh_world1_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, b
     stats = batcher.stats()
     batcher.close()
     expected = cfg.n_layers * stats["decode_dispatches"] * decode_chunk
+    del gen, warm, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)'s depth, unsharded: the first-token logits its model=2 run is held to
+    gen = Generator(Llama(dataclasses.replace(cfg, n_layers=MESH_SERVE_LAYERS), seed=0), gcfg, mesh=mesh,
+                    partition_rules=llama_partition_rules())
     logits = [first_logits(gen, p) for p in prompts]
     result = dict(tok_s=len(prompts) * MAX_NEW / seconds, ttft_p50=stats["ttft_ms"]["p50_ms"], launches=launches,
                   logits=logits)
@@ -3837,7 +3859,7 @@ def mesh_world1_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, b
     require(launches == expected > 0, f"{launches} paged launches on the world-1 mesh, expected {expected}")
     others = {name: n for name, n in counts.items() if name != "paged_decode_attention"}
     require(not any(others.values()), f"kernels off the world-1 mesh path launched: {others}")
-    del gen, warm, batcher
+    del gen
     dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3886,8 +3908,8 @@ def mesh_model(case):
     if case["model"] == "moe":
         layers = dict(n_layers=MOE_PARITY_LAYERS, capacity_factor=MOE_NO_DROP_CAPACITY) if case["f32"] else {}
         return MoETransformer(MoEConfig(dtype=dtype, param_dtype=dtype, **layers), seed=case["seed"])
-    layers = dict(n_layers=2) if case["f32"] else {}
-    cfg = LlamaConfig.llama3_8b(attention_impl="flash", dtype=dtype, param_dtype=dtype, **layers)
+    cfg = LlamaConfig.llama3_8b(attention_impl="flash", dtype=dtype, param_dtype=dtype,
+                                n_layers=2 if case["f32"] else MESH_SERVE_LAYERS)
     return Llama(cfg, seed=case["seed"])
 
 
@@ -3997,9 +4019,9 @@ def mesh_rank(rank: int, store: str, cases: list, decode_chunk: int, logits, out
         out.put((rank, False, traceback.format_exc()))
 
 
-def mesh_expected(case, base_streams=None) -> tuple:
+def mesh_expected(case) -> list:
     """An f32 case's unsharded streams on the card (the engine with the
-    case's knobs) and on the CPU (the same weights, the solo Generator)."""
+    case's knobs)."""
     import torch
 
     from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator
@@ -4012,18 +4034,10 @@ def mesh_expected(case, base_streams=None) -> tuple:
     engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=8, block_size=BLOCK)
     card_streams, _ = serve(engine, case["prompts"])
     engine.close()
-    from unionml_tpu_torch.models import llama_from_jax, llama_params_to_numpy, moe_from_jax, moe_params_to_numpy
-
-    if case["model"] == "moe":  # the same bits (int8 slots too) on the CPU
-        cpu = moe_from_jax(moe_params_to_numpy(model), model.config, device="cpu")
-    else:
-        cpu = llama_from_jax(llama_params_to_numpy(model), model.config, device="cpu")
-    del gen, model
+    del engine, gen, model
     gc.collect()
     torch.cuda.empty_cache()
-    cpu_gen = Generator(cpu, gcfg, device="cpu")
-    cpu_streams = [cpu_gen([p])[0].tolist() for p in case["prompts"]]
-    return card_streams, cpu_streams
+    return card_streams
 
 
 def int8_shard_phase() -> dict:
@@ -4067,16 +4081,17 @@ def int8_shard_phase() -> dict:
 
 def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams) -> dict:
     """Phase 15: the serving mesh. (a) a world of one over NCCL at full
-    width; (b) two ranks on cuda:0 over gloo, each holding half the weights:
-    bf16 model=2 streams (first-token logits within MESH_LOGITS_REL_RMS of
-    (a)'s, paged launches 32 x 8 a dispatch on each rank with 16 query and 4
-    KV heads a rank, one launch on each rank's live pool equal to the twin,
-    the controller's host time a decode step), int8 at model=2 (225 int8
+    width; (b) two ranks on cuda:0 over gloo, each holding half the weights,
+    at MESH_SERVE_LAYERS of the 32 layers: bf16 model=2 streams (first-token
+    logits within MESH_LOGITS_REL_RMS of the unsharded run at that depth,
+    paged launches 8 x 8 a dispatch on each rank with 16 query and 4 KV
+    heads a rank, one launch on each rank's live pool equal to the twin, the
+    controller's host time a decode step), int8 at model=2 (57 int8
     launches a forward on each rank), sp_prefill="ring" at sequence=2 on a
     2048-token prompt, MoEConfig() at expert=2; and the same four in f32 at
     2 layers, TF32 off, each equal token for token to the unsharded card run
-    and to the CPU (the ranks run these first, beside the parent's
-    references, and the timed bf16 cases after them). The int8 kernel runs
+    (the ranks run these first, beside the parent's references, and the
+    timed bf16 cases after them). The int8 kernel runs
     at each rank's weight shapes against its twin, timed."""
     import multiprocessing
     import tempfile
@@ -4132,9 +4147,10 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     require(not errors and len(results) == MESH_RANKS, "phase 15b failed:\n" + "\n".join(errors))
     r0 = results[0]
     tp = r0["tp"]
-    print(f"phase 15b: {MESH_RANKS} ranks on cuda:0 over gloo, Llama-3-8B width bf16 at model=2: "
-          f"{len(prompts) * MAX_NEW / tp['seconds']:.1f} tok/s aggregate (world of 1: {world1['tok_s']:.1f}), "
-          f"TTFT p50 {tp['ttft_p50']} ms (world of 1: {world1['ttft_p50']} ms), decode dispatch p50 "
+    print(f"phase 15b: {MESH_RANKS} ranks on cuda:0 over gloo, Llama-3-8B width bf16 at {MESH_SERVE_LAYERS} of its "
+          f"32 layers, model=2: {len(prompts) * MAX_NEW / tp['seconds']:.1f} tok/s aggregate (world of 1 at 32 layers: "
+          f"{world1['tok_s']:.1f}), TTFT p50 {tp['ttft_p50']} ms (world of 1 at 32 layers: {world1['ttft_p50']} ms), "
+          f"decode dispatch p50 "
           f"{tp['tbt_p50']} ms; rank 0's controller: {tp['host_ms_per_step']:.3f} ms host (thread CPU) and "
           f"{tp['wall_ms_per_step']:.3f} ms wall a decode step; gloo host transfers "
           f"{[results[r]['tp']['transfers'] for r in range(MESH_RANKS)]} a rank over the served run; memory "
@@ -4152,9 +4168,10 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     check(all(x <= MESH_LOGITS_REL_RMS for x in tp["logits_rel_rms"]), "model=2 bf16 logits outside the bound")
     for r in range(MESH_RANKS):
         res = results[r]["tp"]
-        expected_launches = 32 * decode_chunk * tp["dispatches"]
+        expected_launches = MESH_SERVE_LAYERS * decode_chunk * tp["dispatches"]
         print(f"phase 15b rank {r}: local heads {res['heads']} (query, KV), paged launches {res['paged']} "
-              f"(expected 32 x {decode_chunk} x {tp['dispatches']} dispatches = {expected_launches}); one launch on "
+              f"(expected {MESH_SERVE_LAYERS} x {decode_chunk} x {tp['dispatches']} dispatches = {expected_launches}); "
+              f"one launch on "
               f"its live layer-0 pool {res['pool_shape']}: max_abs_err {res['pool_err']:.3g} "
               f"{'ok' if res['pool_ok'] else 'FAIL'}", flush=True)
         check(res["heads"] == (16, 4), f"rank {r} holds heads {res['heads']}, expected (16, 4)")
@@ -4162,9 +4179,9 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
         check(res["pool_ok"] and res["pool_launches"] == 1, f"rank {r}: the paged kernel on its pool failed")
         int8 = results[r]["int8"]
         forwards = r0["int8"]["admissions"] + r0["int8"]["dispatches"] * decode_chunk
-        print(f"phase 15b rank {r}: int8 launches {int8['int8']} (expected {INT8_PER_FORWARD} x {forwards} "
-              f"forwards = {INT8_PER_FORWARD * forwards})", flush=True)
-        check(int8["int8"] == INT8_PER_FORWARD * forwards, f"rank {r}: {int8['int8']} int8 launches")
+        print(f"phase 15b rank {r}: int8 launches {int8['int8']} (expected {MESH_INT8_PER_FORWARD} x {forwards} "
+              f"forwards = {MESH_INT8_PER_FORWARD * forwards})", flush=True)
+        check(int8["int8"] == MESH_INT8_PER_FORWARD * forwards, f"rank {r}: {int8['int8']} int8 launches")
     for name in ("int8", "sp", "moe"):
         res = r0[name]
         toks = [t for s in res["streams"] for t in s]
@@ -4181,12 +4198,12 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     print(f"phase 15b: rank 0's launches over the eight served runs {tp_launches}; on every rank and case "
           f"{sorted(OFF_MESH_PATH)} counted 0 {'(ok)' if not failed else ''}", flush=True)
     for name in ("tp32", "int832", "sp32", "moe32"):
-        card_streams, cpu_streams = expected[name]
+        card_streams = expected[name]
         got = r0[name]["streams"]
-        equal = got == card_streams == cpu_streams
+        equal = got == card_streams
         print(f"phase 15b {name}: f32 streams on the mesh {'equal' if equal else 'DIFFERENT'} to the unsharded card "
-              f"run and the CPU", flush=True)
-        check(equal, f"phase 15b {name}: {got} / {card_streams} / {cpu_streams}")
+              f"run", flush=True)
+        check(equal, f"phase 15b {name}: {got} / {card_streams}")
     require(not failed, "phase 15b: " + "; ".join(failed))
     seconds = time.perf_counter() - t_phase
     print(f"phase 15 took {seconds:.1f} s", flush=True)
@@ -5190,6 +5207,410 @@ def aot_cli_phase(card: str, prompts, workdir: str, cli: dict) -> None:
     require(aot["programs_compiled"] == 0 and aot["programs_loaded"] > 0, f"phase 17c: the engine's store {aot}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the multi-host fleet (serving/cluster.py)
+
+#: seconds a fleet's worker processes may take to build and announce (a 32-layer bf16 model drawn on the card)
+FLEET_BOOT_S = 300
+#: (c): the mesh fleet's ranks, two hosts of two
+FLEET_MESH_RANKS = 4
+
+
+class CountedEngine:
+    """A fleet worker's engine whose ``stats()`` also carries this process's
+    kernel launch counts (:func:`all_launches`): the worker counts its own
+    launches, and the coordinator reads them over the control plane."""
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def stats(self) -> dict:
+        out = self._engine.stats()
+        out["kernel_launches"] = all_launches()
+        return out
+
+
+def fleet_host_engine() -> CountedEngine:
+    """Phase 18a's worker host: phase 3's configuration, weights (seed 0) and
+    engine knobs on cuda:0, warmed by one short stream, its counts then set to
+    0 (the worker's builder, ``python -m unionml_tpu_torch.serving.cluster``)."""
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator, Llama, LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(attention_impl="flash", dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    gcfg = GenerationConfig(prompt_buckets=(256,), max_new_tokens=MAX_NEW, temperature=0.0)
+    engine = ContinuousBatcher(Generator(Llama(cfg, seed=0), gcfg), slots=4, decode_chunk=8, block_size=BLOCK)
+    serve(engine, [[1, 2, 3]])  # set-up: first cuBLAS/allocator calls
+    reset_counts()
+    return CountedEngine(engine)
+
+
+def fleet_mesh_config():
+    """Phase 18c's model: phase 4's width at 2 layers, f32."""
+    import torch
+
+    from unionml_tpu_torch import GenerationConfig, LlamaConfig
+
+    cfg = LlamaConfig.llama3_8b(n_layers=2, attention_impl="flash", dtype=torch.float32, param_dtype=torch.float32)
+    return cfg, GenerationConfig(prompt_buckets=(256,), max_new_tokens=MAX_NEW, temperature=0.0)
+
+
+def fleet_mesh_engine():
+    """Phase 18c's worker rank: ``MeshSpec(dcn_data=hosts, model=2).build_hybrid()``
+    over the world (gloo, every rank on cuda:0, TF32 off) and the
+    process-aware ``ReplicaSet.build`` over it: this rank builds the tp=2
+    replica of its host."""
+    import torch
+
+    from unionml_tpu_torch import Llama, distributed
+    from unionml_tpu_torch.models import llama_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.serving import ReplicaSet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, gcfg = fleet_mesh_config()
+    mesh = MeshSpec(dcn_data=distributed.process_count() // 2, model=2).build_hybrid()
+    return ReplicaSet.build(Llama(cfg, seed=1), gcfg, mesh=mesh, partition_rules=llama_partition_rules(), slots=4,
+                            decode_chunk=8, block_size=BLOCK, autoscale=False)
+
+
+def fleet_workers(workdir: str, builder: str, world: int, tag: str, **env) -> list:
+    """``world`` processes of ``python -m unionml_tpu_torch.serving.cluster
+    SPEC`` building ``builder`` (a world of their own over gloo when above
+    1), announcing into ``workdir``/fleet; returns [(process, log path)]."""
+    import os
+
+    spec = os.path.join(workdir, f"{tag}.json")
+    with open(spec, "w") as handle:
+        json.dump({"builder": builder, "kwargs": {}, "fleet_dir": os.path.join(workdir, "fleet")}, handle)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        extra = dict(env)
+        if world > 1:
+            extra.update(UNIONML_TPU_COORDINATOR=f"127.0.0.1:{port}", UNIONML_TPU_NUM_PROCESSES=str(world),
+                         UNIONML_TPU_PROCESS_ID=str(rank))
+        log = os.path.join(workdir, f"{tag}{rank}.log")
+        with open(log, "wb") as handle:
+            procs.append((subprocess.Popen([sys.executable, "-m", "unionml_tpu_torch.serving.cluster", spec],
+                                           cwd=workdir, env=cli_env(**extra), stdout=handle,
+                                           stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_announced(workdir: str, hosts, procs) -> None:
+    import os
+
+    deadline = time.monotonic() + FLEET_BOOT_S
+    while not all(os.path.exists(os.path.join(workdir, "fleet", f"host-{h}.json")) for h in hosts):
+        for proc, log in procs:
+            require(proc.poll() is None, f"a fleet worker exited with {proc.returncode}: " + tail(log))
+        require(time.monotonic() < deadline, f"the fleet did not announce within {FLEET_BOOT_S} s: "
+                + " | ".join(tail(log, 800) for _, log in procs))
+        time.sleep(0.2)
+
+
+def stop_workers(procs) -> None:
+    for proc, _ in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc, _ in procs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def drain_all(streams) -> list:
+    """Each stream's tokens, or the exception that ended it, each drained on
+    its own thread (a stream that hangs fails the phase)."""
+    import numpy as np
+
+    def drain(stream):
+        def run():
+            try:
+                return [int(t) for chunk in stream for t in np.asarray(chunk).ravel()]
+            except Exception as exc:  # the caller inspects it (StreamInterrupted)
+                return exc
+        return run
+
+    return concurrent([drain(s) for s in streams])[0]
+
+
+def fleet_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams) -> dict:
+    """Phase 18a: the two-host fleet at full width. Host 0 is a ``LocalHost``
+    over an engine in this process, host 1 a worker process building the
+    same weights on cuda:0; ``connect_fleet`` joins them. Phase 3's prompts
+    stream token for token as phase 3's through the mixed fleet (both hosts
+    taking submissions, each host's paged launches 32 x 8 a dispatch, host
+    1's counted in its process), then through the pair re-roled
+    prefill/decode (every stream crossing hosts, its bf16 pages as raw bits
+    on the wire); then the worker is SIGKILLed mid-wave: no stream hangs, a
+    stream that had emitted nothing completes on host 0, an emitted one ends
+    in ``StreamInterrupted``, and the census shows host 1 suspect or dead."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, Llama
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+    from unionml_tpu_torch.serving.cluster import (
+        FleetCoordinator, LocalHost, RemoteHost, StreamInterrupted, connect_fleet, serialize_handoff,
+    )
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    procs = fleet_workers(workdir, "chip_smoke:fleet_host_engine", 1, "host", UNIONML_TPU_PROCESS_ID="1")
+    coordinator = None
+    try:
+        model = Llama(cfg, seed=0)  # phase 3's weights, beside the worker's copy
+        engine = ContinuousBatcher(Generator(model, gcfg), slots=slots, decode_chunk=decode_chunk, block_size=BLOCK)
+        serve(engine, [prompts[0][:3]])  # set-up: first cuBLAS/allocator calls
+        wait_announced(workdir, [1], procs)
+        coordinator = connect_fleet(os.path.join(workdir, "fleet"), num_hosts=2, local_engine=engine,
+                                    local_process_id=0)
+        boot_s = time.perf_counter() - t_phase
+        remote = coordinator.hosts[1]
+        per_layer = cfg.n_layers * decode_chunk
+
+        def counts():
+            stats = remote.stats()
+            return (engine.stats()["decode_dispatches"], paged_decode_attention.launches,
+                    stats["decode_dispatches"], stats["kernel_launches"]["paged_decode_attention"])
+
+        # ---- the mixed fleet
+        reset_counts()
+        before = counts()
+        t0 = time.perf_counter()
+        mixed = drain_all([coordinator.submit(p) for p in prompts])
+        mixed_s = time.perf_counter() - t0
+        after = counts()
+        submitted = coordinator._scheduler.stats()["submitted"]
+        d0, l0, d1, l1 = (a - b for a, b in zip(after, before))
+        require(mixed == list(bf16_streams), f"the fleet's streams differ from phase 3's: {mixed}")
+        require(all(n > 0 for n in submitted), f"a host took no submission: {submitted}")
+        require(l0 == per_layer * d0 and l1 == per_layer * d1 > 0,
+                f"paged launches host 0 {l0} ({d0} dispatches), host 1 {l1} ({d1} dispatches)")
+        fleet_launches = l0 + l1
+
+        # ---- the same pair re-roled prefill/decode: every stream crosses hosts
+        decode_host = RemoteHost(remote.address, host_id=1)
+        sizes, wire_ms = [], []
+        send = decode_host.import_handoff
+
+        def timed_import(payload):  # each payload as it crosses: the device-to-host copy and the npz
+            t0 = time.perf_counter()
+            blob = serialize_handoff(payload)
+            wire_ms.append((time.perf_counter() - t0) * 1e3)
+            sizes.append(len(blob))
+            return send(blob)
+
+        decode_host.import_handoff = timed_import
+        # a second coordinator over the same hosts: it starts no reconciler, so it holds no thread; its close()
+        # would close host 0's engine, which the SIGKILL wave below still serves on
+        split = FleetCoordinator([LocalHost(engine, host_id=0), decode_host],
+                                 host_roles=["prefill", "decode"], prefill_threshold=1)
+        before = counts()
+        t0 = time.perf_counter()
+        crossed = drain_all([split.submit(p) for p in prompts])
+        split_s = time.perf_counter() - t0
+        after = counts()
+        d0, l0, d1, l1 = (a - b for a, b in zip(after, before))
+        stats = split.stats()
+        require(crossed == list(bf16_streams), f"the prefill/decode streams differ from phase 3's: {crossed}")
+        require(stats["handoffs_cross_host"] == len(prompts), f"{stats['handoffs_cross_host']} handoffs crossed")
+        require(l0 == 0 and d0 == 0 and l1 == per_layer * d1 > 0,
+                f"prefill host: {l0} launches, {d0} dispatches; decode host: {l1} launches, {d1} dispatches")
+        require(len(sizes) == len(prompts), f"{len(sizes)} payloads were serialized for the decode host")
+        fleet_launches += l1
+        transfer = stats["handoff_transfer_ms"]
+
+        # ---- SIGKILL the worker mid-wave. Host 0 is held out of routing while host 1 fills its slots with
+        # phase 3's prompts (the first one's first chunk read: it has emitted), then takes one prompt more,
+        # queued behind them (nothing emitted); host 0 comes back and the worker dies
+        t0 = time.perf_counter()
+        coordinator.hosts[0].alive = False
+        held = [coordinator.submit(p) for p in prompts]
+        first = next(held[0])
+        late = coordinator.submit(prompts[1])
+        coordinator.hosts[0].alive = True
+        procs[0][0].kill()
+        procs[0][0].wait(timeout=60)
+        ended = drain_all(held + [late])
+        kill_s = time.perf_counter() - t0
+        census = coordinator.host_census()
+        interrupted = [isinstance(e, StreamInterrupted) for e in ended]
+        require(interrupted[0], f"the emitted stream did not end in StreamInterrupted: {ended[0]!r}")
+        require(ended[-1] == list(bf16_streams[1]), f"the stream that had emitted nothing: {ended[-1]!r}")
+        require(all(isinstance(e, StreamInterrupted) or e == list(want) for e, want in zip(ended, bf16_streams)),
+                f"a stream ended otherwise: {ended}")
+        require(census[1]["state"] in ("suspect", "dead"), f"host 1's census after the kill: {census[1]}")
+        fleet_stats = coordinator.stats()["fleet"]
+        require(fleet_stats["stream_retries"] >= 1, f"no stream was retried on host 0: {fleet_stats}")
+    finally:
+        if coordinator is not None:
+            coordinator.close()
+        stop_workers(procs)
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18a: two hosts (host 0 in this process, host 1 a worker on the same card, each phase 3's "
+          f"32-layer bf16 weights) joined in {boot_s:.1f} s; mixed: 4 streams x {MAX_NEW} equal phase 3's, "
+          f"submitted {submitted}, {len(prompts) * MAX_NEW / mixed_s:.1f} tok/s; prefill/decode: 4 streams equal "
+          f"phase 3's, {stats['handoffs_cross_host']} handoffs across hosts, transfer ms {transfer}, payloads "
+          f"{sizes} bytes (device to host and npz {[round(ms, 1) for ms in wire_ms]} ms), "
+          f"{len(prompts) * MAX_NEW / split_s:.1f} tok/s; paged launches {fleet_launches} (each host 32 x 8 a "
+          f"dispatch, host 1's counted in its process); SIGKILL mid-wave: the emitted stream "
+          f"{type(ended[0]).__name__} after {first.size} tokens, the queued one completed on host 0 "
+          f"(stream_retries {fleet_stats['stream_retries']}, streams_interrupted "
+          f"{fleet_stats['streams_interrupted']}), {sum(interrupted)} of {len(ended)} interrupted, census host 1 "
+          f"{census[1]['state']}, in {kill_s:.1f} s; phase 18a took {seconds:.1f} s; card {card}", flush=True)
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(fleet_launches=fleet_launches, seconds=seconds, payload_bytes=sizes,
+                transfer_ms=transfer, mixed_tok_s=len(prompts) * MAX_NEW / mixed_s)
+
+
+def fleet_mesh_reference(prompts) -> dict:
+    """Phase 18c's references: the world of one on the card and on the CPU
+    (each prompt alone through ``Generator``, TF32 off)."""
+    import torch
+
+    from unionml_tpu_torch import Generator, Llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, gcfg = fleet_mesh_config()
+    model = Llama(cfg, seed=1)
+    card = Generator(model, gcfg)
+    out = {"card": [card([p])[0].tolist() for p in prompts]}
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del card, model
+    torch.cuda.empty_cache()
+    cpu = Llama(cfg, device="cpu")
+    cpu.load_state_dict(state)
+    gen = Generator(cpu, gcfg, device="cpu")
+    out["cpu"] = [gen([p])[0].tolist() for p in prompts]
+    return out
+
+
+def fleet_mesh_phase(card: str, prompts) -> dict:
+    """Phase 18c: the mesh path. A gloo world of 4 ranks on cuda:0 (2
+    layers, f32, TF32 off) builds ``MeshSpec(dcn_data=2, model=2).build_hybrid()``
+    and the process-aware ``ReplicaSet.build(mesh=, partition_rules=
+    llama_partition_rules())`` on every rank: two hosts of two ranks, each
+    host's first rank leading its tp=2 engine and announcing. This process
+    is the coordinator; the streams equal the world of one on the card and
+    on the CPU, computed here while the ranks boot, and again with the
+    hosts re-roled prefill/decode (each payload's KV heads gathered over
+    the prefill host's ranks and scattered over the decode host's)."""
+    import os
+    import shutil
+    import tempfile
+
+    from unionml_tpu_torch.serving.cluster import FleetCoordinator, RemoteHost, connect_fleet
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_mesh_")
+    procs = fleet_workers(workdir, "chip_smoke:fleet_mesh_engine", FLEET_MESH_RANKS, "rank")
+    coordinator = None
+    try:
+        refs = fleet_mesh_reference(prompts)
+        ref_s = time.perf_counter() - t_phase
+        wait_announced(workdir, [0, 1], procs)
+        coordinator = connect_fleet(os.path.join(workdir, "fleet"), num_hosts=2)
+        boot_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        streams = drain_all([coordinator.submit(p) for p in prompts])
+        serve_s = time.perf_counter() - t0
+        stats = coordinator.stats()
+        submitted = coordinator._scheduler.stats()["submitted"]
+        logs = " ".join(tail(log, 20000) for _, log in procs)
+        owns = [f"this host owns replica submeshes [{h}] of 2" in logs for h in (0, 1)]
+        require(all(owns), f"the ranks did not each build their host's replica: {owns}")
+        require(streams == refs["card"] == refs["cpu"], f"fleet {streams}, world of one on the card "
+                f"{refs['card']}, on the CPU {refs['cpu']}")
+        require(stats["live_hosts"] == 2 and stats["replicas"] == 2 and all(n > 0 for n in submitted),
+                f"live hosts {stats['live_hosts']}, replicas {stats['replicas']}, submitted {submitted}")
+        # the same hosts re-roled prefill/decode: host 0's ranks gather their KV heads into one payload, host 1's
+        # leader sends each rank its heads. A second coordinator over the same hosts starts no reconciler and holds
+        # no thread: the first one's close below stops the workers
+        split = FleetCoordinator([RemoteHost(h.address, host_id=h.host_id) for h in coordinator.hosts],
+                                 host_roles=["prefill", "decode"], prefill_threshold=1)
+        t0 = time.perf_counter()
+        crossed = drain_all([split.submit(p) for p in prompts])
+        split_s = time.perf_counter() - t0
+        handoffs = split.stats()["handoffs_cross_host"]
+        require(crossed == refs["card"], f"the tp=2 prefill/decode streams {crossed} differ from {refs['card']}")
+        require(handoffs == len(prompts), f"{handoffs} handoffs crossed between the tp=2 hosts")
+    finally:
+        if coordinator is not None:
+            coordinator.close(shutdown_workers=True)
+        stop_workers(procs)
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18c: a gloo world of {FLEET_MESH_RANKS} ranks on cuda:0, MeshSpec(dcn_data=2, model=2)."
+          f"build_hybrid(), the process-aware ReplicaSet: 2 hosts x tp=2 (2 layers, f32, TF32 off) announced in "
+          f"{boot_s:.1f} s (the references took {ref_s:.1f} s beside them); 4 streams x {MAX_NEW} equal the world "
+          f"of one on the card and on the CPU: True; submitted {submitted}; {len(prompts) * MAX_NEW / serve_s:.1f} "
+          f"tok/s; re-roled prefill/decode: {handoffs} handoffs between the tp=2 hosts, streams equal, "
+          f"{len(prompts) * MAX_NEW / split_s:.1f} tok/s; phase 18c took {seconds:.1f} s; card {card}", flush=True)
+    return dict(seconds=seconds)
+
+
+def fleet_cli_phase(card: str, prompts, workdir: str, cli: dict) -> dict:
+    """Phase 18b: the CLI front door. Two children of ``serve llama_app:model
+    --num-hosts 2 --coordinator 127.0.0.1:PORT --process-id {0,1}`` over
+    phase 11b's app and artifact, both on cuda:0: process 0 serves HTTP over
+    a ``FleetCoordinator`` (itself and process 1), process 1 its control
+    server only. Phase 3's prompts stream over ``/predict-stream`` equal to
+    11b's in-process answers; ``/debug/fleet`` shows 2 live hosts, each
+    having taken a stream."""
+    import os
+
+    t_phase = time.perf_counter()
+    rendezvous = f"127.0.0.1:{free_port()}"
+    fleet = ["--num-hosts", "2", "--coordinator", rendezvous]
+    log1 = os.path.join(workdir, "fleet_host1.log")
+    with open(log1, "wb") as handle:
+        host1 = subprocess.Popen([sys.executable, "-m", "unionml_tpu_torch.cli", "serve", *cli["args"], *fleet,
+                                  "--process-id", "1", "--port", str(free_port())],
+                                 cwd=workdir, env=cli_env(), stdout=handle, stderr=subprocess.STDOUT)
+    try:
+        with cli_server(cli["args"] + fleet + ["--process-id", "0"], workdir,
+                        os.path.join(workdir, "fleet_host0.log")) as (port, ready_s):
+            require(host1.poll() is None, f"process 1 exited with {host1.returncode}: " + tail(log1))
+            served, wave_s = concurrent([functools.partial(stream_http, port, [p]) for p in prompts])
+            debug = json.loads(http_request(port, "GET", "/debug/fleet")[2])
+    finally:
+        host1.terminate()
+        try:
+            host1.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            host1.kill()
+            host1.wait()
+    hosts, submitted = debug.get("hosts", []), debug.get("scheduler", {}).get("submitted", [])
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18b: `serve llama_app:model {' '.join(fleet)} --process-id 0|1` ({CLI_LAYERS} layers, both on "
+          f"this card): ready in {ready_s:.1f} s; 4 /predict-stream streams x {MAX_NEW} "
+          f"{len(prompts) * MAX_NEW / wave_s:.1f} tok/s, equal 11b's in-process answers: {served == cli['inproc_streams']}; "
+          f"/debug/fleet hosts {[(h['host'], h['state']) for h in hosts]}, submitted {submitted}; phase 18b took "
+          f"{seconds:.1f} s; card {card}", flush=True)
+    require(served == cli["inproc_streams"], "the fleet CLI's streams differ from 11b's in-process answers")
+    require(len(hosts) == 2 and all(h["alive"] and h["state"] == "live" for h in hosts),
+            f"/debug/fleet hosts: {hosts}")
+    require(len(submitted) == 2 and all(n >= 1 for n in submitted), f"a host took no stream: {submitted}")
+    return dict(seconds=seconds)
+
+
 def main() -> int:
     import argparse
 
@@ -5369,6 +5790,8 @@ def main() -> int:
         t0 = time.perf_counter()
         aot_cli_phase(card, prompts, workdir, cli)
         print(f"phase 17b-c took {time.perf_counter() - t0:.1f} s", flush=True)
+        # ---- phase 18b: the multi-host fleet through the serve CLI's front door, on 11b's app and artifact
+        fleet_cli = fleet_cli_phase(card, prompts, workdir, cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5390,6 +5813,12 @@ def main() -> int:
                       for name in bert["launches"]}
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 18a, 18c: the multi-host fleet (a worker process beside this one; 2 hosts x tp=2 over gloo)
+    fleet = fleet_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16_streams)
+    fleet_mesh = fleet_mesh_phase(card, prompts)
+    print(f"phase 18 took {fleet['seconds'] + fleet_cli['seconds'] + fleet_mesh['seconds']:.1f} s (18a "
+          f"{fleet['seconds']:.1f}, 18b {fleet_cli['seconds']:.1f}, 18c {fleet_mesh['seconds']:.1f})", flush=True)
+
     # ---- phase 15: the serving mesh (a world of one over NCCL; two ranks on this card over gloo)
     mesh = mesh_phase(card, gcfg, prompts, slots, decode_chunk, bf16_streams)
 
@@ -5408,6 +5837,8 @@ def main() -> int:
         "prefix_launches": prefix_launches,
         "cli_launches": cli["cli_launches"],
         "replica_launches": replica["replica_launches"],
+        # phase 18a: the fleet's waves, host 0's launches in this process and host 1's in its worker
+        "fleet_launches": fleet["fleet_launches"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -5461,6 +5892,7 @@ def main() -> int:
     require(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
     require(kernels[0]["replica_launches"] > 0, "the paged kernel never launched on the replica path")
+    require(kernels[0]["fleet_launches"] > 0, "the paged kernel never launched on the fleet path")
     require(all(k["aot_launches"] > 0 for k in kernels if k["name"] in ("paged_decode_attention", "int8_matmul")),
             "a kernel of the graph route never launched in phase 17a")
     print(json.dumps({"kernels": kernels}), flush=True)

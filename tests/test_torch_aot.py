@@ -231,7 +231,7 @@ def test_aot_over_a_mesh_raises(tmp_path, model, monkeypatch, caplog):
     try:
         mesh = MeshSpec(model=1).build(device="cpu")
         gen = Generator(copy.deepcopy(model), _cfg(), mesh=mesh, partition_rules=llama_partition_rules())
-        with pytest.raises(NotImplementedError, match="parallelism and the replica layer, the multi-host fleet"):
+        with pytest.raises(NotImplementedError, match="Queue A: the AOT store over a mesh"):
             ContinuousBatcher(gen, slots=2, decode_chunk=4, aot=str(tmp_path))
         with pytest.raises(NotImplementedError, match="over a mesh"):
             gen.enable_aot(ProgramStore(str(tmp_path)))

@@ -13,12 +13,13 @@ stdout and stderr into ``.output`` and the ``SystemExit`` code into
 asks for templates the port does not have yet, so its copy here expects the
 port's two.
 
-The cluster and fault-tolerance cases (``:90``, ``:128``) become refusal
-checks: each refused flag and command exits 1, names its ROADMAP item by
-title, exports nothing and never imports the app module (one that raises at
-import). The in-process replica fleet's flags are exported as the JAX CLI
-exports them (both CLIs run on the same arguments), before the app module is
-imported.
+The cluster and fault-tolerance cases (``:90``, ``:128``) become export
+checks: the fleet's seven flags, like the in-process replica fleet's, are
+exported as the JAX CLI exports them (both CLIs run on the same arguments),
+before the app module is imported, and their bad values are usage errors.
+Each flag and command the port still refuses exits 1, names its ROADMAP item
+by title, exports nothing and never imports the app module (one that raises
+at import).
 """
 
 import contextlib
@@ -163,9 +164,9 @@ def test_help_version_and_usage_codes():
     assert result.exit_code == 1 and result.output.startswith("Error: ")
 
 
-PARALLELISM, THE_REST = "parallelism and the replica layer", "the rest"
-#: (serve flags, the ROADMAP item they name; None: a flag of the in-process
-#: replica fleet, exported as the JAX CLI exports it)
+THE_REST, USAGE = "the rest", "usage"
+#: (serve flags, the ROADMAP item they name; None: a flag of a ported part,
+#: exported as the JAX CLI exports it; USAGE: a usage error in both CLIs)
 REFUSED_FLAGS = [
     (["--dp-replicas", "2"], None),
     (["--replica-roles", "prefill=1,decode=1"], None),
@@ -175,13 +176,13 @@ REFUSED_FLAGS = [
     (["--autoscale-interval", "1.0"], None),
     (["--min-replicas", "1"], None),
     (["--max-replicas", "2"], None),
-    (["--num-hosts", "2"], PARALLELISM),
-    (["--coordinator", "127.0.0.1:9"], PARALLELISM),
-    (["--process-id", "0"], PARALLELISM),
-    (["--fault-plan", '{"events": []}'], PARALLELISM),
-    (["--probe-interval", "0.5"], PARALLELISM),
-    (["--probation-probes", "3"], PARALLELISM),
-    (["--lease-ttl", "2.0"], PARALLELISM),
+    (["--num-hosts", "2"], USAGE),
+    (["--coordinator", "127.0.0.1:9"], None),
+    (["--process-id", "0"], None),
+    (["--fault-plan", '{"events": []}'], None),
+    (["--probe-interval", "0.5"], None),
+    (["--probation-probes", "3"], None),
+    (["--lease-ttl", "2.0"], None),
     (["--compile-cache", "cache-dir"], None),
     (["--aot-preload"], None),
     (["--aot-preload", "store-dir"], None),
@@ -189,10 +190,13 @@ REFUSED_FLAGS = [
 ]
 #: the cold-start stores' exports (ported: exported as the JAX CLI exports them)
 STORE_EXPORTS = ("UNIONML_TPU_COMPILE_CACHE", "UNIONML_TPU_AOT_PRELOAD")
-#: the replica fleet's exports
+#: the replica fleet's exports, and the multi-host fleet's
 REPLICA_EXPORTS = ("UNIONML_TPU_DP_REPLICAS", "UNIONML_TPU_REPLICA_ROLES", "UNIONML_TPU_PREFILL_THRESHOLD",
                    "UNIONML_TPU_AUTOSCALE_HIGH", "UNIONML_TPU_AUTOSCALE_LOW", "UNIONML_TPU_AUTOSCALE_INTERVAL_S",
-                   "UNIONML_TPU_MIN_REPLICAS", "UNIONML_TPU_MAX_REPLICAS")
+                   "UNIONML_TPU_MIN_REPLICAS", "UNIONML_TPU_MAX_REPLICAS",
+                   "UNIONML_TPU_NUM_PROCESSES", "UNIONML_TPU_COORDINATOR", "UNIONML_TPU_PROCESS_ID",
+                   "UNIONML_TPU_FAULT_PLAN", "UNIONML_TPU_PROBE_INTERVAL_S", "UNIONML_TPU_PROBATION_PROBES",
+                   "UNIONML_TPU_LEASE_TTL_S")
 #: knobs of ported parts given beside a refused flag: a refusal must leave every one unexported
 EXPORTS = {
     "UNIONML_TPU_ADMIT_CHUNK": ["--admit-chunk", "8"],
@@ -226,13 +230,28 @@ def clean_exports(monkeypatch):
 
 @pytest.mark.parametrize("flags,item", REFUSED_FLAGS, ids=[" ".join(f) for f, _ in REFUSED_FLAGS])
 def test_refused_serve_flag_exits_before_export_and_import(cli_project, clean_exports, flags, item):
-    """The unit file's cluster and fault-tolerance cases as refusals: exit
-    1 naming the item by title, no knob exported, the app never imported.
-    A flag of the in-process replica fleet or of the cold-start stores
-    (``item`` None) is exported as the JAX CLI exports it, and then the app
-    module is imported."""
+    """A flag of a part the port does not have exits 1 naming its item by
+    title, no knob exported, the app never imported. A flag of a ported part
+    (the replica fleet, the multi-host fleet and its fault injection, the
+    cold-start stores; ``item`` None) is exported as the JAX CLI exports
+    it, and then the app module is imported; ``--num-hosts 2`` without a
+    rendezvous address is a usage error in both CLIs."""
     model_file = cli_project / "m.joblib"
     model_file.write_text("x")
+    if item == USAGE:
+        from click.testing import CliRunner as ClickRunner
+
+        from unionml_tpu.cli import app as jax_app
+
+        args = ["serve", "boom_app:model", *flags, "--model-path", str(model_file)]
+        jax_result, result = ClickRunner().invoke(jax_app, args), CliRunner().invoke(app, args)
+        assert jax_result.exit_code == result.exit_code == 1, (jax_result.output, result.output)
+        assert "--num-hosts > 1 needs --coordinator HOST:PORT" in jax_result.output
+        assert "--num-hosts > 1 needs --coordinator HOST:PORT" in result.output
+        assert "boom_app" not in sys.modules
+        for name in REPLICA_EXPORTS:
+            assert name not in os.environ, name
+        return
     if item is None:
         from click.testing import CliRunner as ClickRunner
 
@@ -297,6 +316,13 @@ def test_ported_knobs_export_before_the_app_imports(cli_project, clean_exports):
     (["--autoscale-high", "-0.5"], "--autoscale-high must be >= 0"),
     (["--min-replicas", "0"], "--min-replicas must be >= 1"),
     (["--max-replicas", "-1"], "--max-replicas must be >= 0"),
+    (["--num-hosts", "0"], "--num-hosts must be >= 1"),
+    (["--num-hosts", "2", "--coordinator", "127.0.0.1:9", "--process-id", "2"], "--process-id must be in [0, 2)"),
+    (["--fault-plan", "{bad"], "--fault-plan: fault plan is not valid JSON"),
+    (["--fault-plan", '{"events": [{"t": 0, "kind": "meteor"}]}'], "--fault-plan: unknown fault kind"),
+    (["--probe-interval", "0"], "--probe-interval must be > 0 seconds"),
+    (["--probation-probes", "0"], "--probation-probes must be >= 1"),
+    (["--lease-ttl", "0"], "--lease-ttl must be > 0 seconds"),
 ])
 def test_bad_knob_values_are_usage_errors(cli_project, clean_exports, flags, message):
     result = CliRunner().invoke(app, ["serve", "boom_app:model", *flags])

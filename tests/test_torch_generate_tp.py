@@ -17,7 +17,9 @@ sharded run at the same mesh shape on 4 of the emulated devices:
 - expert-parallel MoE at ``data=2 x expert=2`` (ample capacity: drop-free
   routing on every path), and MoE at ``data=2 x model=2`` at capacity
   factor 1.25 (tokens drop: the capacity and slots are the global
-  batch's);
+  batch's); the same MoE under ring prefill at ``sequence=2 x expert=2``
+  is refused by both packages with a ``TypeError`` at the first call (the
+  JAX package's ``MoEConfig`` takes no ``attention_impl``);
 - int8 weights with an int8 KV cache at ``fsdp=2 x model=2``;
 - grammar constraints at ``data=2 x model=2``;
 - a speculative draft (its own rules) over ``model=4``: ``__call__`` and
@@ -88,6 +90,11 @@ CASES = [
     # one prompt alone routes another batch: no single-prompt run
     dict(name="moe-dp2-tight", spec=dict(data=2, model=2), model="moe_tight", rules="moe", config=BASE, prompts=PROMPTS,
          single=False),
+    # sequence-parallel prefill of a dropping MoE: the JAX package refuses it
+    # at the first call (its MoEConfig takes no attention_impl), and so must
+    # the port, with the same exception type
+    dict(name="moe-ring-tight", spec=dict(sequence=2, expert=2), model="moe_tight", rules="moe",
+         config={**BASE, "sp_prefill": "ring"}, prompts=PROMPTS, single=False, refused="TypeError"),
 ]
 
 
@@ -169,6 +176,13 @@ def _sharded(case, jax_models):
 def test_sharded_tokens_equal_jax_unsharded_and_sharded(runs, case):
     world, jax_runs = runs
     name = case["name"]
+    if case.get("refused"):
+        with pytest.raises(Exception) as refusal:
+            jax_runs["sharded", name].result()
+        assert type(refusal.value).__name__ == case["refused"], refusal.value
+        for rank, res in enumerate(world):
+            assert res[name] == res[name + "/stream"] == case["refused"], f"rank {rank}: {res.get(name + '/error', res[name])}"
+        return
     unsharded = jax_runs["unsharded", _unsharded_key(case)].result()
     np.testing.assert_array_equal(jax_runs["sharded", name].result(), unsharded)
     for rank, res in enumerate(world):

@@ -7,9 +7,10 @@ hotspot fallback, full-fleet and deadline sheds and the stats aggregation,
 over stub engines. Then the port's ``ReplicaScheduler`` and the JAX
 package's decide the same order and head flag on the same seeded loads,
 prompts, radix probes, breach and role flags and tenants; a pre-quantized
-(int8) model replicates with its weights unchanged; the mesh path refuses,
-naming its ROADMAP.md item; and the kernels' launch counts stay exact under
-concurrent threads. Disaggregation and elasticity are in
+(int8) model replicates with its weights unchanged; the mesh path's
+``dp_extent`` equals JAX's and a world of one builds one replica (the
+multi-rank mesh path is in ``test_torch_fleet_mesh.py``); and the kernels'
+launch counts stay exact under concurrent threads. Disaggregation and elasticity are in
 ``test_torch_disagg.py``.
 """
 
@@ -30,7 +31,6 @@ port_cases(globals(), "test_replicas.py")
 from unionml_tpu_torch.serving.replicas import ReplicaScheduler as PortScheduler  # noqa: E402
 from unionml_tpu_torch.serving.replicas import ReplicaSet as PortReplicaSet  # noqa: E402
 
-ITEM = "Queue A: parallelism and the replica layer"
 
 
 def _decisions(seed: int, n: int = 300):
@@ -81,16 +81,41 @@ def test_scheduler_validation_matches_jax():
 
 
 def test_mesh_path_refuses_naming_its_item():
+    """The mesh path is ported: ``dp_extent`` reads a mesh's batch axes as
+    the JAX package's does, a world of one slices to itself, and
+    ``ReplicaSet.build`` over it (or with rules and no mesh) builds one
+    replica, as JAX's does over a one-device mesh."""
+    import types
+
+    import torch.distributed as dist
+
     from tests.test_torch_serving_units import tiny_llama
-    from unionml_tpu_torch.models import GenerationConfig
+    from unionml_tpu.serving.replicas import dp_extent as jax_dp_extent
+    from unionml_tpu_torch.models import GenerationConfig, llama_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec
     from unionml_tpu_torch.serving.replicas import dp_extent, slice_mesh
 
-    assert dp_extent(None) == 1
-    for call in (lambda: dp_extent(object()), lambda: slice_mesh(object()),
-                 lambda: PortReplicaSet.build(tiny_llama(96, 0), GenerationConfig(), mesh=object()),
-                 lambda: PortReplicaSet.build(tiny_llama(96, 0), GenerationConfig(), partition_rules=[])):
-        with pytest.raises(NotImplementedError, match=ITEM):
-            call()
+    assert dp_extent(None) == jax_dp_extent(None) == 1
+    for shape in ({"data": 2, "fsdp": 3, "model": 2}, {"dcn_data": 2, "data": 1}, {"model": 4}):
+        fake = types.SimpleNamespace(shape=shape)
+        assert dp_extent(fake) == jax_dp_extent(fake)
+    try:
+        mesh = MeshSpec(data=1).build(device="cpu")
+        assert slice_mesh(mesh) == [mesh]
+        fleet = PortReplicaSet.build(tiny_llama(96, 0), GenerationConfig(), mesh=mesh,
+                                     partition_rules=llama_partition_rules(), autoscale=False)
+        try:
+            assert fleet.replicas == 1 and fleet.batchers[0].gen.mesh is mesh and fleet.spare_capacity() == 0
+        finally:
+            fleet.close()
+    finally:
+        dist.destroy_process_group()
+    fleet = PortReplicaSet.build(tiny_llama(96, 0), GenerationConfig(), partition_rules=[], autoscale=False,
+                                 devices=["cpu"])
+    try:
+        assert fleet.replicas == 1
+    finally:
+        fleet.close()
 
 
 def _int8_model():

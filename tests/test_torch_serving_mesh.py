@@ -20,8 +20,9 @@ knobs and weights (greedy f32):
 Also: ``submit`` on a follower raises; a ``ValueError`` that every rank
 meets in an admission's operation fails that stream and the engine serves
 on, while one that a follower meets alone ends that follower and surfaces
-from its ``close()``; the engine over a ``data=4`` mesh is
-still refused, naming its ROADMAP item; and the JAX unit case
+from its ``close()``; the engine over a ``data=4`` mesh delegates to a
+process-aware ``ReplicaSet`` whose streams equal the JAX engine's; and the
+JAX unit case
 ``test_mesh_placement_rounds_buckets_to_data_axis`` runs over ``MeshSpec(
 data=4, model=-1)``: buckets round up to the data axis, every rank returns
 all the rows, one padded shape.
@@ -153,9 +154,16 @@ def test_a_follower_that_fails_alone_surfaces(world):
     assert "alone" not in world[2] and "alone" not in world[3]
 
 
-def test_engine_over_a_data_axis_is_refused(world):
-    for res in world:
-        assert "data=4" in res["data_refused"] and "parallelism and the replica layer" in res["data_refused"]
+def test_engine_over_a_data_axis_is_refused(runs):
+    """The engine over a ``data=4`` mesh is no longer refused: as in the JAX
+    package it returns a ``ReplicaSet``, process-aware here (each rank
+    builds the one replica of its batch slice, a submesh of one rank), and
+    each rank's stream equals the JAX engine's for that prompt."""
+    world, streams = runs
+    expected = streams["tp4-paged", "prompts"].result()
+    for rank, res in enumerate(world):
+        assert res["data_fleet"] == ("ReplicaSet", 1, rank, 1)
+        assert res["data_stream"] == expected[rank]
 
 
 def test_mesh_placement_rounds_buckets_to_data_axis(world):

@@ -399,6 +399,14 @@ def generate_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
         gen = Generator(model, GenerationConfig(**kw), mesh=mesh, partition_rules=rules,
                         quantize=case.get("quantize"))
         prompts = case["prompts"]
+        if case.get("refused"):  # the refusal's exception type, of a call and of a stream
+            for key, call in ((name, lambda: gen(prompts)), (name + "/stream", lambda: list(gen.stream(prompts)))):
+                try:
+                    call()
+                    out[key] = None
+                except Exception as exc:
+                    out[key], out[name + "/error"] = type(exc).__name__, str(exc)
+            continue
         if case.get("prefix"):
             cached = gen.cache_prefix(case["prefix"])
             out[name] = gen(prompts, prefix=cached)
@@ -522,13 +530,17 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
     except RuntimeError as exc:
         out["alone"] = (str(exc), str(exc.__cause__), repr(exc.__cause__.__cause__))
 
-    # the engine over a data-axis mesh is still refused
+    # the engine over a data-axis mesh: a process-aware replica set, each
+    # rank serving the replica of its own batch slice
     mesh = MeshSpec(data=4).build(device="cpu")
-    gen = Generator(llama(tree, config), GenerationConfig(max_new_tokens=2), mesh=mesh)
+    gen = Generator(llama(tree, config), GenerationConfig(**fault["config"]), mesh=mesh)
+    fleet = ContinuousBatcher(gen, **fault["engine"])
     try:
-        ContinuousBatcher(gen)
-    except NotImplementedError as exc:
-        out["data_refused"] = str(exc)
+        out["data_fleet"] = (type(fleet).__name__, fleet.replicas, fleet.batchers[0].gen.mesh.slice_index,
+                             fleet.batchers[0].gen.mesh.devices)
+        out["data_stream"] = _collect(fleet.submit(payload["cases"][0]["prompts"][rank]))
+    finally:
+        fleet.close()
 
     # ServingConfig(mesh=) through CompiledPredictor: the JAX unit case
     cp = CompiledPredictor(_linear_predict, ServingConfig(bucket_sizes=[3, 6], mesh=MeshSpec(data=4, model=-1)))
@@ -783,4 +795,34 @@ def pipeline_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
     generator = Generator(llama(gen["tree"], gen["config"]), GenerationConfig(**gen["kw"]), mesh=mesh,
                           partition_rules=llama_partition_rules())
     out["generate"] = generator(gen["prompts"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_fleet_mesh.py
+
+
+def fleet_slice_rank(rank: int, slices: Any) -> Dict[str, Any]:
+    """Each mesh of ``slices`` sliced at each count: the submeshes' rank
+    grids, ``dp_extent``, the refusal of 3 replicas and the submeshes
+    ``process_local_submeshes`` keeps; then a hybrid mesh of 2 hosts."""
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.mesh import process_local_submeshes
+    from unionml_tpu_torch.serving.replicas import dp_extent, slice_mesh
+
+    out: Dict[str, Any] = {"slices": []}
+    for spec, counts in slices:
+        mesh = MeshSpec(**spec).build(device="cpu")
+        grids = {repr(c): [sub.grid.tolist() for sub in slice_mesh(mesh, c)] for c in counts}
+        try:
+            slice_mesh(mesh, 3)
+            refusal = None
+        except ValueError as exc:
+            refusal = str(exc)
+        local = [i for i, _ in process_local_submeshes(slice_mesh(mesh))]
+        out["slices"].append({"extent": dp_extent(mesh), "grids": grids, "refusal": refusal, "local": local})
+    hybrid = MeshSpec(dcn_data=2, model=2).build_hybrid(device="cpu")
+    subs = slice_mesh(hybrid)
+    out["hybrid"] = {"shape": list(hybrid.grid.shape), "ranks": [sub.grid.reshape(-1).tolist() for sub in subs],
+                     "local": [i for i, _ in process_local_submeshes(subs)]}
     return out

@@ -24,13 +24,18 @@ error such as an unknown option.
   exports the AOT program store, which every engine then arms
   (:mod:`unionml_tpu_torch.serving.aot`). Both are exported before the app
   module imports.
+- ``--num-hosts``/``--coordinator``/``--process-id`` make this process one
+  host of a multi-host fleet (:mod:`unionml_tpu_torch.serving.cluster`):
+  process 0 serves the front door over a ``FleetCoordinator``, the others
+  only their control servers; ``--fault-plan``, ``--probe-interval``,
+  ``--probation-probes`` and ``--lease-ttl`` arm fault injection and tune
+  the host lifecycle. All are validated and exported as the JAX CLI exports
+  them, before the app module imports.
 - What the port does not have is refused at boot, before any export and
-  before the app module is imported, naming its ROADMAP.md item: the
-  multi-host fleet and fault-injection flags (Queue A: parallelism and the
-  replica layer, the multi-host fleet), and ``--remote`` and the
-  ``deploy``, ``train``, ``predict``, ``list-model-versions``,
-  ``fetch-model``, ``replay`` and ``lint`` commands (Queue A: the rest).
-  Each of those commands exists and refuses.
+  before the app module is imported, naming its ROADMAP.md item:
+  ``--remote`` and the ``deploy``, ``train``, ``predict``,
+  ``list-model-versions``, ``fetch-model``, ``replay`` and ``lint`` commands
+  (Queue A: the rest). Each of those commands exists and refuses.
 """
 
 from __future__ import annotations
@@ -44,7 +49,6 @@ from typing import Any, List, Optional, Sequence
 from unionml_tpu_torch.defaults import MODEL_PATH_ENV_VAR
 
 PROG = "unionml-tpu-torch"
-_PARALLELISM = "parallelism and the replica layer, the multi-host fleet"
 _THE_REST = "the rest"
 #: commands of the JAX CLI that the port refuses: the remote backend, the replayer and the linter
 _REFUSED_COMMANDS = ("deploy", "train", "predict", "list-model-versions", "fetch-model", "replay", "lint")
@@ -93,12 +97,8 @@ def templates() -> None:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    """Raise on the first serve flag that selects a part the port does not
-    have: the multi-host fleet and its fault injection."""
-    for flag in ("num_hosts", "coordinator", "process_id", "fault_plan", "probe_interval", "probation_probes",
-                 "lease_ttl"):
-        if getattr(args, flag) is not None:
-            raise _not_ported(f"--{flag.replace('_', '-')}", _PARALLELISM)
+    """Raise on the serve flag that selects a part the port does not have:
+    the remote backend."""
     if args.remote:
         raise _not_ported("--remote (the remote backend)", _THE_REST)
 
@@ -109,6 +109,45 @@ def _export_knobs(args: argparse.Namespace) -> None:
     time (and ``--reload``/``--workers`` children) read them from there."""
     from unionml_tpu_torch import defaults
 
+    if args.num_hosts is not None or args.coordinator is not None or args.process_id is not None:
+        # the fleet's bootstrap knobs: engines built at import time must see
+        # the multi-process world
+        hosts = args.num_hosts if args.num_hosts is not None else 1
+        if hosts < 1:
+            raise UsageError("--num-hosts must be >= 1")
+        if hosts > 1 and args.coordinator is None:
+            raise UsageError("--num-hosts > 1 needs --coordinator HOST:PORT (the process group's rendezvous)")
+        if args.process_id is not None and not (0 <= args.process_id < hosts):
+            raise UsageError(f"--process-id must be in [0, {hosts}); got {args.process_id}")
+        if args.num_hosts is not None:
+            os.environ[defaults.DISTRIBUTED_NUM_PROCESSES_ENV_VAR] = str(args.num_hosts)
+        if args.coordinator is not None:
+            os.environ[defaults.DISTRIBUTED_COORDINATOR_ENV_VAR] = args.coordinator
+        if args.process_id is not None:
+            os.environ[defaults.DISTRIBUTED_PROCESS_ID_ENV_VAR] = str(args.process_id)
+    if args.fault_plan is not None:
+        from unionml_tpu_torch.serving.faults import FaultPlan
+
+        try:
+            if args.fault_plan.lstrip().startswith("{"):
+                FaultPlan.parse(args.fault_plan)
+            else:
+                FaultPlan.load(args.fault_plan)
+        except (OSError, ValueError) as exc:
+            raise UsageError(f"--fault-plan: {exc}")
+        os.environ[defaults.SERVE_FAULT_PLAN_ENV_VAR] = args.fault_plan
+    if args.probe_interval is not None:
+        if args.probe_interval <= 0:
+            raise UsageError("--probe-interval must be > 0 seconds")
+        os.environ[defaults.FLEET_PROBE_INTERVAL_S_ENV_VAR] = repr(args.probe_interval)
+    if args.probation_probes is not None:
+        if args.probation_probes < 1:
+            raise UsageError("--probation-probes must be >= 1")
+        os.environ[defaults.FLEET_PROBATION_PROBES_ENV_VAR] = str(args.probation_probes)
+    if args.lease_ttl is not None:
+        if args.lease_ttl <= 0:
+            raise UsageError("--lease-ttl must be > 0 seconds")
+        os.environ[defaults.FLEET_LEASE_TTL_S_ENV_VAR] = repr(args.lease_ttl)
     if args.dp_replicas is not None:
         if args.dp_replicas < 0:
             raise UsageError("--dp-replicas must be >= 0 (0 = derive from the mesh)")
@@ -256,6 +295,18 @@ def serve(args: argparse.Namespace, argv: Sequence[str]) -> None:
         tenant_config=str(args.tenant_config) if args.tenant_config is not None else None,
         default_tenant_rate=args.default_tenant_rate,
     )
+
+    from unionml_tpu_torch.defaults import distributed_num_processes
+
+    if distributed_num_processes() > 1:
+        # multi-host fleet: host 0 serves the public front door over a
+        # FleetCoordinator; hosts > 0 run only the control server
+        if args.workers > 1:
+            raise UsageError("--workers does not compose with --num-hosts; scale via hosts")
+        from unionml_tpu_torch.serving.cluster import enable_serve_cluster
+
+        enable_serve_cluster(serving, host=args.host, port=args.port)
+        return
 
     if args.workers > 1:
         import signal
@@ -457,17 +508,24 @@ def _serve_parser(sub: Any) -> None:
     add("--aot-preload", nargs="?", const="1", default=None, metavar="DIR",
         help="arm the AOT program store at DIR (bare: ~/.cache/unionml_tpu/aot): engines capture their programs "
         "as CUDA graphs and load their kernels from the store; exported as UNIONML_TPU_AOT_PRELOAD")
-    refused = p.add_argument_group(
-        "not ported yet (refused at boot; ROADMAP.md, Queue A: parallelism and the replica layer, the rest)")
-    radd = refused.add_argument
-    radd("--num-hosts", type=int, default=None)
-    radd("--coordinator", default=None, metavar="HOST:PORT")
-    radd("--process-id", type=int, default=None)
-    radd("--fault-plan", default=None, metavar="PLAN")
-    radd("--probe-interval", type=float, default=None)
-    radd("--probation-probes", type=int, default=None)
-    radd("--lease-ttl", type=float, default=None)
-    radd("--remote", action="store_true")
+    add("--num-hosts", type=int, default=None,
+        help="hosts of a multi-host fleet (one process each; process 0 serves the front door over a "
+        "FleetCoordinator); exported as UNIONML_TPU_NUM_PROCESSES")
+    add("--coordinator", default=None, metavar="HOST:PORT",
+        help="the fleet's rendezvous address; exported as UNIONML_TPU_COORDINATOR")
+    add("--process-id", type=int, default=None,
+        help="this host's id in [0, --num-hosts); exported as UNIONML_TPU_PROCESS_ID")
+    add("--fault-plan", default=None, metavar="PLAN",
+        help="a deterministic fault plan (a JSON path, or the JSON inline); exported as UNIONML_TPU_FAULT_PLAN")
+    add("--probe-interval", type=float, default=None,
+        help="seconds between the coordinator's reconciliation ticks; exported as UNIONML_TPU_PROBE_INTERVAL_S")
+    add("--probation-probes", type=int, default=None,
+        help="probe successes a returning host needs before it goes live; exported as "
+        "UNIONML_TPU_PROBATION_PROBES")
+    add("--lease-ttl", type=float, default=None,
+        help="the coordinator lease's TTL in seconds; exported as UNIONML_TPU_LEASE_TTL_S")
+    refused = p.add_argument_group("not ported yet (refused at boot; ROADMAP.md, Queue A: the rest)")
+    refused.add_argument("--remote", action="store_true")
 
 
 def build_parser() -> argparse.ArgumentParser:

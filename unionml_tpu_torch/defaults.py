@@ -19,7 +19,11 @@ The subset of ``unionml_tpu/defaults.py`` that the port reads:
   tenancy, traffic capture and the six ``UNIONML_TPU_SLO_*`` targets;
 - the multi-process bootstrap's three knobs (``UNIONML_TPU_COORDINATOR``,
   ``UNIONML_TPU_NUM_PROCESSES``, ``UNIONML_TPU_PROCESS_ID``), which
-  :mod:`unionml_tpu_torch.distributed` reads beside torchrun's.
+  :mod:`unionml_tpu_torch.distributed` reads beside torchrun's;
+- the multi-host fleet's knobs (the rendezvous directory, the fault plan,
+  the probe interval, probation and dead-after streaks, the coordinator's
+  lease TTL and the per-host roles), read by ``serving/cluster.py`` and
+  ``serving/faults.py`` at construction.
 
 A copy, not an import: the port never imports the JAX package.
 """
@@ -220,6 +224,41 @@ DISTRIBUTED_NUM_PROCESSES_ENV_VAR = "UNIONML_TPU_NUM_PROCESSES"
 
 #: this process's id in ``[0, num_processes)``.
 DISTRIBUTED_PROCESS_ID_ENV_VAR = "UNIONML_TPU_PROCESS_ID"
+
+#: rendezvous directory for the serving fleet's control plane
+#: (serving/cluster.py): each host's leader announces its loopback control
+#: address as a ``host-<id>.json`` file there, and the coordinator connects by
+#: polling it. Unset = ``.unionml_fleet`` under the working directory.
+FLEET_DIR_ENV_VAR = "UNIONML_TPU_FLEET_DIR"
+
+#: per-host role spec for the fleet coordinator (``prefill=1,decode=1`` at
+#: host granularity, the cross-host analog of SERVE_REPLICA_ROLES_ENV_VAR);
+#: unset/empty = every host mixed. Garbage warns and degrades to symmetric.
+FLEET_HOST_ROLES_ENV_VAR = "UNIONML_TPU_HOST_ROLES"
+
+#: a deterministic fault plan (serving/faults.py): a path to a plan JSON, or
+#: the JSON inline (starts with ``{``). Unset = no injection. A garbage value
+#: warns and degrades to no plan.
+SERVE_FAULT_PLAN_ENV_VAR = "UNIONML_TPU_FAULT_PLAN"
+
+#: seconds between coordinator reconciliation ticks (lease heartbeat,
+#: suspect/dead re-probes, rendezvous-dir announce scans).
+FLEET_PROBE_INTERVAL_S_ENV_VAR = "UNIONML_TPU_PROBE_INTERVAL_S"
+FLEET_PROBE_INTERVAL_S = 1.0
+
+#: consecutive successful probes a returning host must pass in probation
+#: before it takes traffic again.
+FLEET_PROBATION_PROBES_ENV_VAR = "UNIONML_TPU_PROBATION_PROBES"
+FLEET_PROBATION_PROBES = 2
+
+#: consecutive probe failures that move a suspect host to dead.
+FLEET_DEAD_AFTER_PROBES_ENV_VAR = "UNIONML_TPU_DEAD_AFTER_PROBES"
+FLEET_DEAD_AFTER_PROBES = 3
+
+#: coordinator heartbeat-lease TTL (seconds): workers treat a lease older
+#: than this as an expired coordinator and the lowest-id live worker promotes.
+FLEET_LEASE_TTL_S_ENV_VAR = "UNIONML_TPU_LEASE_TTL_S"
+FLEET_LEASE_TTL_S = 5.0
 
 
 def env_int(name: str, default: int, *, minimum: Optional[int] = None) -> int:
@@ -520,3 +559,59 @@ def distributed_process_id() -> int:
     """This process's id in ``[0, num_processes)``; garbage warns and
     degrades to 0 (a mis-set worker then fails at the rendezvous)."""
     return env_int(DISTRIBUTED_PROCESS_ID_ENV_VAR, 0, minimum=0)
+
+
+def fleet_dir() -> str:
+    """The serving fleet's control-plane rendezvous directory
+    (``UNIONML_TPU_FLEET_DIR``); defaults to ``.unionml_fleet`` under the
+    working directory so a local fleet needs no configuration."""
+    raw = os.environ.get(FLEET_DIR_ENV_VAR)
+    if raw is None or not raw.strip():
+        return ".unionml_fleet"
+    return raw.strip()
+
+
+def serve_fault_plan() -> Optional[str]:
+    """The fault-plan spec (``UNIONML_TPU_FAULT_PLAN``): a path or inline
+    JSON; None = no injection. ``FaultPlan.from_env`` warns and degrades on
+    garbage."""
+    raw = os.environ.get(SERVE_FAULT_PLAN_ENV_VAR)
+    if raw is None or not raw.strip():
+        return None
+    return raw.strip()
+
+
+def fleet_probe_interval_s() -> float:
+    """Seconds between coordinator reconciliation ticks; garbage warns and
+    degrades to the default."""
+    return env_float(FLEET_PROBE_INTERVAL_S_ENV_VAR, FLEET_PROBE_INTERVAL_S, minimum=0.05)
+
+
+def fleet_probation_probes() -> int:
+    """Consecutive probe successes a returning host needs before going live."""
+    return env_int(FLEET_PROBATION_PROBES_ENV_VAR, FLEET_PROBATION_PROBES, minimum=1)
+
+
+def fleet_dead_after_probes() -> int:
+    """Consecutive probe failures that move a suspect host to dead."""
+    return env_int(FLEET_DEAD_AFTER_PROBES_ENV_VAR, FLEET_DEAD_AFTER_PROBES, minimum=1)
+
+
+def fleet_lease_ttl_s() -> float:
+    """Coordinator heartbeat-lease TTL in seconds."""
+    return env_float(FLEET_LEASE_TTL_S_ENV_VAR, FLEET_LEASE_TTL_S, minimum=0.1)
+
+
+def fleet_host_roles() -> Dict[str, int]:
+    """The per-host role census for the fleet coordinator, parsed as
+    :func:`serve_replica_roles` parses its spec (garbage warns and degrades);
+    ``{}`` = every host mixed."""
+    raw = os.environ.get(FLEET_HOST_ROLES_ENV_VAR)
+    if raw is None or not raw.strip():
+        return {}
+    try:
+        return parse_replica_roles(raw)
+    except ValueError as exc:
+        logger.warning(f"ignoring {FLEET_HOST_ROLES_ENV_VAR}={raw!r} ({exc}); "
+                       "falling back to a symmetric (all-mixed) host fleet")
+        return {}

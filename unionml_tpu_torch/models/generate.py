@@ -540,7 +540,13 @@ class Generator:
         attention at global positions, each layer's post-RoPE K/V is
         gathered over the axis and written into ``cache[:, :width]``, and
         the first token is sampled from the gathered last-token hiddens.
-        ``tokens`` is already padded to a multiple of the axis."""
+        ``tokens`` is already padded to a multiple of the axis. A model whose
+        config takes no ``attention_impl`` (MoE's) is refused with a
+        ``TypeError`` here, at the first call, as the JAX package refuses it."""
+        if "attention_impl" not in {f.name for f in dataclasses.fields(self.model.config)}:
+            raise TypeError(f"sequence-parallel prefill ({self.config.sp_prefill!r}) runs the decoder with "
+                            f"attention_impl={self.config.sp_prefill!r}, which {type(self.model.config).__name__} "
+                            "does not take")
         mesh = self.mesh
         batch, width = tokens.shape
         block = width // mesh.size("sequence")
@@ -800,7 +806,7 @@ class Generator:
         if self.mesh is not None:
             raise NotImplementedError(
                 "the AOT store over a mesh is not ported yet: its collectives cannot be captured "
-                "(ROADMAP.md, Queue A: parallelism and the replica layer, the multi-host fleet)"
+                "(ROADMAP.md, Queue A: the AOT store over a mesh)"
             )
         from unionml_tpu_torch.serving.aot import AOTFunction, GraphPool
 

@@ -291,6 +291,26 @@ def place_module(module: nn.Module, shardings: Mapping[str, NamedSharding]) -> N
             record_spec(owner, leaf, sharding)
 
 
+def unplace_module(module: nn.Module) -> None:
+    """Undo :func:`place_module` IN PLACE: every placed leaf is all-gathered
+    back whole over the mesh it was cut on (a collective: every rank of that
+    mesh calls it at the same point) and its recorded spec dropped, so the
+    module can be cut again for another mesh."""
+    from unionml_tpu_torch.ops.quant import QuantizedKernel
+
+    with torch.no_grad():
+        for owner in list(module.modules()):
+            specs, mesh = owner.__dict__.pop("_specs", None), owner.__dict__.pop("_mesh", None)
+            for leaf, spec in (specs or {}).items():
+                target = getattr(owner, leaf)
+                if isinstance(target, QuantizedKernel):
+                    target.q = gather_raw(target.q, _gather_axes(spec, mesh, ()), mesh)
+                    sspec = scale_spec(target.scale.shape, spec)
+                    target.scale = gather_raw(target.scale, _gather_axes(sspec, mesh, ()), mesh)
+                else:
+                    target.data = gather_raw(target.data, _gather_axes(spec, mesh, ()), mesh)
+
+
 def _owner(module: nn.Module, path: str) -> Tuple[nn.Module, str]:
     owner_path, _, leaf = path.rpartition("/")
     return (module.get_submodule(owner_path.replace("/", ".")) if owner_path else module), leaf

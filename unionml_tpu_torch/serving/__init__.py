@@ -13,14 +13,17 @@ prefill/decode roles and KV handoff and an elastic fleet; one engine serves a
 ``model``/``sequence``/``expert`` mesh from rank 0 (``serving/mesh.py``); the
 AOT program store (``serving/aot.py``) captures an engine's programs as CUDA
 graphs and carries their kernels to the next cold process, and
-``serving/serverless.py`` wraps a ``ServingApp`` as a function handler. The
-mesh path of the replica layer and the multi-host cluster are not ported yet
-(ROADMAP.md, Queue A).
+``serving/serverless.py`` wraps a ``ServingApp`` as a function handler; over
+a data-parallel mesh the replica layer is process-aware, each rank serving
+its host's replica, and ``serving/cluster.py`` runs a multi-host fleet (a
+coordinator over worker hosts, with the host lifecycle and the fault
+injection of ``serving/faults.py``).
 """
 
 from unionml_tpu_torch.serving.aot import AOTFunction, ProgramStore
 from unionml_tpu_torch.serving.app import ServingApp, serving_app
 from unionml_tpu_torch.serving.batcher import MicroBatcher, ServingConfig
+from unionml_tpu_torch.serving.cluster import FleetCoordinator, LocalHost, RemoteHost, WorkerAgent, connect_fleet
 from unionml_tpu_torch.serving.compile import CompiledPredictor
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher
 from unionml_tpu_torch.serving.http import HTTPServer
@@ -33,7 +36,7 @@ from unionml_tpu_torch.serving.overload import (
     expired,
 )
 from unionml_tpu_torch.serving.prefix_cache import RadixPrefixCache
-from unionml_tpu_torch.serving.replicas import ReplicaScheduler, ReplicaSet
+from unionml_tpu_torch.serving.replicas import ReplicaScheduler, ReplicaSet, slice_mesh
 from unionml_tpu_torch.serving.tenancy import TenantRegistry, TenantSpec, current_priority, current_tenant
 
 __all__ = [
@@ -41,12 +44,15 @@ __all__ = [
     "CompiledPredictor",
     "ContinuousBatcher",
     "DeadlineExceeded",
+    "FleetCoordinator",
     "HTTPServer",
     "LatencyWindow",
+    "LocalHost",
     "MicroBatcher",
     "ProgramStore",
     "QueueFullError",
     "RadixPrefixCache",
+    "RemoteHost",
     "ReplicaScheduler",
     "ReplicaSet",
     "ServingApp",
@@ -55,9 +61,12 @@ __all__ = [
     "TenantRegistry",
     "TenantSpec",
     "TenantThrottled",
+    "WorkerAgent",
+    "connect_fleet",
     "current_deadline",
     "current_priority",
     "current_tenant",
     "expired",
     "serving_app",
+    "slice_mesh",
 ]

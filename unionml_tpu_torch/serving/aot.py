@@ -156,7 +156,7 @@ def mesh_context(mesh: Optional[Any]) -> Dict[str, Any]:
         "mesh": {
             "axis_names": list(mesh.axis_names),
             "shape": [int(mesh.shape[a]) for a in mesh.axis_names],
-            "ranks": [int(r) for r in mesh.device_mesh.mesh.reshape(-1).tolist()],
+            "ranks": [int(r) for r in mesh.grid.reshape(-1).tolist()],
         }
     }
 

@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import queue
 import threading
 import time
@@ -79,6 +80,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unionml_tpu_torch.defaults import (
     REPLICA_ROLES,
@@ -127,10 +129,12 @@ _SENTINEL = object()
 
 #: the engine's device operations that run collectives over a mesh (the
 #: model's forwards and head): a step plan is sent before each of them
-_COLLECTIVE_OPS = frozenset({"prefill_row", "row_chunk", "row_first", "first_logprob", "decode"})
+_COLLECTIVE_OPS = frozenset({"prefill_row", "row_chunk", "row_first", "first_logprob", "decode", "export",
+                             "import_kv"})
 
-#: the item that brings an engine over a batch-axis mesh
-_FLEET = "ROADMAP.md, Queue A: parallelism and the replica layer, the multi-host fleet"
+#: the items that bring speculative decoding and the AOT store over a mesh
+_SPEC_MESH = "ROADMAP.md, Queue A: speculative decoding over a mesh"
+_AOT_MESH = "ROADMAP.md, Queue A: the AOT store over a mesh"
 
 
 def _tev(session: "_Session", name: str, **attrs: Any) -> None:
@@ -299,6 +303,37 @@ class _TokenStream:
         except Exception:
             pass
 
+def _kv_meta(kv: tuple) -> tuple:
+    """The shapes and dtypes of a KV payload's buffers, layer by layer."""
+    return tuple({name: (tuple(t.shape), t.dtype) for name, t in ((n, torch.as_tensor(b)) for n, b in layer.items())}
+                 for layer in kv)
+
+
+def _nbytes(shape: tuple, dtype: torch.dtype) -> int:
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def _kv_nbytes(meta: tuple) -> int:
+    return sum(_nbytes(shape, dtype) for layer in meta for shape, dtype in layer.values())
+
+
+def _kv_bytes(kv: tuple) -> torch.Tensor:
+    """A KV payload's host buffers as one byte buffer, in order."""
+    return torch.cat([buf.contiguous().reshape(-1).view(torch.uint8) for layer in kv for buf in layer.values()])
+
+
+def _kv_from_bytes(buf: torch.Tensor, meta: tuple) -> tuple:
+    """The inverse of :func:`_kv_bytes` given the payload's ``meta``."""
+    out, at = [], 0
+    for layer in meta:
+        row = {}
+        for name, (shape, dtype) in layer.items():
+            n = _nbytes(shape, dtype)
+            row[name] = buf[at: at + n].clone().view(dtype).reshape(shape)
+            at += n
+        out.append(row)
+    return tuple(out)
+
 
 class ContinuousBatcher:
     """Share decode dispatches across concurrent generation requests.
@@ -348,13 +383,20 @@ class ContinuousBatcher:
     """
 
     def __new__(cls, generator: Optional[Generator] = None, **engine_kwargs: Any):
-        """Replica delegation, as in the JAX package: with the serve CLI's
-        ``--dp-replicas`` above 1 exported, or a role spec (the ``roles=``
-        kwarg, else ``--replica-roles``'s export) of more than one replica,
-        return a :class:`~unionml_tpu_torch.serving.replicas.ReplicaSet` of
-        that many engines, each built with these knobs. The port has no mesh,
-        so no mesh axis implies replicas."""
+        """Replica delegation, as in the JAX package: over a mesh with a
+        batch axis above 1 (``data``/``fsdp``/``dcn_data``), with the serve
+        CLI's ``--dp-replicas`` above 1 exported, or with a role spec (the
+        ``roles=`` kwarg, else ``--replica-roles``'s export) of more than
+        one replica, return a
+        :class:`~unionml_tpu_torch.serving.replicas.ReplicaSet` of engines
+        built with these knobs. Over a dp mesh the set is process-aware:
+        each rank serves the replica whose submesh holds it."""
         if cls is ContinuousBatcher and generator is not None:
+            mesh = generator.mesh
+            dp = 1
+            if mesh is not None:
+                for axis in ("dcn_data", "data", "fsdp"):
+                    dp *= int(mesh.shape.get(axis, 1))
             env = serve_dp_replicas()
             roles_kw = engine_kwargs.get("roles")
             if isinstance(roles_kw, dict):
@@ -363,7 +405,7 @@ class ContinuousBatcher:
                 role_total = len(roles_kw)
             else:
                 role_total = sum(serve_replica_roles().values())
-            if env > 1 or role_total > 1:
+            if dp > 1 or env > 1 or role_total > 1:
                 from unionml_tpu_torch.serving.replicas import ReplicaSet
 
                 return ReplicaSet.from_generator(generator, replicas=env or (role_total or None), **engine_kwargs)
@@ -416,17 +458,18 @@ class ContinuousBatcher:
         cfg = generator.config
         mesh = generator.mesh
         if mesh is not None:
+            # a batch-1 admission row cannot split a batch axis: normal
+            # construction delegates such meshes to the replica layer in
+            # __new__; this backstop catches an engine built directly over one
             for axis in ("dcn_data", "data", "fsdp"):
                 if mesh.shape[axis] > 1:
-                    raise NotImplementedError(
-                        f"a continuous engine over a mesh with {axis}={mesh.shape[axis]} is not ported yet "
-                        f"(a batch-1 admission row cannot split a batch axis; {_FLEET})"
+                    raise ValueError(
+                        f"a single continuous engine shards over model/TP axes only; mesh has {axis}="
+                        f"{mesh.shape[axis]} (batch-1 admission prefills cannot split a "
+                        "batch axis) — serve a dp mesh through serving.ReplicaSet"
                     )
-            if cfg.draft is not None or role is not None:
-                raise NotImplementedError(
-                    "speculative decoding and replica roles over a mesh are not ported yet "
-                    f"({_FLEET})"
-                )
+            if cfg.draft is not None:
+                raise NotImplementedError(f"speculative decoding over a mesh is not ported yet ({_SPEC_MESH})")
         self.gen = generator
         self.device = generator.device
         self.max_waiting = SERVE_MAX_WAITING if max_waiting is None else max_waiting
@@ -468,7 +511,7 @@ class ContinuousBatcher:
         if mesh is not None and aot is not None and aot is not False:
             raise NotImplementedError(
                 "aot= over a mesh is not ported yet: the mesh's collectives go through gloo's host route, which a "
-                f"CUDA graph cannot capture ({_FLEET})"
+                f"CUDA graph cannot capture ({_AOT_MESH})"
             )
         if mesh is not None and aot is None and serve_aot_preload() is not None:
             # as for the prefix cache: a fleet-wide export must not crash the mesh's engines
@@ -680,6 +723,9 @@ class ContinuousBatcher:
         #: (or a follower's end of it), and a follower's admission rows by key
         self._plan: Optional[StepPlan] = None
         self._follower = False
+        #: whether this rank's pools hold a share of the KV heads (a mesh's
+        #: model axis splits them): a handoff gathers and scatters them
+        self._kv_split = mesh is not None and generator.cache_config.n_kv_heads < generator.model.config.n_kv_heads
         self._rows: Dict[int, _Admission] = {}
         #: what ended a follower's loop early (``close`` raises it)
         self._follower_error: Optional[BaseException] = None
@@ -745,7 +791,7 @@ class ContinuousBatcher:
                         if key is None:
                             raise
                         refused = (key, exc)
-                    if op in ("finalize", "drop_row"):
+                    if op in ("finalize", "drop_row", "export"):
                         self._rows.pop(key, None)
         except Exception as exc:  # a follower that fails leaves rank 0 waiting: say why before the thread ends
             logger.exception("continuous-batching follower failed")
@@ -2175,8 +2221,7 @@ class ContinuousBatcher:
                     f"handoff covers {payload['lengths']} positions but this engine's cache_len is "
                     f"{self.cache_len}; disaggregated replicas must be built with identical engine knobs"
                 )
-            # allocated on THIS engine's device (a no-op where the exporter shares it)
-            adm.import_pages = tuple({name: buf.to(self.device) for name, buf in layer.items()} for layer in pages)
+            kv, paged = pages, True
         else:
             row = payload["row"]
             width = int(row[0]["k"].shape[1])
@@ -2185,9 +2230,9 @@ class ContinuousBatcher:
                     f"handoff row width {width} != this engine's cache_len {self.cache_len}; "
                     "disaggregated replicas must be built with identical engine knobs"
                 )
-            adm.row_cache = tuple({name: buf.to(self.device) for name, buf in layer.items()} for layer in row)
-        adm.tok0 = torch.tensor([int(payload["first"])], dtype=torch.int32, device=self.device)
-        adm.row_len = torch.tensor([int(payload["lengths"])], dtype=torch.int32, device=self.device)
+            kv, paged = row, False
+        # allocated on THIS engine's device (a no-op where the exporter shares it)
+        self._dev("import_kv", adm, _kv_meta(kv), paged, int(payload["first"]), int(payload["lengths"]))
         if self.gen._cs is not None:
             cs = self.gen._cs
             state = int(cs.starts[adm.session.grammar])
@@ -2287,13 +2332,12 @@ class ContinuousBatcher:
         first = adm.tok0.cpu().numpy()
         hit_eos = cfg.eos_id is not None and int(first[0]) == cfg.eos_id
         done_now = hit_eos or session.produced + 1 >= session.max_new
-        row_cache, row_len = adm.row_cache, int(adm.row_len[0])
-        adm.row_cache = adm.last = None
-        pages = None
-        if self.block_size is not None and not done_now:
-            with torch.no_grad():
-                pages = self._export_pages_impl(row_cache, -(-row_len // self.block_size), self.block_size)
-            row_cache = None  # the dense row never leaves a paged engine
+        row_len = int(adm.row_len[0])
+        kv = None
+        if done_now:
+            self._dev("drop_row", adm)
+        else:
+            kv = self._dev("export", adm, -(-row_len // self.block_size) if self.block_size is not None else None)
         with self._lock:
             if adm in self._admissions:
                 self._admissions.remove(adm)
@@ -2312,7 +2356,7 @@ class ContinuousBatcher:
                 session.handoff = {
                     "prompt": list(adm.prompt),
                     "first": int(first[0]),
-                    **({"pages": pages, "block_size": self.block_size} if pages is not None else {"row": row_cache}),
+                    **({"pages": kv, "block_size": self.block_size} if self.block_size is not None else {"row": kv}),
                     "lengths": row_len,
                     "max_new": session.max_new,
                     "produced": session.produced,
@@ -2327,6 +2371,90 @@ class ContinuousBatcher:
                 }
                 _tev(session, "engine.handoff_export", tokens=row_len, produced=session.produced)
             session.out.put(_SENTINEL)
+
+    def _op_export(self, adm: _Admission, n_blocks: Optional[int]) -> Optional[tuple]:
+        """An export admission's prefilled KV, whole, and its rows dropped:
+        the first ``n_blocks`` pages in a paged engine (the dense row never
+        leaves it), the dense row otherwise. Over a mesh whose ``model``
+        axis splits the KV heads each rank holds its heads: the leader
+        gathers them in head order (the other ranks return None), so the
+        payload carries every head, as the JAX package's does."""
+        with torch.no_grad():
+            kv = adm.row_cache if n_blocks is None else self._export_pages_impl(adm.row_cache, n_blocks,
+                                                                                self.block_size)
+            if self._kv_split:
+                kv = self._heads_to_leader(kv, 2 if n_blocks is None else 0)
+        self._op_drop_row(adm)
+        return kv
+
+    def _heads_to_leader(self, kv: tuple, dim: int) -> Optional[tuple]:
+        """Every KV head of ``kv`` (split over ``model`` along ``dim``) on
+        the leader, on the host; None on the other ranks. The leader's
+        ``model`` peers each send it their heads in one buffer over the
+        plan group; the ranks beside them hold copies and send nothing."""
+        mesh, leader, group = self.gen.mesh, self._plan.leader, self._plan.group
+        line = mesh.peers("model")
+        if line[0] != leader:
+            return None
+        host = tuple({name: buf.cpu() for name, buf in layer.items()} for layer in kv)  # one copy per buffer
+        if mesh.rank != leader:
+            dist.send(_kv_bytes(host), dst=leader, group=group)
+            return None
+        parts = [host]
+        meta = _kv_meta(host)
+        for peer in line[1:]:
+            buf = torch.empty(_kv_nbytes(meta), dtype=torch.uint8)
+            dist.recv(buf, src=peer, group=group)
+            parts.append(_kv_from_bytes(buf, meta))
+        return tuple({name: torch.cat([part[i][name] for part in parts], dim) for name in layer}
+                     for i, layer in enumerate(host))
+
+    def _op_import_kv(self, adm: _Admission, meta: tuple, paged: bool, first: int, lengths: int) -> None:
+        """An imported handoff onto this engine's device: its KV pages
+        (``adm.import_pages``) or dense row (``adm.row_cache``), its
+        prompt-sampled token and its length. ``meta`` is the payload's
+        shapes and dtypes, all heads. Over a mesh the leader holds the
+        payload and sends every other rank its heads (those of its ``model``
+        index where that axis splits them, else all) over the plan group."""
+        adm.tok0 = torch.tensor([first], dtype=torch.int32, device=self.device)
+        adm.row_len = torch.tensor([lengths], dtype=torch.int32, device=self.device)
+        if self._plan is None or not self._follower:
+            payload = adm.session.pending_import
+            kv = tuple({name: torch.as_tensor(buf) for name, buf in layer.items()}
+                       for layer in (payload["pages"] if paged else payload["row"]))
+        if self._plan is not None:
+            kv = self._heads_from_leader(kv if not self._follower else None, meta, 0 if paged else 2)
+        placed = tuple({name: buf.to(self.device) for name, buf in layer.items()} for layer in kv)
+        if paged:
+            adm.import_pages = placed
+        else:
+            adm.row_cache = placed
+
+    def _heads_from_leader(self, kv: Optional[tuple], meta: tuple, dim: int) -> tuple:
+        """This rank's heads of the payload ``kv`` the leader holds (None
+        elsewhere), split along ``dim``: the leader sends each ``model``
+        index's slice, as one host buffer, to every rank of that index."""
+        mesh, leader, group = self.gen.mesh, self._plan.leader, self._plan.group
+        local = self.gen.cache_config.n_kv_heads
+        split = self._kv_split
+
+        def heads(tree: tuple, index: int) -> tuple:
+            lo = index * local if split else 0
+            return tuple({name: buf.narrow(dim, lo, local) for name, buf in layer.items()} for layer in tree)
+
+        if mesh.rank == leader:
+            for index in range(mesh.size("model")):
+                ranks = [r for r in mesh.grid[..., index].reshape(-1).tolist() if r != leader]
+                if ranks:
+                    buf = _kv_bytes(tuple({name: t.cpu() for name, t in layer.items()} for layer in heads(kv, index)))
+                    for r in ranks:
+                        dist.send(buf, dst=r, group=group)
+            return heads(kv, 0)
+        mine = tuple({name: (shape[:dim] + (local,) + shape[dim + 1:], dtype) for name, (shape, dtype) in layer.items()}
+                     for layer in meta)
+        buf = torch.empty(_kv_nbytes(mine), dtype=torch.uint8)
+        dist.recv(buf, src=leader, group=group)
+        return _kv_from_bytes(buf, mine)
 
     def _finalize_admission(self, adm: _Admission) -> None:
         """Paste a completed admission's row (or an imported handoff's pages)

@@ -37,9 +37,11 @@ that are equal bit for bit on every rank. Ranks never draw from their own
 generators.
 
 The engine serves meshes with ``model``, ``sequence`` and ``expert`` axes.
-A ``data``, ``fsdp`` or ``dcn_data`` axis above 1 is refused, as the JAX
-engine refuses it: a batch-1 admission row cannot split a batch axis, and
-the replica layer over a mesh is a later item.
+A mesh with a ``data``, ``fsdp`` or ``dcn_data`` axis above 1 goes to the
+replica layer, as in the JAX package (a batch-1 admission row cannot split
+a batch axis): each replica's engine serves a submesh of one batch slice,
+and its leader is the submesh's first rank. Over a submesh "rank 0" above
+means that leader.
 """
 
 from __future__ import annotations
@@ -56,16 +58,19 @@ HEARTBEAT_S = 60.0
 
 
 class StepPlan:
-    """Rank 0's record of the engine's device operations since the last
-    broadcast, and the followers' end of it. ``sent`` counts broadcasts."""
+    """The leader's record of the engine's device operations since the last
+    broadcast, and the followers' end of it. ``sent`` counts broadcasts.
+    The leader is the mesh's first rank (rank 0 of a world mesh, a
+    replica's first rank of a submesh)."""
 
     def __init__(self, mesh: Any):
         self.mesh = mesh
         self.leader = mesh.peer(mesh.axis_names, 0)
-        # a group of its own (made by every rank as each builds the engine):
-        # a follower's engine thread waits here while its main thread stays
-        # free to run other collectives
-        self.group = dist.new_group(mesh.peers(mesh.axis_names))
+        # the mesh's own group (made with the mesh, by every rank of the
+        # world): a follower's engine thread waits here while its main
+        # thread stays free to run other collectives, and the other
+        # replicas' ranks take no part. One engine serves a mesh at a time.
+        self.group = mesh.plan_group
         self._pending: List[Tuple[str, Any, tuple]] = []
         self.sent = 0
         # the engine thread records every step; the idle heartbeat and a
@@ -78,8 +83,7 @@ class StepPlan:
         with self._lock:
             self._pending.append((op, key, args))
             if collective:
-                payload = [self._pending]
-                dist.broadcast_object_list(payload, src=self.leader, group=self.group)
+                dist.broadcast_object_list([self._pending], src=self.leader, group=self.group)
                 self._pending = []
                 self.sent += 1
 

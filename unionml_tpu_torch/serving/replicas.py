@@ -1,6 +1,6 @@
-"""Replica serving: N continuous engines behind one scheduler, in one process.
+"""Replica serving: N continuous engines behind one scheduler.
 
-Counterpart of ``unionml_tpu/serving/replicas.py`` without its mesh path.
+Counterpart of ``unionml_tpu/serving/replicas.py``.
 
 - :class:`ReplicaScheduler` admits requests least-loaded first on each
   engine's token-weighted ``load()`` (live residents + live waiters + the
@@ -36,10 +36,16 @@ An expired deadline sheds before routing (:class:`DeadlineExceeded`), and a
 prompt sheds with :class:`QueueFullError` only when every replica's waiting
 queue is full. ``ContinuousBatcher(generator, ...)`` returns a set where the
 serve CLI's ``--dp-replicas`` or ``--replica-roles`` asks for more than one
-replica. The mesh path (``mesh=``, ``partition_rules=``, :func:`slice_mesh`,
-:func:`dp_extent` over a mesh) is not ported yet (ROADMAP.md, Queue A:
-parallelism and the replica layer, the multi-host fleet); a single engine
-over a model/sequence/expert mesh is ``ContinuousBatcher`` itself.
+replica.
+
+**Over a mesh** (``mesh=``, ``partition_rules=``): :func:`slice_mesh` cuts a
+mesh along its batch axes into per-replica submeshes, as the JAX package
+does. A port process is one rank, so a set over a dp mesh is process-aware,
+in the JAX package's multi-host sense: each rank builds only the replica
+whose submesh holds it, that replica's ranks serving it as one TP engine
+(:mod:`unionml_tpu_torch.serving.mesh`), and routing across replicas is
+:class:`~unionml_tpu_torch.serving.cluster.FleetCoordinator`'s. A single
+engine over a model/sequence/expert mesh is ``ContinuousBatcher`` itself.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from unionml_tpu_torch.defaults import (
 )
 from unionml_tpu_torch.models.generate import Generator
 from unionml_tpu_torch.observability.trace import current_trace
+from unionml_tpu_torch.parallel.mesh import BATCH_AXES, Mesh, process_local_submeshes
 from unionml_tpu_torch.serving.continuous import ContinuousBatcher
 from unionml_tpu_torch.serving.overload import DeadlineExceeded, QueueFullError, TenantThrottled, expired
 from unionml_tpu_torch.serving.tenancy import current_tenant
@@ -77,20 +84,80 @@ __all__ = ["ReplicaScheduler", "ReplicaSet", "dp_extent", "slice_mesh"]
 
 logger = logging.getLogger(__name__)
 
-_MESH_REFUSAL = "{what} is not ported yet (ROADMAP.md, Queue A: parallelism and the replica layer, the multi-host fleet)"
-
-
 def dp_extent(mesh: Any) -> int:
-    """The replica count a mesh's batch axes imply: 1 without a mesh; a mesh
-    is not ported yet."""
+    """Product of a mesh's batch (data-parallel) axis sizes: the natural
+    replica count of :func:`slice_mesh`. 1 for ``None`` or a TP-only mesh."""
     if mesh is None:
         return 1
-    raise NotImplementedError(_MESH_REFUSAL.format(what="dp_extent over a device mesh"))
+    extent = 1
+    for axis in BATCH_AXES:
+        extent *= int(mesh.shape.get(axis, 1))
+    return extent
 
 
 def slice_mesh(mesh: Any, replicas: Optional[int] = None) -> "List[Any]":
-    """Per-replica submeshes of a device mesh: not ported yet."""
-    raise NotImplementedError(_MESH_REFUSAL.format(what="slice_mesh"))
+    """Slice a mesh along its batch axes into per-replica TP submeshes, as
+    the JAX package slices its device mesh.
+
+    Each submesh keeps the full axis-name set with every batch axis at size
+    1 (``sequence``/``expert``/``pipe`` extents unchanged), so a Generator
+    built over it behaves as a TP-only engine. With ``replicas`` equal to
+    the batch-axis product (the default) each replica owns one batch slice;
+    a smaller ``replicas`` that divides it folds the leftover batch extent
+    into the ``model`` axis (fewer, fatter replicas from the same ranks);
+    any other count raises a ``ValueError`` naming the batch-axis extents.
+    A submesh is a :class:`~unionml_tpu_torch.parallel.mesh.Mesh` over its
+    ranks: every rank of the world slices the same mesh at the same point
+    (the submeshes' groups are made then), and a rank holds the slices
+    without it with ``local`` False."""
+    names = tuple(mesh.axis_names)
+    ranks = mesh.grid.numpy()
+    batch_dims = [i for i, n in enumerate(names) if n in BATCH_AXES and ranks.shape[i] > 1]
+    total = int(np.prod([ranks.shape[i] for i in batch_dims])) if batch_dims else 1
+    if replicas is None:
+        replicas = total
+    extents = ", ".join(f"{names[i]}={ranks.shape[i]}" for i in batch_dims) or "none > 1"
+    if replicas < 1 or total % replicas:
+        raise ValueError(
+            f"replicas ({replicas}) must divide the mesh's data-parallel extent ({total}; "
+            f"batch axes: {extents}) — each replica owns a whole number of batch slices, "
+            "with any leftover extent folded into the model axis"
+        )
+    if total == 1:
+        return [mesh]
+    group = total // replicas
+    if group > 1 and "model" not in names:
+        raise ValueError(
+            f"cannot group {group} batch slices per replica: the mesh has no 'model' "
+            f"axis to fold the leftover extent (batch axes: {extents}) into"
+        )
+    # batch axes to the front, flattened: grouped[g] is one batch slice's ranks
+    grouped = np.moveaxis(ranks, batch_dims, range(len(batch_dims))).reshape(
+        (total,) + tuple(ranks.shape[i] for i in range(ranks.ndim) if i not in batch_dims)
+    )
+    rest_names = [names[i] for i in range(ranks.ndim) if i not in batch_dims]
+    out = []
+    for r in range(replicas):
+        sub = grouped[r * group: (r + 1) * group]
+        if group > 1:
+            # fold the grouped batch extent into the model axis: move the
+            # group dim to just before model, then merge the two
+            m = rest_names.index("model")
+            sub = np.moveaxis(sub, 0, m)
+            shape = list(sub.shape)
+            shape[m: m + 2] = [shape[m] * shape[m + 1]]
+            sub = sub.reshape(shape)
+        else:
+            sub = sub[0]
+        # re-expand to the full axis-name set with batch axes at size 1
+        final = [1] * len(names)
+        for i, name in enumerate(names):
+            if i not in batch_dims:
+                final[i] = sub.shape[rest_names.index(name)]
+        sub_mesh = Mesh(torch.as_tensor(sub.reshape(final)), mesh.device)
+        sub_mesh.slice_index = r  # the replica's (a fleet host's) global index
+        out.append(sub_mesh)
+    return out
 
 
 class ReplicaScheduler:
@@ -299,6 +366,19 @@ class _Placement:
         return Generator(model, config, device=device, quantize=self.quantize)
 
 
+class _MeshPlacement:
+    """The placement of a fleet over a dp mesh: its spare submeshes. A port
+    rank holds one replica's submesh, so there are none to scale onto."""
+
+    devices: "List[Any]" = []
+
+    def generator(self, index: int) -> Generator:
+        raise RuntimeError(
+            "no spare submesh to place a new replica on (the dp mesh is fully "
+            "occupied); build with fewer initial replicas to keep headroom"
+        )
+
+
 class ReplicaSet:
     """N :class:`ContinuousBatcher` replicas behind one scheduler.
 
@@ -503,12 +583,25 @@ class ReplicaSet:
     ) -> "ReplicaSet":
         """Build per-replica Generators and engines over one model.
         ``replicas`` defaults to the ``serve --dp-replicas`` export, else the
-        ``--replica-roles`` total (or the ``roles=`` kwarg's), else 1. They
-        are placed round-robin over ``devices`` (default: the model's device,
-        then every other visible CUDA device when it is on one); replicas
-        beyond the device count share devices, and their weights."""
-        if mesh is not None or partition_rules is not None:
-            raise NotImplementedError(_MESH_REFUSAL.format(what="ReplicaSet over a device mesh (mesh=, partition_rules=)"))
+        ``--replica-roles`` total (or the ``roles=`` kwarg's), else 1.
+
+        With a dp>1 ``mesh`` (from ``MeshSpec(...).build()`` or
+        ``build_hybrid()``) the build is process-aware, as the JAX package's
+        is over a mesh that spans hosts: every rank slices the mesh
+        (:func:`slice_mesh`) and builds only the replica whose submesh holds
+        it, its ranks serving it as one TP engine (the first rank leads, the
+        others follow; see :mod:`unionml_tpu_torch.serving.mesh`). Routing
+        across replicas is then :class:`~unionml_tpu_torch.serving.cluster.FleetCoordinator`'s.
+        A port process is one rank, so a rank's host-local extent is one
+        submesh: ``replicas`` above 1 raises, and there are no spares.
+
+        Without a dp mesh the replicas are placed round-robin over
+        ``devices`` (default: the model's device, then every other visible
+        CUDA device when it is on one); replicas beyond the device count
+        share devices, and their weights. A TP-only ``mesh`` of one rank
+        serves each replica over it; over several ranks one replica only,
+        since replicas there would run their collectives on the same groups
+        from several engine threads."""
         if replicas is None:
             replicas = serve_dp_replicas() or None
         if replicas is None:
@@ -520,14 +613,55 @@ class ReplicaSet:
                 replicas = len(roles_kw) or None
             elif roles_kw is None:
                 replicas = sum(serve_replica_roles().values()) or None
-        placement = _Placement(model, config, quantize, devices)
-        if (replicas or 1) > len(placement.devices):
-            logger.warning(
-                f"ReplicaSet: {replicas} replicas over {len(placement.devices)} devices; replicas beyond the "
-                "device count share devices round-robin"
+        if mesh is None:
+            placement = _Placement(model, config, quantize, devices)
+            if (replicas or 1) > len(placement.devices):
+                logger.warning(
+                    f"ReplicaSet: {replicas} replicas over {len(placement.devices)} devices; replicas beyond the "
+                    "device count share devices round-robin"
+                )
+            rs = cls([placement.generator(i) for i in range(replicas or 1)], **engine_kwargs)
+            rs._placement = placement
+            return rs
+        if dp_extent(mesh) > 1:
+            all_submeshes = slice_mesh(mesh)
+            local = process_local_submeshes(all_submeshes)
+            if not local:
+                raise ValueError(
+                    "no replica submesh of this mesh is local to this process — "
+                    "put the replica axes (dcn_data/data) on DCN "
+                    "(MeshSpec.build_hybrid) so each batch slice stays host-local"
+                )
+            logger.info(
+                f"multi-process mesh: this host owns replica submeshes "
+                f"{[index for index, _ in local]} of {len(all_submeshes)}"
             )
-        rs = cls([placement.generator(i) for i in range(replicas or 1)], **engine_kwargs)
-        rs._placement = placement
+            extent = len(local)
+            if replicas is None:
+                replicas = extent
+            if replicas > extent:
+                raise ValueError(
+                    f"replicas ({replicas}) exceed the mesh's host-local data-parallel extent ({extent}); "
+                    "a dp mesh cannot host more replicas than batch slices"
+                )
+            submeshes = [sub for _, sub in local][:replicas]
+        elif replicas is None or replicas == 1:
+            submeshes = [mesh]
+        elif mesh.devices == 1:
+            logger.warning(
+                f"ReplicaSet.build: {replicas} replicas over one TP-only mesh share "
+                "its devices (time-sliced); add a data axis to give each replica its own chips"
+            )
+            submeshes = [mesh] * replicas
+        else:
+            raise ValueError(
+                f"{replicas} replicas over one TP-only mesh of {mesh.devices} ranks would run their collectives on "
+                "the same groups from several engine threads; add a data axis to give each replica its own ranks"
+            )
+        generators = [Generator(model, config, mesh=sm, partition_rules=partition_rules, quantize=quantize)
+                      for sm in submeshes]
+        rs = cls(generators, **engine_kwargs)
+        rs._placement = _MeshPlacement()
         return rs
 
     @classmethod
@@ -537,10 +671,18 @@ class ReplicaSet:
     ) -> "ReplicaSet":
         """Re-host an existing Generator's model as a replica set (the
         ``ContinuousBatcher`` delegation path); a pre-quantized model
-        replicates as it is."""
+        replicates as it is. A Generator over a dp mesh cut the model to its
+        shards there: each leaf is gathered back whole over that mesh (every
+        rank calls this at the same point) and cut again to the replica's
+        submesh."""
+        mesh = generator.mesh
+        if mesh is not None:
+            from unionml_tpu_torch.parallel.sharding import unplace_module
+
+            unplace_module(generator.model)
         return cls.build(
-            generator.model, generator.config, quantize=generator.quantize, replicas=replicas, devices=devices,
-            **engine_kwargs,
+            generator.model, generator.config, mesh=mesh, partition_rules=generator.partition_rules,
+            quantize=generator.quantize, replicas=replicas, devices=devices, **engine_kwargs,
         )
 
     # ------------------------------------------------------------------ public API
