@@ -113,9 +113,8 @@ Phases (no phase catches a failure; any fault exits non-zero):
 
 11. the serve CLI in its own process (``python -m unionml_tpu_torch.cli``):
    (a) its ``init`` renders the text-generation template into a temporary
-   directory, a child process trains it on the card and saves it, ``serve``
-   boots it, a ``@word`` stream over ``/predict-stream`` matches the
-   grammar's regex and ``/metrics`` reports the engine; (b) an app module the
+   directory, which phase 20a trains through the remote backend and serves;
+   (b) an app module the
    phase writes around phase 3's model cut to ``CLI_LAYERS`` layers
    (Llama-3-8B width, bf16, seed 0, ``attention_impl="flash"``), its
    weights saved once as the artifact,
@@ -124,8 +123,8 @@ Phases (no phase catches a failure; any fault exits non-zero):
    tokens from both; a second wave runs under the child's ``POST
    /debug/profile`` capture, whose Chrome trace gives the paged kernel's
    launches in the child (``cli_launches``, exactly CLI_LAYERS x the wave's
-   dispatches x 8); ``serve --num-hosts 2`` exits
-   1 before an app module that raises at import is imported;
+   dispatches x 8); ``lint`` (not ported) exits 1 before an app module that
+   raises at import is imported;
 12. the routed-experts decoder: (a) ``MoEConfig()`` (vocab 32,000, dim 4096,
    8 layers, every second routed over 8 experts of hidden 14,336, k = 2,
    capacity factor 1.25; bf16 parameters, seed 0) serves 4 prompts x 32
@@ -157,20 +156,22 @@ Phases (no phase catches a failure; any fault exits non-zero):
    ``fit``), and the 13b stack in f32 through the f32 flash kernels equals
    the plain route. 13a, 13c and 13d launch no kernel
    (``encoder_model_launches``).
-14. the in-process replica layer on phase 9's target (phase 3's weights and
-   knobs), run after phase 10a: (a) ``UNIONML_TPU_DP_REPLICAS=2`` makes
+14. the in-process replica layer on phase 3's configuration and knobs at
+   ``REPLICA_LAYERS`` of its 32 layers, run after phase 10a, against one
+   engine's streams of phase 3's prompts on the same weights (the
+   reference): (a) ``UNIONML_TPU_DP_REPLICAS=2`` makes
    ``ContinuousBatcher(gen, ...)`` a ``ReplicaSet`` of two mixed replicas
    on this card sharing the weights; 8 concurrent streams (phase 3's prompts
-   twice) equal phase 3's streams, both replicas serve, the paged launches
-   are exactly 32 x 8 x the dispatches summed over the replicas
+   twice) equal the reference's, both replicas serve, the paged launches
+   are exactly layers x 8 x the dispatches summed over the replicas
    (``replica_launches``, with (b)'s), the memory grows by at most the two
    pools + 1 GiB; tok/s and TTFT beside one engine of 8 slots on the same
    streams; (b) ``roles={"prefill": 1, "decode": 1}``,
    ``prefill_threshold=64``: the 120- and 250-token prompts hand their KV
-   pages off (16 and 32 MiB), the others do not, streams phase 3's; the
-   handoff's export and import timed; (c) (a)'s fleet with 8 streams in
-   flight: ``scale_to(3)`` then ``scale_to(1)``, every stream whole and
-   phase 3's, then the autoscaler armed and joined by ``close``; (d)
+   pages off, the others do not, streams the reference's; the handoff's
+   export and import timed; (c) (a)'s fleet with 8 streams in flight:
+   ``scale_to(3)`` then ``scale_to(1)``, every stream whole and the
+   reference's, then the autoscaler armed and joined by ``close``; (d)
    float32, 2 layers: (a)'s and (b)'s fleets on the card equal the same
    fleets on the CPU, and the handoff pages agree within 1e-5 of each leaf's scale.
 
@@ -230,13 +231,14 @@ Phases (no phase catches a failure; any fault exits non-zero):
    count, ``train_mesh_f32_launches`` rank 0's over 16c.
 
 17. the cold start (``unionml_tpu_torch/serving/aot.py``, ``compile_cache.py``,
-   ``serving/serverless.py``): (a) run after 3c on phase 3's weights, knobs
-   and prompts: an eager engine, ``aot=DIR`` on an empty store (a miss: each
-   program run once and captured as a CUDA graph, its entry written) and a
-   fresh ``Generator`` and engine on the populated store with the kernel
-   build cache pointed at an empty directory (a hit: the libraries installed
-   from the store, no ``nvcc``, no fresh capture); greedy streams equal phase
-   3's on all three; each kernel's launches in the profiler's trace of a
+   ``serving/serverless.py``): (a) run after 3c on phase 3's configuration,
+   knobs and prompts at ``AOT_LAYERS`` of its 32 layers: an eager engine,
+   ``aot=DIR`` on an empty store (a miss: each program run once and
+   captured as a CUDA graph, its entry written) and a fresh ``Generator``
+   and engine on the populated store with the kernel build cache pointed at
+   an empty directory (a hit: the libraries installed from the store, no
+   ``nvcc``, no fresh capture); greedy streams of the miss and the hit equal
+   the eager engine's; each kernel's launches in the profiler's trace of a
    served run equal on the graph route and the eager one (and the eager
    route's trace equals its wrappers' counts; the counts a graph adds per
    replay are a cross-check); a seeded ``temperature=0.8`` pair
@@ -255,6 +257,34 @@ Phases (no phase catches a failure; any fault exits non-zero):
    trace); both stream 11b's in-process answers; seconds to ready of both;
    (c) ``lambda_handler`` over that app in this process on
    the populated store: two invocations, one startup, nothing compiled.
+18. the multi-host fleet (``serving/cluster.py``): (a) a worker host beside
+   a ``LocalHost`` at 32 layers, mixed then prefill/decode, then a
+   SIGKILL; (b) two CLI children, ``serve --num-hosts 2``, over 11b's app;
+   (c) a gloo world of 4 ranks on cuda:0, 2 hosts x tp=2, f32.
+19. workload replay (``unionml_tpu_torch/workloads``): (a) inside phase 8,
+   on its 32-layer app and loopback port, ``chat_multiturn``,
+   ``burst_tenants`` and ``deadline_heavy`` (seed 0) replay through the
+   app's HTTP dispatch and ``rag_long_prompt`` over the socket
+   (``target=``): every request answered or shed, every completed greedy
+   stream equal to ``engine.submit`` on its final prompt (session history
+   included), the paged kernel launched (``replay_launches``), each report's
+   per-tenant TTFT/TBT p50/p95, schedule adherence and verdicts printed;
+   (b) ``python -m unionml_tpu_torch.cli replay scenario:chaos_fleet
+   --target`` against 18b's fleet while it is up, and ``replay
+   scenario:chat_multiturn --self-host llama_app:model`` over 11b's app and
+   artifact, each report parsed, its exit code and verdicts printed.
+20. the remote backend (``remote.py``, ``job_runner.py``): (a) 11a's
+   template through the CLI: ``deploy --allow-uncommitted``, ``train`` (a
+   ``job_runner`` child trains it on the card with its own schedule),
+   ``list-model-versions``, ``predict --features`` in a second child,
+   ``fetch-model``; ``serve`` boots the fetched artifact and ``serve
+   --remote`` the registry's, each streaming a ``@word``; (b) phase 7's
+   LoRA app as a module at Llama-3-8B width, ``REMOTE_LAYERS`` of 32
+   layers, bf16: ``remote_train`` through ``LocalProcessLauncher`` (2 steps
+   of 1 x 2048, numpy seed 0), ``remote_predict`` of 4 prompts in a second
+   child; the children's flash and paged launches read back from their
+   logs (``remote_launches``), their seconds and peak memory printed, and
+   the artifact, fetched and loaded here, predicts the remote job's tokens.
 
 Phase 10a also holds bf16 chunked admission to monolithic admission behind
 the same prefix on the first token's logits (``CHUNKED_LOGITS_REL_RMS``).
@@ -1922,7 +1952,8 @@ def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf1
     ``http.client`` from threads through ``/predict``, ``/predict-stream``,
     ``/v1/completions``, ``/metrics``, ``/healthz`` and ``/debug/requests``;
     then the SIGTERM-path drain. Returns each kernel's launches across the
-    HTTP requests."""
+    HTTP requests, and phase 19a's replays on the same app and port (run
+    after phase 8's checks, inside the served block)."""
     import torch
 
     from unionml_tpu_torch import Llama
@@ -2038,6 +2069,9 @@ def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf1
         require(status == 200 and {"engine.submit", "engine.first_token", "engine.finish"} <= engine_events,
                 f"/debug/requests engine events {sorted(engine_events)}")
 
+        # ---- phase 19a: workload replay on the same app and port
+        replayed = replay_phase(card, app, port, batcher, cfg)
+
         if profile:
             profile_run("HTTP /predict-stream 4 streams",
                         lambda: concurrent([functools.partial(stream_one, p) for p in prompts]))
@@ -2066,7 +2100,7 @@ def http_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf1
     require(not any(others.values()), f"kernels off the HTTP path launched: {others}")
     del model, app, batcher, module
     torch.cuda.empty_cache()
-    return http_launches
+    return http_launches, replayed
 
 
 #: phase 9: speculative decoding and beam search, and the int8-page mode on a live pool
@@ -2560,6 +2594,9 @@ def prefix_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
 #: phase 14: the in-process replica layer on phase 9's target. (b) splits the fleet prefill=1,decode=1 at this
 #: threshold: the 120- and 250-token prompts hand off, the 5- and 40-token ones admit on the decode replica
 REPLICA_THRESHOLD = 64
+#: (a)-(c)'s depth: phase 3's configuration at 8 of its 32 layers, cut to make room for phases 19-20 (each layer's
+#: shapes, the handoff's per-layer pages and the scheduler are the same)
+REPLICA_LAYERS = 8
 #: (d) the f32 parity at 2 layers: each card fleet against the same fleet on the CPU, 8 new tokens, the short
 #: prompts in a 64-token bucket (the CPU's prefill dominates the phase)
 REPLICA_PARITY_NEW, REPLICA_PARITY_BUCKETS = 8, (64, 256)
@@ -2626,17 +2663,19 @@ def handoff_times(cfg, engine, n_pages: int) -> dict:
 def replica_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams,
                   profile: bool = False) -> dict:
     """Phase 14a-c: the in-process replica layer at full width, bf16, on
-    phase 9's target (phase 3's weights and knobs). (a) ``UNIONML_TPU_DP_
-    REPLICAS=2`` through ``ContinuousBatcher(gen, ...)``: two mixed replicas
-    on this card sharing the weights serve phase 3's prompts twice,
-    concurrently, token for token phase 3's, both replicas serving, the
-    paged launches exactly 32 x 8 x the dispatches summed over the replicas,
+    ``target`` (phase 3's configuration and knobs, ``REPLICA_LAYERS`` deep)
+    against ``bf16_streams``, one engine's streams of phase 3's prompts on
+    it. (a) ``UNIONML_TPU_DP_REPLICAS=2`` through ``ContinuousBatcher(gen,
+    ...)``: two mixed replicas on this card sharing the weights serve phase
+    3's prompts twice, concurrently, token for token the reference's, both
+    replicas serving, the paged launches exactly layers x 8 x the dispatches
+    summed over the replicas,
     the memory grown by at most the two pools + 1 GiB; then one engine of
     ``2 * slots`` slots on the same 8 streams. (b) ``roles={"prefill": 1,
     "decode": 1}``, ``prefill_threshold=REPLICA_THRESHOLD``: the long prompts
-    hand off, the short ones do not, streams phase 3's; the handoff's bytes
+    hand off, the short ones do not, streams the reference's; the handoff's bytes
     and its two halves timed. (c) (a)'s fleet with 8 streams in flight:
-    ``scale_to(3)``, then ``scale_to(1)``, every stream whole and phase 3's;
+    ``scale_to(3)``, then ``scale_to(1)``, every stream whole and the reference's;
     then the autoscaler armed and the set closed (its thread joined).
     ``profile`` adds a torch.profiler breakdown of the fleet's wave and of
     the 8-slot engine's."""
@@ -2692,10 +2731,10 @@ def replica_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: in
           f"ms (fleet / one engine {fleet_tok_s / one_tok_s:.3f}x); dispatches per replica {dispatches}, submitted "
           f"{fleet.stats()['scheduler']['submitted']}; paged launches {launches} (expected {mcfg.n_layers} x "
           f"{sum(dispatches)} x {decode_chunk} = {want}), other kernels {others}; memory grown "
-          f"{grown / 2**30:.3f} GiB (limit: the two pools {pools / 2**30:.3f} GiB + 1 GiB); streams equal phase 3's: "
+          f"{grown / 2**30:.3f} GiB (limit: the two pools {pools / 2**30:.3f} GiB + 1 GiB); streams equal the reference's: "
           f"{streams == expected} (the 8-slot engine's, whose decode GEMMs have M = 8, first part from them at "
           f"{[first_divergence(a, b) for a, b in zip(one_streams, expected)]} of {MAX_NEW}); card {card}", flush=True)
-    require(streams == expected, f"the fleet's streams differ from phase 3's: first divergence "
+    require(streams == expected, f"the fleet's streams differ from the reference's: first divergence "
                                  f"{[first_divergence(a, b) for a, b in zip(streams, expected)]}")
     require(all(len(s) == MAX_NEW for s in one_streams), f"8-slot stream lengths {[len(s) for s in one_streams]}")
     require(all(d > 0 for d in dispatches), f"a replica served no work: dispatches {dispatches}")
@@ -2733,9 +2772,9 @@ def replica_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: in
           f"{times['export_ms']:.4f} ms ({times['export_device_ms']:.4f} device only), import {times['import_ms']:.4f} "
           f"ms ({times['import_device_ms']:.4f}), bound {times['bound_ms']:.4f} ms (bytes), device ops "
           f"{times['device_ops']}; {len(prompts) * MAX_NEW / split_seconds:.1f} "
-          f"tok/s; decode dispatches {dispatches}, paged launches {launches} (expected {want}); streams equal phase "
+          f"tok/s; decode dispatches {dispatches}, paged launches {launches} (expected {want}); streams equal the "
           f"3's: {split_streams == list(bf16_streams)}; card {card}", flush=True)
-    require(split_streams == list(bf16_streams), f"the role-split streams differ from phase 3's: first divergence "
+    require(split_streams == list(bf16_streams), f"the role-split streams differ from the reference's: first divergence "
                                                  f"{[first_divergence(a, b) for a, b in zip(split_streams, bf16_streams)]}")
     require(stats["handoffs"]["routed"] == stats["handoffs"]["exported"] == stats["handoffs"]["imported"] == handoffs,
             f"handoffs {stats['handoffs']}, expected {handoffs}")
@@ -2772,7 +2811,7 @@ def replica_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: in
     fleet.close()
     print(f"phase 14c: 8 streams in flight on (a)'s fleet: scale_to(3) returned {up} at {t_up:.2f} s (the new replica "
           f"warmed before it joined; {in_flight} streams resident or waiting after), scale_to(1) returned {down} at "
-          f"{t_down:.2f} s; stream lengths {[len(r) if r else 0 for r in results]}, equal phase 3's: "
+          f"{t_down:.2f} s; stream lengths {[len(r) if r else 0 for r in results]}, equal the reference's: "
           f"{results == expected}; resize {resize}; autoscaler armed on the idle fleet: {replicas_after} replica, "
           f"its thread joined by close: {not thread.is_alive()}; card {card}", flush=True)
     require(up == 3 and down == 1 and results == expected, "a stream was lost or changed across the resize")
@@ -2847,9 +2886,10 @@ def replica_parity_phase(gcfg, prompts, slots: int, decode_chunk: int) -> None:
 
 #: phase 11: the serve CLI in its own process on the card
 CLI_STARTUP_S = 600  # seconds a served app may take to load its artifact and warm up
-#: (b)'s depth: Llama-3-8B width at 8 of its 32 layers, cut so that the whole script stays well inside its time
-#: limit (the 32-layer artifact's save, load and eager decode waves took about 150 s of it)
-CLI_LAYERS = 8
+#: (b)'s depth: Llama-3-8B width at 4 of its 32 layers, cut so that the whole script stays well inside its time
+#: limit (the 32-layer artifact's save, load and eager decode waves took about 150 s of it; 8 layers until the
+#: replay and remote phases joined, which phases 17b-c, 18b and 19b share)
+CLI_LAYERS = 4
 #: the child's POST /debug/profile capture lasts the first wave's time and this margin, so that it spans the
 #: second wave (the 1 s head start included) after the profiler's start in the child, which has taken about 10 s
 #: on the H100 machine (a 5 s margin once ended the capture 0.2 s before a wave that began 10.7 s after the
@@ -2963,15 +3003,16 @@ def free_port() -> int:
 
 
 @contextlib.contextmanager
-def cli_server(args, cwd, log_path: str):
+def cli_server(args, cwd, log_path: str, **env):
     """``python -m unionml_tpu_torch.cli serve ARGS`` on a free loopback
-    port: polls ``/health`` until the app has loaded and warmed, yields
-    (port, seconds to ready), then stops the child (SIGTERM, then kill)."""
+    port (``env`` added to the child's environment): polls ``/health`` until
+    the app has loaded and warmed, yields (port, seconds to ready), then
+    stops the child (SIGTERM, then kill)."""
     port = free_port()
     with open(log_path, "wb") as log:
         t0 = time.perf_counter()
         child = subprocess.Popen([sys.executable, "-m", "unionml_tpu_torch.cli", "serve", *args, "--port", str(port)],
-                                 cwd=cwd, env=cli_env(), stdout=log, stderr=subprocess.STDOUT)
+                                 cwd=cwd, env=cli_env(**env), stdout=log, stderr=subprocess.STDOUT)
         try:
             while True:
                 if child.poll() is not None:
@@ -3025,42 +3066,6 @@ def paged_kernel_events(trace_dir: str) -> tuple:
     return launches, kernel_us / 1e3, span / 1e3
 
 
-def template_cli_phase(card: str, workdir: str) -> None:
-    """Phase 11a: the port's ``init`` renders the text-generation template,
-    a child process trains it on the card (its own schedule) and saves it,
-    and ``serve`` boots it: a ``@word`` stream over ``/predict-stream``
-    matches the grammar's regex and ``/metrics`` reports the engine."""
-    import os
-    import re
-
-    t0 = time.perf_counter()
-    done = run_cli(["init", "genapp", "--template", "text-generation"], workdir, 120)
-    require(done.returncode == 0, f"init failed: {done.stderr[-2000:]}")
-    project = os.path.join(workdir, "genapp")
-    train = subprocess.run(
-        [sys.executable, "-c", "import app; _, m = app.model.train(hyperparameters={'learning_rate': 3e-3}); "
-         "print('metrics', m, 'steps', app.model.last_fit_result.steps, 'device', "
-         "next(app.model.artifact.model_object.model.parameters()).device); app.model.save('model_object.ckpt')"],
-        cwd=project, env=cli_env(), capture_output=True, text=True, timeout=600,
-    )
-    require(train.returncode == 0, f"the template's training failed: {train.stderr[-3000:]}")
-    trained = train.stdout.strip().splitlines()[-1]
-    require("device cuda" in trained, f"the template did not train on the card: {trained}")
-    train_s = time.perf_counter() - t0
-    with cli_server(["app:model", "--model-path", os.path.join(project, "model_object.ckpt")], project,
-                    os.path.join(workdir, "template_server.log")) as (port, ready_s):
-        text = "".join(stream_http(port, [TEMPLATE_PROMPT]))
-        status, _, body = http_request(port, "GET", "/metrics")
-        generation = json.loads(body).get("generation")
-    print(f"phase 11a: the text-generation template rendered by the CLI's init and trained in a child process on "
-          f"the card ({trained}) in {train_s:.1f} s; `serve app:model` ready in {ready_s:.1f} s; {TEMPLATE_PROMPT!r} "
-          f"streamed {text!r}; /metrics generation: slots {generation and generation.get('slots')}, decode "
-          f"dispatches {generation and generation.get('decode_dispatches')}; card {card}", flush=True)
-    require(text and re.fullmatch(TEMPLATE_REGEX, text) is not None, f"the @word stream {text!r} is not [a-z]+")
-    require(status == 200 and generation is not None and generation["decode_dispatches"] > 0,
-            f"/metrics generation {generation}")
-
-
 def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     """Phase 11b: the CLI's main path at Llama-3-8B width, CLI_LAYERS deep.
     The phase writes an app module (``CLI_APP_SOURCE``), saves the seeded
@@ -3071,8 +3076,9 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     --prefix-cache --profile-dir`` (the eager route). Phase 3's prompts stream concurrently
     over ``/predict-stream`` to both, and the answers must be equal. The
     child's paged kernel launches are read from a ``POST /debug/profile``
-    capture spanning its streams. Then a refused flag (``--remote``, the remote backend)
-    must exit 1 before an app module that raises at import is imported."""
+    capture spanning its streams. Then the command the port refuses
+    (``lint``) must exit 1 before an app module that raises at import is
+    imported."""
     import os
     import shutil
 
@@ -3164,8 +3170,8 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     prefill = after.get("prefill", {})
     require(profiled_wave == served, "the profiled wave's streams (radix hits) differ from the first wave's")
 
-    # ---- a refused flag exits 1 before the app module is imported
-    refused = run_cli(["serve", "boom_app:model", "--remote"], workdir, 120)
+    # ---- the command the port does not have yet exits 1 before the app module is imported
+    refused = run_cli(["lint", "boom_app:model"], workdir, 120)
     print(f"phase 11b: Llama-3-8B width bf16 artifact at {CLI_LAYERS} layers saved once ({size / 2**30:.1f} GiB in "
           f"{save_s:.1f} s); "
           f"in-process Model.serve() ready in {ready_s:.1f} s, 4 /predict-stream streams x {MAX_NEW} tokens "
@@ -3181,7 +3187,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
           f"profile ({window_ms:.0f} ms traced, kernels busy {kernel_ms:.1f} ms, the device's idle share "
           f"{1 - kernel_ms / (profiled_s * 1e3):.3f} over the wave's {profiled_s:.1f} s): {cli_launches} paged "
           f"launches (the wave's {profiled_dispatches} dispatches give {CLI_LAYERS} x {profiled_dispatches} x 8 = {expected}); "
-          f"`serve boom_app:model --remote` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
+          f"`lint boom_app:model` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
           f"card {card}", flush=True)
     require(served == inproc, "the CLI's streams differ from the in-process Model.serve() answers")
     require(wave_end_s * 1e3 < capture_ms and status[2] and json.loads(status[2])["duration_ms"] == capture_ms,
@@ -3191,7 +3197,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
             f"expected {expected}")
     require(prefill.get("chunks", 0) > 0, f"the CLI's engine admitted no chunk: {prefill}")
     require(refused.returncode == 1 and "Queue A: the rest" in refused.stderr
-            and "was imported" not in refused.stderr + refused.stdout, "the refused flag did not exit 1 at boot")
+            and "was imported" not in refused.stderr + refused.stdout, "the refused command did not exit 1 at boot")
     sys.path.remove(workdir)
     # the artifact stays for phase 17b-c (the caller's workdir goes with it)
     return dict(cli_launches=cli_launches, in_process_launches=in_launches,
@@ -4214,10 +4220,11 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
 #: (MeshSpec(data=1), NCCL) for WORLD1_STEPS of its batches; (b) two ranks on cuda:0 over gloo at Llama-3-8B
 #: width, MESH_TRAIN_LAYERS deep, MESH_TRAIN_STEPS steps of a global batch of MESH_TRAIN_ROWS x MESH_TRAIN_SEQ
 #: under each layout (make_train_step(remat=True)); (c) f32 parity at 2 layers; (d) PipelinedViT at ViT-L/16 width
-#: at pipe=2. (b) is cut from 32 layers to 8: fsdp=2 gathers every layer's f32 weights through gloo's host route,
-#: which took 56 s a step at 32 layers (H100 80GB HBM3, 700 W); each layer's shapes and shards are the same
+#: at pipe=2. (b) is cut from 32 layers to 8, then to 4 to make room for phases 19-20: fsdp=2 gathers every
+#: layer's f32 weights through gloo's host route, which took 56 s a step at 32 layers (H100 80GB HBM3, 700 W);
+#: each layer's shapes and shards are the same
 WORLD1_STEPS = 3
-MESH_TRAIN_STEPS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, MESH_TRAIN_LAYERS = 2, 2, 1024, 8
+MESH_TRAIN_STEPS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, MESH_TRAIN_LAYERS = 2, 2, 1024, 4
 MESH_TRAIN_LAYOUTS = (("fsdp2", dict(fsdp=2)), ("model2", dict(model=2)))
 #: (b): bf16 losses of a mesh run against the world of one, relative. The layouts round to bf16 at other places
 #: (model=2 sums two bf16 partials of each row-parallel product; fsdp=2 runs another cuBLAS kernel for a local
@@ -4887,6 +4894,9 @@ def train_mesh_phase(card: str, phase5_losses: list) -> dict:
 #: phase 17 (the cold start): the seeded sampled pair's temperature, and its prompts (phase 3's first two, one
 #: after another, so that both engines seed their admissions alike)
 AOT_TEMPERATURE, AOT_SAMPLED_PROMPTS = 0.8, 2
+#: 17a's depth: phase 3's configuration at 8 of its 32 layers, cut to make room for phases 19-20 (a program's
+#: capture, replay and the int8 quantization scale with the layers; each layer's programs are the same)
+AOT_LAYERS = 8
 
 
 #: each wrapper's CUDA kernel, by the name a profiler trace gives it (the int8-page mode has two)
@@ -4958,15 +4968,15 @@ def aot_route_line(label: str, run: dict) -> str:
             f"{stats['tbt_ms'].get('p50_ms')} ms, TTFT p50 {stats['ttft_ms'].get('p50_ms')} ms")
 
 
-def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16_streams) -> dict:
+def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int) -> dict:
     """Phase 17a: the AOT program store in process, at phase 3's width,
-    weights, knobs and prompts. Three engines over one model, in turn: the
+    knobs and prompts, ``AOT_LAYERS`` deep. Three engines over one model, in turn: the
     eager route, ``aot=DIR`` on an empty store (a miss: every program run
     once, captured as a CUDA graph, its entry written) and a fresh
     ``Generator`` and engine on the populated store with the kernel build
     cache pointed at an empty directory (a hit: the libraries installed from
-    the store, no ``nvcc``, no fresh capture). Greedy streams equal phase 3's
-    on all three, and each kernel's launches on the graph route equal the
+    the store, no ``nvcc``, no fresh capture). Greedy streams on the graph
+    route equal the eager route's, and each kernel's launches on it equal the
     eager engine's; a seeded ``temperature=0.8`` pair equal token for token; a
     program that reads a value back on the host fails its capture and
     raises; then the same weights quantized in place serve the eager and
@@ -4992,7 +5002,7 @@ def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16
     cache = tempfile.mkdtemp(prefix="chip_smoke_kernels_")
     build_dir = _build.build_dir()
     try:
-        model = Llama(cfg, seed=0)  # phase 3's weights
+        model = Llama(cfg, seed=0)  # phase 3's weights' first AOT_LAYERS layers
         eager = aot_engine_run(Generator(model, gcfg), prompts, slots, decode_chunk, False, trace=True)
         miss_gen = Generator(model, gcfg)
         miss = aot_engine_run(miss_gen, prompts, slots, decode_chunk, store)
@@ -5026,7 +5036,7 @@ def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16
         gc.collect()
         torch.cuda.empty_cache()
 
-        int8_model = Llama(cfg, seed=0)  # phase 3b's weights, quantized in place by the first Generator
+        int8_model = Llama(cfg, seed=0)  # the same weights, quantized in place by the first Generator
         int8_eager = aot_engine_run(Generator(int8_model, gcfg, quantize="int8"), prompts, slots, decode_chunk, False)
         int8_graph = aot_engine_run(Generator(int8_model, gcfg, quantize="int8"), prompts, slots, decode_chunk,
                                     tempfile.mkdtemp(dir=store), trace=True)
@@ -5054,8 +5064,8 @@ def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16
     print(f"  launches in the profiler's trace of a served run: eager {eager['traced']}, graph route (hit) "
           f"{hit['traced']}; counted by the wrappers (the graph route's per replay, a cross-check): eager "
           f"{eager['launches']}, miss {miss['launches']}, hit {hit['launches']}; greedy streams "
-          f"equal phase 3's: eager {eager['streams'] == bf16_streams}, miss {miss['streams'] == bf16_streams}, hit "
-          f"{hit['streams'] == bf16_streams}; sampled (temperature {AOT_TEMPERATURE}, seeded) graph == eager: "
+          f"equal the eager route's ({cfg.n_layers} layers): miss {miss['streams'] == eager['streams']}, hit "
+          f"{hit['streams'] == eager['streams']}; sampled (temperature {AOT_TEMPERATURE}, seeded) graph == eager: "
           f"{sampled_graph['streams'] == sampled_eager['streams']} (launches {sampled_eager['launches']} / "
           f"{sampled_graph['launches']}); a host read refused its capture: {refused!s:.200}", flush=True)
     print(f"  int8: {aot_route_line('eager', int8_eager)}; {aot_route_line('graph', int8_graph)}, device idle "
@@ -5064,8 +5074,10 @@ def aot_phase(card: str, cfg, gcfg, prompts, slots: int, decode_chunk: int, bf16
           f"{int8_graph['streams'] == int8_eager['streams']}; memory reserved {reserved_before / 2**30:.2f} GiB before the "
           f"phase, {reserved_after / 2**30:.2f} GiB after it (collected, cache emptied); phase 17a took "
           f"{time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
-    for name, run in (("eager", eager), ("miss", miss), ("hit", hit)):
-        require(run["streams"] == bf16_streams, f"phase 17a: the {name} route's greedy streams differ from phase 3's")
+    require(all(len(s) == MAX_NEW for s in eager["streams"]), f"phase 17a: eager stream lengths {eager['streams']}")
+    for name, run in (("miss", miss), ("hit", hit)):
+        require(run["streams"] == eager["streams"], f"phase 17a: the {name} route's greedy streams differ from the "
+                                                    "eager route's")
     # the trace counts each kernel as the wrappers do on the eager route, and the graph route launches as it does
     require(eager["traced"] == eager["launches"],
             "phase 17a: the profiler's kernel count differs from the wrappers' on the eager route")
@@ -5590,6 +5602,10 @@ def fleet_cli_phase(card: str, prompts, workdir: str, cli: dict) -> dict:
             require(host1.poll() is None, f"process 1 exited with {host1.returncode}: " + tail(log1))
             served, wave_s = concurrent([functools.partial(stream_http, port, [p]) for p in prompts])
             debug = json.loads(http_request(port, "GET", "/debug/fleet")[2])
+            # ---- phase 19b: the replay CLI against this fleet while it is up
+            chaos = replay_cli_report("phase 19b, over the socket", [
+                "scenario:chaos_fleet", "--target", f"http://127.0.0.1:{port}", "--seed", str(REPLAY_SEED)],
+                workdir, os.path.join(workdir, "chaos_report.json"), card)
     finally:
         host1.terminate()
         try:
@@ -5608,7 +5624,404 @@ def fleet_cli_phase(card: str, prompts, workdir: str, cli: dict) -> dict:
     require(len(hosts) == 2 and all(h["alive"] and h["state"] == "live" for h in hosts),
             f"/debug/fleet hosts: {hosts}")
     require(len(submitted) == 2 and all(n >= 1 for n in submitted), f"a host took no stream: {submitted}")
+    from unionml_tpu_torch.workloads import synthesize
+
+    replay_answered("chaos_fleet", chaos["report"], len(synthesize("chaos_fleet", REPLAY_SEED)))
+    return dict(seconds=seconds - chaos["seconds"], replay=chaos)
+
+
+# phase 19: workload replay (unionml_tpu_torch/workloads)
+#: (a): the scenarios replayed through phase 8's app in process, the one replayed over its socket, and their seed;
+#: the scenario vocabularies draw ids below 90, valid tokens of the 128,256-token vocabulary
+REPLAY_SELF_HOSTED, REPLAY_OVER_SOCKET, REPLAY_SEED = ("chat_multiturn", "burst_tenants", "deadline_heavy"), \
+    "rag_long_prompt", 0
+#: a replay CLI child's time limit (19b's self-hosted child loads 11b's 5.2 GiB artifact and warms up first)
+REPLAY_CLI_S = 600
+
+
+def replay_summary(name: str, report: dict) -> str:
+    """One report as a line: its counts, per-tenant TTFT/TBT p50/p95 (ms),
+    schedule adherence and verdict states."""
+    tenants = "; ".join(
+        f"{tenant} {entry['ok']}/{entry['requests']} ok, {entry['shed']} shed, TTFT p50/p95 "
+        f"{entry['ttft_ms'].get('p50_ms')}/{entry['ttft_ms'].get('p95_ms')}, TBT p50/p95 "
+        f"{entry['tbt_ms'].get('p50_ms')}/{entry['tbt_ms'].get('p95_ms')}"
+        for tenant, entry in report["per_tenant"].items())
+    verdicts = {tenant: v["state"] for tenant, v in report.get("verdicts", {}).items()}
+    schedule = report["schedule"]
+    return (f"{name}: {report['requests']} requests ({report['ok']} ok, {report['shed']} shed, {report['errors']} "
+            f"errors) in {report['duration_s']} s, {report['tokens_per_s']} tok/s; schedule adherence "
+            f"{schedule['adherence']} (lag p95 {schedule['lag_p95_ms']} ms); {tenants}; verdicts {verdicts} -> "
+            f"{report.get('verdict_state')}")
+
+
+def replay_answered(name: str, report: dict, requests: int) -> None:
+    require(report["requests"] == requests and report["ok"] + report["shed"] == requests and report["errors"] == 0,
+            f"replay {name}: a request was neither answered nor shed: {report['requests']} requests, "
+            f"{report['ok']} ok, {report['shed']} shed, {report['errors']} errors")
+
+
+def replay_phase(card: str, app, port: int, batcher, cfg) -> dict:
+    """Phase 19a, inside phase 8 on its app and port: ``REPLAY_SELF_HOSTED``
+    through the app's HTTP dispatch and ``REPLAY_OVER_SOCKET`` over the
+    loopback socket, each with its scenario's targets. Every request is
+    answered or shed; every completed greedy stream equals
+    ``engine.submit`` on the final prompt it was sent (session history
+    included), all queued at once; the paged kernel launched
+    during the replays. Returns the launches and the reports."""
+    import unionml_tpu_torch.workloads.replayer as replayer
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+    from unionml_tpu_torch.workloads import replay, scenario_meta, scenario_targets, synthesize
+
+    t_phase = time.perf_counter()
+    sent: list = []  # (scenario, final prompt, completion, status) of every request
+    drive_app, drive_socket = replayer._drive_self_hosted, replayer._drive_target_sync
+    current = [None]
+
+    async def through_app(app_, request, prompt, record):
+        completion = await drive_app(app_, request, prompt, record)
+        sent.append((current[0], list(prompt), list(completion), record.status))
+        return completion
+
+    def over_socket(target, request, prompt, record):
+        completion = drive_socket(target, request, prompt, record)
+        sent.append((current[0], list(prompt), list(completion), record.status))
+        return completion
+
+    replayer._drive_self_hosted, replayer._drive_target_sync = through_app, over_socket
+    reports, seconds = {}, {}
+    before = paged_decode_attention.launches
+    try:
+        for name in (*REPLAY_SELF_HOSTED, REPLAY_OVER_SOCKET):
+            current[0] = name
+            where = {"target": f"http://127.0.0.1:{port}"} if name == REPLAY_OVER_SOCKET else {"app": app}
+            t0 = time.perf_counter()
+            reports[name] = replay(synthesize(name, REPLAY_SEED), targets=scenario_targets(name),
+                                   meta=scenario_meta(name, REPLAY_SEED), **where)
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        replayer._drive_self_hosted, replayer._drive_target_sync = drive_app, drive_socket
+    launches = paged_decode_attention.launches - before
+    for name, report in reports.items():
+        replay_answered(name, report, len(synthesize(name, REPLAY_SEED)))
+        print(f"phase 19a, {'over the socket' if name == REPLAY_OVER_SOCKET else 'self-hosted'} "
+              f"({seconds[name]:.1f} s), {replay_summary(name, report)}; card {card}", flush=True)
+
+    # every completed greedy stream against engine.submit on its final prompt, all queued at once
+    completed = [(name, prompt, completion) for name, prompt, completion, status in sent if status == 200]
+    t0 = time.perf_counter()
+    streams = [batcher.submit(prompt, max_new_tokens=len(completion)) for _, prompt, completion in completed]
+    direct = [[int(t) for chunk in stream for t in chunk] for stream in streams]
+    mismatched = [(name, first_divergence(got, want)) for (name, _, want), got in zip(completed, direct)
+                  if got != want]
+    seconds_direct = time.perf_counter() - t0
+    print(f"phase 19a: {len(completed)} completed streams of {len(sent)} requests resubmitted through "
+          f"engine.submit in {seconds_direct:.1f} s (queued at once, {batcher.slots} slots): "
+          f"{len(completed) - len(mismatched)} equal, "
+          f"mismatches (scenario, first divergence) {mismatched}; paged launches during the replays {launches}; "
+          f"phase 19a took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+    require(not mismatched, f"replayed streams differ from engine.submit: {mismatched}")
+    require(launches > 0 and launches % cfg.n_layers == 0, f"{launches} paged launches during the replays")
+    return dict(launches=launches, reports=reports, seconds=time.perf_counter() - t_phase)
+
+
+def replay_cli_report(label: str, args, cwd: str, out: str, card: str) -> dict:
+    """``python -m unionml_tpu_torch.cli replay ARGS --out OUT`` in a child:
+    its report parsed, exit code and verdicts printed; exit 1 exactly when
+    the verdict is a breach."""
+    import os
+
+    t0 = time.perf_counter()
+    done = run_cli(["replay", *args, "--out", out], cwd, REPLAY_CLI_S)
+    seconds = time.perf_counter() - t0
+    require(os.path.exists(out), f"`replay {' '.join(args)}` wrote no report (exit {done.returncode}): "
+            f"{done.stderr[-2000:]}")
+    with open(out) as handle:
+        report = json.load(handle)
+    require(json.loads(done.stdout) == report, "the replay CLI's stdout differs from its --out report")
+    print(f"{label}: `replay {' '.join(args)}` exited {done.returncode} in {seconds:.1f} s; "
+          f"{replay_summary(args[0], report)}; card {card}", flush=True)
+    require(done.returncode == (1 if report.get("verdict_state") == "breach" else 0),
+            f"replay exit code {done.returncode} against verdict {report.get('verdict_state')}")
+    return dict(report=report, returncode=done.returncode, seconds=seconds)
+
+
+def replay_cli_phase(card: str, workdir: str, cli: dict) -> dict:
+    """Phase 19b (second half), inside phase 11's workdir after 18b: ``replay
+    scenario:chat_multiturn --self-host llama_app:model --model-path`` over
+    11b's app and artifact, the app served in the CLI child itself."""
+    import os
+
+    from unionml_tpu_torch.workloads import synthesize
+
+    done = replay_cli_report("phase 19b, self-hosted", [
+        "scenario:chat_multiturn", "--self-host", "llama_app:model", "--model-path", cli["artifact"],
+        "--seed", str(REPLAY_SEED)], workdir, os.path.join(workdir, "chat_report.json"), card)
+    replay_answered("chat_multiturn", done["report"], len(synthesize("chat_multiturn", REPLAY_SEED)))
+    return done
+
+
+# phase 20: the remote backend (remote.py, job_runner.py)
+#: (b): phase 7's LoRA app at Llama-3-8B width, REMOTE_LAYERS of 32 layers in bf16 (the artifact at most
+#: REMOTE_ARTIFACT_GIB: 2 x 525M embedding and head parameters and 218M a layer, 2 bytes each, is 3.6 GiB at 4
+#: layers; f32 would be 7.2), REMOTE_ROWS steps of 1 x REMOTE_SEQ, then 4 prompts of APP_PROMPT -> APP_NEW tokens
+REMOTE_LAYERS, REMOTE_ROWS, REMOTE_SEQ, REMOTE_ARTIFACT_GIB = 4, 2, 2048, 5.0
+#: one remote job's time limit (the child starts, loads or draws the weights, runs and writes its outputs)
+REMOTE_JOB_S = 900
+REMOTE_APP_SOURCE = '''
+from typing import List
+
+import numpy as np
+import torch
+
+from unionml_tpu_torch import (
+    ContinuousBatcher, Dataset, GenerationConfig, Generator, Llama, LlamaConfig, Model, TrainerConfig, TrainState,
+    make_train_step,
+)
+from unionml_tpu_torch.models import chunked_causal_lm_loss, lora_optimizer
+
+CONFIG = LlamaConfig.llama3_8b(n_layers={layers}, lora_rank=8, attention_impl="flash", dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
+GENERATION = GenerationConfig(prompt_buckets=({prompt},), max_new_tokens={new}, temperature=0.0)
+
+dataset = Dataset(name="tokens")
+model = Model(name="remote_lora", dataset=dataset)
+model.__app_module__ = "remote_lora_app:model"
+engines = {{}}
+
+
+@dataset.reader
+def reader(n: int, seq: int, seed: int = 0) -> np.ndarray:
+    return np.random.RandomState(seed).randint(1, CONFIG.vocab_size, size=(n, seq)).astype(np.int64)
+
+
+@model.init
+def init(hyperparameters: dict) -> TrainState:
+    module = Llama(CONFIG, device=hyperparameters.get("device"), seed=hyperparameters.get("seed", 0))
+    return TrainState(module, lora_optimizer(module, {lr}))
+
+
+_step = make_train_step(chunked_causal_lm_loss)
+
+
+@model.trainer(config=TrainerConfig(epochs=1, batch_size=1, shuffle=False, log_every_steps=1))
+def trainer(state: TrainState, batch) -> tuple:
+    return _step(state, batch)
+
+
+def engine(state: TrainState) -> ContinuousBatcher:
+    """One paged engine a state: the predictor's prompts share its slots."""
+    if engines.get("state") is not state:
+        if "batcher" in engines:
+            engines["batcher"].close()
+        engines["state"] = state
+        engines["batcher"] = ContinuousBatcher(
+            Generator(state.model, GENERATION, device=next(state.model.parameters()).device), slots=4,
+            decode_chunk=8, block_size=16)
+        model.generation_batcher = engines["batcher"]
+    return engines["batcher"]
+
+
+@model.predictor
+def predictor(state: TrainState, features: np.ndarray) -> List[List[int]]:
+    streams = [engine(state).submit([int(t) for t in row]) for row in features]  # all resident at once
+    return [[int(t) for chunk in stream for t in chunk] for stream in streams]
+'''
+
+
+def job_report(execution_path: str, worker: int = 0) -> dict:
+    """The ``job_runner: report {...}`` line a worker ends its log with."""
+    import os
+
+    log = os.path.join(execution_path, "logs.txt" if worker == 0 else f"logs.{worker}.txt")
+    with open(log) as handle:
+        text = handle.read()
+    require("job_runner: report " in text, f"{log} has no report line: {text[-2000:]}")
+    return json.loads(text.rsplit("job_runner: report ", 1)[1].splitlines()[0])
+
+
+def job_line(report: dict) -> str:
+    return (f"startup {report['startup_s']} s, kernel load {report['kernel_load_s']} s, job {report['job_s']} s, "
+            f"save {report['save_s']} s, peak memory {report['peak_memory_gib']} GiB, launches "
+            f"{ {k: v for k, v in report['launches'].items() if v} }")
+
+
+def latest_execution(store: str, model_name: str, kind: str) -> str:
+    """The newest execution directory of a kind (``train``/``predict``) in a backend store."""
+    import glob
+    import os
+
+    found = glob.glob(os.path.join(store, "unionml-tpu", "development", "executions", model_name, f"{kind}*"))
+    require(bool(found), f"no {kind} execution of {model_name} in {store}")
+    return max(found, key=os.path.getmtime)
+
+
+def template_remote_phase(card: str, workdir: str) -> dict:
+    """Phases 11a and 20a: the port's ``init`` renders the text-generation
+    template, and the CLI runs it through the remote backend (a store in the
+    workdir): ``deploy --allow-uncommitted`` (``--app-version`` where the
+    machine has no git), ``train`` (a ``job_runner`` child trains it on the
+    card with its own schedule), ``list-model-versions``, ``predict
+    --features`` in a second child, ``fetch-model``. ``serve`` boots the
+    fetched artifact, and ``serve --remote`` the registry's; each streams a
+    ``@word`` matching the grammar, and the predict job's continuation does
+    too. Everything that reads the trained version runs at once (the
+    fetched artifact's server after its fetch)."""
+    import ast
+    import os
+    import re
+    import shutil
+
+    t_phase = time.perf_counter()
+    store = os.path.join(workdir, "store")
+    env = {"UNIONML_TPU_STORE": store}
+    done = run_cli(["init", "genapp", "--template", "text-generation"], workdir, 120)
+    require(done.returncode == 0, f"init failed: {done.stderr[-2000:]}")
+    project = os.path.join(workdir, "genapp")
+    committed = shutil.which("git") is not None and os.path.isdir(os.path.join(project, ".git"))
+    version = ["--allow-uncommitted"] if committed else ["--app-version", "template-v1"]
+    steps = {}
+
+    def cli(*args, timeout=REMOTE_JOB_S):
+        t0 = time.perf_counter()
+        done = run_cli(list(args), project, timeout, **env)
+        steps[args[0]] = time.perf_counter() - t0
+        require(done.returncode == 0, f"`{' '.join(args)}` exited {done.returncode}: {done.stderr[-3000:]}")
+        return done.stdout
+
+    deployed = cli("deploy", "app:model", *version)
+    trained = cli("train", "app:model", "-i", json.dumps({"hyperparameters": {"learning_rate": 3e-3}}))
+    train_report = job_report(latest_execution(store, "genapp", "train"))
+    with open(os.path.join(project, "features.json"), "w") as handle:
+        json.dump([TEMPLATE_PROMPT], handle)
+    fetched = os.path.join(project, "fetched.ckpt")
+
+    def served(args, log: str, **extra) -> tuple:
+        """Boot ``serve ARGS``, stream the grammar prompt: (text, seconds to ready, /metrics generation)."""
+        with cli_server(args, project, os.path.join(workdir, log), **extra) as (port, ready_s):
+            text = "".join(stream_http(port, [TEMPLATE_PROMPT]))
+            status, _, body = http_request(port, "GET", "/metrics")
+            require(status == 200, f"/metrics answered {status}")
+            return text, ready_s, json.loads(body).get("generation")
+
+    def fetch_and_serve() -> tuple:
+        cli("fetch-model", "app:model", "-o", fetched)
+        return served(["app:model", "--model-path", fetched], "template_server.log")
+
+    # everything that reads the trained version at once, each a process of its own
+    (versions, predicted, (text, ready_s, generation), (remote_text, remote_ready_s, _)), _ = concurrent([
+        functools.partial(cli, "list-model-versions", "app:model"),
+        functools.partial(cli, "predict", "app:model", "--features", os.path.join(project, "features.json")),
+        fetch_and_serve,
+        functools.partial(served, ["app:model", "--remote"], "template_remote.log", **env)])
+    predict_report = job_report(latest_execution(store, "genapp", "predict"))
+    prediction = ast.literal_eval(predicted.split("Predictions: ", 1)[1].strip())[0]
+    prompt_text = TEMPLATE_PROMPT.split(" ", 1)[1]
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 20a: the text-generation template rendered by the CLI's init, through the remote backend: "
+          f"{deployed.strip()!r} ({'git HEAD' if committed else 'no git on this machine: an explicit version'}); "
+          f"`train` {steps['train']:.1f} s ({trained.strip().splitlines()[-1]!r}; the job_runner child: "
+          f"{job_line(train_report)}); versions {versions.split()[-1]!r}; `predict` {steps['predict']:.1f} s "
+          f"({prediction!r}; its child: {job_line(predict_report)}); `fetch-model` {steps['fetch-model']:.1f} s; "
+          f"`serve --model-path <fetched>` ready in {ready_s:.1f} s streamed {text!r} (/metrics decode dispatches "
+          f"{generation and generation.get('decode_dispatches')}); `serve --remote` ready in {remote_ready_s:.1f} s "
+          f"streamed {remote_text!r}; phase 20a took {seconds:.1f} s; card {card}", flush=True)
+    require(train_report["peak_memory_gib"] is not None, "the template's job_runner child did not train on the card")
+    require("- train-" in versions, f"no trained version listed: {versions!r}")
+    require(prediction.startswith(prompt_text) and re.fullmatch(TEMPLATE_REGEX, prediction[len(prompt_text):]),
+            f"the predict job's @word continuation {prediction!r} is not [a-z]+")
+    for streamed in (text, remote_text):
+        require(streamed and re.fullmatch(TEMPLATE_REGEX, streamed) is not None,
+                f"the @word stream {streamed!r} is not [a-z]+")
+    require(generation is not None and generation["decode_dispatches"] > 0, f"/metrics generation {generation}")
     return dict(seconds=seconds)
+
+
+def lora_remote_phase(card: str) -> dict:
+    """Phase 20b: phase 7's LoRA app as a module (``REMOTE_APP_SOURCE``) at
+    Llama-3-8B width, ``REMOTE_LAYERS`` deep, through the backend's
+    ``LocalProcessLauncher``: ``remote_train`` (``REMOTE_ROWS`` steps of 1 x
+    ``REMOTE_SEQ``, numpy seed 0) and ``remote_predict`` of 4 prompts, each
+    in a ``job_runner`` child on this card. The children's launches come
+    back from their logs: flash forward and fused backward in training, the
+    paged kernel in prediction. The artifact (at most ``REMOTE_ARTIFACT_GIB``),
+    fetched and loaded here while the predict job runs, predicts the remote
+    job's tokens."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_remote_")
+    source = os.path.join(root, "app")
+    os.makedirs(source)
+    with open(os.path.join(source, "remote_lora_app.py"), "w") as handle:
+        handle.write(REMOTE_APP_SOURCE.format(layers=REMOTE_LAYERS, prompt=APP_PROMPT, new=APP_NEW, lr=LR))
+    sys.path.insert(0, source)
+    cwd = os.getcwd()
+    try:
+        import remote_lora_app
+
+        model = remote_lora_app.model
+        model.remote(backend_store=os.path.join(root, "store"))
+        os.chdir(source)  # the bundle is the working directory: the app module alone
+        version = model.remote_deploy(app_version="lora-v1")
+        os.chdir(cwd)
+        t0 = time.perf_counter()
+        trained = model.remote_train(wait=False, hyperparameters={"seed": 0}, n=REMOTE_ROWS, seq=REMOTE_SEQ, seed=0)
+        model.remote_wait(trained, timeout=REMOTE_JOB_S)
+        train_s = time.perf_counter() - t0
+        train_report = job_report(trained.path)
+        size = os.path.getsize(os.path.join(trained.path, "outputs", "model_object.bin"))
+        prompts = np.random.RandomState(2).randint(1, remote_lora_app.CONFIG.vocab_size, size=(4, APP_PROMPT))
+        t0 = time.perf_counter()
+        predicting = model.remote_predict(wait=False, features=prompts)
+        model.remote_load(trained)  # fetched and loaded here while the predict job runs
+        before = paged_decode_attention.launches
+        local_tokens = model.predict(features=prompts)
+        local_launches = paged_decode_attention.launches - before
+        remote_tokens = model.remote_fetch_predictions(predicting)
+        predict_s = time.perf_counter() - t0
+        predict_report = job_report(predicting.path)
+        on_card = all(p.device.type == "cuda" for p in model.artifact.model_object.model.parameters())
+    finally:
+        os.chdir(cwd)
+        sys.path.remove(source)
+        batcher = getattr(sys.modules.get("remote_lora_app"), "engines", {}).get("batcher")
+        if batcher is not None:
+            batcher.close()
+        sys.modules.pop("remote_lora_app", None)
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    train_launches, predict_launches = train_report["launches"], predict_report["launches"]
+    per_run = REMOTE_LAYERS * REMOTE_ROWS
+    print(f"phase 20b: phase 7's LoRA app at Llama-3-8B width, {REMOTE_LAYERS} of 32 layers, bf16, deployed as "
+          f"{version}; remote_train ({REMOTE_ROWS} steps of 1 x {REMOTE_SEQ}) {train_s:.1f} s, the child: "
+          f"{job_line(train_report)}; artifact {size / 2**30:.2f} GiB (limit {REMOTE_ARTIFACT_GIB}); "
+          f"remote_predict (4 prompts x {APP_PROMPT} -> {APP_NEW}; the load and predict here beside it) "
+          f"{predict_s:.1f} s, the child: "
+          f"{job_line(predict_report)}; loaded here (on the card: {on_card}) the artifact predicts the remote "
+          f"job's tokens: {np.array_equal(np.asarray(local_tokens), np.asarray(remote_tokens))} ({local_launches} "
+          f"paged launches here); phase 20b took {seconds:.1f} s; card {card}", flush=True)
+    require(train_launches["flash_forward"] == per_run and train_launches["flash_backward"] == per_run,
+            f"the training child's flash launches {train_launches}, expected {per_run} of each")
+    require(predict_launches["paged_decode_attention"] > 0, f"the predict child's launches {predict_launches}")
+    require(size <= REMOTE_ARTIFACT_GIB * 2**30, f"the artifact is {size / 2**30:.2f} GiB")
+    require(on_card and np.array_equal(np.asarray(local_tokens), np.asarray(remote_tokens))
+            and np.asarray(remote_tokens).shape == (4, APP_NEW), "the fetched artifact predicts other tokens")
+    require(all(v == 0 for k, v in {**train_launches, **predict_launches}.items()
+                if k not in ("flash_forward", "flash_backward", "paged_decode_attention")),
+            f"kernels off the remote paths launched: {train_launches}, {predict_launches}")
+    torch.cuda.empty_cache()
+    return dict(launches={"flash_forward": train_launches["flash_forward"],
+                          "flash_backward": train_launches["flash_backward"],
+                          "paged_decode_attention": predict_launches["paged_decode_attention"]},
+                seconds=seconds)
 
 
 def main() -> int:
@@ -5706,7 +6119,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 17a: the cold start in process (the AOT store's graph route against the eager one)
-    aot = aot_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16_streams)
+    aot = aot_phase(card, dataclasses.replace(cfg, n_layers=AOT_LAYERS), gcfg, prompts, slots, decode_chunk)
     torch.cuda.empty_cache()
 
     # ---- phase 4: token parity at float32, 2 layers of the same width
@@ -5747,7 +6160,7 @@ def main() -> int:
             app_launches["int8_matmul"] == 0, f"app path launches {app_launches}")
 
     # ---- phase 8: the serving half (Model.serve, HTTP over a loopback socket) on phase 3's weights
-    http_launches = http_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16, args.profile)
+    http_launches, replayed = http_phase(card, cfg, gcfg, prompts, slots, decode_chunk, bf16, args.profile)
     torch.cuda.empty_cache()
 
     # ---- phase 9: speculative decoding and beam search; the int8-page mode on a live pool
@@ -5761,10 +6174,17 @@ def main() -> int:
     # ---- phase 10a: chunked admission and shared-prefix reuse on the same target
     prefix_launches = prefix_phase(card, target, gcfg, prompts, slots, decode_chunk)
     t10 = time.perf_counter() - t10
-    # ---- phase 14a-c: the in-process replica layer on the same target (d: f32 parity, below)
-    t14 = time.perf_counter()
-    replica = replica_phase(card, target, gcfg, prompts, slots, decode_chunk, bf16_streams, args.profile)
     del target
+    torch.cuda.empty_cache()
+    # ---- phase 14a-c: the in-process replica layer, REPLICA_LAYERS deep (d: f32 parity, below)
+    t14 = time.perf_counter()
+    replica_model = Llama(dataclasses.replace(cfg, n_layers=REPLICA_LAYERS), seed=0)
+    reference = ContinuousBatcher(Generator(replica_model, gcfg), slots=slots, decode_chunk=decode_chunk,
+                                  block_size=BLOCK)
+    replica_streams, _ = serve(reference, prompts)
+    reference.close()
+    replica = replica_phase(card, replica_model, gcfg, prompts, slots, decode_chunk, replica_streams, args.profile)
+    del replica_model, reference
     torch.cuda.empty_cache()
     replica_parity_phase(gcfg, prompts, slots, decode_chunk)
     t14 = time.perf_counter() - t14
@@ -5783,18 +6203,29 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         t0 = time.perf_counter()
-        template_cli_phase(card, workdir)
+        # ---- phases 11a and 20a: the template through the remote backend's CLI, then served
+        template = template_remote_phase(card, workdir)
         cli = llama_cli_phase(card, prompts, workdir)
-        print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"phase 11 took {time.perf_counter() - t0 - template['seconds']:.1f} s (20a apart)", flush=True)
         # ---- phase 17b-c: the AOT store and the kernel build cache in CLI children; serverless in process
         t0 = time.perf_counter()
         aot_cli_phase(card, prompts, workdir, cli)
         print(f"phase 17b-c took {time.perf_counter() - t0:.1f} s", flush=True)
         # ---- phase 18b: the multi-host fleet through the serve CLI's front door, on 11b's app and artifact
         fleet_cli = fleet_cli_phase(card, prompts, workdir, cli)
+        # ---- phase 19b: the replay CLI self-hosting 11b's app and artifact
+        replay_cli = replay_cli_phase(card, workdir, cli)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+    print(f"phase 19 took {replayed['seconds'] + fleet_cli['replay']['seconds'] + replay_cli['seconds']:.1f} s "
+          f"(19a {replayed['seconds']:.1f}, 19b {fleet_cli['replay']['seconds'] + replay_cli['seconds']:.1f})",
+          flush=True)
+
+    # ---- phase 20b: the remote backend's train and predict jobs at Llama-3-8B width
+    remote = lora_remote_phase(card)
+    print(f"phase 20 took {template['seconds'] + remote['seconds']:.1f} s (20a {template['seconds']:.1f}, 20b "
+          f"{remote['seconds']:.1f})", flush=True)
 
     # ---- phase 12: the routed-experts decoder (MoE): MoEConfig() served, then f32 parity at 2 layers
     t0 = time.perf_counter()
@@ -5839,6 +6270,9 @@ def main() -> int:
         "replica_launches": replica["replica_launches"],
         # phase 18a: the fleet's waves, host 0's launches in this process and host 1's in its worker
         "fleet_launches": fleet["fleet_launches"],
+        # phase 19a: the replays through phase 8's app; phase 20b: the remote predict job's child
+        "replay_launches": replayed["launches"],
+        "remote_launches": remote["launches"]["paged_decode_attention"],
         **numbers,
     }]
     for name, measured in flash_numbers.items():
@@ -5847,6 +6281,8 @@ def main() -> int:
             "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name], "launches": flash_launches[name], "app_launches": app_launches[name],
             "http_launches": http_launches[name],
+            # phase 20b: the remote training job's child (the bf16 pair only)
+            **({"remote_launches": remote["launches"][name]} if name in remote["launches"] else {}),
             **measured,
         })
     kernels.append({
@@ -5893,6 +6329,9 @@ def main() -> int:
     require(kernels[0]["prefix_launches"] > 0, "the paged kernel never launched on the prefix path")
     require(kernels[0]["replica_launches"] > 0, "the paged kernel never launched on the replica path")
     require(kernels[0]["fleet_launches"] > 0, "the paged kernel never launched on the fleet path")
+    require(kernels[0]["replay_launches"] > 0, "the paged kernel never launched in the replays")
+    require(all(k["remote_launches"] > 0 for k in kernels if "remote_launches" in k)
+            and sum("remote_launches" in k for k in kernels) == 3, "a kernel never launched on the remote paths")
     require(all(k["aot_launches"] > 0 for k in kernels if k["name"] in ("paged_decode_attention", "int8_matmul")),
             "a kernel of the graph route never launched in phase 17a")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -713,27 +713,18 @@ def test_step_mode_trains_on_the_device_init_chose(monkeypatch, evaluate_steps):
         model.train(hyperparameters={}, n=12)
 
 
-@pytest.mark.parametrize("call", ["serve", "predictor-jit", "remote", "remote_train"])
+@pytest.mark.parametrize("call", ["predictor-jit"])
 def test_unported_parts_raise_naming_the_roadmap(call):
+    """Every part this case once refused is ported: ``serve(remote=True)``
+    and ``remote*`` (tests/test_torch_remote.py), and a predictor over a
+    mesh, checked here: a ``MeshSpec`` runs (tests/test_torch_serving_mesh.py),
+    a pipe axis too (replicated, as in JAX), so one process holding no pipe=2
+    mesh raises JAX's ValueError for too few devices, not a refusal."""
     from unionml_tpu_torch.parallel import MeshSpec
 
     model = make_sklearn_model(PACKAGES["torch"])
-    calls = {
-        "serve": (lambda: model.serve(remote=True), "Queue A: the rest"),
-        # a MeshSpec runs (tests/test_torch_serving_mesh.py), a pipe axis too (replicated, as in JAX): one
-        # process holds no pipe=2 mesh, which raises JAX's ValueError for too few devices, not a refusal
-        "predictor-jit": (lambda: model.predictor(model._predictor, config=SimpleNamespace(jit=True, mesh=MeshSpec(
-            pipe=2))), None),
-        "remote": (lambda: model.remote(backend_store="store"), "Queue A: the rest"),
-        "remote_train": (lambda: model.remote_train(hyperparameters={}), "Queue A: the rest"),
-    }
-    fn, item = calls[call]
-    if item is None:  # ported since
-        with pytest.raises(ValueError, match="1 devices not divisible by fixed axes product 2"):
-            fn()
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        fn()
+    with pytest.raises(ValueError, match="1 devices not divisible by fixed axes product 2"):
+        model.predictor(model._predictor, config=SimpleNamespace(jit=True, mesh=MeshSpec(pipe=2)))
 
 
 def test_app_hooks_stay_settable():

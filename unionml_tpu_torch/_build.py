@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
@@ -48,6 +49,8 @@ _loaded_paths: Dict[str, Path] = {}
 build_logs: Dict[str, str] = {}
 #: ``nvcc`` processes this process started (a store hit starts none)
 nvcc_runs = 0
+#: seconds this process spent building and loading libraries (:func:`load_library`)
+load_seconds = 0.0
 _dir = BUILD_DIR
 _local = threading.local()
 
@@ -147,13 +150,16 @@ def build_all(names: Sequence[str] = ()) -> Dict[str, Path]:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The built, loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    global load_seconds
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
             _loaded_paths[name] = path
+            load_seconds += time.perf_counter() - t0
         return lib
 
 

@@ -31,16 +31,23 @@ error such as an unknown option.
   ``--probation-probes`` and ``--lease-ttl`` arm fault injection and tune
   the host lifecycle. All are validated and exported as the JAX CLI exports
   them, before the app module imports.
-- What the port does not have is refused at boot, before any export and
-  before the app module is imported, naming its ROADMAP.md item:
-  ``--remote`` and the ``deploy``, ``train``, ``predict``,
-  ``list-model-versions``, ``fetch-model``, ``replay`` and ``lint`` commands
-  (Queue A: the rest). Each of those commands exists and refuses.
+- ``deploy``, ``train``, ``predict``, ``list-model-versions`` and
+  ``fetch-model`` drive the remote backend (:mod:`unionml_tpu_torch.remote`:
+  the app shipped to a store, its workflows run in ``job_runner`` workers on
+  the card), and ``serve --remote`` serves the registry's latest trained
+  artifact (``--app-version``/``--model-version`` pick another).
+- ``replay`` plays a trace or a scenario through the HTTP stack of a live
+  server (``--target``) or of the app in process (``--self-host``) and
+  judges it (:mod:`unionml_tpu_torch.workloads`); exit code 1 on a
+  ``breach`` verdict.
+- ``lint`` is not ported: it exists, exits 1 at boot before the app module
+  is imported, and names its ROADMAP.md item (Queue A: the rest).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from pathlib import Path
@@ -50,13 +57,18 @@ from unionml_tpu_torch.defaults import MODEL_PATH_ENV_VAR
 
 PROG = "unionml-tpu-torch"
 _THE_REST = "the rest"
-#: commands of the JAX CLI that the port refuses: the remote backend, the replayer and the linter
-_REFUSED_COMMANDS = ("deploy", "train", "predict", "list-model-versions", "fetch-model", "replay", "lint")
+#: commands of the JAX CLI that the port refuses: the linter
+_REFUSED_COMMANDS = ("lint",)
 
 
 class UsageError(Exception):
     """A failed check of a command: ``Error: <message>`` on stderr, exit 1
     (``click.ClickException``)."""
+
+
+class BadParameter(Exception):
+    """A malformed option value: ``Error: Invalid value: <message>`` on
+    stderr, exit 2 (``click.BadParameter``)."""
 
 
 def _not_ported(what: str, item: str) -> UsageError:
@@ -69,6 +81,84 @@ def _locate_model(app_ref: str) -> Any:
 
     sys.path.insert(0, os.getcwd())
     return locate(app_ref)
+
+
+def _parse_json_option(raw: Optional[str], option: str) -> Any:
+    if raw is None:
+        return None
+    try:
+        return json.loads(raw)
+    except json.JSONDecodeError as exc:
+        raise BadParameter(f"{option} must be valid JSON: {exc}")
+
+
+def _existing_file(value: str) -> Path:
+    """An argparse type: a path to a file that exists (click's ``Path(exists=True, dir_okay=False)``)."""
+    path = Path(value)
+    if not path.is_file():
+        raise argparse.ArgumentTypeError(f"file {value!r} does not exist")
+    return path
+
+
+# ---------------------------------------------------------------------- the remote backend
+
+
+def deploy(args: argparse.Namespace) -> None:
+    """Deploy a model's train/predict services to the backend (reference cli.py:54-82)."""
+    model = _locate_model(args.app_ref)
+    version = model.remote_deploy(
+        app_version=args.app_version, allow_uncommitted=args.allow_uncommitted, patch=args.patch
+    )
+    print(f"Deployed {args.app_ref} version {version}")
+
+
+def train(args: argparse.Namespace) -> None:
+    """Train a model on the backend (reference cli.py:85-103)."""
+    model = _locate_model(args.app_ref)
+    parsed = _parse_json_option(args.inputs, "--inputs") or {}
+    print(f"Training {model.name}", flush=True)
+    model.remote_train(app_version=args.app_version, wait=True, **parsed)
+    assert model.artifact is not None
+    print("Done.")
+    print(f"Model: {model.artifact.model_object}")
+    print(f"Metrics: {model.artifact.metrics}")
+
+
+def predict(args: argparse.Namespace) -> None:
+    """Generate predictions on the backend (reference cli.py:106-127)."""
+    model = _locate_model(args.app_ref)
+    parsed_inputs = _parse_json_option(args.inputs, "--inputs") or {}
+    parsed_features = json.loads(args.features.read_text()) if args.features is not None else None
+    print(f"Generating predictions with {model.name}", flush=True)
+    predictions = model.remote_predict(
+        app_version=args.app_version,
+        model_version=None if args.model_version == "latest" else args.model_version,
+        wait=True,
+        features=parsed_features,
+        **parsed_inputs,
+    )
+    print(f"Predictions: {predictions}")
+
+
+def list_model_versions(args: argparse.Namespace) -> None:
+    """List all trained model versions, newest first (reference cli.py:130-144)."""
+    model = _locate_model(args.app_ref)
+    app_version = args.app_version or model._backend.latest_app_version(model)
+    print(f"Listing model versions for app {args.app_ref} (app version: {app_version})")
+    for version in model.remote_list_model_versions(app_version=app_version, limit=args.limit):
+        print(f"- {version}")
+
+
+def fetch_model(args: argparse.Namespace) -> None:
+    """Fetch a trained model from the backend registry and save it locally
+    (reference cli.py:147-164)."""
+    model = _locate_model(args.app_ref)
+    saver_kwargs = _parse_json_option(args.kwargs, "--kwargs") or {}
+    model.artifact = model._backend.fetch_latest_artifact(
+        model, app_version=args.app_version, model_version=args.model_version
+    )
+    model.save(args.output_file, **saver_kwargs)
+    print(f"Model saved to {args.output_file}")
 
 
 # ---------------------------------------------------------------------- init, templates
@@ -94,13 +184,6 @@ def templates() -> None:
 
 
 # ---------------------------------------------------------------------- serve
-
-
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """Raise on the serve flag that selects a part the port does not have:
-    the remote backend."""
-    if args.remote:
-        raise _not_ported("--remote (the remote backend)", _THE_REST)
 
 
 def _export_knobs(args: argparse.Namespace) -> None:
@@ -261,7 +344,6 @@ def serve(args: argparse.Namespace, argv: Sequence[str]) -> None:
     before forking; it serves from one process and scales through the
     engine's batching. ``--reload`` runs the server in a child process and
     restarts it when the app's sources change."""
-    _refuse_unported(args)
     _export_knobs(args)
 
     if args.reload:
@@ -274,7 +356,7 @@ def serve(args: argparse.Namespace, argv: Sequence[str]) -> None:
     if isinstance(target, ServingApp):
         serving = target
     else:
-        serving = target.serve()
+        serving = target.serve(remote=args.remote, app_version=args.app_version, model_version=args.model_version)
     serving.configure_overload(
         max_inflight=args.max_inflight,
         default_deadline_ms=args.deadline_ms,
@@ -436,6 +518,106 @@ def _serve_with_reload(app_ref: str, argv: Sequence[str], poll_interval: float =
             raise
 
 
+# ---------------------------------------------------------------------- replay
+
+
+def replay_cmd(args: argparse.Namespace) -> None:
+    """Replay a traffic trace through the real HTTP stack and judge it.
+
+    TRACE is a trace file (``serve --record-traffic`` output, or
+    ``write_trace``), or ``scenario:<name>`` for a library mix synthesized
+    deterministically from ``--seed``. Exactly one of ``--target`` (a live
+    server over sockets) or ``--self-host`` (the app's ``ServingApp`` in
+    process) selects the system under test; ``--fault-plan`` (self-host only)
+    arms a fault plan on the app's fleet coordinator and adds the
+    availability section. The report goes to stdout (and ``--out``); exit
+    code 1 when any judged tenant breaches."""
+    from unionml_tpu_torch.workloads import read_trace, replay, scenario_meta, scenario_targets, synthesize
+
+    if (args.target is None) == (args.self_host is None):
+        raise UsageError("pass exactly one of --target URL or --self-host APP")
+    if args.trace.startswith("scenario:"):
+        name = args.trace.split(":", 1)[1]
+        try:
+            requests = synthesize(name, args.seed)
+            targets = scenario_targets(name)
+            meta = scenario_meta(name, args.seed)
+        except ValueError as exc:
+            raise UsageError(str(exc))
+    else:
+        try:
+            meta, requests = read_trace(args.trace)
+        except (OSError, ValueError) as exc:
+            raise UsageError(f"could not read trace {args.trace!r}: {exc}")
+        # a synthesized trace file remembers its scenario: reuse its targets
+        targets = None
+        if meta.get("scenario"):
+            try:
+                targets = scenario_targets(str(meta["scenario"]))
+            except ValueError:
+                targets = None
+    plan = None
+    if args.fault_plan is not None:
+        if args.self_host is None:
+            raise UsageError(
+                "--fault-plan needs --self-host (the plan arms the app's own fleet "
+                "coordinator; a --target server arms its own via serve --fault-plan)"
+            )
+        from unionml_tpu_torch.serving.faults import FaultPlan
+
+        try:
+            if args.fault_plan.lstrip().startswith("{"):
+                plan = FaultPlan.parse(args.fault_plan)
+            else:
+                plan = FaultPlan.load(args.fault_plan)
+        except (OSError, ValueError) as exc:
+            raise UsageError(f"--fault-plan: {exc}")
+    serving = None
+    if args.self_host is not None:
+        if args.model_path is not None:
+            if os.getenv(MODEL_PATH_ENV_VAR) is not None:
+                raise UsageError(
+                    f"{MODEL_PATH_ENV_VAR} is already set and takes precedence over "
+                    "--model-path; unset it first"
+                )
+            if not args.model_path.exists():
+                raise UsageError(f"model path {args.model_path} does not exist")
+            os.environ[MODEL_PATH_ENV_VAR] = str(args.model_path)
+        located = _locate_model(args.self_host)
+        from unionml_tpu_torch.serving import ServingApp
+
+        serving = located if isinstance(located, ServingApp) else located.serve()
+        serving.startup()
+    fault_times = None
+    if plan is not None:
+        engine = getattr(serving.model, "generation_batcher", None)
+        arm = getattr(engine, "arm_faults", None)
+        if not callable(arm):
+            raise UsageError(
+                "--fault-plan needs a fleet coordinator behind the app "
+                "(serve --num-hosts; a single-engine app has no host lifecycle to chaos)"
+            )
+        arm(plan)  # virtual time starts now — the replay launches immediately
+        fault_times = plan.fault_times()
+    report = replay(
+        requests,
+        app=serving,
+        target=args.target,
+        concurrency=args.concurrency,
+        rate_scale=args.rate_scale,
+        grace_s=args.grace_ms / 1000.0,
+        targets=targets,
+        meta=meta,
+        fault_times_s=fault_times,
+    )
+    rendered = json.dumps(report, indent=2)
+    print(rendered)
+    if args.out is not None:
+        args.out.write_text(rendered)
+    if report.get("verdict_state") == "breach":
+        raise SystemExit(1)
+
+
 # ---------------------------------------------------------------------- the parser
 
 
@@ -524,8 +706,60 @@ def _serve_parser(sub: Any) -> None:
         "UNIONML_TPU_PROBATION_PROBES")
     add("--lease-ttl", type=float, default=None,
         help="the coordinator lease's TTL in seconds; exported as UNIONML_TPU_LEASE_TTL_S")
-    refused = p.add_argument_group("not ported yet (refused at boot; ROADMAP.md, Queue A: the rest)")
-    refused.add_argument("--remote", action="store_true")
+    add("--remote", action="store_true", help="load the model from the remote backend registry")
+    add("--app-version", default=None, help="app version for --remote model loading")
+    add("--model-version", default="latest", help="model version for --remote loading (default: latest)")
+
+
+def _remote_parsers(sub: Any) -> None:
+    p = sub.add_parser("deploy", help="deploy a model's train/predict services to the backend")
+    p.add_argument("app_ref", metavar="APP")
+    p.add_argument("--app-version", default=None, help="app version; defaults to the git HEAD sha")
+    p.add_argument("--allow-uncommitted", action="store_true", help="deploy with uncommitted changes")
+    p.add_argument("--patch", action="store_true", help="fast re-registration: re-ship source only")
+    p = sub.add_parser("train", help="train a model on the backend")
+    p.add_argument("app_ref", metavar="APP")
+    p.add_argument("--inputs", "-i", default=None, help="training inputs as a JSON object")
+    p.add_argument("--app-version", default=None, help="app version to run; defaults to latest deployed")
+    p = sub.add_parser("predict", help="generate predictions on the backend")
+    p.add_argument("app_ref", metavar="APP")
+    p.add_argument("--inputs", "-i", default=None, help="prediction inputs (reader kwargs) as a JSON object")
+    p.add_argument("--features", "-f", type=_existing_file, default=None,
+                   help="generate predictions from a JSON file of features")
+    p.add_argument("--app-version", default=None, help="app version to run; defaults to latest deployed")
+    p.add_argument("--model-version", default="latest", help="model version to predict with (default: latest)")
+    p = sub.add_parser("list-model-versions", help="list all trained model versions, newest first")
+    p.add_argument("app_ref", metavar="APP")
+    p.add_argument("--app-version", default=None, help="app version; defaults to latest deployed")
+    p.add_argument("--limit", type=int, default=10, help="maximum number of versions to list (default: 10)")
+    p = sub.add_parser("fetch-model", help="fetch a trained model from the backend registry and save it locally")
+    p.add_argument("app_ref", metavar="APP")
+    p.add_argument("--app-version", default=None, help="app version; defaults to latest deployed")
+    p.add_argument("--model-version", default="latest", help="model version to fetch (default: latest)")
+    p.add_argument("--output-file", "-o", type=Path, required=True, help="path to write the fetched model object to")
+    p.add_argument("--kwargs", default=None, help="JSON keyword arguments forwarded to the model saver")
+
+
+def _replay_parser(sub: Any) -> None:
+    p = sub.add_parser("replay", help="replay a traffic trace through the real HTTP stack and judge it")
+    p.add_argument("trace", metavar="TRACE", help="a trace file, or scenario:<name> for a library mix")
+    add = p.add_argument
+    add("--target", default=None, metavar="URL",
+        help="replay against a live server (base URL, e.g. http://127.0.0.1:8000)")
+    add("--self-host", dest="self_host", default=None, metavar="APP",
+        help="host the app in-process (module:variable of a Model or ServingApp, the `serve` APP argument) and "
+        "replay through its HTTP dispatch surface")
+    add("--model-path", type=Path, default=None, help="path to the saved model object for --self-host")
+    add("--seed", type=int, default=0, help="scenario seed for a scenario:<name> TRACE (default: 0)")
+    add("--rate-scale", type=float, default=1.0,
+        help="compress (>1) or stretch (<1) the trace's arrival schedule (default: 1.0)")
+    add("--concurrency", type=int, default=32, help="in-flight request cap (default: 32)")
+    add("--grace-ms", type=float, default=250.0, help="launch-lag tolerance counted as schedule-adherent "
+        "(default: 250)")
+    add("--out", type=Path, default=None, help="write the report JSON here as well as stdout")
+    add("--fault-plan", dest="fault_plan", default=None, metavar="PLAN",
+        help="chaos mode (--self-host only): arm this fault plan (JSON file or inline) on the app's fleet "
+        "coordinator when the replay starts, and add the availability section to the report")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -538,10 +772,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--template", "-t", default="basic", help="template to scaffold the app from (see `templates`)")
     sub.add_parser("templates", help="list available project templates")
     _serve_parser(sub)
+    _remote_parsers(sub)
+    _replay_parser(sub)
     for name in _REFUSED_COMMANDS:
         p = sub.add_parser(name, help="not ported yet (ROADMAP.md, Queue A: the rest)")
         p.add_argument("rest", nargs=argparse.REMAINDER)
     return parser
+
+
+_COMMANDS = {
+    "deploy": deploy,
+    "train": train,
+    "predict": predict,
+    "list-model-versions": list_model_versions,
+    "fetch-model": fetch_model,
+    "replay": replay_cmd,
+}
 
 
 def app(argv: Optional[Sequence[str]] = None) -> None:
@@ -556,11 +802,16 @@ def app(argv: Optional[Sequence[str]] = None) -> None:
             templates()
         elif args.command == "serve":
             serve(args, argv)
+        elif args.command in _COMMANDS:
+            _COMMANDS[args.command](args)
         else:
             raise _not_ported(f"the {args.command!r} command", _THE_REST)
     except UsageError as exc:
         print(f"Error: {exc}", file=sys.stderr)
         raise SystemExit(1)
+    except BadParameter as exc:
+        print(f"Error: Invalid value: {exc}", file=sys.stderr)
+        raise SystemExit(2)
     raise SystemExit(0)
 
 

@@ -45,7 +45,8 @@ class Resources:
     The JAX package's fields, kept for the stage interface: ``accelerator``
     names an accelerator topology and ``chips`` how many; ``None`` means
     host-only execution, the default for data-plumbing stages. Nothing in
-    the port schedules on them yet (the remote backend is ROADMAP.md, Queue A).
+    the port schedules on them: the remote backend takes its accelerator
+    from ``Model.remote(accelerator=...)``, as in JAX.
     """
 
     cpu: str = "1"

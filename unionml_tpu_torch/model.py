@@ -23,9 +23,13 @@ Serving: :meth:`Model.serve` returns the port's
 :class:`~unionml_tpu_torch.serving.ServingApp`, and
 ``predictor(config=ServingConfig(jit=True))`` routes predictor calls through
 a :class:`~unionml_tpu_torch.serving.compile.CompiledPredictor` (bucketed
-padding under ``torch.inference_mode()``). Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: ``serve(remote=True)``
-and ``remote*`` (ROADMAP.md, Queue A: the rest, the remote backend).
+padding under ``torch.inference_mode()``).
+
+Remote: :meth:`Model.remote` configures the backend
+(:mod:`unionml_tpu_torch.remote`), and ``remote_deploy``/``remote_train``/
+``remote_predict`` ship the app to a store and run its workflows in
+``job_runner`` workers on the card; ``serve(remote=True)`` serves the
+registry's latest trained artifact.
 """
 
 from __future__ import annotations
@@ -51,9 +55,6 @@ from unionml_tpu_torch.utils import dataclass_to_dict, json_dataclass
 from unionml_tpu_torch.utils import resolved_signature as signature
 
 __all__ = ["BaseHyperparameters", "Model", "ModelArtifact"]
-
-_UNPORTED_REMOTE = "the remote backend is not ported yet (ROADMAP.md, Queue A: the rest)"
-
 
 def _state_device(model_object: Any) -> Any:
     """The device a step-mode state lives on: that of its module (a
@@ -109,6 +110,8 @@ class Model:
         self._predictor_config: Optional[Any] = None
         self._compiled_predictor: Optional[Any] = None
         self.last_fit_result: Optional[Any] = None
+        self._backend_config: Optional[Any] = None
+        self.__backend__: Optional[Any] = None
 
         # stage caches + per-stage exec kwargs
         self._train_stage: Optional[Stage] = None
@@ -621,11 +624,10 @@ class Model:
         Returns a :class:`unionml_tpu_torch.serving.ServingApp` exposing
         ``POST /predict``, ``POST /predict-stream``, the ``/v1/*``
         completions surface, ``GET /health``, ``/healthz``, ``/metrics`` and
-        the debug routes, with dynamic micro-batching. ``remote=True`` raises
-        ``NotImplementedError``: the remote backend is not ported.
+        the debug routes, with dynamic micro-batching. ``remote=True`` loads the
+        latest (or ``model_version``) trained artifact from the remote
+        backend's registry at ``startup()``.
         """
-        if remote:
-            raise NotImplementedError(f"Model.serve(remote=True): {_UNPORTED_REMOTE}")
         from unionml_tpu_torch.serving import serving_app
 
         return serving_app(
@@ -634,31 +636,138 @@ class Model:
 
     # ------------------------------------------------------------------ remote backend
 
-    def remote(self, *args: Any, **kwargs: Any) -> None:
-        """The remote backend (deploy, train and predict on a cluster): not
-        ported yet."""
-        raise NotImplementedError(_UNPORTED_REMOTE)
+    def remote(
+        self,
+        registry: Optional[str] = None,
+        image_name: Optional[str] = None,
+        dockerfile: str = "Dockerfile",
+        patch_destination_dir: str = "/root",
+        config_file: Optional[str] = None,
+        project: Optional[str] = None,
+        domain: Optional[str] = None,
+        backend_store: Optional[str] = None,
+        accelerator: Optional[str] = None,
+        n_workers: int = 1,
+        launcher: Optional[Any] = None,
+    ) -> None:
+        """Configure the remote backend (reference model.py:625-654 keeps docker/Flyte
+        knobs; the substrate adds ``backend_store`` — the job/artifact store root —
+        ``accelerator`` — the GPU slice to schedule training onto, counted in
+        GPUs (``"h100-16"``: two 8-GPU hosts) — ``n_workers`` — worker processes
+        per execution, which join one ``torch.distributed`` group (the
+        multi-host slice analog) — and ``launcher`` — a
+        :class:`unionml_tpu_torch.launcher.Launcher` deciding where the workers
+        run (default: local subprocesses; pass a
+        :class:`~unionml_tpu_torch.launcher.GPUVMLauncher` to provision real hosts)."""
+        from unionml_tpu_torch.remote import BackendConfig
 
-    def remote_deploy(self, *args: Any, **kwargs: Any) -> str:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+        self._launcher = launcher
+        self._backend_config = BackendConfig(
+            registry=registry,
+            image_name=image_name,
+            dockerfile=dockerfile,
+            patch_destination_dir=patch_destination_dir,
+            config_file=config_file,
+            project=project or "unionml-tpu",
+            domain=domain or "development",
+            store=backend_store,
+            accelerator=accelerator,
+            n_workers=n_workers,
+        )
+        self.__backend__ = None
 
-    def remote_train(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+    @property
+    def _backend(self) -> Any:
+        if self.__backend__ is not None:
+            return self.__backend__
+        from unionml_tpu_torch.remote import Backend, BackendConfig
 
-    def remote_predict(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+        config = self._backend_config or BackendConfig()
+        self.__backend__ = Backend(config, launcher=getattr(self, "_launcher", None))
+        return self.__backend__
 
-    def remote_wait(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+    def remote_deploy(
+        self, app_version: Optional[str] = None, allow_uncommitted: bool = False, patch: bool = False
+    ) -> str:
+        """Package + register the app's three services (reference model.py:672-730)."""
+        return self._backend.deploy(self, app_version=app_version, allow_uncommitted=allow_uncommitted, patch=patch)
 
-    def remote_load(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+    def remote_train(
+        self,
+        app_version: Optional[str] = None,
+        wait: bool = True,
+        *,
+        retries: int = 0,
+        hyperparameters: Optional[Dict[str, Any]] = None,
+        loader_kwargs: Optional[Dict[str, Any]] = None,
+        splitter_kwargs: Optional[Dict[str, Any]] = None,
+        parser_kwargs: Optional[Dict[str, Any]] = None,
+        trainer_kwargs: Optional[Dict[str, Any]] = None,
+        **reader_kwargs: Any,
+    ) -> Any:
+        """Submit a training job to the backend (reference model.py:732-796).
 
-    def remote_list_model_versions(self, *args: Any, **kwargs: Any) -> List[str]:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+        ``retries``: additional launch attempts if the worker fails or its host is
+        lost (stale heartbeat); with a ``checkpoint_dir``-configured trainer each
+        retry resumes from the last step checkpoint. The reference delegates this
+        concern to Flyte; here it is first-class.
+        """
+        execution = self._backend.submit_train(
+            self,
+            app_version=app_version,
+            hyperparameters=hyperparameters,
+            loader_kwargs=loader_kwargs,
+            splitter_kwargs=splitter_kwargs,
+            parser_kwargs=parser_kwargs,
+            trainer_kwargs=trainer_kwargs,
+            reader_kwargs=reader_kwargs,
+        )
+        if not wait:
+            return execution
+        self.remote_wait(execution, retries=retries)
+        self.remote_load(execution)
+        return self.artifact
 
-    def remote_fetch_predictions(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(_UNPORTED_REMOTE)
+    def remote_predict(
+        self,
+        app_version: Optional[str] = None,
+        model_version: Optional[str] = None,
+        wait: bool = True,
+        *,
+        retries: int = 0,
+        features: Any = None,
+        **reader_kwargs: Any,
+    ) -> Any:
+        """Submit a prediction job to the backend (reference model.py:798-864).
+        ``retries`` as in :meth:`remote_train`."""
+        execution = self._backend.submit_predict(
+            self,
+            app_version=app_version,
+            model_version=model_version,
+            features=features,
+            reader_kwargs=reader_kwargs,
+        )
+        if not wait:
+            return execution
+        execution = self._backend.wait(execution, retries=retries)
+        return self._backend.fetch_predictions(execution)
+
+    def remote_wait(self, execution: Any, **kwargs: Any) -> Any:
+        return self._backend.wait(execution, **kwargs)
+
+    def remote_load(self, execution: Any) -> None:
+        """Load the ModelArtifact produced by a completed training execution
+        (reference model.py:872-894)."""
+        execution = self._backend.wait(execution)
+        self.artifact = self._backend.fetch_artifact(self, execution)
+
+    def remote_list_model_versions(self, app_version: Optional[str] = None, limit: int = 10) -> List[str]:
+        """List trained model versions, newest first (reference model.py:896-906)."""
+        return self._backend.list_model_versions(self, app_version=app_version, limit=limit)
+
+    def remote_fetch_predictions(self, execution: Any) -> Any:
+        execution = self._backend.wait(execution)
+        return self._backend.fetch_predictions(execution)
 
     # ------------------------------------------------------------------ defaults
 

@@ -15,10 +15,11 @@ Deviations, both deliberate:
   dispatches; the predictor is warmed up at startup over the configured bucket sizes,
   so no request pays a bucket's first call.
 
-What the port does not carry yet raises ``NotImplementedError`` naming ROADMAP.md's
-Queue A: ``remote=True`` (the remote backend). A replica fleet (``--dp-replicas``,
-``--replica-roles``) is built by the engine's constructor and resized by ``POST
-/debug/scale``.
+``remote=True`` loads the artifact of the backend registry's latest (or
+``model_version``) training execution at ``startup()``
+(:meth:`unionml_tpu_torch.remote.Backend.fetch_latest_artifact`). A replica
+fleet (``--dp-replicas``, ``--replica-roles``) is built by the engine's
+constructor and resized by ``POST /debug/scale``.
 """
 
 from __future__ import annotations
@@ -81,11 +82,6 @@ class ServingApp:
         model_version: str = "latest",
         batcher: Optional[MicroBatcher] = None,
     ):
-        if remote:
-            raise NotImplementedError(
-                "serving a remote model (remote=True) is not ported yet: the remote backend is ROADMAP.md, "
-                "Queue A: the rest"
-            )
         self.model = model
         self.remote = remote
         self.app_version = app_version
@@ -487,12 +483,16 @@ class ServingApp:
             return
         if self.model.artifact is None:
             model_path = os.getenv(MODEL_PATH_ENV_VAR)
-            if model_path is not None:
+            if self.remote:
+                self.model.artifact = self.model._backend.fetch_latest_artifact(
+                    self.model, app_version=self.app_version, model_version=self.model_version
+                )
+            elif model_path is not None:
                 self.model.load(model_path)
             else:
                 raise ValueError(
-                    "Model artifact path not specified. Make sure to specify the unionml-tpu serve "
-                    "--model-path option when starting the prediction service in local mode."
+                    "Model artifact path not specified. Make sure to specify the --model-path option of "
+                    "`python -m unionml_tpu_torch.cli serve` when starting the prediction service in local mode."
                 )
         self._warmup()
         self._started = True

@@ -1,21 +1,23 @@
-"""Traffic traces, the capture side: the versioned ndjson request record and
-the live-capture tap, copied from ``unionml_tpu/workloads/traces.py``.
+"""Traffic traces: the versioned ndjson request record, its reader and writer,
+and the live-capture tap, copied from ``unionml_tpu/workloads/traces.py``.
 
 A **trace** is a recorded request mix — arrival offsets, tenants,
 priorities, routes, prompts, budgets, deadlines — one JSON object a line
 (ndjson). Line 1 is the header ``{"trace_version": 1, "kind":
 "unionml-tpu-traffic-trace", "meta": {...}}``; every later line is one
 :class:`TraceRequest`. Serialization is canonical (sorted keys, compact
-separators, offsets rounded to microseconds), so a file written here reads
-back in the JAX package's replayer unchanged.
+separators, offsets rounded to microseconds), so a file written here is byte
+for byte what the JAX package writes for the same requests, and reads back
+in either package's replayer (:func:`dumps_trace`/:func:`write_trace`,
+:func:`loads_trace`/:func:`read_trace`).
 
 :class:`TraceRecorder` is the capture side: the serving app installs one
 process-wide from ``UNIONML_TPU_RECORD_TRAFFIC``, and the request-parsing
 layers (``/v1/*`` in serving/openai_api.py, ``/predict-stream`` in
 serving/app.py) tap it with the parsed request AFTER validation.
 ``hash_prompts=True`` records a SHA-256 digest and the token length instead
-of the prompt ids. The replayer, the scenario library and the verdicts are
-not ported yet (ROADMAP.md, Queue A: the rest).
+of the prompt ids; the replayer (workloads/replayer.py) then regenerates
+deterministic same-length prompts from the digest.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from unionml_tpu_torch._logging import logger
 
@@ -36,8 +38,12 @@ __all__ = [
     "TraceRecorder",
     "TraceRequest",
     "active_traffic_recorder",
+    "dumps_trace",
     "hash_prompt",
+    "loads_trace",
+    "read_trace",
     "set_active_traffic_recorder",
+    "write_trace",
 ]
 
 TRACE_VERSION = 1
@@ -148,6 +154,59 @@ def _canonical(obj: "Dict[str, Any]") -> str:
 
 def _header(meta: "Optional[Dict[str, Any]]") -> "Dict[str, Any]":
     return {"trace_version": TRACE_VERSION, "kind": TRACE_KIND, "meta": meta or {}}
+
+
+def dumps_trace(requests: "Iterable[TraceRequest]", meta: "Optional[Dict[str, Any]]" = None) -> str:
+    """Render a whole trace as canonical ndjson text (header + one line per
+    request, arrival order). The file format :func:`write_trace` persists."""
+    ordered = sorted(requests, key=lambda r: (r.t, r.session or "", r.turn or 0))
+    lines = [_canonical(_header(meta))]
+    lines.extend(_canonical(request.to_line()) for request in ordered)
+    return "\n".join(lines) + "\n"
+
+
+def write_trace(
+    path: str, requests: "Iterable[TraceRequest]", meta: "Optional[Dict[str, Any]]" = None
+) -> str:
+    """Write a trace file (atomic tmp+rename — a torn trace is worse than no
+    trace); returns the path."""
+    text = dumps_trace(requests, meta)
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as handle:
+        handle.write(text)
+    os.replace(tmp, path)
+    return path
+
+
+def loads_trace(text: str) -> "Tuple[Dict[str, Any], List[TraceRequest]]":
+    """Parse trace text: ``(meta, requests)``. Rejects missing/foreign headers
+    and unknown versions — a replay against a misread trace would judge the
+    server on traffic it was never sent."""
+    lines = [line for line in text.splitlines() if line.strip()]
+    if not lines:
+        raise ValueError("empty trace: expected an ndjson header line")
+    try:
+        header = json.loads(lines[0])
+    except json.JSONDecodeError as exc:
+        raise ValueError(f"trace header is not valid JSON: {exc}")
+    if not isinstance(header, dict) or header.get("kind") != TRACE_KIND:
+        raise ValueError(
+            f"not a {TRACE_KIND} file (header {str(lines[0])[:80]!r}); "
+            "traces start with a kind/version header line"
+        )
+    version = header.get("trace_version")
+    if version != TRACE_VERSION:
+        raise ValueError(
+            f"unsupported trace_version {version!r}; this reader understands version "
+            f"{TRACE_VERSION} — re-synthesize the trace or upgrade the package"
+        )
+    requests = [TraceRequest.from_line(json.loads(line)) for line in lines[1:]]
+    return header.get("meta") or {}, requests
+
+
+def read_trace(path: str) -> "Tuple[Dict[str, Any], List[TraceRequest]]":
+    with open(path) as handle:
+        return loads_trace(handle.read())
 
 
 def hash_prompt(prompt: "Iterable[int]") -> str:
