@@ -123,8 +123,12 @@ Phases (no phase catches a failure; any fault exits non-zero):
    tokens from both; a second wave runs under the child's ``POST
    /debug/profile`` capture, whose Chrome trace gives the paged kernel's
    launches in the child (``cli_launches``, exactly CLI_LAYERS x the wave's
-   dispatches x 8); ``lint`` (not ported) exits 1 before an app module that
-   raises at import is imported;
+   dispatches x 8); (c) the analyzer: the CLI child ``lint unionml_tpu_torch
+   --format json`` exits 0 with no finding over at least 80 files (its
+   seconds, then a cold and a warm in-process run), and an ``AOTFunction``
+   over a three-line function that calls ``.item()`` on a CUDA tensor fails
+   its capture with the store's ``RuntimeError``, on the line the port's
+   analyzer flags as TPU001;
 12. the routed-experts decoder: (a) ``MoEConfig()`` (vocab 32,000, dim 4096,
    8 layers, every second routed over 8 experts of hidden 14,336, k = 2,
    capacity factor 1.25; bf16 parameters, seed 0) serves 4 prompts x 32
@@ -3076,9 +3080,7 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     --prefix-cache --profile-dir`` (the eager route). Phase 3's prompts stream concurrently
     over ``/predict-stream`` to both, and the answers must be equal. The
     child's paged kernel launches are read from a ``POST /debug/profile``
-    capture spanning its streams. Then the command the port refuses
-    (``lint``) must exit 1 before an app module that raises at import is
-    imported."""
+    capture spanning its streams."""
     import os
     import shutil
 
@@ -3090,8 +3092,6 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
 
     with open(os.path.join(workdir, "llama_app.py"), "w") as handle:
         handle.write(CLI_APP_SOURCE.format(max_new=MAX_NEW, layers=CLI_LAYERS))
-    with open(os.path.join(workdir, "boom_app.py"), "w") as handle:
-        handle.write('raise RuntimeError("the app module was imported")\n')
     sys.path.insert(0, workdir)
     import llama_app
 
@@ -3169,9 +3169,6 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     expected = CLI_LAYERS * profiled_dispatches * 8
     prefill = after.get("prefill", {})
     require(profiled_wave == served, "the profiled wave's streams (radix hits) differ from the first wave's")
-
-    # ---- the command the port does not have yet exits 1 before the app module is imported
-    refused = run_cli(["lint", "boom_app:model"], workdir, 120)
     print(f"phase 11b: Llama-3-8B width bf16 artifact at {CLI_LAYERS} layers saved once ({size / 2**30:.1f} GiB in "
           f"{save_s:.1f} s); "
           f"in-process Model.serve() ready in {ready_s:.1f} s, 4 /predict-stream streams x {MAX_NEW} tokens "
@@ -3187,7 +3184,6 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
           f"profile ({window_ms:.0f} ms traced, kernels busy {kernel_ms:.1f} ms, the device's idle share "
           f"{1 - kernel_ms / (profiled_s * 1e3):.3f} over the wave's {profiled_s:.1f} s): {cli_launches} paged "
           f"launches (the wave's {profiled_dispatches} dispatches give {CLI_LAYERS} x {profiled_dispatches} x 8 = {expected}); "
-          f"`lint boom_app:model` exited {refused.returncode}: {refused.stderr.strip()[-200:]!r}; "
           f"card {card}", flush=True)
     require(served == inproc, "the CLI's streams differ from the in-process Model.serve() answers")
     require(wave_end_s * 1e3 < capture_ms and status[2] and json.loads(status[2])["duration_ms"] == capture_ms,
@@ -3196,13 +3192,108 @@ def llama_cli_phase(card: str, prompts, workdir: str) -> dict:
     require(cli_launches == expected > 0, f"{cli_launches} paged launches in the CLI child's profile, "
             f"expected {expected}")
     require(prefill.get("chunks", 0) > 0, f"the CLI's engine admitted no chunk: {prefill}")
-    require(refused.returncode == 1 and "Queue A: the rest" in refused.stderr
-            and "was imported" not in refused.stderr + refused.stdout, "the refused command did not exit 1 at boot")
     sys.path.remove(workdir)
     # the artifact stays for phase 17b-c (the caller's workdir goes with it)
     return dict(cli_launches=cli_launches, in_process_launches=in_launches,
                 cli_tok_s=len(prompts) * MAX_NEW / cli_s, in_process_tok_s=len(prompts) * MAX_NEW / inproc_s,
                 artifact=artifact, inproc_streams=inproc, args=args, ready_s=cli_ready_s, wave_s=cli_s)
+
+
+#: the premise of TPU001's captured-program reading: a host read inside a program an AOTFunction captures
+LINT_PREMISE_SOURCE = """import torch
+
+from unionml_tpu_torch.serving.aot import AOTFunction, ProgramStore
+
+
+def scaled(x):
+    total = x.sum().item()
+    return x * total
+
+
+def wrapped(root):
+    return AOTFunction(scaled, "scaled", ProgramStore(root), {})
+"""
+LINT_PREMISE_LINE = 7
+
+
+def lint_phase(card: str, workdir: str) -> dict:
+    """Phase 11c: the static analyzer. The CLI child ``python -m
+    unionml_tpu_torch.cli lint unionml_tpu_torch --format json``, from this
+    checkout's root (no ``.git``, so no ``--changed-only``), must exit 0
+    with no finding over at least 80 files; a child starts cold, so the warm
+    run is an in-process pair (``run_lint`` after ``clear_index_cache``,
+    then again: nothing re-parsed), run while the child runs (each on a
+    core of its own). Then TPU001's premise on the card: an
+    ``AOTFunction`` over a three-line function that calls ``.item()`` on a
+    CUDA tensor fails its capture with the store's ``RuntimeError``, and the
+    analyzer flags that line."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+
+    from unionml_tpu_torch.analysis import clear_index_cache, run_lint
+
+    started = time.perf_counter()
+    child: dict = {}
+
+    def lint_child() -> None:
+        child["run"] = run_cli(["lint", "unionml_tpu_torch", "--format", "json"], repo_root(), 300)
+        child["s"] = time.perf_counter() - started
+
+    runner = threading.Thread(target=lint_child)
+    runner.start()
+    here = os.getcwd()
+    os.chdir(repo_root())
+    try:
+        clear_index_cache()
+        t0 = time.perf_counter()
+        cold = run_lint(["unionml_tpu_torch"])
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = run_lint(["unionml_tpu_torch"])
+        warm_s = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    runner.join()
+    run, child_s = child["run"], child["s"]
+    report = json.loads(run.stdout) if run.stdout.strip().startswith("{") else {}
+    print(f"phase 11c: `python -m unionml_tpu_torch.cli lint unionml_tpu_torch --format json` exited "
+          f"{run.returncode} in {child_s:.2f} s (a cold process): {len(report.get('findings', []))} findings, "
+          f"{len(report.get('suppressed', []))} suppressed, {report.get('files')} files", flush=True)
+    print(f"phase 11c: run_lint in process, beside the child: cold {cold_s:.2f} s ({cold.index_stats}), warm "
+          f"{warm_s:.2f} s ({warm.index_stats}), {cold.files} files, clean {cold.clean and warm.clean}", flush=True)
+    require(run.returncode == 0 and report.get("findings") == [] and report.get("files", 0) >= 80,
+            f"the lint child: exit {run.returncode}, {run.stdout[-500:]!r} {run.stderr[-500:]!r}")
+    require(cold.clean and warm.clean and warm.index_stats["misses"] == 0, "the in-process lint runs")
+    lint_s = time.perf_counter() - started
+
+    premise = os.path.join(workdir, "lint_premise.py")
+    with open(premise, "w") as handle:
+        handle.write(LINT_PREMISE_SOURCE)
+    spec = importlib.util.spec_from_file_location("lint_premise", premise)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    t0 = time.perf_counter()
+    refused = None
+    try:
+        module.wrapped(tempfile.mkdtemp(dir=workdir))(torch.ones(4, device="cuda"))
+    except RuntimeError as exc:
+        refused = exc
+    torch.cuda.synchronize()
+    premise_s = time.perf_counter() - t0
+    flagged = [f for f in run_lint([premise]).findings if f.rule == "TPU001"]
+    cause = getattr(refused, "__cause__", None)
+    print(f"phase 11c: AOTFunction over lint_premise.py's scaled() (.item() at line {LINT_PREMISE_LINE}) on the "
+          f"card: {type(refused).__name__}: {str(refused)[:120]!r} (from {type(cause).__name__}: "
+          f"{str(cause)[:160]!r}) in {premise_s:.2f} s; the analyzer: {[f.render() for f in flagged]}", flush=True)
+    require(refused is not None and "CUDA graph capture of AOT program 'scaled' failed" in str(refused),
+            f"the capture of a host read did not fail with the store's error: {refused!r}")
+    require([f.line for f in flagged] == [LINT_PREMISE_LINE], f"TPU001 flagged {[f.render() for f in flagged]}")
+    seconds = lint_s + premise_s
+    print(f"phase 11c took {seconds:.1f} s; card {card}", flush=True)
+    return dict(child_s=child_s, cold_s=cold_s, warm_s=warm_s, files=report.get("files"), seconds=seconds)
 
 
 def moe_prompts(vocab: int) -> list:
@@ -6206,6 +6297,8 @@ def main() -> int:
         # ---- phases 11a and 20a: the template through the remote backend's CLI, then served
         template = template_remote_phase(card, workdir)
         cli = llama_cli_phase(card, prompts, workdir)
+        # ---- phase 11c: the static analyzer through the CLI, and its TPU001 premise on the card
+        lint_phase(card, workdir)
         print(f"phase 11 took {time.perf_counter() - t0 - template['seconds']:.1f} s (20a apart)", flush=True)
         # ---- phase 17b-c: the AOT store and the kernel build cache in CLI children; serverless in process
         t0 = time.perf_counter()

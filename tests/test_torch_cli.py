@@ -18,13 +18,17 @@ The cluster and fault-tolerance cases (``:90``, ``:128``) become export
 checks: the fleet's seven flags, like the in-process replica fleet's, are
 exported as the JAX CLI exports them (both CLIs run on the same arguments),
 before the app module is imported, and their bad values are usage errors.
-The one command the port still refuses, ``lint``, exits 1, names its
-ROADMAP item by title and never imports the app module (one that raises at
-import).
+``lint`` runs the port's analyzer: the same temporary tree goes through
+the JAX CLI's ``lint`` (click's ``CliRunner``) and the port's, with the same
+exit code and the same JSON (or SARIF, or text) for ``--format``,
+``--select``, ``--ignore``, ``--show-suppressed``, a ``--baseline`` /
+``--update-baseline`` round trip, ``--changed-only`` in a git checkout and
+a usage error.
 """
 
 import contextlib
 import io
+import json
 import os
 import subprocess
 import sys
@@ -274,12 +278,65 @@ def test_refused_serve_flag_exits_before_export_and_import(cli_project, clean_ex
     raise AssertionError(f"unknown case {item!r}")
 
 
-@pytest.mark.parametrize("command", ["lint"])
-def test_unported_commands_exist_and_refuse(cli_project, command):
-    result = CliRunner().invoke(app, [command, "boom_app:model", "--any", "option"])
-    assert result.exit_code == 1
-    assert f"the {command!r} command is not ported yet (ROADMAP.md, Queue A: the rest)" in result.output
-    assert "boom_app" not in sys.modules
+#: a lint tree: findings of TPU005 and TPU006, a suppressed TPU005, a clean file
+LINT_TREE = {
+    "lintpkg/env.py": "import os\n\nA = int(os.environ['A'])\nB = float(os.environ['B'])  # tpu-lint: disable=TPU005 -- test\n",
+    "lintpkg/clock.py": "import time\n\n\ndef elapsed(t0):\n    return time.time() - t0\n",
+    "lintpkg/clean.py": "X = 1\n",
+}
+LINT_CASES = {
+    "json": [["--format", "json"]],
+    "sarif": [["--format", "sarif"]],
+    "text-show-suppressed": [["--show-suppressed"]],
+    "select": [["--format", "json", "--select", "TPU005"]],
+    "ignore": [["--format", "json", "--ignore", "TPU005,TPU006"]],
+    "baseline": [["--format", "json", "--baseline", "base.json", "--update-baseline"],
+                 ["--format", "json", "--baseline", "base.json"]],
+    "changed-only": [["--format", "json", "--changed-only"], ["--format", "json", "--changed-only", "HEAD"]],
+    "unknown-rule": [["--select", "TPU999"]],
+}
+
+
+@pytest.mark.parametrize("case", list(LINT_CASES))
+def test_lint_matches_the_jax_cli(cli_project, case):
+    """Each run of a case goes through both CLIs on the same tree; a
+    baseline file written by one is removed before the other writes its
+    own, and the two files must be equal. ``changed-only`` commits the
+    tree, then edits one file: only that file is reported."""
+    from click.testing import CliRunner as ClickRunner
+
+    from unionml_tpu.cli import app as jax_app
+
+    for rel, source in LINT_TREE.items():
+        (cli_project / rel).parent.mkdir(exist_ok=True)
+        (cli_project / rel).write_text(source)
+    if case == "changed-only":
+        subprocess.run(["git", "add", "lintpkg"], check=True)
+        subprocess.run(["git", "-c", "user.email=t@t", "-c", "user.name=t", "commit", "-q", "-m", "lint"], check=True)
+        (cli_project / "lintpkg/clean.py").write_text("import os\nX = int(os.environ['X'])\n")
+    codes = set()
+    for extra in LINT_CASES[case]:
+        args = ["lint", "lintpkg", *extra]
+        jax_result = ClickRunner().invoke(jax_app, args)
+        jax_base = (cli_project / "base.json").read_text() if (cli_project / "base.json").exists() else None
+        if "--update-baseline" in extra:
+            (cli_project / "base.json").unlink()
+        result = CliRunner().invoke(app, args)
+        assert result.exit_code == jax_result.exit_code, (result.output, jax_result.output)
+        codes.add(result.exit_code)
+        if "--update-baseline" in extra:
+            assert (cli_project / "base.json").read_text() == jax_base
+        if case == "unknown-rule":
+            assert "unknown rule id(s) in --select: TPU999" in result.output
+        elif "json" in extra or "sarif" in extra:
+            assert json.loads(result.output) == json.loads(jax_result.stdout)
+        else:
+            assert result.output == jax_result.stdout
+    expected = {"json": {1}, "sarif": {1}, "text-show-suppressed": {1}, "select": {1}, "ignore": {0},
+                "baseline": {0}, "changed-only": {1}, "unknown-rule": {2}}[case]
+    assert codes == expected
+    if case == "changed-only":
+        assert {f["path"] for f in json.loads(result.output)["findings"]} == {"lintpkg/clean.py"}
 
 
 def test_ported_knobs_export_before_the_app_imports(cli_project, clean_exports):

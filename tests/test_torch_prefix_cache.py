@@ -223,3 +223,83 @@ def test_gather_paged_rows_returns_the_scattered_rows(pair, kv):
             for name in want:
                 assert got[name].dtype == want[name].dtype
                 assert torch.equal(got[name], want[name]), name
+
+
+def _drive(engine) -> None:
+    """One engine thread's work, run on the caller's thread until the
+    engine is idle (``_engine_loop`` without its wait): an exception raised
+    during an admission reaches the caller, and the engine stays open."""
+    while engine._pending or engine._admissions or engine._sessions:
+        with engine._lock:
+            engine._apply_cancellations_locked()
+        engine._admit_pending()
+        if engine._sessions:
+            engine._decode_chunk()
+
+
+def _pin_leak_run(package, pair):
+    """A radix hit whose admission raises between pinning the matched
+    blocks and handing them to the session (``_blocks_initial`` fails once),
+    on an engine of ``package`` driven by hand: the pinned-block count right
+    after the raise, and the tokens of the failed prompt and of a third
+    admission of the same prompt, both served after it."""
+    import threading
+
+    from unionml_tpu import models as jax_models
+    from unionml_tpu.serving import ContinuousBatcher as JaxContinuousBatcher
+    from unionml_tpu_torch import models as port
+    from unionml_tpu_torch.serving import ContinuousBatcher
+
+    module, params, model, _ = pair
+    kw = dict(max_new_tokens=6, temperature=0.0, prompt_buckets=(16, 32))
+    if package == "jax":
+        engine = JaxContinuousBatcher(jax_models.Generator(module, params, jax_models.GenerationConfig(**kw)),
+                                      slots=2, decode_chunk=3, block_size=8, prefix_cache=True)
+    else:
+        engine = ContinuousBatcher(port.Generator(model, port.GenerationConfig(**kw), device="cpu"),
+                                   slots=2, decode_chunk=3, block_size=8, prefix_cache=True)
+    # submit() finds a thread already made and starts none: _drive runs the engine here
+    idle = threading.Thread(target=lambda: None)
+    idle.start()
+    idle.join()
+    engine._thread = idle
+    shared = list(range(1, 21))
+    tokens = lambda stream: [int(t) for chunk in stream for t in np.asarray(chunk).ravel()]
+    try:
+        first = engine.submit(shared + [30, 31])
+        _drive(engine)
+        tokens(first)
+        blocks_initial, failed = engine._blocks_initial, []
+
+        def fail_once(*args, **kwargs):
+            if not failed:
+                failed.append(True)
+                raise RuntimeError("admission failed after the radix pin")
+            return blocks_initial(*args, **kwargs)
+
+        engine._blocks_initial = fail_once
+        second = engine.submit(shared + [40, 41, 42])
+        with pytest.raises(RuntimeError, match="after the radix pin"):
+            _drive(engine)
+        pinned = engine._radix.pinned_blocks()
+        third = engine.submit(shared + [40, 41, 42])
+        _drive(engine)
+        return pinned, tokens(second), tokens(third), engine._radix.pinned_blocks(), engine.stats()["prefix_cache"]
+    finally:
+        engine.close()
+
+
+def test_failed_admission_releases_its_radix_pins(pair):
+    """The radix-pin repair: an admission that raises after pinning its
+    matched prefix releases the pins, as the JAX engine's handler does;
+    otherwise those blocks stay unevictable for good. The raised prompt
+    stays queued, and it and a third admission of the same prompt then
+    stream the JAX engine's tokens."""
+    jax_run = _pin_leak_run("jax", pair)
+    port_run = _pin_leak_run("port", pair)
+    assert jax_run[0] == 0
+    assert port_run[0] == jax_run[0]
+    assert port_run[1] == jax_run[1] and port_run[2] == jax_run[2]
+    assert len(port_run[1]) == 6 and port_run[1] == port_run[2]
+    assert port_run[3] == jax_run[3] == 0
+    assert port_run[4]["hits"] == jax_run[4]["hits"] > 0

@@ -40,8 +40,13 @@ error such as an unknown option.
   server (``--target``) or of the app in process (``--self-host``) and
   judges it (:mod:`unionml_tpu_torch.workloads`); exit code 1 on a
   ``breach`` verdict.
-- ``lint`` is not ported: it exists, exits 1 at boot before the app module
-  is imported, and names its ROADMAP.md item (Queue A: the rest).
+- ``lint`` runs tpu-lint, the port's static analyzer
+  (:mod:`unionml_tpu_torch.analysis`), with the JAX command's options:
+  ``--format text|json|sarif``, ``--select``, ``--ignore``,
+  ``--show-suppressed``, ``--changed-only [REF]``, ``--baseline FILE`` and
+  ``--update-baseline``. PATHS defaults to the installed
+  ``unionml_tpu_torch`` tree; exit code 0 when clean, 1 on findings, 2 on
+  usage or parse errors.
 """
 
 from __future__ import annotations
@@ -56,9 +61,6 @@ from typing import Any, List, Optional, Sequence
 from unionml_tpu_torch.defaults import MODEL_PATH_ENV_VAR
 
 PROG = "unionml-tpu-torch"
-_THE_REST = "the rest"
-#: commands of the JAX CLI that the port refuses: the linter
-_REFUSED_COMMANDS = ("lint",)
 
 
 class UsageError(Exception):
@@ -69,10 +71,6 @@ class UsageError(Exception):
 class BadParameter(Exception):
     """A malformed option value: ``Error: Invalid value: <message>`` on
     stderr, exit 2 (``click.BadParameter``)."""
-
-
-def _not_ported(what: str, item: str) -> UsageError:
-    return UsageError(f"{what} is not ported yet (ROADMAP.md, Queue A: {item})")
 
 
 def _locate_model(app_ref: str) -> Any:
@@ -762,6 +760,44 @@ def _replay_parser(sub: Any) -> None:
         "coordinator when the replay starts, and add the availability section to the report")
 
 
+def _lint_parser(sub: Any) -> None:
+    p = sub.add_parser("lint", help="run tpu-lint, the TPU/concurrency-aware static analyzer (TPU001-TPU019)")
+    add = p.add_argument
+    add("paths", nargs="*", metavar="PATHS",
+        help="files or directories (default: the installed unionml_tpu_torch tree)")
+    add("--format", choices=("text", "json", "sarif"), default="text",
+        help="report format (json: the stable schema; sarif: SARIF 2.1.0 for CI annotation surfaces)")
+    add("--select", default=None, help="comma-separated rule ids to run (default: all)")
+    add("--ignore", default=None, help="comma-separated rule ids to skip")
+    add("--show-suppressed", action="store_true",
+        help="also list findings silenced by `# tpu-lint: disable=RULE` comments")
+    add("--changed-only", nargs="?", const="HEAD", default=None, metavar="REF",
+        help="report findings only for files changed vs REF (default HEAD) plus untracked files; the "
+        "whole-program index still covers all PATHS")
+    add("--baseline", default=None, metavar="FILE",
+        help="JSON baseline of known findings: matched findings are reported as baselined (and do not fail the "
+        "gate), only new ones count")
+    add("--update-baseline", action="store_true",
+        help="record the run's findings to --baseline FILE (then report zero new)")
+
+
+def lint(args: argparse.Namespace) -> None:
+    """Run tpu-lint over PATHS (the JAX CLI's ``lint``): the engine's own
+    ``main`` on the same arguments, whose exit code this exits with."""
+    from unionml_tpu_torch.analysis.engine import main as lint_main
+
+    argv = list(args.paths) + ["--format", args.format]
+    for flag, value in (("--select", args.select), ("--ignore", args.ignore),
+                        ("--changed-only", args.changed_only), ("--baseline", args.baseline)):
+        if value:
+            argv += [flag, value]
+    if args.show_suppressed:
+        argv.append("--show-suppressed")
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    raise SystemExit(lint_main(argv))
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog=PROG, description="unionml-tpu's PyTorch port: serve machine learning "
                                      "microservices on an NVIDIA GPU.")
@@ -774,9 +810,7 @@ def build_parser() -> argparse.ArgumentParser:
     _serve_parser(sub)
     _remote_parsers(sub)
     _replay_parser(sub)
-    for name in _REFUSED_COMMANDS:
-        p = sub.add_parser(name, help="not ported yet (ROADMAP.md, Queue A: the rest)")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
+    _lint_parser(sub)
     return parser
 
 
@@ -787,6 +821,7 @@ _COMMANDS = {
     "list-model-versions": list_model_versions,
     "fetch-model": fetch_model,
     "replay": replay_cmd,
+    "lint": lint,
 }
 
 
@@ -802,10 +837,8 @@ def app(argv: Optional[Sequence[str]] = None) -> None:
             templates()
         elif args.command == "serve":
             serve(args, argv)
-        elif args.command in _COMMANDS:
-            _COMMANDS[args.command](args)
         else:
-            raise _not_ported(f"the {args.command!r} command", _THE_REST)
+            _COMMANDS[args.command](args)
     except UsageError as exc:
         print(f"Error: {exc}", file=sys.stderr)
         raise SystemExit(1)

@@ -28,7 +28,12 @@ from typing import Any, List, Optional
 import torch
 import torch.distributed as dist
 
-from unionml_tpu_torch.defaults import distributed_coordinator, distributed_num_processes, distributed_process_id
+from unionml_tpu_torch.defaults import (
+    distributed_coordinator,
+    distributed_num_processes,
+    distributed_process_id,
+    env_int,
+)
 
 __all__ = [
     "agree",
@@ -53,7 +58,12 @@ def _torchrun_env() -> Optional[tuple]:
     world, rank = os.environ.get("WORLD_SIZE"), os.environ.get("RANK")
     if not (addr and port and world and rank):
         return None
-    return f"{addr}:{port}", int(world), int(rank)
+    try:
+        return f"{addr}:{port}", int(world), int(rank)
+    except ValueError:
+        # a rank cannot fall back to a default: two ranks of one id would
+        # wait in the rendezvous until its timeout
+        raise ValueError(f"torchrun's WORLD_SIZE={world!r} and RANK={rank!r} must be integers") from None
 
 
 def is_initialized() -> bool:
@@ -83,7 +93,7 @@ def maybe_initialize(backend: Optional[str] = None) -> bool:
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if torch.cuda.is_available():
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
+        torch.cuda.set_device(env_int("LOCAL_RANK", rank, minimum=0) % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world, rank=rank, timeout=_TIMEOUT)
     logger.info(f"joined torch.distributed process group: rank {rank}/{world} over {backend}")
     return True

@@ -98,7 +98,7 @@ def _current_attempt(exec_path: Path) -> int:
 
 
 def _process_id() -> int:
-    return int(os.environ.get("UNIONML_TPU_PROCESS_ID", "0"))
+    return env_int("UNIONML_TPU_PROCESS_ID", 0)
 
 
 def _maybe_inject_fault(exec_path: Path) -> None:

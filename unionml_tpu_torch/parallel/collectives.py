@@ -360,7 +360,7 @@ def broadcast(x: torch.Tensor, mesh: Any, axis: AxisName, *, src: int = 0) -> to
         return x
     y = x.contiguous().clone()
     if _via_host(group, y):
-        host = y.cpu()
+        host = y.cpu()  # tpu-lint: disable=TPU001 -- gloo only; enable_aot refuses a mesh
         dist.broadcast(host, src=mesh.peer(axis, src), group=group)
         return host.to(x.device)
     dist.broadcast(y, src=mesh.peer(axis, src), group=group)

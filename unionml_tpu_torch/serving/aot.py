@@ -622,16 +622,16 @@ class AOTFunction:
             with self._lock:
                 program = self._programs.get(key)
                 if program is None:
-                    return self._resolve(key, sig, device, captured, args, kwargs, leaves, spec, first)
+                    return self._resolve_locked(key, sig, device, captured, args, kwargs, leaves, spec, first)
         if program is _EAGER:
             return self._fn(*args, **kwargs)
         return program.replay(leaves)
 
-    def _resolve(self, key: str, sig: Any, device: Optional[torch.device], captured: bool, args: Tuple,
-                 kwargs: Dict[str, Any], leaves: List[Any], spec: Any, first: List[int]) -> Any:
-        """The first call of a signature: run it once (from the store's
-        libraries on a hit), capture it on the card, count it, and write
-        the entry on a miss."""
+    def _resolve_locked(self, key: str, sig: Any, device: Optional[torch.device], captured: bool, args: Tuple,
+                        kwargs: Dict[str, Any], leaves: List[Any], spec: Any, first: List[int]) -> Any:
+        """The first call of a signature, with ``self._lock`` held: run it
+        once (from the store's libraries on a hit), capture it on the card,
+        count it, and write the entry on a miss."""
         start = time.perf_counter()
         libraries = self.store.load(key)
         if libraries is not None:

@@ -1918,17 +1918,27 @@ class ContinuousBatcher:
                             # pin every matched block (the partial tail too:
                             # the gather reads it) until this stream releases
                             self._radix.pin(pins)
-                    needed = self._blocks_initial(head_prompt, head_budget, shared=len(seeded))
-                    if needed > len(self._free_blocks):
-                        # cached-but-idle prefixes are the memory the next
-                        # admission may take back
-                        self._reclaim_blocks_locked(needed - len(self._free_blocks))
-                    if needed > len(self._free_blocks):
+                    try:
+                        needed = self._blocks_initial(head_prompt, head_budget, shared=len(seeded))
+                        if needed > len(self._free_blocks):
+                            # cached-but-idle prefixes are the memory the next
+                            # admission may take back
+                            self._reclaim_blocks_locked(needed - len(self._free_blocks))
+                        if needed > len(self._free_blocks):
+                            if pins:
+                                self._radix.release(pins)
+                            return
+                        prompt, session = self._pending.pop(0)
+                        slot = self._free.pop(0)
+                    except BaseException:
+                        # admission died between pin and handoff: unpin, or the
+                        # matched prefix blocks stay unevictable forever
                         if pins:
                             self._radix.release(pins)
-                        return
-                prompt, session = self._pending.pop(0)
-                slot = self._free.pop(0)
+                        raise
+                else:
+                    prompt, session = self._pending.pop(0)
+                    slot = self._free.pop(0)
                 # the session owns the pins from here: every exit releases them
                 session.pins = pins
                 session.slot = slot

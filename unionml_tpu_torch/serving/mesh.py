@@ -83,7 +83,10 @@ class StepPlan:
         with self._lock:
             self._pending.append((op, key, args))
             if collective:
-                dist.broadcast_object_list([self._pending], src=self.leader, group=self.group)
+                # the lock is held on purpose: it orders the plans the followers
+                # run, and two threads' broadcasts on one group would deadlock
+                dist.broadcast_object_list(  # tpu-lint: disable=TPU013 -- the lock orders plans
+                    [self._pending], src=self.leader, group=self.group)
                 self._pending = []
                 self.sent += 1
 
