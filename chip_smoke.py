@@ -197,15 +197,25 @@ Phases (no phase catches a failure; any fault exits non-zero):
    equal to the twin; rank 0's host time a decode step; memory a rank;
    tok/s and TTFT), the same with ``quantize="int8"`` (57 int8 launches a
    forward on each rank), ``sp_prefill="ring"`` at sequence=2 on
-   a 2048-token prompt, ``MoEConfig()`` at expert=2; and the same four in
+   a 2048-token prompt, ``MoEConfig()`` at expert=2, speculative decoding
+   at model=2 (phase 9a's 1B-shaped draft, ``MESH_DRAFT_LAYERS`` of its 16
+   layers, gamma 4, placed under ``llama_partition_rules()``: tok/s, TTFT,
+   rounds, acceptance rate, rank 0's host time and gloo transfers a round,
+   memory a rank; on each rank the draft's 16 query and 4 KV heads of D =
+   64, paged launches exactly draft layers x (gamma + 1) x rounds, one
+   launch on its live draft pool equal to the twin); and the same five in
    f32 at 2 layers, TF32 off, each token for token equal to the unsharded
-   card run (the mesh against the CPU is held by the CPU tests). The ranks
-   run the f32 four first, while the parent computes those references, and
-   the timed bf16 four once it is done: their times share the card and the
-   host with nothing. Every
-   kernel is counted on every rank in every case, and ``OFF_MESH_PATH``'s
-   must count 0; ``tp_launches`` on the kernels line is rank 0's count
-   over the eight served runs.
+   card run, the speculative one (the target as its own draft, cut under
+   ``llama_partition_rules()``, one stream at a time) also to the
+   target-only run, and its rounds, accepted and proposed counts equal to
+   the unsharded run's, at an acceptance of ``SPEC32_ACCEPTANCE`` or more
+   (the mesh against the CPU is held by the CPU tests). The
+   ranks run the f32 five first, while the parent computes those
+   references, and the timed bf16 five once it is done: their times share
+   the card and the host with nothing. Every kernel is counted on every
+   rank in every case, and ``OFF_MESH_PATH``'s must count 0;
+   ``tp_launches`` on the kernels line is rank 0's count over the ten
+   served runs, ``spec_mesh_launches`` its count over the speculative one.
 
 16. parallel training (``fit`` over a mesh), run after 15: (a) phase 5's
    configuration through ``fit(config=TrainerConfig(mesh=MeshSpec(data=1),
@@ -438,6 +448,15 @@ MESH_INT8_PER_FORWARD = 7 * MESH_SERVE_LAYERS + 1
 ROW_PARALLEL_ROUNDINGS = 2 * 2 * MESH_SERVE_LAYERS
 MESH_LOGITS_REL_RMS = math.sqrt(MESH_INT8_PER_FORWARD + ROW_PARALLEL_ROUNDINGS) * 2.0 ** -8
 SP_PROMPT_LEN = 2048  # (b): the sequence-parallel prefill's prompt, numpy seed 4
+#: (b)'s speculative case: phase 9a's draft (DRAFT_1B, seed DRAFT_SEED) at MESH_DRAFT_LAYERS of its 16 layers
+#: beside the bf16 target, both under llama_partition_rules(): the draft's paged steps run at 16 query and 4 KV
+#: heads of D = 64 on each rank; 4 of the 16 since the script passed 1000 s with the whole draft (1105.4 s on
+#: an NVIDIA H100 80GB HBM3, 700.00 W)
+MESH_DRAFT_LAYERS = 4
+#: (b)'s f32 speculative case drafts with the target itself, which accepts every proposal unsharded (phase 9b):
+#: on the mesh the share of proposals that had budget room and were accepted must reach this, and its counters
+#: the unsharded run's exactly (rounds x gamma also counts the proposals past a stream's end, so its rate is lower)
+SPEC32_ACCEPTANCE = 0.9
 #: kernels that no served run of the mesh path reaches, counted on every rank and required 0: the flash kernels
 #: (sp prefill attends by ring, cached prefill takes the plain path) and int8 pages (int8 pools take the gather path)
 OFF_MESH_PATH = frozenset({"flash_forward", "flash_backward", "flash_forward_f32", "flash_backward_f32",
@@ -820,6 +839,15 @@ def serve(batcher, prompts, grammars=None, logprobs=None) -> tuple:
         if t.is_alive():
             raise TimeoutError("a stream did not finish within 600 s")
     return results, time.perf_counter() - t0
+
+
+def serve_one_by_one(batcher, prompts) -> tuple:
+    """Submit the prompts one at a time, each stream drained before the
+    next (each stream's rounds then depend on its prompt alone); return
+    (streams, seconds)."""
+    t0 = time.perf_counter()
+    streams = [[int(t) for chunk in batcher.submit(p) for t in chunk] for p in prompts]
+    return streams, time.perf_counter() - t0
 
 
 def profiled(fn) -> tuple:
@@ -2332,7 +2360,7 @@ def int8_pool_phase(card: str, target, gcfg, prompts, slots: int, decode_chunk: 
     engine.close()
     require(all(len(s) == MAX_NEW for s in streams), f"stream lengths {[len(s) for s in streams]}")
     require(gather_launches == 0 and seen["live"] > 0, f"{gather_launches} paged launches over int8 pages")
-    pools, lens, table = engine._carry[0], seen["lengths"], seen["table"]
+    pools, lens, table = engine._carried("cache"), seen["lengths"], seen["table"]
     g = torch.Generator(device="cuda").manual_seed(13)
     mcfg = target.config
     q = torch.randn(slots, mcfg.n_heads, mcfg.dim // mcfg.n_heads, device="cuda", generator=g).to(torch.bfloat16)
@@ -3966,8 +3994,8 @@ def mesh_world1_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, b
 
 
 def mesh_cases(prompts, gcfg) -> list:
-    """Phase 15b's cases: (model, dtype, layers, seed, mesh axes, rules, engine knobs, prompts), the four in f32
-    at 2 layers first (untimed: they run beside the parent's references), then bf16 at full width."""
+    """Phase 15b's cases: (model, dtype, layers, seed, mesh axes, rules, engine knobs, prompts, draft), the five
+    in f32 at 2 layers first (untimed: they run beside the parent's references), then bf16 at full width."""
     import numpy as np
 
     sp_prompt = np.random.RandomState(4).randint(1, 128256, size=SP_PROMPT_LEN).tolist()
@@ -3982,6 +4010,10 @@ def mesh_cases(prompts, gcfg) -> list:
              gen={**base, "sp_prefill": "ring"}, prompts=prompts),
         dict(name="moe32", model="moe", f32=True, seed=1, spec=dict(expert=2), rules="moe", gen=base, slots=4,
              prompts=moe),
+        # tp32's target as its own draft (a second module from the same seed), one stream at a time: its streams
+        # are tp32's reference too, and its rounds and acceptances the unsharded run's
+        dict(name="spec32", model="llama", f32=True, seed=1, spec=dict(model=2), rules="llama", gen=base, slots=4,
+             prompts=prompts, draft=dict(target=True), one_by_one=True),
         dict(name="tp", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
              prompts=prompts, logits=True, pool_check=True, host_time=True),
         dict(name="int8", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
@@ -3990,6 +4022,8 @@ def mesh_cases(prompts, gcfg) -> list:
              gen={**base, "prompt_buckets": (SP_PROMPT_LEN,), "sp_prefill": "ring"}, prompts=[sp_prompt]),
         dict(name="moe", model="moe", f32=False, seed=0, spec=dict(expert=2), rules="moe", gen=base, slots=4,
              prompts=moe),
+        dict(name="spec", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
+             prompts=prompts, draft=dict(n_layers=MESH_DRAFT_LAYERS, seed=DRAFT_SEED), pool_check=True),
     ]
 
 
@@ -4010,6 +4044,46 @@ def mesh_model(case):
     return Llama(cfg, seed=case["seed"])
 
 
+def mesh_config(case, rules):
+    """A case's ``GenerationConfig``: its draft (built on the card from its
+    seed, placed under ``rules``) attached when it has one."""
+    import torch
+
+    from unionml_tpu_torch import GenerationConfig, Llama
+    from unionml_tpu_torch.models import DraftSpec
+
+    if not case.get("draft"):
+        return GenerationConfig(**case["gen"])
+    dtype = torch.float32 if case["f32"] else torch.bfloat16
+    if case["draft"].get("target"):
+        draft = mesh_model(case)  # the target's weights in a module of its own, cut apart from the target's
+    else:
+        draft = Llama(draft_config(dtype, n_layers=case["draft"]["n_layers"]), seed=case["draft"]["seed"])
+    return GenerationConfig(**case["gen"], draft=DraftSpec(module=draft, gamma=GAMMA, partition_rules=rules))
+
+
+def timed_rounds(engine) -> dict:
+    """Wrap ``engine``'s speculative dispatch to sum, over the calls, the
+    calling thread's CPU time, the wall time, the rounds and the gloo host
+    transfers inside them (on rank 0: the controller's cost a round)."""
+    from unionml_tpu_torch.parallel.collectives import host_route
+
+    real, spent = engine._op_spec_rounds, dict(cpu_s=0.0, wall_s=0.0, timed_rounds=0, round_transfers=0)
+
+    def timed(adm, budget):
+        rounds, transfers = engine._carried("rounds"), host_route.count
+        cpu0, wall0 = time.thread_time(), time.perf_counter()
+        state = real(adm, budget)
+        spent["cpu_s"] += time.thread_time() - cpu0
+        spent["wall_s"] += time.perf_counter() - wall0
+        spent["timed_rounds"] += engine._carried("rounds", state) - rounds
+        spent["round_transfers"] += host_route.count - transfers
+        return state
+
+    engine._op_spec_rounds = timed
+    return spent
+
+
 def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
     """Run one case of phase 15b on this rank: build, place, serve from rank
     0 (the other rank follows its step plans), then the checks each rank
@@ -4017,7 +4091,7 @@ def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
     import torch
     import torch.distributed as dist
 
-    from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator
+    from unionml_tpu_torch import ContinuousBatcher, Generator
     from unionml_tpu_torch.models import llama_partition_rules, moe_partition_rules
     from unionml_tpu_torch.ops.paged_attention import paged_decode_attention, paged_decode_attention_reference
     from unionml_tpu_torch.parallel import MeshSpec
@@ -4030,24 +4104,40 @@ def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
     t0 = time.perf_counter()
     mesh = MeshSpec(**case["spec"]).build()
     rules = {"llama": llama_partition_rules(), "moe": moe_partition_rules()}.get(case["rules"])
-    gen = Generator(mesh_model(case), GenerationConfig(**case["gen"]), mesh=mesh, partition_rules=rules,
+    gen = Generator(mesh_model(case), mesh_config(case, rules), mesh=mesh, partition_rules=rules,
                     quantize=case.get("quantize"))
     engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=decode_chunk, block_size=BLOCK)
-    res = dict(build_s=time.perf_counter() - t0, heads=(gen.cache_config.n_heads, gen.cache_config.n_kv_heads))
+    # the pool the case's paged steps read: the draft's under a draft (the target verifies through the gather path)
+    paged_gen = engine._spec._draft if case.get("draft") else gen
+    res = dict(build_s=time.perf_counter() - t0,
+               heads=(paged_gen.cache_config.n_heads, paged_gen.cache_config.n_kv_heads))
     prompts = case["prompts"]
     if rank == 0 and not case["f32"]:
-        serve(engine, [prompts[0][:3]])  # set-up: the rank pair's first cuBLAS and allocator calls
+        # set-up: the rank pair's first cuBLAS and allocator calls (a draft's: one round)
+        if case.get("draft"):
+            list(engine.submit(prompts[0][:3], max_new_tokens=2))
+        else:
+            serve(engine, [prompts[0][:3]])
+    spent = timed_rounds(engine) if case.get("draft") and rank == 0 else None
     dist.barrier(group=sync)
     reset_counts()
     host_route.count = 0
     dist.barrier(group=sync)
     if rank == 0:
         before = engine.decode_dispatches  # the set-up stream's dispatches are not this run's
-        streams, seconds = serve(engine, prompts)
+        spec0 = (engine._spec.rounds, engine._spec.accepted_tokens, engine._spec.proposed_tokens) \
+            if case.get("draft") else None
+        streams, seconds = (serve_one_by_one if case.get("one_by_one") else serve)(engine, prompts)
         stats = engine.stats()
         res.update(streams=streams, seconds=seconds, ttft_p50=stats["ttft_ms"]["p50_ms"],
                    tbt_p50=stats["tbt_ms"]["p50_ms"], dispatches=engine.decode_dispatches - before,
                    admissions=len(prompts))
+        if spent is not None:
+            spec = engine._spec
+            rounds, accepted, proposed = (spec.rounds - spec0[0], spec.accepted_tokens - spec0[1],
+                                          spec.proposed_tokens - spec0[2])
+            res.update(rounds=rounds, accepted=accepted, proposed=proposed,
+                       acceptance=accepted / (rounds * GAMMA) if rounds else None, **spent)
     dist.barrier(group=sync)
     launches = all_launches()
     res.update(launches=launches, paged=launches["paged_decode_attention"], int8=launches["int8_matmul"],
@@ -4058,13 +4148,13 @@ def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
             res["logits_rel_rms"] = [rel_rms(a, b.to(a.device)) for a, b in zip(mine, logits)]
             res["argmax_equal"] = sum(int(a.argmax() == b.argmax()) for a, b in zip(mine, logits))
     if case.get("pool_check"):  # one launch on this rank's live pool of layer 0, against the twin
-        layer = engine._carry[0][0]
-        cfg = gen.cache_config
+        layer = engine._carried("d_cache" if case.get("draft") else "cache")[0]
+        cfg = paged_gen.cache_config
         dev = layer["k"].device
         g = torch.Generator(device=dev).manual_seed(17 + rank)
         q = torch.randn(case["slots"], cfg.n_heads, cfg.dim // cfg.n_heads, device=dev, generator=g)
         q = q.to(layer["k"].dtype)
-        lengths = engine._carry[2].clamp(min=1).to(torch.int32)
+        lengths = engine._carried("lengths").clamp(min=1).to(torch.int32)
         before = paged_decode_attention.launches
         out = paged_decode_attention(q, layer["k"], layer["v"], lengths, layer["table"])
         torch.cuda.synchronize()
@@ -4116,25 +4206,28 @@ def mesh_rank(rank: int, store: str, cases: list, decode_chunk: int, logits, out
         out.put((rank, False, traceback.format_exc()))
 
 
-def mesh_expected(case) -> list:
-    """An f32 case's unsharded streams on the card (the engine with the
-    case's knobs)."""
+def mesh_expected(case, decode_chunk: int) -> dict:
+    """An f32 case's unsharded run on the card (the engine with the case's
+    knobs and draft): its streams, and under a draft the speculative
+    counters ``(rounds, accepted, proposed)`` over them."""
     import torch
 
-    from unionml_tpu_torch import ContinuousBatcher, GenerationConfig, Generator
+    from unionml_tpu_torch import ContinuousBatcher, Generator
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = mesh_model(case)
-    gcfg = GenerationConfig(**{k: v for k, v in case["gen"].items() if k != "sp_prefill"})
-    gen = Generator(model, gcfg, quantize=case.get("quantize"))
-    engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=8, block_size=BLOCK)
-    card_streams, _ = serve(engine, case["prompts"])
+    plain = dict(case, gen={k: v for k, v in case["gen"].items() if k != "sp_prefill"})
+    gen = Generator(model, mesh_config(plain, None), quantize=case.get("quantize"))
+    engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=decode_chunk, block_size=BLOCK)
+    card_streams, _ = (serve_one_by_one if case.get("one_by_one") else serve)(engine, case["prompts"])
+    spec = engine._spec
+    counters = (spec.rounds, spec.accepted_tokens, spec.proposed_tokens) if spec is not None else None
     engine.close()
-    del engine, gen, model
+    del engine, gen, model, spec
     gc.collect()
     torch.cuda.empty_cache()
-    return card_streams
+    return dict(streams=card_streams, spec=counters)
 
 
 def int8_shard_phase() -> dict:
@@ -4185,10 +4278,13 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     heads a rank, one launch on each rank's live pool equal to the twin, the
     controller's host time a decode step), int8 at model=2 (57 int8
     launches a forward on each rank), sp_prefill="ring" at sequence=2 on a
-    2048-token prompt, MoEConfig() at expert=2; and the same four in f32 at
-    2 layers, TF32 off, each equal token for token to the unsharded card run
-    (the ranks run these first, beside the parent's references, and the
-    timed bf16 cases after them). The int8 kernel runs
+    2048-token prompt, MoEConfig() at expert=2, a speculative engine with
+    the 1B-shaped draft at model=2 (the draft's paged launches exact on each
+    rank at 16/4 heads, D = 64); and the same five in f32 at 2 layers, TF32
+    off, each equal token for token to the unsharded card run (the
+    speculative one to the target-only run too; the ranks run these first,
+    beside the parent's references, and the timed bf16 cases after them).
+    The int8 kernel runs
     at each rank's weight shapes against its twin, timed."""
     import multiprocessing
     import tempfile
@@ -4219,7 +4315,7 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
         try:
             for case in cases:
                 if case["f32"] and case["name"] != "sp32":
-                    expected[case["name"]] = mesh_expected(case)
+                    expected[case["name"]] = mesh_expected(case, decode_chunk)
         finally:
             refs_done.set()
         expected["sp32"] = expected["tp32"]  # the same weights, knobs and prompts, prefilled plainly
@@ -4288,23 +4384,55 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
               f"transfers {[results[r][name]['transfers'] for r in range(MESH_RANKS)]}, int8 launches "
               f"{[results[r][name]['int8'] for r in range(MESH_RANKS)]}", flush=True)
         check(toks and all(0 <= t < 128256 for t in toks), f"phase 15b {name}: tokens out of range")
+    spec = r0["spec"]
+    toks = [t for s in spec["streams"] for t in s]
+    print(f"phase 15b spec (model=2, the 1B-shaped draft at {MESH_DRAFT_LAYERS} of its 16 layers, seed {DRAFT_SEED}, "
+          f"gamma {GAMMA}, beside the bf16 target at {MESH_SERVE_LAYERS} layers): {len(toks) / spec['seconds']:.1f} "
+          f"tok/s, TTFT p50 {spec['ttft_p50']} ms, {spec['rounds']} rounds, acceptance rate "
+          f"{spec['acceptance']} ({spec['accepted']} of {spec['proposed']} proposals that had room); rank 0's "
+          f"controller {spec['cpu_s'] * 1e3 / spec['timed_rounds']:.3f} ms host (thread CPU) and "
+          f"{spec['wall_s'] * 1e3 / spec['timed_rounds']:.3f} ms wall a round, "
+          f"{spec['round_transfers'] / spec['timed_rounds']:.1f} gloo host transfers a round; memory {[round(results[r]['spec']['memory_gib'], 2) for r in range(MESH_RANKS)]} "
+          f"GiB a rank; card {card}", flush=True)
+    check(toks and all(0 <= t < 128256 for t in toks), "phase 15b spec: tokens out of range")
+    for r in range(MESH_RANKS):
+        res = results[r]["spec"]
+        expected_launches = MESH_DRAFT_LAYERS * (GAMMA + 1) * spec["rounds"]
+        print(f"phase 15b spec rank {r}: the draft's local heads {res['heads']} (query, KV), paged launches "
+              f"{res['paged']} (expected {MESH_DRAFT_LAYERS} draft layers x {GAMMA + 1} x {spec['rounds']} rounds = "
+              f"{expected_launches}); one launch on its live draft layer-0 pool {res['pool_shape']}: max_abs_err "
+              f"{res['pool_err']:.3g} {'ok' if res['pool_ok'] else 'FAIL'}", flush=True)
+        check(res["heads"] == (16, 4), f"rank {r}'s draft holds heads {res['heads']}, expected (16, 4)")
+        check(res["paged"] == expected_launches > 0, f"rank {r}: {res['paged']} paged launches under the draft")
+        check(res["pool_ok"] and res["pool_launches"] == 1, f"rank {r}: the paged kernel on the draft pool failed")
     for name, res in ((c["name"], results[r][c["name"]]) for c in cases for r in range(MESH_RANKS)):
         off = {k: n for k, n in res["launches"].items() if k in OFF_MESH_PATH}
         check(not any(off.values()), f"phase 15b {name}: kernels off the mesh path launched: {off}")
     tp_launches = {k: sum(r0[c["name"]]["launches"][k] for c in cases) for k in r0["tp"]["launches"]}
-    print(f"phase 15b: rank 0's launches over the eight served runs {tp_launches}; on every rank and case "
+    print(f"phase 15b: rank 0's launches over the {len(cases)} served runs {tp_launches}; on every rank and case "
           f"{sorted(OFF_MESH_PATH)} counted 0 {'(ok)' if not failed else ''}", flush=True)
-    for name in ("tp32", "int832", "sp32", "moe32"):
-        card_streams = expected[name]
+    # spec32 against the unsharded speculative run, and against the target-only engine (tp32's reference)
+    for name, reference, label in (*((n, n, "the unsharded card run") for n in ("tp32", "int832", "sp32", "moe32",
+                                                                             "spec32")),
+                                   ("spec32", "tp32", "the unsharded target-only card run")):
+        card_streams = expected[reference]["streams"]
         got = r0[name]["streams"]
         equal = got == card_streams
-        print(f"phase 15b {name}: f32 streams on the mesh {'equal' if equal else 'DIFFERENT'} to the unsharded card "
-              f"run", flush=True)
-        check(equal, f"phase 15b {name}: {got} / {card_streams}")
+        print(f"phase 15b {name}: f32 streams on the mesh {'equal' if equal else 'DIFFERENT'} to {label}", flush=True)
+        check(equal, f"phase 15b {name} against {label}: {got} / {card_streams}")
+    # a greedy stream is the target's whatever the draft proposes; the counters show a wrongly cut draft
+    spec32 = r0["spec32"]
+    got, want = (spec32["rounds"], spec32["accepted"], spec32["proposed"]), expected["spec32"]["spec"]
+    had_room = spec32["accepted"] / max(spec32["proposed"], 1)
+    print(f"phase 15b spec32: the target as its own draft at model=2, one stream at a time: (rounds, accepted, "
+          f"proposed) {got} on the mesh, {want} unsharded; {had_room:.3f} of the proposals that had room accepted "
+          f"(at least {SPEC32_ACCEPTANCE}; acceptance rate {spec32['acceptance']:.3f} of rounds x gamma)", flush=True)
+    check(got == want, f"phase 15b spec32: speculative counters {got} on the mesh, {want} unsharded")
+    check(had_room >= SPEC32_ACCEPTANCE, f"phase 15b spec32: {had_room} of the proposals that had room accepted")
     require(not failed, "phase 15b: " + "; ".join(failed))
     seconds = time.perf_counter() - t_phase
     print(f"phase 15 took {seconds:.1f} s", flush=True)
-    return dict(tp_launches=tp_launches, shards=shards)
+    return dict(tp_launches=tp_launches, shards=shards, spec_mesh_launches=spec["paged"])
 
 
 #: phase 16: parallel training on the card. (a) phase 5's configuration through fit over a world of one
@@ -6358,6 +6486,8 @@ def main() -> int:
         "app_launches": app_launches["paged_decode_attention"],
         "http_launches": http_launches["paged_decode_attention"],
         "spec_launches": spec["spec_launches"],
+        # phase 15b: rank 0's count over the speculative case at model=2 (the draft's 16/4 heads, D = 64)
+        "spec_mesh_launches": mesh["spec_mesh_launches"],
         "prefix_launches": prefix_launches,
         "cli_launches": cli["cli_launches"],
         "replica_launches": replica["replica_launches"],
@@ -6399,7 +6529,7 @@ def main() -> int:
     })
     for kernel in kernels:  # MoE reaches no port kernel (phase 12a counted every one, and required 0)
         kernel["moe_launches"] = moe["moe_launches"][kernel["name"]]
-        # phase 15b: rank 0's counts over its eight served runs (the flash kernels and int8 pages counted 0)
+        # phase 15b: rank 0's counts over its ten served runs (the flash kernels and int8 pages counted 0)
         kernel["tp_launches"] = mesh["tp_launches"][kernel["name"]]
         # phase 13: 13b's step through the encoder stack, the f32 stack of 13e, and 13a + 13c + 13d (all 0)
         kernel["encoder_launches"] = encoder["launches"][kernel["name"]]

@@ -27,6 +27,11 @@ builds it) and JAX's sequential ``Generator``, on the same weights:
   fleet's 4 ranks (before they build their replicas) equal JAX's on 4
   emulated devices, rank for device.
 
+The references are built without the serve CLI's ``UNIONML_TPU_*``
+exports, as the workers are: a test that leaves
+``UNIONML_TPU_KV_CACHE_DTYPE=int8`` in this process's environment must not
+turn JAX's oracle into an int8-cache run.
+
 One world at a time: the fleet's 4 ranks, then the replacement's 2.
 """
 
@@ -201,17 +206,25 @@ class _Fleet:
 
 
 def _jax_references(jax_pair):
-    """JAX's sequential oracle and its single-process dp=2 x tp=2 fleet."""
+    """JAX's sequential oracle and its single-process dp=2 x tp=2 fleet,
+    built as the workers build theirs: without the serve CLI's exports
+    (``UNIONML_TPU_*``, which ``_Fleet.spawn`` strips from the workers'
+    environment). A ``Generator`` reads ``UNIONML_TPU_QUANTIZE`` and
+    ``UNIONML_TPU_KV_CACHE_DTYPE`` when it is built, and an earlier test in
+    this process may have left one set."""
     from unionml_tpu.models import GenerationConfig, Generator, llama_partition_rules
     from unionml_tpu.parallel import MeshSpec
     from unionml_tpu.serving import ReplicaSet
 
     module, params = jax_pair
-    gen = Generator(module, params, GenerationConfig(**GEN))
-    oracle = {tuple(p): list(map(int, gen([p])[0])) for p in PROMPTS}
-    mesh = MeshSpec(data=2, model=2).build(devices=jax.devices()[:4])
-    fleet = ReplicaSet.build(module, params, GenerationConfig(**GEN), mesh=mesh,
-                             partition_rules=llama_partition_rules(), **ENGINE)
+    with pytest.MonkeyPatch.context() as env:
+        for name in [k for k in os.environ if k.startswith("UNIONML_TPU_")]:
+            env.delenv(name)
+        gen = Generator(module, params, GenerationConfig(**GEN))
+        mesh = MeshSpec(data=2, model=2).build(devices=jax.devices()[:4])
+        fleet = ReplicaSet.build(module, params, GenerationConfig(**GEN), mesh=mesh,
+                                 partition_rules=llama_partition_rules(), **ENGINE)
+        oracle = {tuple(p): list(map(int, gen([p])[0])) for p in PROMPTS}
     try:
         streams = [_drain(fleet.submit(p)) for p in PROMPTS]
     finally:
@@ -337,6 +350,23 @@ def test_killed_host_loses_no_stream_and_a_replacement_rejoins(fleet):
     assert stats["fleet"]["recovery_ms"]["window"] >= 1
     assert [_drain(coordinator.submit(p)) for p in PROMPTS] == want
     assert 1 in coordinator._probe_all(coordinator._live(), PROMPTS[0])
+
+
+def test_references_ignore_a_leaked_serve_export(monkeypatch):
+    """The references are the workers' configuration whatever this process's
+    environment holds: with ``UNIONML_TPU_KV_CACHE_DTYPE=int8`` left set
+    (``tests/unit/test_quantized_serving.py::
+    test_serving_app_configure_quantization`` leaves it so in its xdist
+    worker) they equal the references built with it unset. Built with it,
+    JAX's oracle for ``[6, 6, 6, 2]`` reads an int8 KV cache and begins
+    ``[59, 71, 58]``, not the f32 ``[92, 53, 88]`` the workers serve."""
+    module, params, _, _ = _models(SHAPE, seed=1)
+    monkeypatch.setenv("UNIONML_TPU_KV_CACHE_DTYPE", "int8")
+    _, leaked, leaked_fleet = _jax_references((module, params))
+    monkeypatch.delenv("UNIONML_TPU_KV_CACHE_DTYPE")
+    _, clean, clean_fleet = _jax_references((module, params))
+    assert leaked == clean and leaked_fleet == clean_fleet
+    assert clean[tuple(PROMPTS[3])][:3] == [92, 53, 88]
 
 
 def test_slicing_equals_the_jax_package(fleet):

@@ -450,39 +450,101 @@ def _linear_predict(params: Any, features: Any) -> Any:
 def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
     import torch
 
-    from unionml_tpu_torch.models import ConstraintSet, GenerationConfig, Generator, compile_regex, llama_partition_rules
+    from unionml_tpu_torch.models import (
+        ConstraintSet,
+        DraftSpec,
+        GenerationConfig,
+        Generator,
+        compile_regex,
+        llama_partition_rules,
+    )
     from unionml_tpu_torch.parallel import MeshSpec
     from unionml_tpu_torch.serving import ContinuousBatcher, ServingConfig
     from unionml_tpu_torch.serving.compile import CompiledPredictor
 
     out: Dict[str, Any] = {}
     tree, config = payload["trees"]["llama"], payload["configs"]["llama"]
-    for case in payload["cases"]:
-        name = case["name"]
-        mesh = MeshSpec(**case["spec"]).build(device="cpu")
+
+    def generator(case: Dict[str, Any], mesh: Any) -> Any:
         kw = dict(case["config"])
         if case.get("grammar"):
             texts, pattern, eos = case["grammar"]
             kw["constraints"] = ConstraintSet([compile_regex(pattern, texts, eos_id=eos)])
-        gen = Generator(llama(tree, config), GenerationConfig(**kw), mesh=mesh, partition_rules=llama_partition_rules())
-        batcher = ContinuousBatcher(gen, **case["engine"])
+        if case.get("draft"):  # a draft of its own: placing it cuts the module
+            kind = case.get("draft_tree", "draft")
+            kw["draft"] = DraftSpec(llama(payload["trees"][kind], payload["configs"][kind]), gamma=case["draft"],
+                                    partition_rules=llama_partition_rules() if case.get("draft_rules") else None)
+        return Generator(llama(tree, config), GenerationConfig(**kw), device="cpu", mesh=mesh,
+                         partition_rules=llama_partition_rules() if mesh is not None else None,
+                         quantize=case.get("quantize"))
+
+    def engine(case: Dict[str, Any], gen: Any) -> Any:
+        knobs = dict(case["engine"])
+        if case.get("prefix"):  # a collective over a mesh: every rank prefills it
+            knobs["prefix"] = gen.cache_prefix(case["prefix"])
+        return ContinuousBatcher(gen, **knobs)
+
+    def spec_counters(batcher: Any, since: Any = None) -> Dict[str, Any]:
+        """The engine's speculative counters, less ``since`` (the counters
+        before: the Generator's speculative side, so its totals, outlive an
+        engine), with ``acceptance_rate`` as ``stats()`` computes it."""
+        spec = batcher._spec
+        now = {"rounds": spec.rounds, "accepted": spec.accepted_tokens, "proposed": spec.proposed_tokens}
+        if since is not None:
+            now = {k: n - since[k] for k, n in now.items()}
+        rate = round(now["accepted"] / (now["rounds"] * spec.gamma), 3) if now["rounds"] else None
+        return {**now, "acceptance_rate": rate, "decode_dispatches": batcher.stats()["decode_dispatches"]}
+
+    def one_by_one(batcher: Any, case: Dict[str, Any]) -> List[Any]:
+        grammars = case.get("constraint") or [None] * len(case["prompts"])
+        return [_collect(batcher.submit(p, constraint=g)) for p, g in zip(case["prompts"], grammars)]
+
+    for case in payload["cases"]:
+        name = case["name"]
+        mesh = MeshSpec(**case["spec"]).build(device="cpu")
+        gen = generator(case, mesh)
+        batcher = engine(case, gen)
+        if case.get("lockstep"):
+            # every rank keeps its carried out_buf and produced after each
+            # speculative dispatch: per-rank draws would part them
+            real, seen = batcher._op_spec_rounds, []
+
+            def kept(adm: Any, budget: Any, real: Any = real, seen: List[Any] = seen) -> Any:
+                state = real(adm, budget)
+                seen.append(tuple(batcher._carried(field, state).numpy().copy() for field in ("out_buf", "produced")))
+                return state
+
+            batcher._op_spec_rounds = kept
+            out[name + "/lockstep"] = seen
         try:
             if rank == 0:
                 prompts = case["prompts"]
-                streams: List[Any] = [None] * len(prompts)
+                if case.get("sequential"):
+                    # one stream at a time: each dispatch's rows, so the rounds
+                    # and acceptances, do not depend on arrival times
+                    out[name] = one_by_one(batcher, case)
+                    out[name + "/spec"] = spec_counters(batcher)
+                    solo = engine(case, generator(case, None))
+                    try:
+                        out[name + "/solo"] = one_by_one(solo, case)
+                        out[name + "/solo_spec"] = spec_counters(solo)
+                    finally:
+                        solo.close()
+                else:
+                    streams: List[Any] = [None] * len(prompts)
 
-                def consume(i: int) -> None:
-                    # staggered arrivals: each lands while earlier streams decode
-                    time.sleep(0.03 * i)
-                    kw = {"constraint": case["constraint"][i]} if case.get("constraint") else {}
-                    streams[i] = _collect(batcher.submit(prompts[i], **kw))
+                    def consume(i: int) -> None:
+                        # staggered arrivals: each lands while earlier streams decode
+                        time.sleep(0.03 * i)
+                        kw = {"constraint": case["constraint"][i]} if case.get("constraint") else {}
+                        streams[i] = _collect(batcher.submit(prompts[i], **kw))
 
-                threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(prompts))]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(timeout=120)
-                out[name] = streams
+                    threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(prompts))]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(timeout=120)
+                    out[name] = streams
                 if case.get("again"):
                     out[name + "/again"] = [_collect(batcher.submit(p)) for p in case["again"]]
                 out[name + "/stats"] = {
@@ -499,6 +561,20 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
                     out["follower_submit"] = str(exc)
         finally:
             batcher.close()
+        if case.get("draft") and not case.get("lockstep") and not case.get("sequential"):
+            # the prompts again one at a time on a fresh engine: each stream's
+            # rounds and acceptances then depend on its prompt alone, so the
+            # leader's counters must equal the JAX engine's run of the same
+            # streams (a wrongly cut or wrongly prefilled draft row proposes
+            # other tokens, and fewer are accepted)
+            batcher = engine(case, gen)
+            try:
+                if rank == 0:
+                    before = spec_counters(batcher)
+                    out[name + "/one_by_one"] = one_by_one(batcher, case)
+                    out[name + "/spec"] = spec_counters(batcher, since=before)
+            finally:
+                batcher.close()
 
     # a refusal every rank meets (a ValueError in an admission's operation,
     # before its collectives): rank 0 fails that stream and drops the rows,
@@ -541,6 +617,54 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
         out["data_stream"] = _collect(fleet.submit(payload["cases"][0]["prompts"][rank]))
     finally:
         fleet.close()
+
+    # a draft over a data x model mesh: a process-aware replica set of two
+    # tp=2 replicas, each leader serving its slice's share of the prompts
+    drafted = payload["dp_draft"]
+    mesh = MeshSpec(**drafted["spec"]).build(device="cpu")
+    gen = generator(drafted, mesh)
+    # a call over the whole mesh first: the draft is cut to it, and the
+    # delegation below gathers it back before each replica cuts its share
+    out["dp_draft_call"] = gen(drafted["prompts"][:2]).tolist()
+    fleet = ContinuousBatcher(gen, **drafted["engine"])
+    try:
+        replica = fleet.batchers[0]
+        out["dp_draft_fleet"] = (type(fleet).__name__, replica.gen.mesh.slice_index, replica.gen.mesh.devices,
+                                 replica._spec._draft.mesh is replica.gen.mesh,
+                                 replica._spec._draft.cache_config.n_kv_heads)
+        if not replica._follower:
+            # one stream at a time: each leader's counters are its streams' own
+            index = replica.gen.mesh.slice_index
+            out["dp_draft"] = {i: _collect(fleet.submit(p)) for i, p in enumerate(drafted["prompts"])
+                               if i % 2 == index}
+            out["dp_draft_spec"] = spec_counters(replica)
+    finally:
+        fleet.close()
+
+    # the refusals a draft keeps over a mesh, with the JAX engine's words
+    refusals = payload["refusals"]
+    gen = generator(refusals, MeshSpec(**refusals["spec"]).build(device="cpu"))
+    said: Dict[str, str] = {}
+    for label, knobs in (("prefix_cache", dict(block_size=4, prefix_cache=True)), ("role", dict(role="prefill"))):
+        try:
+            ContinuousBatcher(gen, **refusals["engine"], **knobs).close()
+        except ValueError as exc:
+            said[label] = str(exc)
+    batcher = ContinuousBatcher(gen, **refusals["engine"])
+    try:
+        if rank == 0:
+            prompt = refusals["prompts"][0]
+            for label, call in (("logprobs", lambda: batcher.submit(prompt, logprobs=True)),
+                                ("export_handoff", lambda: batcher.submit(prompt, export_handoff=True)),
+                                ("import_handoff", lambda: batcher.import_handoff({}))):
+                try:
+                    call()
+                except ValueError as exc:
+                    said[label] = str(exc)
+            said["served"] = _collect(batcher.submit(prompt))
+    finally:
+        batcher.close()
+    out["draft_refusals"] = said
 
     # ServingConfig(mesh=) through CompiledPredictor: the JAX unit case
     cp = CompiledPredictor(_linear_predict, ServingConfig(bucket_sizes=[3, 6], mesh=MeshSpec(data=4, model=-1)))

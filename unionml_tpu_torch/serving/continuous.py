@@ -57,8 +57,8 @@ is ``serving/replicas.py``).
 
 - **Over a mesh**: a Generator placed on a mesh with ``model``,
   ``sequence`` or ``expert`` axes is served by rank 0's engine, every other
-  rank following its device steps (the design is in
-  :mod:`unionml_tpu_torch.serving.mesh`).
+  rank following its device steps, a speculative dispatch's rounds
+  included (the design is in :mod:`unionml_tpu_torch.serving.mesh`).
 
 With greedy decoding each stream's tokens equal a solo
 ``Generator.__call__([prompt], constraint=g)`` run. Thread model: ``submit`` may be called
@@ -129,12 +129,17 @@ _SENTINEL = object()
 
 #: the engine's device operations that run collectives over a mesh (the
 #: model's forwards and head): a step plan is sent before each of them
-_COLLECTIVE_OPS = frozenset({"prefill_row", "row_chunk", "row_first", "first_logprob", "decode", "export",
-                             "import_kv"})
+_COLLECTIVE_OPS = frozenset({"prefill_row", "row_chunk", "row_first", "first_logprob", "decode", "spec_rounds",
+                             "export", "import_kv"})
 
-#: the items that bring speculative decoding and the AOT store over a mesh
-_SPEC_MESH = "ROADMAP.md, Queue A: speculative decoding over a mesh"
+#: the item that brings the AOT store over a mesh
 _AOT_MESH = "ROADMAP.md, Queue A: the AOT store over a mesh"
+
+#: the device carry's fields, in order: the plain decode carry, and under a
+#: draft the speculative loop's state (models/speculative.py); a grammar's
+#: DFA states ride as the tail of either (read them by name: ``_carried``)
+_CARRY = ("cache", "tok", "lengths", "done", "generator")
+_SPEC_CARRY = ("cache", "d_cache", "tok", "lengths", "done", "produced", "out_buf", "rounds", "accepted", "streams")
 
 
 def _tev(session: "_Session", name: str, **attrs: Any) -> None:
@@ -468,8 +473,6 @@ class ContinuousBatcher:
                         f"{mesh.shape[axis]} (batch-1 admission prefills cannot split a "
                         "batch axis) — serve a dp mesh through serving.ReplicaSet"
                     )
-            if cfg.draft is not None:
-                raise NotImplementedError(f"speculative decoding over a mesh is not ported yet ({_SPEC_MESH})")
         self.gen = generator
         self.device = generator.device
         self.max_waiting = SERVE_MAX_WAITING if max_waiting is None else max_waiting
@@ -976,11 +979,12 @@ class ContinuousBatcher:
             row_cache = _paste_prefix_rows(row_cache, prefix.layers)
             last, row_cache = gen._chunked_prefill_loop(tokens, lengths, row_cache, row_valid, chunk, start=p0)
             tok0 = gen._first_token(last, generator, state)
-        elif self._sp and gen is self.gen and chunk_aligned(bucket, self._sp_seq) <= self.cache_len:
+        elif self._sp and chunk_aligned(bucket, self._sp_seq) <= self.cache_len:
             # long-context admission: the row prefills sequence-parallel over
             # the mesh's sequence axis, then pastes like any dense row (an
             # exact-width resume too wide to align falls through below:
-            # both prefills give the same tokens)
+            # both prefills give the same tokens); a draft's row too, as the
+            # draft Generator shares the mesh and sp_prefill
             aligned = chunk_aligned(bucket, self._sp_seq)
             tokens = np.pad(tokens, ((0, 0), (0, aligned - bucket)), constant_values=cfg.pad_id)
             tok0, row_cache, last = gen._sp_prefill(
@@ -1164,8 +1168,16 @@ class ContinuousBatcher:
             return
         self._dev("extend_tables", None, slot, start_idx, list(ids))
 
+    def _carried(self, name: str, state: Optional[tuple] = None) -> Any:
+        """A field of the device carry by name (``_CARRY``/``_SPEC_CARRY``),
+        or of ``state``, a carry the speculative loop returned; ``"tail"``
+        is the tuple of DFA states, empty without a grammar."""
+        fields = _CARRY if self._spec is None else _SPEC_CARRY
+        state = self._carry if state is None else state
+        return state[len(fields):] if name == "tail" else state[fields.index(name)]
+
     def _op_extend_tables(self, _: None, slot: int, start_idx: int, ids: "List[int]") -> None:
-        table = self._carry[0][0]["table"]
+        table = self._carried("cache")[0]["table"]
         table[slot, start_idx : start_idx + len(ids)] = torch.as_tensor(ids, dtype=torch.int32, device=table.device)
 
     def _mask_slot_done(self, slot: int) -> None:
@@ -1178,9 +1190,9 @@ class ContinuousBatcher:
         self._dev("mask_done", None, slot)
 
     def _op_mask_done(self, _: None, slot: int) -> None:
-        self._carry[3 if self._spec is None else 4][slot] = True
+        self._carried("done")[slot] = True
         if self.block_size is not None:  # the table tensor both pools share
-            self._carry[0][0]["table"][slot] = self._scratch_block
+            self._carried("cache")[0]["table"][slot] = self._scratch_block
 
     def _preempt_locked(self, slot: int, reason: str = "capacity") -> None:
         """Evict a resident under pool exhaustion (or for a higher-priority
@@ -2181,7 +2193,7 @@ class ContinuousBatcher:
         cfg = self.gen.config
         self._chunk_state(adm, total)
         if gather_row is not None:
-            adm.row_cache = gather_paged_rows(self._carry[0], gather_row, self.cache_len)
+            adm.row_cache = gather_paged_rows(self._carried("cache"), gather_row, self.cache_len)
             return
         row_cache = init_cache(self.gen.cache_config, 1, self.cache_len, kv_dtype=cfg.kv_cache_dtype,
                                device=self.device)
@@ -2533,9 +2545,9 @@ class ContinuousBatcher:
         if self._carry is None:
             self._carry = self._init_carry()
         spec = self._spec is not None
-        caches = self._carry[:2] if spec else self._carry[:1]
+        caches = tuple(self._carried(name) for name in (("cache", "d_cache") if spec else ("cache",)))
         rows = (adm.row_cache, adm.d_row_cache) if spec else (adm.row_cache,)
-        tok, lengths, done = self._carry[len(caches): len(caches) + 3]
+        tok, lengths, done = (self._carried(name) for name in ("tok", "lengths", "done"))
         with torch.no_grad():
             for cache, row_cache in zip(caches, rows):
                 if adm.import_pages is not None:
@@ -2551,12 +2563,12 @@ class ContinuousBatcher:
             if spec:
                 # the speculative activation: the slot's out_buf row reset
                 # (pad, then tok0), produced at 1 and the start-done flag
-                produced, out_buf = self._carry[5], self._carry[6]
+                produced, out_buf = self._carried("produced"), self._carried("out_buf")
                 out_buf[slot] = self.gen.config.pad_id
                 out_buf[slot, 0] = adm.tok0[0]
                 produced[slot] = 1
                 done[slot] = start_done
-            if cstate := self._carry[10 if spec else 5:]:  # the DFA state tail
+            if cstate := self._carried("tail"):
                 # advance past the (constrained) prompt-sampled token on the
                 # device: an indexed copy, no host round trip
                 trans = self.gen._cs_trans
@@ -2631,7 +2643,7 @@ class ContinuousBatcher:
         toks, lps = self._dev("decode", None, self.decode_chunk)
         toks_np = toks.cpu().numpy()  # [S, chunk]; also waits for the dispatch
         lps_np = lps.cpu().numpy()  # [S, chunk] f32: each sampled token's logprob
-        done_np = self._carry[3].cpu().numpy()
+        done_np = self._carried("done").cpu().numpy()
         registry = self._registry()
         with self._lock:
             self.decode_dispatches += 1
@@ -2678,6 +2690,19 @@ class ContinuousBatcher:
         toks, lps, self._carry = self.gen._decode(*self._carry, steps=steps)
         return toks, lps
 
+    def _op_spec_rounds(self, _: None, budget_np: np.ndarray) -> tuple:
+        """One speculative dispatch over every slot: rounds until each live
+        row has gained ``decode_chunk`` tokens or met its ``budget_np``
+        (host ``[slots]`` int32). Over a mesh every rank rolls the rounds on
+        its own shards from the same carry: greedy acceptance compares
+        argmaxes of gathered logits, and sampled draws are the leader's,
+        broadcast (``Generator._draw``), so each round's stop condition
+        reads the same value on every rank."""
+        budget = torch.as_tensor(budget_np, device=self.device)
+        floor = torch.minimum(self._carried("produced") + self.decode_chunk, budget)
+        self._carry = self._spec._loop(self._carry, floor, budget)
+        return self._carry
+
     def _spec_chunk(self) -> None:
         """Speculative shared dispatch: rounds (gamma draft steps, one verify
         forward, accept/reject) until every resident row has gained
@@ -2690,18 +2715,15 @@ class ContinuousBatcher:
                 # the device counters are per RESIDENCY: a resumed session's
                 # out_buf restarted at its re-admission
                 budget_np[slot] = session.max_new - session.resident_base
-        budget = torch.as_tensor(budget_np, device=self.device)
-        floor = torch.minimum(self._carry[5] + self.decode_chunk, budget)
-        state = spec._loop(self._carry, floor, budget)
-        self._carry = state
-        out_np = state[6].cpu().numpy()  # also waits for the dispatch
-        prod_np = state[5].cpu().numpy()
-        done_np = state[4].cpu().numpy()
+        state = self._dev("spec_rounds", None, budget_np)
+        out_np = self._carried("out_buf", state).cpu().numpy()  # also waits for the dispatch
+        prod_np = self._carried("produced", state).cpu().numpy()
+        done_np = self._carried("done", state).cpu().numpy()
         registry = self._registry()
         with self._lock:
             # fold the ride-along counters into the acceptance telemetry under
             # the lock, so stats() never sees rounds without their accepts
-            self._spec_seen = spec._count(state[7], state[8], self._spec_seen)
+            self._spec_seen = spec._count(self._carried("rounds", state), self._carried("accepted", state), self._spec_seen)
             self.decode_dispatches += 1
             self.decoded_rows += len(self._sessions)
             now = time.monotonic()

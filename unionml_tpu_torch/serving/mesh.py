@@ -36,6 +36,16 @@ broadcast (``Generator._draw``), and greedy ids are the argmax of logits
 that are equal bit for bit on every rank. Ranks never draw from their own
 generators.
 
+Speculative decoding (``config.draft``) runs a dispatch's rounds as one
+operation, ``spec_rounds``, whose argument is the host budget of each
+slot: every rank rolls the draft's steps, the verify and the acceptance on
+its own shards of both models. Acceptance compares tokens and
+distributions that every rank holds whole (the draft's proposals and the
+uniforms are drawn as above), so each round's stop condition reads the
+same on every rank and the ranks leave the loop together. The draft's rows
+are admitted by the same operations as the target's; the emitted tokens
+and the acceptance counters are read on the leader.
+
 The engine serves meshes with ``model``, ``sequence`` and ``expert`` axes.
 A mesh with a ``data``, ``fsdp`` or ``dcn_data`` axis above 1 goes to the
 replica layer, as in the JAX package (a batch-1 admission row cannot split

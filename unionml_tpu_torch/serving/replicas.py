@@ -680,6 +680,10 @@ class ReplicaSet:
             from unionml_tpu_torch.parallel.sharding import unplace_module
 
             unplace_module(generator.model)
+            if generator.config.draft is not None:
+                # a draft that served over the dp mesh was cut there too (a
+                # no-op otherwise); each replica cuts it again to its submesh
+                unplace_module(generator.config.draft.module)
         return cls.build(
             generator.model, generator.config, mesh=mesh, partition_rules=generator.partition_rules,
             quantize=generator.quantize, replicas=replicas, devices=devices, **engine_kwargs,
