@@ -216,6 +216,20 @@ Phases (no phase catches a failure; any fault exits non-zero):
    rank in every case, and ``OFF_MESH_PATH``'s must count 0;
    ``tp_launches`` on the kernels line is rank 0's count over the ten
    served runs, ``spec_mesh_launches`` its count over the speculative one.
+   Then, in the same world, the AOT store over the mesh
+   (``MESH_AOT_CASES``): each program captured in segments between its
+   collectives, which run eagerly between the graphs. f32 tp32, sp32 (ring
+   admission) and moe32 on empty stores, and bf16 model=2 and its int8
+   twin on an empty store (a miss) and then a fresh ``Generator`` and
+   engine on the populated store with the kernel build cache at an empty
+   directory (a hit), each built afresh from its eager case's seed: streams
+   equal the eager case's, paged (and int8) launches a dispatch equal on
+   each rank, a miss compiles on each rank, a hit loads with no capture and
+   no ``nvcc``, a hand-driven dispatch moves as many gloo transfers as
+   eager's; printed beside eager: tok/s, TBT and TTFT p50, rank 0's host
+   and wall ms a decode step, the graphs and collectives of each program
+   and the capture ms (``aot_mesh_launches`` on the kernels line: rank 0's
+   count over the hits' served runs).
 
 16. parallel training (``fit`` over a mesh), run after 15: (a) phase 5's
    configuration through ``fit(config=TrainerConfig(mesh=MeshSpec(data=1),
@@ -453,6 +467,12 @@ SP_PROMPT_LEN = 2048  # (b): the sequence-parallel prefill's prompt, numpy seed 
 #: heads of D = 64 on each rank; 4 of the 16 since the script passed 1000 s with the whole draft (1105.4 s on
 #: an NVIDIA H100 80GB HBM3, 700.00 W)
 MESH_DRAFT_LAYERS = 4
+#: (b)'s graph-route cases (the AOT store over the mesh), run in the same world after the ten: each takes its eager
+#: case's model (built afresh from its seed), knobs and prompts, and its streams as the reference; "miss" is an engine
+#: on an empty store, "hit" a fresh Generator and engine on the populated store with the kernel build cache at an
+#: empty directory
+MESH_AOT_CASES = (("tp32", ("miss",)), ("sp32", ("miss",)), ("moe32", ("miss",)), ("tp", ("miss", "hit")),
+                  ("int8", ("miss", "hit")))
 #: (b)'s f32 speculative case drafts with the target itself, which accepts every proposal unsharded (phase 9b):
 #: on the mesh the share of proposals that had budget room and were accepted must reach this, and its counters
 #: the unsharded run's exactly (rounds x gamma also counts the proposals past a stream's end, so its rate is lower)
@@ -4017,7 +4037,7 @@ def mesh_cases(prompts, gcfg) -> list:
         dict(name="tp", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
              prompts=prompts, logits=True, pool_check=True, host_time=True),
         dict(name="int8", model="llama", f32=False, seed=0, spec=dict(model=2), rules="llama", gen=base, slots=4,
-             prompts=prompts, quantize="int8"),
+             prompts=prompts, quantize="int8", host_time=True),
         dict(name="sp", model="llama", f32=False, seed=0, spec=dict(sequence=2), rules=None, slots=1,
              gen={**base, "prompt_buckets": (SP_PROMPT_LEN,), "sp_prefill": "ring"}, prompts=[sp_prompt]),
         dict(name="moe", model="moe", f32=False, seed=0, spec=dict(expert=2), rules="moe", gen=base, slots=4,
@@ -4164,14 +4184,7 @@ def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
         res.update(pool_err=err.max().item(), pool_ok=bool((err <= atol + rtol * ref.float().abs()).all()),
                    pool_launches=paged_decode_attention.launches - before, pool_shape=tuple(layer["k"].shape))
     if case.get("host_time") and rank == 0:
-        # one decode dispatch driven from here while the engine idles (the
-        # other rank follows its plan): the controller thread's CPU time a step
-        torch.cuda.synchronize()
-        cpu0, wall0 = time.thread_time(), time.perf_counter()
-        engine._dev("decode", None, decode_chunk)
-        torch.cuda.synchronize()
-        res["host_ms_per_step"] = (time.thread_time() - cpu0) * 1e3 / decode_chunk
-        res["wall_ms_per_step"] = (time.perf_counter() - wall0) * 1e3 / decode_chunk
+        res.update(hand_dispatch(engine, decode_chunk))
     res["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     dist.barrier(group=sync)
     engine.close()
@@ -4181,15 +4194,126 @@ def mesh_case(rank: int, case: dict, decode_chunk: int, logits, sync) -> dict:
     return res
 
 
-def mesh_rank(rank: int, store: str, cases: list, decode_chunk: int, logits, out, refs_done) -> None:
+def hand_dispatch(engine, decode_chunk: int) -> dict:
+    """One decode dispatch driven from rank 0 while the engine idles (the
+    other rank follows its plan): the controller thread's CPU time and the
+    wall time a step, and the gloo transfers and paged launches of the
+    dispatch on this rank."""
+    import torch
+
+    from unionml_tpu_torch.ops.paged_attention import paged_decode_attention
+    from unionml_tpu_torch.parallel.collectives import host_route
+
+    torch.cuda.synchronize()
+    transfers, paged = host_route.count, paged_decode_attention.launches
+    cpu0, wall0 = time.thread_time(), time.perf_counter()
+    engine._dev("decode", None, decode_chunk)
+    torch.cuda.synchronize()
+    return dict(host_ms_per_step=(time.thread_time() - cpu0) * 1e3 / decode_chunk,
+                wall_ms_per_step=(time.perf_counter() - wall0) * 1e3 / decode_chunk,
+                dispatch_transfers=host_route.count - transfers, dispatch_paged=paged_decode_attention.launches - paged)
+
+
+def settled(engine, rank: int, sync) -> None:
+    """Return once rank 1's engine thread has run every operation rank 0's
+    engine sent (a graph's replay adds its launches after its last graph):
+    rank 0 sends an empty plan, which that thread takes only when done with
+    the last one, and both ranks then meet at a barrier."""
+    import torch.distributed as dist
+
+    if rank == 0:
+        engine._plan.record("noop", None, (), True)
+    dist.barrier(group=sync)
+
+
+def mesh_aot_case(rank: int, case: dict, route: str, decode_chunk: int, sync, store: str, kernels: str) -> dict:
+    """One graph-route engine of phase 15b on this rank: ``case``'s model
+    built afresh from its seed behind a fresh ``Generator`` and
+    ``ContinuousBatcher(aot=store)``; ``warmup()`` (rank 0 warms, rank 1
+    runs its plans: each program captured in segments between its
+    collectives, or loaded), rank 0 serves the case's prompts, then drives
+    one decode dispatch by hand. ``route="hit"`` first points the kernel
+    build cache at the empty directory ``kernels``; the ``nvcc`` runs are
+    counted either way."""
+    import os
+
+    import torch
+
+    from unionml_tpu_torch import ContinuousBatcher, Generator, _build
+    from unionml_tpu_torch.compile_cache import enable_compile_cache
+    from unionml_tpu_torch.models import llama_partition_rules, moe_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.parallel.collectives import host_route
+    from unionml_tpu_torch.serving.aot import ProgramStore
+
+    torch.backends.cuda.matmul.allow_tf32 = not case["f32"]
+    torch.backends.cudnn.allow_tf32 = not case["f32"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build_dir, nvcc0 = _build.build_dir(), _build.nvcc_runs
+    if route == "hit":
+        enable_compile_cache(kernels)
+    try:
+        mesh = MeshSpec(**case["spec"]).build()
+        rules = {"llama": llama_partition_rules(), "moe": moe_partition_rules()}.get(case["rules"])
+        gen = Generator(mesh_model(case), mesh_config(case, rules), mesh=mesh, partition_rules=rules,
+                        quantize=case.get("quantize"))
+        engine = ContinuousBatcher(gen, slots=case["slots"], decode_chunk=decode_chunk, block_size=BLOCK, aot=store)
+        t0 = time.perf_counter()
+        engine.warmup()
+        res = dict(warmup_s=time.perf_counter() - t0)
+        settled(engine, rank, sync)
+        reset_counts()
+        host_route.count = 0
+        if rank == 0:
+            before = engine.decode_dispatches
+            streams, seconds = serve(engine, case["prompts"])
+            stats = engine.stats()
+            res.update(streams=streams, seconds=seconds, ttft_p50=stats["ttft_ms"]["p50_ms"],
+                       tbt_p50=stats["tbt_ms"]["p50_ms"], dispatches=engine.decode_dispatches - before)
+        settled(engine, rank, sync)
+        launches = all_launches()
+        res.update(launches=launches, paged=launches["paged_decode_attention"], int8=launches["int8_matmul"],
+                   transfers=host_route.count)
+        if rank == 0:
+            res.update(hand_dispatch(engine, decode_chunk))
+            if route == "miss":
+                res["entries"] = sorted((e["program"], e["segments"], len(e["collectives"]), e["capture_ms"])
+                                        for e in ProgramStore(store).entries())
+        settled(engine, rank, sync)
+        res["memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        engine.close()
+        # read once closed: rank 1's thread has then run every plan
+        res["aot"] = {k: v for k, v in engine.stats()["aot"].items() if isinstance(v, int)}
+        res["traces"] = (gen.prefill_traces, gen.decode_traces)
+        res["programs"] = {attr.strip("_"): sorted((g.segments, len(g.collectives))
+                                                   for g in getattr(gen, attr)._programs.values())
+                           for attr in ("_prefill", "_sp_prefill", "_prefill_chunk", "_first_token", "_decode")
+                           if getattr(gen, attr)._programs}
+    finally:
+        _build.set_build_dir(build_dir)
+    res["nvcc_runs"] = _build.nvcc_runs - nvcc0
+    res["installed"] = sorted(os.listdir(kernels)) if route == "hit" else None
+    del gen, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_rank(rank: int, store: str, cases: list, decode_chunk: int, logits, out, refs_done, aot_dir: str) -> None:
     """One of phase 15b's two processes, both on cuda:0 over gloo (NCCL
     refuses two ranks on one card). The timed bf16 cases start once the
-    parent sets ``refs_done``. Puts ``(rank, ok, results or traceback)`` on
-    ``out``."""
+    parent sets ``refs_done``; the graph-route cases (``MESH_AOT_CASES``, AOT
+    stores under ``aot_dir``) run after the ten. Puts ``(rank, ok, results
+    or traceback)`` on ``out``."""
     try:
+        import faulthandler
+        import os
+
         import torch
         import torch.distributed as dist
 
+        faulthandler.enable(all_threads=True)  # a rank that dies of a signal prints its threads' stacks first
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS), rank=rank, world_size=MESH_RANKS)
         sync = dist.new_group(list(range(MESH_RANKS)))  # the phase's own barriers, beside the mesh's groups
@@ -4198,6 +4322,12 @@ def mesh_rank(rank: int, store: str, cases: list, decode_chunk: int, logits, out
             if not case["f32"]:
                 refs_done.wait()
             results[case["name"]] = mesh_case(rank, case, decode_chunk, logits, sync)
+        by_name = {case["name"]: case for case in cases}
+        for name, routes in MESH_AOT_CASES:
+            programs = os.path.join(aot_dir, name)  # the ranks share one card, so one store
+            for route in routes:
+                results[f"{name}_aot_{route}"] = mesh_aot_case(rank, by_name[name], route, decode_chunk, sync,
+                                                               programs, os.path.join(aot_dir, f"kernels-{name}-{rank}"))
         dist.destroy_process_group()
         out.put((rank, True, results))
     except BaseException:
@@ -4287,6 +4417,7 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     The int8 kernel runs
     at each rank's weight shapes against its twin, timed."""
     import multiprocessing
+    import shutil
     import tempfile
 
     from unionml_tpu_torch import _build
@@ -4301,8 +4432,9 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     store = tempfile.mktemp(prefix="chip_smoke_mesh_")
+    aot_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_aot_")
     refs_done = ctx.Event()
-    procs = [ctx.Process(target=mesh_rank, args=(r, store, cases, decode_chunk, logits, out, refs_done))
+    procs = [ctx.Process(target=mesh_rank, args=(r, store, cases, decode_chunk, logits, out, refs_done, aot_dir))
              for r in range(MESH_RANKS)]
     for p in procs:
         p.start()
@@ -4337,6 +4469,7 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        shutil.rmtree(aot_dir, ignore_errors=True)
     require(not errors and len(results) == MESH_RANKS, "phase 15b failed:\n" + "\n".join(errors))
     r0 = results[0]
     tp = r0["tp"]
@@ -4429,10 +4562,83 @@ def mesh_phase(card: str, gcfg, prompts, slots: int, decode_chunk: int, bf16_str
           f"(at least {SPEC32_ACCEPTANCE}; acceptance rate {spec32['acceptance']:.3f} of rounds x gamma)", flush=True)
     check(got == want, f"phase 15b spec32: speculative counters {got} on the mesh, {want} unsharded")
     check(had_room >= SPEC32_ACCEPTANCE, f"phase 15b spec32: {had_room} of the proposals that had room accepted")
+    aot_mesh_launches = mesh_aot_checks(card, results, {c["name"]: c for c in cases}, decode_chunk, check)
     require(not failed, "phase 15b: " + "; ".join(failed))
     seconds = time.perf_counter() - t_phase
     print(f"phase 15 took {seconds:.1f} s", flush=True)
-    return dict(tp_launches=tp_launches, shards=shards, spec_mesh_launches=spec["paged"])
+    return dict(tp_launches=tp_launches, shards=shards, spec_mesh_launches=spec["paged"],
+                aot_mesh_launches=aot_mesh_launches)
+
+
+def mesh_aot_checks(card: str, results: dict, cases: dict, decode_chunk: int, check) -> dict:
+    """Phase 15b's graph-route cases against their eager cases: print each
+    route's numbers beside the eager engine's, ``check`` every requirement,
+    and return rank 0's launches over the served runs of the hits (bf16 and
+    int8): ``aot_mesh_launches`` on the kernels line."""
+    r0 = results[0]
+    for name, routes in MESH_AOT_CASES:
+        eager, case = r0[name], cases[name]
+        for route in routes:
+            key = f"{name}_aot_{route}"
+            run = r0[key]
+            toks = sum(len(s) for s in run["streams"])
+            line = (f"phase 15b aot {name} ({case['spec']}, {'f32' if case['f32'] else 'bf16'}) {route}: warmup() "
+                    f"{run['warmup_s']:.2f} s; {toks / run['seconds']:.1f} tok/s (eager "
+                    f"{sum(len(s) for s in eager['streams']) / eager['seconds']:.1f}), TBT p50 {run['tbt_p50']} ms "
+                    f"(eager {eager['tbt_p50']}), TTFT p50 {run['ttft_p50']} ms (eager {eager['ttft_p50']}); rank 0's "
+                    f"controller {run['host_ms_per_step']:.3f} ms host and {run['wall_ms_per_step']:.3f} ms wall a "
+                    f"decode step")
+            if "host_ms_per_step" in eager:
+                line += (f" (eager {eager['host_ms_per_step']:.3f} / {eager['wall_ms_per_step']:.3f}), gloo transfers "
+                         f"a dispatch {run['dispatch_transfers']} (eager {eager['dispatch_transfers']})")
+            line += (f"; programs {[results[r][key]['aot'] for r in range(MESH_RANKS)]}; graphs (segments, "
+                     f"collectives) a program {run['programs']}")
+            if route == "miss":
+                line += f"; entries (program, segments, collectives, capture ms) {run['entries']}"
+            else:
+                line += (f"; fresh captures {[results[r][key]['traces'] for r in range(MESH_RANKS)]}, nvcc runs "
+                         f"{[results[r][key]['nvcc_runs'] for r in range(MESH_RANKS)]}, libraries installed into "
+                         f"the empty build cache {run['installed']}")
+            print(line + f"; memory {[round(results[r][key]['memory_gib'], 2) for r in range(MESH_RANKS)]} GiB a "
+                  f"rank; card {card}", flush=True)
+            check(run["streams"] == eager["streams"], f"phase 15b aot {name} {route}: streams differ from eager")
+            for r in range(MESH_RANKS):
+                mine, theirs = results[r][key], results[r][name]
+                aot = mine["aot"]
+                # each kernel's launches per dispatch on the graph route equal the eager engine's on each rank
+                check(mine["paged"] * eager["dispatches"] == theirs["paged"] * run["dispatches"],
+                      f"phase 15b aot {name} {route} rank {r}: {mine['paged']} paged launches over "
+                      f"{run['dispatches']} dispatches, eager {theirs['paged']} over {eager['dispatches']}")
+                if case.get("quantize") == "int8":
+                    forwards = len(case["prompts"]) + run["dispatches"] * decode_chunk
+                    check(mine["int8"] == MESH_INT8_PER_FORWARD * forwards,
+                          f"phase 15b aot {name} {route} rank {r}: {mine['int8']} int8 launches")
+                off = {k: n for k, n in mine["launches"].items() if k in OFF_MESH_PATH}
+                check(not any(off.values()), f"phase 15b aot {name} {route} rank {r}: off-path launches {off}")
+                if route == "miss":
+                    check(aot["programs_compiled"] > 0 and aot["programs_loaded"] == 0,
+                          f"phase 15b aot {name} miss rank {r}: {aot}")
+                else:
+                    check(aot["programs_compiled"] == 0 and aot["programs_loaded"] > 0 and mine["traces"] == (0, 0)
+                          and mine["nvcc_runs"] == 0, f"phase 15b aot {name} hit rank {r}: {aot}, captures "
+                          f"{mine['traces']}, nvcc {mine['nvcc_runs']}")
+                    check(any(n.startswith("libpaged_decode_attention-") for n in mine["installed"]),
+                          f"phase 15b aot {name} hit rank {r}: installed {mine['installed']}")
+                # every program is its graphs and the collectives between them; some program of each case is cut
+                graphs = [g for per in mine["programs"].values() for g in per]
+                check(graphs and all(segments == collectives + 1 for segments, collectives in graphs)
+                      and any(collectives for _, collectives in graphs),
+                      f"phase 15b aot {name} {route} rank {r}: programs {mine['programs']}")
+            if "dispatch_transfers" in eager:
+                check(run["dispatch_transfers"] == eager["dispatch_transfers"] > 0
+                      and run["dispatch_paged"] == eager["dispatch_paged"] > 0,
+                      f"phase 15b aot {name} {route}: a hand-driven dispatch's transfers / paged launches "
+                      f"{run['dispatch_transfers']} / {run['dispatch_paged']}, eager {eager['dispatch_transfers']} / "
+                      f"{eager['dispatch_paged']}")
+    hits = [f"{name}_aot_hit" for name, routes in MESH_AOT_CASES if "hit" in routes]
+    launches = {k: sum(r0[key]["launches"][k] for key in hits) for k in r0[hits[0]]["launches"]}
+    print(f"phase 15b aot: rank 0's launches over the hits' served runs {launches} (aot_mesh_launches)", flush=True)
+    return launches
 
 
 #: phase 16: parallel training on the card. (a) phase 5's configuration through fit over a world of one
@@ -5113,9 +5319,10 @@ def train_mesh_phase(card: str, phase5_losses: list) -> dict:
 #: phase 17 (the cold start): the seeded sampled pair's temperature, and its prompts (phase 3's first two, one
 #: after another, so that both engines seed their admissions alike)
 AOT_TEMPERATURE, AOT_SAMPLED_PROMPTS = 0.8, 2
-#: 17a's depth: phase 3's configuration at 8 of its 32 layers, cut to make room for phases 19-20 (a program's
-#: capture, replay and the int8 quantization scale with the layers; each layer's programs are the same)
-AOT_LAYERS = 8
+#: 17a's depth: phase 3's configuration at 4 of its 32 layers, cut from 32 to 8 to make room for phases 19-20 and
+#: to 4 for phase 15b's graph-route cases, which run the graph route at 8 layers over the mesh (a program's capture,
+#: replay and the int8 quantization scale with the layers; each layer's programs are the same)
+AOT_LAYERS = 4
 
 
 #: each wrapper's CUDA kernel, by the name a profiler trace gives it (the int8-page mode has two)
@@ -6540,6 +6747,8 @@ def main() -> int:
         kernel["train_mesh_f32_launches"] = train_mesh["f32_launches"][kernel["name"]]
         # phase 17a: the graph route's profiled served runs (bf16 hit, int8), counted from the traces by kernel name
         kernel["aot_launches"] = aot["launches"][kernel["name"]]
+        # phase 15b: the AOT store over the mesh, rank 0's counts over the hits' served runs (bf16 and int8, model=2)
+        kernel["aot_mesh_launches"] = mesh["aot_mesh_launches"][kernel["name"]]
         if kernel["name"] in FLASH_PRODUCTS:
             kernel["train_mesh_max_abs_err"] = train_mesh["max_abs_err"]
     for kernel in kernels:
@@ -6557,6 +6766,8 @@ def main() -> int:
             and sum("remote_launches" in k for k in kernels) == 3, "a kernel never launched on the remote paths")
     require(all(k["aot_launches"] > 0 for k in kernels if k["name"] in ("paged_decode_attention", "int8_matmul")),
             "a kernel of the graph route never launched in phase 17a")
+    require(all(k["aot_mesh_launches"] > 0 for k in kernels if k["name"] in ("paged_decode_attention", "int8_matmul")),
+            "a kernel of the graph route over the mesh never launched in phase 15b")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

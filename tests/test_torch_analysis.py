@@ -33,6 +33,7 @@ import unionml_tpu.analysis.engine as jax_engine
 import unionml_tpu_torch.analysis.engine as port_engine
 from tests.unit import test_analysis as jax_cases
 from unionml_tpu_torch.analysis import run_lint
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 ROOT = Path(__file__).resolve().parents[1]
 UNIT_FILE = ROOT / "tests" / "unit" / "test_analysis.py"

@@ -14,8 +14,9 @@ The graph route's buffer handling (static copies, a written-in-place input
 bound by identity and another caller's swapped in and back out, cloned
 outputs, the generator's state carried across a
 replay, launches per replay) is held on the CPU through the module's capture
-seam: ``_capturable`` admits CPU tensors and ``_record_graph`` records the
-call, which each "replay" runs again into the captured output buffers.
+seams: ``_capturable`` admits CPU tensors and ``_begin_graph``/``_end_graph``
+record each graph as a tape of aten ops, which a replay runs again on the
+captured tensors (``tests/torch_graph_tape.py``).
 """
 
 import os
@@ -35,6 +36,8 @@ from unionml_tpu_torch.models import GenerationConfig, Generator, Llama, LlamaCo
 from unionml_tpu_torch.serving import ContinuousBatcher
 from unionml_tpu_torch.serving import aot
 from unionml_tpu_torch.serving.aot import AOTFunction, ProgramStore, resolve_store
+from tests import torch_graph_tape
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 
@@ -215,38 +218,127 @@ def test_stale_torch_version_entries_are_skipped(tmp_path, model):
     assert fresh.entry_count() == n_entries * 2  # old entries orphaned, not clobbered
 
 
-def test_aot_over_a_mesh_raises(tmp_path, model, monkeypatch, caplog):
-    """JAX's ``test_mesh_mismatch_entries_are_skipped``: the port captures
-    no program over a mesh (its collectives go through gloo's host route),
-    so ``aot=`` there raises naming the ROADMAP.md item, an explicit
-    ``enable_aot`` too, and the serve CLI's export is warned about and left
-    off. A world of one process (no ranks spawned)."""
-    import copy
+#: the JAX mesh oracle's model (``tests/emulated/test_aot_tp.py``: PRNGKey(1))
+MESH_SHAPE = dict(vocab_size=96, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=128)
+MESH_GEN = dict(max_new_tokens=8, temperature=0.0, prompt_buckets=(16,))
+MESH_PROMPTS = [[3, 1, 4, 1, 5, 9, 2], [9, 2, 6], [7, 1, 8, 2, 8, 1, 8, 2, 8, 4]]
+#: (a)'s engines: the paged pool; (b)'s fleet: the JAX oracle's dense knobs
+MESH_ENGINE = dict(slots=2, decode_chunk=4, block_size=4)
+FLEET_ENGINE = dict(slots=2, decode_chunk=4)
 
-    import torch.distributed as dist
 
-    from unionml_tpu_torch.models import llama_partition_rules
-    from unionml_tpu_torch.parallel import MeshSpec
+def _jax_mesh_streams(module, params, mesh_devices, knobs):
+    """The JAX engine's streams, one prompt at a time: over ``model=2`` on
+    two emulated devices (``mesh_devices``), or unsharded."""
+    from unionml_tpu.models import llama_partition_rules as jax_rules
+    from unionml_tpu.parallel import MeshSpec as JaxMeshSpec
+    from unionml_tpu.serving import ContinuousBatcher as JaxContinuousBatcher
 
+    mesh = JaxMeshSpec(model=2).build(devices=mesh_devices) if mesh_devices else None
+    gen = JaxGenerator(module, params, JaxGenerationConfig(**MESH_GEN), mesh=mesh,
+                       partition_rules=jax_rules() if mesh is not None else None)
+    batcher = JaxContinuousBatcher(gen, **knobs)
     try:
-        mesh = MeshSpec(model=1).build(device="cpu")
-        gen = Generator(copy.deepcopy(model), _cfg(), mesh=mesh, partition_rules=llama_partition_rules())
-        with pytest.raises(NotImplementedError, match="Queue A: the AOT store over a mesh"):
-            ContinuousBatcher(gen, slots=2, decode_chunk=4, aot=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="over a mesh"):
-            gen.enable_aot(ProgramStore(str(tmp_path)))
-        monkeypatch.setenv("UNIONML_TPU_AOT_PRELOAD", str(tmp_path))
-        with caplog.at_level("WARNING"):
-            batcher = ContinuousBatcher(gen, slots=2, decode_chunk=4)
-        try:
-            assert batcher._aot is None and "aot" not in batcher.stats()
-            assert "runs over a mesh" in caplog.text
-        finally:
-            batcher.close()
+        return [_drain(batcher.submit(p)) for p in MESH_PROMPTS]
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-    assert os.listdir(tmp_path) == []
+        batcher.close()
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    """One world of 4 gloo ranks (``aot_rank`` in ``tests/torch_mesh_ranks.py``,
+    every capture a tape), and JAX's eager engines over ``model=2`` and
+    unsharded, computed here while the ranks run."""
+    from tests.torch_mesh_ranks import World, threaded
+
+    module = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **MESH_SHAPE))
+    params = module.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"]
+    tmp = tmp_path_factory.mktemp("aot_mesh")
+    payload = {"tree": jax.tree_util.tree_map(np.asarray, params), "config": MESH_SHAPE, "gen": MESH_GEN,
+               "prompts": MESH_PROMPTS, "engine": MESH_ENGINE, "fleet_engine": FLEET_ENGINE,
+               "dir": str(tmp / "stores")}
+    world = World(4, "aot_rank", payload, tmp, timeout=400)
+    jax_runs = threaded({
+        "tp2": lambda: _jax_mesh_streams(module, params, jax.devices()[:2], MESH_ENGINE),
+        "tp2_fleet": lambda: _jax_mesh_streams(module, params, jax.devices()[2:4], FLEET_ENGINE),
+        "single": lambda: _jax_mesh_streams(module, params, None, FLEET_ENGINE),
+    })
+    return world.results(), {key: future.result() for key, future in jax_runs.items()}
+
+
+def test_mesh_miss_then_hit_serves_the_jax_mesh_engines_tokens(mesh_world):
+    """JAX's ``test_tp2_preload_then_serve_token_identical`` over the port's
+    ranks: each pair of ranks serves a model=2 submesh eagerly, then on an
+    empty store (every program captured in segments and written), then a
+    fresh Generator and engine on the populated store: zero captures, every
+    program loaded, and every stream equal to JAX's eager model=2 engine, to
+    JAX's unsharded one and to the port's eager mesh engine. Each graph of a
+    program ends at a collective, which a replay runs between two graphs."""
+    ranks, jax_runs = mesh_world
+    assert jax_runs["tp2"] == jax_runs["single"]
+    for rank, res in enumerate(ranks):
+        if rank % 2 == 0:
+            assert res["eager"] == res["miss"] == res["hit"] == jax_runs["tp2"], rank
+        miss, hit = res["miss/aot"], res["hit/aot"]
+        assert miss["programs_compiled"] > 0 and miss["programs_loaded"] == 0, rank
+        assert hit["programs_compiled"] == 0 and hit["programs_loaded"] == miss["programs_compiled"], rank
+        assert res["miss/traces"][0] > 0 and res["miss/traces"][1] > 0
+        assert res["hit/traces"] == (0, 0), rank
+        for label in ("miss", "hit"):
+            programs = res[label + "/programs"]
+            assert {"_prefill", "_decode"} <= {name for name, graphs in programs.items() if graphs}
+            for name, graphs in programs.items():
+                for segments, collectives in graphs:
+                    assert collectives and segments == len(collectives) + 1, (rank, name)
+                    assert set(collectives) <= {"all_reduce", "all_gather"}, (rank, name)
+        assert res["hit/programs"] == res["miss/programs"], rank
+
+
+def test_mesh_scale_up_preloads_on_the_revisited_submesh(mesh_world):
+    """JAX's ``test_scale_up_preloads_on_reused_submesh``: the process-aware
+    ``ReplicaSet`` over ``data=2 x model=2`` warms both replicas (each
+    compiles and writes its submesh's programs); ``scale_to(1)`` parks
+    replica 1 (ranks 2-3 drain and close it) and ``scale_to(2)`` builds it
+    again there: its new Generator loads every program with zero captures,
+    and both leaders' streams equal JAX's eager model=2 engine's."""
+    ranks, jax_runs = mesh_world
+    for rank, res in enumerate(ranks):
+        assert res["fleet/first"]["programs_compiled"] > 0, rank
+        parked = rank >= 2
+        assert res["fleet/scaled_down"] == (1, 0 if parked else 1), rank
+        assert res["fleet/scaled_up"] == (2, 1), rank
+        assert res["fleet/rebuilt"] is parked and res["fleet/slice"] == rank // 2, rank
+        if parked:
+            assert res["fleet/traces"] == (0, 0), rank
+            assert res["fleet/aot"]["programs_compiled"] == 0 and res["fleet/aot"]["programs_loaded"] > 0, rank
+        if rank % 2 == 0:
+            assert res["fleet/streams"] == jax_runs["tp2_fleet"], rank
+
+
+def test_mesh_ranks_share_one_entry_per_program_and_the_export_arms_the_store(mesh_world):
+    """Two ranks of one device context write each program's entry under one
+    key, each atomically: a pair's store holds exactly one readable entry
+    (payload and sidecar, no temporary file) per program either rank
+    resolved, its sidecar recording the segments and the collectives
+    between them. ``UNIONML_TPU_AOT_PRELOAD`` arms the store over a mesh as
+    on one device: that engine loads every program and serves JAX's
+    tokens."""
+    ranks, jax_runs = mesh_world
+    for pair in (0, 1):
+        leader, follower = ranks[2 * pair], ranks[2 * pair + 1]
+        assert leader["miss/keys"] == follower["miss/keys"]
+        files = leader["files"]
+        assert not [name for name in files if ".tmp" in name]
+        assert sorted(name for name in files if name.endswith(".aotx")) == [k + ".aotx" for k in leader["miss/keys"]]
+        assert sorted(name for name in files if name.endswith(".json")) == [k + ".json" for k in leader["miss/keys"]]
+        assert leader["readable"]
+        for entry in leader["entries"]:
+            assert entry["graph"] is True and entry["segments"] == len(entry["collectives"]) + 1
+            assert entry["context"]["mesh"]["ranks"] == [2 * pair, 2 * pair + 1]
+        for res in (leader, follower):
+            assert res["export/aot"]["programs_compiled"] == 0 and res["export/aot"]["programs_loaded"] > 0
+            assert res["export/traces"] == (0, 0)
+        assert leader["export"] == jax_runs["tp2"]
 
 
 def test_corrupted_entries_fall_back_to_compile(tmp_path, model, ref):
@@ -465,40 +557,13 @@ def test_speculative_engine_arms_the_draft(tmp_path, model, tiny, ref):
 # ------------------------------------------------------------------ the graph route's buffers
 
 
-class _Replayed:
-    """A CUDA graph's stand-in on the CPU: the capture runs the call once
-    over the static buffers (writing its outputs there, as a capture
-    allocates them), and each replay runs it again into those same output
-    tensors."""
-
-    def __init__(self, call):
-        self.call = call
-
-    def capture(self):
-        self.out = self.call()
-        return self.out
-
-    def replay(self):
-        with _build.recording(capturing=True):  # a graph's replay runs no Python: no wrapper counts here
-            fresh, _ = aot._flatten(self.call())
-        for old, new in zip(aot._flatten(self.out)[0], fresh):
-            if isinstance(old, torch.Tensor) and old is not new:
-                old.copy_(new)
-
-
 @pytest.fixture
 def graph_seam(monkeypatch):
-    """Admit CPU tensors to the graph route through the module's seam."""
-    captured = []
-
-    def record(call, device, generators, pool):
-        graph = _Replayed(call)
-        captured.append(graph)
-        return graph, graph.capture()
-
-    monkeypatch.setattr(aot, "_capturable", lambda device: device is not None)
-    monkeypatch.setattr(aot, "_record_graph", record)
-    return captured
+    """Admit CPU tensors to the graph route through the module's seams: each
+    graph is a tape of aten ops (``tests/torch_graph_tape.py``)."""
+    for name in ("_capturable", "_begin_graph", "_end_graph"):
+        monkeypatch.setattr(aot, name, getattr(aot, name))
+    return torch_graph_tape.install(aot)
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -551,11 +616,11 @@ def test_captured_launches_count_once_per_call(tmp_path, graph_seam):
 def test_capture_failure_raises(tmp_path, monkeypatch):
     """A capture that fails raises: the program does not quietly run eagerly
     in its place (this call, nor the next)."""
-    def refuse(call, device, generators, pool):
+    def refuse(device, generators, pool):
         raise RuntimeError("operation not permitted when stream is capturing")
 
     monkeypatch.setattr(aot, "_capturable", lambda device: device is not None)
-    monkeypatch.setattr(aot, "_record_graph", refuse)
+    monkeypatch.setattr(aot, "_begin_graph", refuse)
     fn = AOTFunction(lambda x: x * 2, "toy", ProgramStore(str(tmp_path)), {})
     for _ in range(2):
         with pytest.raises(RuntimeError, match="capture of AOT program 'toy' failed"):

@@ -32,6 +32,7 @@ from unionml_tpu_torch.models import (
     compile_regex,
     llama_params_from_jax,
 )
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

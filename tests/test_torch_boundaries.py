@@ -30,6 +30,7 @@ from unionml_tpu_torch.data import PrefetchIterator
 from unionml_tpu_torch.parallel import MeshSpec
 from unionml_tpu_torch.ops.quant import QuantizedKernel
 from unionml_tpu_torch.models import causal_lm_loss, init_cache, init_paged_cache, llama_from_jax, llama_params_to_numpy
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "unionml_tpu")

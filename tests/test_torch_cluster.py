@@ -27,6 +27,7 @@ import torch
 
 from tests.test_torch_continuous import _models
 from tests.test_torch_serving_units import generator, port_cases
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

@@ -29,6 +29,7 @@ from unionml_tpu.serving import ContinuousBatcher as JaxContinuousBatcher
 from unionml_tpu_torch.models import GenerationConfig, Generator, Llama, LlamaConfig, llama_params_from_jax
 from unionml_tpu_torch.ops import paged_attention as pa
 from unionml_tpu_torch.serving import ContinuousBatcher
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

@@ -27,6 +27,7 @@ import torch
 
 from tests.test_torch_continuous import _models
 from tests.test_torch_serving_units import generator, port_cases, tiny_llama, torch_sklearn_model
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 
@@ -199,3 +200,60 @@ def test_debug_scale_reaches_a_real_fleet(tiny, sklearn_model):
     finally:
         del sklearn_model.generation_batcher
         fleet.close()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_import_handoff_under_a_draft_fails_in_jax_and_the_port_refuses(pair, paged):
+    """The divergence of ``import_handoff`` under a draft, settled: the JAX
+    engine takes the call over a drafted Generator, but its
+    ``_import_begin`` prefills no draft row, so its engine thread fails at
+    that admission and the stream serves no token (both KV layouts, the
+    importer's cache width equal to the exporter's). The port keeps its
+    refusal, raised at the call, before any work."""
+    from unionml_tpu import models as jax_models
+    from unionml_tpu.serving import ContinuousBatcher as JaxContinuousBatcher
+    from unionml_tpu_torch import models as port_models
+    from unionml_tpu_torch.serving import ContinuousBatcher
+
+    module, params, flash, _ = pair
+    draft_shape = dict(vocab_size=96, dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=64)
+    jax_draft, jax_draft_params, port_draft, _ = _models(draft_shape, seed=5)
+    base = dict(max_new_tokens=8, temperature=0.0, prompt_buckets=(16,))
+    # decode_chunk 4 beside gamma 3: both engines' rows hold 16 + 8 + 4 positions
+    exporter_kw = dict(slots=2, decode_chunk=4, block_size=4 if paged else None)
+    importer_kw = dict(slots=2, decode_chunk=2, block_size=4 if paged else None)
+
+    exporter = JaxContinuousBatcher(jax_models.Generator(module, params, jax_models.GenerationConfig(**base)),
+                                    **exporter_kw)
+    stream = exporter.submit(PAIR_PROMPTS[0], export_handoff=True)
+    assert len(_drain_all_stream(stream)) == 1
+    payload = stream.handoff
+    exporter.close()
+    drafted = jax_models.GenerationConfig(**base, draft=jax_models.DraftSpec(module=jax_draft, params=jax_draft_params,
+                                                                            gamma=3))
+    importer = JaxContinuousBatcher(jax_models.Generator(module, params, drafted), **importer_kw)
+    served = []
+    try:
+        with pytest.raises(Exception):
+            for chunk in importer.import_handoff(payload):
+                served += np.asarray(chunk).ravel().tolist()
+    finally:
+        importer.close()
+    assert served == []
+
+    port_exporter = ContinuousBatcher(port_models.Generator(flash, port_models.GenerationConfig(**base), device="cpu"),
+                                      **exporter_kw)
+    stream = port_exporter.submit(PAIR_PROMPTS[0], export_handoff=True)
+    assert len(_drain_all_stream(stream)) == 1
+    port_exporter.close()
+    port_drafted = port_models.GenerationConfig(**base, draft=port_models.DraftSpec(module=port_draft, gamma=3))
+    port_importer = ContinuousBatcher(port_models.Generator(flash, port_drafted, device="cpu"), **importer_kw)
+    try:
+        with pytest.raises(ValueError, match="import_handoff does not compose with speculative decoding"):
+            port_importer.import_handoff(stream.handoff)
+    finally:
+        port_importer.close()
+
+
+def _drain_all_stream(stream):
+    return [int(t) for c in stream for t in np.asarray(c).ravel()]

@@ -53,6 +53,7 @@ import torch
 
 from tests.test_torch_continuous import _models
 from unionml_tpu_torch.serving.cluster import FleetCoordinator, RemoteHost, StreamInterrupted, connect_fleet
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

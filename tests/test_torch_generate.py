@@ -9,6 +9,7 @@ knobs). Sampled decoding is held on the distribution —
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from unionml_tpu_torch.models import (
     llama_params_from_jax,
     policy_probs,
 )
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 
@@ -78,6 +80,29 @@ def test_greedy_tokens_match_jax(pair, case):
     out = Generator(model, GenerationConfig(**kw), device="cpu")(PROMPTS)
     assert out.dtype == np.int32 and out.shape == (len(PROMPTS), 10)
     np.testing.assert_array_equal(out, ref)
+
+
+def test_a_guarded_build_serves_f32_under_a_leaked_kv_export(pair, monkeypatch):
+    """``UNIONML_TPU_KV_CACHE_DTYPE=int8`` left behind in a worker (as
+    ``tests/unit/test_quantized_serving.py::test_serving_app_configure_quantization``
+    leaves it): an unguarded build takes the int8 cache, and one under
+    ``tests/torch_env.py``'s guard (every test_torch module's autouse
+    fixture) serves the f32 cache its config names, with JAX's f32 tokens;
+    the export is back after the guard."""
+    from tests.torch_env import without_serve_exports
+
+    module, params, model = pair
+    kw = dict(max_new_tokens=6, temperature=0.0, prompt_buckets=(16,))
+    want = np.asarray(JaxGenerator(module, params, JaxGenerationConfig(**kw))(PROMPTS))
+    monkeypatch.setenv("UNIONML_TPU_KV_CACHE_DTYPE", "int8")
+    assert Generator(model, GenerationConfig(**kw), device="cpu").config.kv_cache_dtype == "int8"
+    with without_serve_exports():
+        gen = Generator(model, GenerationConfig(**kw), device="cpu")
+    assert os.environ["UNIONML_TPU_KV_CACHE_DTYPE"] == "int8"
+    assert gen.config.kv_cache_dtype is None
+    _, _, _, carry = gen._start(PROMPTS, 0)
+    assert {name: t.dtype for name, t in carry[0][0].items()} == {"k": torch.float32, "v": torch.float32}
+    np.testing.assert_array_equal(gen(PROMPTS), want)
 
 
 def test_stream_yields_the_call_tokens(pair):

@@ -44,6 +44,7 @@ from unionml_tpu.models import llama_partition_rules as jax_llama_rules
 from unionml_tpu.models.moe import MoEConfig as JaxMoEConfig, MoETransformer as JaxMoETransformer
 from unionml_tpu.models.moe import moe_partition_rules as jax_moe_rules
 from unionml_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 
@@ -95,6 +96,13 @@ CASES = [
     # the port, with the same exception type
     dict(name="moe-ring-tight", spec=dict(sequence=2, expert=2), model="moe_tight", rules="moe",
          config={**BASE, "sp_prefill": "ring"}, prompts=PROMPTS, single=False, refused="TypeError"),
+    # Generator.enable_aot over a mesh: every program captured in segments between its collectives (tapes of
+    # aten ops on the CPU), replayed with the collectives run between the graphs
+    dict(name="tp4-aot", spec=dict(model=4), model="llama", rules="llama", config=BASE, prompts=PROMPTS, aot=True),
+    dict(name="ring-aot", spec=dict(sequence=4), model="llama", config={**BASE, "sp_prefill": "ring"},
+         prompts=PROMPTS, aot=True),
+    dict(name="moe-ep2-aot", spec=dict(data=2, expert=2), model="moe", rules="moe", config=BASE, prompts=PROMPTS,
+         aot=True),
 ]
 
 
@@ -118,7 +126,9 @@ def runs(jax_models, tmp_path_factory):
         "trees": {k: jax.tree_util.tree_map(np.asarray, p) for k, (_, p) in jax_models.items()},
         "configs": CONFIGS,
     }
-    world = World(4, "generate_rank", payload, tmp_path_factory.mktemp("generate_tp"))
+    tmp = tmp_path_factory.mktemp("generate_tp")
+    payload["aot_dir"] = str(tmp / "aot")
+    world = World(4, "generate_rank", payload, tmp)
     jobs = {("unsharded", _unsharded_key(c)): functools.partial(_unsharded_run, c, jax_models) for c in CASES}
     jobs.update({("sharded", c["name"]): functools.partial(_sharded, c, jax_models) for c in CASES})
     jax_runs = threaded(jobs)
@@ -145,7 +155,7 @@ def _jax_run(case, gen):
 
 def _unsharded_key(case):
     """What JAX's single-device run depends on: cases that make the same call share it."""
-    return repr({k: v for k, v in case.items() if k not in ("name", "spec", "rules", "config", "draft")}) + repr(
+    return repr({k: v for k, v in case.items() if k not in ("name", "spec", "rules", "config", "draft", "aot")}) + repr(
         {k: v for k, v in case["config"].items() if k != "sp_prefill"})
 
 
@@ -195,3 +205,30 @@ def test_sharded_tokens_equal_jax_unsharded_and_sharded(runs, case):
                 assert [row.tolist() for row in stream] == unsharded.tolist(), f"rank {rank}"
             else:
                 np.testing.assert_array_equal(stream, unsharded, err_msg=f"rank {rank}")
+
+
+#: the collectives each AOT case's programs must be cut at
+AOT_COLLECTIVES = {"tp4-aot": {"all_reduce", "all_gather"}, "ring-aot": {"ring_permute", "all_gather"},
+                   "moe-ep2-aot": {"all_reduce", "all_gather"}}
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c.get("aot")], ids=lambda c: c["name"])
+def test_aot_programs_are_captured_between_their_collectives(runs, case):
+    """Each program the store resolved over the mesh is graphs with the
+    collectives between them (one more graph than collectives), cut at the
+    case's own collectives: the layers' all-reduces and the head's gather
+    over ``model``, ring attention's rotations over ``sequence`` (in the
+    sequence-parallel prefill), the expert sums over ``expert``; every rank
+    compiled its programs, and their tokens are the test above's."""
+    world, _ = runs
+    name = case["name"]
+    for rank, res in enumerate(world):
+        programs = res[name + "/aot"]
+        assert programs.pop("compiled") > 0, rank
+        assert ("_sp_prefill" if case["config"].get("sp_prefill") else "_prefill") in programs, rank
+        kinds = set()
+        for attr, graphs in programs.items():
+            for segments, collectives in graphs:
+                assert segments == len(collectives) + 1, (rank, attr)
+                kinds.update(collectives)
+        assert AOT_COLLECTIVES[name] <= kinds, (rank, kinds)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from unionml_tpu_torch.ops.quant import QuantizedKernel, QuantizedTensor, quantize_array
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 # the package re-exports the function under the module's name
 im = importlib.import_module("unionml_tpu_torch.ops.int8_matmul")

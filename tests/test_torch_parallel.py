@@ -46,6 +46,7 @@ from unionml_tpu_torch.models.moe import MoEConfig
 from unionml_tpu_torch.parallel import MeshSpec, P, PartitionRules, combine_fsdp_tp, infer_fsdp_sharding
 from unionml_tpu_torch.parallel.mesh import AXIS_ORDER
 from unionml_tpu_torch.parallel.sharding import _leaves, scale_spec, shard_slices
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

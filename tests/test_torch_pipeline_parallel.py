@@ -50,6 +50,7 @@ from unionml_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
 from unionml_tpu.parallel.sharding import _path_str
 from unionml_tpu_torch.parallel import P, pipeline_apply, stage_call
 from unionml_tpu_torch.parallel.sharding import shard_slices
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

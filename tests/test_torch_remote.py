@@ -59,6 +59,7 @@ from tests.test_torch_cli_live import _post, _served  # noqa: E402
 from tests.unit.test_remote import APP_SOURCE as JAX_APP_SOURCE  # noqa: E402
 from unionml_tpu_torch.cli import app as cli  # noqa: E402
 from unionml_tpu_torch.remote import Execution  # noqa: E402
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 _REPO_ROOT = str(pathlib.Path(__file__).resolve().parents[1])
 FEATURES = [{"x1": 2.0, "x2": -2.0}, {"x1": -2.0, "x2": 2.0}] + [

@@ -49,6 +49,7 @@ from unionml_tpu_torch.cli import app as cli
 from unionml_tpu_torch.models import GenerationConfig, Generator, Llama, LlamaConfig, llama_params_from_jax
 from unionml_tpu_torch.serving import ContinuousBatcher, ServingApp
 from unionml_tpu_torch.workloads import TraceRequest, replay, scenario_targets, synthesize, write_trace
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

@@ -30,6 +30,7 @@ port_cases(globals(), "test_replicas.py")
 
 from unionml_tpu_torch.serving.replicas import ReplicaScheduler as PortScheduler  # noqa: E402
 from unionml_tpu_torch.serving.replicas import ReplicaSet as PortReplicaSet  # noqa: E402
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 
 

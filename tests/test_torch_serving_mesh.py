@@ -16,6 +16,10 @@ knobs and weights (greedy f32):
 - sp admission: ``sp_prefill="ring"`` over ``sequence=4`` and over
   ``model=2 x sequence=2``;
 - per-request grammars over ``model=4``;
+- ``aot=``: ring admission over ``model=2 x sequence=2`` and the paged pool,
+  and a drafted engine over ``model=2``, with every program (the draft's
+  too) captured in segments between its collectives (tapes of aten ops
+  standing in for CUDA graphs);
 - speculative decoding with a tiny draft (its own weights, seed 5): dense
   over ``model=2``, paged over ``model=4``, under ring admission over
   ``model=2 x sequence=2``, composed with int8 weights, an int8 KV pool, a
@@ -63,6 +67,7 @@ from unionml_tpu.models import compile_regex as jax_compile_regex
 from unionml_tpu.models import GenerationConfig as JaxGenerationConfig, Generator as JaxGenerator
 from unionml_tpu.models import Llama as JaxLlama, LlamaConfig as JaxLlamaConfig
 from unionml_tpu.serving import ContinuousBatcher as JaxContinuousBatcher
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 
@@ -117,6 +122,12 @@ CASES = [
          engine=dict(slots=2, decode_chunk=2, block_size=4)),
     dict(name="tp2-sp2-draft-self", spec=TP2, config={**BASE, "sp_prefill": "ring"}, draft=3, draft_tree="llama",
          draft_rules=True, engine=dict(slots=2, decode_chunk=2)),
+    # aot=: every program through the AOT store, captured in segments between its collectives (tapes of aten ops
+    # on the CPU): ring admission over model=2 x sequence=2 and the paged pool
+    dict(name="tp2-sp2-aot", spec=TP2, config={**BASE, "sp_prefill": "ring"}, aot=True,
+         engine=dict(slots=2, decode_chunk=2, block_size=4)),
+    # ... and under a draft: the draft's programs through the store too, the rounds eager between them
+    dict(name="tp2-draft-aot", spec=TP2, config=BASE, draft=3, aot=True, engine=dict(slots=2, decode_chunk=2)),
 ]
 #: the cases with a greedy draft: the leader's counters over a pass of one stream at a time
 DRAFT_CASES = [c for c in CASES if c.get("draft")]
@@ -150,7 +161,9 @@ def runs(jax_model, tmp_path_factory):
     payload = {"cases": CASES + [SAMPLED], "trees": jax.tree_util.tree_map(np.asarray, trees),
                "configs": {"llama": CONFIG, "draft": DRAFT}, "fault": FAULT, "dp_draft": DP_DRAFT,
                "refusals": REFUSALS}
-    world = World(4, "serving_rank", payload, tmp_path_factory.mktemp("serving_mesh"))
+    tmp = tmp_path_factory.mktemp("serving_mesh")
+    payload["aot_dir"] = str(tmp / "aot")
+    world = World(4, "serving_rank", payload, tmp)
     jobs = {(c["name"], "prompts"): functools.partial(_jax_streams, jax_model, c, c["prompts"]) for c in CASES}
     jobs.update({(c["name"], "again"): functools.partial(_jax_streams, jax_model, c, c["again"])
                  for c in CASES if c.get("again")})
@@ -237,6 +250,29 @@ def test_engine_streams_equal_the_jax_engine(runs, case):
         assert stats["prefix_cache_hits"] >= 1 and stats["prefill_chunks"] > 0
     if name in ("tp2-preempt", "tp2-draft-preempt"):
         assert stats["preemptions"] > 0  # the pool forced residents out, and they resumed token-exactly
+
+
+def test_aot_engine_captures_ring_admission_between_its_collectives(world):
+    """``tp2-sp2-aot`` (its streams are held to the JAX engine's above):
+    every rank compiled its programs into the store, each program is one
+    graph more than the collectives between them, and the
+    sequence-parallel prefill is cut at ring attention's rotations over
+    ``sequence`` and the layers' all-reduces over ``model``. Under
+    ``tp2-draft-aot`` the target's and the draft's prefills went through
+    the store too (its streams and counters are held to JAX's above)."""
+    for rank, res in enumerate(world):
+        programs = dict(res["tp2-sp2-aot/aot"])
+        assert programs.pop("compiled") > 0, rank
+        for attr, graphs in programs.items():
+            for segments, collectives in graphs:
+                assert segments == len(collectives) + 1, (rank, attr)
+        ring = {kind for _, collectives in programs["_sp_prefill"] for kind in collectives}
+        assert {"ring_permute", "all_reduce", "all_gather"} <= ring, (rank, ring)
+        assert programs["_decode"], rank
+        drafted = world[rank]["tp2-draft-aot/aot"]
+        assert drafted["compiled"] > 0 and drafted["_prefill"] and drafted["draft_prefill"], rank
+        for segments, collectives in drafted["draft_prefill"]:
+            assert segments == len(collectives) + 1, rank
 
 
 def _spec_equals_jax(spec, jax_spec):

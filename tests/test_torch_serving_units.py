@@ -20,6 +20,7 @@ from typing import Any, Iterable, List, Tuple
 import numpy as np
 import pandas as pd
 import torch
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

@@ -37,6 +37,7 @@ from unionml_tpu_torch.models import (
     policy_probs,
 )
 from unionml_tpu_torch.models.speculative import rejection_step
+from tests.torch_env import no_serve_exports  # noqa: F401 (autouse: no UNIONML_TPU_* export leaks in)
 
 torch.set_num_threads(2)
 

@@ -17,6 +17,7 @@ functions below run every case of one test file inside that one world.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import queue
@@ -399,6 +400,13 @@ def generate_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
         gen = Generator(model, GenerationConfig(**kw), mesh=mesh, partition_rules=rules,
                         quantize=case.get("quantize"))
         prompts = case["prompts"]
+        if case.get("aot"):  # every program through the store, captured in segments on tapes
+            with _taped_store(gen, payload["aot_dir"], name) as programs:
+                out[name] = gen(prompts)
+                out[name + "/single"] = gen(prompts[:1])
+                out[name + "/stream"] = np.concatenate(list(gen.stream(prompts, chunk_size=3)), axis=1)
+            out[name + "/aot"] = programs
+            continue
         if case.get("refused"):  # the refusal's exception type, of a call and of a stream
             for key, call in ((name, lambda: gen(prompts)), (name + "/stream", lambda: list(gen.stream(prompts)))):
                 try:
@@ -423,6 +431,33 @@ def generate_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
             chunks = list(gen.stream(prompts, chunk_size=3))
             out[name + "/stream"] = [np.concatenate([c[i] for c in chunks]) for i in range(len(prompts))]
     return out
+
+
+@contextlib.contextmanager
+def _taped_store(gen: Any, root: str, name: str):
+    """Arm ``gen`` with an AOT store under ``root`` while every capture is a
+    tape (``tests/torch_graph_tape.py``); yields a dict that, after the
+    block, holds each wrapped program's graphs as ``(segments,
+    collectives)`` and the store's compile count."""
+    import os
+
+    from unionml_tpu_torch.serving import aot
+
+    from tests import torch_graph_tape
+
+    programs: Dict[str, Any] = {}
+    store = aot.ProgramStore(os.path.join(root, name))
+    with torch_graph_tape.installed(aot):
+        gen.enable_aot(store)
+        yield programs
+    spec = getattr(gen, "_spec_engine", None)
+    for label, owner in (("", gen), ("draft", spec and spec._draft)):
+        for attr in ("_prefill", "_sp_prefill", "_prefill_chunk", "_first_token", "_decode"):
+            wrapped = getattr(owner, attr, None)
+            graphs = [(g.segments, g.collectives) for g in getattr(wrapped, "_programs", {}).values()]
+            if graphs:
+                programs[label + attr] = graphs
+    programs["compiled"] = store.programs_compiled
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +515,8 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
 
     def engine(case: Dict[str, Any], gen: Any) -> Any:
         knobs = dict(case["engine"])
+        if case.get("aot"):  # the store _taped_store armed: the engine arms a draft from it too
+            knobs["aot"] = gen._aot_store
         if case.get("prefix"):  # a collective over a mesh: every rank prefills it
             knobs["prefix"] = gen.cache_prefix(case["prefix"])
         return ContinuousBatcher(gen, **knobs)
@@ -503,6 +540,9 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
         name = case["name"]
         mesh = MeshSpec(**case["spec"]).build(device="cpu")
         gen = generator(case, mesh)
+        taped = _taped_store(gen, payload["aot_dir"], name) if case.get("aot") else None
+        if taped is not None:
+            out[name + "/aot"] = taped.__enter__()  # filled once the tape ends, below
         batcher = engine(case, gen)
         if case.get("lockstep"):
             # every rank keeps its carried out_buf and produced after each
@@ -575,6 +615,8 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
                     out[name + "/spec"] = spec_counters(batcher, since=before)
             finally:
                 batcher.close()
+        if taped is not None:
+            taped.__exit__(None, None, None)
 
     # a refusal every rank meets (a ValueError in an admission's operation,
     # before its collectives): rank 0 fails that stream and drops the rows,
@@ -674,6 +716,98 @@ def serving_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_aot.py
+
+
+def aot_rank(rank: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The AOT store over a mesh, every capture a tape of aten ops
+    (``tests/torch_graph_tape.py``), so each program is captured in segments
+    between its collectives and replayed. (a) Each pair of ranks serves a
+    model=2 submesh of ``data=2 x model=2``: an eager engine, one on an empty
+    store (a miss), a fresh Generator and engine on the populated store (a
+    hit), and one armed by the ``UNIONML_TPU_AOT_PRELOAD`` export; (b) the
+    process-aware ``ReplicaSet`` over the whole mesh on another store,
+    ``scale_to(1)`` then ``scale_to(2)``: replica 1's ranks park and build it
+    again on the submesh they left. Leaders serve ``payload["prompts"]`` one
+    at a time."""
+    import os
+
+    from unionml_tpu_torch.models import GenerationConfig, Generator, llama_partition_rules
+    from unionml_tpu_torch.parallel import MeshSpec
+    from unionml_tpu_torch.serving import ContinuousBatcher, ReplicaSet, aot
+    from unionml_tpu_torch.serving.replicas import slice_mesh
+
+    from tests import torch_graph_tape
+
+    torch_graph_tape.install(aot)
+    tree, config, prompts = payload["tree"], payload["config"], payload["prompts"]
+    cfg, rules, knobs = GenerationConfig(**payload["gen"]), llama_partition_rules(), payload["engine"]
+    world = MeshSpec(data=2, model=2).build(device="cpu")
+    sub = slice_mesh(world)[rank // 2]
+    leader = rank % 2 == 0
+    store = os.path.join(payload["dir"], f"pair{rank // 2}")
+    wrapped = ("_prefill", "_sp_prefill", "_prefill_chunk", "_first_token", "_decode")
+
+    def programs(gen: Any) -> Dict[str, Any]:
+        """Each wrapped program's resolved signatures: its graphs' segment
+        counts and the collectives between them."""
+        return {name: [(g.segments, g.collectives) for g in getattr(gen, name)._programs.values()]
+                for name in wrapped if hasattr(getattr(gen, name), "_programs")}
+
+    def run(label: str, aot_knob: Any) -> None:
+        gen = Generator(llama(tree, config), cfg, mesh=sub, partition_rules=rules)
+        batcher = ContinuousBatcher(gen, aot=aot_knob, **knobs)
+        try:
+            batcher.warmup()  # a follower's returns at once: it runs the leader's warmup plans
+            if leader:
+                out[label] = [_collect(batcher.submit(p)) for p in prompts]
+        finally:
+            batcher.close()
+        out[label + "/traces"] = (gen.prefill_traces, gen.decode_traces)
+        if batcher._aot is not None:
+            out[label + "/aot"] = {k: v for k, v in batcher.stats()["aot"].items() if isinstance(v, int)}
+            out[label + "/programs"] = programs(gen)
+            out[label + "/keys"] = sorted(k for name in wrapped if hasattr(getattr(gen, name), "_programs")
+                                          for k in getattr(gen, name)._programs)
+
+    out: Dict[str, Any] = {}
+    run("eager", False)
+    run("miss", store)
+    run("hit", store)
+    os.environ["UNIONML_TPU_AOT_PRELOAD"] = store
+    try:
+        run("export", None)
+    finally:
+        del os.environ["UNIONML_TPU_AOT_PRELOAD"]
+    if leader:
+        names = sorted(os.listdir(store))
+        out["files"] = names
+        out["entries"] = aot.ProgramStore(store).entries()
+        out["readable"] = all(aot.ProgramStore(store).load(e["key"]) is not None for e in out["entries"])
+
+    fleet_store = os.path.join(payload["dir"], "fleet")
+    rs = ReplicaSet.build(llama(tree, config), cfg, mesh=world, partition_rules=rules, aot=fleet_store,
+                          **payload["fleet_engine"])
+    try:
+        rs.warmup()
+        first = rs.batchers[0]
+        out["fleet/scaled_down"] = (rs.scale_to(1), rs.replicas)
+        out["fleet/scaled_up"] = (rs.scale_to(2), rs.replicas)
+        joined = rs.batchers[0]
+        if leader:
+            out["fleet/streams"] = [_collect(rs.submit(p)) for p in prompts]
+    finally:
+        rs.close()
+    # read once closed: a follower has then run every plan its leader sent
+    out["fleet/first"] = {k: v for k, v in first.stats()["aot"].items() if isinstance(v, int)}
+    out["fleet/rebuilt"] = joined is not first
+    out["fleet/slice"] = joined.gen.mesh.slice_index
+    out["fleet/traces"] = (joined.gen.prefill_traces, joined.gen.decode_traces)
+    out["fleet/aot"] = {k: v for k, v in joined.stats()["aot"].items() if isinstance(v, int)}
+    return out
 
 
 # ---------------------------------------------------------------------------

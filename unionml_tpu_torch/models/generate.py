@@ -790,24 +790,19 @@ class Generator:
 
     def enable_aot(self, store: Any) -> "Generator":
         """Route this generator's programs (``_prefill`` per bucket,
-        ``_prefill_chunk``, ``_first_token`` and ``_decode``, whose ``steps``
-        is static) through an AOT
+        ``_sp_prefill``, ``_prefill_chunk``, ``_first_token`` and
+        ``_decode``, whose ``steps`` is static) through an AOT
         :class:`~unionml_tpu_torch.serving.aot.ProgramStore`: on the card each
         distinct call signature is captured once as a CUDA graph, its kernel
         libraries coming from the store where it holds them (no ``nvcc``), and
         every program the store did not hold is written back for the next
         cold process. Tokens are those of the eager programs. The graphs of
-        this generator share one memory pool. Idempotent; ``None`` is a
-        no-op. Over a mesh it raises ``NotImplementedError``: the
-        collectives go through gloo's host route, which a graph cannot
-        capture."""
+        this generator share one memory pool. Over a mesh a program is
+        captured in segments between its collectives, which run eagerly at
+        each replay (see ``serving/aot.py``); every rank arms its generator
+        at the same point. Idempotent; ``None`` is a no-op."""
         if store is None or self._aot_store is not None:
             return self
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the AOT store over a mesh is not ported yet: its collectives cannot be captured "
-                "(ROADMAP.md, Queue A: the AOT store over a mesh)"
-            )
         from unionml_tpu_torch.serving.aot import AOTFunction, GraphPool
 
         owner = weakref.ref(self)  # the wrappers live in this generator's attributes: no cycle back to it
@@ -824,6 +819,7 @@ class Generator:
         self._aot_store = store
         prefill = dict(pool=pool, on_compile=traced("prefill_traces"))
         self._prefill = AOTFunction(self._prefill, "prefill", store, ctx, **prefill)
+        self._sp_prefill = AOTFunction(self._sp_prefill, "sp_prefill", store, ctx, **prefill)
         self._prefill_chunk = AOTFunction(self._prefill_chunk, "prefill_chunk", store, ctx, **prefill)
         self._first_token = AOTFunction(self._first_token, "first_token", store, ctx, **prefill)
         self._decode = AOTFunction(self._decode, "decode", store, ctx, static_argnames=("steps",), pool=pool,

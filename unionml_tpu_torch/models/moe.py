@@ -61,6 +61,13 @@ from unionml_tpu_torch.parallel.collectives import all_gather, allreduce_sum, su
 from unionml_tpu_torch.parallel.sharding import P, PartitionRules, batch_mean, row_axes, scope_mesh, splits
 
 
+def _one_hot(index: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(index, n)`` (int64) without its range check, which on
+    CPU tensors reads the indices on the host: a program the AOT store
+    captures (a tape of ops on the CPU) must read nothing there."""
+    return (index[..., None] == torch.arange(n, device=index.device)).long()
+
+
 def top_k_dispatch(
     router_probs: torch.Tensor, k: int, capacity: int, valid: Optional[torch.Tensor] = None, *,
     mesh: Any = None, row_axes: Tuple[str, ...] = (),
@@ -91,7 +98,7 @@ def top_k_dispatch(
 
     onehots = []
     for slot in range(k):
-        onehot = F.one_hot(gate_idx[:, slot], n_experts)  # [N, E]
+        onehot = _one_hot(gate_idx[:, slot], n_experts)  # [N, E]
         if valid is not None:
             onehot = onehot * valid.long()[:, None]
         onehots.append(onehot)
@@ -122,7 +129,7 @@ def top_k_dispatch(
         combine = combine + gate_vals[:, slot, None, None] * slot_dispatch
 
     # Switch load-balance loss: n_experts * sum_e f_e * p_e, minimized at uniform
-    top1 = F.one_hot(gate_idx[:, 0], n_experts).to(dtype)
+    top1 = _one_hot(gate_idx[:, 0], n_experts).to(dtype)
     if row_axes:
         w = valid.to(dtype)[:, None] if valid is not None else torch.ones((n_tokens, 1), dtype=dtype, device=device)
         with torch.no_grad():

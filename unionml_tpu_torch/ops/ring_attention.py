@@ -69,7 +69,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Any,
         if causal:
             k_pos = src * k_len + torch.arange(k_len, device=dev)
             mask = q_pos[:, None] >= k_pos[None, :]
-            scores = torch.where(mask[None, None], scores, torch.tensor(neg, device=dev))
+            scores = scores.masked_fill(~mask[None, None], neg)
         m_next = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_next)
         p = torch.exp(scores - m_next)
@@ -104,7 +104,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: A
         n = q_full.shape[1]
         pos = torch.arange(n, device=q.device)
         mask = pos[:, None] >= pos[None, :]
-        scores = torch.where(mask[None, None], scores, torch.tensor(torch.finfo(torch.float32).min, device=q.device))
+        scores = scores.masked_fill(~mask[None, None], torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v_full.float()).to(q.dtype)
     return all_to_all(out, mesh, axis, split_axis=1, concat_axis=2)

@@ -18,11 +18,23 @@ group's backend is gloo and the tensor lies on a card; each adds one to
 The host copies are page-locked (an all-gather lands in one buffer), and
 the copies back to the card are asynchronous on the current stream. It is
 the backend's transport, not a fallback: a failure raises.
+
+A program the AOT store captures as CUDA graphs (``serving/aot.py``) is
+captured in segments: while its thread captures (:func:`split_programs`),
+each collective over a group of more than one rank runs nothing there. It
+hands itself to the store's splitter, which ends the current graph, keeps
+the collective as a step to run eagerly between two replays (through the
+same code as here, so the host route still counts), and returns a static
+output buffer the next graph reads. A size-1 axis is a no-op and splits
+nothing. Every collective of this module reaches the splitter through
+:func:`_communicate`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence, Union
+import contextlib
+import threading
+from typing import Any, Callable, Iterator, List, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -41,6 +53,7 @@ __all__ = [
     "host_route",
     "reduce_scatter",
     "ring_permute",
+    "split_programs",
     "split_to",
     "sum_gradients",
 ]
@@ -95,26 +108,63 @@ def _pinned_like(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
 
 
+#: the splitter of the program this thread captures, if any (:func:`split_programs`)
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def split_programs(split: Callable[..., torch.Tensor]) -> Iterator[None]:
+    """Hand this thread's collectives to ``split(kind, group, run, src,
+    shape, inplace)`` instead of running them, while a program is captured
+    in segments (see the module docstring)."""
+    previous, _capture.split = getattr(_capture, "split", None), split
+    try:
+        yield
+    finally:
+        _capture.split = previous
+
+
+def _communicate(kind: str, group: Any, run: Callable[[torch.Tensor], torch.Tensor], src: torch.Tensor,
+                 shape: Sequence[int], inplace: bool = False) -> torch.Tensor:
+    """``run(src)``: one collective over ``group`` on a contiguous ``src``,
+    whose result has ``shape`` and ``src``'s dtype and device (``src``
+    itself, written, when ``inplace``); the splitter's while this thread
+    captures a program."""
+    split = getattr(_capture, "split", None)
+    if split is None:
+        return run(src)
+    return split(kind, group, run, src, tuple(shape), inplace)
+
+
 def _raw_all_reduce(x: torch.Tensor, group: Any) -> torch.Tensor:
     """The sum of ``x`` over ``group`` (a new tensor; ``x`` is kept)."""
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        if _via_host(group, y):
+            host = _staged(y)
+            dist.all_reduce(host, group=group)
+            return host.to(y.device, non_blocking=True)
+        y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
     y = x.contiguous()
-    if _via_host(group, y):
-        host = _staged(y)
-        dist.all_reduce(host, group=group)
-        return host.to(x.device, non_blocking=True)
-    y = y.clone()
-    dist.all_reduce(y, group=group)
-    return y
+    return _communicate("all_reduce", group, run, y, y.shape)
 
 
 def _all_reduce_(x: torch.Tensor, group: Any) -> None:
     """Sum a contiguous ``x`` over ``group`` in place."""
-    if _via_host(group, x):
-        host = _staged(x)
-        dist.all_reduce(host, group=group)
-        x.copy_(host, non_blocking=True)
-    else:
-        dist.all_reduce(x, group=group)
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        if _via_host(group, y):
+            host = _staged(y)
+            dist.all_reduce(host, group=group)
+            y.copy_(host, non_blocking=True)
+        else:
+            dist.all_reduce(y, group=group)
+        return y
+
+    _communicate("all_reduce", group, run, x, x.shape, inplace=True)
 
 
 def _joined(stacked: torch.Tensor, tiled: bool, axis: int) -> torch.Tensor:
@@ -128,16 +178,19 @@ def _joined(stacked: torch.Tensor, tiled: bool, axis: int) -> torch.Tensor:
 
 
 def _raw_all_gather(x: torch.Tensor, group: Any, n: int, tiled: bool, gather_axis: int) -> torch.Tensor:
+    def run(s: torch.Tensor) -> torch.Tensor:
+        """The parts in index order along a new leading dim."""
+        if _via_host(group, s) and s.dim() > 0:
+            host = _staged(s)
+            out = torch.empty((n * s.shape[0],) + tuple(s.shape[1:]), dtype=s.dtype, pin_memory=True)
+            dist.all_gather_into_tensor(out, host, group=group)  # the parts in index order along dim 0
+            return out.to(s.device, non_blocking=True).view((n,) + tuple(s.shape))
+        parts: List[torch.Tensor] = [torch.empty_like(s) for _ in range(n)]
+        dist.all_gather(parts, s, group=group)
+        return torch.stack(parts)
+
     src = x.contiguous()
-    if _via_host(group, src) and src.dim() > 0:
-        host = _staged(src)
-        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype, pin_memory=True)
-        dist.all_gather_into_tensor(out, host, group=group)  # the parts in index order along dim 0
-        stacked = out.to(x.device, non_blocking=True).view((n,) + tuple(src.shape))
-        return _joined(stacked, tiled, gather_axis)
-    parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=gather_axis) if tiled else torch.stack(parts, dim=gather_axis)
+    return _joined(_communicate("all_gather", group, run, src, (n,) + tuple(src.shape)), tiled, gather_axis)
 
 
 def _tile(x: torch.Tensor, n: int, i: int, dim: int, tiled: bool) -> torch.Tensor:
@@ -146,26 +199,32 @@ def _tile(x: torch.Tensor, n: int, i: int, dim: int, tiled: bool) -> torch.Tenso
 
 
 def _raw_rotate(x: torch.Tensor, group: Any, dst: int, src: int) -> torch.Tensor:
+    def run(send: torch.Tensor) -> torch.Tensor:
+        device, host = send.device, _via_host(group, send)
+        if host:
+            send = _staged(send)
+        recv = _pinned_like(send) if host else torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, dst, group), dist.P2POp(dist.irecv, recv, src, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recv.to(device, non_blocking=True) if host else recv
+
     send = x.contiguous()
-    host = _via_host(group, send)
-    if host:
-        send = _staged(send)
-    recv = _pinned_like(send) if host else torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, dst, group), dist.P2POp(dist.irecv, recv, src, group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return recv.to(x.device, non_blocking=True) if host else recv
+    return _communicate("ring_permute", group, run, send, send.shape)
 
 
 def _raw_all_to_all(x: torch.Tensor, group: Any, n: int, split_axis: int, concat_axis: int) -> torch.Tensor:
+    def run(send: torch.Tensor) -> torch.Tensor:
+        device, host = send.device, _via_host(group, send)
+        if host:
+            send = _staged(send)
+        recv = _pinned_like(send) if host else torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return recv.to(device, non_blocking=True) if host else recv
+
     lead = x.movedim(split_axis, 0)
     send = lead.reshape(n, lead.shape[0] // n, *lead.shape[1:]).contiguous()
-    host = _via_host(group, send)
-    if host:
-        send = _staged(send)
-    recv = _pinned_like(send) if host else torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    recv = recv.to(x.device, non_blocking=True) if host else recv
+    recv = _communicate("all_to_all", group, run, send, send.shape)
     return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)], dim=concat_axis)
 
 
@@ -358,13 +417,19 @@ def broadcast(x: torch.Tensor, mesh: Any, axis: AxisName, *, src: int = 0) -> to
     group = mesh.group(axis)
     if group is None:
         return x
-    y = x.contiguous().clone()
-    if _via_host(group, y):
-        host = y.cpu()  # tpu-lint: disable=TPU001 -- gloo only; enable_aot refuses a mesh
-        dist.broadcast(host, src=mesh.peer(axis, src), group=group)
-        return host.to(x.device)
-    dist.broadcast(y, src=mesh.peer(axis, src), group=group)
-    return y
+    root = mesh.peer(axis, src)
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        if _via_host(group, y):
+            host = _staged(y)
+            dist.broadcast(host, src=root, group=group)
+            return host.to(y.device, non_blocking=True)
+        y = y.clone()
+        dist.broadcast(y, src=root, group=group)
+        return y
+
+    y = x.contiguous()
+    return _communicate("broadcast", group, run, y, y.shape)
 
 
 def ring_permute(tree: Any, mesh: Any, axis: str, *, shift: int = 1) -> Any:

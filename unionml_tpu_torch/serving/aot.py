@@ -18,8 +18,9 @@ things:
   ``nvcc``): those can. An entry's payload (``<digest>.aotx``) holds the bytes
   of each library, checked by length and sha256 when read; its JSON sidecar
   (``<digest>.json``) holds the program's name, signature and context, its
-  launches per kernel in one call (one replay), the capture's milliseconds
-  and ``"graph": true`` or ``false``.
+  launches per kernel in one call (one replay), the capture's milliseconds,
+  ``"graph": true`` or ``false``, and for a graph its segment count and the
+  collectives between the segments (below).
 
 **Keys.** An entry is keyed on (program, context, signature). The store's
 own context is the format version, ``torch.__version__``,
@@ -27,7 +28,9 @@ own context is the format version, ``torch.__version__``,
 flags (:func:`backend_context`; a changed kernel misses, it never loads).
 A program's context (the generator's ``_aot_context``) adds the device's
 name, compute capability and index (:func:`device_context`: like JAX, an
-entry is pinned to its device), the module's config with ``quantize`` and
+entry is pinned to its device), the mesh's axis names, extents and ranks
+(:func:`mesh_context`: a submesh seen before hits, a new one misses once),
+the module's config with ``quantize`` and
 the KV dtype, the generation config and a digest of the grammar tables. The
 signature is the shapes, dtypes and devices of the tensor arguments, the
 static arguments (``steps``), and, for a captured program, the values of
@@ -75,11 +78,11 @@ replay in turn on that engine's thread. A second engine over the
 same ``Generator`` replays the same graphs, copying its pool in and out.
 
 **Programs that stay eager**: none of those the store wraps (the
-generator's prefill, chunk, first-token and decode programs, and the
-draft's). The engine's admission scatters and its radix gather are not
-wrapped at all: they upload a block row from the host, which a graph cannot
-hold, and launch no hand-written kernel, so an entry would have nothing to
-carry.
+generator's prefill, sequence-parallel prefill, chunk, first-token and
+decode programs, and the draft's). The engine's admission scatters and its
+radix gather are not wrapped at all: they upload a block row from the host,
+which a graph cannot hold, and launch no hand-written kernel, so an entry
+would have nothing to carry.
 
 **Failures.** A corrupt entry (torn, truncated, a library whose digest does
 not match) is deleted with one warning and counts ``load_failures``; the
@@ -87,22 +90,43 @@ program is then compiled and its entry rewritten. A store directory that
 cannot be made resolves to no store, with a warning. A capture that fails
 raises: nothing quietly runs eagerly in its place.
 
+**Over a mesh** a program runs collectives (``parallel/collectives.py``),
+and gloo's host route (a copy to the host, the collective there, a copy
+back) cannot be captured. So a program is captured in segments: each
+collective over a group of more than one rank ends the open graph, is kept
+as a step with its static input (written by the graph before) and a static
+output buffer (read by the graph after), both held by the in-memory
+program, and opens the next graph; it does not run during the capture. A
+replay runs the first graph, then that collective eagerly through its own
+code (``host_route.count`` counts it, as in an eager forward), then the
+next graph, all on the caller's stream, so each graph is ordered after the
+copies back that came before it; the host route's page-locked buffers
+belong to the eager steps, never to a graph. A size-1 axis splits nothing:
+a meshless program is one graph. Every rank resolves the same signatures in
+the same order (the engine's step plans), and a hit and a miss differ only
+in where the libraries come from: each runs the warm pass (the real
+collectives) and the capture, so ranks on a hit and on a miss step
+together. Ranks that share a card and a signature share one entry, each
+writing it atomically.
+
 **On CPU tensors** (only where the caller asks for the CPU) there is no
 graph: entries are keyed, counted and written the same way, and the program
-runs eagerly. **Over a mesh** the collectives go through gloo's host route,
-which a graph cannot capture: the engine refuses ``aot=`` there.
+runs eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import hashlib
 import inspect
 import json
 import os
 import threading
 import time
+import warnings
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -458,17 +482,96 @@ def _capture_stream(device: torch.device) -> Any:
     return _CAPTURE_STREAMS[device]
 
 
-class _Graph:
-    """One captured program: its graph, one static per argument leaf (leaves
-    that were one object share it), which of them it writes in place, how
-    each output leaf comes back, and its launches per replay."""
+class _Step:
+    """One collective between two graphs of a program captured in segments
+    (``parallel/collectives.py``): at each replay it runs eagerly, through
+    the collective's own code, from the static input the graph before it
+    wrote into the static output the graph after it reads (``inplace``: the
+    input itself)."""
 
-    def __init__(self, graph: Any, statics: List[Any], first: List[int], mutated: List[bool], outputs: List[Tuple],
-                 out_spec: Any, launches: Dict[Tuple[Any, str, Optional[str]], int]):
-        self.graph, self.statics, self.mutated = graph, statics, mutated
+    def __init__(self, kind: str, run: Callable[[torch.Tensor], torch.Tensor], src: torch.Tensor,
+                 out: torch.Tensor, inplace: bool):
+        self.kind, self._run, self.src, self.out, self.inplace = kind, run, src, out, inplace
+
+    def replay(self) -> None:
+        result = self._run(self.src)
+        if not self.inplace:
+            self.out.copy_(result)
+
+
+class _Segments:
+    """One program's capture: a graph from its start to its first
+    collective, one between each two, one from the last to its end; each
+    collective over a group of more than one rank ends the open graph and
+    becomes a :class:`_Step` (see the module docstring)."""
+
+    def __init__(self, device: torch.device, generators: List[torch.Generator], pool: GraphPool):
+        self.device, self.generators, self.pool = device, generators, pool
+        self.parts: List[Any] = []  # graphs and steps, in replay order
+        self._open: Any = None
+
+    def record(self, call: Callable[[], Any]) -> Any:
+        from unionml_tpu_torch.parallel.collectives import split_programs
+
+        with _capture_scope(self.device):
+            self._begin()
+            try:
+                with split_programs(self.split):
+                    out = call()
+                self._end()
+            except BaseException:
+                if self._open is not None:
+                    with contextlib.suppress(Exception):
+                        self._end()  # a capture the error invalidated fails to end here, and is undone
+                raise
+        return out
+
+    def split(self, kind: str, group: Any, run: Callable[[torch.Tensor], torch.Tensor], src: torch.Tensor,
+              shape: Tuple[int, ...], inplace: bool) -> torch.Tensor:
+        """End the open graph, keep the collective as a step over static
+        buffers (its output zeroed, so nothing the capture computes from it
+        reads garbage), open the next graph, and hand it the output."""
+        self._end()
+        out = src if inplace else torch.zeros(shape, dtype=src.dtype, device=src.device)
+        self.parts.append(_Step(kind, run, src, out, inplace))
+        self._begin()
+        return out
+
+    def _begin(self) -> None:
+        self._open = _begin_graph(self.device, self.generators, self.pool)
+
+    def _end(self) -> None:
+        graph, self._open = self._open, None
+        try:
+            _end_graph(graph)
+        except Exception:
+            _end_failed_capture(self.device, self.pool)
+            raise
+        self.parts.append(graph)
+
+
+class _Graph:
+    """One captured program: its graphs and the collectives between them
+    (one graph without a mesh), one static per argument leaf (leaves that
+    were one object share it), which of them it writes in place, how each
+    output leaf comes back, and its launches per replay."""
+
+    def __init__(self, parts: List[Any], statics: List[Any], first: List[int], mutated: List[bool],
+                 outputs: List[Tuple], out_spec: Any, launches: Dict[Tuple[Any, str, Optional[str]], int]):
+        self.parts, self.statics, self.mutated = parts, statics, mutated
         self.outputs, self.out_spec, self.launches = outputs, out_spec, launches
         self.distinct = [i for i, f in enumerate(first) if f == i]
         self._lock = threading.Lock()
+
+    @property
+    def segments(self) -> int:
+        """The graphs a replay launches."""
+        return sum(1 for part in self.parts if not isinstance(part, _Step))
+
+    @property
+    def collectives(self) -> List[str]:
+        """The collectives a replay runs between its graphs, in order."""
+        return [part.kind for part in self.parts if isinstance(part, _Step)]
 
     def replay(self, leaves: List[Any]) -> Any:
         with self._lock:
@@ -485,7 +588,8 @@ class _Graph:
                     static.copy_(leaf)
             elif isinstance(static, torch.Generator):
                 static.set_state(leaf.get_state())
-        self.graph.replay()
+        for part in self.parts:  # all on the caller's stream: each step after the graph it reads
+            part.replay()
         for i in self.distinct:
             leaf, static = leaves[i], self.statics[i]
             if isinstance(static, torch.Tensor):
@@ -512,32 +616,44 @@ def _capturable(device: Optional[torch.device]) -> bool:
     return device is not None and device.type == "cuda"
 
 
-def _record_graph(call: Callable[[], Any], device: torch.device, generators: List[torch.Generator],
-                  pool: GraphPool) -> Tuple[Any, Any]:
-    """Capture ``call()`` as a CUDA graph in the owner's pool, on the
-    device's capture stream, with ``generators`` registered: ``(graph, its
-    outputs)``."""
+@contextlib.contextmanager
+def _capture_scope(device: torch.device) -> Iterator[None]:
+    """Where a program's graphs are captured: on the card, after the
+    device's queued work, with the collector run and the cache emptied (as
+    ``torch.cuda.graph`` does), on the device's capture stream."""
+    if device.type != "cuda":
+        yield
+        return
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.cuda.stream(_capture_stream(device)):
+        yield
+
+
+def _begin_graph(device: torch.device, generators: List[torch.Generator], pool: GraphPool) -> Any:
+    """Open one graph's capture in the owner's pool, on the current (the
+    capture) stream, with ``generators`` registered."""
     graph = torch.cuda.CUDAGraph()
     register = getattr(graph, "register_generator_state", None)
-    for generator in generators if register is not None else ():
+    if generators and register is None:
+        raise NotImplementedError(
+            "a captured program that draws from a torch.Generator needs CUDAGraph.register_generator_state "
+            "(PyTorch 2.5 or later) to sample token for token as its eager run does; serve it without the AOT "
+            "store"
+        )
+    for generator in generators:
         register(generator)
-    began = False
-    try:
-        with torch.cuda.graph(graph, pool=pool.handle(), stream=_capture_stream(device),
-                              capture_error_mode="thread_local"):
-            began = True
-            out = call()
-    except Exception as exc:
-        if began:
-            _end_failed_capture(device, pool)
-        if generators and register is None:
-            raise NotImplementedError(
-                "a captured program that draws from a torch.Generator needs CUDAGraph.register_generator_state "
-                "(PyTorch 2.5 or later) to sample token for token as its eager run does; serve it without the AOT "
-                "store"
-            ) from exc
-        raise
-    return graph, out
+    graph.capture_begin(pool=pool.handle(), capture_error_mode="thread_local")
+    return graph
+
+
+def _end_graph(graph: Any) -> None:
+    """End one graph's capture. Two adjacent collectives leave an empty
+    graph between them, which replays as nothing: its warning is not news."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+        graph.capture_end()
 
 
 def _end_failed_capture(device: torch.device, pool: GraphPool) -> None:
@@ -674,9 +790,13 @@ class AOTFunction:
                 "launches": {_launch_name(slot): n for slot, n in sorted(
                     launches.items(), key=lambda item: _launch_name(item[0]))},
                 "capture_ms": None if capture_ms is None else round(capture_ms, 3),
+                "segments": graph.segments if captured else None,
+                "collectives": graph.collectives if captured else None,
                 "compile_s": round(elapsed, 3),
             })
         if len(self._programs) >= self._MAX_PROGRAMS:
+            # the oldest first: ranks that resolve the same signatures in the
+            # same order drop the same one
             self._programs.pop(next(iter(self._programs)))
         self._programs[key] = graph if captured else _EAGER
         return out
@@ -711,10 +831,10 @@ class AOTFunction:
             else:
                 statics.append(leaf)
         args, dynamic = _unflatten(spec, statics)
+        segments = _Segments(device, generators, self._pool)
         try:
             with _build.recording(capturing=True) as rec:
-                graph, out = _record_graph(lambda: self._fn(*args, **dynamic, **static_kwargs), device, generators,
-                                           self._pool)
+                out = segments.record(lambda: self._fn(*args, **dynamic, **static_kwargs))
         except NotImplementedError:
             raise
         except Exception as exc:
@@ -732,7 +852,7 @@ class AOTFunction:
                 outputs.append(("output", leaf))
             else:
                 outputs.append(("const", leaf))
-        return _Graph(graph, statics, first, mutated, outputs, out_spec, rec.launches)
+        return _Graph(segments.parts, statics, first, mutated, outputs, out_spec, rec.launches)
 
 
 def _launch_name(slot: Tuple[Any, str, Optional[str]]) -> str:

@@ -86,7 +86,6 @@ from unionml_tpu_torch.defaults import (
     REPLICA_ROLES,
     SERVE_MAX_WAITING,
     serve_admit_chunk,
-    serve_aot_preload,
     serve_dp_replicas,
     serve_max_admissions,
     serve_prefill_budget,
@@ -132,8 +131,6 @@ _SENTINEL = object()
 _COLLECTIVE_OPS = frozenset({"prefill_row", "row_chunk", "row_first", "first_logprob", "decode", "spec_rounds",
                              "export", "import_kv"})
 
-#: the item that brings the AOT store over a mesh
-_AOT_MESH = "ROADMAP.md, Queue A: the AOT store over a mesh"
 
 #: the device carry's fields, in order: the plain decode carry, and under a
 #: draft the speculative loop's state (models/speculative.py); a grammar's
@@ -510,16 +507,8 @@ class ContinuousBatcher:
         #: radix gather stay plain calls (they upload host block rows and
         #: launch no hand-written kernel, so a store has nothing to hold for
         #: them); off (the default) keeps the engine, stats() included, as it
-        #: is without one
-        if mesh is not None and aot is not None and aot is not False:
-            raise NotImplementedError(
-                "aot= over a mesh is not ported yet: the mesh's collectives go through gloo's host route, which a "
-                f"CUDA graph cannot capture ({_AOT_MESH})"
-            )
-        if mesh is not None and aot is None and serve_aot_preload() is not None:
-            # as for the prefix cache: a fleet-wide export must not crash the mesh's engines
-            logger.warning("UNIONML_TPU_AOT_PRELOAD is set but this engine runs over a mesh; the AOT store is off")
-            aot = False
+        #: is without one. Over a mesh every rank arms its own generator:
+        #: each program is captured in segments between its collectives
         self._aot = resolve_store(aot)
         if self._aot is not None:
             generator.enable_aot(self._aot)
@@ -1689,7 +1678,10 @@ class ContinuousBatcher:
         kernels installed from the store where it holds them.
         Counters, the TTFT/TBT windows, the windowed rates and the SLO
         tracker are reset afterwards, so :meth:`stats` reflects real traffic
-        only."""
+        only. A follower rank of a mesh returns at once: its engine thread
+        runs the leader's warmup as it runs every plan."""
+        if self._follower:
+            return
         cfg = self.gen.config
         for bucket in sorted(cfg.prompt_buckets):
             # length == bucket: shorter prompts map to the smallest fitting

@@ -366,17 +366,47 @@ class _Placement:
         return Generator(model, config, device=device, quantize=self.quantize)
 
 
-class _MeshPlacement:
-    """The placement of a fleet over a dp mesh: its spare submeshes. A port
-    rank holds one replica's submesh, so there are none to scale onto."""
+class _NoSpare:
+    """The placement of replicas over one TP-only mesh: there is no other
+    submesh to scale onto."""
 
     devices: "List[Any]" = []
 
     def generator(self, index: int) -> Generator:
         raise RuntimeError(
-            "no spare submesh to place a new replica on (the dp mesh is fully "
+            "no spare submesh to place a new replica on (the mesh is fully "
             "occupied); build with fewer initial replicas to keep headroom"
         )
+
+
+class _MeshPlacement:
+    """The placement of a fleet over a dp mesh: replica ``i`` serves on
+    submesh ``i`` of :func:`slice_mesh`, and a port rank holds the one it is
+    part of (``index``). ``active`` counts the fleet's replicas: a
+    scale-down parks the submeshes from ``active`` on (their ranks close
+    their replica and keep its weights), and a scale-up builds the replica
+    again on its revisited submesh."""
+
+    devices: "List[Any]" = []
+
+    def __init__(self, model: Any, config: Any, partition_rules: Any, quantize: Optional[str], index: int,
+                 submesh: Any, slices: int):
+        self.model, self.config, self.partition_rules, self.quantize = model, config, partition_rules, quantize
+        self.index, self.submesh, self.slices = index, submesh, slices
+        self.active = slices
+
+    def generator(self, index: int) -> Generator:
+        """A new Generator for this rank's replica (``index``, the only one
+        it can build) on its submesh: the weights gathered back whole over
+        the submesh they were cut on (every rank of it calls this at the
+        same point) and cut again."""
+        from unionml_tpu_torch.parallel.sharding import unplace_module
+
+        unplace_module(self.model)
+        if self.config.draft is not None:
+            unplace_module(self.config.draft.module)
+        return Generator(self.model, self.config, mesh=self.submesh, partition_rules=self.partition_rules,
+                         quantize=self.quantize)
 
 
 class ReplicaSet:
@@ -593,7 +623,11 @@ class ReplicaSet:
         others follow; see :mod:`unionml_tpu_torch.serving.mesh`). Routing
         across replicas is then :class:`~unionml_tpu_torch.serving.cluster.FleetCoordinator`'s.
         A port process is one rank, so a rank's host-local extent is one
-        submesh: ``replicas`` above 1 raises, and there are no spares.
+        submesh: ``replicas`` above 1 raises. :meth:`scale_to` then counts
+        the fleet's replicas, every rank calling it at the same point: a
+        scale-down parks the tail submeshes (their ranks close their
+        replica), and a scale-up builds each parked replica again on the
+        submesh it left, which an AOT store (``aot=``) has seen.
 
         Without a dp mesh the replicas are placed round-robin over
         ``devices`` (default: the model's device, then every other visible
@@ -645,6 +679,8 @@ class ReplicaSet:
                     "a dp mesh cannot host more replicas than batch slices"
                 )
             submeshes = [sub for _, sub in local][:replicas]
+            placement = _MeshPlacement(model, config, partition_rules, quantize, local[0][0], local[0][1],
+                                       len(all_submeshes))
         elif replicas is None or replicas == 1:
             submeshes = [mesh]
         elif mesh.devices == 1:
@@ -661,7 +697,7 @@ class ReplicaSet:
         generators = [Generator(model, config, mesh=sm, partition_rules=partition_rules, quantize=quantize)
                       for sm in submeshes]
         rs = cls(generators, **engine_kwargs)
-        rs._placement = _MeshPlacement()
+        rs._placement = placement if dp_extent(mesh) > 1 else _NoSpare()
         return rs
 
     @classmethod
@@ -732,6 +768,8 @@ class ReplicaSet:
         with self._lock:
             batchers = list(self._batchers)
             roles = list(self._roles)
+        if not batchers:
+            raise RuntimeError("this rank's replica is scaled down: submit to a rank of a replica that serves")
         kw = dict(max_new_tokens=max_new_tokens, constraint=constraint, deadline=deadline, tenant=tenant,
                   priority=priority)
         if export_handoff:
@@ -989,6 +1027,8 @@ class ReplicaSet:
         if role is not None and role not in REPLICA_ROLES:
             raise ValueError(f"role must be one of {REPLICA_ROLES}, got {role!r}")
         with self._scale_lock:
+            if isinstance(self._placement, _MeshPlacement):
+                return self._scale_mesh(n, role, timeout)
             while True:
                 with self._lock:
                     cur = len(self._batchers)
@@ -998,6 +1038,26 @@ class ReplicaSet:
                     self._add_replica(role)
                 else:
                     self._remove_replica(timeout)
+
+    def _scale_mesh(self, n: int, role: Optional[str], timeout: float) -> int:
+        """:meth:`scale_to` over a dp mesh, where ``n`` counts the fleet's
+        replicas and every rank of the world calls it at the same point: the
+        ranks of replicas ``n`` and above drain and close theirs (they serve
+        nothing until a later scale-up), and the ranks of a parked submesh
+        below ``n`` build and warm its replica again (the ``_scale_lock``
+        holder)."""
+        placement = self._placement
+        if n > placement.slices:
+            raise RuntimeError(
+                f"no spare submesh to place replica {n - 1} on (the dp mesh has {placement.slices} batch "
+                "slices); build with fewer initial replicas to keep headroom"
+            )
+        if n <= placement.index < placement.active:
+            self._remove_replica(timeout, keep=0)
+        elif placement.active <= placement.index < n:
+            self._add_replica(role)
+        placement.active = n
+        return n
 
     def spare_capacity(self) -> int:
         """Replicas :meth:`scale_to` could add without sharing a device
@@ -1019,6 +1079,8 @@ class ReplicaSet:
             index = len(self._batchers)
             has_roles = any(r != "mixed" for r in self._roles)
         resolved = role or ("decode" if has_roles else "mixed")
+        if isinstance(placement, _MeshPlacement):
+            index = placement.index
         engine = self._new_engine(placement.generator(index), resolved if (has_roles or role) else None)
         try:
             # warm BEFORE joining the scheduler: no routed request pays the cold start
@@ -1033,15 +1095,17 @@ class ReplicaSet:
             self.scaled_up += 1
         logger.info(f"replica {index} joined the fleet (role={resolved})")
 
-    def _remove_replica(self, timeout: float) -> None:
+    def _remove_replica(self, timeout: float, keep: int = 1) -> None:
         """Unroute, drain and close the tail replica (the ``_scale_lock``
-        holder); surviving replicas keep their scheduler indexes."""
+        holder); surviving replicas keep their scheduler indexes. ``keep=0``
+        lets a rank over a dp mesh park its only replica."""
         with self._lock:
-            if len(self._batchers) <= 1:
+            if len(self._batchers) <= keep:
                 raise ValueError("a fleet cannot scale below 1 replica")
             engine = self._batchers.pop()
             role = self._roles.pop()
-            self._scheduler.resize(len(self._batchers))
+            if self._batchers:
+                self._scheduler.resize(len(self._batchers))
             self.scaled_down += 1
         # quiesce before draining: a routing snapshot taken before the pop
         # may still hold this engine; its submit now bounces to a sibling
